@@ -21,3 +21,9 @@ def assert_finite(tree, name=""):
     for leaf in jax.tree.leaves(tree):
         if hasattr(leaf, "dtype") and jnp.issubdtype(leaf.dtype, jnp.floating):
             assert bool(jnp.isfinite(leaf).all()), f"non-finite in {name}"
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc (the port's CUDA "
+        "kernels); skipped where there is none")
