@@ -14,16 +14,24 @@ from the root of a checkout. Phases, each fatal on failure:
       bound (least time for the bytes it must move or the operations it
       must do, at the H100's published peaks) and, where one PyTorch call
       computes the same function, that call's time (``library_ms``);
-  (c) the main path: DeepSeek-V3 at published widths, depth cut 61 -> 4
-      (three dense layers, one MoE layer), seeded random weights, served
-      by ``ServeEngine(paged=True, page_storage="fp8", attn_impl="pallas")``
-      with ``fp8_impl="pallas"``: six seeded prompts of 16-600 tokens, 32
-      new tokens each, greedy. Every request must finish with the right
-      count of in-vocabulary tokens, and each kernel's launch counter
-      (zeroed just before) must have moved;
-  (d) a reference check on a small input: the same engine at smoke width
-      (bf16) on the card, through the kernels, against the plain versions
-      on the CPU, same weights.
+  (c) the main path, two models, each served by ``ServeEngine(paged=True,
+      page_storage="fp8", attn_impl="pallas")`` with seeded random weights
+      drawn on the card, six seeded prompts, 32 new tokens each, greedy:
+      - DeepSeek-V3 at published widths, depth cut 61 -> 4 (three dense
+        layers, one MoE layer), ``fp8_impl="pallas"``, prompts of 16-600
+        tokens (kernels fp8_gemm, moe_gemm, paged_mla_decode);
+      - qwen3-14b whole (40 layers, published widths), prompts of 16-1500
+        tokens, max_len 2048 (kernels flash_prefill, paged_gqa_decode).
+      Every request must finish with the right count of in-vocabulary
+      tokens, no page may leak, and each kernel of the path must have
+      launched (counters zeroed just before the path, read just after).
+      Per path: tokens/s end to end, TTFT, steady decode ms/step at four
+      slots, the longest prompt's prefill ms, peak memory, launches per
+      decode step and a torch.profiler split of a decode step;
+  (d) a reference check on a small input, per model: the same engine at
+      smoke width (bf16; qwen3-14b keeps 5 query heads per KV head) on
+      the card, through the kernels, against the plain versions on the
+      CPU, same weights.
 
 The line before the last two is one JSON object with the kernel table; the
 next is the nvidia-smi name and power limit; the last is
@@ -76,6 +84,17 @@ def max_err(torch, got, ref):
     return d, d / max(ref.float().abs().max().item(), 1e-30)
 
 
+def max_row_err(torch, got, ref):
+    """Largest error over output rows (the last axis), each relative to
+    its own row: max_r ||got_r - ref_r|| / ||ref_r||. A row that should be
+    zero must come out zero."""
+    got, ref = got.float().flatten(0, -2), ref.float().flatten(0, -2)
+    d = (got - ref).norm(dim=-1)
+    n = ref.norm(dim=-1)
+    return float(torch.where(n > 0, d / n.clamp_min(1e-30),
+                             d * 1e30).max())
+
+
 # --- (a) ---------------------------------------------------------------------
 
 
@@ -102,10 +121,10 @@ def phase_env(torch, build):
 # --- (b) ---------------------------------------------------------------------
 
 
-def check(name, err_rel, tol):
+def check(name, err_rel, tol, of="max|plain|"):
     if not (err_rel <= tol):
         raise AssertionError(f"{name}: kernel disagrees with its plain "
-                             f"version: max error {err_rel:.3g} of max|plain| "
+                             f"version: max error {err_rel:.3g} of {of} "
                              f"> tolerance {tol:.3g}")
 
 
@@ -231,19 +250,121 @@ def bench_paged_mla(torch, dev, gen):
                  plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None)]
 
 
+def bench_paged_gqa(torch, dev, gen):
+    """qwen3-14b's decode attention: 40 heads over 8 KV heads (G = 5),
+    hd 128, page 8, four slots at contexts 600-1500 of a 2048 max_len."""
+    from repro_torch.core import paged
+    from repro_torch.kernels.paged_attention import ops
+    tol = 2e-5    # fp32 online vs full softmax, same exact dequantization
+    B, H, KV, hd, page, pp = 4, 40, 8, 128, 8, 256
+    P = B * pp
+    ctx = [600, 900, 1200, 1500]                 # contexts of the 4 slots
+    rows = []
+    for storage in ("fp8", "bf16"):
+        q = torch.randn(B, H, hd, generator=gen, device=dev)
+        k = torch.randn(P + 1, page, KV, hd, generator=gen, device=dev)
+        v = torch.randn(P + 1, page, KV, hd, generator=gen, device=dev)
+        if storage == "fp8":
+            k, ks = paged.quantize_vecs(k, vec_ndim=2)
+            v, vs = paged.quantize_vecs(v, vec_ndim=2)
+            k, v = k.view(torch.uint8), v.view(torch.uint8)
+        else:                            # native pool: unit scales
+            k, v = k.bfloat16(), v.bfloat16()
+            ks = vs = None
+        table = torch.randperm(P, generator=gen, device=dev).reshape(B, pp)
+        table = table.int()
+        qpos = torch.tensor([c - 1 for c in ctx], dtype=torch.int32,
+                            device=dev)
+        scale = 1.0 / math.sqrt(hd)
+        args = (q, k, v, ks, vs, table, qpos)
+        y = ops.paged_gqa_decode(*args, scale=scale)
+        ref = ops.paged_gqa_decode.run_plain(*args, scale=scale)
+        err, rel = max_err(torch, y, ref)
+        check(f"paged_gqa_decode ({storage} pool)", rel, tol)
+        ms = cuda_ms(torch, lambda: ops.paged_gqa_decode(*args, scale=scale),
+                     50)
+        plain = cuda_ms(torch, lambda: ops.paged_gqa_decode.run_plain(
+            *args, scale=scale), 5)
+        tokens = sum(ctx)
+        nbytes = (tokens * (2 * KV * hd * k.element_size()
+                            + (8 if storage == "fp8" else 0))
+                  + 4 * B * H * hd + 4 * B * pp + 4 * B + 4 * B * H * hd)
+        b, by = bound_ms(nbytes, tokens * H * hd * 4, "fp32")
+        rows.append(dict(shape=f"B={B} H={H} KV={KV} hd={hd} page={page} "
+                         f"contexts={ctx} ({storage} pool)",
+                         max_abs_err=err, rel_err=rel, tol=tol, ms=ms,
+                         plain_ms=plain, bound_ms=b, bound_by=by,
+                         library_ms=None))
+        del q, k, v, ks, vs, y, ref
+    return rows
+
+
+def bench_flash_prefill(torch, dev, gen):
+    """qwen3-14b's prefill attention at its largest bucket: B = 1, S = T =
+    2048, 40 heads over 8 KV heads, hd 128, bf16, causal."""
+    from repro_torch.kernels.flash_attention import ops
+    # per output row, relative to the row's own norm: P rounded to bf16
+    # for P·V moves a row by ~2^-9 of itself; a key dropped from a row of
+    # 2048 moves it by ~1/sqrt(2048) = 2e-2
+    tol = 1e-2
+    B, S, H, KV, hd = 1, 2048, 40, 8, 128
+    q = torch.randn(B, S, H, hd, generator=gen, device=dev).bfloat16()
+    k = torch.randn(B, S, KV, hd, generator=gen, device=dev).bfloat16()
+    v = torch.randn(B, S, KV, hd, generator=gen, device=dev).bfloat16()
+    pos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+    scale = 1.0 / math.sqrt(hd)
+    args = (q, k, v, pos, pos)
+    y = ops.flash_prefill(*args, causal=True, scale=scale)
+    ref = ops.flash_prefill.run_plain(*args, causal=True, scale=scale)
+    err, _ = max_err(torch, y, ref)
+    rel = max_row_err(torch, y, ref)
+    check("flash_prefill", rel, tol, of="its row's norm")
+    ms = cuda_ms(torch, lambda: ops.flash_prefill(*args, causal=True,
+                                                  scale=scale), 20)
+    plain = cuda_ms(torch, lambda: ops.flash_prefill.run_plain(
+        *args, causal=True, scale=scale), 3)
+    # yardstick: SDPA over K/V repeated to 40 heads (no row is empty in
+    # bucketed prefill, so it computes the same function here)
+    G = H // KV
+    qt = q.transpose(1, 2)
+    kt = k.repeat_interleave(G, dim=2).transpose(1, 2)
+    vt = v.repeat_interleave(G, dim=2).transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def lib():
+        return sdpa(qt, kt, vt, is_causal=True, scale=scale)
+    lib_rel = max_row_err(torch, lib().transpose(1, 2), ref)
+    log(f"[b]   library: scaled_dot_product_attention differs from the "
+        f"plain version by {lib_rel:.3g} of a row's norm")
+    lib_ms = cuda_ms(torch, lib, 20)
+    pairs = B * S * (S + 1) // 2                  # causal (row, key) pairs
+    nbytes = (2 * B * S * H * hd + 2 * 2 * B * S * KV * hd + 4 * 2 * B * S
+              + 4 * B * S * H * hd)
+    b, by = bound_ms(nbytes, 4 * hd * H * pairs, "bf16")
+    row = dict(shape=f"B={B} S=T={S} H={H} KV={KV} hd={hd} bf16 causal",
+               max_abs_err=err, rel_err=rel, rel_of="a row's norm", tol=tol,
+               ms=ms, plain_ms=plain,
+               bound_ms=b, bound_by=by, library_ms=lib_ms)
+    del q, k, v, y, ref, qt, kt, vt
+    return [row]
+
+
 def phase_kernels(torch):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     out = {"fp8_gemm": bench_fp8_gemm(torch, dev, gen),
            "moe_gemm": bench_moe_gemm(torch, dev, gen),
-           "paged_mla_decode": bench_paged_mla(torch, dev, gen)}
+           "paged_mla_decode": bench_paged_mla(torch, dev, gen),
+           "paged_gqa_decode": bench_paged_gqa(torch, dev, gen),
+           "flash_prefill": bench_flash_prefill(torch, dev, gen)}
     for name, rows in out.items():
         for r in rows:
             lib = ("null" if r["library_ms"] is None
                    else f"{r['library_ms']:.4f}")
             log(f"[b] {name} {r['shape']}: max_abs_err {r['max_abs_err']:.3g}"
-                f" (rel {r['rel_err']:.3g} <= tol {r['tol']:.3g}); kernel "
+                f" (rel {r['rel_err']:.3g} of {r.get('rel_of', 'max|plain|')}"
+                f" <= tol {r['tol']:.3g}); kernel "
                 f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library {lib} ms")
     torch.cuda.empty_cache()
@@ -253,31 +374,63 @@ def phase_kernels(torch):
 # --- (c) ---------------------------------------------------------------------
 
 
-def phase_main_path(torch):
-    import numpy as np
+# each served model: the overrides of its published config on the main
+# path (DeepSeek-V3's depth cut) and in the smoke-width check (qwen3-14b's
+# smoke width keeps its 5 query heads per KV head), the kernels its path
+# must launch, its prompt lengths, max_len, and the four contexts of the
+# steady decode
+PATHS = {
+    "deepseek-v3-671b": dict(
+        overrides=dict(num_layers=4, fp8_impl="pallas"),
+        smoke_overrides={},
+        kernels=("fp8_gemm", "moe_gemm", "paged_mla_decode"),
+        lengths=[16, 120, 250, 380, 490, 600], max_len=1024,
+        steady=[600, 700, 800, 900]),
+    "qwen3-14b": dict(
+        overrides={},
+        smoke_overrides=dict(num_heads=10, num_kv_heads=2),
+        kernels=("flash_prefill", "paged_gqa_decode"),
+        lengths=[16, 200, 500, 900, 1200, 1500], max_len=2048,
+        steady=[600, 900, 1200, 1500]),
+}
+
+
+def path_config(name):
     from repro_torch.configs.base import get_config
+    full = get_config(name)
+    cfg = get_config(name, **PATHS[name]["overrides"])
+    heads = (f"{cfg.num_heads} MLA heads" if cfg.mla else
+             f"{cfg.num_heads} heads over {cfg.num_kv_heads} KV heads")
+    moe = (f", {cfg.moe.num_experts} experts top-{cfg.moe.top_k} "
+           f"({cfg.moe.layout})" if cfg.moe else "")
+    log(f"[c] config: {cfg.name}, {cfg.num_layers} of {full.num_layers} "
+        f"layers at published widths (d_model {cfg.d_model}, {heads}, "
+        f"d_ff {cfg.d_ff}{moe}, vocab {cfg.vocab_size}); fp8_impl="
+        f"{cfg.fp8_impl}; seeded random weights")
+    return cfg
+
+
+def phase_main_path(torch, name):
+    """Serve one model's path; returns the launch counts of its run."""
+    import numpy as np
     from repro_torch.kernels import registry
     from repro_torch.serve.engine import Request, ServeEngine
 
-    full = get_config("deepseek-v3-671b")
-    cfg = get_config("deepseek-v3-671b", num_layers=4, fp8_impl="pallas")
-    log(f"[c] config: {cfg.name} at published widths (d_model {cfg.d_model}, "
-        f"{cfg.num_heads} heads, {cfg.moe.num_experts} experts top-"
-        f"{cfg.moe.top_k}, vocab {cfg.vocab_size}); depth cut "
-        f"{full.num_layers} -> {cfg.num_layers} ({cfg.moe.layout}: 3 dense + "
-        f"1 MoE); fp8_impl={cfg.fp8_impl}; seeded random weights")
+    spec = PATHS[name]
+    cfg = path_config(name)
+    max_len = spec["max_len"]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    eng = ServeEngine(cfg, slots=4, max_len=1024, paged=True,
+    eng = ServeEngine(cfg, slots=4, max_len=max_len, paged=True,
                       page_storage="fp8", attn_impl="pallas", device="cuda",
                       seed=0)
     torch.cuda.synchronize()
-    log(f"[c] engine up (weights drawn on the card, expert qdq + fp8 weight "
-        f"quantization at load): {time.perf_counter() - t0:.2f} s, "
+    log(f"[c] engine up (weights drawn on the card, load-time preparation): "
+        f"{time.perf_counter() - t0:.2f} s, "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
 
     rng = np.random.default_rng(0)
-    lengths = [16, 120, 250, 380, 490, 600]
+    lengths = spec["lengths"]
     reqs = [Request(i, rng.integers(0, cfg.vocab_size, L).astype(np.int32),
                     max_new=32) for i, L in enumerate(lengths)]
     registry.reset_launch_counts()
@@ -297,17 +450,17 @@ def phase_main_path(torch):
             raise AssertionError("main path did not finish in 200 ticks")
     wall = time.perf_counter() - t0
     counts = registry.launch_counts()
-    log(f"[c] launches on the main path: {counts}")
+    log(f"[c] launches on the {name} path: {counts}")
     for r in reqs:
         if not r.done or len(r.out) != 32:
             raise AssertionError(f"request {r.rid}: done={r.done}, "
                                  f"{len(r.out)} tokens (want 32)")
         if min(r.out) < 0 or max(r.out) >= cfg.vocab_size:
             raise AssertionError(f"request {r.rid}: token out of vocabulary")
-    for name, n in counts.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} never launched on the "
-                                 "main path")
+    for k in spec["kernels"]:
+        if counts[k] <= 0:
+            raise AssertionError(f"kernel {k} never launched on the {name} "
+                                 "path")
     if eng.free_pages() != eng.pool_pages:
         raise AssertionError("pages leaked after every request finished")
     ntok = sum(len(r.out) for r in reqs)
@@ -317,37 +470,43 @@ def phase_main_path(torch):
         f"{[round(ttft[r.rid], 3) for r in reqs]}")
     log(f"[c] peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
-    # steady-state decode: four active slots, one fused chunk, timed alone
+    # steady-state decode: four active slots, each on its own run of
+    # pages, at the path's contexts
     model, params, cache = eng.model, eng.params, eng.cache
+    pp = eng.pages_per_slot
+    cache["page_table"].copy_(torch.arange(
+        4 * pp, dtype=torch.int32, device="cuda").reshape(4, pp))
     st = model.init_decode_state(4)
     st["active"][:] = True
-    st["positions"][:] = torch.tensor([600, 700, 800, 900], device="cuda",
+    st["positions"][:] = torch.tensor(spec["steady"], device="cuda",
                                       dtype=torch.int32)
     st["left"][:] = 1 << 20
     model.decode_loop(params, cache, st, 1)             # warm
     registry.reset_launch_counts()
     model.decode_loop(params, cache, st, 1)
-    per_step = registry.launch_counts()
+    per_step = {k: n for k, n in registry.launch_counts().items() if n}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    toks, _, _, _ = model.decode_loop(params, cache, st, 8)
+    model.decode_loop(params, cache, st, 8)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     log(f"[c] launches per decode step: {per_step}")
-    log(f"[c] steady decode, 4 slots x 8 steps: {1e3 * dt / 8:.2f} ms/step, "
-        f"{32 / dt:.1f} tok/s")
-    profile_decode(torch, model, params, cache, st)
+    log(f"[c] steady decode, 4 slots at contexts {spec['steady']} x 8 steps: "
+        f"{1e3 * dt / 8:.2f} ms/step, {32 / dt:.1f} tok/s")
+    profile_decode(torch, name, model, params, cache, st)
 
-    # prefill alone: the longest prompt, bucket 1024
+    # prefill alone: the longest prompt, in its bucket
+    from repro_torch.serve.engine import bucket_length
     p = reqs[-1].prompt
-    toks = np.zeros((1, 1024), np.int32)
+    bucket = bucket_length(len(p), max_len)
+    toks = np.zeros((1, bucket), np.int32)
     toks[0, :len(p)] = p
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model.prefill(params, {"tokens": torch.as_tensor(toks)},
                   lengths=[len(p)])
     torch.cuda.synchronize()
-    log(f"[c] prefill of a {len(p)}-token prompt (bucket 1024): "
+    log(f"[c] prefill of a {len(p)}-token prompt (bucket {bucket}): "
         f"{1e3 * (time.perf_counter() - t0):.1f} ms")
 
     # the output itself: finite logits of the right shape
@@ -356,12 +515,18 @@ def phase_main_path(torch):
     if logits.shape != (1, 1, cfg.vocab_size) or not bool(
             torch.isfinite(logits).all()):
         raise AssertionError("main-path logits are not finite (1,1,V)")
-    del eng, model, params, cache
+    del eng, model, params, cache, logits
     torch.cuda.empty_cache()
     return counts
 
 
-def profile_decode(torch, model, params, cache, st, steps=2):
+# the port's kernels, as the profiler names them (checked before the
+# library GEMM group, whose names also say "gemm")
+KERNEL_GROUPS = ("fp8_gemm", "moe_gemm", "paged_mla_decode",
+                 "paged_gqa_decode", "flash_prefill")
+
+
+def profile_decode(torch, name, model, params, cache, st, steps=2):
     """Device time by kernel over ``steps`` decode steps (torch.profiler,
     CUPTI), and the device's busy share of the profiled window."""
     from torch.autograd import DeviceType
@@ -389,10 +554,13 @@ def profile_decode(torch, model, params, cache, st, steps=2):
     rows.sort(reverse=True)
     groups = {}
     for us, n, key in rows:
-        g = next((k for k in ("fp8_gemm", "moe_gemm", "paged_mla_decode")
-                  if k in key), "other")
+        g = next((k for k in KERNEL_GROUPS if k in key), None)
+        if g is None:
+            g = ("torch.matmul (cuBLAS)"
+                 if any(w in key for w in ("gemm", "gemv", "nvjet", "xmma"))
+                 else "other")
         groups[g] = groups.get(g, 0.0) + us
-    log(f"[c] profile of {steps} decode steps: device busy {busy / 1e3:.2f} ms"
+    log(f"[c] {name} profile of {steps} decode steps: device busy {busy / 1e3:.2f} ms"
         f" of {wall_us / 1e3:.2f} ms wall ({100 * busy / wall_us:.1f}% busy "
         f"under the profiler); per step by kernel: " + ", ".join(
             f"{g} {v / 1e3 / steps:.3f} ms ({100 * v / busy:.1f}%)"
@@ -405,7 +573,7 @@ def profile_decode(torch, model, params, cache, st, steps=2):
 # --- (d) ---------------------------------------------------------------------
 
 
-def phase_reference(torch):
+def phase_reference(torch, name):
     import dataclasses
 
     import numpy as np
@@ -414,8 +582,9 @@ def phase_reference(torch):
     from repro_torch.serve.engine import Request, ServeEngine
 
     cfg = dataclasses.replace(
-        smoke_config(get_config("deepseek-v3-671b")), dtype="bfloat16",
-        param_dtype="bfloat16", fp8_impl="pallas")
+        smoke_config(get_config(name)), dtype="bfloat16",
+        param_dtype="bfloat16", fp8_impl="pallas",
+        **PATHS[name]["smoke_overrides"])
     params = Model(cfg, device="cpu").init(seed=1)
     prompts = [np.arange(5 + 7 * i) * (i + 3) % cfg.vocab_size
                for i in range(3)]
@@ -440,9 +609,10 @@ def phase_reference(torch):
                                                       b.flatten(), dim=0))
     same = sum(x == y for o1, o2 in zip(outs["cuda"], outs["cpu"])
                for x, y in zip(o1, o2))
-    log(f"[d] smoke width, bf16: first-token logits card vs CPU plain: max "
-        f"err {rel:.3g} of max|logit| (tol 5e-2), cosine {cos:.6f} (>= "
-        f"0.999); greedy tokens equal {same}/24")
+    log(f"[d] {name} at smoke width ({cfg.num_heads} heads over "
+        f"{cfg.num_kv_heads} KV heads), bf16: first-token logits card vs CPU "
+        f"plain: max err {rel:.3g} of max|logit| (tol 5e-2), cosine "
+        f"{cos:.6f} (>= 0.999); greedy tokens equal {same}/24")
     if not (rel <= 5e-2 and cos >= 0.999):
         raise AssertionError("kernel path disagrees with the plain path on "
                              "the small input")
@@ -468,18 +638,24 @@ def main():
     t_start = time.perf_counter()
     card = phase_env(torch, build)
     kernels = phase_kernels(torch)
-    counts = phase_main_path(torch)
-    phase_reference(torch)
+    launches = {}
+    for path, spec in PATHS.items():
+        counts = phase_main_path(torch, path)
+        launches.update({k: counts[k] for k in spec["kernels"]})
+    for path in PATHS:
+        phase_reference(torch, path)
 
-    # one entry per kernel: the decode-time shape of the main path
-    pick = {"fp8_gemm": 1, "moe_gemm": 0, "paged_mla_decode": 0}
+    # one entry per kernel: the main path's shape (decode-time where the
+    # kernel runs at decode; the fp8 pool for paged_gqa_decode)
+    pick = {"fp8_gemm": 1, "moe_gemm": 0, "paged_mla_decode": 0,
+            "paged_gqa_decode": 0, "flash_prefill": 0}
     table = []
     for name, rows in kernels.items():
         r = rows[pick[name]]
         op = registry.get(name)
         table.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/csrc/{name}.cu",
-            replaces=op.replaces.split()[0], launches=counts[name],
+            replaces=op.replaces.split()[0], launches=launches[name],
             max_abs_err=max(x["max_abs_err"] for x in rows), ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],

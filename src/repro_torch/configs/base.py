@@ -171,7 +171,7 @@ def list_archs() -> list[str]:
 
 
 # Only the archs the port runs; the reference registers eleven.
-_ARCH_MODULES = ["deepseek_v3_671b"]
+_ARCH_MODULES = ["deepseek_v3_671b", "qwen3_14b"]
 
 _loaded = False
 

@@ -5,7 +5,8 @@ Subpackages — each ``ops.py`` holds the registered op, its plain PyTorch
 version, the launcher of its CUDA kernel (``csrc/<name>.cu``) and a note
 on which TPU kernel it replaces:
 
+  flash_attention/  flash bucketed-prefill attention (GQA prefill)
   fp8_gemm/         fine-grained-scaled FP8 GEMM (paper §3.1)
   moe_gemm/         grouped expert GEMM
-  paged_attention/  paged MLA absorbed decode over the E4M3 page pool
+  paged_attention/  paged MLA absorbed and GQA decode over the page pool
 """

@@ -24,6 +24,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 _KERNEL_MODULES = (
+    "repro_torch.kernels.flash_attention.ops",
     "repro_torch.kernels.fp8_gemm.ops",
     "repro_torch.kernels.moe_gemm.ops",
     "repro_torch.kernels.paged_attention.ops",
@@ -42,6 +43,14 @@ def pad_to_multiple(x: torch.Tensor, dim: int, mult: int) -> torch.Tensor:
     shape = list(x.shape)
     shape[dim] = pad
     return torch.cat([x, x.new_zeros(shape)], dim=dim)
+
+
+def contiguous16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous with a 16-byte aligned base, for kernels that read
+    rows in 16-byte vectors (a copy only when a view starts off the
+    boundary)."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def _first_tensor(args, kwargs) -> torch.Tensor:
@@ -112,8 +121,10 @@ def stream_ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    """A tensor's device address for a C entry; ``None`` is the null
+    pointer."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def _ensure_populated() -> None:

@@ -1,5 +1,5 @@
 """Model API — port of the transformer ``Model`` of ``repro.models.api``
-for the paged serving path.
+for the paged serving path, MLA (DeepSeek-V3) and GQA (qwen3-14b).
 
     specs() / init(seed)           ParamSpec dict (the reference's key
                                    names) and materialized tensors
@@ -165,14 +165,14 @@ class Model:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.segments = _segments(cfg)
-        if cfg.attention != "mla":
-            tfm.attn_specs(cfg, 1)          # raises: MLA only so far
+        tfm.attn_specs(cfg, 1)    # raises for an attention not ported yet
         if cfg.expert_dtype:
             raise NotImplementedError(
                 "expert_dtype (fp8 expert storage) is not ported yet "
                 "(ROADMAP.md, A.3)")
         # attention-impl overrides merged into the serving ctx, e.g.
-        # {"mla_impl": "pallas"} routes paged decode through the kernel
+        # {"gqa_impl": "pallas", "mla_impl": "pallas"} routes paged decode
+        # (and GQA prefill) through the kernels
         self.impl_ctx: Dict[str, Any] = {}
 
     # -- specs / init ------------------------------------------------------
@@ -233,8 +233,8 @@ class Model:
         ``lengths[b]`` positions are real — pads never enter the cache,
         rank below every real token in the MoE capacity contest, and the
         logits are taken at ``lengths-1``. The cache holds each layer's
-        latent rows ``(n, B, S, ...)`` (the reference's layout at
-        ``extra_slots=0``, the input of ``prefill_to_pages``)."""
+        rows ``(n, B, S, ...)`` — MLA latents or GQA K/V (the reference's
+        layout at ``extra_slots=0``, the input of ``prefill_to_pages``)."""
         tokens = batch["tokens"].to(self.device)
         B, S = tokens.shape
         pos = torch.arange(S, dtype=torch.int32,
@@ -255,21 +255,23 @@ class Model:
         return logits, cache
 
     def _entries_to_cache(self, layer_entries, lengths):
-        """Per-layer (ckv, kr) prefill entries -> cache leaves (n, B, S,
-        ...) in the cache dtype, with ``pos`` (-1 on pad rows, whose values
-        are zeroed)."""
+        """Per-layer prefill entries — MLA ``(ckv, kr)`` or GQA ``(k, v)``
+        — -> cache leaves (n, B, S, ...) in the cache dtype, with ``pos``
+        (-1 on pad rows, whose values are zeroed)."""
         cdt = torch_dtype(self.cfg.cache_dtype_())
-        ckv = torch.stack([e[0] for e in layer_entries])
-        kr = torch.stack([e[1] for e in layer_entries])
-        n, B, S = ckv.shape[:3]
+        names = ("ckv", "kr") if self.cfg.attention == "mla" else ("k", "v")
+        leaves = {name: torch.stack([e[i] for e in layer_entries])
+                  for i, name in enumerate(names)}
+        n, B, S = leaves[names[0]].shape[:3]
         t = torch.arange(S, dtype=torch.int32, device=self.device)
         valid = t[None, :] < lengths[:, None]                # (B, S)
 
         def prep(x):
-            return x.masked_fill(~valid[None, :, :, None], 0).to(cdt)
+            m = valid.reshape((1, B, S) + (1,) * (x.dim() - 3))
+            return x.masked_fill(~m, 0).to(cdt)
 
         pos = torch.where(valid, t[None, :], -1).expand(n, B, S)
-        return dict(ckv=prep(ckv), kr=prep(kr), pos=pos)
+        return dict({k: prep(x) for k, x in leaves.items()}, pos=pos)
 
     # -- decode ----------------------------------------------------------------
     @torch.no_grad()
@@ -329,8 +331,8 @@ class Model:
     def init_paged_cache(self, batch: int, max_len: int, page_size: int,
                          pool_pages: int, storage: str = "fp8"):
         """Shared page pools (``pool_pages`` + 1 trash page per segment, no
-        batch axis) and ``page_table`` (B, max_len // page_size), trash
-        where unmapped."""
+        batch axis; MLA latent or GQA K/V pools per the config) and
+        ``page_table`` (B, max_len // page_size), trash where unmapped."""
         paged_mod.validate_storage(storage)
         if max_len % page_size:
             raise ValueError(f"max_len {max_len} not a multiple of "
@@ -339,22 +341,28 @@ class Model:
             "page_table": torch.full((batch, max_len // page_size),
                                      paged_mod.trash_page(pool_pages),
                                      dtype=torch.int32, device=self.device)}
+        init = (mla_mod.init_paged_mla_cache if self.cfg.attention == "mla"
+                else Lyr.init_paged_gqa_cache)
         for seg in self.segments:
-            cache[seg.name] = mla_mod.init_paged_mla_cache(
-                self.cfg, seg.n, pool_pages, page_size, storage, self.device)
+            cache[seg.name] = init(self.cfg, seg.n, pool_pages, page_size,
+                                   storage, self.device)
         return cache
 
     def prefill_to_pages(self, cache1, page_size: int, storage: str):
         """Quantize a batch-1 prefill cache (``extra_slots=0``) into page
         payload ``{"pages": {segment: {leaf: (n, bucket//page, page,
-        ...)}}, "aux": {}}`` (fp8: E4M3 values + per-token scales)."""
+        ...)}}, "aux": {}}`` (fp8: E4M3 values + per-token scales; a GQA
+        token's scale covers its whole ``(KV, hd)`` entry)."""
         store = torch_dtype(self.cfg.cache_dtype_())
         pages: Dict[str, Any] = {}
         for seg in self.segments:
             out = {}
-            for name in ("ckv", "kr"):
+            for name in ("ckv", "kr", "k", "v"):
+                if name not in cache1[seg.name]:
+                    continue
+                vnd = 2 if name in ("k", "v") else 1
                 d = paged_mod.entries_to_pages(cache1[seg.name][name],
-                                               page_size, storage, store)
+                                               page_size, storage, store, vnd)
                 out[name] = d["q"]
                 if "scale" in d:
                     out[name + "_scale"] = d["scale"]
@@ -382,7 +390,7 @@ class Model:
     def release_slot_pages(self, cache, slot: int):
         """Point a freed slot's row at the trash page, so its masked
         decode lane can never write into pages recycled to a new owner."""
-        pool = cache[self.segments[0].name]["ckv"]
+        pool = next(iter(cache[self.segments[0].name].values()))
         cache["page_table"][slot] = pool.shape[1] - 1
         return cache
 

@@ -1,7 +1,8 @@
 """Shared layers: norms, RoPE, dense linears (optionally on the FP8 path),
-direct attention, SwiGLU MLP — port of ``repro.models.layers`` for the
-MLA archs. The GQA attention functions come with the GQA slice (see
-ROADMAP.md).
+attention (direct, or the ``flash_prefill`` kernel op), GQA attention
+with its paged decode cache, SwiGLU MLP — port of ``repro.models.layers``
+for the archs the port runs (MLA and GQA). The dense ring cache and
+sliding windows are not ported yet (ROADMAP.md, A.d).
 
 All layers are functional: ``*_specs(cfg)`` returns a ParamSpec dict,
 apply functions take the materialized tensors.
@@ -15,7 +16,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import paged
 from repro_torch.core.fp8 import Fp8Weight
+from repro_torch.device import torch_dtype
 from repro_torch.models.param import ParamSpec
 
 # ---------------------------------------------------------------------------
@@ -41,15 +44,20 @@ def raw(w: Union[torch.Tensor, Fp8Weight]) -> torch.Tensor:
 
 
 def linear(x: torch.Tensor, w: Union[torch.Tensor, Fp8Weight],
-           cfg: Optional[ModelConfig] = None) -> torch.Tensor:
-    """Dense GEMM; routes through the FP8 fine-grained-scaled path (paper
-    T4) when the config enables it and the input width is at least 256.
-    With ``cfg.fp8_impl='pallas'`` the GEMM dispatches through the kernel
-    registry (``repro_torch.kernels``)."""
+           cfg: Optional[ModelConfig] = None,
+           b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Dense GEMM plus an optional bias; routes through the FP8
+    fine-grained-scaled path (paper T4) when the config enables it and the
+    input width is at least 256. With ``cfg.fp8_impl='pallas'`` the GEMM
+    dispatches through the kernel registry (``repro_torch.kernels``)."""
     if cfg is not None and cfg.fp8 and w.ndim == 2 and x.shape[-1] >= 256:
         from repro_torch.core import fp8
-        return fp8.fp8_linear(x, w, impl=cfg.fp8_impl)
-    return torch.matmul(x, raw(w).to(x.dtype))
+        y = fp8.fp8_linear(x, w, impl=cfg.fp8_impl)
+    else:
+        y = torch.matmul(x, raw(w).to(x.dtype))
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -77,8 +85,33 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Attention (the direct form; MLA prefill reaches only this one)
+# Attention
 # ---------------------------------------------------------------------------
+
+
+def gqa_specs(cfg: ModelConfig, layers: int) -> dict:
+    d, hd = cfg.d_model, cfg.head_dim_()
+    nh, nkv = cfg.num_heads, cfg.num_kv_heads
+    pd = cfg.param_dtype
+    L, la = (layers,), ("layers",)
+    specs = {
+        "wq": ParamSpec(L + (d, nh * hd), pd, la + ("embed", "heads"), "fan_in"),
+        "wk": ParamSpec(L + (d, nkv * hd), pd, la + ("embed", "kv_heads"), "fan_in"),
+        "wv": ParamSpec(L + (d, nkv * hd), pd, la + ("embed", "kv_heads"), "fan_in"),
+        "wo": ParamSpec(L + (nh * hd, d), pd, la + ("heads", "embed"), "fan_in"),
+    }
+    if cfg.qkv_bias:
+        specs["bq"] = ParamSpec(L + (nh * hd,), pd, la + ("heads",), "zeros")
+        specs["bk"] = ParamSpec(L + (nkv * hd,), pd, la + ("kv_heads",), "zeros")
+        specs["bv"] = ParamSpec(L + (nkv * hd,), pd, la + ("kv_heads",), "zeros")
+    if cfg.qk_norm:
+        specs["q_norm"] = ParamSpec(L + (hd,), pd, la + (None,), "ones")
+        specs["k_norm"] = ParamSpec(L + (hd,), pd, la + (None,), "ones")
+    return specs
+
+
+def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
+    return x.reshape(*x.shape[:-1], n, x.shape[-1] // n)
 
 
 def _attn_direct(q, k, v, *, causal: bool, q_pos, k_pos, scale: float):
@@ -106,12 +139,20 @@ ATTN_BLOCK_Q = 512
 
 
 def attention_scores(q, k, v, *, causal: bool, q_pos, k_pos,
-                     scale: float = 0.0):
-    """Attention over query blocks (the non-kernel branch of the
-    reference's ``attention_scores``): each block's S_b x T score tile
-    lives only transiently."""
+                     scale: float = 0.0, impl: str = "xla"):
+    """Attention over query blocks: each block's S_b x T score tile lives
+    only transiently. ``impl="pallas"`` sends multi-token attention
+    through the ``flash_prefill`` kernel op (block-tiled online softmax
+    over the bucket: no S x T score matrix at all), as the reference
+    does."""
     B, S, H, hd = q.shape
     scale = scale or 1.0 / math.sqrt(hd)
+    if (impl == "pallas" and S > 1 and k.shape[-1] == hd
+            and v.shape[-1] == hd):
+        from repro_torch.kernels.flash_attention import ops as flash_ops
+        out = flash_ops.flash_prefill(q, k, v, q_pos, k_pos, causal=causal,
+                                      scale=scale)
+        return out.to(v.dtype)
     bq = ATTN_BLOCK_Q
     if S <= bq or S % bq != 0:
         return _attn_direct(q, k, v, causal=causal, q_pos=q_pos,
@@ -120,6 +161,127 @@ def attention_scores(q, k, v, *, causal: bool, q_pos, k_pos,
                          q_pos=q_pos[:, i:i + bq], k_pos=k_pos, scale=scale)
             for i in range(0, S, bq)]
     return torch.cat(outs, dim=1)
+
+
+def gqa_attention(p: dict, x: torch.Tensor, *, cfg: ModelConfig,
+                  positions: torch.Tensor, cache: Optional[dict] = None,
+                  page_table: Optional[torch.Tensor] = None,
+                  impl: str = "xla", return_cache_entries: bool = False):
+    """Causal GQA self-attention (also MHA/MQA; optional qk-norm and qkv
+    bias).
+
+    Without ``cache``: prefill over the whole sequence; with
+    ``return_cache_entries`` it also returns this layer's ``(k, v)``
+    (after qk-norm and RoPE), the entries the reference's
+    ``_self_attention`` recomputes for cache assembly. With ``cache`` and
+    ``page_table``: one paged decode step. ``cache`` is one layer's K/V
+    pool slice (``core/paged.py`` layout, written in place): the step
+    writes this token's K/V (quantized under fp8 storage) into its slot's
+    current page and attends over the slot's pages, through the
+    ``paged_gqa_decode`` kernel op when ``impl == "pallas"``, else over
+    the gathered, dequantized pages. Returns (out, new_cache or entries).
+    """
+    hd = cfg.head_dim_()
+    q = _split_heads(linear(x, p["wq"], cfg, p.get("bq")), cfg.num_heads)
+    k = _split_heads(linear(x, p["wk"], cfg, p.get("bk")), cfg.num_kv_heads)
+    v = _split_heads(linear(x, p["wv"], cfg, p.get("bv")), cfg.num_kv_heads)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.rms_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.rms_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    aux = None
+    if cache is None:
+        out = attention_scores(q, k, v, causal=True, q_pos=positions,
+                               k_pos=positions, impl=impl)
+        if return_cache_entries:
+            aux = (k, v)
+    elif page_table is None:
+        raise NotImplementedError(
+            "GQA decode over the dense ring cache is not ported yet "
+            "(ROADMAP.md, A.d)")
+    else:
+        out = _paged_decode(q, k, v, cache, cfg=cfg, positions=positions,
+                            page_table=page_table, impl=impl)
+        aux = cache
+    out = out.reshape(*out.shape[:-2], cfg.num_heads * hd)
+    return linear(out, p["wo"], cfg), aux
+
+
+def _paged_decode(q, k, v, cache: dict, *, cfg: ModelConfig, positions,
+                  page_table, impl: str) -> torch.Tensor:
+    """The paged branch of :func:`gqa_attention` for S == 1 (multi-token
+    runs are chunked prefill, not ported yet). Returns (B, 1, H, hd) in
+    the model dtype."""
+    if q.shape[1] != 1:
+        raise NotImplementedError(
+            "paged GQA attention over S > 1 tokens is chunked prefill, "
+            "which the port has not reached yet (ROADMAP.md, A.c)")
+    qpos = positions[:, 0]
+    fp8 = "k_scale" in cache
+    cdt = torch_dtype(cfg.dtype)
+
+    def write(name, vals):
+        paged.page_write(cache[name], page_table, qpos, vals[:, 0])
+
+    if fp8:
+        qk, sk = paged.quantize_vecs(k, vec_ndim=2)
+        qv, sv = paged.quantize_vecs(v, vec_ndim=2)
+        write("k", qk)
+        write("v", qv)
+        write("k_scale", sk)
+        write("v_scale", sv)
+    else:
+        write("k", k)
+        write("v", v)
+
+    if impl == "pallas":
+        from repro_torch.kernels.paged_attention import ops as paged_ops
+        o = paged_ops.paged_gqa_decode(          # native pools: unit scales
+            q[:, 0].float(), cache["k"], cache["v"], cache.get("k_scale"),
+            cache.get("v_scale"), page_table, qpos,
+            scale=1.0 / math.sqrt(cfg.head_dim_()))
+        return o[:, None].to(cdt)
+    if fp8:
+        kc = paged.gather_dequant(cache["k"], cache["k_scale"], page_table,
+                                  vec_ndim=2).to(cdt)
+        vc = paged.gather_dequant(cache["v"], cache["v_scale"], page_table,
+                                  vec_ndim=2).to(cdt)
+    else:
+        kc = paged.table_gather(cache["k"], page_table).to(cdt)
+        vc = paged.table_gather(cache["v"], page_table).to(cdt)
+    # positional validity: the logical index is the position (pages never
+    # ring-wrap), so the causal mask k_pos <= q_pos is exactly "written by
+    # this slot"; stale and trash rows sit above qpos
+    T = kc.shape[1]
+    kpos = torch.arange(T, dtype=torch.int32,
+                        device=q.device).expand(kc.shape[0], T)
+    return attention_scores(q, kc, vc, causal=True, q_pos=positions,
+                            k_pos=kpos, impl=impl)
+
+
+def init_paged_gqa_cache(cfg: ModelConfig, layers: int, pool_pages: int,
+                         page_size: int, storage: str,
+                         device: torch.device) -> dict:
+    """K/V page pool (no batch axis: pages are shared across slots).
+
+    Leaves ``(layers, pool_pages+1, page, KV, hd)``; the last page is the
+    trash page. FP8 storage holds E4M3 bytes (uint8) and adds per-token
+    fp32 scale leaves ``(layers, P+1, page)`` (one scale over a token's
+    whole ``(KV, hd)`` entry). No ``pos`` leaf: validity is positional."""
+    paged.validate_storage(storage)
+    fp8 = storage == "fp8"
+    dt = torch.uint8 if fp8 else torch_dtype(cfg.cache_dtype_())
+    shape = (layers, pool_pages + 1, page_size, cfg.num_kv_heads,
+             cfg.head_dim_())
+    c = dict(k=torch.zeros(shape, dtype=dt, device=device),
+             v=torch.zeros(shape, dtype=dt, device=device))
+    if fp8:
+        for name in ("k_scale", "v_scale"):
+            c[name] = torch.zeros(shape[:3], dtype=torch.float32,
+                                  device=device)
+    return c
 
 
 # ---------------------------------------------------------------------------

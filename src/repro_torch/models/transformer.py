@@ -1,8 +1,8 @@
-"""Transformer blocks (dense and MoE, MLA attention) — port of the parts
-of ``repro.models.transformer`` the MLA archs run. Pre-norm residual
-blocks; ``*_block_specs(cfg, n)`` returns a ParamSpec dict whose leaves
-stack ``n`` layers on their leading axis; ``block_apply`` consumes one
-layer slice.
+"""Transformer blocks (dense and MoE, MLA or GQA attention) — port of the
+parts of ``repro.models.transformer`` the MLA and GQA archs run. Pre-norm
+residual blocks; ``*_block_specs(cfg, n)`` returns a ParamSpec dict whose
+leaves stack ``n`` layers on their leading axis; ``block_apply`` consumes
+one layer slice.
 """
 from __future__ import annotations
 
@@ -25,9 +25,11 @@ def _norm_spec(cfg: ModelConfig, n: int) -> ParamSpec:
 def attn_specs(cfg: ModelConfig, n: int) -> dict:
     if cfg.attention == "mla":
         return mla_mod.mla_specs(cfg, n)
+    if cfg.attention == "gqa":
+        return Lyr.gqa_specs(cfg, n)
     raise NotImplementedError(
-        f"attention={cfg.attention!r}: the port runs MLA only so far; GQA "
-        "comes with the qwen3-14b slice (ROADMAP.md, A.2)")
+        f"attention={cfg.attention!r}: the port runs MLA and GQA so far "
+        "(ROADMAP.md, A.10)")
 
 
 def dense_block_specs(cfg: ModelConfig, n: int,
@@ -51,9 +53,16 @@ def moe_block_specs(cfg: ModelConfig, n: int) -> dict:
 
 def _self_attention(p: dict, h: torch.Tensor, cfg: ModelConfig, ctx: dict,
                     cache):
-    """MLA self-attention. With a pool slice in ``cache`` this is the
-    paged decode step (the page table rides in ctx); without, prefill,
-    which returns the layer's latent entries when ``collect_cache``."""
+    """MLA or GQA self-attention. With a pool slice in ``cache`` this is
+    the paged decode step (the page table rides in ctx); without, prefill,
+    which returns the layer's cache entries (MLA latents, GQA ``(k, v)``)
+    when ``collect_cache``."""
+    if cfg.attention == "gqa":
+        return Lyr.gqa_attention(
+            p, h, cfg=cfg, positions=ctx["positions"], cache=cache,
+            page_table=None if cache is None else ctx["page_table"],
+            impl=ctx.get("gqa_impl", "xla"),
+            return_cache_entries=bool(ctx.get("collect_cache")))
     if cache is not None:
         return mla_mod.mla_paged_decode_step(
             p, cache, h, cfg=cfg, positions=ctx["positions"],

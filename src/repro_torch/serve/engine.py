@@ -1,6 +1,6 @@
 """Paged serving engine — port of ``repro.serve.engine.ServeEngine`` for
 single-device paged serving (paper §2.1.2 quantized latent cache, §2.3.2
-memory-bound decode).
+memory-bound decode), of MLA (DeepSeek-V3) and GQA (qwen3-14b) models.
 
 One shared pool of fixed-size token pages per attention segment, per-slot
 page tables, page-granular admission: a request reserves
@@ -121,8 +121,10 @@ class ServeEngine:
         self.model = Model(cfg, device)
         self.device = self.model.device
         if attn_impl:
-            # "pallas": paged decode attention through the kernel registry
-            self.model.impl_ctx = {"mla_impl": attn_impl}
+            # "pallas": paged decode attention (MLA or GQA) and GQA
+            # bucketed prefill through the kernel registry
+            self.model.impl_ctx = {"gqa_impl": attn_impl,
+                                   "mla_impl": attn_impl}
         self.attn_impl = attn_impl
         if params is None:
             # the engine owns these weights: prepare them in place
@@ -290,7 +292,8 @@ class ServeEngine:
         row[:n] = alloc
         # prefill pages beyond the reservation (bucket > budget) land in
         # the trash page
-        n_p = payload["pages"][self.model.segments[0].name]["ckv"].shape[1]
+        seg0 = payload["pages"][self.model.segments[0].name]
+        n_p = next(iter(seg0.values())).shape[1]
         ids = np.asarray([alloc[i] if i < n else trash for i in range(n_p)],
                          np.int64)
         self.stats["page_admits"] += 1

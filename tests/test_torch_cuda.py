@@ -1,6 +1,7 @@
 """PyTorch port on the card: each hand-written CUDA kernel against its plain
 PyTorch version at the main path's shapes, and the serving engine through
-all three kernels. Every test needs an NVIDIA GPU and nvcc (the kernels
+the kernels of each served model (DeepSeek-V3: fp8_gemm, moe_gemm,
+paged_mla_decode; qwen3-14b: flash_prefill, paged_gqa_decode). Every test needs an NVIDIA GPU and nvcc (the kernels
 have no CPU mode) and skips without one.
 
 This file imports neither JAX nor the reference package, so it also runs
@@ -10,8 +11,12 @@ where JAX is not installed (the machine with the card):
         tests/test_torch_cuda.py
 
 Tolerances, relative to the largest plain-version magnitude: fp32 outputs
-2e-5 (the same exact products summed in another order), bf16 outputs
-2^-7 (one rounding step).
+2e-5 (the same exact products summed in another order; 1e-5 for
+flash_prefill on fp32 operands), bf16 outputs 2^-7 (one rounding step).
+flash_prefill on bf16 operands is held per output row, relative to the
+row's own norm, at 1e-2: rounding P to bf16 for P·V moves a row by about
+2^-9 of itself, while a key dropped from a row of 2048 moves it by about
+2e-2.
 """
 import dataclasses
 
@@ -22,6 +27,7 @@ import torch
 from repro_torch.configs.base import get_config, smoke_config
 from repro_torch.core import fp8, paged
 from repro_torch.kernels import registry
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.fp8_gemm import ops as fp8_ops
 from repro_torch.kernels.moe_gemm import ops as moe_ops
 from repro_torch.kernels.paged_attention import ops as paged_ops
@@ -31,6 +37,7 @@ pytestmark = pytest.mark.cuda
 
 FP32_TOL = 2e-5
 BF16_TOL = 2 ** -7
+FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 
 @pytest.fixture
@@ -43,6 +50,14 @@ def card():
 def _rel_err(got, ref):
     got, ref = got.float(), ref.float()
     return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def _row_err(got, ref):
+    """max over rows (last axis) of ||got - ref|| / ||ref||; a row that
+    should be zero must come out zero."""
+    got, ref = got.float().flatten(0, -2), ref.float().flatten(0, -2)
+    d, n = (got - ref).norm(dim=-1), ref.norm(dim=-1)
+    return float(torch.where(n > 0, d / n.clamp_min(1e-30), d * 1e30).max())
 
 
 @pytest.mark.parametrize("shape", [(4, 16384, 7168), (512, 7168, 18432),
@@ -107,10 +122,124 @@ def test_paged_mla_decode_kernel_matches_plain(card, storage):
     assert _rel_err(out, ref) <= FP32_TOL
 
 
-def test_engine_on_the_card_launches_every_kernel(card):
-    cfg = dataclasses.replace(smoke_config(get_config("deepseek-v3-671b")),
+# (B, H, KV, hd, page, pp, contexts): qwen3-14b's decode (G = 5, not a
+# power of two), then the reference's parity shapes (G = 4, 1, 8)
+GQA_CASES = [(4, 40, 8, 128, 8, 256, (600, 900, 1200, 1500)),
+             (2, 8, 2, 32, 16, 4, (33, 36)),
+             (1, 4, 4, 64, 8, 6, (24,)),
+             (3, 16, 2, 32, 4, 8, (16, 19, 22))]
+
+
+@pytest.mark.parametrize("storage", ["fp8", "bf16", "fp32"])
+@pytest.mark.parametrize("dims", GQA_CASES)
+def test_paged_gqa_decode_kernel_matches_plain(card, dims, storage):
+    B, H, KV, hd, page, pp, ctx = dims
+    P = B * pp
+    g = torch.Generator(device=card).manual_seed(2)
+    q = torch.randn(B, H, hd, generator=g, device=card)
+    k = torch.randn(P + 1, page, KV, hd, generator=g, device=card)
+    v = torch.randn(P + 1, page, KV, hd, generator=g, device=card)
+    if storage == "fp8":
+        k, ks = paged.quantize_vecs(k, vec_ndim=2)
+        v, vs = paged.quantize_vecs(v, vec_ndim=2)
+        k, v = k.view(torch.uint8), v.view(torch.uint8)
+    elif storage == "bf16":             # the engine's native pool: no scales
+        k, v = k.bfloat16(), v.bfloat16()
+        ks = vs = None
+    else:                               # explicit unit scales
+        ks = vs = torch.ones(P + 1, page, device=card)
+    table = torch.randperm(P, generator=g, device=card).reshape(B, pp).int()
+    qpos = torch.tensor([c - 1 for c in ctx], dtype=torch.int32, device=card)
+    args = (q, k, v, ks, vs, table, qpos)
+    before = paged_ops.paged_gqa_decode.launches
+    out = paged_ops.paged_gqa_decode(*args, scale=hd ** -0.5)
+    assert paged_ops.paged_gqa_decode.launches == before + 1
+    ref = paged_ops.paged_gqa_decode.run_plain(*args, scale=hd ** -0.5)
+    assert _rel_err(out, ref) <= FP32_TOL
+
+
+# (B, S, T, H, KV, hd, dtype, causal): qwen3-14b's largest bucket, the
+# reference's parity shapes, and ragged tiles (S, T not multiples of 64)
+FLASH_CASES = [(1, 2048, 2048, 40, 8, 128, torch.bfloat16, True),
+               (2, 16, 16, 4, 2, 32, torch.float32, True),
+               (2, 16, 16, 4, 2, 32, torch.bfloat16, True),
+               (1, 8, 8, 4, 4, 16, torch.float32, True),
+               (2, 32, 32, 8, 2, 64, torch.float32, True),
+               (1, 128, 128, 4, 2, 32, torch.float32, True),
+               (2, 16, 16, 2, 1, 32, torch.float32, False),
+               (2, 100, 100, 10, 2, 64, torch.bfloat16, True),
+               (1, 70, 130, 4, 4, 128, torch.bfloat16, False),
+               (2, 100, 100, 10, 2, 128, torch.float32, True)]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_prefill_kernel_matches_plain(card, case):
+    B, S, T, H, KV, hd, dt, causal = case
+    g = torch.Generator(device=card).manual_seed(3)
+    q = torch.randn(B, S, H, hd, generator=g, device=card).to(dt)
+    k = torch.randn(B, T, KV, hd, generator=g, device=card).to(dt)
+    v = torch.randn(B, T, KV, hd, generator=g, device=card).to(dt)
+    qp = torch.arange(S, dtype=torch.int32, device=card).expand(B, S)
+    # ragged rows as in the reference's cases: row b keeps T - b real keys
+    t = torch.arange(T, dtype=torch.int32, device=card)
+    lens = T - torch.arange(B, dtype=torch.int32, device=card)
+    kp = torch.where(t[None, :] < lens[:, None], t[None, :], -1)
+    args = (q, k, v, qp, kp)
+    before = flash_ops.flash_prefill.launches
+    out = flash_ops.flash_prefill(*args, causal=causal, scale=hd ** -0.5)
+    assert flash_ops.flash_prefill.launches == before + 1
+    ref = flash_ops.flash_prefill.run_plain(*args, causal=causal,
+                                            scale=hd ** -0.5)
+    err = _rel_err(out, ref) if dt == torch.float32 else _row_err(out, ref)
+    assert err <= FLASH_TOL[dt]
+
+
+def test_flash_prefill_rows_without_keys_are_zero(card):
+    q = torch.randn(1, 64, 2, 32, device=card).bfloat16()
+    k = torch.randn(1, 64, 1, 32, device=card).bfloat16()
+    qp = torch.arange(64, dtype=torch.int32, device=card)[None]
+    kp = torch.where(qp >= 10, qp, -1)              # rows 0..9 see no key
+    out = flash_ops.flash_prefill(q, k, k, qp, kp, causal=True, scale=0.2)
+    assert bool((out[0, :10] == 0).all()) and bool(out[0, 10:].abs().sum() > 0)
+
+
+def test_attention_kernels_refuse_what_they_do_not_take(card):
+    q = torch.ones(1, 16, 2, 32, device=card, dtype=torch.float16)
+    pos = torch.zeros(1, 16, dtype=torch.int32, device=card)
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        flash_ops.flash_prefill(q, q, q, pos, pos, causal=True, scale=1.0)
+    qb = torch.ones(1, 16, 2, 48, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="hd in"):
+        flash_ops.flash_prefill(qb, qb, qb, pos, pos, causal=True, scale=1.0)
+    pool = torch.zeros(3, 4, 1, 32, device=card, dtype=torch.float16)
+    ones = torch.ones(3, 4, device=card)
+    table = torch.zeros(1, 2, dtype=torch.int32, device=card)
+    qpos = torch.zeros(1, dtype=torch.int32, device=card)
+    with pytest.raises(TypeError, match="pools"):
+        paged_ops.paged_gqa_decode(torch.ones(1, 2, 32, device=card), pool,
+                                   pool, ones, ones, table, qpos, scale=1.0)
+    narrow = torch.zeros(3, 4, 1, 8, device=card, dtype=torch.uint8)
+    with pytest.raises(ValueError, match="16-byte"):
+        paged_ops.paged_gqa_decode(torch.ones(1, 2, 8, device=card), narrow,
+                                   narrow, ones, ones, table, qpos, scale=1.0)
+
+
+# each served model, its overrides of the smoke config (qwen3-14b keeps 5
+# query heads per KV head, as at full width) and the kernels its path must
+# launch
+ENGINE_PATHS = {
+    "deepseek-v3-671b": ({}, {"fp8_gemm", "moe_gemm", "paged_mla_decode"}),
+    "qwen3-14b": (dict(num_heads=10, num_kv_heads=2),
+                  {"flash_prefill", "paged_gqa_decode"}),
+}
+
+
+@pytest.mark.parametrize("arch", sorted(ENGINE_PATHS))
+def test_engine_on_the_card_launches_every_kernel(card, arch):
+    overrides, kernels = ENGINE_PATHS[arch]
+    cfg = dataclasses.replace(smoke_config(get_config(arch)),
                               dtype="bfloat16", param_dtype="bfloat16",
-                              fp8_impl="pallas")
+                              fp8_impl="pallas", **overrides)
     eng = ServeEngine(cfg, slots=2, max_len=32, chunk=4, paged=True,
                       page_size=8, page_storage="fp8", attn_impl="pallas",
                       device=card)
@@ -121,5 +250,6 @@ def test_engine_on_the_card_launches_every_kernel(card):
     eng.run_until_done()
     assert all(r.done and len(r.out) == 5 for r in reqs)
     assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.out)
-    assert all(n > 0 for n in registry.launch_counts().values())
+    counts = registry.launch_counts()
+    assert all(counts[n] > 0 for n in kernels), counts
     assert eng.free_pages() == eng.pool_pages

@@ -1,5 +1,6 @@
 """PyTorch port: the paged serving path end to end against the JAX
-``ServeEngine`` (smoke DeepSeek-V3, weights copied from the JAX init).
+``ServeEngine`` (smoke DeepSeek-V3 and smoke qwen3-14b, weights copied
+from the JAX init).
 
 Greedy token streams must be equal and the first-token logits within 1e-4
 of the reference's largest logit, for ``page_storage`` bf16 and fp8, on
@@ -122,6 +123,106 @@ def test_kernel_path_dispatches_through_registry_ops(weights, monkeypatch):
                       page_storage="fp8", attn_impl=attn, device="cpu", **KW)
     _run(eng, [Request(0, np.arange(5), max_new=4)])
     assert set(calls) == {"fp8_gemm", "moe_gemm", "paged_mla_decode"}
+
+
+# --- qwen3-14b: GQA attention, dense FFN -----------------------------------------
+
+
+@pytest.fixture(scope="module")
+def qwen_weights():
+    cfg = smoke_config(get_config("qwen3-14b"))
+    jp = JModel(cfg).init(jax.random.PRNGKey(0))
+    return cfg, jp, jax.tree.map(np.asarray, jp)
+
+
+@pytest.mark.parametrize("kernel_path", [False, True])
+@pytest.mark.parametrize("storage", ["bf16", "fp8"])
+def test_qwen_streams_equal_jax_engine(qwen_weights, storage, kernel_path):
+    cfg, jp, npp = qwen_weights
+    attn = "pallas" if kernel_path else ""
+    prompts = _prompts(cfg.vocab_size)
+    with kernels.use_backend("ref"):
+        ref = _run(JServeEngine(cfg, params=jp, page_storage=storage,
+                                attn_impl=attn, **KW),
+                   [JRequest(i, p, max_new=6) for i, p in enumerate(prompts)])
+    eng = ServeEngine(tsmoke(tget("qwen3-14b")),
+                      params=bridge.params_from_jax(npp),
+                      page_storage=storage, attn_impl=attn, device="cpu",
+                      **KW)
+    ours = _run(eng, [Request(i, p, max_new=6) for i, p in enumerate(prompts)])
+    assert ours == ref
+    assert all(len(o) == 6 for o in ours)
+    assert eng.free_pages() == eng.pool_pages
+
+
+@pytest.mark.parametrize("kernel_path", [False, True])
+def test_qwen_first_token_logits_match(qwen_weights, kernel_path):
+    cfg, jp, npp = qwen_weights
+    impl = {"gqa_impl": "pallas"} if kernel_path else {}
+    jmodel = JModel(cfg)
+    jmodel.impl_ctx = dict(impl)
+    model = Model(tsmoke(tget("qwen3-14b")), device="cpu")
+    model.impl_ctx = dict(impl)
+    tparams = bridge.prepare_for_serving(bridge.params_from_jax(npp),
+                                         model.cfg)
+    jprefill = jax.jit(lambda p, t, n: jmodel.prefill(p, {"tokens": t},
+                                                      lengths=n))
+    for p in _prompts(cfg.vocab_size):
+        toks = np.zeros((1, 16), np.int32)
+        toks[0, :len(p)] = p
+        lengths = np.asarray([len(p)], np.int32)
+        with kernels.use_backend("ref", clear_caches=False):
+            ref, _ = jprefill(jp, jnp.asarray(toks), jnp.asarray(lengths))
+        ours, cache = model.prefill(tparams, {"tokens": torch.from_numpy(toks)},
+                                    lengths=lengths)
+        ref = np.asarray(ref)
+        err = np.abs(ours.numpy() - ref).max()
+        assert err <= 1e-4 * np.abs(ref).max(), err
+        assert cache["blocks"]["k"].shape == (4, 1, 16, 4, 32)
+        assert (cache["blocks"]["pos"][0, 0, len(p):] == -1).all()
+
+
+def test_qwen_kernel_path_dispatches_through_both_attention_ops(
+        qwen_weights, monkeypatch):
+    """attn_impl "pallas" sends GQA prefill through flash_prefill and
+    paged decode through paged_gqa_decode (their plain versions here, on
+    CPU tensors), and nothing through the MLA/MoE/FP8 ops."""
+    _, _, npp = qwen_weights
+    calls = {}
+    for name in registry.names():
+        op = registry.get(name)
+        plain = op._plain
+
+        def counted(*a, _plain=plain, _name=name, **k):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _plain(*a, **k)
+        monkeypatch.setattr(op, "_plain", counted)
+    eng = ServeEngine(tsmoke(tget("qwen3-14b")),
+                      params=bridge.params_from_jax(npp), page_storage="fp8",
+                      attn_impl="pallas", device="cpu", **KW)
+    _run(eng, [Request(0, np.arange(5), max_new=4)])
+    assert set(calls) == {"flash_prefill", "paged_gqa_decode"}
+    # one prefill; one fused chunk of KW["chunk"] decode steps
+    assert calls["flash_prefill"] == eng.cfg.num_layers
+    assert calls["paged_gqa_decode"] == KW["chunk"] * eng.cfg.num_layers
+
+
+@pytest.mark.parametrize("storage", ["bf16", "fp8"])
+def test_qwen_cache_bytes_per_token_match_reference(qwen_weights, storage):
+    cfg, jp, npp = qwen_weights
+    ref = JServeEngine(cfg, params=jp, page_storage=storage, **KW)
+    ours = ServeEngine(tsmoke(tget("qwen3-14b")),
+                       params=bridge.params_from_jax(npp),
+                       page_storage=storage, device="cpu", **KW)
+    assert ours.cache_bytes_per_token() == pytest.approx(
+        ref.cache_bytes_per_token())
+
+
+def test_qwen3_14b_config_matches_reference():
+    assert dataclasses.asdict(tget("qwen3-14b")) == dataclasses.asdict(
+        get_config("qwen3-14b"))
+    assert dataclasses.asdict(tsmoke(tget("qwen3-14b"))) == \
+        dataclasses.asdict(smoke_config(get_config("qwen3-14b")))
 
 
 def test_sampled_stream_depends_on_request_not_slot(weights):
