@@ -14,24 +14,32 @@ from the root of a checkout. Phases, each fatal on failure:
       bound (least time for the bytes it must move or the operations it
       must do, at the H100's published peaks) and, where one PyTorch call
       computes the same function, that call's time (``library_ms``);
-  (c) the main path, two models, each served by ``ServeEngine(paged=True,
-      page_storage="fp8", attn_impl="pallas")`` with seeded random weights
-      drawn on the card, six seeded prompts, 32 new tokens each, greedy:
+  (c) the main paths, each served by ``ServeEngine(attn_impl="pallas")``
+      with seeded random weights drawn on the card, six seeded prompts, 32
+      new tokens each, greedy:
       - DeepSeek-V3 at published widths, depth cut 61 -> 4 (three dense
-        layers, one MoE layer), ``fp8_impl="pallas"``, prompts of 16-600
-        tokens (kernels fp8_gemm, moe_gemm, paged_mla_decode);
-      - qwen3-14b whole (40 layers, published widths), prompts of 16-1500
-        tokens, max_len 2048 (kernels flash_prefill, paged_gqa_decode).
+        layers, one MoE layer), ``fp8_impl="pallas"``, paged fp8 cache,
+        prompts of 16-600 tokens (kernels fp8_gemm, moe_gemm,
+        paged_mla_decode);
+      - qwen3-14b whole (40 layers, published widths), paged fp8 cache,
+        prompts of 16-1500 tokens, max_len 2048 (kernels flash_prefill,
+        paged_gqa_decode);
+      - DeepSeek-V3 as above on the dense ring cache with MTP drafting
+        (``paged=False, use_mtp=True``; kernels fp8_gemm, moe_gemm,
+        mla_decode, and never paged_mla_decode).
       Every request must finish with the right count of in-vocabulary
-      tokens, no page may leak, and each kernel of the path must have
-      launched (counters zeroed just before the path, read just after).
-      Per path: tokens/s end to end, TTFT, steady decode ms/step at four
-      slots, the longest prompt's prefill ms, peak memory, launches per
+      tokens, no page may leak, each kernel of the path must have launched
+      (counters zeroed just before the path, read just after) and the MTP
+      path must draft. Per path: tokens/s end to end, TTFT, steady decode
+      ms/step at four slots (with and without the draft on the MTP path,
+      and there dense rings against a paged pool on the same weights, in
+      turns), the longest prompt's prefill ms, peak memory, launches per
       decode step and a torch.profiler split of a decode step;
-  (d) a reference check on a small input, per model: the same engine at
+  (d) a reference check on a small input, per engine: the same engine at
       smoke width (bf16; qwen3-14b keeps 5 query heads per KV head) on
       the card, through the kernels, against the plain versions on the
-      CPU, same weights.
+      CPU, same weights — each path of (c), and qwen3-14b on the dense
+      engine.
 
 The line before the last two is one JSON object with the kernel table; the
 next is the nvidia-smi name and power limit; the last is
@@ -299,6 +307,97 @@ def bench_paged_gqa(torch, dev, gen):
     return rows
 
 
+def mla_ring(torch, dev, B, T, layout):
+    """pos and qpos of four slots' rings: "full" (every row valid, a
+    1024-token context), "ragged" (slot 0 empty, the others partly
+    filled) or "wrapped" (past one wrap: rows 0..w hold positions T..)."""
+    t = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T)
+    if layout == "wrapped":
+        w = 300 + 100 * torch.arange(B, dtype=torch.int32, device=dev)
+        return torch.where(t <= w[:, None], t + T, t), w + T
+    if layout == "ragged":
+        lens = torch.tensor([0, 250, 500, 750][:B], dtype=torch.int32,
+                            device=dev)
+        return torch.where(t < lens[:, None], t, -1), (lens - 1).clamp_min(0)
+    return t.contiguous(), torch.full((B,), T - 1, dtype=torch.int32,
+                                      device=dev)
+
+
+def bench_mla_decode(torch, dev, gen):
+    """DeepSeek-V3's dense decode attention: four slots, 128 heads, R =
+    512, Rr = 64, rings of T = 1024 (bf16 at published width; the fp32
+    cache of the smoke width at the same shape), a ragged T and a wrapped
+    ring."""
+    from repro_torch.kernels.mla_attention import ops
+    tol = 2e-5    # fp32 online vs full softmax; cache values exact in fp32
+    B, H, R, Rr = 4, 128, 512, 64
+    scale = 1.0 / math.sqrt(192)
+    rows = []
+    for T, layout, dt in ((1024, "full", torch.bfloat16),
+                          (1024, "full", torch.float32),
+                          (1000, "ragged", torch.bfloat16),
+                          (1024, "wrapped", torch.bfloat16)):
+        qa = torch.randn(B, H, R, generator=gen, device=dev)
+        qr = torch.randn(B, H, Rr, generator=gen, device=dev)
+        ckv = torch.randn(B, T, R, generator=gen, device=dev).to(dt)
+        kr = torch.randn(B, T, Rr, generator=gen, device=dev).to(dt)
+        pos, qpos = mla_ring(torch, dev, B, T, layout)
+        args = (qa, qr, ckv, kr, pos, qpos)
+        y = ops.mla_decode(*args, scale=scale)
+        ref = ops.mla_decode.run_plain(*args, scale=scale)
+        err, rel = max_err(torch, y, ref)
+        name = f"T={T} {layout} rings, {str(dt).split('.')[-1]} cache"
+        check(f"mla_decode {name}", rel, tol)
+        ms = cuda_ms(torch, lambda: ops.mla_decode(*args, scale=scale), 50)
+        plain = cuda_ms(torch, lambda: ops.mla_decode.run_plain(
+            *args, scale=scale), 5)
+        valid = (pos >= 0) & (pos <= qpos[:, None])
+        nvalid = int(valid.sum())
+        nbytes = (nvalid * (R + Rr) * ckv.element_size() + 4 * B * T
+                  + 4 * B * H * (R + Rr) + 4 * B + 4 * B * H * R)
+        b, by = bound_ms(nbytes, nvalid * H * (2 * (R + Rr) + 2 * R), "fp32")
+        lib = (sdpa_mla_ms(torch, qa, qr, ckv, kr, valid, scale, ref)
+               if layout == "full" else None)
+        rows.append(dict(shape=f"B={B} H={H} R={R} Rr={Rr} {name}",
+                         max_abs_err=err, rel_err=rel, tol=tol, ms=ms,
+                         plain_ms=plain, bound_ms=b, bound_by=by,
+                         library_ms=lib))
+        del qa, qr, ckv, kr, pos, qpos, y, ref
+    return rows
+
+
+def sdpa_mla_ms(torch, qa, qr, ckv, kr, valid, scale, ref):
+    """scaled_dot_product_attention as the yardstick of mla_decode: q =
+    [q_abs; q_rope] (B,H,1,576), K = [ckv; kr] and V = ckv over every head,
+    a boolean mask of the valid rows, in fp32 (the kernel's arithmetic).
+    None (reported as null) if it refuses or computes another function.
+    The port never calls it."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    B, H = qa.shape[:2]
+    T = ckv.shape[1]
+    q = torch.cat([qa, qr], dim=-1)[:, :, None]
+    k = torch.cat([ckv, kr], dim=-1).float()[:, None].expand(B, H, T, -1)
+    v = ckv.float()[:, None].expand(B, H, T, -1)
+    mask = valid[:, None, None, :]
+
+    def lib():
+        return sdpa(q, k, v, attn_mask=mask, scale=scale)
+    try:
+        out = lib()[:, :, 0]
+    except (RuntimeError, TypeError, ValueError) as e:
+        log(f"[b]   library: scaled_dot_product_attention refused: "
+            f"{str(e).splitlines()[0][:160]}")
+        return None
+    _, rel = max_err(torch, out, ref)
+    if rel > 1e-3:
+        log(f"[b]   library: scaled_dot_product_attention computes another "
+            f"function (rel err {rel:.3g}); not a yardstick")
+        return None
+    log(f"[b]   library: scaled_dot_product_attention differs from the "
+        f"plain version by {rel:.3g} of max|plain|")
+    return cuda_ms(torch, lib, 20)
+
+
 def bench_flash_prefill(torch, dev, gen):
     """qwen3-14b's prefill attention at its largest bucket: B = 1, S = T =
     2048, 40 heads over 8 KV heads, hd 128, bf16, causal."""
@@ -357,7 +456,8 @@ def phase_kernels(torch):
            "moe_gemm": bench_moe_gemm(torch, dev, gen),
            "paged_mla_decode": bench_paged_mla(torch, dev, gen),
            "paged_gqa_decode": bench_paged_gqa(torch, dev, gen),
-           "flash_prefill": bench_flash_prefill(torch, dev, gen)}
+           "flash_prefill": bench_flash_prefill(torch, dev, gen),
+           "mla_decode": bench_mla_decode(torch, dev, gen)}
     for name, rows in out.items():
         for r in rows:
             lib = ("null" if r["library_ms"] is None
@@ -374,39 +474,53 @@ def phase_kernels(torch):
 # --- (c) ---------------------------------------------------------------------
 
 
-# each served model: the overrides of its published config on the main
-# path (DeepSeek-V3's depth cut) and in the smoke-width check (qwen3-14b's
-# smoke width keeps its 5 query heads per KV head), the kernels its path
-# must launch, its prompt lengths, max_len, and the four contexts of the
-# steady decode
+# each served path: its model and the overrides of its published config
+# (DeepSeek-V3's depth cut), the engine's options, the kernels the path
+# must launch and those it must not, its prompt lengths, max_len, and the
+# four contexts of the steady decode
+PAGED = dict(paged=True, page_storage="fp8", attn_impl="pallas")
+DSV3_PROMPTS = dict(lengths=[16, 120, 250, 380, 490, 600], max_len=1024,
+                    steady=[600, 700, 800, 900])
 PATHS = {
     "deepseek-v3-671b": dict(
-        overrides=dict(num_layers=4, fp8_impl="pallas"),
-        smoke_overrides={},
-        kernels=("fp8_gemm", "moe_gemm", "paged_mla_decode"),
-        lengths=[16, 120, 250, 380, 490, 600], max_len=1024,
-        steady=[600, 700, 800, 900]),
+        model="deepseek-v3-671b",
+        overrides=dict(num_layers=4, fp8_impl="pallas"), engine=PAGED,
+        kernels=("fp8_gemm", "moe_gemm", "paged_mla_decode"), absent=(),
+        **DSV3_PROMPTS),
     "qwen3-14b": dict(
-        overrides={},
-        smoke_overrides=dict(num_heads=10, num_kv_heads=2),
-        kernels=("flash_prefill", "paged_gqa_decode"),
+        model="qwen3-14b", overrides={}, engine=PAGED,
+        kernels=("flash_prefill", "paged_gqa_decode"), absent=(),
         lengths=[16, 200, 500, 900, 1200, 1500], max_len=2048,
         steady=[600, 900, 1200, 1500]),
+    "deepseek-v3-671b-dense": dict(
+        model="deepseek-v3-671b",
+        overrides=dict(num_layers=4, fp8_impl="pallas"),
+        engine=dict(paged=False, use_mtp=True, attn_impl="pallas"),
+        kernels=("fp8_gemm", "moe_gemm", "mla_decode"),
+        absent=("paged_mla_decode",), **DSV3_PROMPTS),
 }
+
+# phase (d): each path's engine at smoke width, and qwen3-14b on the dense
+# engine; qwen3-14b's smoke width keeps its 5 query heads per KV head
+REFERENCE_CHECKS = [(p["model"], p["engine"]) for p in PATHS.values()] + [
+    ("qwen3-14b", dict(paged=False, attn_impl="pallas"))]
+SMOKE_OVERRIDES = {"deepseek-v3-671b": {},
+                   "qwen3-14b": dict(num_heads=10, num_kv_heads=2)}
 
 
 def path_config(name):
     from repro_torch.configs.base import get_config
-    full = get_config(name)
-    cfg = get_config(name, **PATHS[name]["overrides"])
+    spec = PATHS[name]
+    full = get_config(spec["model"])
+    cfg = get_config(spec["model"], **spec["overrides"])
     heads = (f"{cfg.num_heads} MLA heads" if cfg.mla else
              f"{cfg.num_heads} heads over {cfg.num_kv_heads} KV heads")
     moe = (f", {cfg.moe.num_experts} experts top-{cfg.moe.top_k} "
            f"({cfg.moe.layout})" if cfg.moe else "")
-    log(f"[c] config: {cfg.name}, {cfg.num_layers} of {full.num_layers} "
+    log(f"[c] path {name}: {cfg.name}, {cfg.num_layers} of {full.num_layers} "
         f"layers at published widths (d_model {cfg.d_model}, {heads}, "
         f"d_ff {cfg.d_ff}{moe}, vocab {cfg.vocab_size}); fp8_impl="
-        f"{cfg.fp8_impl}; seeded random weights")
+        f"{cfg.fp8_impl}; engine {spec['engine']}; seeded random weights")
     return cfg
 
 
@@ -421,9 +535,8 @@ def phase_main_path(torch, name):
     max_len = spec["max_len"]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    eng = ServeEngine(cfg, slots=4, max_len=max_len, paged=True,
-                      page_storage="fp8", attn_impl="pallas", device="cuda",
-                      seed=0)
+    eng = ServeEngine(cfg, slots=4, max_len=max_len, device="cuda", seed=0,
+                      **spec["engine"])
     torch.cuda.synchronize()
     log(f"[c] engine up (weights drawn on the card, load-time preparation): "
         f"{time.perf_counter() - t0:.2f} s, "
@@ -461,8 +574,18 @@ def phase_main_path(torch, name):
         if counts[k] <= 0:
             raise AssertionError(f"kernel {k} never launched on the {name} "
                                  "path")
-    if eng.free_pages() != eng.pool_pages:
+    for k in spec["absent"]:
+        if counts[k]:
+            raise AssertionError(f"kernel {k} launched on the {name} path")
+    if eng.paged and eng.free_pages() != eng.pool_pages:
         raise AssertionError("pages leaked after every request finished")
+    if eng.use_mtp:
+        drafts = eng.stats["drafts"]
+        log(f"[c] MTP: {drafts} drafts, {eng.stats['accepted_drafts']} "
+            f"accepted, acceptance rate {eng.acceptance_rate():.4f} (random "
+            "weights: printed, not gated)")
+        if drafts <= 0:
+            raise AssertionError("the MTP path made no draft")
     ntok = sum(len(r.out) for r in reqs)
     log(f"[c] {len(reqs)} requests, prompts {lengths}, {ntok} tokens in "
         f"{wall:.3f} s over {ticks} ticks ({ntok / wall:.1f} tok/s end to "
@@ -470,30 +593,34 @@ def phase_main_path(torch, name):
         f"{[round(ttft[r.rid], 3) for r in reqs]}")
     log(f"[c] peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
-    # steady-state decode: four active slots, each on its own run of
-    # pages, at the path's contexts
+    # steady-state decode: four active slots at the path's contexts, each
+    # on its own run of pages (paged) or with its ring filled to its
+    # context (dense)
     model, params, cache = eng.model, eng.params, eng.cache
-    pp = eng.pages_per_slot
-    cache["page_table"].copy_(torch.arange(
-        4 * pp, dtype=torch.int32, device="cuda").reshape(4, pp))
+    steady_state(torch, eng, spec)
     st = model.init_decode_state(4)
     st["active"][:] = True
     st["positions"][:] = torch.tensor(spec["steady"], device="cuda",
                                       dtype=torch.int32)
     st["left"][:] = 1 << 20
-    model.decode_loop(params, cache, st, 1)             # warm
+    mtp = eng.use_mtp
+    model.decode_loop(params, cache, st, 1, use_mtp=mtp)        # warm
     registry.reset_launch_counts()
-    model.decode_loop(params, cache, st, 1)
+    model.decode_loop(params, cache, st, 1, use_mtp=mtp)
     per_step = {k: n for k, n in registry.launch_counts().items() if n}
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    model.decode_loop(params, cache, st, 8)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
     log(f"[c] launches per decode step: {per_step}")
-    log(f"[c] steady decode, 4 slots at contexts {spec['steady']} x 8 steps: "
-        f"{1e3 * dt / 8:.2f} ms/step, {32 / dt:.1f} tok/s")
-    profile_decode(torch, name, model, params, cache, st)
+    for use in ((True, False) if mtp else (False,)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.decode_loop(params, cache, st, 8, use_mtp=use)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        log(f"[c] steady decode{' with the MTP draft' if use else ''}, 4 "
+            f"slots at contexts {spec['steady']} x 8 steps: "
+            f"{1e3 * dt / 8:.2f} ms/step, {32 / dt:.1f} tok/s")
+    profile_decode(torch, name, model, params, cache, st, use_mtp=mtp)
+    if not eng.paged:
+        compare_layouts(torch, eng, spec, st)
 
     # prefill alone: the longest prompt, in its bucket
     from repro_torch.serve.engine import bucket_length
@@ -520,13 +647,59 @@ def phase_main_path(torch, name):
     return counts
 
 
-# the port's kernels, as the profiler names them (checked before the
-# library GEMM group, whose names also say "gemm")
+def steady_state(torch, eng, spec):
+    """Point the four slots at the steady contexts: each slot its own run
+    of pages (paged), or rows 0..ctx-1 of every ring valid (dense, the MTP
+    ring included)."""
+    cache, dev = eng.cache, eng.device
+    if eng.paged:
+        pp = eng.pages_per_slot
+        cache["page_table"].copy_(torch.arange(
+            4 * pp, dtype=torch.int32, device=dev).reshape(4, pp))
+        return
+    ctx = torch.tensor(spec["steady"], device=dev)
+    t = torch.arange(spec["max_len"], device=dev)
+    pos = torch.where(t[None] < ctx[:, None], t[None], -1).int()
+    rings = [cache[seg.name] for seg in eng.model.segments]
+    rings += [cache["mtp"]] if "mtp" in cache else []
+    for ring in rings:
+        ring["pos"].copy_(pos.expand_as(ring["pos"]))
+
+
+def compare_layouts(torch, eng, spec, st):
+    """Steady decode without the draft over the engine's dense rings and,
+    on the same model and weights, over a paged fp8 pool of 8-token pages
+    (each slot its own run), in turns: dense, paged, paged, dense."""
+    model, params = eng.model, eng.params
+    page = 8
+    pp = spec["max_len"] // page
+    pool = model.init_paged_cache(4, spec["max_len"], page, 4 * pp, "fp8")
+    pool["page_table"].copy_(torch.arange(
+        4 * pp, dtype=torch.int32, device=eng.device).reshape(4, pp))
+    caches = {"dense": eng.cache, "paged": pool}
+    ms = {"dense": [], "paged": []}
+    for layout in ("dense", "paged", "paged", "dense"):
+        model.decode_loop(params, caches[layout], st, 1)         # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.decode_loop(params, caches[layout], st, 8)
+        torch.cuda.synchronize()
+        ms[layout].append(1e3 * (time.perf_counter() - t0) / 8)
+    log(f"[c] same weights, in turns (dense, paged, paged, dense), 8 steps "
+        f"each: dense rings {[round(x, 2) for x in ms['dense']]} ms/step, "
+        f"paged fp8 pool {[round(x, 2) for x in ms['paged']]} ms/step")
+    del pool
+
+
+# the port's kernels, as the profiler names them (checked in this order,
+# so "paged_mla_decode" before "mla_decode", and before the library GEMM
+# group, whose names also say "gemm")
 KERNEL_GROUPS = ("fp8_gemm", "moe_gemm", "paged_mla_decode",
-                 "paged_gqa_decode", "flash_prefill")
+                 "paged_gqa_decode", "flash_prefill", "mla_decode")
 
 
-def profile_decode(torch, name, model, params, cache, st, steps=2):
+def profile_decode(torch, name, model, params, cache, st, steps=2,
+                   use_mtp=False):
     """Device time by kernel over ``steps`` decode steps (torch.profiler,
     CUPTI), and the device's busy share of the profiled window."""
     from torch.autograd import DeviceType
@@ -535,7 +708,7 @@ def profile_decode(torch, name, model, params, cache, st, steps=2):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.decode_loop(params, cache, st, steps)
+        model.decode_loop(params, cache, st, steps, use_mtp=use_mtp)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     rows = []
@@ -552,6 +725,7 @@ def profile_decode(torch, name, model, params, cache, st, steps=2):
         log("[c] profile: no device time recorded (not measured)")
         return
     rows.sort(reverse=True)
+    launched = sum(r[1] for r in rows) // steps
     groups = {}
     for us, n, key in rows:
         g = next((k for k in KERNEL_GROUPS if k in key), None)
@@ -562,7 +736,8 @@ def profile_decode(torch, name, model, params, cache, st, steps=2):
         groups[g] = groups.get(g, 0.0) + us
     log(f"[c] {name} profile of {steps} decode steps: device busy {busy / 1e3:.2f} ms"
         f" of {wall_us / 1e3:.2f} ms wall ({100 * busy / wall_us:.1f}% busy "
-        f"under the profiler); per step by kernel: " + ", ".join(
+        f"under the profiler), {launched} kernels per step; per step by "
+        "kernel: " + ", ".join(
             f"{g} {v / 1e3 / steps:.3f} ms ({100 * v / busy:.1f}%)"
             for g, v in sorted(groups.items(), key=lambda kv: -kv[1])))
     for us, n, key in rows[:14]:
@@ -573,7 +748,7 @@ def profile_decode(torch, name, model, params, cache, st, steps=2):
 # --- (d) ---------------------------------------------------------------------
 
 
-def phase_reference(torch, name):
+def phase_reference(torch, name, engine):
     import dataclasses
 
     import numpy as np
@@ -583,21 +758,20 @@ def phase_reference(torch, name):
 
     cfg = dataclasses.replace(
         smoke_config(get_config(name)), dtype="bfloat16",
-        param_dtype="bfloat16", fp8_impl="pallas",
-        **PATHS[name]["smoke_overrides"])
+        param_dtype="bfloat16", fp8_impl="pallas", **SMOKE_OVERRIDES[name])
     params = Model(cfg, device="cpu").init(seed=1)
     prompts = [np.arange(5 + 7 * i) * (i + 3) % cfg.vocab_size
                for i in range(3)]
-    outs, logits = {}, {}
+    outs, logits, drafts = {}, {}, {}
     for dev in ("cuda", "cpu"):
-        eng = ServeEngine(cfg, params=params, slots=2, max_len=64,
-                          paged=True, page_storage="fp8", attn_impl="pallas",
-                          chunk=4, device=dev)
+        eng = ServeEngine(cfg, params=params, slots=2, max_len=64, chunk=4,
+                          device=dev, **engine)
         reqs = [Request(i, p, max_new=8) for i, p in enumerate(prompts)]
         for r in reqs:
             eng.submit(r)
         eng.run_until_done()
         outs[dev] = [r.out for r in reqs]
+        drafts[dev] = (eng.stats["drafts"], eng.stats["accepted_drafts"])
         toks = np.zeros((1, 32), np.int32)
         toks[0, :len(prompts[2])] = prompts[2]
         lg, _ = eng.model.prefill(eng.params, {"tokens": torch.as_tensor(toks)},
@@ -609,13 +783,17 @@ def phase_reference(torch, name):
                                                       b.flatten(), dim=0))
     same = sum(x == y for o1, o2 in zip(outs["cuda"], outs["cpu"])
                for x, y in zip(o1, o2))
-    log(f"[d] {name} at smoke width ({cfg.num_heads} heads over "
+    mtp = (f"; MTP drafts/accepted card {drafts['cuda']}, CPU "
+           f"{drafts['cpu']}" if engine.get("use_mtp") else "")
+    log(f"[d] {name} {engine} at smoke width ({cfg.num_heads} heads over "
         f"{cfg.num_kv_heads} KV heads), bf16: first-token logits card vs CPU "
         f"plain: max err {rel:.3g} of max|logit| (tol 5e-2), cosine "
-        f"{cos:.6f} (>= 0.999); greedy tokens equal {same}/24")
+        f"{cos:.6f} (>= 0.999); greedy tokens equal {same}/24{mtp}")
     if not (rel <= 5e-2 and cos >= 0.999):
         raise AssertionError("kernel path disagrees with the plain path on "
                              "the small input")
+    if engine.get("use_mtp") and drafts["cuda"][0] != drafts["cpu"][0]:
+        raise AssertionError("MTP draft counts differ between card and CPU")
 
 
 # --- main ----------------------------------------------------------------------
@@ -641,14 +819,16 @@ def main():
     launches = {}
     for path, spec in PATHS.items():
         counts = phase_main_path(torch, path)
-        launches.update({k: counts[k] for k in spec["kernels"]})
-    for path in PATHS:
-        phase_reference(torch, path)
+        for k in spec["kernels"]:        # each kernel: the first path of it
+            launches.setdefault(k, counts[k])
+    for name, engine in REFERENCE_CHECKS:
+        phase_reference(torch, name, engine)
 
     # one entry per kernel: the main path's shape (decode-time where the
-    # kernel runs at decode; the fp8 pool for paged_gqa_decode)
+    # kernel runs at decode; the fp8 pool for paged_gqa_decode, the bf16
+    # rings for mla_decode)
     pick = {"fp8_gemm": 1, "moe_gemm": 0, "paged_mla_decode": 0,
-            "paged_gqa_decode": 0, "flash_prefill": 0}
+            "paged_gqa_decode": 0, "flash_prefill": 0, "mla_decode": 0}
     table = []
     for name, rows in kernels.items():
         r = rows[pick[name]]

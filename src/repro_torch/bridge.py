@@ -10,8 +10,9 @@
   shared-expert weight is replaced by its straight-through 128x128-block
   quant-dequant (forward value ``w + (qdq(w) - w)`` in the weight dtype,
   exactly as ``ste_qdq_block`` computes it), and each 2-D weight that
-  reaches the FP8 ``linear`` (input width >= 256) gains its ``(wq, ws)``
-  block quantization as a ``core.fp8.Fp8Weight``. Same values as the
+  reaches the FP8 ``linear`` (input width >= 256), the MTP module's
+  included, gains its ``(wq, ws)`` block quantization as a
+  ``core.fp8.Fp8Weight``. Same values as the
   per-call reference; at published widths the per-call expert qdq would
   need ~15 GB of fp32 temporaries per expert matrix.
 """
@@ -26,8 +27,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import fp8
 
 # subtrees whose 2-D weights feed models/layers.linear (the MoE router's
-# "w_gate" is not one of them, nor are the expert stacks)
-_LINEAR_SUBTREES = ("attn", "mlp")
+# "w_gate" is not one of them, nor are the expert stacks; the MTP module's
+# norms are 1-D)
+_LINEAR_SUBTREES = ("attn", "mlp", "mtp")
 
 
 def _to_torch(a) -> torch.Tensor:
@@ -92,9 +94,6 @@ def prepare_for_serving(params: Dict[str, Any], cfg: ModelConfig, *,
                 out[k] = v
         return out
 
-    segs = {k: v for k, v in params.items() if k != "mtp"}
-    out = walk(segs, ())
-    if "mtp" in params:          # carried, not served (no MTP draft yet)
-        out["mtp"] = params["mtp"]
+    out = walk(params, ())
     out["prepared"] = True
     return out

@@ -1,14 +1,16 @@
 """Multi-head Latent Attention (paper §2.1.2, T1) — port of
-``repro.core.mla`` for prefill and paged decode.
+``repro.core.mla`` for prefill and decode.
 
 * **naive** (prefill): reconstruct per-head K_nope/V from the latent
   ``c_kv`` and run standard attention.
-* **absorbed** (decode): the page pool caches only ``(rmsnorm(c_kv),
-  k_rope)`` per token; W_uk is absorbed into the query and W_uv into the
-  output, so each step attends against the latent rows. ``impl="pallas"``
-  runs that attention in the ``paged_mla_decode`` kernel (in-register
-  E4M3 dequantization, one pass over the slot's pages); otherwise the
-  pages are gathered and dequantized, then attended here.
+* **absorbed** (decode): the cache holds only ``(rmsnorm(c_kv), k_rope)``
+  per token; W_uk is absorbed into the query and W_uv into the output, so
+  each step attends against the latent rows. Two cache layouts: a dense
+  ring per slot (``mla_decode_step``, rows written at ``position % T``
+  with a ``pos`` leaf) and the shared page pool (``mla_paged_decode_step``).
+  ``impl="pallas"`` runs that attention in the ``mla_decode`` or
+  ``paged_mla_decode`` kernel op; otherwise it runs here over a dense
+  latent view (the ring itself, or the gathered, dequantized pages).
 """
 from __future__ import annotations
 
@@ -97,8 +99,26 @@ def mla_attention(p: dict, x: torch.Tensor, *, cfg: ModelConfig,
 
 
 # ---------------------------------------------------------------------------
-# Decode: latent page pool + weight-absorbed attention
+# Decode: latent cache (dense ring or page pool) + weight-absorbed attention
 # ---------------------------------------------------------------------------
+
+
+def init_mla_cache(cfg: ModelConfig, layers: int, batch: int, max_len: int,
+                   device: torch.device) -> dict:
+    """Dense latent ring: leaves ``ckv``/``kr`` ``(layers, batch, max_len,
+    rank/rope)`` in the cache dtype and ``pos`` ``(layers, batch,
+    max_len)`` int32, -1 where a row is empty."""
+    m = cfg.mla
+    dt = torch_dtype(cfg.cache_dtype_())
+    return dict(
+        ckv=torch.zeros((layers, batch, max_len, m.kv_lora_rank), dtype=dt,
+                        device=device),
+        kr=torch.zeros((layers, batch, max_len, m.qk_rope_dim), dtype=dt,
+                       device=device),
+        pos=torch.full((layers, batch, max_len), -1, dtype=torch.int32,
+                       device=device),
+    )
+
 
 
 def init_paged_mla_cache(cfg: ModelConfig, layers: int, pool_pages: int,
@@ -137,7 +157,8 @@ def _absorb_queries(p: dict, q_nope: torch.Tensor, cfg: ModelConfig):
 
 def _absorbed_attention(q_abs, q_rope, ckv, kr, valid, cfg: ModelConfig):
     """Absorbed-decode softmax over a dense latent view (the non-kernel
-    path). ckv/kr: (B, T, rank/rope) in the compute dtype; valid (B, T).
+    path): the ring itself or the gathered pages. ckv/kr: (B, T,
+    rank/rope); valid (B, T).
     Operands in the compute dtype, fp32 accumulation (exact upcast).
     Returns o_lat (B, S, nh, rank) fp32."""
     m = cfg.mla
@@ -163,6 +184,44 @@ def _absorbed_out(p: dict, o_lat: torch.Tensor, x: torch.Tensor,
     out = torch.einsum("bshc,chv->bshv", o_lat, w_uv.float())
     out = out.reshape(B, S, nh * m.v_head_dim).to(x.dtype)
     return linear(out, p["w_o"], cfg)
+
+
+def mla_decode_step(p: dict, cache: dict, x: torch.Tensor, *,
+                    cfg: ModelConfig, positions: torch.Tensor,
+                    impl: str = "xla") -> Tuple[torch.Tensor, dict]:
+    """Absorbed-form decode of one token per slot over the dense ring.
+
+    cache: one layer's ring slice — ``ckv``/``kr`` ``(B, T, ...)`` and
+    ``pos`` ``(B, T)`` — written in place: this token's latents go to row
+    ``position % T`` and its position to ``pos``. Attention then runs over
+    every row with ``0 <= pos <= position`` (the ``mla_decode`` kernel op
+    on ``impl="pallas"``). x: (B, 1, d); positions: (B, 1). Returns
+    (out (B,1,d), cache)."""
+    m = cfg.mla
+    B, T = cache["pos"].shape
+    q_nope, q_rope = _queries(p, x, cfg, positions)       # (B,1,nh,*)
+    ckv_new, kr_new = _latents(p, x, cfg, positions)      # (B,1,rank/rope)
+
+    idx = (positions[:, 0] % T).long()
+    ba = torch.arange(B, device=x.device)
+    cache["ckv"][ba, idx] = ckv_new[:, 0].to(cache["ckv"].dtype)
+    cache["kr"][ba, idx] = kr_new[:, 0].to(cache["kr"].dtype)
+    cache["pos"][ba, idx] = positions[:, 0].to(torch.int32)
+
+    q_abs = _absorb_queries(p, q_nope, cfg)
+    if impl == "pallas":
+        from repro_torch.kernels.mla_attention import ops as mla_ops
+        o_lat = mla_ops.mla_decode(
+            q_abs[:, 0], q_rope[:, 0].float(), cache["ckv"], cache["kr"],
+            cache["pos"], positions[:, 0],
+            scale=1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim))
+        o_lat = o_lat[:, None]
+    else:
+        pos = cache["pos"]
+        valid = (pos >= 0) & (pos <= positions)
+        o_lat = _absorbed_attention(q_abs, q_rope, cache["ckv"], cache["kr"],
+                                    valid, cfg)
+    return _absorbed_out(p, o_lat, x, cfg), cache
 
 
 def mla_paged_decode_step(p: dict, cache: dict, x: torch.Tensor, *,

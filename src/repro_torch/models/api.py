@@ -1,15 +1,19 @@
 """Model API — port of the transformer ``Model`` of ``repro.models.api``
-for the paged serving path, MLA (DeepSeek-V3) and GQA (qwen3-14b).
+for serving, MLA (DeepSeek-V3, with its MTP module) and GQA (qwen3-14b).
 
     specs() / init(seed)           ParamSpec dict (the reference's key
                                    names) and materialized tensors
-    prefill(params, batch, lengths=)  (last-position logits, cache); the
-                                   bucketed form pad-masks the prompt
+    prefill(params, batch, extra_slots=, lengths=)  (last-position logits,
+                                   cache); the bucketed form pad-masks the
+                                   prompt, ``extra_slots`` widens the rings
+    init_cache(batch, max_len)     dense ring caches (+ the MTP ring)
+    cache_batch_axes(batch, max_len)  batch-axis index per cache leaf
     init_paged_cache(...)          shared page pools + per-slot page tables
     prefill_to_pages / install_pages / admit_pages / release_slot_pages
-    decode_step(params, cache, tokens, positions)
-    decode_loop(params, cache, state, k)  k decode steps with on-device
-                                   sampling and EOS/budget masks
+    decode_step(params, cache, tokens, positions)  over either cache
+    decode_loop(params, cache, state, k, use_mtp=)  k decode steps with
+                                   on-device sampling, EOS/budget masks
+                                   and the same-step MTP draft
 
 Layers are stored stacked per segment (``(n, ...)`` leaves, as in the
 reference); the port walks them with a Python loop where the reference
@@ -31,12 +35,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import mla as mla_mod
+from repro_torch.core import mtp as mtp_mod
 from repro_torch.core import paged as paged_mod
-from repro_torch.core.fp8 import Fp8Weight
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import layers as Lyr
 from repro_torch.models import transformer as tfm
-from repro_torch.models.param import ParamSpec, init_params
+from repro_torch.models.param import ParamSpec, init_params, layer
 
 # ---------------------------------------------------------------------------
 # Sampling
@@ -119,16 +123,6 @@ def _kind_specs(cfg: ModelConfig, seg: Segment) -> dict:
     return tfm.moe_block_specs(cfg, seg.n)
 
 
-def _layer(tree, i: int):
-    """Layer ``i`` of a stacked tree (tensors, Fp8Weights): views, so a
-    pool slice written in place writes the stacked pool."""
-    if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    if isinstance(tree, Fp8Weight):
-        return tree.layer(i)
-    return tree[i]
-
-
 def _embed_specs(cfg: ModelConfig) -> dict:
     d, V, pd = cfg.d_model, cfg.vocab_size, cfg.param_dtype
     specs = {
@@ -140,19 +134,18 @@ def _embed_specs(cfg: ModelConfig) -> dict:
     return specs
 
 
-def _mtp_specs(cfg: ModelConfig) -> dict:
-    """MTP module parameters (``repro.core.mtp.mtp_specs``): created and
-    carried across so trees match; only the draft path (not ported yet)
-    reads them."""
-    d, pd = cfg.d_model, cfg.param_dtype
-    n = cfg.mtp.num_modules
-    return {
-        "norm_h": ParamSpec((n, d), pd, ("layers", None), "ones"),
-        "norm_e": ParamSpec((n, d), pd, ("layers", None), "ones"),
-        "w_proj": ParamSpec((n, 2 * d, d), pd, ("layers", None, "embed"),
-                            "fan_in"),
-        "block": tfm.dense_block_specs(cfg, n, d_ff=cfg.d_ff),
-    }
+def _kind_cache(cfg: ModelConfig, seg: Segment, batch: int, max_len: int,
+                device) -> dict:
+    if cfg.attention == "mla":
+        return mla_mod.init_mla_cache(cfg, seg.n, batch, max_len, device)
+    return Lyr.init_gqa_cache(cfg, seg.n, batch, max_len, device)
+
+
+def _fill(tree, value):
+    """The same nesting of dicts with every leaf replaced by ``value``."""
+    if isinstance(tree, dict):
+        return {k: _fill(v, value) for k, v in tree.items()}
+    return value
 
 
 # ---------------------------------------------------------------------------
@@ -182,7 +175,8 @@ class Model:
         for seg in self.segments:
             s[seg.name] = _kind_specs(cfg, seg)
         if cfg.mtp:
-            s["mtp"] = _mtp_specs(cfg)
+            s["mtp"] = mtp_mod.mtp_specs(
+                cfg, lambda n: tfm.dense_block_specs(cfg, n, d_ff=cfg.d_ff))
         return s
 
     def init(self, seed: int = 0):
@@ -209,8 +203,8 @@ class Model:
     def _run_segment(self, seg: Segment, p, x, ctx, cache):
         outs = []
         for i in range(seg.n):
-            c = None if cache is None else _layer(cache, i)
-            x, out = tfm.block_apply(_layer(p, i), x, self.cfg, ctx, c)
+            c = None if cache is None else layer(cache, i)
+            x, out = tfm.block_apply(layer(p, i), x, self.cfg, ctx, c)
             outs.append(out)
         return x, outs
 
@@ -226,15 +220,18 @@ class Model:
 
     # -- prefill ---------------------------------------------------------------
     @torch.no_grad()
-    def prefill(self, params, batch, lengths=None):
+    def prefill(self, params, batch, extra_slots: int = 0, lengths=None):
         """Process the prompt; returns (last-position logits (B,1,V),
         cache). ``lengths`` (B,) enables the bucketed path: ``tokens`` is
         right-padded to a static bucket S and only the first
         ``lengths[b]`` positions are real — pads never enter the cache,
         rank below every real token in the MoE capacity contest, and the
         logits are taken at ``lengths-1``. The cache holds each layer's
-        rows ``(n, B, S, ...)`` — MLA latents or GQA K/V (the reference's
-        layout at ``extra_slots=0``, the input of ``prefill_to_pages``)."""
+        rings ``(n, B, S + extra_slots, ...)`` — MLA latents or GQA K/V
+        with ``pos`` — and, with MTP, the last hidden ``mtp_h`` and the MTP
+        module's ring over the prompt. At ``extra_slots=0`` it is the input
+        of ``prefill_to_pages``; the dense engine splices a ``max_len``
+        ring."""
         tokens = batch["tokens"].to(self.device)
         B, S = tokens.shape
         pos = torch.arange(S, dtype=torch.int32,
@@ -250,43 +247,107 @@ class Model:
         idx = (lengths - 1).clamp(0, S - 1).long()
         h_last = h[torch.arange(B, device=self.device), idx][:, None]
         logits = self._unembed(params, h_last)
-        cache = {seg.name: self._entries_to_cache(entries[seg.name], lengths)
+        T = S + extra_slots
+        cache = {seg.name: self._entries_to_cache(entries[seg.name], S, T,
+                                                  lengths)
                  for seg in self.segments}
+        if self.cfg.mtp:
+            cache["mtp_h"] = h_last
+            cache["mtp"] = self._mtp_prefill_ring(params, h, tokens, pos, T,
+                                                  lengths)
         return logits, cache
 
-    def _entries_to_cache(self, layer_entries, lengths):
-        """Per-layer prefill entries — MLA ``(ckv, kr)`` or GQA ``(k, v)``
-        — -> cache leaves (n, B, S, ...) in the cache dtype, with ``pos``
-        (-1 on pad rows, whose values are zeroed)."""
+    def _entries_to_cache(self, layer_entries, S: int, T: int, lengths):
+        """Per-layer prefill entries — MLA ``(ckv, kr)`` or GQA ``(k, v)``,
+        ``(B, S, ...)`` each — -> ring leaves ``(n, B, T, ...)`` in the
+        cache dtype with ``pos`` (-1 on empty rows, whose values are
+        zeroed). Ring row t holds the newest prompt token whose position p
+        satisfies p ≡ t (mod T): a per-row gather that serves a ring at
+        least as long as the prompt and one shorter than it."""
         cdt = torch_dtype(self.cfg.cache_dtype_())
         names = ("ckv", "kr") if self.cfg.attention == "mla" else ("k", "v")
         leaves = {name: torch.stack([e[i] for e in layer_entries])
                   for i, name in enumerate(names)}
-        n, B, S = leaves[names[0]].shape[:3]
-        t = torch.arange(S, dtype=torch.int32, device=self.device)
-        valid = t[None, :] < lengths[:, None]                # (B, S)
+        n, B = leaves[names[0]].shape[:2]
+        t = torch.arange(T, dtype=torch.int32, device=self.device)
+        n_t = torch.div(lengths[:, None] - 1 - t[None, :], T,
+                        rounding_mode="floor")
+        src = t[None, :] + n_t * T                           # (B, T)
+        valid = (src >= 0) & (src < lengths[:, None])
+        srcc = src.clamp(0, S - 1).long()
 
         def prep(x):
-            m = valid.reshape((1, B, S) + (1,) * (x.dim() - 3))
-            return x.masked_fill(~m, 0).to(cdt)
+            tail = x.shape[3:]
+            idx = srcc.reshape((1, B, T) + (1,) * len(tail)).expand(
+                (n, B, T) + tail)
+            m = valid.reshape((1, B, T) + (1,) * len(tail))
+            return torch.gather(x, 2, idx).masked_fill(~m, 0).to(cdt)
 
-        pos = torch.where(valid, t[None, :], -1).expand(n, B, S)
+        pos = torch.where(valid, src, -1).expand(n, B, T).contiguous()
         return dict({k: prep(x) for k, x in leaves.items()}, pos=pos)
+
+    def _mtp_prefill_ring(self, params, h, tokens, pos, T: int, lengths):
+        """Fill MTP module 1's ring over the prompt: the module runs over
+        the prompt's ``L-1`` pairs ``(h_k, Emb(t_{k+1}))`` (positions
+        ``0..L-2``), as in training, and its block's cache entries become a
+        length-``T`` ring. Position ``L-1``'s pair needs the first
+        generated token; the first decode step's draft writes it."""
+        cfg = self.cfg
+        B, S = tokens.shape
+        if S == 1:                 # single-token prompt: no pairs
+            return self._init_mtp_ring(B, T)
+        Sm = S - 1
+        pair_pos = pos[:, :Sm]
+        # pair k exists iff t_{k+1} is a real prompt token: k < L-1
+        pair_valid = pair_pos < (lengths[:, None] - 1)
+        entries = {}
+
+        def bapply(pb, x, p_):
+            out, entries["e"] = tfm.block_apply(
+                pb, x, cfg, dict(positions=p_, collect_cache=True,
+                                 valid=pair_valid), None)
+            return out
+
+        mtp_mod.mtp_hidden(layer(params["mtp"], 0), h[:, :Sm],
+                           self._embed(params, tokens[:, 1:]), cfg=cfg,
+                           positions=pair_pos, block_apply=bapply)
+        cdt = torch_dtype(cfg.cache_dtype_())
+
+        def ring(x):
+            m = pair_valid.reshape((B, Sm) + (1,) * (x.dim() - 2))
+            buf = torch.zeros((B, T) + x.shape[2:], dtype=cdt,
+                              device=self.device)
+            buf[:, :Sm] = x.masked_fill(~m, 0).to(cdt)
+            return buf[None]
+
+        rpos = torch.full((1, B, T), -1, dtype=torch.int32,
+                          device=self.device)
+        rpos[0, :, :Sm] = torch.where(pair_valid, pair_pos, -1)
+        a, b = entries["e"]
+        names = ("ckv", "kr") if cfg.attention == "mla" else ("k", "v")
+        return {names[0]: ring(a), names[1]: ring(b), "pos": rpos}
 
     # -- decode ----------------------------------------------------------------
     @torch.no_grad()
     def decode_step(self, params, cache, tokens, positions):
-        """One decode step over the paged cache (pools written in place).
-        tokens, positions: (B, 1) int32. Returns (logits (B,1,V), cache)."""
-        ctx = self._ctx(params, positions=positions,
-                        page_table=cache["page_table"])
+        """One decode step over the dense rings or the paged cache (written
+        in place); a paged cache carries its ``page_table``. tokens,
+        positions: (B, 1) int32. With MTP the step's hidden becomes
+        ``cache['mtp_h']``, the next draft's input. Returns (logits
+        (B,1,V), cache)."""
+        ctx = self._ctx(params, positions=positions)
+        if "page_table" in cache:
+            ctx["page_table"] = cache["page_table"]
         h, _ = self._backbone(params, tokens, ctx, cache)
+        if self.cfg.mtp:
+            cache["mtp_h"] = h
         return self._unembed(params, h), cache
 
     def init_decode_state(self, batch: int) -> Dict[str, torch.Tensor]:
         """Per-slot decode state consumed by ``decode_loop``: last token and
         its next position, occupancy, decode budget, EOS id (-1 = none),
-        the request's sampling seed and the next stream index."""
+        the request's sampling seed and the next stream index; and the
+        chunk's MTP counters (drafts made, drafts accepted)."""
         i32 = dict(dtype=torch.int32, device=self.device)
         return dict(
             tokens=torch.zeros(batch, **i32),
@@ -296,6 +357,8 @@ class Model:
             eos=torch.full((batch,), -1, **i32),
             seeds=torch.zeros(batch, dtype=torch.int64, device=self.device),
             tix=torch.zeros(batch, **i32),
+            drafts=torch.zeros((), **i32),
+            accepted=torch.zeros((), **i32),
         )
 
     @torch.no_grad()
@@ -303,20 +366,32 @@ class Model:
                     temperature: float = 0.0, top_k: int = 0,
                     use_mtp: bool = False):
         """``k`` decode steps with sampling, EOS and budget masking on the
-        card. Returns ``(tokens (B,k), emitted (B,k) bool, cache,
-        state)``; tokens are -1 where the slot was inactive."""
-        if use_mtp:
-            raise NotImplementedError(
-                "MTP drafting is not ported yet (ROADMAP.md, A.4)")
+        card. With ``use_mtp`` each step first drafts from the carried pair
+        ``(mtp_h, token)`` against the MTP ring (``core/mtp.py``), then
+        verifies the draft against the token the step samples; ``drafts``
+        and ``accepted`` in the state count active steps and hits. Returns
+        ``(tokens (B,k), emitted (B,k) bool, cache, state)``; tokens are -1
+        where the slot was inactive."""
+        if use_mtp and not self.cfg.mtp:
+            raise ValueError(f"use_mtp: {self.cfg.name} has no MTP module")
         st = dict(state)
         toks, was_active = [], []
         for _ in range(k):
             tok, pos = st["tokens"], st["positions"]
             active, left, eos = st["active"], st["left"], st["eos"]
+            if use_mtp:
+                draft = mtp_mod.mtp_draft_tokens(
+                    params, cache, self.cfg, tok, pos,
+                    embed_fn=lambda t: self._embed(params, t),
+                    unembed_fn=lambda hh: self._unembed(params, hh))
             logits, cache = self.decode_step(params, cache, tok[:, None],
                                              pos[:, None])
             nxt = sample_logits(logits[:, 0], st["seeds"], st["tix"],
                                 temperature, top_k)
+            if use_mtp:
+                st["drafts"] = st["drafts"] + active.sum(dtype=torch.int32)
+                st["accepted"] = st["accepted"] + (
+                    active & (draft == nxt)).sum(dtype=torch.int32)
             left2 = left - active.int()
             done = active & (((eos >= 0) & (nxt == eos)) | (left2 <= 0))
             toks.append(torch.where(active, nxt, -1))
@@ -326,6 +401,48 @@ class Model:
                       left=left2, tix=st["tix"] + active.int())
         return (torch.stack(toks, dim=1), torch.stack(was_active, dim=1),
                 cache, st)
+
+    # -- dense cache family (per-slot rings) ---------------------------------
+    def _init_mtp_ring(self, batch: int, max_len: int, device=None) -> dict:
+        """MTP module 1's own 1-layer dense ring (its block attends over the
+        pair sequence; slot-resident in both cache layouts)."""
+        dev = self.device if device is None else device
+        return _kind_cache(self.cfg, Segment("mtp", "dense", 1), batch,
+                           max_len, dev)
+
+    def init_cache(self, batch: int, max_len: int, device=None) -> dict:
+        """Dense decode cache: per segment a ring ``(n, batch, max_len,
+        ...)`` with ``pos``; with MTP also ``mtp_h`` (batch, 1, d) and the
+        MTP ring. ``device`` defaults to the model's."""
+        dev = self.device if device is None else device
+        cfg = self.cfg
+        cache: Dict[str, Any] = {
+            seg.name: _kind_cache(cfg, seg, batch, max_len, dev)
+            for seg in self.segments}
+        if cfg.mtp:
+            cache.update(self._mtp_leaves(batch, max_len, dev))
+        return cache
+
+    def _mtp_leaves(self, batch: int, max_len: int, device) -> dict:
+        """The slot-resident MTP state of either cache layout: the carried
+        hidden ``mtp_h`` (batch, 1, d) and the module's ring."""
+        return dict(mtp_h=torch.zeros((batch, 1, self.cfg.d_model),
+                                      dtype=torch_dtype(self.cfg.dtype),
+                                      device=device),
+                    mtp=self._init_mtp_ring(batch, max_len, device))
+
+    def cache_batch_axes(self, batch: int, max_len: int) -> Dict[str, Any]:
+        """Tree matching ``init_cache`` of each leaf's batch-axis index:
+        axis 1 behind the stacked-layers axis for every ring (the MTP
+        ring included), axis 0 for ``mtp_h``. Used by the engine's slot
+        admission splice."""
+        structs = self.init_cache(batch, max_len, device="meta")
+        axes = {seg.name: _fill(structs[seg.name], 1)
+                for seg in self.segments}
+        if "mtp_h" in structs:
+            axes["mtp_h"] = 0
+            axes["mtp"] = _fill(structs["mtp"], 1)
+        return axes
 
     # -- paged cache family (block pool + page tables; core/paged.py) -------
     def init_paged_cache(self, batch: int, max_len: int, page_size: int,
@@ -346,13 +463,22 @@ class Model:
         for seg in self.segments:
             cache[seg.name] = init(self.cfg, seg.n, pool_pages, page_size,
                                    storage, self.device)
+        if self.cfg.mtp:
+            cache.update(self._mtp_leaves(batch, max_len, self.device))
         return cache
+
+    def paged_aux_axes(self) -> Dict[str, Any]:
+        """Batch axes of a paged cache's slot-resident leaves (the MTP
+        hidden and ring), which admission splices densely."""
+        return {k: v for k, v in self.cache_batch_axes(1, 8).items()
+                if k in ("mtp_h", "mtp")}
 
     def prefill_to_pages(self, cache1, page_size: int, storage: str):
         """Quantize a batch-1 prefill cache (``extra_slots=0``) into page
         payload ``{"pages": {segment: {leaf: (n, bucket//page, page,
-        ...)}}, "aux": {}}`` (fp8: E4M3 values + per-token scales; a GQA
-        token's scale covers its whole ``(KV, hd)`` entry)."""
+        ...)}}, "aux": {...}}`` (fp8: E4M3 values + per-token scales; a GQA
+        token's scale covers its whole ``(KV, hd)`` entry). ``aux`` carries
+        the slot-resident leaves as they are (MTP hidden and ring)."""
         store = torch_dtype(self.cfg.cache_dtype_())
         pages: Dict[str, Any] = {}
         for seg in self.segments:
@@ -367,7 +493,8 @@ class Model:
                 if "scale" in d:
                     out[name + "_scale"] = d["scale"]
             pages[seg.name] = out
-        return {"pages": pages, "aux": {}}
+        aux = {k: cache1[k] for k in ("mtp_h", "mtp") if k in cache1}
+        return {"pages": pages, "aux": aux}
 
     def install_pages(self, cache, payload_pages, ids):
         """Scatter page payload into the pools at physical ``ids``, in

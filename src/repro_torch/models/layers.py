@@ -1,8 +1,8 @@
 """Shared layers: norms, RoPE, dense linears (optionally on the FP8 path),
 attention (direct, or the ``flash_prefill`` kernel op), GQA attention
-with its paged decode cache, SwiGLU MLP — port of ``repro.models.layers``
-for the archs the port runs (MLA and GQA). The dense ring cache and
-sliding windows are not ported yet (ROADMAP.md, A.d).
+with its dense ring and paged decode caches, SwiGLU MLP — port of
+``repro.models.layers`` for the archs the port runs (MLA and GQA).
+Sliding windows are not ported yet (ROADMAP.md, A.10).
 
 All layers are functional: ``*_specs(cfg)`` returns a ParamSpec dict,
 apply functions take the materialized tensors.
@@ -173,7 +173,10 @@ def gqa_attention(p: dict, x: torch.Tensor, *, cfg: ModelConfig,
     Without ``cache``: prefill over the whole sequence; with
     ``return_cache_entries`` it also returns this layer's ``(k, v)``
     (after qk-norm and RoPE), the entries the reference's
-    ``_self_attention`` recomputes for cache assembly. With ``cache`` and
+    ``_self_attention`` recomputes for cache assembly. With a dense ring
+    ``cache`` (``k``/``v``/``pos``, no ``page_table``): one decode step
+    that writes this token at row ``position % T`` in place and attends
+    over the rows with ``0 <= pos <= position``. With ``cache`` and
     ``page_table``: one paged decode step. ``cache`` is one layer's K/V
     pool slice (``core/paged.py`` layout, written in place): the step
     writes this token's K/V (quantized under fp8 storage) into its slot's
@@ -198,15 +201,32 @@ def gqa_attention(p: dict, x: torch.Tensor, *, cfg: ModelConfig,
         if return_cache_entries:
             aux = (k, v)
     elif page_table is None:
-        raise NotImplementedError(
-            "GQA decode over the dense ring cache is not ported yet "
-            "(ROADMAP.md, A.d)")
+        out = _ring_decode(q, k, v, cache, cfg=cfg, positions=positions,
+                           impl=impl)
+        aux = cache
     else:
         out = _paged_decode(q, k, v, cache, cfg=cfg, positions=positions,
                             page_table=page_table, impl=impl)
         aux = cache
     out = out.reshape(*out.shape[:-2], cfg.num_heads * hd)
     return linear(out, p["wo"], cfg), aux
+
+
+def _ring_decode(q, k, v, cache: dict, *, cfg: ModelConfig, positions,
+                 impl: str) -> torch.Tensor:
+    """The dense ring branch of :func:`gqa_attention`: write k, v (B, 1,
+    KV, hd) at ring row ``position % T`` of each slot, then attend with the
+    ring's ``pos`` as key positions (-1 rows are empty)."""
+    B, T = cache["pos"].shape
+    idx = (positions[:, 0] % T).long()
+    ba = torch.arange(B, device=q.device)
+    cache["k"][ba, idx] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][ba, idx] = v[:, 0].to(cache["v"].dtype)
+    cache["pos"][ba, idx] = positions[:, 0].to(torch.int32)
+    cdt = torch_dtype(cfg.dtype)
+    return attention_scores(q, cache["k"].to(cdt), cache["v"].to(cdt),
+                            causal=True, q_pos=positions,
+                            k_pos=cache["pos"], impl=impl)
 
 
 def _paged_decode(q, k, v, cache: dict, *, cfg: ModelConfig, positions,
@@ -259,6 +279,22 @@ def _paged_decode(q, k, v, cache: dict, *, cfg: ModelConfig, positions,
                         device=q.device).expand(kc.shape[0], T)
     return attention_scores(q, kc, vc, causal=True, q_pos=positions,
                             k_pos=kpos, impl=impl)
+
+
+def init_gqa_cache(cfg: ModelConfig, layers: int, batch: int, max_len: int,
+                   device: torch.device, window: int = 0) -> dict:
+    """Dense K/V ring: ``k``/``v`` ``(layers, batch, max_len, KV, hd)`` in
+    the cache dtype and ``pos`` ``(layers, batch, max_len)`` int32, -1
+    where a row is empty."""
+    if window:
+        raise NotImplementedError(
+            "sliding-window rings are not ported yet (ROADMAP.md, A.10)")
+    dt = torch_dtype(cfg.cache_dtype_())
+    shape = (layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim_())
+    return dict(k=torch.zeros(shape, dtype=dt, device=device),
+                v=torch.zeros(shape, dtype=dt, device=device),
+                pos=torch.full(shape[:3], -1, dtype=torch.int32,
+                               device=device))
 
 
 def init_paged_gqa_cache(cfg: ModelConfig, layers: int, pool_pages: int,

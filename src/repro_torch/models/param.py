@@ -16,6 +16,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from repro_torch.core.fp8 import Fp8Weight
 from repro_torch.device import resolve_device, torch_dtype
 
 # Leaves larger than this are drawn slice by slice along their leading
@@ -82,3 +83,13 @@ def init_params(spec_tree, seed: int = 0, device=None):
         return tree.materialize(gen, dev)
 
     return walk(spec_tree)
+
+
+def layer(tree, i: int):
+    """Layer ``i`` of a stacked tree (tensors, Fp8Weights): views, so a
+    cache slice written in place writes the stacked cache."""
+    if isinstance(tree, dict):
+        return {k: layer(v, i) for k, v in tree.items()}
+    if isinstance(tree, Fp8Weight):
+        return tree.layer(i)
+    return tree[i]

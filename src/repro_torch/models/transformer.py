@@ -53,20 +53,26 @@ def moe_block_specs(cfg: ModelConfig, n: int) -> dict:
 
 def _self_attention(p: dict, h: torch.Tensor, cfg: ModelConfig, ctx: dict,
                     cache):
-    """MLA or GQA self-attention. With a pool slice in ``cache`` this is
-    the paged decode step (the page table rides in ctx); without, prefill,
-    which returns the layer's cache entries (MLA latents, GQA ``(k, v)``)
-    when ``collect_cache``."""
+    """MLA or GQA self-attention. With a cache slice this is one decode
+    step: over the dense ring when the slice has a ``pos`` leaf, else over
+    the page pool (the page table rides in ctx). Without, prefill, which
+    returns the layer's cache entries (MLA latents, GQA ``(k, v)``) when
+    ``collect_cache``."""
+    paged = cache is not None and "pos" not in cache
     if cfg.attention == "gqa":
         return Lyr.gqa_attention(
             p, h, cfg=cfg, positions=ctx["positions"], cache=cache,
-            page_table=None if cache is None else ctx["page_table"],
+            page_table=ctx["page_table"] if paged else None,
             impl=ctx.get("gqa_impl", "xla"),
             return_cache_entries=bool(ctx.get("collect_cache")))
-    if cache is not None:
+    if paged:
         return mla_mod.mla_paged_decode_step(
             p, cache, h, cfg=cfg, positions=ctx["positions"],
             page_table=ctx["page_table"], impl=ctx.get("mla_impl", "xla"))
+    if cache is not None:
+        return mla_mod.mla_decode_step(
+            p, cache, h, cfg=cfg, positions=ctx["positions"],
+            impl=ctx.get("mla_impl", "xla"))
     if ctx.get("collect_cache"):
         return mla_mod.mla_attention(p, h, cfg=cfg,
                                      positions=ctx["positions"],

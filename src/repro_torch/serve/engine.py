@@ -1,23 +1,31 @@
-"""Paged serving engine — port of ``repro.serve.engine.ServeEngine`` for
-single-device paged serving (paper §2.1.2 quantized latent cache, §2.3.2
-memory-bound decode), of MLA (DeepSeek-V3) and GQA (qwen3-14b) models.
+"""Serving engine — port of ``repro.serve.engine.ServeEngine`` for
+single-device serving (paper §2.1.2 quantized latent cache, §2.3.2
+memory-bound decode, §2.3.3 MTP drafting), of MLA (DeepSeek-V3) and GQA
+(qwen3-14b) models, over either cache layout:
 
-One shared pool of fixed-size token pages per attention segment, per-slot
-page tables, page-granular admission: a request reserves
-``ceil((prompt + max_new) / page_size)`` pages and ``submit()`` admits it
-when a slot *and* its pages are free. Admission is bucketed prefill
-(``Model.prefill``) -> ``prefill_to_pages`` (E4M3 values + per-token
-scales under ``page_storage="fp8"``) -> ``admit_pages``. ``step()`` then
-runs ``chunk`` fused decode steps (``Model.decode_loop``) over the
-decoding slots and reads the emitted tokens back once per chunk. A freed
-slot's pages return to the pool and its table row points at the trash
-page, so its masked decode lane never writes into recycled pages.
+* dense (``paged=False``, the default): every slot owns a ring of
+  ``max_len`` rows per attention layer. Admission is bucketed prefill
+  (``Model.prefill`` with ``extra_slots`` up to ``max_len``) spliced into
+  the slot; a request needs only a free slot.
+* paged (``paged=True``): one shared pool of fixed-size token pages per
+  attention segment and per-slot page tables. A request reserves
+  ``ceil((prompt + max_new) / page_size)`` pages and admits when a slot
+  *and* its pages are free: bucketed prefill -> ``prefill_to_pages``
+  (E4M3 values + per-token scales under ``page_storage="fp8"``) ->
+  ``admit_pages``. A freed slot's pages return to the pool and its table
+  row points at the trash page, so its masked decode lane never writes
+  into recycled pages.
+
+``step()`` runs ``chunk`` fused decode steps (``Model.decode_loop``, with
+the same-step MTP draft under ``use_mtp``) over the decoding slots and
+reads the emitted tokens, the slot state and the draft counters back in
+one copy per chunk.
 
 Options of the reference that the port has not reached raise
-``NotImplementedError`` with a pointer to ROADMAP.md: the dense cache
-(``paged=False``), mesh contexts, chunked prefill, the host KV tier,
-decode overlap and MTP drafting. Priority preemption and ``cancel`` come
-with the scheduler; requests admit in priority order, FIFO within a class.
+``NotImplementedError`` with a pointer to ROADMAP.md: mesh contexts,
+chunked prefill, the host KV tier and decode overlap. Priority preemption
+and ``cancel`` come with the scheduler; requests admit in priority order,
+FIFO within a class.
 """
 from __future__ import annotations
 
@@ -80,6 +88,28 @@ def _waits(what: str, item: str) -> NotImplementedError:
         f"ServeEngine({what}) is not ported yet: see ROADMAP.md, {item}")
 
 
+def _splice(big, small, slot: int, axes) -> None:
+    """Write a batch-1 cache tree into slot ``slot`` of the batch cache, in
+    place. ``axes`` is the model-declared batch-axis tree
+    (``Model.cache_batch_axes``); length axes shorter than the batch
+    buffer are padded (positions with -1, so decode masks them, values
+    with 0)."""
+    if isinstance(big, dict):
+        for k in big:
+            _splice(big[k], small[k], slot, axes[k])
+        return
+    if small.shape[axes] != 1:
+        raise ValueError(f"_splice: prefill leaf batch axis {axes} has size "
+                         f"{small.shape[axes]}; expected 1 (shapes "
+                         f"{tuple(small.shape)} vs {tuple(big.shape)})")
+    dst = big.select(axes, slot)
+    src = small.select(axes, 0)
+    if src.shape != dst.shape:
+        dst.fill_(-1 if not src.dtype.is_floating_point else 0)
+        dst = dst[tuple(slice(0, n) for n in src.shape)]
+    dst.copy_(src)
+
+
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
@@ -87,7 +117,7 @@ def _to_device(tree, device):
 
 
 class ServeEngine:
-    """Fixed-slot paged batch engine (continuous batching-lite)."""
+    """Fixed-slot batch engine (continuous batching-lite)."""
 
     def __init__(self, cfg: ModelConfig, params=None, slots: int = 4,
                  max_len: int = 128, seed: int = 0,
@@ -103,8 +133,6 @@ class ServeEngine:
                  attn_impl: str = "",
                  decode_overlap: bool = False,
                  ctx=None, device=None):
-        if not paged:
-            raise _waits("paged=False: the dense ring cache", "A.5")
         if ctx is not None:
             raise _waits("ctx=: mesh-sharded serving", "A.8")
         if prefill_chunk is not None:
@@ -114,8 +142,6 @@ class ServeEngine:
             raise _waits("host_tier_pages=: the host KV tier", "A.6")
         if decode_overlap:
             raise _waits("decode_overlap=True", "A.8")
-        if use_mtp:
-            raise _waits("use_mtp=True: MTP drafting", "A.4")
         paged_mod.validate_storage(page_storage)
         self.cfg = cfg
         self.model = Model(cfg, device)
@@ -135,18 +161,26 @@ class ServeEngine:
                 _to_device(params, self.device), cfg)
         self.slots = slots
         self.max_len = max_len
+        self.use_mtp = use_mtp and cfg.mtp is not None
         self.chunk = chunk
         self.temperature = temperature
         self.top_k = top_k
-        self.page_size = page_size
-        self.pages_per_slot = max_len // page_size
-        self.pool_pages = (pool_pages if pool_pages is not None
-                           else slots * self.pages_per_slot)
-        self.page_storage = page_storage
-        self.cache = self.model.init_paged_cache(
-            slots, max_len, page_size, self.pool_pages, page_storage)
-        self._alloc = paged_mod.PrefixPageAllocator(self.pool_pages)
-        self._slot_pages: List[List[int]] = [[] for _ in range(slots)]
+        self.paged = paged
+        if paged:
+            # pool_pages defaults to the dense engine's token capacity
+            self.page_size = page_size
+            self.pages_per_slot = max_len // page_size
+            self.pool_pages = (pool_pages if pool_pages is not None
+                               else slots * self.pages_per_slot)
+            self.page_storage = page_storage
+            self.cache = self.model.init_paged_cache(
+                slots, max_len, page_size, self.pool_pages, page_storage)
+            self._alloc = paged_mod.PrefixPageAllocator(self.pool_pages)
+            self._slot_pages: List[List[int]] = [[] for _ in range(slots)]
+            self._axes = self.model.paged_aux_axes()
+        else:
+            self.cache = self.model.init_cache(slots, max_len)
+            self._axes = self.model.cache_batch_axes(slots, max_len)
         # host mirrors of the per-slot decode state
         self.positions = np.zeros((slots,), np.int32)   # next position
         self._tokens = np.zeros((slots,), np.int32)     # last emitted token
@@ -160,14 +194,17 @@ class ServeEngine:
         self.max_pending = max_pending
         self._hol_skips = 0
         self._seed_gen = np.random.default_rng(seed + 1)
-        self.stats = {"steps": 0, "tokens": 0, "dispatches": 0,
-                      "prefills": 0, "first_tokens": 0, "page_admits": 0,
+        self.stats = {"steps": 0, "tokens": 0, "accepted_drafts": 0,
+                      "drafts": 0, "dispatches": 0, "prefills": 0,
+                      "splices": 0, "first_tokens": 0, "page_admits": 0,
                       "page_releases": 0, "peak_pages_used": 0}
 
     # -- prefill ------------------------------------------------------------
     def prefill_request(self, req: Request, extras: Optional[Dict] = None):
         """Bucketed prefill of one request; returns ``(first_token,
-        payload)`` with the quantized page payload of
+        payload)``. Dense engines: a batch-1 cache with ``max_len`` ring
+        rows (``extra_slots`` from the bucket), admitted by a splice.
+        Paged engines: the quantized page payload of
         ``Model.prefill_to_pages``. Requests with delivered tokens
         (continuations) prefill prompt+delivered and sample at the advanced
         stream offset."""
@@ -180,11 +217,15 @@ class ServeEngine:
         toks[0, :L] = prompt
         self.stats["dispatches"] += 1
         self.stats["prefills"] += 1
-        logits, cache1 = self.model.prefill(
+        # paged admission quantizes the bucket-long cache into pages; dense
+        # admission splices a full max_len ring
+        extra = 0 if self.paged else self.max_len - bucket
+        logits, payload = self.model.prefill(
             self.params, {"tokens": torch.as_tensor(toks)},
-            lengths=np.asarray([L], np.int32))
-        payload = self.model.prefill_to_pages(cache1, self.page_size,
-                                              self.page_storage)
+            extra_slots=extra, lengths=np.asarray([L], np.int32))
+        if self.paged:
+            payload = self.model.prefill_to_pages(payload, self.page_size,
+                                                  self.page_storage)
         seed = torch.as_tensor([self._request_seed(req)], device=self.device)
         tix = torch.as_tensor([offset], dtype=torch.int32, device=self.device)
         first = sample_logits(logits[:, -1], seed, tix, self.temperature,
@@ -205,8 +246,8 @@ class ServeEngine:
         return [i for i, r in enumerate(self.active) if r is None]
 
     def free_pages(self) -> int:
-        """Allocatable pages in the pool."""
-        return self._alloc.free_pages()
+        """Allocatable pages in the pool (0 for dense engines)."""
+        return self._alloc.free_pages() if self.paged else 0
 
     def _effective(self, req: Request) -> Tuple[np.ndarray, int, int]:
         """Continuation-aware view of a request: ``(prompt, max_new,
@@ -226,10 +267,14 @@ class ServeEngine:
                                    self.page_size)
 
     def can_admit(self, req: Request) -> bool:
-        return bool(self.free_slots()) and \
-            self.pages_needed(req) <= self.free_pages()
+        """A slot is free and (paged engines) enough pool pages are too."""
+        if not self.free_slots():
+            return False
+        return not self.paged or self.pages_needed(req) <= self.free_pages()
 
     def _validate(self, req: Request):
+        if not self.paged:
+            return
         if len(req.prompt) + req.max_new > self.max_len:
             raise ValueError(
                 f"request {req.rid}: prompt ({len(req.prompt)}) + max_new "
@@ -266,18 +311,21 @@ class ServeEngine:
 
     def admit_prefilled(self, req: Request, first: int, payload,
                         slot: int, extras: Optional[Dict] = None):
-        """Admit a prefilled request into ``slot``: reserve its pages,
-        scatter its quantized prefill pages, install its page-table row and
-        the host mirrors. A request finished by its first token (budget 1
-        or an immediate EOS) reserves nothing."""
+        """Admit a prefilled request into ``slot``: splice its prefill
+        cache (dense), or reserve its pages, scatter its quantized prefill
+        pages, install its page-table row and splice its slot-resident MTP
+        leaves (paged); then the host mirrors. A request finished by its
+        first token (budget 1 or an immediate EOS) writes and reserves
+        nothing."""
         prompt, max_new, offset = self._effective(req)
         finishes = (max_new <= 1
                     or (req.eos is not None and first == req.eos))
-        n = paged_mod.pages_for(len(prompt) + max_new, self.page_size)
-        if not finishes and n > self.free_pages():
-            raise AdmissionError(
-                f"no free pages: request {req.rid} needs {n}, pool has "
-                f"{self.free_pages()} of {self.pool_pages}")
+        if self.paged and not finishes:
+            n = paged_mod.pages_for(len(prompt) + max_new, self.page_size)
+            if n > self.free_pages():
+                raise AdmissionError(
+                    f"no free pages: request {req.rid} needs {n}, pool has "
+                    f"{self.free_pages()} of {self.pool_pages}")
         req.out.append(first)
         self.stats["tokens"] += 1
         self.stats["first_tokens"] += 1
@@ -285,13 +333,28 @@ class ServeEngine:
             req.done = True
             return
         self.stats["dispatches"] += 1
+        if self.paged:
+            self._admit_pages(payload, n, slot)
+        else:
+            self.stats["splices"] += 1
+            _splice(self.cache, payload, slot, self._axes)
+        self.positions[slot] = len(prompt)
+        self._tokens[slot] = first
+        self._left[slot] = max_new - 1
+        self._eos[slot] = -1 if req.eos is None else req.eos
+        self._seeds[slot] = self._request_seed(req)
+        self._tix[slot] = offset + 1     # prefill drew stream index offset
+        self.active[slot] = req
+
+    def _admit_pages(self, payload, n: int, slot: int) -> None:
+        """Reserve ``n`` pages for ``slot``, scatter the payload's pages
+        into them (pages past the reservation land in the trash page),
+        install the slot's table row and splice the aux leaves."""
         alloc = self._alloc.alloc(n)
         self._slot_pages[slot] = alloc
         trash = self.pool_pages
         row = np.full((self.pages_per_slot,), trash, np.int32)
         row[:n] = alloc
-        # prefill pages beyond the reservation (bucket > budget) land in
-        # the trash page
         seg0 = payload["pages"][self.model.segments[0].name]
         n_p = next(iter(seg0.values())).shape[1]
         ids = np.asarray([alloc[i] if i < n else trash for i in range(n_p)],
@@ -300,13 +363,9 @@ class ServeEngine:
         self.stats["peak_pages_used"] = max(
             self.stats["peak_pages_used"], self.pool_pages - self.free_pages())
         self.model.admit_pages(self.cache, payload["pages"], ids, row, slot)
-        self.positions[slot] = len(prompt)
-        self._tokens[slot] = first
-        self._left[slot] = max_new - 1
-        self._eos[slot] = -1 if req.eos is None else req.eos
-        self._seeds[slot] = self._request_seed(req)
-        self._tix[slot] = offset + 1     # prefill drew stream index offset
-        self.active[slot] = req
+        if payload["aux"]:
+            _splice({k: self.cache[k] for k in payload["aux"]},
+                    payload["aux"], slot, self._axes)
 
     def _pick_admission(self) -> Optional[int]:
         """Pending entry to admit next: highest priority first, FIFO within
@@ -346,8 +405,10 @@ class ServeEngine:
                          self._eos, self._tix, self._seeds]).astype(np.int64)
         dev = torch.as_tensor(host).to(self.device)
         i32 = dev[:6].int()
+        zero = torch.zeros((), dtype=torch.int32, device=self.device)
         return dict(tokens=i32[0], positions=i32[1], active=dev[2] > 0,
-                    left=i32[3], eos=i32[4], tix=i32[5], seeds=dev[6])
+                    left=i32[3], eos=i32[4], tix=i32[5], seeds=dev[6],
+                    drafts=zero, accepted=zero.clone())
 
     def step(self):
         """One scheduler tick: admit from the pending queue, then one fused
@@ -358,18 +419,26 @@ class ServeEngine:
         self.stats["dispatches"] += 1
         toks, emitted, self.cache, st = self.model.decode_loop(
             self.params, self.cache, self._device_state(), self.chunk,
-            temperature=self.temperature, top_k=self.top_k)
-        # the one host sync per chunk: emitted tokens + slot state, packed
-        # into one tensor and copied back together
+            temperature=self.temperature, top_k=self.top_k,
+            use_mtp=self.use_mtp)
+        # the one host sync per chunk: emitted tokens, slot state and the
+        # chunk's draft counters, packed into one tensor and copied back
+        # together
+        B = self.slots
         packed = torch.cat([toks, emitted.int(),
                             torch.stack([st["tokens"], st["positions"],
                                          st["active"].int(), st["left"],
-                                         st["tix"]], dim=1)], dim=1).cpu()
+                                         st["tix"], st["drafts"].expand(B),
+                                         st["accepted"].expand(B)], dim=1)],
+                           dim=1).cpu()
         host = packed.numpy()
         k = self.chunk
         toks, emitted = host[:, :k], host[:, k:2 * k].astype(bool)
-        tokens, positions, active, left, tix = host[:, 2 * k:].T
+        tokens, positions, active, left, tix, drafts, accepted = \
+            host[:, 2 * k:].T
         self.stats["steps"] += int(emitted.any(axis=0).sum())
+        self.stats["drafts"] += int(drafts[0])
+        self.stats["accepted_drafts"] += int(accepted[0])
         self._tokens = tokens.astype(np.int32)
         self.positions = positions.astype(np.int32)
         self._left = left.astype(np.int32)
@@ -385,10 +454,11 @@ class ServeEngine:
                 self._release_slot(i)
 
     def _release_slot(self, slot: int):
-        """Free ``slot``: clear occupancy, return its whole page reservation
-        to the pool, and point its table row at the trash page."""
+        """Free ``slot``: clear occupancy and (paged) return its whole page
+        reservation to the pool and point its table row at the trash
+        page."""
         self.active[slot] = None
-        if self._slot_pages[slot]:
+        if self.paged and self._slot_pages[slot]:
             self._alloc.release(self._slot_pages[slot])
             self._slot_pages[slot] = []
             self.stats["page_releases"] += 1
@@ -396,6 +466,10 @@ class ServeEngine:
 
     # -- introspection --------------------------------------------------------
     def pool_stats(self) -> Dict[str, Any]:
+        """Page-pool occupancy (zeros for dense engines)."""
+        if not self.paged:
+            return dict(pages_total=0, pages_free=0, pages_used=0,
+                        occupancy=0.0)
         free = self.free_pages()
         used = self.pool_pages - free
         return dict(pages_total=self.pool_pages, pages_free=free,
@@ -405,11 +479,18 @@ class ServeEngine:
 
     def cache_bytes_per_token(self) -> float:
         """Attention-cache bytes per token of context capacity (the paper's
-        Table 1 lever): pool pages (values + scales, trash page excluded)
-        over ``pool_pages * page_size`` tokens, plus the page table."""
+        Table 1 lever). Dense: the rings (values + ``pos``) over ``slots *
+        max_len`` tokens. Paged: pool pages (values + scales, trash page
+        excluded) over ``pool_pages * page_size`` tokens, plus the page
+        table."""
+        segs = self.model.segments
+        if not self.paged:
+            total = sum(t.numel() * t.element_size() for seg in segs
+                        for t in self.cache[seg.name].values())
+            return total / (self.slots * self.max_len)
         per_page = sum(
             t.numel() * t.element_size() / (self.pool_pages + 1)
-            for seg in self.model.segments
+            for seg in segs
             for t in self.cache[seg.name].values())
         table = self.cache["page_table"]
         return per_page / self.page_size + (
@@ -425,3 +506,8 @@ class ServeEngine:
             if not self.has_work():
                 break
             self.step()
+
+    def acceptance_rate(self) -> float:
+        """Accepted MTP drafts over drafts made (0 before any draft)."""
+        d = self.stats["drafts"]
+        return self.stats["accepted_drafts"] / d if d else 0.0

@@ -1,8 +1,10 @@
 """PyTorch port on the card: each hand-written CUDA kernel against its plain
 PyTorch version at the main path's shapes, and the serving engine through
-the kernels of each served model (DeepSeek-V3: fp8_gemm, moe_gemm,
-paged_mla_decode; qwen3-14b: flash_prefill, paged_gqa_decode). Every test needs an NVIDIA GPU and nvcc (the kernels
-have no CPU mode) and skips without one.
+the kernels of each served path (paged DeepSeek-V3: fp8_gemm, moe_gemm,
+paged_mla_decode; qwen3-14b: flash_prefill, paged_gqa_decode; dense
+DeepSeek-V3 with MTP drafting: fp8_gemm, moe_gemm, mla_decode). Every test
+needs an NVIDIA GPU and nvcc (the kernels have no CPU mode) and skips
+without one.
 
 This file imports neither JAX nor the reference package, so it also runs
 where JAX is not installed (the machine with the card):
@@ -29,6 +31,7 @@ from repro_torch.core import fp8, paged
 from repro_torch.kernels import registry
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.fp8_gemm import ops as fp8_ops
+from repro_torch.kernels.mla_attention import ops as mla_ops
 from repro_torch.kernels.moe_gemm import ops as moe_ops
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.serve.engine import Request, ServeEngine
@@ -120,6 +123,64 @@ def test_paged_mla_decode_kernel_matches_plain(card, storage):
     assert paged_ops.paged_mla_decode.launches == before + 1
     ref = paged_ops.paged_mla_decode.run_plain(*args, scale=0.0722)
     assert _rel_err(out, ref) <= FP32_TOL
+
+
+# (B, H, R, Rr, T, layout): DeepSeek-V3's dense decode (full rings of 1024),
+# a ragged T with a slot whose ring is empty, a ring past one wrap, and the
+# smoke width
+MLA_CASES = [(4, 128, 512, 64, 1024, "full"), (3, 128, 512, 64, 1000, "empty"),
+             (4, 128, 512, 64, 1024, "wrapped"), (2, 4, 32, 8, 40, "empty")]
+
+
+def _mla_inputs(card, dims, dtype):
+    B, H, R, Rr, T, layout = dims
+    g = torch.Generator(device=card).manual_seed(4)
+    qa = torch.randn(B, H, R, generator=g, device=card)
+    qr = torch.randn(B, H, Rr, generator=g, device=card)
+    ckv = torch.randn(B, T, R, generator=g, device=card).to(dtype)
+    kr = torch.randn(B, T, Rr, generator=g, device=card).to(dtype)
+    t = torch.arange(T, dtype=torch.int32, device=card).expand(B, T)
+    if layout == "wrapped":             # rows 0..w hold positions T..T+w
+        w = 300 + 100 * torch.arange(B, dtype=torch.int32, device=card)
+        pos = torch.where(t <= w[:, None], t + T, t)
+        qpos = w + T
+    else:
+        pos = t.clone()
+        qpos = torch.full((B,), T - 1, dtype=torch.int32, device=card)
+        if layout == "empty":           # ragged validity, slot 0 empty
+            lens = (T * (1 + torch.arange(B, device=card))) // (B + 1)
+            pos = torch.where(t < lens[:, None].int(), t, -1)
+            pos[0] = -1
+            qpos = lens.int() - 1
+    return qa, qr, ckv, kr, pos.int().contiguous(), qpos.int()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dims", MLA_CASES)
+def test_mla_decode_kernel_matches_plain(card, dims, dtype):
+    args = _mla_inputs(card, dims, dtype)
+    before = mla_ops.mla_decode.launches
+    out = mla_ops.mla_decode(*args, scale=0.0722)
+    assert mla_ops.mla_decode.launches == before + 1
+    ref = mla_ops.mla_decode.run_plain(*args, scale=0.0722)
+    assert _rel_err(out, ref) <= FP32_TOL
+    if dims[-1] == "empty":             # no valid row: exactly zero
+        assert bool((out[0] == 0).all())
+
+
+def test_mla_decode_kernel_refuses_other_caches(card):
+    qa = torch.ones(1, 8, 32, device=card)
+    qr = torch.ones(1, 8, 8, device=card)
+    pos = torch.zeros(1, 16, dtype=torch.int32, device=card)
+    qpos = torch.zeros(1, dtype=torch.int32, device=card)
+    half = torch.ones(1, 16, 32, device=card, dtype=torch.float16)
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        mla_ops.mla_decode(qa, qr, half, half[..., :8], pos, qpos, scale=1.0)
+    narrow = torch.ones(1, 16, 4, device=card, dtype=torch.bfloat16)
+    wide = torch.ones(1, 16, 32, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        mla_ops.mla_decode(qa, qa[..., :4], wide, narrow, pos, qpos,
+                           scale=1.0)
 
 
 # (B, H, KV, hd, page, pp, contexts): qwen3-14b's decode (G = 5, not a
@@ -224,25 +285,31 @@ def test_attention_kernels_refuse_what_they_do_not_take(card):
                                    narrow, ones, ones, table, qpos, scale=1.0)
 
 
-# each served model, its overrides of the smoke config (qwen3-14b keeps 5
-# query heads per KV head, as at full width) and the kernels its path must
-# launch
+# each served path: the model, its overrides of the smoke config (qwen3-14b
+# keeps 5 query heads per KV head, as at full width), the engine's layout
+# options, the kernels its path must launch and those it must not
 ENGINE_PATHS = {
-    "deepseek-v3-671b": ({}, {"fp8_gemm", "moe_gemm", "paged_mla_decode"}),
-    "qwen3-14b": (dict(num_heads=10, num_kv_heads=2),
-                  {"flash_prefill", "paged_gqa_decode"}),
+    "deepseek-v3-671b": ("deepseek-v3-671b", {}, dict(paged=True),
+                         {"fp8_gemm", "moe_gemm", "paged_mla_decode"}, set()),
+    "qwen3-14b": ("qwen3-14b", dict(num_heads=10, num_kv_heads=2),
+                  dict(paged=True), {"flash_prefill", "paged_gqa_decode"},
+                  set()),
+    "deepseek-v3-671b-dense": ("deepseek-v3-671b", {},
+                               dict(paged=False, use_mtp=True),
+                               {"fp8_gemm", "moe_gemm", "mla_decode"},
+                               {"paged_mla_decode"}),
 }
 
 
-@pytest.mark.parametrize("arch", sorted(ENGINE_PATHS))
-def test_engine_on_the_card_launches_every_kernel(card, arch):
-    overrides, kernels = ENGINE_PATHS[arch]
+@pytest.mark.parametrize("path", sorted(ENGINE_PATHS))
+def test_engine_on_the_card_launches_every_kernel(card, path):
+    arch, overrides, layout, kernels, not_kernels = ENGINE_PATHS[path]
     cfg = dataclasses.replace(smoke_config(get_config(arch)),
                               dtype="bfloat16", param_dtype="bfloat16",
                               fp8_impl="pallas", **overrides)
-    eng = ServeEngine(cfg, slots=2, max_len=32, chunk=4, paged=True,
-                      page_size=8, page_storage="fp8", attn_impl="pallas",
-                      device=card)
+    eng = ServeEngine(cfg, slots=2, max_len=32, chunk=4, page_size=8,
+                      page_storage="fp8", attn_impl="pallas", device=card,
+                      **layout)
     reqs = [Request(i, np.arange(4 + i), max_new=5) for i in range(3)]
     registry.reset_launch_counts()
     for r in reqs:
@@ -252,4 +319,8 @@ def test_engine_on_the_card_launches_every_kernel(card, arch):
     assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.out)
     counts = registry.launch_counts()
     assert all(counts[n] > 0 for n in kernels), counts
-    assert eng.free_pages() == eng.pool_pages
+    assert not any(counts[n] for n in not_kernels), counts
+    if eng.paged:
+        assert eng.free_pages() == eng.pool_pages
+    if eng.use_mtp:
+        assert eng.stats["drafts"] == 12        # 3 requests x 4 decode steps

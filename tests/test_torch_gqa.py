@@ -301,8 +301,7 @@ class TestGqaAttention:
                                  page_table=torch.zeros(1, 1,
                                                         dtype=torch.int32))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            layers.gqa_attention(p, x[:, :1], cfg=tcfg, positions=pos[:, :1],
-                                 cache=pool)
+            layers.init_gqa_cache(tcfg, 1, 1, 16, "cpu", window=8)
 
     @pytest.mark.parametrize("storage", ["fp8", "bf16"])
     def test_paged_pool_matches_reference(self, qwen, storage):
