@@ -39,7 +39,22 @@ from the root of a checkout. Phases, each fatal on failure:
       smoke width (bf16; qwen3-14b keeps 5 query heads per KV head) on
       the card, through the kernels, against the plain versions on the
       CPU, same weights — each path of (c), and qwen3-14b on the dense
-      engine.
+      engine;
+  (e) the LogFMT-compressed ring all-reduce (``compressed_psum``): 4 rank
+      processes on the one card in a gloo group (FileStore in a temporary
+      directory; the wire payload staged through pinned host memory), each
+      summing its (7168, 18432) fp32 tensor — the gradient of one
+      DeepSeek-V3 dense layer's w1 at published width — at 8 and 10 bits
+      (kernels logfmt_encode, logfmt_decode: 6 launches of each per call
+      and rank, counters zeroed just before each call). Gates: the launch
+      counts, finite outputs of x's shape and dtype, every member within
+      0.05 of max|exact| at 10 bits (exact: the fp32 sum of the four
+      inputs, regenerated from their seeds), and the card's ring against
+      the same ring on the CPU ranks (plain codec) on (1024, 2048) inputs
+      from numpy seeds. Printed: the error at 8 bits, bytes on the wire,
+      wall ms per call (4 gloo ranks on one card: not a wire figure), peak
+      memory per rank; and, in two more processes, whether gloo's
+      point-to-point ops take CUDA tensors.
 
 The line before the last two is one JSON object with the kernel table; the
 next is the nvidia-smi name and power limit; the last is
@@ -55,9 +70,13 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
-# H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit)
+# H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit);
+# "sfu": transcendentals (log, exp) at 16 results per clock per SM (CUDA C++
+# Programming Guide, arithmetic instruction throughput, compute capability
+# 9.0) on 132 SMs at the 1.98 GHz boost clock
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"fp8": 1979e12, "bf16": 989e12, "fp32": 67e12}
+PEAK_FLOPS = {"fp8": 1979e12, "bf16": 989e12, "fp32": 67e12,
+              "sfu": 16 * 132 * 1.98e9}
 
 
 def log(*a):
@@ -448,6 +467,85 @@ def bench_flash_prefill(torch, dev, gen):
     return [row]
 
 
+# the compressed ring's hop chunk: a DeepSeek-V3 dense w1 gradient (7168 x
+# 18432 fp32) split over 4 ranks
+RING_SHAPE = (7168, 18432)
+RING_WORLD = 4
+RING_BITS = (8, 10)
+
+
+def logfmt_bytes(N, D, n_bits):
+    """Bytes one LogFMT pass moves: fp32 values, codes, fp32 sideband."""
+    return N * D * 4 + N * D * (1 if n_bits <= 8 else 2) + 8 * N * D // 128
+
+
+def bench_logfmt_encode(torch, dev, gen):
+    """The ring hop's encode: (1792, 18432) fp32 at 8 and 10 bits.
+    Tolerance as the reference holds its kernel: codes one level apart on
+    under 0.1% of entries, mn within rtol 1e-5 / atol 1e-6, step within
+    rtol 1e-5 / atol 1e-5."""
+    from repro_torch.kernels.logfmt import ops
+    N, D = RING_SHAPE[0] // RING_WORLD, RING_SHAPE[1]
+    x = torch.randn(N, D, generator=gen, device=dev)
+    rows = []
+    for n_bits in RING_BITS:
+        codes, mn, step = ops.logfmt_encode(x, n_bits=n_bits)
+        rc, rmn, rstep = ops.logfmt_encode.run_plain(x, n_bits=n_bits)
+        diff = codes.to(torch.int32) - rc.to(torch.int32)
+        off = float((diff != 0).float().mean())
+        if not (off < 1e-3 and int(diff.abs().max()) <= 1):
+            raise AssertionError(
+                f"logfmt_encode {n_bits} bits: {off:.3g} of the codes differ"
+                f" (max {int(diff.abs().max())} levels) from the plain "
+                "version's; tolerance under 0.1%, one level")
+        torch.testing.assert_close(mn, rmn, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(step, rstep, rtol=1e-5, atol=1e-5)
+        err = max(float((mn - rmn).abs().max()),
+                  float((step - rstep).abs().max()))
+        ms = cuda_ms(torch, lambda: ops.logfmt_encode(x, n_bits=n_bits), 20)
+        plain = cuda_ms(torch, lambda: ops.logfmt_encode.run_plain(
+            x, n_bits=n_bits), 3)
+        # a logf and two expf per value
+        b, by = bound_ms(logfmt_bytes(N, D, n_bits), 3 * N * D, "sfu")
+        rows.append(dict(shape=f"N={N} D={D} fp32, {n_bits} bits",
+                         max_abs_err=err, rel_err=off, tol=1e-3,
+                         rel_of="codes (one level apart)", ms=ms,
+                         plain_ms=plain, bound_ms=b, bound_by=by,
+                         library_ms=None))
+        del codes, mn, step, rc, rmn, rstep, diff
+    return rows
+
+
+def bench_logfmt_decode(torch, dev, gen):
+    """The ring hop's decode to fp32: codes of (1792, 18432) at 8 and 10
+    bits. Tolerance: allclose(rtol 1e-4, atol 1e-5), the reference's."""
+    from repro_torch.kernels.logfmt import ops
+    N, D = RING_SHAPE[0] // RING_WORLD, RING_SHAPE[1]
+    x = torch.randn(N, D, generator=gen, device=dev)
+    rows = []
+    for n_bits in RING_BITS:
+        codes, mn, step = ops.logfmt_encode.run_plain(x, n_bits=n_bits)
+        kw = dict(n_bits=n_bits, dtype=torch.float32)
+        y = ops.logfmt_decode(codes, mn, step, **kw)
+        ref = ops.logfmt_decode.run_plain(codes, mn, step, **kw)
+        d = (y - ref).abs()
+        rel = float((d / (1e-5 + 1e-4 * ref.abs())).max())
+        check(f"logfmt_decode {n_bits} bits", rel, 1.0,
+              of="the allclose bound")
+        ms = cuda_ms(torch, lambda: ops.logfmt_decode(codes, mn, step, **kw),
+                     20)
+        plain = cuda_ms(torch, lambda: ops.logfmt_decode.run_plain(
+            codes, mn, step, **kw), 3)
+        b, by = bound_ms(logfmt_bytes(N, D, n_bits), N * D, "sfu")
+        rows.append(dict(shape=f"N={N} D={D} to fp32, {n_bits} bits",
+                         max_abs_err=float(d.max()), rel_err=rel, tol=1.0,
+                         rel_of="allclose(rtol 1e-4, atol 1e-5)", ms=ms,
+                         plain_ms=plain, bound_ms=b, bound_by=by,
+                         library_ms=None))
+        del codes, mn, step, y, ref, d
+    return rows
+
+
 def phase_kernels(torch):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -457,7 +555,9 @@ def phase_kernels(torch):
            "paged_mla_decode": bench_paged_mla(torch, dev, gen),
            "paged_gqa_decode": bench_paged_gqa(torch, dev, gen),
            "flash_prefill": bench_flash_prefill(torch, dev, gen),
-           "mla_decode": bench_mla_decode(torch, dev, gen)}
+           "mla_decode": bench_mla_decode(torch, dev, gen),
+           "logfmt_encode": bench_logfmt_encode(torch, dev, gen),
+           "logfmt_decode": bench_logfmt_decode(torch, dev, gen)}
     for name, rows in out.items():
         for r in rows:
             lib = ("null" if r["library_ms"] is None
@@ -796,6 +896,217 @@ def phase_reference(torch, name, engine):
         raise AssertionError("MTP draft counts differ between card and CPU")
 
 
+# --- (e) ---------------------------------------------------------------------
+
+# the card's ring against the same ring on the CPU ranks: per-member inputs
+# from numpy seeds. "same-sign" draws each element's sign once for all
+# members (|x| in [1, 2)), so no sum cancels and the two rings must agree
+# element by element but for tie flips; "normal" is zero-mean, where a
+# last-ulp difference in a near-zero sum moves its tile's whole log-domain
+# grid at the next hop (printed, and held by its RMS error only)
+RING_SMALL = (1024, 2048)
+
+
+def ring_small_inputs(np, kind):
+    g = np.random.default_rng([14, 0 if kind == "same-sign" else 1])
+    shape = (RING_WORLD,) + RING_SMALL
+    if kind == "normal":
+        return g.standard_normal(shape).astype(np.float32)
+    sign = np.where(g.random(RING_SMALL) < 0.5, -1.0, 1.0)
+    return (sign * (1.0 + g.random(shape))).astype(np.float32)
+
+
+def ring_rank(rank, store_path, out_path):
+    """One rank of phase (e), in a spawned process: the compressed ring on
+    the card at full size, then card against CPU at the small size; the
+    results go to ``out_path`` as JSON. Raises (exit code 1) on any
+    fault."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import registry
+    from repro_torch.parallel.collectives import compressed_psum
+
+    torch.set_num_threads(2)
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", rank=rank, world_size=RING_WORLD,
+                            store=dist.FileStore(store_path, RING_WORLD))
+
+    def member(r):
+        g = torch.Generator(device=dev)
+        g.manual_seed(r)
+        return torch.randn(RING_SHAPE, generator=g, device=dev)
+
+    x = member(rank)
+    res = {"rank": rank, "calls": {}, "small": {}}
+    for n_bits in RING_BITS:
+        dist.barrier()
+        torch.cuda.synchronize()
+        registry.reset_launch_counts()
+        t0 = time.perf_counter()
+        y = compressed_psum(x, n_bits=n_bits)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = registry.launch_counts()
+        dist.barrier()
+        t0 = time.perf_counter()
+        compressed_psum(x, n_bits=n_bits)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        exact = torch.zeros_like(x)
+        for r in range(RING_WORLD):             # regenerated one at a time
+            exact += member(r)
+        scale = float(exact.abs().max())
+        res["calls"][str(n_bits)] = dict(
+            launches=counts, shape=list(y.shape), dtype=str(y.dtype),
+            finite=bool(torch.isfinite(y).all()),
+            err=float((y - exact).abs().max()) / scale,
+            wall_ms=1e3 * wall, warm_ms=1e3 * warm)
+        del y, exact
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del x
+    for kind in ("same-sign", "normal"):
+        xs = ring_small_inputs(np, kind)
+        exact = xs.astype(np.float64).sum(0)
+        scale = float(np.abs(exact).max())
+        for n_bits in RING_BITS:
+            mine = torch.from_numpy(xs[rank])
+            yc = compressed_psum(mine.to(dev), n_bits=n_bits).cpu().numpy()
+            yp = compressed_psum(mine, n_bits=n_bits).numpy()
+            rms = [float(np.sqrt(((y - exact) ** 2).mean())) / scale
+                   for y in (yc, yp)]
+            res["small"][f"{kind} {n_bits}"] = dict(
+                far=float((np.abs(yc - yp) > 1e-5 * scale).mean()),
+                rms_card=rms[0], rms_cpu=rms[1])
+    pathlib.Path(out_path).write_text(json.dumps(res))
+    dist.destroy_process_group()
+
+
+def gloo_cuda_probe(rank, store_path, out_path):
+    """Whether gloo's isend/irecv take CUDA tensors (a finding, not a path
+    of the port: ``compressed_psum`` stages gloo payloads through host
+    memory). Rank 0 sends a CUDA tensor to rank 1."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", rank=rank, world_size=2,
+                            store=dist.FileStore(store_path, 2))
+    t = torch.arange(1024, dtype=torch.float32, device="cuda") * (1 - rank)
+    try:
+        op = dist.isend(t, 1) if rank == 0 else dist.irecv(t, 0)
+        op.wait(timeout=datetime.timedelta(seconds=30))
+        torch.cuda.synchronize()
+        ok = rank == 0 or bool((t.cpu() == torch.arange(1024.0)).all())
+        what = "delivered" if ok else "wrong values"
+    except RuntimeError as e:           # the finding: what gloo says
+        what = "raised: " + str(e).splitlines()[0][:200]
+    pathlib.Path(out_path).write_text(what)
+
+
+def run_ranks(target, world, tmp, timeout):
+    """Start ``world`` spawned processes of ``target(rank, store, out)``,
+    wait for all, stop any left; returns the exit codes and the out
+    paths."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    store = str(pathlib.Path(tmp) / f"{target.__name__}.store")
+    outs = [str(pathlib.Path(tmp) / f"{target.__name__}.{r}.out")
+            for r in range(world)]
+    procs = [ctx.Process(target=target, args=(r, store, outs[r]))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + timeout
+    for p in procs:
+        p.join(max(1.0, deadline - time.perf_counter()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    return [p.exitcode for p in procs], outs
+
+
+def phase_ring(torch, card):
+    """Phase (e); returns the launch counts of rank 0's 8-bit call."""
+    import tempfile
+    torch.cuda.empty_cache()               # the served paths' cached blocks
+    N, D = RING_SHAPE
+    log(f"[e] compressed_psum on {RING_WORLD} gloo ranks on one card "
+        f"({card}), per rank ({N}, {D}) fp32 (a DeepSeek-V3 dense w1 "
+        "gradient at published width)")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        codes, outs = run_ranks(ring_rank, RING_WORLD, tmp, 600)
+        if codes != [0] * RING_WORLD:
+            raise AssertionError(f"ring ranks exited with {codes}")
+        res = [json.loads(pathlib.Path(o).read_text()) for o in outs]
+        log(f"[e] {RING_WORLD} ranks done in {time.perf_counter() - t0:.1f} "
+            "s (spawn and CUDA start included)")
+        probe_codes, probe_outs = run_ranks(gloo_cuda_probe, 2, tmp, 120)
+        said = [pathlib.Path(o).read_text() if c == 0
+                else f"killed by signal {-c}" if c is not None and c < 0
+                else f"exit code {c}"
+                for c, o in zip(probe_codes, probe_outs)]
+        log(f"[e] gloo isend/irecv of CUDA tensors (torch "
+            f"{torch.__version__}): sender {said[0]}; receiver {said[1]}")
+    hops = 2 * (RING_WORLD - 1)
+    rows = N // RING_WORLD
+    for n_bits in RING_BITS:
+        calls = [r["calls"][str(n_bits)] for r in res]
+        for r, c in enumerate(calls):
+            got = (c["launches"]["logfmt_encode"],
+                   c["launches"]["logfmt_decode"])
+            if got != (hops, hops):
+                raise AssertionError(f"rank {r}, {n_bits} bits: launched "
+                                     f"(encode, decode) {got}, want "
+                                     f"({hops}, {hops})")
+            if not (c["finite"] and c["shape"] == [N, D]
+                    and c["dtype"] == "torch.float32"):
+                raise AssertionError(f"rank {r}, {n_bits} bits: output "
+                                     f"finite={c['finite']} {c['shape']} "
+                                     f"{c['dtype']}")
+        err = max(c["err"] for c in calls)
+        if n_bits == 10 and not err <= 0.05:
+            raise AssertionError(f"10-bit ring: error {err:.4g} of "
+                                 "max|exact| > 0.05")
+        code_bytes = 1 if n_bits <= 8 else 2
+        hop_bytes = rows * D * code_bytes + 8 * rows * D // 128
+        log(f"[e] {n_bits} bits: every rank launched logfmt_encode and "
+            f"logfmt_decode {hops} times each; max error over members "
+            f"{err:.4g} of max|exact|"
+            f"{' (bound 0.05)' if n_bits == 10 else ' (not gated)'}; wire "
+            f"per hop {hop_bytes / 1e6:.2f} MB, "
+            f"{8 * hop_bytes / (rows * D)} bits per element as sent (codes "
+            f"in {8 * code_bytes}-bit words, as the reference's ring sends "
+            f"them; {n_bits + 0.5} if packed), against 32 for fp32 and 16 "
+            "for bf16 (computed from the payload shapes)")
+        log(f"[e] {n_bits} bits: wall ms per compressed_psum call, 4 gloo "
+            "ranks on one card, wire staged through host memory (not a wire "
+            f"figure): first call {[round(c['wall_ms'], 1) for c in calls]}"
+            f", second {[round(c['warm_ms'], 1) for c in calls]}")
+    log(f"[e] peak memory per rank: "
+        f"{[round(r['peak_gb'], 2) for r in res]} GB")
+    for key in res[0]["small"]:
+        small = [r["small"][key] for r in res]
+        far = max(m["far"] for m in small)
+        rms = [(m["rms_card"], m["rms_cpu"]) for m in small]
+        log(f"[e] card ring vs CPU ring, {RING_SMALL} {key} bits: elements "
+            f"apart > 1e-5 of max|exact|: max over members {far:.3g}; RMS "
+            "error of max|exact| card/CPU per member "
+            f"{[(round(a, 6), round(b, 6)) for a, b in rms]}")
+        if key.startswith("same-sign") and not far < 1e-3:
+            raise AssertionError(f"card ring disagrees with the CPU ring "
+                                 f"({key} bits): {far:.3g} of elements")
+        if not all(abs(a - b) <= 0.1 * b for a, b in rms):
+            raise AssertionError(f"card ring's RMS error differs from the "
+                                 f"CPU ring's by over 10% ({key} bits)")
+    return res[0]["calls"]["8"]["launches"]
+
+
 # --- main ----------------------------------------------------------------------
 
 
@@ -823,12 +1134,17 @@ def main():
             launches.setdefault(k, counts[k])
     for name, engine in REFERENCE_CHECKS:
         phase_reference(torch, name, engine)
+    ring = phase_ring(torch, card)
+    for k in ("logfmt_encode", "logfmt_decode"):
+        launches[k] = ring[k]            # per rank, one 8-bit call
 
     # one entry per kernel: the main path's shape (decode-time where the
     # kernel runs at decode; the fp8 pool for paged_gqa_decode, the bf16
-    # rings for mla_decode)
+    # rings for mla_decode, 8 bits for the LogFMT pair, whose launches are
+    # those of one rank's 8-bit compressed_psum call)
     pick = {"fp8_gemm": 1, "moe_gemm": 0, "paged_mla_decode": 0,
-            "paged_gqa_decode": 0, "flash_prefill": 0, "mla_decode": 0}
+            "paged_gqa_decode": 0, "flash_prefill": 0, "mla_decode": 0,
+            "logfmt_encode": 0, "logfmt_decode": 0}
     table = []
     for name, rows in kernels.items():
         r = rows[pick[name]]

@@ -7,6 +7,7 @@ on which TPU kernel it replaces:
 
   flash_attention/  flash bucketed-prefill attention (GQA prefill)
   fp8_gemm/         fine-grained-scaled FP8 GEMM (paper §3.1)
+  logfmt/           LogFMT-nBit encode and decode (paper §3.2)
   mla_attention/    MLA absorbed decode over the dense latent ring
   moe_gemm/         grouped expert GEMM
   paged_attention/  paged MLA absorbed and GQA decode over the page pool

@@ -26,6 +26,7 @@ import torch
 _KERNEL_MODULES = (
     "repro_torch.kernels.flash_attention.ops",
     "repro_torch.kernels.fp8_gemm.ops",
+    "repro_torch.kernels.logfmt.ops",
     "repro_torch.kernels.mla_attention.ops",
     "repro_torch.kernels.moe_gemm.ops",
     "repro_torch.kernels.paged_attention.ops",

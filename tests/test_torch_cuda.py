@@ -2,9 +2,11 @@
 PyTorch version at the main path's shapes, and the serving engine through
 the kernels of each served path (paged DeepSeek-V3: fp8_gemm, moe_gemm,
 paged_mla_decode; qwen3-14b: flash_prefill, paged_gqa_decode; dense
-DeepSeek-V3 with MTP drafting: fp8_gemm, moe_gemm, mla_decode). Every test
-needs an NVIDIA GPU and nvcc (the kernels have no CPU mode) and skips
-without one.
+DeepSeek-V3 with MTP drafting: fp8_gemm, moe_gemm, mla_decode). The two
+LogFMT kernels of the compressed ring all-reduce are held against their
+plain versions here; the ring itself runs in phase (e) of chip_smoke.py.
+Every test needs an NVIDIA GPU and nvcc (the kernels have no CPU mode) and
+skips without one.
 
 This file imports neither JAX nor the reference package, so it also runs
 where JAX is not installed (the machine with the card):
@@ -18,7 +20,11 @@ flash_prefill on fp32 operands), bf16 outputs 2^-7 (one rounding step).
 flash_prefill on bf16 operands is held per output row, relative to the
 row's own norm, at 1e-2: rounding P to bf16 for P·V moves a row by about
 2^-9 of itself, while a key dropped from a row of 2048 moves it by about
-2e-2.
+2e-2. LogFMT, as the reference holds its kernels
+(tests/test_kernel_registry.py): codes within one level on under 0.1% of
+entries (a last-ulp difference of log/exp flips a tie), mn within rtol
+1e-5 / atol 1e-6, step within rtol 1e-5 / atol 1e-5; decoded values within
+rtol 1e-4 / atol 1e-5 (fp32) or one bf16 rounding step.
 """
 import dataclasses
 
@@ -31,6 +37,7 @@ from repro_torch.core import fp8, paged
 from repro_torch.kernels import registry
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.fp8_gemm import ops as fp8_ops
+from repro_torch.kernels.logfmt import ops as logfmt_ops
 from repro_torch.kernels.mla_attention import ops as mla_ops
 from repro_torch.kernels.moe_gemm import ops as moe_ops
 from repro_torch.kernels.paged_attention import ops as paged_ops
@@ -283,6 +290,94 @@ def test_attention_kernels_refuse_what_they_do_not_take(card):
     with pytest.raises(ValueError, match="16-byte"):
         paged_ops.paged_gqa_decode(torch.ones(1, 2, 8, device=card), narrow,
                                    narrow, ones, ones, table, qpos, scale=1.0)
+
+
+# (N, D, n_bits, dtype): the compressed ring's hop chunk of a DeepSeek-V3
+# w1 gradient (1792 rows of 18432 at 4 ranks), the reference's parity
+# shapes, and ragged row counts
+LOGFMT_CASES = [(1792, 18432, 8, torch.float32),
+                (1792, 18432, 10, torch.float32),
+                (100, 384, 8, torch.bfloat16),
+                (7, 256, 10, torch.bfloat16),
+                (64, 256, 10, torch.float32),
+                (13, 128, 8, torch.float32)]
+
+
+def _logfmt_input(card, N, D, dtype):
+    g = torch.Generator(device=card).manual_seed(N * 131 + D)
+    x = (torch.randn(N, D, generator=g, device=card)
+         * torch.randn(N, D, generator=g, device=card).exp())
+    x[0, :3] = 0.0                       # exact zeros encode as code 0
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("case", LOGFMT_CASES)
+def test_logfmt_encode_kernel_matches_plain(card, case):
+    N, D, n_bits, dtype = case
+    x = _logfmt_input(card, N, D, dtype)
+    before = logfmt_ops.logfmt_encode.launches
+    codes, mn, step = logfmt_ops.logfmt_encode(x, n_bits=n_bits)
+    assert logfmt_ops.logfmt_encode.launches == before + 1
+    rc, rmn, rstep = logfmt_ops.logfmt_encode.run_plain(x, n_bits=n_bits)
+    assert codes.dtype == rc.dtype == (torch.uint8 if n_bits <= 8
+                                       else torch.uint16)
+    diff = codes.to(torch.int32) - rc.to(torch.int32)
+    assert float((diff != 0).float().mean()) < 1e-3
+    assert int(diff.abs().max()) <= 1
+    assert bool((codes[0, :3] == 0).all())
+    torch.testing.assert_close(mn, rmn, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(step, rstep, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", LOGFMT_CASES)
+def test_logfmt_decode_kernel_matches_plain(card, case, out_dtype):
+    N, D, n_bits, dtype = case
+    codes, mn, step = logfmt_ops.logfmt_encode.run_plain(
+        _logfmt_input(card, N, D, dtype), n_bits=n_bits)
+    before = logfmt_ops.logfmt_decode.launches
+    y = logfmt_ops.logfmt_decode(codes, mn, step, n_bits=n_bits,
+                                 dtype=out_dtype)
+    assert logfmt_ops.logfmt_decode.launches == before + 1
+    ref = logfmt_ops.logfmt_decode.run_plain(codes, mn, step, n_bits=n_bits,
+                                             dtype=out_dtype)
+    assert y.dtype == out_dtype and y.shape == (N, D)
+    tol = (dict(rtol=1e-4, atol=1e-5) if out_dtype == torch.float32
+           else dict(rtol=2 ** -7, atol=1e-5))
+    torch.testing.assert_close(y.float(), ref.float(), **tol)
+
+
+def test_logfmt_ops_reshape_a_batched_input_on_the_card(card):
+    x = _logfmt_input(card, 6, 256, torch.float32).reshape(2, 3, 256)
+    codes, mn, step = logfmt_ops.logfmt_encode(x, n_bits=8)
+    assert codes.shape == (2, 3, 256) and mn.shape == step.shape == (2, 3, 2)
+    y = logfmt_ops.logfmt_decode(codes, mn, step, n_bits=8,
+                                 dtype=torch.float32)
+    ref = logfmt_ops.logfmt_decode.run_plain(
+        *logfmt_ops.logfmt_encode.run_plain(x, n_bits=8), n_bits=8,
+        dtype=torch.float32)
+    torch.testing.assert_close(y, ref, rtol=1e-4, atol=1e-5)
+
+
+def test_logfmt_kernels_refuse_what_they_do_not_take(card):
+    with pytest.raises(ValueError, match="multiple of 128"):
+        logfmt_ops.logfmt_encode(torch.ones(4, 200, device=card), n_bits=8)
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        logfmt_ops.logfmt_encode(torch.ones(4, 128, device=card,
+                                            dtype=torch.float16), n_bits=8)
+    with pytest.raises(ValueError, match="2-16 bits"):
+        logfmt_ops.logfmt_encode(torch.ones(4, 128, device=card), n_bits=17)
+    codes, mn, step = logfmt_ops.logfmt_encode(
+        torch.ones(4, 128, device=card), n_bits=8)
+    with pytest.raises(TypeError, match="codes are"):
+        logfmt_ops.logfmt_decode(codes, mn, step, n_bits=10)
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        logfmt_ops.logfmt_decode(codes, mn, step, n_bits=8,
+                                 dtype=torch.float16)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        logfmt_ops.logfmt_decode(codes[:, :100], mn, step, n_bits=8)
+    with pytest.raises(ValueError, match="mn and step"):
+        logfmt_ops.logfmt_decode(codes, mn[:2], step, n_bits=8)
 
 
 # each served path: the model, its overrides of the smoke config (qwen3-14b

@@ -113,7 +113,8 @@ def test_cpu_tensor_runs_plain_and_counts_nothing():
 
 @pytest.mark.parametrize("name", ["fp8_gemm", "moe_gemm", "paged_mla_decode",
                                   "paged_gqa_decode", "flash_prefill",
-                                  "mla_decode"])
+                                  "mla_decode", "logfmt_encode",
+                                  "logfmt_decode"])
 def test_replaces_names_the_tpu_kernel_function(name):
     """Each op's ``replaces`` (file:line function) points at the JAX
     package's Pallas kernel function, as the PERF.md table cites it."""
