@@ -8,12 +8,17 @@ from the root of a checkout. Phases, each fatal on failure:
   (a) environment: the card's name and power limit (nvidia-smi), the
       torch/CUDA versions; build every kernel under src/repro_torch/csrc
       with nvcc (one process per source, in parallel) and time the build;
+      ptxas's registers, spills and warnings; the count of HGMMA (wgmma)
+      and UTMALDG (TMA load) instructions in flash_prefill's SASS
+      (cuobjdump), which fails at 0;
   (b) kernels: each hand-written kernel against its plain PyTorch version
       on the card, at the shapes the main path gives it, with the stated
       tolerance; per kernel the kernel time, the plain version's time, the
       bound (least time for the bytes it must move or the operations it
       must do, at the H100's published peaks) and, where one PyTorch call
       computes the same function, that call's time (``library_ms``);
+      flash_prefill at qwen3-14b's 2048 bucket (the table's row) and at
+      the 128 and 512 buckets, each with its kernel / SDPA ratio;
   (c) the main paths, each served by ``ServeEngine(attn_impl="pallas")``
       with seeded random weights drawn on the card, six seeded prompts, 32
       new tokens each, greedy:
@@ -33,7 +38,8 @@ from the root of a checkout. Phases, each fatal on failure:
       path must draft. Per path: tokens/s end to end, TTFT, steady decode
       ms/step at four slots (with and without the draft on the MTP path,
       and there dense rings against a paged pool on the same weights, in
-      turns), the longest prompt's prefill ms, peak memory, launches per
+      turns), the longest prompt's prefill ms (3 runs) and a
+      torch.profiler split of that prefill, peak memory, launches per
       decode step and a torch.profiler split of a decode step;
   (d) a reference check on a small input, per engine: the same engine at
       smoke width (bf16; qwen3-14b keeps 5 query heads per KV head) on
@@ -64,6 +70,7 @@ it exits non-zero before printing any result.
 import json
 import math
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -140,9 +147,34 @@ def phase_env(torch, build):
         f" wall ({', '.join(f'{k} {v:.2f} s' for k, v in secs.items())})")
     for name in build.sources():
         for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "warning")):
                 log(f"[a]   {name}: {line.strip()}")
+    sass_counts(build)
     return card
+
+
+def sass_counts(build):
+    """Show that the bf16 flash_prefill kernel runs on wgmma (HGMMA) fed
+    by TMA (UTMALDG): count both in its library's SASS with cuobjdump
+    (where the toolkit has it); a count of 0 fails."""
+    import shutil
+    name, ops = "flash_prefill", ("HGMMA", "UTMALDG")
+    tool = (shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump")
+    if not pathlib.Path(tool).exists():
+        log("[a] SASS: cuobjdump not found (not measured)")
+        return
+    sass = subprocess.run([tool, "-sass", str(build.library(name))],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    # "/*0af0*/  [@P0 ]OPCODE.MODIFIERS operands ;"
+    codes = [m.group(1) for m in re.finditer(
+        r"^\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)", sass, re.M)]
+    counts = {op: codes.count(op) for op in ops}
+    log(f"[a] SASS of {name}: " + ", ".join(
+        f"{op} x{n}" for op, n in counts.items()))
+    if not all(counts.values()):
+        raise AssertionError(f"{name}: the library holds no "
+                             f"{[op for op, n in counts.items() if not n]}")
 
 
 # --- (b) ---------------------------------------------------------------------
@@ -418,53 +450,59 @@ def sdpa_mla_ms(torch, qa, qr, ckv, kr, valid, scale, ref):
 
 
 def bench_flash_prefill(torch, dev, gen):
-    """qwen3-14b's prefill attention at its largest bucket: B = 1, S = T =
-    2048, 40 heads over 8 KV heads, hd 128, bf16, causal."""
+    """qwen3-14b's prefill attention: the largest bucket (S = T = 2048) for
+    the table, and the 128 and 512 buckets, each against SDPA."""
     from repro_torch.kernels.flash_attention import ops
     # per output row, relative to the row's own norm: P rounded to bf16
     # for P·V moves a row by ~2^-9 of itself; a key dropped from a row of
     # 2048 moves it by ~1/sqrt(2048) = 2e-2
     tol = 1e-2
-    B, S, H, KV, hd = 1, 2048, 40, 8, 128
-    q = torch.randn(B, S, H, hd, generator=gen, device=dev).bfloat16()
-    k = torch.randn(B, S, KV, hd, generator=gen, device=dev).bfloat16()
-    v = torch.randn(B, S, KV, hd, generator=gen, device=dev).bfloat16()
-    pos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+    rows = []
+    H, KV, hd = 40, 8, 128
     scale = 1.0 / math.sqrt(hd)
-    args = (q, k, v, pos, pos)
-    y = ops.flash_prefill(*args, causal=True, scale=scale)
-    ref = ops.flash_prefill.run_plain(*args, causal=True, scale=scale)
-    err, _ = max_err(torch, y, ref)
-    rel = max_row_err(torch, y, ref)
-    check("flash_prefill", rel, tol, of="its row's norm")
-    ms = cuda_ms(torch, lambda: ops.flash_prefill(*args, causal=True,
-                                                  scale=scale), 20)
-    plain = cuda_ms(torch, lambda: ops.flash_prefill.run_plain(
-        *args, causal=True, scale=scale), 3)
-    # yardstick: SDPA over K/V repeated to 40 heads (no row is empty in
-    # bucketed prefill, so it computes the same function here)
-    G = H // KV
-    qt = q.transpose(1, 2)
-    kt = k.repeat_interleave(G, dim=2).transpose(1, 2)
-    vt = v.repeat_interleave(G, dim=2).transpose(1, 2)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for S in (2048, 512, 128):
+        q = torch.randn(1, S, H, hd, generator=gen, device=dev).bfloat16()
+        k = torch.randn(1, S, KV, hd, generator=gen, device=dev).bfloat16()
+        v = torch.randn(1, S, KV, hd, generator=gen, device=dev).bfloat16()
+        pos = torch.arange(S, dtype=torch.int32, device=dev).expand(1, S)
+        args = (q, k, v, pos, pos)
+        y = ops.flash_prefill(*args, causal=True, scale=scale)
+        ref = ops.flash_prefill.run_plain(*args, causal=True, scale=scale)
+        err, _ = max_err(torch, y, ref)
+        rel = max_row_err(torch, y, ref)
+        check(f"flash_prefill (S = {S})", rel, tol, of="its row's norm")
+        iters = 20 if S >= 2048 else 100
+        ms = cuda_ms(torch, lambda: ops.flash_prefill(*args, causal=True,
+                                                      scale=scale), iters)
+        plain = cuda_ms(torch, lambda: ops.flash_prefill.run_plain(
+            *args, causal=True, scale=scale), 3)
+        # yardstick: SDPA over K/V repeated to 40 heads (no row is empty in
+        # bucketed prefill, so it computes the same function here)
+        G = H // KV
+        qt = q.transpose(1, 2)
+        kt = k.repeat_interleave(G, dim=2).transpose(1, 2)
+        vt = v.repeat_interleave(G, dim=2).transpose(1, 2)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
 
-    def lib():
-        return sdpa(qt, kt, vt, is_causal=True, scale=scale)
-    lib_rel = max_row_err(torch, lib().transpose(1, 2), ref)
-    log(f"[b]   library: scaled_dot_product_attention differs from the "
-        f"plain version by {lib_rel:.3g} of a row's norm")
-    lib_ms = cuda_ms(torch, lib, 20)
-    pairs = B * S * (S + 1) // 2                  # causal (row, key) pairs
-    nbytes = (2 * B * S * H * hd + 2 * 2 * B * S * KV * hd + 4 * 2 * B * S
-              + 4 * B * S * H * hd)
-    b, by = bound_ms(nbytes, 4 * hd * H * pairs, "bf16")
-    row = dict(shape=f"B={B} S=T={S} H={H} KV={KV} hd={hd} bf16 causal",
-               max_abs_err=err, rel_err=rel, rel_of="a row's norm", tol=tol,
-               ms=ms, plain_ms=plain,
-               bound_ms=b, bound_by=by, library_ms=lib_ms)
-    del q, k, v, y, ref, qt, kt, vt
-    return [row]
+        def lib():
+            return sdpa(qt, kt, vt, is_causal=True, scale=scale)
+        lib_rel = max_row_err(torch, lib().transpose(1, 2), ref)
+        lib_ms = cuda_ms(torch, lib, iters)
+        log(f"[b]   flash_prefill S = T = {S}: kernel {ms:.4f} ms, SDPA "
+            f"{lib_ms:.4f} ms (differs from the plain version by "
+            f"{lib_rel:.3g} of a row's norm): kernel / SDPA = "
+            f"{ms / lib_ms:.3f}")
+        pairs = S * (S + 1) // 2                 # causal (row, key) pairs
+        nbytes = (2 * S * H * hd + 2 * 2 * S * KV * hd + 4 * 2 * S
+                  + 4 * S * H * hd)
+        b, by = bound_ms(nbytes, 4 * hd * H * pairs, "bf16")
+        rows.append(dict(
+            shape=f"B=1 S=T={S} H={H} KV={KV} hd={hd} bf16 causal",
+            max_abs_err=err, rel_err=rel, rel_of="a row's norm", tol=tol,
+            ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+            library_ms=lib_ms))
+        del args, q, k, v, y, ref, qt, kt, vt
+    return rows
 
 
 # the compressed ring's hop chunk: a DeepSeek-V3 dense w1 gradient (7168 x
@@ -728,13 +766,20 @@ def phase_main_path(torch, name):
     bucket = bucket_length(len(p), max_len)
     toks = np.zeros((1, bucket), np.int32)
     toks[0, :len(p)] = p
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    model.prefill(params, {"tokens": torch.as_tensor(toks)},
-                  lengths=[len(p)])
-    torch.cuda.synchronize()
-    log(f"[c] prefill of a {len(p)}-token prompt (bucket {bucket}): "
-        f"{1e3 * (time.perf_counter() - t0):.1f} ms")
+    def prefill():
+        return model.prefill(params, {"tokens": torch.as_tensor(toks)},
+                             lengths=[len(p)])
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    log(f"[c] prefill of a {len(p)}-token prompt (bucket {bucket}), 3 runs: "
+        f"{[round(w, 2) for w in walls]} ms")
+    profile_device(torch, f"{name} profile of that prefill", prefill, 1,
+                   "prefill")
 
     # the output itself: finite logits of the right shape
     logits, _ = model.prefill(params, {"tokens": torch.as_tensor(
@@ -800,15 +845,23 @@ KERNEL_GROUPS = ("fp8_gemm", "moe_gemm", "paged_mla_decode",
 
 def profile_decode(torch, name, model, params, cache, st, steps=2,
                    use_mtp=False):
-    """Device time by kernel over ``steps`` decode steps (torch.profiler,
-    CUPTI), and the device's busy share of the profiled window."""
+    """Device time by kernel over ``steps`` decode steps."""
+    profile_device(torch, f"{name} profile of {steps} decode steps",
+                   lambda: model.decode_loop(params, cache, st, steps,
+                                             use_mtp=use_mtp), steps, "step")
+
+
+def profile_device(torch, label, fn, per, unit):
+    """Device time by kernel group over one call of ``fn`` (torch.profiler,
+    CUPTI), divided by ``per`` ``unit``s, and the device's busy share of
+    the profiled window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.decode_loop(params, cache, st, steps, use_mtp=use_mtp)
+        fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     rows = []
@@ -822,10 +875,10 @@ def profile_decode(torch, name, model, params, cache, st, steps=2,
             rows.append((us, e.count, e.key))
     busy = sum(r[0] for r in rows)
     if not busy:
-        log("[c] profile: no device time recorded (not measured)")
+        log(f"[c] {label}: no device time recorded (not measured)")
         return
     rows.sort(reverse=True)
-    launched = sum(r[1] for r in rows) // steps
+    launched = sum(r[1] for r in rows) // per
     groups = {}
     for us, n, key in rows:
         g = next((k for k in KERNEL_GROUPS if k in key), None)
@@ -834,14 +887,14 @@ def profile_decode(torch, name, model, params, cache, st, steps=2,
                  if any(w in key for w in ("gemm", "gemv", "nvjet", "xmma"))
                  else "other")
         groups[g] = groups.get(g, 0.0) + us
-    log(f"[c] {name} profile of {steps} decode steps: device busy {busy / 1e3:.2f} ms"
+    log(f"[c] {label}: device busy {busy / 1e3:.2f} ms"
         f" of {wall_us / 1e3:.2f} ms wall ({100 * busy / wall_us:.1f}% busy "
-        f"under the profiler), {launched} kernels per step; per step by "
+        f"under the profiler), {launched} kernels per {unit}; per {unit} by "
         "kernel: " + ", ".join(
-            f"{g} {v / 1e3 / steps:.3f} ms ({100 * v / busy:.1f}%)"
+            f"{g} {v / 1e3 / per:.3f} ms ({100 * v / busy:.1f}%)"
             for g, v in sorted(groups.items(), key=lambda kv: -kv[1])))
     for us, n, key in rows[:14]:
-        log(f"[c]   {us / 1e3 / steps:8.3f} ms/step  x{n // steps:<4d} "
+        log(f"[c]   {us / 1e3 / per:8.3f} ms/{unit}  x{n // per:<4d} "
             f"{key[:90]}")
 
 

@@ -86,6 +86,11 @@ def build(names: Iterable[str]) -> Dict[str, float]:
     return secs
 
 
+def library(name: str) -> Path:
+    """Where the built library of ``csrc/<name>.cu`` lives (or will)."""
+    return _target(name)
+
+
 def build_log(name: str) -> str:
     """The compiler's report for a built source (registers, spills)."""
     p = _target(name).with_suffix(".log")

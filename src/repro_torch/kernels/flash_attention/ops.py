@@ -10,17 +10,21 @@ bucket:
     o = Σ softmax(s)·v, zeros on a row with no valid key
                                              -> (B, S, H, hd) fp32
 
-The kernel (``csrc/flash_prefill.cu``) runs one thread block per (query
-block, head, batch) and walks the key blocks with an fp32 online softmax,
-skipping key blocks no row may attend (the upper triangle of causal
-prefill). bf16 operands go through the tensor cores (``mma.sync``, fp32
-accumulation, P rounded to bf16 for P·V); fp32 operands stay fp32 on the
-CUDA cores.
-
 What bounds it on an H100: causal prefill of a 2048 bucket at qwen3-14b's
-40 heads of 128 is ~43 GFLOP for ~70 MB of operands, so the bf16 tensor
-cores bound it. This first version feeds ``mma.sync`` from synchronous
-shared-memory loads; ``wgmma`` with a TMA pipeline is for a later PR.
+40 heads of 128 is 4.3e10 FLOP for ~50 MB of operands and output, so the
+bf16 tensor cores bound it: 0.0434 ms at 989 TFLOP/s.
+
+The kernel (``csrc/flash_prefill.cu``) on bf16 operands is built for
+Hopper: one persistent CTA per SM walks (128-row query tile, batch, head)
+tiles, heaviest first. A producer warp loads each key block's positions,
+skips blocks no row of the tile may attend (the upper triangle of causal
+prefill; no order of the positions assumed) and feeds Q, K and V by TMA,
+read in place through 4-D tensor maps, into a ring of shared-memory
+stages. Two consumer warpgroups take turns on the tensor cores: ``wgmma``
+for S = Q·Kᵀ, an fp32 online softmax in registers (exp2, the scale folded
+in) that runs under the products, then ``wgmma`` for O += P·V with P from
+registers and V read in its stored layout. fp32 operands stay fp32 on
+the CUDA cores.
 """
 from __future__ import annotations
 
@@ -99,6 +103,11 @@ def _flash_prefill_cuda(q, k, v, q_pos, k_pos, *, causal: bool,
     else:
         raise TypeError(f"flash_prefill: the CUDA kernel takes bf16 or fp32 "
                         f"operands, got {q.dtype}")
+    if code == 0 and not scale > 0:
+        # the bf16 kernel folds scale·log2 e into its exp2 and takes
+        # scale > 0: q·k·scale = (-q)·k·|scale| exactly (negating bf16 is
+        # exact), and scale 0 gives every valid key the same score
+        q, scale = (-q, -scale) if scale < 0 else (torch.zeros_like(q), 1.0)
     args = [registry.contiguous16(t)
             for t in (q, k, v, q_pos.int(), k_pos.int())]
     if not all(t.is_cuda for t in args):

@@ -227,7 +227,9 @@ def test_paged_gqa_decode_kernel_matches_plain(card, dims, storage):
 
 
 # (B, S, T, H, KV, hd, dtype, causal): qwen3-14b's largest bucket, the
-# reference's parity shapes, and ragged tiles (S, T not multiples of 64)
+# reference's parity shapes, ragged tiles (S, T not multiples of 64 or of
+# the bf16 kernel's 128-row query and key tiles), and the bf16 kernel's
+# other head dims (64- and 128-byte swizzled rows)
 FLASH_CASES = [(1, 2048, 2048, 40, 8, 128, torch.bfloat16, True),
                (2, 16, 16, 4, 2, 32, torch.float32, True),
                (2, 16, 16, 4, 2, 32, torch.bfloat16, True),
@@ -237,7 +239,11 @@ FLASH_CASES = [(1, 2048, 2048, 40, 8, 128, torch.bfloat16, True),
                (2, 16, 16, 2, 1, 32, torch.float32, False),
                (2, 100, 100, 10, 2, 64, torch.bfloat16, True),
                (1, 70, 130, 4, 4, 128, torch.bfloat16, False),
-               (2, 100, 100, 10, 2, 128, torch.float32, True)]
+               (2, 100, 100, 10, 2, 128, torch.float32, True),
+               (3, 200, 200, 10, 2, 128, torch.bfloat16, True),
+               (2, 70, 130, 10, 2, 64, torch.bfloat16, False),
+               (2, 256, 256, 10, 2, 32, torch.bfloat16, True),
+               (2, 256, 256, 10, 2, 64, torch.bfloat16, True)]
 
 
 @pytest.mark.parametrize("case", FLASH_CASES)
@@ -269,6 +275,51 @@ def test_flash_prefill_rows_without_keys_are_zero(card):
     kp = torch.where(qp >= 10, qp, -1)              # rows 0..9 see no key
     out = flash_ops.flash_prefill(q, k, k, qp, kp, causal=True, scale=0.2)
     assert bool((out[0, :10] == 0).all()) and bool(out[0, 10:].abs().sum() > 0)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_prefill_skips_blocks_in_any_order(card, causal):
+    """Key positions a permutation of 0..T-1 with one whole 128-key block of
+    pads, query rows without a position (q_pos -1), one whole 128-row tile
+    of them: block skipping assumes no order of the positions, an all-pad
+    block is skipped, and rows that see no key come out zero."""
+    B, S, H, KV, hd = 2, 512, 10, 2, 128
+    g = torch.Generator(device=card).manual_seed(4)
+    q = torch.randn(B, S, H, hd, generator=g, device=card).bfloat16()
+    k = torch.randn(B, S, KV, hd, generator=g, device=card).bfloat16()
+    v = torch.randn(B, S, KV, hd, generator=g, device=card).bfloat16()
+    kp = torch.stack([torch.randperm(S, generator=g, device=card)
+                      for _ in range(B)]).int()
+    kp[:, 256:384] = -1
+    qp = torch.arange(S, dtype=torch.int32, device=card).repeat(B, 1)
+    qp[:, ::7] = -1
+    qp[0, 128:256] = -1
+    args = (q, k, v, qp, kp)
+    before = flash_ops.flash_prefill.launches
+    out = flash_ops.flash_prefill(*args, causal=causal, scale=hd ** -0.5)
+    assert flash_ops.flash_prefill.launches == before + 1
+    ref = flash_ops.flash_prefill.run_plain(*args, causal=causal,
+                                            scale=hd ** -0.5)
+    assert _row_err(out, ref) <= FLASH_TOL[torch.bfloat16]
+    if causal:
+        assert bool((out[qp < 0] == 0).all())
+
+
+@pytest.mark.parametrize("scale", [-0.3, 0.0])
+def test_flash_prefill_bf16_takes_any_scale(card, scale):
+    """The bf16 kernel folds the scale into its exp2 for scale > 0; the
+    wrapper maps a negative or zero scale onto that form exactly."""
+    B, S, H, KV, hd = 2, 200, 10, 2, 64
+    g = torch.Generator(device=card).manual_seed(5)
+    q = torch.randn(B, S, H, hd, generator=g, device=card).bfloat16()
+    k = torch.randn(B, S, KV, hd, generator=g, device=card).bfloat16()
+    v = torch.randn(B, S, KV, hd, generator=g, device=card).bfloat16()
+    pos = torch.arange(S, dtype=torch.int32, device=card).repeat(B, 1)
+    out = flash_ops.flash_prefill(q, k, v, pos, pos, causal=True,
+                                  scale=scale)
+    ref = flash_ops.flash_prefill.run_plain(q, k, v, pos, pos, causal=True,
+                                            scale=scale)
+    assert _row_err(out, ref) <= FLASH_TOL[torch.bfloat16]
 
 
 def test_attention_kernels_refuse_what_they_do_not_take(card):
