@@ -9,8 +9,9 @@ from the root of a checkout. Phases, each fatal on failure:
       torch/CUDA versions; build every kernel under src/repro_torch/csrc
       with nvcc (one process per source, in parallel) and time the build;
       ptxas's registers, spills and warnings; the count of HGMMA (wgmma)
-      and UTMALDG (TMA load) instructions in flash_prefill's SASS
-      (cuobjdump), which fails at 0;
+      and UTMALDG (TMA load) instructions in flash_prefill's SASS, and of
+      UBLKCP (bulk copy) and UTMALDG in moe_gemm's (cuobjdump); a count
+      of 0 fails;
   (b) kernels: each hand-written kernel against its plain PyTorch version
       on the card, at the shapes the main path gives it, with the stated
       tolerance; per kernel the kernel time, the plain version's time, the
@@ -19,6 +20,9 @@ from the root of a checkout. Phases, each fatal on failure:
       computes the same function, that call's time (``library_ms``);
       flash_prefill at qwen3-14b's 2048 bucket (the table's row) and at
       the 128 and 512 buckets, each with its kernel / SDPA ratio;
+      moe_gemm with E4M3 and bf16 weights at C = 8 and 40, w1/w3 and w2
+      (the table's row: E4M3, C = 8, w1/w3), each against torch.bmm,
+      the two timed in turns before any plain version runs;
   (c) the main paths, each served by ``ServeEngine(attn_impl="pallas")``
       with seeded random weights drawn on the card, six seeded prompts, 32
       new tokens each, greedy:
@@ -35,12 +39,16 @@ from the root of a checkout. Phases, each fatal on failure:
       Every request must finish with the right count of in-vocabulary
       tokens, no page may leak, each kernel of the path must have launched
       (counters zeroed just before the path, read just after) and the MTP
-      path must draft. Per path: tokens/s end to end, TTFT, steady decode
-      ms/step at four slots (with and without the draft on the MTP path,
-      and there dense rings against a paged pool on the same weights, in
-      turns), the longest prompt's prefill ms (3 runs) and a
-      torch.profiler split of that prefill, peak memory, launches per
-      decode step and a torch.profiler split of a decode step;
+      path must draft. On the DeepSeek-V3 paths every routed expert matrix
+      must be stored as E4M3 codes (the count stored in the weight dtype,
+      and the expert wall's bytes, are printed) and a decode step must
+      launch moe_gemm three times per MoE layer. Per path: tokens/s end
+      to end, TTFT, steady decode ms/step at four slots (with and without
+      the draft on the MTP path, and there dense rings against a paged
+      pool on the same weights, in turns), the longest prompt's prefill ms
+      (3 runs) and a torch.profiler split of that prefill, peak memory,
+      launches per decode step and a torch.profiler split of a decode
+      step;
   (d) a reference check on a small input, per engine: the same engine at
       smoke width (bf16; qwen3-14b keeps 5 query heads per KV head) on
       the card, through the kernels, against the plain versions on the
@@ -153,28 +161,35 @@ def phase_env(torch, build):
     return card
 
 
+# the instructions each kernel's design rests on: flash_prefill runs on
+# wgmma (HGMMA) fed by TMA (UTMALDG); moe_gemm streams its weights by bulk
+# copies (UBLKCP: code blocks) and TMA (UTMALDG: x rows, bf16 weights)
+SASS_OPS = {"flash_prefill": ("HGMMA", "UTMALDG"),
+            "moe_gemm": ("UBLKCP", "UTMALDG")}
+
+
 def sass_counts(build):
-    """Show that the bf16 flash_prefill kernel runs on wgmma (HGMMA) fed
-    by TMA (UTMALDG): count both in its library's SASS with cuobjdump
-    (where the toolkit has it); a count of 0 fails."""
+    """Count the instructions of ``SASS_OPS`` in each kernel's library
+    with cuobjdump (where the toolkit has it); a count of 0 fails."""
     import shutil
-    name, ops = "flash_prefill", ("HGMMA", "UTMALDG")
     tool = (shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump")
     if not pathlib.Path(tool).exists():
         log("[a] SASS: cuobjdump not found (not measured)")
         return
-    sass = subprocess.run([tool, "-sass", str(build.library(name))],
-                          capture_output=True, text=True, timeout=120,
-                          check=True).stdout
-    # "/*0af0*/  [@P0 ]OPCODE.MODIFIERS operands ;"
-    codes = [m.group(1) for m in re.finditer(
-        r"^\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)", sass, re.M)]
-    counts = {op: codes.count(op) for op in ops}
-    log(f"[a] SASS of {name}: " + ", ".join(
-        f"{op} x{n}" for op, n in counts.items()))
-    if not all(counts.values()):
-        raise AssertionError(f"{name}: the library holds no "
-                             f"{[op for op, n in counts.items() if not n]}")
+    for name, ops in SASS_OPS.items():
+        sass = subprocess.run([tool, "-sass", str(build.library(name))],
+                              capture_output=True, text=True, timeout=120,
+                              check=True).stdout
+        # "/*0af0*/  [@P0 ]OPCODE.MODIFIERS operands ;"
+        codes = [m.group(1) for m in re.finditer(
+            r"^\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)", sass,
+            re.M)]
+        counts = {op: codes.count(op) for op in ops}
+        log(f"[a] SASS of {name}: " + ", ".join(
+            f"{op} x{n}" for op, n in counts.items()))
+        missing = [op for op, n in counts.items() if not n]
+        if missing:
+            raise AssertionError(f"{name}: the library holds no {missing}")
 
 
 # --- (b) ---------------------------------------------------------------------
@@ -247,28 +262,59 @@ def scaled_mm_ms(torch, xq, xs, wq, ws, ref):
 
 
 def bench_moe_gemm(torch, dev, gen):
+    """DeepSeek-V3's routed experts: w1/w3 (7168 -> 2048) and w2 (2048 ->
+    7168) over 256 experts, at decode (C = 8) and at the 1024-token prefill
+    bucket (C = 40), with the weights as E4M3 codes and block scales (the
+    FP8 path's storage) and as bf16. ``library_ms`` is torch.bmm on the
+    bf16 weights, which for the codes are their dequantized values (the
+    same function)."""
+    from repro_torch.core import fp8
     from repro_torch.kernels.moe_gemm import ops
     tol = 2 ** -7   # bf16 output: one rounding step of the largest value
+    E = 256
     rows = []
     for D, F, what in ((7168, 2048, "w1/w3"), (2048, 7168, "w2")):
-        E, C = 256, 8
-        x = torch.randn(E, C, D, generator=gen, device=dev).bfloat16()
         w = (torch.randn(E, D, F, generator=gen, device=dev) * 0.02).bfloat16()
-        y = ops.grouped_matmul(x, w)
-        ref = ops.grouped_matmul.run_plain(x, w)
-        err, rel = max_err(torch, y, ref)
-        check(f"moe_gemm {what}", rel, tol)
-        ms = cuda_ms(torch, lambda: ops.grouped_matmul(x, w), 10)
-        plain = cuda_ms(torch, lambda: ops.grouped_matmul.run_plain(x, w), 2,
-                        warmup=1)
-        lib = cuda_ms(torch, lambda: torch.bmm(x, w), 10)
-        nbytes = 2 * (E * C * D + E * D * F + E * C * F)
-        b, by = bound_ms(nbytes, 2 * E * C * D * F, "bf16")
-        rows.append(dict(shape=f"E={E} C={C} D={D} F={F} ({what})",
-                         max_abs_err=err, rel_err=rel, tol=tol, ms=ms,
-                         plain_ms=plain, bound_ms=b, bound_by=by,
-                         library_ms=lib))
-        del x, w, y, ref
+        codes = fp8.Fp8Experts.quantize(w)
+        values = codes.dequant()         # the bf16 weights the codes hold
+        xs = {C: torch.randn(E, C, D, generator=gen, device=dev).bfloat16()
+              for C in (8, 40)}
+        fmts = (("e4m3", codes, values), ("bf16", w, w))
+        # The kernel and torch.bmm first, in turns (kernel, bmm, bmm,
+        # kernel): whatever runs right after an fp32 plain version runs up
+        # to a fifth slower (kernels/moe_gemm/probe.py), so no plain version
+        # runs before these and both see the same state.
+        times = {}
+        for C, x in xs.items():
+            for fmt, wk, wlib in fmts:
+                kern = lambda: ops.grouped_matmul(x, wk)
+                bmm = lambda: torch.bmm(x, wlib)
+                t = [cuda_ms(torch, f, 10) for f in (kern, bmm, bmm, kern)]
+                times[C, fmt] = ((t[0] + t[3]) / 2, (t[1] + t[2]) / 2)
+        for C, x in xs.items():
+            for fmt, wk, wlib in fmts:
+                y = ops.grouped_matmul(x, wk)
+                ref = ops.grouped_matmul.run_plain(x, wk)
+                err, rel = max_err(torch, y, ref)
+                name = f"moe_gemm {what} C={C} {fmt}"
+                check(name, rel, tol)
+                del y, ref
+                ms, lib = times[C, fmt]
+                plain = cuda_ms(torch, lambda: ops.grouped_matmul.run_plain(
+                    x, wk), 2, warmup=1)
+                wbytes = (codes.nbytes if fmt == "e4m3" else 2 * E * D * F)
+                nbytes = wbytes + 2 * (E * C * D + E * C * F)
+                b, by = bound_ms(nbytes, 2 * E * C * D * F, "bf16")
+                log(f"[b]   {name}: kernel / torch.bmm = {ms / lib:.3f}, "
+                    f"{nbytes / ms / 1e9:.3f} TB/s of the bound's bytes")
+                rows.append(dict(
+                    shape=f"E={E} C={C} D={D} F={F} ({what}, {fmt} "
+                          "weights)",
+                    max_abs_err=err, rel_err=rel, tol=tol, ms=ms,
+                    plain_ms=plain, bound_ms=b, bound_by=by,
+                    library_ms=lib))
+                torch.cuda.empty_cache()
+        del w, codes, values, xs
         torch.cuda.empty_cache()
     return rows
 
@@ -679,6 +725,10 @@ def phase_main_path(torch, name):
     log(f"[c] engine up (weights drawn on the card, load-time preparation): "
         f"{time.perf_counter() - t0:.2f} s, "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    moe_layers = sum(seg.n for seg in eng.model.segments
+                     if seg.kind == "moe")
+    if moe_layers:
+        expert_storage(eng)
 
     rng = np.random.default_rng(0)
     lengths = spec["lengths"]
@@ -747,6 +797,10 @@ def phase_main_path(torch, name):
     model.decode_loop(params, cache, st, 1, use_mtp=mtp)
     per_step = {k: n for k, n in registry.launch_counts().items() if n}
     log(f"[c] launches per decode step: {per_step}")
+    if moe_layers and per_step.get("moe_gemm") != 3 * moe_layers:
+        raise AssertionError(f"a decode step launched moe_gemm "
+                             f"{per_step.get('moe_gemm')} times, want 3 per "
+                             f"MoE layer ({moe_layers})")
     for use in ((True, False) if mtp else (False,)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -790,6 +844,20 @@ def phase_main_path(torch, name):
     del eng, model, params, cache, logits
     torch.cuda.empty_cache()
     return counts
+
+
+def expert_storage(eng):
+    """Print how the engine stores its routed experts; fail unless every
+    matrix is E4M3 codes and scales (the load check kept none in the
+    weight dtype)."""
+    from repro_torch import bridge
+    st = bridge.expert_storage(eng.params)
+    kept = eng.params.get("plain_expert_matrices")
+    log(f"[c] routed expert matrices: {st['e4m3']} as E4M3 codes + block "
+        f"scales, {st['plain']} in the weight dtype ({kept} kept there by "
+        f"the load check); expert wall {st['bytes'] / 1e9:.3f} GB")
+    if st["plain"] or kept or not st["e4m3"]:
+        raise AssertionError("routed experts not all stored as E4M3 codes")
 
 
 def steady_state(torch, eng, spec):
@@ -1192,9 +1260,10 @@ def main():
         launches[k] = ring[k]            # per rank, one 8-bit call
 
     # one entry per kernel: the main path's shape (decode-time where the
-    # kernel runs at decode; the fp8 pool for paged_gqa_decode, the bf16
-    # rings for mla_decode, 8 bits for the LogFMT pair, whose launches are
-    # those of one rank's 8-bit compressed_psum call)
+    # kernel runs at decode; E4M3 codes and w1/w3 for moe_gemm, the fp8
+    # pool for paged_gqa_decode, the bf16 rings for mla_decode, 8 bits for
+    # the LogFMT pair, whose launches are those of one rank's 8-bit
+    # compressed_psum call)
     pick = {"fp8_gemm": 1, "moe_gemm": 0, "paged_mla_decode": 0,
             "paged_gqa_decode": 0, "flash_prefill": 0, "mla_decode": 0,
             "logfmt_encode": 0, "logfmt_decode": 0}

@@ -15,10 +15,17 @@
   ``core.fp8.Fp8Weight``. Same values as the
   per-call reference; at published widths the per-call expert qdq would
   need ~15 GB of fp32 temporaries per expert matrix.
+  On the kernel path (``cfg.fp8_impl == "pallas"``) the routed experts
+  (``w1``, ``w3``, ``w2`` under ``moe``) are stored instead as their E4M3
+  codes and block scales (``core.fp8.Fp8Experts``, 1 byte a weight), once
+  :func:`check_experts` has found every dequantized matrix bit for bit
+  equal to the straight-through value; a stack that fails keeps that value
+  in its own dtype and is counted under ``"plain_expert_matrices"``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+import math
+from typing import Any, Dict, Tuple, Union
 
 import numpy as np
 import torch
@@ -66,6 +73,52 @@ def _qdq_experts(w: torch.Tensor, inplace: bool) -> torch.Tensor:
     return out
 
 
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal shape, dtype and bits (NaNs and the sign of zero included)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    it = ints[a.element_size()]
+    return torch.equal(a.contiguous().view(it), b.contiguous().view(it))
+
+
+def check_experts(w: torch.Tensor, experts: fp8.Fp8Experts, inplace: bool
+                  ) -> Tuple[Union[fp8.Fp8Experts, torch.Tensor], int]:
+    """``(experts, 0)`` if every dequantized matrix of ``experts`` equals
+    the straight-through block qdq of the same matrix of ``w`` bit for
+    bit; else ``w``'s straight-through value in its own dtype (served by
+    the kernel's bf16 format) and the count of its matrices. One matrix at
+    a time: bounded temporaries."""
+    flat = w.reshape(-1, *w.shape[-2:])
+    codes = experts.wq.reshape(-1, *experts.wq.shape[-4:])
+    scales = experts.ws.reshape(-1, *experts.ws.shape[-2:])
+    for i in range(flat.shape[0]):
+        one = fp8.Fp8Experts(codes[i], scales[i], experts.dtype,
+                             experts.d_in, experts.d_out)
+        if not same_bits(one.dequant(), fp8.ste_qdq(flat[i], fp8.qdq_block)):
+            return _qdq_experts(w, inplace), flat.shape[0]
+    return experts, 0
+
+
+def expert_storage(params: Dict[str, Any]) -> Dict[str, int]:
+    """The routed-expert matrices of a tree (``w1``, ``w3``, ``w2`` under
+    ``moe``) by storage: ``e4m3`` in ``Fp8Experts`` containers, ``plain``
+    as tensors in the weight dtype; and ``bytes``, the expert wall."""
+    out = {"e4m3": 0, "plain": 0, "bytes": 0}
+
+    def walk(tree, path):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, path + (k,))
+            elif k in ("w1", "w3", "w2") and "moe" in path:
+                kind = "e4m3" if isinstance(v, fp8.Fp8Experts) else "plain"
+                out[kind] += math.prod(v.shape[:-2])
+                out["bytes"] += v.nbytes
+
+    walk(params, ())
+    return out
+
+
 def prepare_for_serving(params: Dict[str, Any], cfg: ModelConfig, *,
                         inplace: bool = False) -> Dict[str, Any]:
     """Load-time weight preparation (see the module docstring). Returns a
@@ -78,12 +131,21 @@ def prepare_for_serving(params: Dict[str, Any], cfg: ModelConfig, *,
         return params
     if not cfg.fp8:
         return dict(params, prepared=True)
+    fallbacks = 0
 
     def walk(tree, path):
+        nonlocal fallbacks
         out = {}
         for k, v in tree.items():
             if isinstance(v, dict):
                 out[k] = walk(v, path + (k,))
+            elif (k in ("w1", "w3", "w2") and "moe" in path
+                  and cfg.fp8_impl == "pallas"):
+                out[k], n = check_experts(v, fp8.Fp8Experts.quantize(v),
+                                          inplace)
+                fallbacks += n
+                if inplace:
+                    tree[k] = out[k]     # release the stack for its codes
             elif k in ("w1", "w3", "w2", "ws1", "ws3", "ws2") \
                     and "moe" in path:
                 out[k] = _qdq_experts(v, inplace)
@@ -96,4 +158,5 @@ def prepare_for_serving(params: Dict[str, Any], cfg: ModelConfig, *,
 
     out = walk(params, ())
     out["prepared"] = True
+    out["plain_expert_matrices"] = fallbacks
     return out

@@ -16,7 +16,9 @@ version on the CPU); ``impl='ref'`` keeps it inline here.
 Serving weights are frozen, so the port quantizes each one once, at load
 (:class:`Fp8Weight`, made by ``bridge.prepare_for_serving``), where the
 reference re-quantizes per call (``kernels/fp8_gemm/ops.py:33-39``). The
-values are the same: block quantization of the same weight.
+values are the same: block quantization of the same weight. The routed
+experts of the kernel path are held the same way (:class:`Fp8Experts`):
+their straight-through forward value is exactly ``code x scale``.
 """
 from __future__ import annotations
 
@@ -54,6 +56,91 @@ class Fp8Weight:
 
     def layer(self, i: int) -> "Fp8Weight":
         return Fp8Weight(self.w[i], self.wq[i], self.ws[i])
+
+
+def _chunk_swizzle(codes: torch.Tensor) -> torch.Tensor:
+    """Swap 16-byte chunk c of row f with chunk c ^ 4(f & 1) in each
+    ``(..., BLOCK, BLOCK)`` uint8 code block (an involution: it both lays
+    out and restores ``Fp8Experts.wq``)."""
+    f = torch.arange(BLOCK, device=codes.device)[:, None]
+    c = torch.arange(BLOCK // 16, device=codes.device)[None, :]
+    idx = (c ^ ((f & 1) << 2))[..., None].expand(BLOCK, BLOCK // 16, 16)
+    t = codes.reshape(*codes.shape[:-1], BLOCK // 16, 16)
+    return torch.gather(t, -2, idx.expand_as(t)).reshape(codes.shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class Fp8Experts:
+    """Stacked routed-expert weights ``(..., E, D, F)`` held as E4M3 codes
+    with fp32 128x128 block scales, made once at load
+    (``bridge.prepare_for_serving``). The weight is ``dtype(code x
+    scale)``, exactly the forward value of the reference's per-call
+    straight-through block qdq (the load checks this bit for bit).
+
+    ``wq`` is the ``moe_gemm`` kernel's layout: ``(..., E, Fp/128, Dp/128,
+    128, 128)``, one contiguous 16 KB block per (F block, D block), rows
+    f of 128 consecutive d (so one 16-byte read holds 16 d of one output
+    column), the 16-byte chunks of odd rows swapped between halves
+    (:func:`_chunk_swizzle`); D and F zero-padded to multiples of 128
+    (``Dp``, ``Fp``). A negative-zero code is stored as +0, the value
+    ``w + (qdq(w) - w)`` gives. ``ws`` is ``(..., E, Dp/128, Fp/128)``
+    fp32. ``d_in``, ``d_out`` are D and F before padding. Leading axes
+    (layers) ride along; :meth:`layer` slices one off."""
+    wq: torch.Tensor
+    ws: torch.Tensor
+    dtype: torch.dtype
+    d_in: int
+    d_out: int
+
+    @property
+    def shape(self) -> torch.Size:
+        return torch.Size((*self.wq.shape[:-4], self.d_in, self.d_out))
+
+    @property
+    def nbytes(self) -> int:
+        return self.wq.nbytes + self.ws.nbytes
+
+    def layer(self, i: int) -> "Fp8Experts":
+        return Fp8Experts(self.wq[i], self.ws[i], self.dtype, self.d_in,
+                          self.d_out)
+
+    @classmethod
+    def quantize(cls, w: torch.Tensor) -> "Fp8Experts":
+        """Block-quantize every ``(D, F)`` matrix of ``w`` (one at a time:
+        bounded fp32 temporaries)."""
+        D, F = w.shape[-2:]
+        KB, FB = -(-D // BLOCK), -(-F // BLOCK)
+        lead = w.shape[:-2]
+        flat = w.reshape(-1, D, F)
+        wq = torch.empty((flat.shape[0], FB, KB, BLOCK, BLOCK),
+                         dtype=torch.uint8, device=w.device)
+        ws = torch.empty((flat.shape[0], KB, FB), dtype=torch.float32,
+                         device=w.device)
+        full = torch.zeros((KB * BLOCK, FB * BLOCK), dtype=torch.uint8,
+                           device=w.device)
+        for i in range(flat.shape[0]):
+            q, ws[i] = quantize_blockwise(flat[i])
+            u = q.view(torch.uint8)
+            full[:D, :F] = u.masked_fill(u == 0x80, 0)
+            # (KB, d, FB, f) -> (FB, KB, f, d)
+            blocks = full.view(KB, BLOCK, FB, BLOCK).permute(2, 0, 3, 1)
+            wq[i] = _chunk_swizzle(blocks)
+        return cls(wq.view(E4M3).reshape(*lead, FB, KB, BLOCK, BLOCK),
+                   ws.reshape(*lead, KB, FB), w.dtype, D, F)
+
+    def dequant(self) -> torch.Tensor:
+        """The ``(..., D, F)`` weight in ``dtype``: each code times its
+        block's scale in fp32, rounded once to ``dtype``."""
+        q = _chunk_swizzle(self.wq.view(torch.uint8)).view(E4M3)
+        q = q.float()                                  # (..., FB, KB, f, d)
+        q.mul_(self.ws.transpose(-1, -2)[..., None, None])
+        *lead, FB, KB = q.shape[:-2]
+        n = len(lead)
+        out = torch.empty((*lead, KB * BLOCK, FB * BLOCK), dtype=self.dtype,
+                          device=q.device)
+        out.view(*lead, KB, BLOCK, FB, BLOCK).copy_(
+            q.permute(*range(n), n + 1, n + 3, n, n + 2))
+        return out[..., :self.d_in, :self.d_out]
 
 
 def _pad_to(x: torch.Tensor, dim: int, mult: int) -> torch.Tensor:

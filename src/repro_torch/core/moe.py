@@ -12,6 +12,9 @@ FP8: with ``cfg.fp8`` the reference quant-dequantizes the activations per
 weight half once at load (``bridge.prepare_for_serving``; same values) and
 the layer is told so with ``weights_qdq=True`` — per call, at published
 widths, the fp32 temporaries of the weight qdq would not fit on the card.
+On the kernel path the routed experts then arrive as ``core.fp8.
+Fp8Experts`` (E4M3 codes and block scales holding exactly those values),
+which ``expert_ffn`` hands to the ``moe_gemm`` op as they are.
 """
 from __future__ import annotations
 
@@ -66,7 +69,8 @@ def ste_qdq_block(w: torch.Tensor) -> torch.Tensor:
 def expert_ffn(xbuf: torch.Tensor, w1, w3, w2, cfg: ModelConfig,
                weights_qdq: bool = False) -> torch.Tensor:
     """Grouped SwiGLU over capacity buffers. xbuf: (E, C, d).
-    ``weights_qdq``: the expert weights were quant-dequantized at load."""
+    ``weights_qdq``: the expert weights were quant-dequantized at load (on
+    the kernel path, possibly into ``Fp8Experts`` containers)."""
     if cfg.fp8:
         xbuf = ste_qdq_tile(xbuf)
         if not weights_qdq:

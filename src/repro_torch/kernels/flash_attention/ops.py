@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -103,11 +104,16 @@ def _flash_prefill_cuda(q, k, v, q_pos, k_pos, *, causal: bool,
     else:
         raise TypeError(f"flash_prefill: the CUDA kernel takes bf16 or fp32 "
                         f"operands, got {q.dtype}")
-    if code == 0 and not scale > 0:
+    if not math.isfinite(scale):
+        raise ValueError(f"flash_prefill: the scale must be finite, got "
+                         f"{scale}")
+    if code == 0 and scale < 0:
         # the bf16 kernel folds scale·log2 e into its exp2 and takes
         # scale > 0: q·k·scale = (-q)·k·|scale| exactly (negating bf16 is
         # exact), and scale 0 gives every valid key the same score
-        q, scale = (-q, -scale) if scale < 0 else (torch.zeros_like(q), 1.0)
+        q, scale = -q, -scale
+    elif code == 0 and scale == 0:
+        q, scale = torch.zeros_like(q), 1.0
     args = [registry.contiguous16(t)
             for t in (q, k, v, q_pos.int(), k_pos.int())]
     if not all(t.is_cuda for t in args):

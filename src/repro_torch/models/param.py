@@ -16,7 +16,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from repro_torch.core.fp8 import Fp8Weight
+from repro_torch.core.fp8 import Fp8Experts, Fp8Weight
 from repro_torch.device import resolve_device, torch_dtype
 
 # Leaves larger than this are drawn slice by slice along their leading
@@ -86,10 +86,10 @@ def init_params(spec_tree, seed: int = 0, device=None):
 
 
 def layer(tree, i: int):
-    """Layer ``i`` of a stacked tree (tensors, Fp8Weights): views, so a
-    cache slice written in place writes the stacked cache."""
+    """Layer ``i`` of a stacked tree (tensors, Fp8Weights, Fp8Experts):
+    views, so a cache slice written in place writes the stacked cache."""
     if isinstance(tree, dict):
         return {k: layer(v, i) for k, v in tree.items()}
-    if isinstance(tree, Fp8Weight):
+    if isinstance(tree, (Fp8Weight, Fp8Experts)):
         return tree.layer(i)
     return tree[i]

@@ -85,25 +85,124 @@ def test_fp8_gemm_kernel_matches_plain(card, shape):
     assert _rel_err(y, fp8.scaled_matmul_ref(xq, xs, wq, ws)) <= FP32_TOL
 
 
+def _spread_weights(g, E, D, F, device):
+    """bf16 ``(E, D, F)`` expert weights, N(0, 0.02) times 10^u for each
+    128 x 128 block, u uniform in [-3, 3]: block magnitudes span six
+    decades, so a kernel that applies a wrong block's scale is off by far
+    more than the tolerance."""
+    KB, FB = -(-D // 128), -(-F // 128)
+    w = torch.randn(E, KB * 128, FB * 128, generator=g, device=device)
+    u = torch.rand(E, KB, 1, FB, 1, generator=g, device=device) * 6 - 3
+    w.mul_(0.02).view(E, KB, 128, FB, 128).mul_(10 ** u)
+    return w[:, :D, :F].bfloat16()
+
+
+def _block_err(got, ref):
+    """``_rel_err`` within each expert's 128-wide F block, the largest: a
+    block whose scale is wrong fails even where other blocks dominate the
+    output's range."""
+    got, ref = got.float(), ref.float()
+    err, worst = (got - ref).abs(), 0.0
+    for f0 in range(0, ref.shape[-1], 128):
+        d = err[..., f0:f0 + 128].amax(dim=(1, 2))
+        m = ref[..., f0:f0 + 128].abs().amax(dim=(1, 2)).clamp_min(1e-30)
+        worst = max(worst, float((d / m).max()))
+    return worst
+
+
+@pytest.mark.parametrize("fmt", ["bf16", "e4m3"])
 @pytest.mark.parametrize("dims", [(256, 8, 7168, 2048), (256, 8, 2048, 7168),
-                                  (3, 40, 72, 96)])
-def test_moe_gemm_kernel_matches_plain(card, dims):
+                                  (256, 40, 7168, 2048), (3, 40, 72, 96)])
+def test_moe_gemm_kernel_matches_plain(card, dims, fmt):
+    """Both weight formats, on weights whose block magnitudes span six
+    decades, held over the whole output and within each F block; the plain
+    version runs expert by expert (one fp32 copy of a 256-expert weight is
+    15 GB)."""
     E, C, D, F = dims
     g = torch.Generator(device=card).manual_seed(0)
     x = torch.randn(E, C, D, generator=g, device=card).bfloat16()
-    w = (torch.randn(E, D, F, generator=g, device=card) * 0.02).bfloat16()
+    w = _spread_weights(g, E, D, F, card)
+    if fmt == "e4m3":
+        w = fp8.Fp8Experts.quantize(w)
     before = moe_ops.grouped_matmul.launches
     y = moe_ops.grouped_matmul(x, w)
     assert moe_ops.grouped_matmul.launches == before + 1
-    ref = torch.cat([moe_ops.grouped_matmul.run_plain(x[e:e + 1], w[e:e + 1])
+    assert y.shape == (E, C, F) and y.dtype == torch.bfloat16
+    ref = torch.cat([moe_ops.grouped_matmul.run_plain(x[e:e + 1],
+                                                      _expert(w, e))
                      for e in range(E)])
     assert _rel_err(y, ref) <= BF16_TOL
+    assert _block_err(y, ref) <= BF16_TOL
+
+
+@pytest.mark.parametrize("fmt", ["bf16", "e4m3"])
+@pytest.mark.parametrize("hot", [1, 2])
+@pytest.mark.parametrize("C", [8, 40, 256])
+@pytest.mark.parametrize("DF", [(200, 320), (7168, 2048)])
+def test_moe_gemm_one_hot_rows_read_the_weight_exactly(card, fmt, hot, C,
+                                                       DF):
+    """With x[e, c] = e_d, y[e, c] is row d of expert e's weight: one
+    product in an fp32 sum of zeros, exact. So the kernel must return the
+    weight it holds bit for bit: for codes ``dequant()``, each code times
+    its own block's scale in fp32, rounded once to bf16. Two hot entries,
+    rows d and d ^ 1 of one scale block, must give the fp32 sum of the two
+    held rows rounded once (exact or decided by the larger term): a kernel
+    that scaled the sum of codes instead of each code fails here. At (200,
+    320) calls of C rows walk every row (D and F ragged); at full width
+    one call's rows spread over the depth."""
+    D, F = DF
+    E = 2
+    g = torch.Generator(device=card).manual_seed(1)
+    w = _spread_weights(g, E, D, F, card)
+    if fmt == "e4m3":
+        w = fp8.Fp8Experts.quantize(w)
+        held = w.dequant()
+    else:
+        held = w
+    if D <= 256:
+        order = torch.stack([torch.randperm(D, generator=g, device=card)
+                             for _ in range(E)])
+        calls = [order[:, (torch.arange(c0, c0 + C, device=card) % D)]
+                 for c0 in range(0, D, C)]
+    else:
+        step = torch.arange(C, device=card) * (D // C)
+        calls = [step + torch.randint(0, D // C, (E, C), generator=g,
+                                      device=card)]
+    for rows in calls:
+        picks = [rows, rows ^ 1][:hot]
+        x = torch.zeros(E, C, D, device=card, dtype=torch.bfloat16)
+        want = torch.zeros(E, C, F, device=card)
+        for r in picks:
+            x.scatter_(2, r[..., None], 1.0)
+            want += torch.gather(held, 1, r[..., None].expand(E, C, F))
+        y = moe_ops.grouped_matmul(x, w)
+        assert torch.equal(y, want.bfloat16()), (fmt, hot, C, DF)
+
+
+def _expert(w, e):
+    """Expert ``e`` of ``w`` as a one-expert stack, in either format."""
+    if isinstance(w, fp8.Fp8Experts):
+        return fp8.Fp8Experts(w.wq[e:e + 1], w.ws[e:e + 1], w.dtype, w.d_in,
+                              w.d_out)
+    return w[e:e + 1]
 
 
 def test_moe_gemm_kernel_refuses_fp32(card):
     x = torch.ones(2, 16, 32, device=card)
     with pytest.raises(TypeError, match="bf16"):
         moe_ops.grouped_matmul(x, torch.ones(2, 32, 128, device=card))
+
+
+def test_moe_gemm_kernel_refuses_bad_containers(card):
+    x = torch.ones(2, 16, 256, device=card, dtype=torch.bfloat16)
+    w = fp8.Fp8Experts.quantize(torch.ones(2, 256, 128, device=card,
+                                           dtype=torch.bfloat16))
+    bad = fp8.Fp8Experts(w.wq, w.ws[:, :1], w.dtype, w.d_in, w.d_out)
+    with pytest.raises(ValueError, match="scales"):
+        moe_ops.grouped_matmul(x, bad)
+    fp32 = fp8.Fp8Experts(w.wq, w.ws, torch.float32, w.d_in, w.d_out)
+    with pytest.raises(TypeError, match="bf16 weights"):
+        moe_ops.grouped_matmul(x, fp32)
 
 
 @pytest.mark.parametrize("storage", ["fp8", "bf16"])
@@ -303,6 +402,19 @@ def test_flash_prefill_skips_blocks_in_any_order(card, causal):
     assert _row_err(out, ref) <= FLASH_TOL[torch.bfloat16]
     if causal:
         assert bool((out[qp < 0] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("scale", [float("nan"), float("inf"), -float("inf")])
+def test_flash_prefill_refuses_a_non_finite_scale(card, scale, dtype):
+    """A NaN or infinite scale raises before either kernel is launched (the
+    plain version and the reference give NaN, not a uniform mix)."""
+    q = torch.randn(1, 64, 2, 64, device=card).to(dtype)
+    pos = torch.arange(64, dtype=torch.int32, device=card)[None]
+    before = flash_ops.flash_prefill.launches
+    with pytest.raises(ValueError, match="finite"):
+        flash_ops.flash_prefill(q, q, q, pos, pos, causal=True, scale=scale)
+    assert flash_ops.flash_prefill.launches == before
 
 
 @pytest.mark.parametrize("scale", [-0.3, 0.0])

@@ -270,6 +270,10 @@ def test_dense_streams_equal_jax_engine(dsv3, kernel_path):
     assert ours == ref
     assert all(len(o) == 6 for o in ours)
     assert eng.stats["splices"] == 3 and eng.free_pages() == 0
+    # the kernel path serves its routed experts from E4M3 codes and scales
+    stored = bridge.expert_storage(eng.params)
+    assert stored["e4m3" if kernel_path else "plain"] > 0
+    assert stored["plain" if kernel_path else "e4m3"] == 0
 
 
 def test_dense_kernel_path_dispatches_through_mla_decode(dsv3, monkeypatch):

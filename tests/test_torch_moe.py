@@ -23,9 +23,10 @@ from repro.models.api import Model as JModel
 from repro_torch import bridge
 from repro_torch.configs.base import get_config as tget
 from repro_torch.configs.base import smoke_config as tsmoke
-from repro_torch.core import moe, routing
+from repro_torch.core import fp8, moe, routing
 from repro_torch.kernels import registry
 from repro_torch.kernels.moe_gemm import ops as moe_ops
+from repro_torch.models.param import layer as param_layer
 
 RTOL = 1e-5
 BF16_RTOL = 2 ** -7
@@ -156,16 +157,78 @@ class TestMoeLayer:
         _close(y, jy)
 
     def test_load_time_qdq_equals_per_call(self, moe_params):
-        """bridge.prepare_for_serving's one-time expert qdq gives the
-        per-call values exactly."""
+        """bridge.prepare_for_serving stores the kernel path's routed
+        experts as E4M3 codes and scales whose dequantized values are the
+        per-call straight-through values bit for bit, so the layer's output
+        is the per-call one exactly."""
         (_, tcfg), (_, tp) = _cfgs("pallas"), moe_params
         x = torch.from_numpy(_gen("prep").standard_normal(
             (1, 9, tcfg.d_model)).astype(np.float32))
-        prep = bridge.prepare_for_serving({"moe": tp}, tcfg)["moe"]
+        before = {k: tp[k].clone() for k in ("w1", "w3", "w2")}
+        prep = bridge.prepare_for_serving({"moe": tp}, tcfg)
+        for k in before:                     # copied, not in place
+            assert bridge.same_bits(tp[k], before[k])
+        assert prep["plain_expert_matrices"] == 0
+        pm = prep["moe"]
+        for k in ("w1", "w3", "w2"):
+            assert isinstance(pm[k], fp8.Fp8Experts)
+            assert pm[k].shape == tp[k].shape and pm[k].dtype == tp[k].dtype
+            assert bridge.same_bits(pm[k].dequant(),
+                                    moe.ste_qdq_block(tp[k]))
         a, _, _ = moe.moe_ffn(tp, x, tcfg)
-        b, _, _ = moe.moe_ffn(prep, x, tcfg, weights_qdq=True)
+        b, _, _ = moe.moe_ffn(pm, x, tcfg, weights_qdq=True)
         assert torch.equal(a, b)
-        assert not torch.equal(prep["w1"], tp["w1"])     # copied, not in place
+
+    def test_a_stack_that_fails_the_check_stays_plain_and_counts(self):
+        """The check helper, fed codes of other weights, keeps the
+        straight-through tensor and counts its matrices."""
+        g = _gen("fails")
+        w = torch.from_numpy(g.standard_normal((2, 3, 200, 72)).astype(
+            np.float32) * 0.02).bfloat16()
+        other = fp8.Fp8Experts.quantize(w * 2)
+        kept, n = bridge.check_experts(w, other, inplace=False)
+        assert n == 6 and isinstance(kept, torch.Tensor)
+        want = torch.stack([moe.ste_qdq_block(m) for m in w.reshape(
+            -1, 200, 72)]).reshape(w.shape)
+        assert bridge.same_bits(kept, want)
+        same, n = bridge.check_experts(w, fp8.Fp8Experts.quantize(w), False)
+        assert n == 0 and isinstance(same, fp8.Fp8Experts)
+
+
+class TestFp8Experts:
+    @pytest.mark.parametrize("shape", [(3, 200, 72), (2, 2, 256, 384)])
+    @pytest.mark.parametrize("dtype", ["bfloat16", np.float32])
+    def test_dequant_equals_per_call_ste_bitwise(self, shape, dtype):
+        """dtype(code x scale) is the reference's straight-through block
+        qdq (JAX, eager) and the port's per-call one, bit for bit; tiny
+        negative weights (codes of -0) included."""
+        w = _gen(("experts", shape, str(dtype))).standard_normal(shape)
+        w = w.astype(np.float32) * 0.02
+        w.reshape(-1)[:16] = -1e-30
+        jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+        jw = jnp.asarray(w, jdt)
+        tw = bridge.params_from_jax(np.asarray(jw))
+        c = fp8.Fp8Experts.quantize(tw)
+        assert c.shape == tw.shape and c.dtype == tw.dtype
+        got = c.dequant()
+        flat = jw.reshape(-1, *shape[-2:])
+        ref = np.stack([np.asarray(jmoe.ste_qdq_block(flat[i]))
+                        for i in range(flat.shape[0])]).reshape(shape)
+        assert bridge.same_bits(got, bridge.params_from_jax(ref))
+        assert bridge.same_bits(got, torch.stack([
+            fp8.ste_qdq(m, fp8.qdq_block)
+            for m in tw.reshape(-1, *shape[-2:])]).reshape(shape))
+
+    def test_layer_slices_the_container(self):
+        w = torch.from_numpy(_gen("layer").standard_normal(
+            (3, 2, 200, 72)).astype(np.float32))
+        c = fp8.Fp8Experts.quantize(w)
+        one = param_layer({"moe": {"w1": c}}, 1)["moe"]["w1"]
+        assert isinstance(one, fp8.Fp8Experts)
+        assert one.shape == (2, 200, 72)
+        assert torch.equal(one.dequant(), c.dequant()[1])
+        assert torch.equal(one.dequant(), fp8.Fp8Experts.quantize(
+            w[1]).dequant())
 
 
 MOE_GEMM_CASES = [((2, 16, 32, 24), np.float32), ((4, 128, 128, 128), np.float32),
@@ -189,6 +252,23 @@ class TestGroupedMatmulOp:
         ref = jmoe_ops.grouped_matmul(jx, jw)
         ours = moe_ops.grouped_matmul(tx, tw)
         assert ours.dtype == tdt
+        _close(ours, ref, RTOL if dtype == np.float32 else BF16_RTOL)
+
+    @pytest.mark.parametrize("dims,dtype", MOE_GEMM_CASES)
+    def test_container_plain_matches_jax_interpret_kernel(self, dims, dtype):
+        """The container's plain version against the JAX interpret kernel
+        on the reference's straight-through weights."""
+        E, C, D, F = dims
+        g = _gen(("moe_gemm_fp8", dims, str(dtype)))
+        x = g.standard_normal((E, C, D)).astype(np.float32)
+        w = g.standard_normal((E, D, F)).astype(np.float32) * 0.02
+        jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+        jx, jw = jnp.asarray(x, jdt), jnp.asarray(w, jdt)
+        tx = bridge.params_from_jax(np.asarray(jx))
+        tw = fp8.Fp8Experts.quantize(bridge.params_from_jax(np.asarray(jw)))
+        ref = jmoe_ops.grouped_matmul(jx, jmoe.ste_qdq_block(jw))
+        ours = moe_ops.grouped_matmul(tx, tw)
+        assert ours.dtype == tx.dtype
         _close(ours, ref, RTOL if dtype == np.float32 else BF16_RTOL)
 
     def test_cpu_runs_plain_and_counts_nothing(self):

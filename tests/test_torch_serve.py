@@ -80,6 +80,10 @@ def test_streams_equal_jax_engine(weights, storage, kernel_path):
     assert ours == ref
     assert all(len(o) == 6 for o in ours)
     assert eng.free_pages() == eng.pool_pages          # every page back
+    # the kernel path serves its routed experts from E4M3 codes and scales
+    stored = bridge.expert_storage(eng.params)
+    assert stored["e4m3" if kernel_path else "plain"] > 0
+    assert stored["plain" if kernel_path else "e4m3"] == 0
 
 
 @pytest.mark.parametrize("kernel_path", [False, True])
