@@ -9,9 +9,10 @@ from the root of a checkout. Phases, each fatal on failure:
       torch/CUDA versions; build every kernel under src/repro_torch/csrc
       with nvcc (one process per source, in parallel) and time the build;
       ptxas's registers, spills and warnings; the count of HGMMA (wgmma)
-      and UTMALDG (TMA load) instructions in flash_prefill's SASS, and of
-      UBLKCP (bulk copy) and UTMALDG in moe_gemm's (cuobjdump); a count
-      of 0 fails;
+      and UTMALDG (TMA load) instructions in flash_prefill's SASS, of
+      UBLKCP (bulk copy) and UTMALDG in moe_gemm's, and of LDGSTS
+      (cp.async) in the two paged kernels' (cuobjdump); a count of 0
+      fails;
   (b) kernels: each hand-written kernel against its plain PyTorch version
       on the card, at the shapes the main path gives it, with the stated
       tolerance; per kernel the kernel time, the plain version's time, the
@@ -22,7 +23,15 @@ from the root of a checkout. Phases, each fatal on failure:
       the 128 and 512 buckets, each with its kernel / SDPA ratio;
       moe_gemm with E4M3 and bf16 weights at C = 8 and 40, w1/w3 and w2
       (the table's row: E4M3, C = 8, w1/w3), each against torch.bmm,
-      the two timed in turns before any plain version runs;
+      the two timed in turns before any plain version runs; the split-KV
+      paged pair first of all, each row timed inside a CUDA graph (their
+      wrappers' host time exceeds the kernels') warm and cold (rotating
+      over copies of the pools whose rows exceed twice the 50 MB L2), with
+      its split plan, active CTAs and partial bytes: paged_gqa_decode at
+      qwen3-14b's widths, four slots at contexts 600-1500 (fp8 pool: the
+      table's row; bf16 pool) and one at 2048, paged_mla_decode at
+      DeepSeek-V3's, four slots at 64-1024 (the table's row) and one at
+      1024;
   (c) the main paths, each served by ``ServeEngine(attn_impl="pallas")``
       with seeded random weights drawn on the card, six seeded prompts, 32
       new tokens each, greedy:
@@ -45,10 +54,13 @@ from the root of a checkout. Phases, each fatal on failure:
       launch moe_gemm three times per MoE layer. Per path: tokens/s end
       to end, TTFT, steady decode ms/step at four slots (with and without
       the draft on the MTP path, and there dense rings against a paged
-      pool on the same weights, in turns), the longest prompt's prefill ms
+      pool on the same weights, in turns; the paged paths must launch
+      their attention op once per layer and step: 4 and 40), the longest
+      prompt's prefill ms
       (3 runs) and a torch.profiler split of that prefill, peak memory,
       launches per decode step and a torch.profiler split of a decode
-      step;
+      step (each paged kernel's group listing its split and combine
+      kernels);
   (d) a reference check on a small input, per engine: the same engine at
       smoke width (bf16; qwen3-14b keeps 5 query heads per KV head) on
       the card, through the kernels, against the plain versions on the
@@ -163,9 +175,12 @@ def phase_env(torch, build):
 
 # the instructions each kernel's design rests on: flash_prefill runs on
 # wgmma (HGMMA) fed by TMA (UTMALDG); moe_gemm streams its weights by bulk
-# copies (UBLKCP: code blocks) and TMA (UTMALDG: x rows, bf16 weights)
+# copies (UBLKCP: code blocks) and TMA (UTMALDG: x rows, bf16 weights); the
+# split-KV paged pair copy their rows with cp.async (LDGSTS)
 SASS_OPS = {"flash_prefill": ("HGMMA", "UTMALDG"),
-            "moe_gemm": ("UBLKCP", "UTMALDG")}
+            "moe_gemm": ("UBLKCP", "UTMALDG"),
+            "paged_gqa_decode": ("LDGSTS",),
+            "paged_mla_decode": ("LDGSTS",)}
 
 
 def sass_counts(build):
@@ -319,53 +334,130 @@ def bench_moe_gemm(torch, dev, gen):
     return rows
 
 
+L2_BYTES = 50e6   # the H100's L2
+
+
+def graph_ms(torch, calls, reps=10):
+    """Device ms per call: ``calls`` run once eagerly (build, warm-up), then
+    captured in order into one CUDA graph, replayed ``reps`` times under
+    CUDA events. The wrappers' host time, which exceeds the paged kernels'
+    own, drops out; the capture also shows that the launch holds no host
+    read."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in calls:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in calls:
+            fn()
+    ms = cuda_ms(torch, graph.replay, reps, warmup=1) / len(calls)
+    del graph
+    return ms
+
+
+def paged_rows(torch, op, cases, tol):
+    """Phase (b) for a paged decode op. Each case (args, scale, shape,
+    bytes, flops, pools: the indices of its pool operands, row_bytes: the
+    pool bytes one call reads) is timed first, before any plain version
+    runs: warm (20 calls on the same inputs) and cold (one call on each of
+    enough copies of the pools that the rows they read together exceed
+    twice the L2, so every call finds its rows in device memory). Then
+    each is held against its plain version, whose time is taken last."""
+    for c in cases:
+        args, scale = c["args"], c["scale"]
+        c["ms"] = graph_ms(torch, [lambda: op(*args, scale=scale)] * 20)
+        n = max(2, math.ceil(2 * L2_BYTES / c["row_bytes"]))
+        copies = [tuple(x.clone() if i in c["pools"] and x is not None
+                        else x for i, x in enumerate(args))
+                  for _ in range(n)]
+        c["cold_ms"] = graph_ms(torch, [
+            (lambda a=a: op(*a, scale=scale)) for a in copies], reps=3)
+        c["copies"] = n
+        del copies
+        torch.cuda.empty_cache()
+    rows = []
+    for c in cases:
+        args, scale = c["args"], c["scale"]
+        y = op(*args, scale=scale)
+        ref = op.run_plain(*args, scale=scale)
+        err, rel = max_err(torch, y, ref)
+        check(f"{op.name} {c['shape']}", rel, tol)
+        plain = cuda_ms(torch, lambda: op.run_plain(*args, scale=scale), 5)
+        b, by = bound_ms(c["bytes"], c["flops"], "fp32")
+        rps, S = c["plan"]
+        log(f"[b]   {op.name} {c['shape']}: split plan {rps} rows x {S} "
+            f"splits, {c['active']} active CTAs, partials {c['partial']} "
+            f"bytes written; kernel warm {c['ms']:.4f} ms, cold "
+            f"{c['cold_ms']:.4f} ms (rotating over {c['copies']} copies of "
+            f"the pools), bound {b:.4f} ms")
+        rows.append(dict(shape=c["shape"], max_abs_err=err, rel_err=rel,
+                         tol=tol, ms=c["ms"], cold_ms=c["cold_ms"],
+                         plain_ms=plain, bound_ms=b, bound_by=by,
+                         library_ms=None))
+        del y, ref
+    return rows
+
+
 def bench_paged_mla(torch, dev, gen):
+    """DeepSeek-V3's paged decode attention: 128 heads, R = 512, Rr = 64,
+    page 8, an fp8 pool; four slots at contexts 64-1024 (the table's row)
+    and one slot at 1024."""
     from repro_torch.core import paged
     from repro_torch.kernels.paged_attention import ops
     tol = 2e-5    # fp32 online vs full softmax, same exact dequantization
-    B, H, R, Rr, page, pp = 4, 128, 512, 64, 8, 128
-    P = B * pp
-    qa = torch.randn(B, H, R, generator=gen, device=dev)
-    qr = torch.randn(B, H, Rr, generator=gen, device=dev)
-    ckv, cs = paged.quantize_vecs(torch.randn(P + 1, page, R, generator=gen,
-                                              device=dev))
-    kr, ks = paged.quantize_vecs(torch.randn(P + 1, page, Rr, generator=gen,
-                                             device=dev))
-    ckv, kr = ckv.view(torch.uint8), kr.view(torch.uint8)
-    table = torch.randperm(P, generator=gen, device=dev).reshape(B, pp).int()
-    ctx = [64, 300, 700, 1024]                   # contexts of the 4 slots
-    qpos = torch.tensor([c - 1 for c in ctx], dtype=torch.int32, device=dev)
+    H, R, Rr, page, pp = 128, 512, 64, 8, 128
     scale = 1.0 / math.sqrt(192)
-    args = (qa, qr, ckv, kr, cs, ks, table, qpos)
-    y = ops.paged_mla_decode(*args, scale=scale)
-    ref = ops.paged_mla_decode.run_plain(*args, scale=scale)
-    err, rel = max_err(torch, y, ref)
-    check("paged_mla_decode", rel, tol)
-    ms = cuda_ms(torch, lambda: ops.paged_mla_decode(*args, scale=scale), 50)
-    plain = cuda_ms(torch, lambda: ops.paged_mla_decode.run_plain(
-        *args, scale=scale), 5)
-    tokens = sum(ctx)
-    nbytes = (tokens * (R + Rr + 8) + 4 * B * H * (R + Rr) + 4 * B * pp
-              + 4 * B + 4 * B * H * R)
-    flops = tokens * H * (2 * (R + Rr) + 2 * R)
-    b, by = bound_ms(nbytes, flops, "fp32")
-    return [dict(shape=f"B={B} H={H} R={R} Rr={Rr} page={page} "
-                 f"contexts={ctx} (fp8 pool)",
-                 max_abs_err=err, rel_err=rel, tol=tol, ms=ms,
-                 plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None)]
+    cases = []
+    for ctx in ([64, 300, 700, 1024], [1024]):
+        B = len(ctx)
+        P = B * pp
+        qa = torch.randn(B, H, R, generator=gen, device=dev)
+        qr = torch.randn(B, H, Rr, generator=gen, device=dev)
+        ckv, cs = paged.quantize_vecs(torch.randn(
+            P + 1, page, R, generator=gen, device=dev))
+        kr, ks = paged.quantize_vecs(torch.randn(
+            P + 1, page, Rr, generator=gen, device=dev))
+        ckv, kr = ckv.view(torch.uint8), kr.view(torch.uint8)
+        table = torch.randperm(P, generator=gen, device=dev).reshape(B, pp)
+        qpos = torch.tensor([c - 1 for c in ctx], dtype=torch.int32,
+                            device=dev)
+        tokens = sum(ctx)
+        rps, S = ops.mla_split_plan(B, H, page, pp, ops.sm_count(dev))
+        groups = -(-H // ops.MLA_HEADS_PER_CTA)
+        active = groups * sum(-(-c // rps) for c in ctx)
+        cases.append(dict(
+            args=(qa, qr, ckv, kr, cs, ks, table.int(), qpos), scale=scale,
+            pools=(2, 3, 4, 5), plan=(rps, S), active=active,
+            partial=active * ops.MLA_HEADS_PER_CTA * (R + 2) * 4,
+            shape=f"B={B} H={H} R={R} Rr={Rr} page={page} contexts={ctx} "
+                  "(fp8 pool)",
+            row_bytes=tokens * (R + Rr + 8),
+            bytes=(tokens * (R + Rr + 8) + 4 * B * H * (R + Rr) + 4 * B * pp
+                   + 4 * B + 4 * B * H * R),
+            flops=tokens * H * (2 * (R + Rr) + 2 * R)))
+    return paged_rows(torch, ops.paged_mla_decode, cases, tol)
 
 
 def bench_paged_gqa(torch, dev, gen):
-    """qwen3-14b's decode attention: 40 heads over 8 KV heads (G = 5),
-    hd 128, page 8, four slots at contexts 600-1500 of a 2048 max_len."""
+    """qwen3-14b's decode attention: 40 heads over 8 KV heads (G = 5), hd
+    128, page 8, 256 pages a slot (max_len 2048); four slots at contexts
+    600-1500 with an fp8 pool (the table's row) and a bf16 pool, and one
+    slot at 2048 with an fp8 pool."""
     from repro_torch.core import paged
     from repro_torch.kernels.paged_attention import ops
     tol = 2e-5    # fp32 online vs full softmax, same exact dequantization
-    B, H, KV, hd, page, pp = 4, 40, 8, 128, 8, 256
-    P = B * pp
-    ctx = [600, 900, 1200, 1500]                 # contexts of the 4 slots
-    rows = []
-    for storage in ("fp8", "bf16"):
+    H, KV, hd, page, pp = 40, 8, 128, 8, 256
+    scale = 1.0 / math.sqrt(hd)
+    cases = []
+    for storage, ctx in (("fp8", [600, 900, 1200, 1500]),
+                         ("bf16", [600, 900, 1200, 1500]),
+                         ("fp8", [2048])):
+        B = len(ctx)
+        P = B * pp
         q = torch.randn(B, H, hd, generator=gen, device=dev)
         k = torch.randn(P + 1, page, KV, hd, generator=gen, device=dev)
         v = torch.randn(P + 1, page, KV, hd, generator=gen, device=dev)
@@ -377,31 +469,25 @@ def bench_paged_gqa(torch, dev, gen):
             k, v = k.bfloat16(), v.bfloat16()
             ks = vs = None
         table = torch.randperm(P, generator=gen, device=dev).reshape(B, pp)
-        table = table.int()
         qpos = torch.tensor([c - 1 for c in ctx], dtype=torch.int32,
                             device=dev)
-        scale = 1.0 / math.sqrt(hd)
-        args = (q, k, v, ks, vs, table, qpos)
-        y = ops.paged_gqa_decode(*args, scale=scale)
-        ref = ops.paged_gqa_decode.run_plain(*args, scale=scale)
-        err, rel = max_err(torch, y, ref)
-        check(f"paged_gqa_decode ({storage} pool)", rel, tol)
-        ms = cuda_ms(torch, lambda: ops.paged_gqa_decode(*args, scale=scale),
-                     50)
-        plain = cuda_ms(torch, lambda: ops.paged_gqa_decode.run_plain(
-            *args, scale=scale), 5)
         tokens = sum(ctx)
-        nbytes = (tokens * (2 * KV * hd * k.element_size()
-                            + (8 if storage == "fp8" else 0))
-                  + 4 * B * H * hd + 4 * B * pp + 4 * B + 4 * B * H * hd)
-        b, by = bound_ms(nbytes, tokens * H * hd * 4, "fp32")
-        rows.append(dict(shape=f"B={B} H={H} KV={KV} hd={hd} page={page} "
-                         f"contexts={ctx} ({storage} pool)",
-                         max_abs_err=err, rel_err=rel, tol=tol, ms=ms,
-                         plain_ms=plain, bound_ms=b, bound_by=by,
-                         library_ms=None))
-        del q, k, v, ks, vs, y, ref
-    return rows
+        rps, S = ops.gqa_split_plan(B, KV, hd, k.element_size(), page, pp,
+                                    ops.sm_count(dev))
+        active = KV * sum(-(-c // rps) for c in ctx)
+        cases.append(dict(
+            args=(q, k, v, ks, vs, table.int(), qpos), scale=scale,
+            pools=(1, 2, 3, 4), plan=(rps, S), active=active,
+            partial=active * (H // KV) * (hd + 2) * 4,
+            shape=f"B={B} H={H} KV={KV} hd={hd} page={page} contexts={ctx} "
+                  f"({storage} pool)",
+            row_bytes=tokens * (2 * KV * hd * k.element_size()
+                                + (8 if storage == "fp8" else 0)),
+            bytes=(tokens * (2 * KV * hd * k.element_size()
+                             + (8 if storage == "fp8" else 0))
+                   + 4 * B * H * hd + 4 * B * pp + 4 * B + 4 * B * H * hd),
+            flops=tokens * H * hd * 4))
+    return paged_rows(torch, ops.paged_gqa_decode, cases, tol)
 
 
 def mla_ring(torch, dev, B, T, layout):
@@ -634,10 +720,14 @@ def phase_kernels(torch):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
+    # the paged pair first: their kernels are timed before any plain
+    # version runs (right after an fp32 plain version everything runs up to
+    # a fifth slower; kernels/moe_gemm/probe.py)
+    paged = {"paged_mla_decode": bench_paged_mla(torch, dev, gen),
+             "paged_gqa_decode": bench_paged_gqa(torch, dev, gen)}
     out = {"fp8_gemm": bench_fp8_gemm(torch, dev, gen),
            "moe_gemm": bench_moe_gemm(torch, dev, gen),
-           "paged_mla_decode": bench_paged_mla(torch, dev, gen),
-           "paged_gqa_decode": bench_paged_gqa(torch, dev, gen),
+           **paged,
            "flash_prefill": bench_flash_prefill(torch, dev, gen),
            "mla_decode": bench_mla_decode(torch, dev, gen),
            "logfmt_encode": bench_logfmt_encode(torch, dev, gen),
@@ -650,7 +740,9 @@ def phase_kernels(torch):
                 f" (rel {r['rel_err']:.3g} of {r.get('rel_of', 'max|plain|')}"
                 f" <= tol {r['tol']:.3g}); kernel "
                 f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-                f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library {lib} ms")
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library {lib} ms"
+                + (f", cold L2 {r['cold_ms']:.4f} ms" if "cold_ms" in r
+                   else ""))
     torch.cuda.empty_cache()
     return out
 
@@ -670,11 +762,11 @@ PATHS = {
         model="deepseek-v3-671b",
         overrides=dict(num_layers=4, fp8_impl="pallas"), engine=PAGED,
         kernels=("fp8_gemm", "moe_gemm", "paged_mla_decode"), absent=(),
-        **DSV3_PROMPTS),
+        per_step={"paged_mla_decode": 4}, **DSV3_PROMPTS),
     "qwen3-14b": dict(
         model="qwen3-14b", overrides={}, engine=PAGED,
         kernels=("flash_prefill", "paged_gqa_decode"), absent=(),
-        lengths=[16, 200, 500, 900, 1200, 1500], max_len=2048,
+        per_step={"paged_gqa_decode": 40}, lengths=[16, 200, 500, 900, 1200, 1500], max_len=2048,
         steady=[600, 900, 1200, 1500]),
     "deepseek-v3-671b-dense": dict(
         model="deepseek-v3-671b",
@@ -797,6 +889,10 @@ def phase_main_path(torch, name):
     model.decode_loop(params, cache, st, 1, use_mtp=mtp)
     per_step = {k: n for k, n in registry.launch_counts().items() if n}
     log(f"[c] launches per decode step: {per_step}")
+    for k, n in spec.get("per_step", {}).items():
+        if per_step.get(k) != n:
+            raise AssertionError(f"a decode step launched {k} "
+                                 f"{per_step.get(k)} times, want {n}")
     if moe_layers and per_step.get("moe_gemm") != 3 * moe_layers:
         raise AssertionError(f"a decode step launched moe_gemm "
                              f"{per_step.get('moe_gemm')} times, want 3 per "
@@ -964,6 +1060,12 @@ def profile_device(torch, label, fn, per, unit):
     for us, n, key in rows[:14]:
         log(f"[c]   {us / 1e3 / per:8.3f} ms/{unit}  x{n // per:<4d} "
             f"{key[:90]}")
+    # the split-KV pair: each group holds its split and combine kernels
+    for g in ("paged_mla_decode", "paged_gqa_decode"):
+        if g in groups:
+            log(f"[c]   group {g}: " + ", ".join(
+                f"{key[:70]} x{n // per} {us / 1e3 / per:.3f} ms"
+                for us, n, key in rows if g in key))
 
 
 # --- (d) ---------------------------------------------------------------------

@@ -267,12 +267,9 @@ def mla_paged_decode_step(p: dict, cache: dict, x: torch.Tensor, *,
 
     if impl == "pallas":
         from repro_torch.kernels.paged_attention import ops as paged_ops
-        ones = None if fp8 else torch.ones(
-            cache["ckv"].shape[:2], dtype=torch.float32, device=x.device)
-        o_lat = paged_ops.paged_mla_decode(
+        o_lat = paged_ops.paged_mla_decode(      # native pools: unit scales
             q_abs[:, 0], q_rope[:, 0].float(), cache["ckv"], cache["kr"],
-            cache["ckv_scale"] if fp8 else ones,
-            cache["kr_scale"] if fp8 else ones,
+            cache.get("ckv_scale"), cache.get("kr_scale"),
             page_table, qpos, scale=scale)
         o_lat = o_lat[:, None]
     else:

@@ -1,4 +1,4 @@
-// Paged GQA decode for Hopper (sm_90a).
+// Paged GQA decode for Hopper (sm_90a), split-KV with a combine pass.
 //
 // Replaces the TPU kernel src/repro/kernels/paged_attention/
 // paged_attention.py:paged_gqa_decode_kernel. Per slot b and query head
@@ -10,302 +10,314 @@
 // exact cuda_fp8.h conversion; bf16 or fp32 pools read with null scale
 // pointers, which stand for unit scales).
 //
-// One block of 512 threads per (KV head, slot): the G query heads of the
-// group share every K/V row the block loads, which is the point of GQA. The
-// block loads its own qpos and table row and loops over the slot's tokens in
-// TT-token tiles (the in-block loop replaces the TPU's sequential page
-// axis), stopping at the tile that holds qpos: rows above qpos are masked in
-// the reference, so the output is the same. Per tile: the tile's physical
-// rows and scales are looked up once into shared memory; K and V rows are
-// read in 16-byte vectors, a batch of independent loads in flight per
-// thread, and dequantized into shared memory (rows padded so the vector
-// stores of neighbouring tokens fall in different banks); each warp scores
-// (head, token) pairs with a warp-sum over hd; one warp per head folds the
-// tile into its online softmax (m, l); the fp32 accumulator acc[G][hd] in
-// shared memory is rescaled and summed, each element owned by one thread.
-// G is a runtime value (5 for qwen3-14b), so no loop assumes a power of
-// two. A row of hd values must fill whole 16-byte vectors (the wrapper
-// checks).
+// What bounds it on an H100: bytes. At G = 5 each K/V row (2*hd bytes of
+// E4M3 and 8 of scales) feeds 5 heads, about 10 flops a byte, far below
+// the card's ridge. So the design's one job is to keep many rows in
+// flight on every SM:
 //
-// Bound on an H100: the bytes of the resident K/V rows (2*hd per KV head per
-// token, + 8 B of scales) against ~4*G*hd flops per row on the CUDA cores.
-// KV*B blocks (32 for four slots of qwen3-14b) fill a quarter of the 132
-// SMs: splitting a slot's pages across blocks (split-KV) with a second pass
-// that combines the partial softmaxes is the next step.
-#include <cuda_bf16.h>
-#include <cuda_fp8.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+//   split pass, one CTA of 128 threads per (split of rps rows, KV head,
+//   slot); the wrapper's planner picks rps (a whole number of pages, 64-128
+//   rows) and the number of splits S from the shapes alone, so the grid
+//   never depends on qpos. A CTA whose split starts past its slot's qpos
+//   returns at once. The others:
+//     1. copy the group's G queries asynchronously and look their rows up in
+//        the page table (one read a row); the score scale is folded into q
+//        once it lands, as in the TPU kernel;
+//     2. copy every K row, then every V row, of the split at once with
+//        16-byte asynchronous copies (cp.async, LDGSTS) into shared memory,
+//        neighbouring threads on neighbouring 16 bytes of a row, rows padded
+//        to an odd count of 16-byte units (conflict-free row-per-thread
+//        reads). Rows past qpos are never copied and never read, so what a
+//        freed row holds cannot reach the output;
+//     3. once K has landed (V still in flight), each thread scores one row
+//        against all G heads in registers: no shuffle per score;
+//     4. a warp per head takes the split's max and sum of exp with warp
+//        reductions and writes the split's (m, l);
+//     5. once V has landed, each thread accumulates (G heads x 4 dims) in
+//        registers over a quarter of the rows; the four warps' sums meet in
+//        shared memory and the unnormalised accumulator is written once;
+//   combine pass, one CTA per (head, slot): reads qpos on the card for the
+//   slot's split count and merges the partial softmaxes (split_kv.cuh).
+//
+// G is a template parameter for G = 1, 2, 4, 5 and 8 (qwen3-14b has 5) and
+// a runtime value up to 16 otherwise. A row of hd values must fill whole
+// 16-byte vectors and the split's K and V rows must fit the shared memory
+// (the wrapper checks both).
+#include "split_kv.cuh"
 
 namespace {
 
-constexpr int TT = 64;         // tokens per tile
-constexpr int THREADS = 512;
+using splitkv::NEG;
+
+constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
-constexpr int BATCH = 4;       // 16-byte loads of K (and of V) in flight
-constexpr float NEG = -1e30f;
+constexpr int DIMS = 128;      // output dims a warp covers in one PV pass
 
-// 16 bytes of a pool row -> fp32 values times the token's scale, stored as
-// float4s at o (16-byte aligned)
-__device__ __forceinline__ void dequant16(const uint4& x, float s, float* o,
-                                          uint8_t) {
-  const uint8_t* b = reinterpret_cast<const uint8_t*>(&x);
-#pragma unroll
-  for (int j = 0; j < 16; j += 4) {
-    float f[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-      f[u] = __half2float(__half(__nv_cvt_fp8_to_halfraw(b[j + u],
-                                                         __NV_E4M3))) * s;
-    *reinterpret_cast<float4*>(o + j) = make_float4(f[0], f[1], f[2], f[3]);
-  }
-}
-__device__ __forceinline__ void dequant16(const uint4& x, float s, float* o,
-                                          __nv_bfloat16) {
-  const __nv_bfloat16* b = reinterpret_cast<const __nv_bfloat16*>(&x);
-#pragma unroll
-  for (int j = 0; j < 8; j += 4)
-    *reinterpret_cast<float4*>(o + j) = make_float4(
-        __bfloat162float(b[j]) * s, __bfloat162float(b[j + 1]) * s,
-        __bfloat162float(b[j + 2]) * s, __bfloat162float(b[j + 3]) * s);
-}
-__device__ __forceinline__ void dequant16(const uint4& x, float s, float* o,
-                                          float) {
-  const float* b = reinterpret_cast<const float*>(&x);
-  *reinterpret_cast<float4*>(o) =
-      make_float4(b[0] * s, b[1] * s, b[2] * s, b[3] * s);
-}
+__host__ __device__ inline size_t up16(size_t n) { return (n + 15) / 16 * 16; }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Shared-memory layout, in 4-byte words: the tile's row offsets first (8-
-// byte values at the aligned base), then fp32 arrays whose starts stay
-// 16-byte aligned (hd is a multiple of 4, TT and the padding too).
+// Shared-memory layout, in bytes, every array 16-byte aligned.
 struct Layout {
-  int ld;                      // padded row stride of the K/V tiles
-  int rows, ksc, vsc, qs, kt, vt, acc, p, m, l, alpha, words;
-  __host__ __device__ Layout(int G, int hd) {
-    ld = hd + 4;
-    rows = 0;                  // [TT] long long
-    ksc = rows + 2 * TT;       // [TT]
-    vsc = ksc + TT;            // [TT]
-    qs = vsc + TT;             // [G][hd] scaled queries
-    kt = qs + G * hd;          // [TT][ld] dequantized K rows
-    vt = kt + TT * ld;         // [TT][ld] dequantized V rows
-    acc = vt + TT * ld;        // [G][hd]
-    p = acc + G * hd;          // [G][TT] scores -> probabilities
-    m = p + G * TT;            // [G]
-    l = m + G;                 // [G]
-    alpha = l + G;             // [G]
-    words = alpha + G;
+  int ld;                      // K/V row stride: odd count of 16 B units
+  size_t k, v, q, p, rows, ksc, vsc, red, total;
+  __host__ __device__ Layout(int G, int hd, int esize, int rps) {
+    ld = ((hd * esize / 16) | 1) * 16;
+    k = 0;                                      // [rps][ld] raw K rows
+    v = k + static_cast<size_t>(rps) * ld;      // [rps][ld] raw V rows
+    q = v + static_cast<size_t>(rps) * ld;      // [G][hd] scaled queries
+    p = q + up16(4ull * G * hd);                // [G][rps] scores -> exp
+    rows = p + up16(4ull * G * rps);            // [rps] element offsets
+    ksc = rows + up16(8ull * rps);              // [rps]
+    vsc = ksc + up16(4ull * rps);               // [rps]
+    red = vsc + up16(4ull * rps);               // [WARPS][G][DIMS]
+    total = red + 4ull * WARPS * G * DIMS;
   }
 };
 
-template <typename T>
+struct Params {
+  const float* q;
+  const void* k;
+  const void* v;
+  const float* k_s;
+  const float* v_s;
+  const int* table;
+  const int* qpos;
+  float* pm;                   // (B, H, S)
+  float* pl;                   // (B, H, S)
+  float* pacc;                 // (B, H, S, hd)
+  int H, KV, hd, page, pp, rps, S;
+  float scale;
+};
+
+template <typename T, int GM, bool EXACT>
 __global__ void __launch_bounds__(THREADS)
-paged_gqa_decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v,
-                        const float* __restrict__ k_s,
-                        const float* __restrict__ v_s,
-                        const int* __restrict__ table,
-                        const int* __restrict__ qpos,
-                        float* __restrict__ out, int H, int KV, int hd,
-                        int page, int pp, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  const int G = H / KV;
-  const Layout L(G, hd);
-  const int ld = L.ld;
+paged_gqa_decode_split(const Params a) {
+  const int G = EXACT ? GM : a.H / a.KV;
+  const int s = blockIdx.x, kv = blockIdx.y, b = blockIdx.z;
+  const int n_tok = splitkv::slot_tokens(a.qpos, b, a.pp * a.page);
+  const int t0 = s * a.rps;
+  if (t0 >= n_tok) return;
+  const int nv = min(a.rps, n_tok - t0);   // rows of this split <= qpos
+  const int hd = a.hd, rps = a.rps;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout L(G, hd, sizeof(T), rps);
+  unsigned char* kraw = smem + L.k;
+  unsigned char* vraw = smem + L.v;
+  float* qs = reinterpret_cast<float*>(smem + L.q);
+  float* ps = reinterpret_cast<float*>(smem + L.p);
   long long* rows = reinterpret_cast<long long*>(smem + L.rows);
-  float* ksc = smem + L.ksc;
-  float* vsc = smem + L.vsc;
-  float* qs = smem + L.qs;
-  float* kt = smem + L.kt;
-  float* vt = smem + L.vt;
-  float* acc = smem + L.acc;
-  float* p = smem + L.p;
-  float* m = smem + L.m;
-  float* l = smem + L.l;
-  float* alpha = smem + L.alpha;
-  constexpr int VEC = 16 / sizeof(T);  // values per 16-byte load
-  const int cpr = hd / VEC;            // 16-byte chunks per row
+  float* ksc = reinterpret_cast<float*>(smem + L.ksc);
+  float* vsc = reinterpret_cast<float*>(smem + L.vsc);
+  float* red = reinterpret_cast<float*>(smem + L.red);
+  constexpr int VEC = 16 / sizeof(T);      // values per 16-byte vector
+  const int cpr = hd / VEC;                // 16-byte vectors per row
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int kv = blockIdx.x;
-  const int b = blockIdx.y;
-  const int* trow = table + static_cast<size_t>(b) * pp;
-  const int n_tok = min(qpos[b] + 1, pp * page);
-
-  // the group's queries, with the score scale folded in (per-token K
-  // scales make the fold free, as in the TPU kernel)
-  for (int i = tid; i < G * hd; i += THREADS) {
-    qs[i] = q[(static_cast<size_t>(b) * H + kv * G) * hd + i] * scale;
-    acc[i] = 0.f;
-  }
-  for (int g = tid; g < G; g += THREADS) {
-    m[g] = NEG;
-    l[g] = 0.f;
+  // 1. the group's G queries (contiguous in q), then the split's rows, as
+  // asynchronous copies; the scales land with K
+  const float* qb = a.q + (static_cast<size_t>(b) * a.H + kv * G) * hd;
+  for (int i = tid; i < G * hd / 4; i += THREADS)
+    splitkv::cp_async(qs + 4 * i, qb + 4 * i, 16);
+  splitkv::cp_async_commit();
+  const int* trow = a.table + static_cast<size_t>(b) * a.pp;
+  for (int t = tid; t < nv; t += THREADS) {
+    const int tok = t0 + t;
+    const long long row =
+        static_cast<long long>(trow[tok / a.page]) * a.page + tok % a.page;
+    rows[t] = (row * a.KV + kv) * hd;
+    if (a.k_s) {
+      splitkv::cp_async(ksc + t, a.k_s + row, 4);
+      splitkv::cp_async(vsc + t, a.v_s + row, 4);
+    } else {
+      ksc[t] = vsc[t] = 1.f;
+    }
   }
   __syncthreads();
 
-  for (int t0 = 0; t0 < n_tok; t0 += TT) {
-    const int nt = min(TT, n_tok - t0);
-    // the tile's physical rows (element offsets of head kv) and scales
-    for (int tt = tid; tt < TT; tt += THREADS) {
-      long long at = -1;
-      float ks = 0.f, vs = 0.f;
-      if (tt < nt) {
-        const int tok = t0 + tt;
-        const long long row =
-            static_cast<long long>(trow[tok / page]) * page + tok % page;
-        at = (row * KV + kv) * hd;
-        ks = k_s ? k_s[row] : 1.f;
-        vs = v_s ? v_s[row] : 1.f;
-      }
-      rows[tt] = at;
-      ksc[tt] = ks;
-      vsc[tt] = vs;
+  // 2. every K row, then every V row, in flight at once: neighbouring
+  // threads on neighbouring 16 bytes of a row
+  auto copy_rows = [&](unsigned char* dst, const T* src) {
+    for (int i = tid; i < nv * cpr; i += THREADS) {
+      const int t = i / cpr, c = i - t * cpr;
+      splitkv::cp_async(dst + t * L.ld + c * 16, src + rows[t] + c * VEC, 16);
     }
-    __syncthreads();
+    splitkv::cp_async_commit();
+  };
+  copy_rows(kraw, static_cast<const T*>(a.k));
+  copy_rows(vraw, static_cast<const T*>(a.v));
+  splitkv::cp_async_wait<1>();             // q, the scales and K have landed
+  __syncthreads();
+  for (int i = tid; i < G * hd / 4; i += THREADS) {   // fold the score scale
+    float4* x = reinterpret_cast<float4*>(qs) + i;
+    *x = make_float4(x->x * a.scale, x->y * a.scale, x->z * a.scale,
+                     x->w * a.scale);
+  }
+  __syncthreads();
 
-    // dequantize the tile's K/V rows (zeros past the last valid row):
-    // lanes run over tokens, BATCH independent 16-byte loads of each in
-    // flight per thread before any is converted
-    for (int i0 = tid; i0 < TT * cpr; i0 += THREADS * BATCH) {
-      uint4 kx[BATCH], vx[BATCH];
+  // 3. scores: a row per thread, every head of the group in registers
+  for (int t = tid; t < nv; t += THREADS) {
+    float sc[GM];
 #pragma unroll
-      for (int u = 0; u < BATCH; ++u) {
-        const int i = i0 + u * THREADS;
-        kx[u] = vx[u] = make_uint4(0, 0, 0, 0);
-        if (i < TT * cpr) {
-          const long long at = rows[i % TT];
-          if (at >= 0) {
-            const long long off = at + static_cast<long long>(i / TT) * VEC;
-            kx[u] = *reinterpret_cast<const uint4*>(k + off);
-            vx[u] = *reinterpret_cast<const uint4*>(v + off);
+    for (int g = 0; g < GM; ++g) sc[g] = 0.f;
+    const uint4* kr = reinterpret_cast<const uint4*>(kraw + t * L.ld);
+    const float ks = ksc[t];
+    for (int c = 0; c < cpr; ++c) {
+      const uint4 x = kr[c];
+#pragma unroll
+      for (int j = 0; j < VEC / 4; ++j) {
+        const float4 kk =
+            splitkv::Four<T>::widen(splitkv::word<T>(x, j), ks);
+        const int d = c * VEC + 4 * j;
+#pragma unroll
+        for (int g = 0; g < GM; ++g) {
+          if (g < G) {
+            const float4 qq = *reinterpret_cast<const float4*>(qs + g * hd + d);
+            sc[g] = fmaf(qq.x, kk.x, fmaf(qq.y, kk.y,
+                    fmaf(qq.z, kk.z, fmaf(qq.w, kk.w, sc[g]))));
           }
         }
       }
+    }
 #pragma unroll
-      for (int u = 0; u < BATCH; ++u) {
-        const int i = i0 + u * THREADS;
-        if (i < TT * cpr) {
-          const int tt = i % TT, d = (i / TT) * VEC;
-          dequant16(kx[u], ksc[tt], kt + tt * ld + d, T());
-          dequant16(vx[u], vsc[tt], vt + tt * ld + d, T());
+    for (int g = 0; g < GM; ++g)
+      if (g < G) ps[g * rps + t] = sc[g];
+  }
+  __syncthreads();
+
+  // 4. the split's softmax state, a warp per head
+  const size_t bh0 = static_cast<size_t>(b) * a.H + kv * G;
+  for (int g = warp; g < G; g += WARPS) {
+    float* pg = ps + g * rps;
+    float mx = NEG;
+    for (int t = lane; t < nv; t += 32) mx = fmaxf(mx, pg[t]);
+    mx = splitkv::warp_max(mx);
+    float sum = 0.f;
+    for (int t = lane; t < nv; t += 32) {
+      const float e = expf(pg[t] - mx);
+      pg[t] = e;
+      sum += e;
+    }
+    sum = splitkv::warp_sum(sum);
+    if (lane == 0) {
+      a.pm[(bh0 + g) * a.S + s] = mx;
+      a.pl[(bh0 + g) * a.S + s] = sum;
+    }
+  }
+  splitkv::cp_async_wait<0>();             // V has landed
+  __syncthreads();
+
+  // 5. P·V: (G heads x 4 dims) a thread over rows warp, warp+4, ...; the
+  // four warps' sums meet in shared memory
+  for (int d0 = 0; d0 < hd; d0 += DIMS) {
+    const int d = d0 + 4 * lane;
+    float acc[GM][4];
+#pragma unroll
+    for (int g = 0; g < GM; ++g)
+      acc[g][0] = acc[g][1] = acc[g][2] = acc[g][3] = 0.f;
+    if (d < hd) {
+      for (int t = warp; t < nv; t += WARPS) {
+        const float4 x =
+            splitkv::load4<T>(vraw + t * L.ld + d * sizeof(T), vsc[t]);
+#pragma unroll
+        for (int g = 0; g < GM; ++g) {
+          if (g < G) {
+            const float pt = ps[g * rps + t];
+            acc[g][0] = fmaf(pt, x.x, acc[g][0]);
+            acc[g][1] = fmaf(pt, x.y, acc[g][1]);
+            acc[g][2] = fmaf(pt, x.z, acc[g][2]);
+            acc[g][3] = fmaf(pt, x.w, acc[g][3]);
+          }
         }
       }
     }
+#pragma unroll
+    for (int g = 0; g < GM; ++g)
+      if (g < G)
+        *reinterpret_cast<float4*>(red + (warp * G + g) * DIMS + 4 * lane) =
+            make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
     __syncthreads();
-
-    // scores: one (head, token) pair per warp at a time
-    for (int pr = warp; pr < G * TT; pr += WARPS) {
-      const int g = pr / TT, tt = pr - g * TT;
-      if (tt >= nt) {                  // warp-uniform
-        if (lane == 0) p[pr] = NEG;
-        continue;
-      }
-      float s = 0.f;
-      for (int d = lane; d < hd; d += 32) s += qs[g * hd + d] * kt[tt * ld + d];
-      s = warp_sum(s);
-      if (lane == 0) p[pr] = s;
+    const int dw = min(DIMS, hd - d0);
+    for (int i = tid; i < G * dw; i += THREADS) {
+      const int g = i / dw, dd = i - g * dw;
+      float o = 0.f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) o += red[(w * G + g) * DIMS + dd];
+      a.pacc[((bh0 + g) * a.S + s) * hd + d0 + dd] = o;
     }
     __syncthreads();
-
-    // online softmax update, one warp per head
-    for (int g = warp; g < G; g += WARPS) {
-      float mx = NEG;
-      for (int tt = lane; tt < TT; tt += 32) mx = fmaxf(mx, p[g * TT + tt]);
-      const float m_old = m[g];
-      const float m_new = fmaxf(m_old, warp_max(mx));
-      float sum = 0.f;
-      for (int tt = lane; tt < TT; tt += 32) {
-        const float e = tt < nt ? expf(p[g * TT + tt] - m_new) : 0.f;
-        p[g * TT + tt] = e;
-        sum += e;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float a = expf(m_old - m_new);
-        l[g] = l[g] * a + sum;
-        m[g] = m_new;
-        alpha[g] = a;
-      }
-    }
-    __syncthreads();
-
-    // acc[g][d] = acc * alpha + sum_t p[g][t] * v_t[d]
-    for (int i = tid; i < G * hd; i += THREADS) {
-      const int g = i / hd, d = i - g * hd;
-      float a = acc[i] * alpha[g];
-      for (int tt = 0; tt < nt; ++tt) a += p[g * TT + tt] * vt[tt * ld + d];
-      acc[i] = a;
-    }
-    __syncthreads();
-  }
-
-  for (int i = tid; i < G * hd; i += THREADS) {
-    const int g = i / hd;
-    out[(static_cast<size_t>(b) * H + kv * G) * hd + i] =
-        acc[i] / fmaxf(l[g], 1e-30f);
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* k_s,
-           const void* v_s, const void* table, const void* qpos, void* out,
-           int B, int H, int KV, int hd, int page, int pp, float scale,
-           cudaStream_t stream) {
-  if (hd % (16 / static_cast<int>(sizeof(T))) != 0 || hd % 4 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * Layout(H / KV, hd).words;
+__global__ void __launch_bounds__(splitkv::COMBINE_THREADS)
+paged_gqa_decode_combine(const float* __restrict__ pm,
+                         const float* __restrict__ pl,
+                         const float* __restrict__ pacc,
+                         const int* __restrict__ qpos,
+                         float* __restrict__ out, int H, int S, int hd,
+                         int rows, int rps) {
+  splitkv::combine(pm, pl, pacc, qpos, out, H, S, hd, rows, rps);
+}
+
+template <typename T, int GM, bool EXACT>
+int launch_split(const Params& a, int B, cudaStream_t stream) {
+  const size_t smem = Layout(a.H / a.KV, a.hd, sizeof(T), a.rps).total;
+  auto kernel = paged_gqa_decode_split<T, GM, EXACT>;
   cudaError_t err = cudaFuncSetAttribute(
-      paged_gqa_decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(KV, B);
-  paged_gqa_decode_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(k_s),
-      static_cast<const float*>(v_s), static_cast<const int*>(table),
-      static_cast<const int*>(qpos), static_cast<float*>(out), H, KV, hd,
-      page, pp, scale);
+  kernel<<<dim3(a.S, a.KV, B), THREADS, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch(const Params& a, int B, cudaStream_t stream) {
+  if (a.hd % (16 / static_cast<int>(sizeof(T))) != 0 || a.hd % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (a.H / a.KV) {
+    case 1: return launch_split<T, 1, true>(a, B, stream);
+    case 2: return launch_split<T, 2, true>(a, B, stream);
+    case 4: return launch_split<T, 4, true>(a, B, stream);
+    case 5: return launch_split<T, 5, true>(a, B, stream);
+    case 8: return launch_split<T, 8, true>(a, B, stream);
+    default: return launch_split<T, 16, false>(a, B, stream);
+  }
 }
 
 }  // namespace
 
-// storage: 0 = E4M3 bytes, 1 = bf16, 2 = fp32
+// storage: 0 = E4M3 bytes, 1 = bf16, 2 = fp32. ws: the partials, B*H*S*hd
+// floats of accumulators then B*H*S of m and of l. Launches the split
+// pass, then the combine pass, on `stream`.
 extern "C" int paged_gqa_decode(const void* q, const void* k, const void* v,
                                 const void* k_s, const void* v_s,
                                 const void* table, const void* qpos,
-                                void* out, int B, int H, int KV, int hd,
-                                int page, int pp, float scale, int storage,
-                                void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
+                                void* out, void* ws, int B, int H, int KV,
+                                int hd, int page, int pp, int rps, int S,
+                                float scale, int storage, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (KV <= 0 || H % KV != 0 || H / KV > 16 || rps <= 0 || rps % page != 0 ||
+      static_cast<long long>(rps) * S < static_cast<long long>(pp) * page)
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* w = static_cast<float*>(ws);
+  const size_t bhs = static_cast<size_t>(B) * H * S;
+  const Params a{static_cast<const float*>(q), k, v,
+                 static_cast<const float*>(k_s),
+                 static_cast<const float*>(v_s),
+                 static_cast<const int*>(table),
+                 static_cast<const int*>(qpos), w + bhs * hd,
+                 w + bhs * hd + bhs, w, H, KV, hd, page, pp, rps, S, scale};
+  int err;
   switch (storage) {
-    case 0:
-      return launch<uint8_t>(q, k, v, k_s, v_s, table, qpos, out, B, H, KV,
-                             hd, page, pp, scale, s);
-    case 1:
-      return launch<__nv_bfloat16>(q, k, v, k_s, v_s, table, qpos, out, B, H,
-                                   KV, hd, page, pp, scale, s);
-    case 2:
-      return launch<float>(q, k, v, k_s, v_s, table, qpos, out, B, H, KV, hd,
-                           page, pp, scale, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case 0: err = launch<uint8_t>(a, B, st); break;
+    case 1: err = launch<__nv_bfloat16>(a, B, st); break;
+    case 2: err = launch<float>(a, B, st); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (err != 0) return err;
+  paged_gqa_decode_combine<<<dim3(H, B), splitkv::combine_threads(hd),
+                             sizeof(float) * S, st>>>(
+      a.pm, a.pl, a.pacc, a.qpos, static_cast<float*>(out), H, S, hd,
+      pp * page, rps);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -16,7 +16,9 @@ where JAX is not installed (the machine with the card):
 
 Tolerances, relative to the largest plain-version magnitude: fp32 outputs
 2e-5 (the same exact products summed in another order; 1e-5 for
-flash_prefill on fp32 operands), bf16 outputs 2^-7 (one rounding step).
+flash_prefill on fp32 operands; the paged pair's peaked case against a
+float64 evaluation instead, see SPLIT_CASES), bf16 outputs 2^-7 (one
+rounding step).
 flash_prefill on bf16 operands is held per output row, relative to the
 row's own norm, at 1e-2: rounding P to bf16 for P·V moves a row by about
 2^-9 of itself, while a key dropped from a row of 2048 moves it by about
@@ -323,6 +325,166 @@ def test_paged_gqa_decode_kernel_matches_plain(card, dims, storage):
     assert paged_ops.paged_gqa_decode.launches == before + 1
     ref = paged_ops.paged_gqa_decode.run_plain(*args, scale=hd ** -0.5)
     assert _rel_err(out, ref) <= FP32_TOL
+
+
+# --- split-KV: what only a split kernel can get wrong ---------------------------
+#
+# Both paged kernels spread a slot's rows over splits of `rps` rows (the
+# wrapper's plan for this card) and merge the partial softmaxes in a combine
+# pass. Cases, at the main paths' widths: "edges" puts the four slots at a
+# one-row context (qpos = 0), a context ending on a split boundary, one row
+# past it, and the full pp*page rows; "single" is one slot at the full
+# context (the most splits a slot gets); "ragged" holds slots 20x apart in one
+# batch; "peaked" scales q by 30, so each head's softmax peaks in a single
+# split and a wrong rescale in the combine shows (on N(0,1) queries it
+# hardly does). At x30 the scores reach a few hundred, where fp32 rounding
+# alone moves the output by 1e-5 of its largest value: the fp32 plain
+# version of paged_mla_decode is itself 3.3e-5 away from a float64
+# evaluation there, the kernel 0.9-1.1e-5. So the peaked case is held, at
+# the same 2e-5, against the function evaluated in float64 (`_exact`), on
+# the same dequantized values.
+SPLIT_CASES = ("edges", "single", "ragged", "peaked")
+
+
+def _exact(q_parts, pools, scales, table, qpos, scale, grouped):
+    """softmax(sum_i q_i . pool_i * scale) . pools[0] over the rows <= qpos,
+    in float64: the paged ops' function on the dequantized pools."""
+    B, pp = table.shape
+    page = pools[0].shape[1]
+    rows = []
+    for x, sx in zip(pools, scales):
+        x = paged.e4m3_decode(x) if x.dtype == torch.uint8 else x
+        x = x.double()
+        if sx is not None:
+            x = x * sx.double().reshape(sx.shape + (1,) * (x.dim() - 2))
+        rows.append(x[table.long()].reshape(B, pp * page, *x.shape[2:]))
+    if not grouped:                     # MLA: every head reads the row
+        s = sum(torch.einsum("bhr,btr->bht", q.double(), r)
+                for q, r in zip(q_parts, rows))
+        vals = rows[0]
+    else:                               # GQA: heads factor as (KV, G)
+        KV = rows[0].shape[2]
+        q = q_parts[0].double()
+        q = q.reshape(B, KV, q.shape[1] // KV, q.shape[2])
+        s = torch.einsum("bkgh,btkh->bkgt", q, rows[0]).flatten(1, 2)
+        vals = rows[1]
+    valid = torch.arange(pp * page, device=table.device)[None] <= qpos[:, None]
+    p = torch.softmax((s * scale).masked_fill(~valid[:, None], -1e300), -1)
+    if not grouped:
+        return torch.einsum("bht,btr->bhr", p, vals)
+    p = p.reshape(B, KV, -1, p.shape[-1])
+    return torch.einsum("bkgt,btkh->bkgh", p, vals).flatten(1, 2)
+
+
+def _split_contexts(case, rps, rows):
+    return {"edges": (1, rps, rps + 1, rows), "single": (rows,),
+            "ragged": (50, 1000, 300), "peaked": (300, 700, rows, 64)}[case]
+
+
+def _paged_pool(card, g, shape, storage, vec_ndim):
+    """A pool of ``shape`` and its per-token scales as the engine holds
+    them: E4M3 bytes with scales, or bf16 / fp32 with ``None`` scales."""
+    x = torch.randn(*shape, generator=g, device=card)
+    if storage == "fp8":
+        x, sx = paged.quantize_vecs(x, vec_ndim=vec_ndim)
+        return x.view(torch.uint8), sx
+    return x.to(torch.bfloat16 if storage == "bf16" else torch.float32), None
+
+
+def _poison_past_qpos(pools, scales, table, qpos):
+    """Copies with every pool row past its slot's qpos (and its scales) set
+    to NaN (0x7f in E4M3)."""
+    page = pools[0].shape[1]
+    pp = table.shape[1]
+    t = torch.arange(pp * page, device=table.device)
+    dead = t[None, :] > qpos[:, None].long()               # (B, rows)
+    pages = table.long()[:, :, None].expand(-1, -1, page).reshape(len(qpos), -1)
+    offs = (t % page)[None, :].expand_as(pages)
+    pg, of = pages[dead], offs[dead]
+    out_p, out_s = [], []
+    for x, sx in zip(pools, scales):
+        x = x.clone()
+        x[pg, of] = 0x7F if x.dtype == torch.uint8 else float("nan")
+        out_p.append(x)
+        if sx is not None:
+            sx = sx.clone()
+            sx[pg, of] = float("nan")
+        out_s.append(sx)
+    return out_p, out_s
+
+
+@pytest.mark.parametrize("storage", ["fp8", "bf16"])
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_paged_mla_decode_split_cases(card, case, storage):
+    H, R, Rr, page, pp = 128, 512, 64, 8, 128
+    rows = pp * page
+    rps, _ = paged_ops.mla_split_plan(4, H, page, pp,
+                                      paged_ops.sm_count(card))
+    ctx = _split_contexts(case, rps, rows)
+    B = len(ctx)
+    P = B * pp
+    g = torch.Generator(device=card).manual_seed(5)
+    qa = torch.randn(B, H, R, generator=g, device=card)
+    qr = torch.randn(B, H, Rr, generator=g, device=card)
+    if case == "peaked":
+        qa, qr = qa * 30, qr * 30
+    ckv, cs = _paged_pool(card, g, (P + 1, page, R), storage, 1)
+    kr, ks = _paged_pool(card, g, (P + 1, page, Rr), storage, 1)
+    table = torch.randperm(P, generator=g, device=card).reshape(B, pp).int()
+    qpos = torch.tensor([c - 1 for c in ctx], dtype=torch.int32, device=card)
+    scale = 192 ** -0.5
+    before = paged_ops.paged_mla_decode.launches
+    out = paged_ops.paged_mla_decode(qa, qr, ckv, kr, cs, ks, table, qpos,
+                                     scale=scale)
+    assert paged_ops.paged_mla_decode.launches == before + 1
+    if case == "peaked":
+        ref = _exact([qa, qr], [ckv, kr], [cs, ks], table, qpos, scale, False)
+    else:
+        ref = paged_ops.paged_mla_decode.run_plain(qa, qr, ckv, kr, cs, ks,
+                                                   table, qpos, scale=scale)
+    assert _rel_err(out, ref) <= FP32_TOL
+    if storage == "bf16":                # null scales are unit scales
+        ones = torch.ones(P + 1, page, device=card)
+        assert torch.equal(out, paged_ops.paged_mla_decode(
+            qa, qr, ckv, kr, ones, ones, table, qpos, scale=scale))
+    (pc, pk), (psc, psk) = _poison_past_qpos([ckv, kr], [cs, ks], table, qpos)
+    assert torch.equal(out, paged_ops.paged_mla_decode(
+        qa, qr, pc, pk, psc, psk, table, qpos, scale=scale))
+
+
+@pytest.mark.parametrize("storage", ["fp8", "bf16", "fp32"])
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_paged_gqa_decode_split_cases(card, case, storage):
+    H, KV, hd, page, pp = 40, 8, 128, 8, 256
+    rows = pp * page
+    esize = {"fp8": 1, "bf16": 2, "fp32": 4}[storage]
+    rps, _ = paged_ops.gqa_split_plan(4, KV, hd, esize, page, pp,
+                                      paged_ops.sm_count(card))
+    ctx = _split_contexts(case, rps, rows)
+    B = len(ctx)
+    P = B * pp
+    g = torch.Generator(device=card).manual_seed(6)
+    q = torch.randn(B, H, hd, generator=g, device=card)
+    if case == "peaked":
+        q = q * 30
+    k, ks = _paged_pool(card, g, (P + 1, page, KV, hd), storage, 2)
+    v, vs = _paged_pool(card, g, (P + 1, page, KV, hd), storage, 2)
+    table = torch.randperm(P, generator=g, device=card).reshape(B, pp).int()
+    qpos = torch.tensor([c - 1 for c in ctx], dtype=torch.int32, device=card)
+    scale = hd ** -0.5
+    before = paged_ops.paged_gqa_decode.launches
+    out = paged_ops.paged_gqa_decode(q, k, v, ks, vs, table, qpos,
+                                     scale=scale)
+    assert paged_ops.paged_gqa_decode.launches == before + 1
+    if case == "peaked":
+        ref = _exact([q], [k, v], [ks, vs], table, qpos, scale, True)
+    else:
+        ref = paged_ops.paged_gqa_decode.run_plain(q, k, v, ks, vs, table,
+                                                   qpos, scale=scale)
+    assert _rel_err(out, ref) <= FP32_TOL
+    (pk, pv), (psk, psv) = _poison_past_qpos([k, v], [ks, vs], table, qpos)
+    assert torch.equal(out, paged_ops.paged_gqa_decode(
+        q, pk, pv, psk, psv, table, qpos, scale=scale))
 
 
 # (B, S, T, H, KV, hd, dtype, causal): qwen3-14b's largest bucket, the

@@ -113,6 +113,12 @@ PAGED_CASES = [((2, 8, 2, 32, 12, 16, 4), "fp8"),
                ((3, 16, 2, 32, 24, 4, 8), "fp8")]
 
 
+# qwen3-14b's decode on the main path: 40 heads over 8, hd 128, page 8,
+# 256 pages a slot (2048 rows); and the sweep's shapes for the split plan
+MAIN_GQA = (4, 40, 8, 128, 1024, 8, 256)
+PLAN_CASES = list(dict.fromkeys(d for d, _ in PAGED_CASES))
+
+
 def _paged_inputs(dims, storage):
     B, H, KV, hd, pool, page, pp = dims
     g = _gen(("gqa", dims, storage))
@@ -179,6 +185,37 @@ class TestPagedGqaDecodeOp:
                 scale=0.13)
         with pytest.raises(ValueError, match="both"):
             paged_ops.paged_gqa_decode(*args, ks, None, *rest, scale=0.13)
+
+    @pytest.mark.parametrize("esize", [1, 2, 4])
+    @pytest.mark.parametrize("dims", [MAIN_GQA] + PLAN_CASES)
+    def test_split_plan_tiles_the_rows(self, dims, esize):
+        """The split plan of an E4M3 (1 byte), bf16 (2) or fp32 (4) pool:
+        whole pages, every row of a slot in exactly one split, none empty,
+        the split's K and V rows within the kernel's shared memory, and a
+        workspace of B*H*S accumulators of hd plus m and l."""
+        B, H, KV, hd, _, page, pp = dims
+        rps, S = paged_ops.gqa_split_plan(B, KV, hd, esize, page, pp, 132)
+        rows = pp * page
+        assert rps % page == 0 and rps >= page
+        splits = [range(s * rps, min((s + 1) * rps, rows)) for s in range(S)]
+        assert [t for r in splits for t in r] == list(range(rows))
+        assert all(len(r) for r in splits)
+        assert 2 * rps * paged_ops.gqa_row_stride(hd, esize) \
+            <= paged_ops.GQA_KV_SMEM
+        assert paged_ops.workspace_floats(B, H, S, hd) == (
+            B * H * S * hd + 2 * B * H * S)
+
+    @pytest.mark.parametrize("B,contexts,plan,active", [
+        (4, (600, 900, 1200, 1500), (128, 16), 280),
+        (1, (2048,), (64, 32), 256)])
+    def test_split_plan_fills_the_card(self, B, contexts, plan, active):
+        """qwen3-14b on 132 SMs: four slots at the bench's contexts get
+        128-row splits, 512 CTAs of which 280 are active (two a SM); one
+        slot at 2048 rows gets 64-row splits, 256 active (it had 8 CTAs
+        before the split)."""
+        assert paged_ops.gqa_split_plan(B, 8, 128, 1, 8, 256, 132) == plan
+        assert 8 * sum(-(-c // plan[0]) for c in contexts) == active
+        assert active >= 132
 
     def test_cpu_runs_plain_and_counts_nothing(self):
         registry.reset_launch_counts()

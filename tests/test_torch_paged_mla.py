@@ -78,6 +78,12 @@ PAGED_CASES = [((2, 8, 64, 16, 12, 16, 4), "fp8"),
                ((3, 16, 32, 8, 24, 4, 8), "fp8")]
 
 
+# DeepSeek-V3's decode on the main path: 128 heads, R 512, Rr 64, page 8,
+# 128 pages a slot (1024 rows); and the sweep's shapes for the split plan
+MAIN_MLA = (4, 128, 512, 64, 512, 8, 128)
+PLAN_CASES = list(dict.fromkeys(d for d, _ in PAGED_CASES))
+
+
 def _paged_inputs(dims, storage):
     B, H, R, Rr, pool, page, pp = dims
     g = _gen(("paged", dims, storage))
@@ -119,6 +125,53 @@ class TestPagedMlaDecodeOp:
         out = paged_ops.paged_mla_decode(*args, scale=0.25)
         np.testing.assert_allclose(out.numpy(), GOLDEN_MLA, rtol=1e-5,
                                    atol=1e-6)
+
+    def test_unit_scales_may_be_omitted(self):
+        """Native pools take ``None`` scales, which equal explicit unit
+        scales bit for bit; E4M3 pools without scales, and one scale
+        without the other, raise."""
+        qa, qr, ckv, kr, cs, ks, table, qpos = _paged_inputs(
+            PAGED_CASES[1][0], "bf16")
+        args = (torch.from_numpy(qa), torch.from_numpy(qr), ckv, kr)
+        rest = (torch.from_numpy(table), torch.from_numpy(qpos))
+        _close(paged_ops.paged_mla_decode(*args, None, None, *rest,
+                                          scale=0.11),
+               paged_ops.paged_mla_decode(*args, cs, ks, *rest, scale=0.11),
+               rtol=0)
+        codes = [paged.quantize_vecs(t)[0].view(torch.uint8)
+                 for t in (ckv, kr)]
+        with pytest.raises(ValueError, match="scales"):
+            paged_ops.paged_mla_decode(*args[:2], *codes, None, None, *rest,
+                                       scale=0.11)
+        with pytest.raises(ValueError, match="both"):
+            paged_ops.paged_mla_decode(*args, cs, None, *rest, scale=0.11)
+
+    @pytest.mark.parametrize("dims", [MAIN_MLA] + PLAN_CASES)
+    def test_split_plan_tiles_the_rows(self, dims):
+        """The split plan: whole pages, every row of a slot in exactly one
+        split, none empty, and a workspace of B*H*S accumulators of R plus
+        m and l."""
+        B, H, R, _, _, page, pp = dims
+        rps, S = paged_ops.mla_split_plan(B, H, page, pp, 132)
+        rows = pp * page
+        assert rps % page == 0 and rps >= page
+        splits = [range(s * rps, min((s + 1) * rps, rows)) for s in range(S)]
+        assert [t for r in splits for t in r] == list(range(rows))
+        assert all(len(r) for r in splits)
+        assert paged_ops.workspace_floats(B, H, S, R) == (
+            B * H * S * R + 2 * B * H * S)
+
+    @pytest.mark.parametrize("B,contexts,plan,active", [
+        (4, (64, 300, 700, 1024), (64, 16), 264),
+        (1, (1024,), (64, 16), 128)])
+    def test_split_plan_fills_the_card(self, B, contexts, plan, active):
+        """DeepSeek-V3 on 132 SMs, CTAs of 16 heads (8 groups of 128): four
+        slots at contexts 64-1024 get 64-row splits, 512 CTAs of which 264
+        are active (two waves of one CTA a SM; it had 64 CTAs before the
+        split); one slot at 1024 rows gets 128 active (it had 16)."""
+        assert paged_ops.mla_split_plan(B, 128, 8, 128, 132) == plan
+        assert 8 * sum(-(-c // plan[0]) for c in contexts) == active
+        assert active >= 128
 
     def test_cpu_runs_plain_and_counts_nothing(self):
         registry.reset_launch_counts()
