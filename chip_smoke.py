@@ -8,18 +8,25 @@ from the root of a checkout. Phases, each fatal on failure:
   (a) environment: the card's name and power limit (nvidia-smi), the
       torch/CUDA versions; build every kernel under src/repro_torch/csrc
       with nvcc (one process per source, in parallel) and time the build;
-      ptxas's registers, spills and warnings; the count of HGMMA (wgmma)
-      and UTMALDG (TMA load) instructions in flash_prefill's SASS, of
-      UBLKCP (bulk copy) and UTMALDG in moe_gemm's, and of LDGSTS
-      (cp.async) in the two paged kernels' (cuobjdump); a count of 0
-      fails;
+      ptxas's registers, spills and warnings (any spill in fp8_gemm
+      fails); the count of HGMMA (wgmma) and UTMALDG (TMA load)
+      instructions in flash_prefill's and fp8_gemm's SASS, of UBLKCP (bulk
+      copy) and UTMALDG in moe_gemm's, and of LDGSTS (cp.async) in the two
+      paged kernels' (cuobjdump); a count of 0 fails;
   (b) kernels: each hand-written kernel against its plain PyTorch version
       on the card, at the shapes the main path gives it, with the stated
       tolerance; per kernel the kernel time, the plain version's time, the
       bound (least time for the bytes it must move or the operations it
       must do, at the H100's published peaks) and, where one PyTorch call
       computes the same function, that call's time (``library_ms``);
-      flash_prefill at qwen3-14b's 2048 bucket (the table's row) and at
+      fp8_gemm at every (K, N) the DeepSeek-V3 paths serve, at M = 4 (its
+      decode; timed in a CUDA graph, warm and cold: rotating over copies
+      of the weight that exceed twice the L2) and M = 1024 (the prefill
+      bucket; in a graph too), and the earlier rows at M = 512, each with
+      its launch plan,
+      the bound at the fp16 rate beside the fp8 one, bf16 torch.matmul on
+      the dequantized operands (a yardstick) and the wrapper's host time
+      per eager call; flash_prefill at qwen3-14b's 2048 bucket (the table's row) and at
       the 128 and 512 buckets, each with its kernel / SDPA ratio;
       moe_gemm with E4M3 and bf16 weights at C = 8 and 40, w1/w3 and w2
       (the table's row: E4M3, C = 8, w1/w3), each against torch.bmm,
@@ -55,12 +62,12 @@ from the root of a checkout. Phases, each fatal on failure:
       to end, TTFT, steady decode ms/step at four slots (with and without
       the draft on the MTP path, and there dense rings against a paged
       pool on the same weights, in turns; the paged paths must launch
-      their attention op once per layer and step: 4 and 40), the longest
-      prompt's prefill ms
-      (3 runs) and a torch.profiler split of that prefill, peak memory,
-      launches per decode step and a torch.profiler split of a decode
-      step (each paged kernel's group listing its split and combine
-      kernels);
+      their attention op once per layer and step: 4 and 40; a DeepSeek-V3
+      step must launch fp8_gemm 29 times paged, 38 times with the MTP
+      draft), the longest prompt's prefill ms (3 runs) and a
+      torch.profiler split of that prefill, peak memory, launches per
+      decode step and a torch.profiler split of a decode step (the groups
+      of fp8_gemm and of each paged kernel listing their kernels);
   (d) a reference check on a small input, per engine: the same engine at
       smoke width (bf16; qwen3-14b keeps 5 query heads per KV head) on
       the card, through the kernels, against the plain versions on the
@@ -169,18 +176,29 @@ def phase_env(torch, build):
         for line in build.build_log(name).splitlines():
             if any(w in line for w in ("registers", "spill", "warning")):
                 log(f"[a]   {name}: {line.strip()}")
+    for name in NO_SPILLS:
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill",
+                                             build.build_log(name))]
+        if any(spills):
+            raise AssertionError(f"{name}: ptxas spills registers "
+                                 f"({sum(spills)} bytes over its kernels)")
     sass_counts(build)
     return card
 
 
-# the instructions each kernel's design rests on: flash_prefill runs on
-# wgmma (HGMMA) fed by TMA (UTMALDG); moe_gemm streams its weights by bulk
+# the instructions each kernel's design rests on: flash_prefill and
+# fp8_gemm's prefill kernel run on wgmma (HGMMA) fed by TMA (UTMALDG); moe_gemm streams its weights by bulk
 # copies (UBLKCP: code blocks) and TMA (UTMALDG: x rows, bf16 weights); the
 # split-KV paged pair copy their rows with cp.async (LDGSTS)
 SASS_OPS = {"flash_prefill": ("HGMMA", "UTMALDG"),
+            "fp8_gemm": ("HGMMA", "UTMALDG"),
             "moe_gemm": ("UBLKCP", "UTMALDG"),
             "paged_gqa_decode": ("LDGSTS",),
             "paged_mla_decode": ("LDGSTS",)}
+
+
+# kernels whose build must spill no register
+NO_SPILLS = ("fp8_gemm",)
 
 
 def sass_counts(build):
@@ -218,32 +236,92 @@ def check(name, err_rel, tol, of="max|plain|"):
 
 
 def bench_fp8_gemm(torch, dev, gen):
+    """fp8_gemm at the earlier rows (M = 4 and 512, w_o and the FFN's
+    w_gate/w_up: the table's row is M = 4, w_gate/w_up), then every other
+    served shape at M = 4 and every served shape at M = 1024. Every row is
+    timed in a CUDA graph (the wrapper's host time exceeds the small
+    shapes' kernels; bf16 torch.matmul likewise); decode rows (M <= 64)
+    warm and cold, and their ``ms`` is the cold time, each launch reading
+    its weight from device memory, as a decode step does. The weight is
+    stored K-contiguous, as the load makes it."""
     from repro_torch.core import fp8
+    from repro_torch.kernels import registry
     from repro_torch.kernels.fp8_gemm import ops
     tol = 2e-5    # fp32 sums of exact products in another order
+    sms = registry.sm_count(dev)
+    cases = [(4, "w_o", 16384, 7168), (4, "w_gate/w_up", 7168, 18432),
+             (512, "w_o", 16384, 7168), (512, "w_gate/w_up", 7168, 18432)]
+    cases += [(4, w, K, N) for w, (K, N) in ops.SERVED_KN.items()
+              if w not in ("w_o", "w_gate/w_up")]
+    cases += [(1024, w, K, N) for w, (K, N) in ops.SERVED_KN.items()]
     rows = []
-    for M in (4, 512):
-        for K, N, what in ((16384, 7168, "w_o"), (7168, 18432, "mlp")):
-            x = torch.randn(M, K, generator=gen, device=dev)
-            w = torch.randn(K, N, generator=gen, device=dev) * 0.02
-            xq, xs = fp8.quantize_tilewise(x)
-            wq, ws = fp8.quantize_blockwise(w)
-            y = ops.fp8_gemm(xq, xs, wq, ws)
-            ref = ops.fp8_gemm.run_plain(xq, xs, wq, ws)
-            err, rel = max_err(torch, y, ref)
-            check(f"fp8_gemm {M}x{K}x{N}", rel, tol)
-            ms = cuda_ms(torch, lambda: ops.fp8_gemm(xq, xs, wq, ws), 20)
-            plain = cuda_ms(torch, lambda: ops.fp8_gemm.run_plain(
-                xq, xs, wq, ws), 5)
-            nbytes = M * K + M * (K // 128) * 4 + K * N + ws.numel() * 4 \
-                + M * N * 4
-            b, by = bound_ms(nbytes, 2 * M * N * K, "fp8")
-            lib = scaled_mm_ms(torch, xq, xs, wq, ws, ref)
-            rows.append(dict(shape=f"M={M} K={K} N={N} ({what})",
-                             max_abs_err=err, rel_err=rel, tol=tol, ms=ms,
-                             plain_ms=plain, bound_ms=b, bound_by=by,
-                             library_ms=lib))
-            del x, w, xq, xs, wq, ws, y, ref
+    for i, (M, what, K, N) in enumerate(cases):
+        x = torch.randn(M, K, generator=gen, device=dev)
+        w = torch.randn(K, N, generator=gen, device=dev) * 0.02
+        xq, xs = fp8.quantize_tilewise(x)
+        wq, ws = fp8.quantize_blockwise(w)
+        wq = fp8.k_major(wq)
+        del x, w
+        y = ops.fp8_gemm(xq, xs, wq, ws)
+        ref = ops.fp8_gemm.run_plain(xq, xs, wq, ws)
+        err, rel = max_err(torch, y, ref)
+        check(f"fp8_gemm {M}x{K}x{N}", rel, tol)
+        plan = ops.launch_plan(M, N, K, sms)
+        xb = fp8.dequant_tilewise(xq, xs).bfloat16()
+        wb = fp8.dequant_blockwise(wq, ws).bfloat16()
+        row = dict(shape=f"M={M} K={K} N={N} ({what})", max_abs_err=err,
+                   rel_err=rel, tol=tol, plan=plan)
+        if M <= ops.DECODE_MAX_M:
+            wbytes = K * N + ws.numel() * 4
+            n = max(2, math.ceil(2 * L2_BYTES / wbytes))
+            copies = [(wq.clone(), ws.clone()) for _ in range(n)]
+            row["warm_ms"] = graph_ms(torch, [
+                lambda: ops.fp8_gemm(xq, xs, wq, ws)] * 20)
+            row["cold_ms"] = graph_ms(torch, [
+                (lambda c=c: ops.fp8_gemm(xq, xs, *c)) for c in copies],
+                reps=3)
+            row["ms"], row["copies"] = row["cold_ms"], n
+            row["bf16_mm_ms"] = graph_ms(torch, [
+                lambda: torch.matmul(xb, wb)] * 20)
+            del copies
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                ops.fp8_gemm(xq, xs, wq, ws)
+            row["host_us"] = 1e6 * (time.perf_counter() - t0) / 200
+            torch.cuda.synchronize()
+        else:
+            row["ms"] = graph_ms(torch, [
+                lambda: ops.fp8_gemm(xq, xs, wq, ws)] * 10)
+            row["bf16_mm_ms"] = graph_ms(torch, [
+                lambda: torch.matmul(xb, wb)] * 10)
+        row["plain_ms"] = cuda_ms(torch, lambda: ops.fp8_gemm.run_plain(
+            xq, xs, wq, ws), 3)
+        nbytes = M * K + M * (K // 128) * 4 + K * N + ws.numel() * 4 \
+            + M * N * 4
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 2 * M * N * K,
+                                                    "fp8")
+        row["bound16_ms"], _ = bound_ms(nbytes, 2 * M * N * K, "bf16")
+        row["library_ms"] = (scaled_mm_ms(torch, xq, xs, wq, ws, ref)
+                             if i < 4 else None)
+        split = (f"decode: {plan.grid} CTAs x {plan.per} units (128 x 128 B "
+                 f"of the weight each), up to {plan.maxc} partials a tile"
+                 if plan.mode == "decode" else
+                 f"prefill: {plan.grid} persistent CTAs over "
+                 f"{-(-M // 128) * -(-N // 128)} tiles of 128 x 128")
+        timing = (f"graph warm {row['warm_ms']:.4f} ms, cold "
+                  f"{row['cold_ms']:.4f} ms (rotating over {row['copies']} "
+                  f"copies of the weight), host {row['host_us']:.1f} us per "
+                  "eager call" if "cold_ms" in row else
+                  f"graph {row['ms']:.4f} ms")
+        log(f"[b]   fp8_gemm {row['shape']}: {split}; {timing}; bound "
+            f"{row['bound_ms']:.4f} ms at the fp8 rate ({row['bound_by']}), "
+            f"{row['bound16_ms']:.4f} at the fp16 rate; bf16 torch.matmul "
+            f"{row['bf16_mm_ms']:.4f} ms (kernel / matmul = "
+            f"{row['ms'] / row['bf16_mm_ms']:.3f})")
+        rows.append(row)
+        del xq, xs, wq, ws, y, ref, xb, wb
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -255,7 +333,7 @@ def scaled_mm_ms(torch, xq, xs, wq, ws, ref):
     if fn is None:
         log("[b]   library: torch._scaled_mm absent")
         return None
-    b = wq.t().contiguous().t()                    # column-major operand
+    b = wq                 # the stored K-contiguous layout: column-major
     attempts = (("scales as given", xs, ws),
                 ("outer-dim-major scales", xs.t().contiguous().t(),
                  ws.t().contiguous().t()))
@@ -407,6 +485,7 @@ def bench_paged_mla(torch, dev, gen):
     page 8, an fp8 pool; four slots at contexts 64-1024 (the table's row)
     and one slot at 1024."""
     from repro_torch.core import paged
+    from repro_torch.kernels import registry
     from repro_torch.kernels.paged_attention import ops
     tol = 2e-5    # fp32 online vs full softmax, same exact dequantization
     H, R, Rr, page, pp = 128, 512, 64, 8, 128
@@ -426,7 +505,7 @@ def bench_paged_mla(torch, dev, gen):
         qpos = torch.tensor([c - 1 for c in ctx], dtype=torch.int32,
                             device=dev)
         tokens = sum(ctx)
-        rps, S = ops.mla_split_plan(B, H, page, pp, ops.sm_count(dev))
+        rps, S = ops.mla_split_plan(B, H, page, pp, registry.sm_count(dev))
         groups = -(-H // ops.MLA_HEADS_PER_CTA)
         active = groups * sum(-(-c // rps) for c in ctx)
         cases.append(dict(
@@ -448,6 +527,7 @@ def bench_paged_gqa(torch, dev, gen):
     600-1500 with an fp8 pool (the table's row) and a bf16 pool, and one
     slot at 2048 with an fp8 pool."""
     from repro_torch.core import paged
+    from repro_torch.kernels import registry
     from repro_torch.kernels.paged_attention import ops
     tol = 2e-5    # fp32 online vs full softmax, same exact dequantization
     H, KV, hd, page, pp = 40, 8, 128, 8, 256
@@ -473,7 +553,7 @@ def bench_paged_gqa(torch, dev, gen):
                             device=dev)
         tokens = sum(ctx)
         rps, S = ops.gqa_split_plan(B, KV, hd, k.element_size(), page, pp,
-                                    ops.sm_count(dev))
+                                    registry.sm_count(dev))
         active = KV * sum(-(-c // rps) for c in ctx)
         cases.append(dict(
             args=(q, k, v, ks, vs, table.int(), qpos), scale=scale,
@@ -762,7 +842,7 @@ PATHS = {
         model="deepseek-v3-671b",
         overrides=dict(num_layers=4, fp8_impl="pallas"), engine=PAGED,
         kernels=("fp8_gemm", "moe_gemm", "paged_mla_decode"), absent=(),
-        per_step={"paged_mla_decode": 4}, **DSV3_PROMPTS),
+        per_step={"paged_mla_decode": 4, "fp8_gemm": 29}, **DSV3_PROMPTS),
     "qwen3-14b": dict(
         model="qwen3-14b", overrides={}, engine=PAGED,
         kernels=("flash_prefill", "paged_gqa_decode"), absent=(),
@@ -773,7 +853,8 @@ PATHS = {
         overrides=dict(num_layers=4, fp8_impl="pallas"),
         engine=dict(paged=False, use_mtp=True, attn_impl="pallas"),
         kernels=("fp8_gemm", "moe_gemm", "mla_decode"),
-        absent=("paged_mla_decode",), **DSV3_PROMPTS),
+        absent=("paged_mla_decode",), per_step={"fp8_gemm": 38},
+        **DSV3_PROMPTS),
 }
 
 # phase (d): each path's engine at smoke width, and qwen3-14b on the dense
@@ -1060,8 +1141,9 @@ def profile_device(torch, label, fn, per, unit):
     for us, n, key in rows[:14]:
         log(f"[c]   {us / 1e3 / per:8.3f} ms/{unit}  x{n // per:<4d} "
             f"{key[:90]}")
-    # the split-KV pair: each group holds its split and combine kernels
-    for g in ("paged_mla_decode", "paged_gqa_decode"):
+    # the split-KV pair: each group holds its split and combine kernels;
+    # fp8_gemm's its decode, reduce and prefill kernels
+    for g in ("fp8_gemm", "paged_mla_decode", "paged_gqa_decode"):
         if g in groups:
             log(f"[c]   group {g}: " + ", ".join(
                 f"{key[:70]} x{n // per} {us / 1e3 / per:.3f} ms"

@@ -12,7 +12,8 @@
   exactly as ``ste_qdq_block`` computes it), and each 2-D weight that
   reaches the FP8 ``linear`` (input width >= 256), the MTP module's
   included, gains its ``(wq, ws)`` block quantization as a
-  ``core.fp8.Fp8Weight``. Same values as the
+  ``core.fp8.Fp8Weight``, its codes stored K-contiguous for the
+  ``fp8_gemm`` kernel. Same values as the
   per-call reference; at published widths the per-call expert qdq would
   need ~15 GB of fp32 temporaries per expert matrix.
   On the kernel path (``cfg.fp8_impl == "pallas"``) the routed experts
@@ -56,10 +57,18 @@ def params_from_jax(tree) -> Dict[str, Any]:
 
 def _quantize_linear(w: torch.Tensor) -> fp8.Fp8Weight:
     """Block-quantize a stacked ``(n, d_in, d_out)`` weight layer by layer
-    (bounded fp32 temporaries)."""
-    qs = [fp8.quantize_blockwise(w[i]) for i in range(w.shape[0])]
-    return fp8.Fp8Weight(w, torch.stack([q for q, _ in qs]),
-                         torch.stack([s for _, s in qs]))
+    (bounded fp32 temporaries). The codes are stored K-contiguous
+    (``fp8.k_major``): an ``(n, d_out, d_in)`` buffer seen as its
+    ``(n, d_in, d_out)`` transpose, the ``fp8_gemm`` kernel's layout."""
+    n, d_in, d_out = w.shape
+    codes = torch.empty((n, d_out, d_in), dtype=torch.uint8, device=w.device)
+    scales = []
+    for i in range(n):
+        q, s = fp8.quantize_blockwise(w[i])
+        codes[i].copy_(q.view(torch.uint8).t())
+        scales.append(s)
+    return fp8.Fp8Weight(w, codes.view(fp8.E4M3).transpose(-1, -2),
+                         torch.stack(scales))
 
 
 def _qdq_experts(w: torch.Tensor, inplace: bool) -> torch.Tensor:

@@ -40,7 +40,9 @@ class Fp8Weight:
 
     ``w`` is the weight as stored; ``wq`` its E4M3 values and ``ws`` the
     fp32 scale of each 128x128 block (``quantize_blockwise(w)``), made once
-    at load. Leading axes (the stacked-layers axis) ride along on all
+    at load. ``wq`` is stored K-contiguous (:func:`k_major`: the
+    ``(..., d_in, d_out)`` view of a ``(..., d_out, d_in)`` buffer), the
+    layout the ``fp8_gemm`` kernel reads. Leading axes (the stacked-layers axis) ride along on all
     three; :meth:`layer` slices one off."""
     w: torch.Tensor
     wq: torch.Tensor
@@ -56,6 +58,14 @@ class Fp8Weight:
 
     def layer(self, i: int) -> "Fp8Weight":
         return Fp8Weight(self.w[i], self.wq[i], self.ws[i])
+
+
+def k_major(q: torch.Tensor) -> torch.Tensor:
+    """The same ``(..., K, N)`` values, stored K-contiguous: the transpose
+    view of an ``(..., N, K)`` row-major copy (the ``fp8_gemm`` kernel's
+    weight layout, and what ``torch._scaled_mm`` takes as its second
+    operand)."""
+    return q.transpose(-1, -2).contiguous().transpose(-1, -2)
 
 
 def _chunk_swizzle(codes: torch.Tensor) -> torch.Tensor:

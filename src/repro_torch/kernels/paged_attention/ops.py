@@ -132,12 +132,6 @@ def workspace_floats(B: int, H: int, splits: int, D: int) -> int:
     return B * H * splits * (D + 2)
 
 
-@functools.cache
-def sm_count(device: torch.device) -> int:
-    """The card's SM count, read once per device."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _values(pool: torch.Tensor) -> torch.Tensor:
     if pool.dtype in (torch.uint8, paged.E4M3):
         return paged.e4m3_decode(pool)
@@ -235,7 +229,8 @@ def _paged_mla_decode_cuda(q_abs, q_rope, ckv, kr, ckv_s, kr_s, table,
     args = _launch_args("paged_mla_decode",
                         [q_abs.float(), q_rope.float(), ckv, kr, table.int(),
                          qpos.int()], scales, P1, page)
-    rps, S = mla_split_plan(B, H, page, pp, sm_count(q_abs.device))
+    rps, S = mla_split_plan(B, H, page, pp,
+                            registry.sm_count(q_abs.device))
     ws = torch.empty(workspace_floats(B, H, S, R), dtype=torch.float32,
                      device=q_abs.device)
     out = torch.empty((B, H, R), dtype=torch.float32, device=q_abs.device)
@@ -324,7 +319,7 @@ def _paged_gqa_decode_cuda(q, k, v, k_s, v_s, table, qpos, *,
                         [q.float(), k, v, table.int(), qpos.int()], scales,
                         P1, page)
     rps, S = gqa_split_plan(B, KV, hd, k.element_size(), page, pp,
-                            sm_count(q.device))
+                            registry.sm_count(q.device))
     ws = torch.empty(workspace_floats(B, H, S, hd), dtype=torch.float32,
                      device=q.device)
     out = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)

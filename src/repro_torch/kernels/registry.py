@@ -18,6 +18,7 @@ Ops are made with :func:`op` (not ``kernel``: the repo's lint reserves
 from __future__ import annotations
 
 import ctypes
+import functools
 import importlib
 from typing import Callable, Dict, Optional, Tuple
 
@@ -116,6 +117,13 @@ def op(name: str, *, replaces: str) -> KernelOp:
     k = KernelOp(name, replaces)
     _REGISTRY[name] = k
     return k
+
+
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    """The card's SM count, read once per device (the split plans of the
+    kernels that spread work over every SM)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -72,8 +72,16 @@ def _row_err(got, ref):
     return float(torch.where(n > 0, d / n.clamp_min(1e-30), d * 1e30).max())
 
 
-@pytest.mark.parametrize("shape", [(4, 16384, 7168), (512, 7168, 18432),
-                                   (100, 200, 72)])
+# decode (M <= 64: one, four and eight slots) and prefill (65 and the 128
+# and 1024 buckets) at every served shape, plus ragged N = 72
+FP8_GEMM_SHAPES = list(dict.fromkeys(
+    [(4, 16384, 7168), (512, 7168, 18432), (100, 200, 72)]
+    + [(M, K, N) for M in (1, 4, 8, 65, 128, 1024)
+       for K, N in fp8_ops.SERVED_KN.values()]
+    + [(4, 7168, 72), (65, 7168, 72), (1024, 512, 72)]))
+
+
+@pytest.mark.parametrize("shape", FP8_GEMM_SHAPES)
 def test_fp8_gemm_kernel_matches_plain(card, shape):
     M, K, N = shape
     g = torch.Generator(device=card).manual_seed(0)
@@ -110,6 +118,85 @@ def _block_err(got, ref):
         m = ref[..., f0:f0 + 128].abs().amax(dim=(1, 2)).clamp_min(1e-30)
         worst = max(worst, float((d / m).max()))
     return worst
+
+
+def _fp8_operands(g, M, K, N, device, spread=False):
+    """Quantized x and a K-contiguous weight (the load-time layout)."""
+    x = torch.randn(M, K, generator=g, device=device)
+    w = (_spread_weights(g, 1, K, N, device)[0].float() if spread
+         else torch.randn(K, N, generator=g, device=device) * 0.02)
+    xq, xs = fp8.quantize_tilewise(x)
+    wq, ws = fp8.quantize_blockwise(w)
+    return xq, xs, fp8.k_major(wq), ws
+
+
+@pytest.mark.parametrize("shape", [(4, 7168, 18432), (4, 7168, 64),
+                                   (8, 16384, 7168), (1024, 16384, 7168),
+                                   (65, 7168, 72)])
+def test_fp8_gemm_applies_each_blocks_scale(card, shape):
+    """Weights whose 128 x 128 block magnitudes span six decades, held over
+    the whole output and within each 128-wide N block: a kernel that takes
+    a wrong block's scale fails."""
+    g = torch.Generator(device=card).manual_seed(1)
+    args = _fp8_operands(g, *shape, card, spread=True)
+    y = fp8_ops.fp8_gemm(*args)
+    ref = fp8_ops.fp8_gemm.run_plain(*args)
+    assert _rel_err(y, ref) <= FP32_TOL
+    assert _block_err(y[None], ref[None]) <= FP32_TOL
+
+
+@pytest.mark.parametrize("shape", [(4, 16384, 7168), (4, 7168, 64),
+                                   (17, 7168, 1536), (1024, 7168, 18432),
+                                   (1024, 7168, 512)])
+def test_fp8_gemm_gives_the_same_bits_every_call(card, shape):
+    """Split-K partials (decode's stream-K segments, prefill's K splits of
+    a narrow N) are summed in a fixed order: no float atomics."""
+    g = torch.Generator(device=card).manual_seed(2)
+    args = _fp8_operands(g, *shape, card)
+    a = fp8_ops.fp8_gemm(*args)
+    b = fp8_ops.fp8_gemm(*args)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape", [(4, 7168, 18432), (4, 7168, 64),
+                                   (1024, 512, 16384), (1024, 7168, 64)])
+def test_fp8_gemm_graph_replay_equals_eager(card, shape):
+    """The launch plan reads nothing on the host: a captured call, replayed
+    after its input changed in place, equals an eager call on that input;
+    the capture counts its one launch."""
+    g = torch.Generator(device=card).manual_seed(3)
+    xq, xs, wq, ws = _fp8_operands(g, *shape, card)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fp8_ops.fp8_gemm(xq, xs, wq, ws)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = fp8_ops.fp8_gemm.launches
+    with torch.cuda.graph(graph):
+        out = fp8_ops.fp8_gemm(xq, xs, wq, ws)
+    assert fp8_ops.fp8_gemm.launches == before + 1
+    x2, s2 = fp8.quantize_tilewise(torch.randn(
+        xq.shape, generator=g, device=card))
+    xq.copy_(x2)
+    xs.copy_(s2)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, fp8_ops.fp8_gemm(xq, xs, wq, ws))
+
+
+def test_fp8_gemm_refuses_weights_it_does_not_take(card):
+    """The CUDA route never copies a weight: a row-major (N-contiguous)
+    weight and a base off the 16-byte boundary raise."""
+    g = torch.Generator(device=card).manual_seed(4)
+    xq, xs, wq, ws = _fp8_operands(g, 4, 256, 128, card)
+    with pytest.raises(ValueError, match="K-contiguous"):
+        fp8_ops.fp8_gemm(xq, xs, wq.contiguous(), ws)
+    buf = torch.zeros(128 * 256 + 16, dtype=torch.uint8, device=card)
+    off = buf[1:1 + 128 * 256].view(128, 256)
+    off.copy_(wq.t().view(torch.uint8))
+    with pytest.raises(ValueError, match="16-byte"):
+        fp8_ops.fp8_gemm(xq, xs, off.t().view(fp8.E4M3), ws)
 
 
 @pytest.mark.parametrize("fmt", ["bf16", "e4m3"])
@@ -419,7 +506,7 @@ def test_paged_mla_decode_split_cases(card, case, storage):
     H, R, Rr, page, pp = 128, 512, 64, 8, 128
     rows = pp * page
     rps, _ = paged_ops.mla_split_plan(4, H, page, pp,
-                                      paged_ops.sm_count(card))
+                                      registry.sm_count(card))
     ctx = _split_contexts(case, rps, rows)
     B = len(ctx)
     P = B * pp
@@ -459,7 +546,7 @@ def test_paged_gqa_decode_split_cases(card, case, storage):
     rows = pp * page
     esize = {"fp8": 1, "bf16": 2, "fp32": 4}[storage]
     rps, _ = paged_ops.gqa_split_plan(4, KV, hd, esize, page, pp,
-                                      paged_ops.sm_count(card))
+                                      registry.sm_count(card))
     ctx = _split_contexts(case, rps, rows)
     B = len(ctx)
     P = B * pp

@@ -218,3 +218,120 @@ class TestFp8Gemm:
         assert isinstance(mlp["w_gate"], torch.Tensor)       # 128 -> 256
         assert prep["prepared"] and "prepared" not in params
         assert bridge.prepare_for_serving(prep, cfg) is prep
+
+
+PLAN_MS = [1, 4, 8, 17, 64, 65, 128, 1024]
+
+
+class TestFp8GemmLayout:
+    def test_prepare_for_serving_stores_codes_k_contiguous(self):
+        """Every Fp8Weight's codes are the (K, N) view of an (N, K)
+        buffer, bit for bit ``quantize_blockwise`` of each layer."""
+        cfg = tsmoke(tget("deepseek-v3-671b"))
+        from repro_torch.models.api import Model
+        from repro_torch.models import param
+        params = Model(cfg, device="cpu").init(seed=5)
+        prep = bridge.prepare_for_serving(params, cfg)
+        seen = 0
+
+        def walk(tree):
+            nonlocal seen
+            for v in tree.values():
+                if isinstance(v, dict):
+                    walk(v)
+                elif isinstance(v, fp8.Fp8Weight):
+                    n, K, N = v.wq.shape
+                    assert v.wq.stride() == (N * K, 1, K)
+                    for i in range(n):
+                        one = param.layer({"w": v}, i)["w"]
+                        assert fp8_ops.k_contiguous(one.wq)
+                        q, s = fp8.quantize_blockwise(v.w[i])
+                        np.testing.assert_array_equal(_bits(one.wq.contiguous()),
+                                                      _bits(q))
+                        assert torch.equal(one.ws, s)
+                    seen += 1
+        walk(prep)
+        assert seen > 0
+
+    @pytest.mark.parametrize("M,K,N", [(100, 256, 72), (4, 384, 64),
+                                       (130, 256, 200), (1, 128, 72)])
+    def test_plain_on_k_contiguous_ragged_matches_jax(self, M, K, N):
+        """The plain version on the kernel's layout, at ragged M and N,
+        against the Pallas kernel in interpret mode (its operands padded
+        to its blocks) and ``scaled_matmul_ref``, on the same codes."""
+        x, w = _gemm_inputs((M, K, N), True)
+        xq, xs = fp8.quantize_tilewise(torch.from_numpy(x))
+        wq, ws = fp8.quantize_blockwise(torch.from_numpy(w))
+        wk = fp8.k_major(wq)
+        assert fp8_ops.k_contiguous(wk) and not wk.is_contiguous()
+        ours = fp8_ops.fp8_gemm(xq, xs, wk, ws)
+        assert ours.shape == (M, N)
+        ref = jfp8.scaled_matmul_ref(_to_jax_e4m3(xq), jnp.asarray(xs.numpy()),
+                                     _to_jax_e4m3(wq), jnp.asarray(ws.numpy()))
+        _close(ours, ref)
+        Mp, Np = -(-M // 128) * 128, -(-N // 128) * 128
+        xqp = _pad_bytes(xq, (Mp, K))
+        xsp = torch.nn.functional.pad(xs, (0, 0, 0, Mp - M))
+        wqp = _pad_bytes(wq, (K, Np))
+        kern = jfp8_gemm_kernel(_to_jax_e4m3(xqp), jnp.asarray(xsp.numpy()),
+                                _to_jax_e4m3(wqp), jnp.asarray(ws.numpy()),
+                                bm=128, bn=128, interpret=True)
+        _close(ours, np.asarray(kern)[:M, :N])
+
+    def test_fp8_matmul_hands_over_the_stored_weight(self, monkeypatch):
+        """``fp8_matmul`` passes an Fp8Weight's own code and scale storage
+        to the op: no copy, no transpose."""
+        x, w = _gemm_inputs((5, 384, 200), False)
+        wt = torch.from_numpy(w)
+        wq, ws = fp8.quantize_blockwise(wt)
+        fw = fp8.Fp8Weight(wt, fp8.k_major(wq), ws)
+        seen = {}
+        plain = fp8_ops.fp8_gemm._plain
+
+        def spy(xq, xs, q, s):
+            seen.update(q=q, s=s)
+            return plain(xq, xs, q, s)
+        monkeypatch.setattr(fp8_ops.fp8_gemm, "_plain", spy)
+        y = fp8_ops.fp8_matmul(torch.from_numpy(x), fw)
+        assert y.shape == (5, 200)
+        assert seen["q"].data_ptr() == fw.wq.data_ptr()
+        assert seen["q"].stride() == fw.wq.stride()
+        assert seen["s"].data_ptr() == fw.ws.data_ptr()
+
+    @pytest.mark.parametrize("M", PLAN_MS)
+    def test_launch_plan_covers_every_unit_once(self, M):
+        """For every served shape, each (M tile, N tile, K group) unit is
+        computed by exactly one CTA, no CTA is idle, the regime follows
+        the threshold, and the plan is a function of the shapes and the
+        SM count alone."""
+        for K, N in fp8_ops.SERVED_KN.values():
+            for sms in (132, 114):
+                plan = fp8_ops.launch_plan(M, N, K, sms)
+                assert plan == fp8_ops.launch_plan.__wrapped__(M, N, K, sms)
+                assert plan.mode == ("decode" if M <= fp8_ops.DECODE_MAX_M
+                                     else "prefill")
+                work = fp8_ops.plan_work(plan, M, N, K)
+                assert len(work) == plan.grid and all(work)
+                NB, KB = -(-N // 128), K // 128
+                MB = 1 if plan.mode == "decode" else -(-M // 128)
+                flat = [u for w in work for u in w]
+                assert len(flat) == MB * NB * KB
+                assert set(flat) == {(mt, nt, kb) for mt in range(MB)
+                                     for nt in range(NB) for kb in range(KB)}
+                if plan.mode == "decode":
+                    assert plan.grid <= fp8_ops.ctas_per_sm(M) * sms
+                    segs = [len({c for c, w in enumerate(work)
+                                 for _, n, _ in w if n == nt})
+                            for nt in range(NB)]
+                    assert max(segs) == plan.maxc
+                else:
+                    # K splits only where the tiles fill under half the SMs
+                    assert plan.maxc == (1 if 2 * MB * NB > sms
+                                         else min(KB, sms // (MB * NB)))
+                    assert plan.grid == min(sms, MB * NB * plan.maxc)
+
+
+def _pad_bytes(q, shape):
+    out = torch.zeros(shape, dtype=torch.uint8)
+    out[:q.shape[0], :q.shape[1]] = q.view(torch.uint8)
+    return out.view(fp8.E4M3)

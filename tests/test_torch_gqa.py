@@ -217,6 +217,37 @@ class TestPagedGqaDecodeOp:
         assert 8 * sum(-(-c // plan[0]) for c in contexts) == active
         assert active >= 132
 
+    @pytest.mark.parametrize("storage", ["fp8", "bf16"])
+    def test_plain_reads_a_pool_written_in_place(self, storage):
+        """The plain version decodes the pools it is given on every call: a
+        token written in place (``page_write``) into the same tensor
+        objects changes the next output, which equals a call on fresh
+        copies."""
+        q, k, v, ks, vs, table, qpos = _paged_inputs(
+            PAGED_CASES[0][0] if storage == "fp8" else PAGED_CASES[1][0],
+            storage)
+        k, v = ((t.view(torch.uint8) for t in (k, v))
+                if storage == "fp8" else (k, v))
+        q = torch.from_numpy(q)
+        rest = (torch.from_numpy(table), torch.from_numpy(qpos))
+        before = paged_ops.paged_gqa_decode(q, k, v, ks, vs, *rest,
+                                            scale=0.13)
+        g = _gen("rewrite")
+        pos = torch.zeros(table.shape[0], dtype=torch.int32)
+        for pool, spool in ((k, ks), (v, vs)):
+            vals = 8 * torch.from_numpy(g.standard_normal(
+                (table.shape[0],) + tuple(pool.shape[2:])).astype(np.float32))
+            if storage == "fp8":
+                vals, s = paged.quantize_vecs(vals, vec_ndim=2)
+                paged.page_write(spool, rest[0], pos, s)
+            paged.page_write(pool, rest[0], pos, vals)
+        after = paged_ops.paged_gqa_decode(q, k, v, ks, vs, *rest,
+                                           scale=0.13)
+        fresh = paged_ops.paged_gqa_decode(q, k.clone(), v.clone(), ks, vs,
+                                           *rest, scale=0.13)
+        assert not torch.equal(after, before)
+        _close(after, fresh, rtol=0)
+
     def test_cpu_runs_plain_and_counts_nothing(self):
         registry.reset_launch_counts()
         args = [torch.from_numpy(np.array(a))

@@ -173,6 +173,34 @@ class TestPagedMlaDecodeOp:
         assert 8 * sum(-(-c // plan[0]) for c in contexts) == active
         assert active >= 128
 
+    @pytest.mark.parametrize("storage", ["fp8", "bf16"])
+    def test_plain_reads_a_pool_written_in_place(self, storage):
+        """The plain version decodes the pool it is given on every call: a
+        token written in place (``page_write``) into the same tensor object
+        changes the next output, which equals a call on a fresh copy."""
+        qa, qr, ckv, kr, cs, ks, table, qpos = _paged_inputs(
+            PAGED_CASES[0][0] if storage == "fp8" else PAGED_CASES[1][0],
+            storage)
+        ckv, kr = ((t.view(torch.uint8) for t in (ckv, kr))
+                   if storage == "fp8" else (ckv, kr))
+        q = (torch.from_numpy(qa), torch.from_numpy(qr))
+        rest = (torch.from_numpy(table), torch.from_numpy(qpos))
+        before = paged_ops.paged_mla_decode(*q, ckv, kr, cs, ks, *rest,
+                                            scale=0.11)
+        vals = 8 * torch.from_numpy(_gen("rewrite").standard_normal(
+            (table.shape[0], ckv.shape[-1])).astype(np.float32))
+        pos = torch.zeros(table.shape[0], dtype=torch.int32)
+        if storage == "fp8":
+            vals, s = paged.quantize_vecs(vals)
+            paged.page_write(cs, rest[0], pos, s)
+        paged.page_write(ckv, rest[0], pos, vals)
+        after = paged_ops.paged_mla_decode(*q, ckv, kr, cs, ks, *rest,
+                                           scale=0.11)
+        fresh = paged_ops.paged_mla_decode(*q, ckv.clone(), kr.clone(), cs,
+                                           ks, *rest, scale=0.11)
+        assert not torch.equal(after, before)
+        _close(after, fresh, rtol=0)
+
     def test_cpu_runs_plain_and_counts_nothing(self):
         registry.reset_launch_counts()
         args = [torch.from_numpy(np.array(a)) for a in _golden_mla_inputs()]
