@@ -8,11 +8,11 @@ from the root of a checkout. Phases, each fatal on failure:
   (a) environment: the card's name and power limit (nvidia-smi), the
       torch/CUDA versions; build every kernel under src/repro_torch/csrc
       with nvcc (one process per source, in parallel) and time the build;
-      ptxas's registers, spills and warnings (any spill in fp8_gemm
-      fails); the count of HGMMA (wgmma) and UTMALDG (TMA load)
+      ptxas's registers, spills and warnings (any spill in fp8_gemm or
+      mla_decode fails); the count of HGMMA (wgmma) and UTMALDG (TMA load)
       instructions in flash_prefill's and fp8_gemm's SASS, of UBLKCP (bulk
-      copy) and UTMALDG in moe_gemm's, and of LDGSTS (cp.async) in the two
-      paged kernels' (cuobjdump); a count of 0 fails;
+      copy) and UTMALDG in moe_gemm's, and of LDGSTS (cp.async) in the
+      three split-KV decode kernels' (cuobjdump); a count of 0 fails;
   (b) kernels: each hand-written kernel against its plain PyTorch version
       on the card, at the shapes the main path gives it, with the stated
       tolerance; per kernel the kernel time, the plain version's time, the
@@ -30,15 +30,19 @@ from the root of a checkout. Phases, each fatal on failure:
       the 128 and 512 buckets, each with its kernel / SDPA ratio;
       moe_gemm with E4M3 and bf16 weights at C = 8 and 40, w1/w3 and w2
       (the table's row: E4M3, C = 8, w1/w3), each against torch.bmm,
-      the two timed in turns before any plain version runs; the split-KV
-      paged pair first of all, each row timed inside a CUDA graph (their
-      wrappers' host time exceeds the kernels') warm and cold (rotating
-      over copies of the pools whose rows exceed twice the 50 MB L2), with
-      its split plan, active CTAs and partial bytes: paged_gqa_decode at
+      the two timed in turns before any plain version runs; the three
+      split-KV decode kernels first of all, every row of the three timed
+      before any plain version runs, inside a CUDA graph (their wrappers'
+      host time exceeds the kernels') warm and cold (rotating over copies
+      of the pools or rings whose rows exceed twice the 50 MB L2), with its
+      split plan, active CTAs and partial bytes: paged_gqa_decode at
       qwen3-14b's widths, four slots at contexts 600-1500 (fp8 pool: the
       table's row; bf16 pool) and one at 2048, paged_mla_decode at
       DeepSeek-V3's, four slots at 64-1024 (the table's row) and one at
-      1024;
+      1024, mla_decode at DeepSeek-V3's over four rings of 1024 (bf16: the
+      table's row; fp32), T = 1000 with an empty slot (exactly zero), a
+      wrapped ring, the served contexts 600-900 and stale rows past qpos,
+      each also timed eagerly, the full rings against SDPA;
   (c) the main paths, each served by ``ServeEngine(attn_impl="pallas")``
       with seeded random weights drawn on the card, six seeded prompts, 32
       new tokens each, greedy:
@@ -51,7 +55,8 @@ from the root of a checkout. Phases, each fatal on failure:
         paged_gqa_decode);
       - DeepSeek-V3 as above on the dense ring cache with MTP drafting
         (``paged=False, use_mtp=True``; kernels fp8_gemm, moe_gemm,
-        mla_decode, and never paged_mla_decode).
+        mla_decode, 4 launches a decode step, and never
+        paged_mla_decode).
       Every request must finish with the right count of in-vocabulary
       tokens, no page may leak, each kernel of the path must have launched
       (counters zeroed just before the path, read just after) and the MTP
@@ -62,12 +67,13 @@ from the root of a checkout. Phases, each fatal on failure:
       to end, TTFT, steady decode ms/step at four slots (with and without
       the draft on the MTP path, and there dense rings against a paged
       pool on the same weights, in turns; the paged paths must launch
-      their attention op once per layer and step: 4 and 40; a DeepSeek-V3
-      step must launch fp8_gemm 29 times paged, 38 times with the MTP
-      draft), the longest prompt's prefill ms (3 runs) and a
-      torch.profiler split of that prefill, peak memory, launches per
-      decode step and a torch.profiler split of a decode step (the groups
-      of fp8_gemm and of each paged kernel listing their kernels);
+      their attention op once per layer and step: 4 and 40, and so must
+      the dense path: 4; a DeepSeek-V3 step must launch fp8_gemm 29 times
+      paged, 38 times with the MTP draft), the longest prompt's prefill ms
+      (3 runs) and a torch.profiler split of that prefill, peak memory,
+      launches per decode step and a torch.profiler split of a decode step
+      (the groups of fp8_gemm and of each split-KV kernel listing their
+      kernels);
   (d) a reference check on a small input, per engine: the same engine at
       smoke width (bf16; qwen3-14b keeps 5 query heads per KV head) on
       the card, through the kernels, against the plain versions on the
@@ -189,16 +195,18 @@ def phase_env(torch, build):
 # the instructions each kernel's design rests on: flash_prefill and
 # fp8_gemm's prefill kernel run on wgmma (HGMMA) fed by TMA (UTMALDG); moe_gemm streams its weights by bulk
 # copies (UBLKCP: code blocks) and TMA (UTMALDG: x rows, bf16 weights); the
-# split-KV paged pair copy their rows with cp.async (LDGSTS)
+# split-KV decode kernels (the paged pair, mla_decode over the dense ring)
+# copy their rows with cp.async (LDGSTS)
 SASS_OPS = {"flash_prefill": ("HGMMA", "UTMALDG"),
             "fp8_gemm": ("HGMMA", "UTMALDG"),
             "moe_gemm": ("UBLKCP", "UTMALDG"),
             "paged_gqa_decode": ("LDGSTS",),
-            "paged_mla_decode": ("LDGSTS",)}
+            "paged_mla_decode": ("LDGSTS",),
+            "mla_decode": ("LDGSTS",)}
 
 
 # kernels whose build must spill no register
-NO_SPILLS = ("fp8_gemm",)
+NO_SPILLS = ("fp8_gemm", "mla_decode")
 
 
 def sass_counts(build):
@@ -437,14 +445,14 @@ def graph_ms(torch, calls, reps=10):
     return ms
 
 
-def paged_rows(torch, op, cases, tol):
-    """Phase (b) for a paged decode op. Each case (args, scale, shape,
-    bytes, flops, pools: the indices of its pool operands, row_bytes: the
-    pool bytes one call reads) is timed first, before any plain version
-    runs: warm (20 calls on the same inputs) and cold (one call on each of
-    enough copies of the pools that the rows they read together exceed
-    twice the L2, so every call finds its rows in device memory). Then
-    each is held against its plain version, whose time is taken last."""
+def time_split_rows(torch, op, cases):
+    """Kernel times of a split-KV decode op's cases (args, scale, pools: the
+    indices of the operands that hold its rows, row_bytes: the row bytes
+    one call reads), taken before any plain version runs: warm (20 calls on
+    the same inputs) and cold (one call on each of enough copies of the
+    pools that the rows they read together exceed twice the L2, so every
+    call finds its rows in device memory), both in a CUDA graph; and,
+    where a case asks for it (``eager``), eagerly."""
     for c in cases:
         args, scale = c["args"], c["scale"]
         c["ms"] = graph_ms(torch, [lambda: op(*args, scale=scale)] * 20)
@@ -457,6 +465,15 @@ def paged_rows(torch, op, cases, tol):
         c["copies"] = n
         del copies
         torch.cuda.empty_cache()
+        if c.get("eager"):
+            c["eager_ms"] = cuda_ms(torch, lambda: op(*args, scale=scale), 50)
+
+
+def check_split_rows(torch, op, cases, tol):
+    """Each case of ``time_split_rows`` held against its plain version,
+    whose time is taken here, with the library yardstick where the case
+    has one (``library``: ref -> ms or None) and the slots that must come
+    out exactly zero (``zero_slots``)."""
     rows = []
     for c in cases:
         args, scale = c["args"], c["scale"]
@@ -464,18 +481,28 @@ def paged_rows(torch, op, cases, tol):
         ref = op.run_plain(*args, scale=scale)
         err, rel = max_err(torch, y, ref)
         check(f"{op.name} {c['shape']}", rel, tol)
+        for b in c.get("zero_slots", ()):
+            if not bool((y[b] == 0).all()):
+                raise AssertionError(f"{op.name} {c['shape']}: slot {b} has "
+                                     "no valid row and is not exactly zero")
         plain = cuda_ms(torch, lambda: op.run_plain(*args, scale=scale), 5)
+        lib = c["library"](ref) if c.get("library") else None
         b, by = bound_ms(c["bytes"], c["flops"], "fp32")
         rps, S = c["plan"]
+        eager = (f", eager {c['eager_ms']:.4f} ms" if "eager_ms" in c
+                 else "")
         log(f"[b]   {op.name} {c['shape']}: split plan {rps} rows x {S} "
             f"splits, {c['active']} active CTAs, partials {c['partial']} "
             f"bytes written; kernel warm {c['ms']:.4f} ms, cold "
             f"{c['cold_ms']:.4f} ms (rotating over {c['copies']} copies of "
-            f"the pools), bound {b:.4f} ms")
-        rows.append(dict(shape=c["shape"], max_abs_err=err, rel_err=rel,
-                         tol=tol, ms=c["ms"], cold_ms=c["cold_ms"],
-                         plain_ms=plain, bound_ms=b, bound_by=by,
-                         library_ms=None))
+            f"the {c.get('what', 'pools')}) in a CUDA graph{eager}, bound "
+            f"{b:.4f} ms")
+        row = dict(shape=c["shape"], max_abs_err=err, rel_err=rel, tol=tol,
+                   ms=c["ms"], cold_ms=c["cold_ms"], plain_ms=plain,
+                   bound_ms=b, bound_by=by, library_ms=lib)
+        if "eager_ms" in c:
+            row["eager_ms"] = c["eager_ms"]
+        rows.append(row)
         del y, ref
     return rows
 
@@ -483,7 +510,7 @@ def paged_rows(torch, op, cases, tol):
 def bench_paged_mla(torch, dev, gen):
     """DeepSeek-V3's paged decode attention: 128 heads, R = 512, Rr = 64,
     page 8, an fp8 pool; four slots at contexts 64-1024 (the table's row)
-    and one slot at 1024."""
+    and one slot at 1024. Returns (op, cases, tolerance)."""
     from repro_torch.core import paged
     from repro_torch.kernels import registry
     from repro_torch.kernels.paged_attention import ops
@@ -518,14 +545,14 @@ def bench_paged_mla(torch, dev, gen):
             bytes=(tokens * (R + Rr + 8) + 4 * B * H * (R + Rr) + 4 * B * pp
                    + 4 * B + 4 * B * H * R),
             flops=tokens * H * (2 * (R + Rr) + 2 * R)))
-    return paged_rows(torch, ops.paged_mla_decode, cases, tol)
+    return ops.paged_mla_decode, cases, tol
 
 
 def bench_paged_gqa(torch, dev, gen):
     """qwen3-14b's decode attention: 40 heads over 8 KV heads (G = 5), hd
     128, page 8, 256 pages a slot (max_len 2048); four slots at contexts
     600-1500 with an fp8 pool (the table's row) and a bf16 pool, and one
-    slot at 2048 with an fp8 pool."""
+    slot at 2048 with an fp8 pool. Returns (op, cases, tolerance)."""
     from repro_torch.core import paged
     from repro_torch.kernels import registry
     from repro_torch.kernels.paged_attention import ops
@@ -567,13 +594,16 @@ def bench_paged_gqa(torch, dev, gen):
                              + (8 if storage == "fp8" else 0))
                    + 4 * B * H * hd + 4 * B * pp + 4 * B + 4 * B * H * hd),
             flops=tokens * H * hd * 4))
-    return paged_rows(torch, ops.paged_gqa_decode, cases, tol)
+    return ops.paged_gqa_decode, cases, tol
 
 
 def mla_ring(torch, dev, B, T, layout):
     """pos and qpos of four slots' rings: "full" (every row valid, a
     1024-token context), "ragged" (slot 0 empty, the others partly
-    filled) or "wrapped" (past one wrap: rows 0..w hold positions T..)."""
+    filled), "wrapped" (past one wrap: rows 0..w hold positions T..),
+    "served" (the dense path's steady contexts, 600-900 valid rows, the
+    rest empty) or "stale" (the same contexts, the rows past qpos holding
+    larger positions, as a slot's earlier occupant leaves them)."""
     t = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T)
     if layout == "wrapped":
         w = 300 + 100 * torch.arange(B, dtype=torch.int32, device=dev)
@@ -582,51 +612,65 @@ def mla_ring(torch, dev, B, T, layout):
         lens = torch.tensor([0, 250, 500, 750][:B], dtype=torch.int32,
                             device=dev)
         return torch.where(t < lens[:, None], t, -1), (lens - 1).clamp_min(0)
+    if layout in ("served", "stale"):
+        ctx = torch.tensor(DSV3_PROMPTS["steady"][:B], dtype=torch.int32,
+                           device=dev)
+        pos = t if layout == "stale" else torch.where(t < ctx[:, None], t, -1)
+        return pos.contiguous(), ctx - 1
     return t.contiguous(), torch.full((B,), T - 1, dtype=torch.int32,
                                       device=dev)
 
 
 def bench_mla_decode(torch, dev, gen):
     """DeepSeek-V3's dense decode attention: four slots, 128 heads, R =
-    512, Rr = 64, rings of T = 1024 (bf16 at published width; the fp32
-    cache of the smoke width at the same shape), a ragged T and a wrapped
-    ring."""
+    512, Rr = 64, rings of T = 1024 (bf16 at published width: the table's
+    row; the fp32 cache of the smoke width at the same shape), a ragged T
+    with an empty slot, a wrapped ring, the dense path's served contexts
+    and stale rows past qpos. Each row timed in a CUDA graph (warm and
+    cold) and eagerly, with its split plan. Returns (op, cases,
+    tolerance)."""
+    from repro_torch.kernels import registry
     from repro_torch.kernels.mla_attention import ops
     tol = 2e-5    # fp32 online vs full softmax; cache values exact in fp32
     B, H, R, Rr = 4, 128, 512, 64
     scale = 1.0 / math.sqrt(192)
-    rows = []
+    hg = ops.MLA_HEADS_PER_CTA
+    groups = -(-H // hg)
+    cases = []
     for T, layout, dt in ((1024, "full", torch.bfloat16),
                           (1024, "full", torch.float32),
                           (1000, "ragged", torch.bfloat16),
-                          (1024, "wrapped", torch.bfloat16)):
+                          (1024, "wrapped", torch.bfloat16),
+                          (1024, "served", torch.bfloat16),
+                          (1024, "stale", torch.bfloat16)):
         qa = torch.randn(B, H, R, generator=gen, device=dev)
         qr = torch.randn(B, H, Rr, generator=gen, device=dev)
         ckv = torch.randn(B, T, R, generator=gen, device=dev).to(dt)
         kr = torch.randn(B, T, Rr, generator=gen, device=dev).to(dt)
         pos, qpos = mla_ring(torch, dev, B, T, layout)
-        args = (qa, qr, ckv, kr, pos, qpos)
-        y = ops.mla_decode(*args, scale=scale)
-        ref = ops.mla_decode.run_plain(*args, scale=scale)
-        err, rel = max_err(torch, y, ref)
-        name = f"T={T} {layout} rings, {str(dt).split('.')[-1]} cache"
-        check(f"mla_decode {name}", rel, tol)
-        ms = cuda_ms(torch, lambda: ops.mla_decode(*args, scale=scale), 50)
-        plain = cuda_ms(torch, lambda: ops.mla_decode.run_plain(
-            *args, scale=scale), 5)
         valid = (pos >= 0) & (pos <= qpos[:, None])
         nvalid = int(valid.sum())
-        nbytes = (nvalid * (R + Rr) * ckv.element_size() + 4 * B * T
-                  + 4 * B * H * (R + Rr) + 4 * B + 4 * B * H * R)
-        b, by = bound_ms(nbytes, nvalid * H * (2 * (R + Rr) + 2 * R), "fp32")
-        lib = (sdpa_mla_ms(torch, qa, qr, ckv, kr, valid, scale, ref)
-               if layout == "full" else None)
-        rows.append(dict(shape=f"B={B} H={H} R={R} Rr={Rr} {name}",
-                         max_abs_err=err, rel_err=rel, tol=tol, ms=ms,
-                         plain_ms=plain, bound_ms=b, bound_by=by,
-                         library_ms=lib))
-        del qa, qr, ckv, kr, pos, qpos, y, ref
-    return rows
+        rps, S = ops.ring_split_plan(B, H, T, registry.sm_count(dev))
+        per_split = torch.nn.functional.pad(valid, (0, rps * S - T))
+        active = groups * int(per_split.reshape(B, S, rps).any(-1).sum())
+        esize = ckv.element_size()
+        args = (qa, qr, ckv, kr, pos, qpos)
+
+        def lib(ref, a=args, v=valid):
+            return sdpa_mla_ms(torch, *a[:4], v, scale, ref)
+        cases.append(dict(
+            args=args, scale=scale, pools=(2, 3, 4), what="rings",
+            plan=(rps, S), active=active, eager=True,
+            partial=active * hg * R * 4 + B * groups * S * hg * 2 * 4,
+            shape=f"B={B} H={H} R={R} Rr={Rr} T={T} {layout} rings, "
+                  f"{str(dt).split('.')[-1]} cache",
+            row_bytes=nvalid * (R + Rr) * esize,
+            bytes=(nvalid * (R + Rr) * esize + 4 * B * T
+                   + 4 * B * H * (R + Rr) + 4 * B + 4 * B * H * R),
+            flops=nvalid * H * (2 * (R + Rr) + 2 * R),
+            zero_slots=[b for b in range(B) if not bool(valid[b].any())],
+            library=lib if layout == "full" else None))
+    return ops.mla_decode, cases, tol
 
 
 def sdpa_mla_ms(torch, qa, qr, ckv, kr, valid, scale, ref):
@@ -800,16 +844,21 @@ def phase_kernels(torch):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    # the paged pair first: their kernels are timed before any plain
-    # version runs (right after an fp32 plain version everything runs up to
-    # a fifth slower; kernels/moe_gemm/probe.py)
-    paged = {"paged_mla_decode": bench_paged_mla(torch, dev, gen),
-             "paged_gqa_decode": bench_paged_gqa(torch, dev, gen)}
+    # the split-KV decode kernels first: all three are timed before any
+    # plain version runs (right after an fp32 plain version everything runs
+    # up to a fifth slower; kernels/moe_gemm/probe.py), then checked
+    split = {"paged_mla_decode": bench_paged_mla(torch, dev, gen),
+             "paged_gqa_decode": bench_paged_gqa(torch, dev, gen),
+             "mla_decode": bench_mla_decode(torch, dev, gen)}
+    for op, cases, _ in split.values():
+        time_split_rows(torch, op, cases)
+    split = {name: check_split_rows(torch, op, cases, tol)
+             for name, (op, cases, tol) in split.items()}
+    torch.cuda.empty_cache()
     out = {"fp8_gemm": bench_fp8_gemm(torch, dev, gen),
            "moe_gemm": bench_moe_gemm(torch, dev, gen),
-           **paged,
+           **split,
            "flash_prefill": bench_flash_prefill(torch, dev, gen),
-           "mla_decode": bench_mla_decode(torch, dev, gen),
            "logfmt_encode": bench_logfmt_encode(torch, dev, gen),
            "logfmt_decode": bench_logfmt_decode(torch, dev, gen)}
     for name, rows in out.items():
@@ -822,6 +871,8 @@ def phase_kernels(torch):
                 f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library {lib} ms"
                 + (f", cold L2 {r['cold_ms']:.4f} ms" if "cold_ms" in r
+                   else "")
+                + (f", eager {r['eager_ms']:.4f} ms" if "eager_ms" in r
                    else ""))
     torch.cuda.empty_cache()
     return out
@@ -853,7 +904,8 @@ PATHS = {
         overrides=dict(num_layers=4, fp8_impl="pallas"),
         engine=dict(paged=False, use_mtp=True, attn_impl="pallas"),
         kernels=("fp8_gemm", "moe_gemm", "mla_decode"),
-        absent=("paged_mla_decode",), per_step={"fp8_gemm": 38},
+        absent=("paged_mla_decode",),
+        per_step={"mla_decode": 4, "fp8_gemm": 38},
         **DSV3_PROMPTS),
 }
 
@@ -1125,6 +1177,7 @@ def profile_device(torch, label, fn, per, unit):
     rows.sort(reverse=True)
     launched = sum(r[1] for r in rows) // per
     groups = {}
+    group_of = {}
     for us, n, key in rows:
         g = next((k for k in KERNEL_GROUPS if k in key), None)
         if g is None:
@@ -1132,6 +1185,7 @@ def profile_device(torch, label, fn, per, unit):
                  if any(w in key for w in ("gemm", "gemv", "nvjet", "xmma"))
                  else "other")
         groups[g] = groups.get(g, 0.0) + us
+        group_of[key] = g
     log(f"[c] {label}: device busy {busy / 1e3:.2f} ms"
         f" of {wall_us / 1e3:.2f} ms wall ({100 * busy / wall_us:.1f}% busy "
         f"under the profiler), {launched} kernels per {unit}; per {unit} by "
@@ -1141,13 +1195,14 @@ def profile_device(torch, label, fn, per, unit):
     for us, n, key in rows[:14]:
         log(f"[c]   {us / 1e3 / per:8.3f} ms/{unit}  x{n // per:<4d} "
             f"{key[:90]}")
-    # the split-KV pair: each group holds its split and combine kernels;
+    # the split-KV kernels: each group holds its split and combine kernels;
     # fp8_gemm's its decode, reduce and prefill kernels
-    for g in ("fp8_gemm", "paged_mla_decode", "paged_gqa_decode"):
+    for g in ("fp8_gemm", "paged_mla_decode", "paged_gqa_decode",
+              "mla_decode"):
         if g in groups:
             log(f"[c]   group {g}: " + ", ".join(
                 f"{key[:70]} x{n // per} {us / 1e3 / per:.3f} ms"
-                for us, n, key in rows if g in key))
+                for us, n, key in rows if group_of[key] == g))
 
 
 # --- (d) ---------------------------------------------------------------------

@@ -7,11 +7,17 @@
 //   m = max_t s_t,  l = sum_t exp(s_t - m),  acc = sum_t exp(s_t - m) v_t
 // over the split's rows t <= qpos, into a workspace laid out as
 //   m, l: (B, H, S),  acc: (B, H, S, D).
-// A split that starts past its slot's qpos writes nothing. The combine
-// pass reads qpos on the card to know how many splits a slot has:
+// A paged split that starts past its slot's qpos writes nothing. The
+// combine pass then reads qpos on the card to know how many splits a slot
+// has:
 //   n_tok = min(qpos + 1, rows),  ns = ceil(n_tok / rps),
 //   M = max_s m_s,  w_s = exp(m_s - M),
 //   o = sum_s w_s acc_s / max(sum_s w_s l_s, 1e-30).
+// A ring's valid rows may sit in any split, so in ring mode (RING) every
+// split writes m and l (NEG and 0 when it holds no valid row), all S
+// splits are considered, and a split with l = 0 gets w_s = 0 and its
+// accumulator, which it never wrote, is not read. A slot with no valid row
+// comes out zero.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -135,9 +141,11 @@ __device__ __forceinline__ int slot_tokens(const int* qpos, int b, int rows) {
 // The combine pass: one block per (head h, slot b) = (blockIdx.x,
 // blockIdx.y), threads over the D output columns four at a time (D % 4 ==
 // 0); S floats of dynamic shared memory hold the split weights. Each thread
-// keeps four splits' loads in flight.
+// keeps four splits' loads in flight. In ring mode qpos, rows and rps are
+// not read.
 constexpr int COMBINE_THREADS = 128;
 
+template <bool RING = false>
 __device__ __forceinline__ void combine(const float* __restrict__ pm,
                                         const float* __restrict__ pl,
                                         const float* __restrict__ pacc,
@@ -147,8 +155,11 @@ __device__ __forceinline__ void combine(const float* __restrict__ pm,
   extern __shared__ float w[];      // [S]
   __shared__ float denom;
   const int h = blockIdx.x, b = blockIdx.y;
-  const int n_tok = slot_tokens(qpos, b, rows);
-  const int ns = n_tok > 0 ? (n_tok + rps - 1) / rps : 0;
+  int ns = S;
+  if (!RING) {
+    const int n_tok = slot_tokens(qpos, b, rows);
+    ns = n_tok > 0 ? (n_tok + rps - 1) / rps : 0;
+  }
   const size_t bh = static_cast<size_t>(b) * H + h;
   const float* m = pm + bh * S;
   const float* l = pl + bh * S;
@@ -159,7 +170,7 @@ __device__ __forceinline__ void combine(const float* __restrict__ pm,
     M = warp_max(M);
     float L = 0.f;
     for (int s = lane; s < ns; s += 32) {
-      const float ws = expf(m[s] - M);
+      const float ws = (RING && !(l[s] > 0.f)) ? 0.f : expf(m[s] - M);
       w[s] = ws;
       L += ws * l[s];
     }
@@ -176,7 +187,10 @@ __device__ __forceinline__ void combine(const float* __restrict__ pm,
     for (; s + 4 <= ns; s += 4) {
       float4 x[4];
 #pragma unroll
-      for (int u = 0; u < 4; ++u) x[u] = acc[static_cast<size_t>(s + u) * D4 + d];
+      for (int u = 0; u < 4; ++u)
+        x[u] = (!RING || w[s + u] != 0.f)
+                   ? acc[static_cast<size_t>(s + u) * D4 + d]
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const float ws = w[s + u];
@@ -187,8 +201,9 @@ __device__ __forceinline__ void combine(const float* __restrict__ pm,
       }
     }
     for (; s < ns; ++s) {
-      const float4 x = acc[static_cast<size_t>(s) * D4 + d];
       const float ws = w[s];
+      if (RING && ws == 0.f) continue;
+      const float4 x = acc[static_cast<size_t>(s) * D4 + d];
       o.x += ws * x.x;
       o.y += ws * x.y;
       o.z += ws * x.z;

@@ -16,32 +16,47 @@ A slot with no valid row comes out zero, as the Pallas kernel's does
 (``acc / max(l, 1e-30)`` with ``acc = l = 0``), not the uniform mix of
 ``mla_attention/ref.py``.
 
-The kernel (``csrc/mla_decode.cu``) runs one thread block per (group of
-8 heads, slot) over 32-row tiles of the ring, skips a tile whose ``pos``
-holds no valid row (a block-wide vote), and masks a ragged last tile
-itself, where the Pallas op pads ``pos`` with -1 to a multiple of its
-block. It reads rows as 16-byte vectors, so a row of R (and of Rr)
-values must fill whole vectors: R, Rr multiples of 4 for fp32 caches, of
-8 for bf16.
+The kernel (``csrc/mla_decode.cu``) is ``paged_mla_decode``'s split-KV
+design with the ring as its row source (the split pass is shared,
+``csrc/mla_split.cuh``): a CTA per (split of ``rps`` ring rows, 16 heads,
+slot) keeps the rows of its split whose ``pos`` is valid, in ascending
+order, copies only those (``cp.async``) and folds them into an online
+softmax with register-blocked fp32 scores and P·V; a combine pass merges
+the partial softmaxes over all splits, skipping splits without a valid
+row. One counted launch runs both. :func:`ring_split_plan` picks ``rps``
+and the number of splits from the shapes and the SM count alone, so the
+call reads neither ``pos`` nor ``qpos`` on the host and captures in a
+CUDA graph. Rows are copied in 16-byte pieces, so a row of R (and of Rr)
+values must fill whole 16-byte vectors: R, Rr multiples of 4 for fp32
+caches, of 8 for bf16; R is at most 512 (a thread owns four of the
+accumulator's columns).
 
 What bounds it on an H100: the fp32 arithmetic on the CUDA cores,
 2·H·(2R + Rr) flops per valid row, over the bytes of the row (R + Rr
-values, 2 or 4 bytes each). At four slots of DeepSeek-V3 (H = 128) that
-is 1.14 GFLOP against 6.9 MB: 0.017 ms at the fp32 peak. B·H/8 blocks
-(64 at four slots) fill half the 132 SMs; split-KV is the lever there.
+values, 2 or 4 bytes each). At four slots of DeepSeek-V3 (H = 128) with
+full rings of 1024 that is 1.14 GFLOP against 4.7 MB of bf16 rows:
+0.017 ms at the fp32 peak. The plan gives 64-row splits there, 512 CTAs
+over the 132 SMs.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import build, registry
+from repro_torch.kernels.paged_attention.ops import (MLA_HEADS_PER_CTA,
+                                                     MLA_MAX_RANK, split_plan,
+                                                     workspace_floats)
 
 # the ring caches the kernel reads: the model's cache dtype at smoke width
 # (fp32) and at published width (bf16)
 _CACHE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# the split kernel's tile: a split is a whole number of 32-row tiles
+RING_TILE = 32
 
 mla_decode = registry.op(
     "mla_decode",
@@ -66,12 +81,21 @@ def mla_decode_plain(q_abs, q_rope, ckv, kr, pos, qpos, *,
     return o * valid.any(dim=1).to(o.dtype)[:, None, None]
 
 
+def ring_split_plan(B: int, H: int, T: int, sms: int) -> Tuple[int, int]:
+    """(rows per split, splits) of ``mla_decode`` for ``B`` rings of ``T``
+    rows and ``H`` heads on a card of ``sms`` SMs: ``split_plan`` with the
+    32-row tile as the page, over ``T`` rounded up to whole tiles (T = 40
+    is one split of 64 rows). Shapes only: never reads pos or qpos."""
+    tiles = -(-T // RING_TILE) * RING_TILE
+    return split_plan(B, -(-H // MLA_HEADS_PER_CTA), tiles, RING_TILE, sms)
+
+
 @functools.cache
 def _entry():
     v = ctypes.c_void_p
     i = ctypes.c_int
     return build.entry("mla_decode", "mla_decode",
-                       [v, v, v, v, v, v, v, i, i, i, i, i,
+                       [v, v, v, v, v, v, v, v, i, i, i, i, i, i, i,
                         ctypes.c_float, i, v])
 
 
@@ -95,13 +119,19 @@ def _mla_decode_cuda(q_abs, q_rope, ckv, kr, pos, qpos, *,
         raise ValueError(f"mla_decode: rows of R={R} and Rr={Rr} "
                          f"{ckv.dtype} values must fill whole 16-byte "
                          "vectors")
+    if R > MLA_MAX_RANK:
+        raise ValueError(f"mla_decode: the kernel takes R up to "
+                         f"{MLA_MAX_RANK}, got R={R}")
     args = [q_abs.float(), q_rope.float(), ckv, kr, pos.int(), qpos.int()]
     if not all(t.is_cuda for t in args):
         raise TypeError("mla_decode: every operand must be on the card")
     args = [registry.contiguous16(t) for t in args]
+    rps, S = ring_split_plan(B, H, T, registry.sm_count(q_abs.device))
+    ws = torch.empty(workspace_floats(B, H, S, R), dtype=torch.float32,
+                     device=q_abs.device)
     out = torch.empty((B, H, R), dtype=torch.float32, device=q_abs.device)
     P = registry.ptr
-    mla_decode.launch(_entry(), *(P(t) for t in args), P(out),
-                      B, H, R, Rr, T, ctypes.c_float(scale), code,
+    mla_decode.launch(_entry(), *(P(t) for t in args), P(out), P(ws),
+                      B, H, R, Rr, T, rps, S, ctypes.c_float(scale), code,
                       registry.stream_ptr(out))
     return out

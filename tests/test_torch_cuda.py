@@ -320,34 +320,65 @@ def test_paged_mla_decode_kernel_matches_plain(card, storage):
     assert _rel_err(out, ref) <= FP32_TOL
 
 
-# (B, H, R, Rr, T, layout): DeepSeek-V3's dense decode (full rings of 1024),
-# a ragged T with a slot whose ring is empty, a ring past one wrap, and the
-# smoke width
+# (B, H, R, Rr, T, layout): DeepSeek-V3's dense decode (full rings of 1024;
+# in fp32 too, the smoke width's cache at published width, which the split
+# kernel copies straight into two fp32 tiles to fit its shared memory), a
+# ragged T with a slot whose ring is empty, a ring past one wrap, the smoke
+# width, and what only a split kernel over a ring can get wrong: "stale"
+# (every row holds a position, those past qpos from a slot's earlier
+# occupant), "last" (valid rows only in the last split), "ragged" (T = 1000,
+# every row valid: a last split of 40 rows), "served" (the main path's
+# contexts 600-900 in rings of 1024)
 MLA_CASES = [(4, 128, 512, 64, 1024, "full"), (3, 128, 512, 64, 1000, "empty"),
-             (4, 128, 512, 64, 1024, "wrapped"), (2, 4, 32, 8, 40, "empty")]
+             (4, 128, 512, 64, 1024, "wrapped"), (2, 4, 32, 8, 40, "empty"),
+             (4, 128, 512, 64, 1024, "stale"), (4, 128, 512, 64, 1024, "last"),
+             (4, 128, 512, 64, 1000, "ragged"),
+             (4, 128, 512, 64, 1024, "served")]
 
 
-def _mla_inputs(card, dims, dtype):
+def _mla_inputs(card, dims, dtype, seed=4):
     B, H, R, Rr, T, layout = dims
-    g = torch.Generator(device=card).manual_seed(4)
+    g = torch.Generator(device=card).manual_seed(seed)
     qa = torch.randn(B, H, R, generator=g, device=card)
     qr = torch.randn(B, H, Rr, generator=g, device=card)
     ckv = torch.randn(B, T, R, generator=g, device=card).to(dtype)
     kr = torch.randn(B, T, Rr, generator=g, device=card).to(dtype)
     t = torch.arange(T, dtype=torch.int32, device=card).expand(B, T)
+    b = torch.arange(B, dtype=torch.int32, device=card)
+    pos = t.clone()
+    qpos = torch.full((B,), T - 1, dtype=torch.int32, device=card)
     if layout == "wrapped":             # rows 0..w hold positions T..T+w
-        w = 300 + 100 * torch.arange(B, dtype=torch.int32, device=card)
+        w = 300 + 100 * b
         pos = torch.where(t <= w[:, None], t + T, t)
         qpos = w + T
-    else:
-        pos = t.clone()
-        qpos = torch.full((B,), T - 1, dtype=torch.int32, device=card)
-        if layout == "empty":           # ragged validity, slot 0 empty
-            lens = (T * (1 + torch.arange(B, device=card))) // (B + 1)
-            pos = torch.where(t < lens[:, None].int(), t, -1)
-            pos[0] = -1
-            qpos = lens.int() - 1
+    elif layout == "empty":             # ragged validity, slot 0 empty
+        lens = (T * (1 + b)) // (B + 1)
+        pos = torch.where(t < lens[:, None], t, -1)
+        pos[0] = -1
+        qpos = lens - 1
+    elif layout == "stale":             # rows past qpos hold larger positions
+        qpos = 299 + 233 * b
+    elif layout == "last":              # 1-40 valid rows at the ring's end
+        n = 1 + 13 * b
+        pos = torch.where(t >= T - n[:, None], t - (T - n[:, None]), -1)
+        qpos = n - 1
+    elif layout == "served":
+        ctx = torch.tensor([600, 700, 800, 900], dtype=torch.int32,
+                           device=card)[:B]
+        pos = torch.where(t < ctx[:, None], t, -1)
+        qpos = ctx - 1
     return qa, qr, ckv, kr, pos.int().contiguous(), qpos.int()
+
+
+def _poison_invalid_rows(args):
+    """Copies of the rings with every row that is not valid (pos < 0 or
+    pos > qpos) set to NaN."""
+    qa, qr, ckv, kr, pos, qpos = args
+    dead = (pos < 0) | (pos > qpos[:, None])
+    ckv, kr = ckv.clone(), kr.clone()
+    ckv[dead] = float("nan")
+    kr[dead] = float("nan")
+    return qa, qr, ckv, kr, pos, qpos
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -363,6 +394,52 @@ def test_mla_decode_kernel_matches_plain(card, dims, dtype):
         assert bool((out[0] == 0).all())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dims", MLA_CASES)
+def test_mla_decode_never_reads_invalid_rows(card, dims, dtype):
+    """Only valid rows are copied: rings whose empty, stale and wrapped-over
+    rows are NaN give the clean output bit for bit."""
+    args = _mla_inputs(card, dims, dtype)
+    out = mla_ops.mla_decode(*args, scale=0.0722)
+    assert torch.equal(out, mla_ops.mla_decode(*_poison_invalid_rows(args),
+                                               scale=0.0722))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dims", [MLA_CASES[0], MLA_CASES[3], MLA_CASES[7]])
+def test_mla_decode_gives_the_same_bits_every_call(card, dims, dtype):
+    """Rows are kept in ring order and the splits merged in a fixed order:
+    no float atomics."""
+    args = _mla_inputs(card, dims, dtype)
+    a = mla_ops.mla_decode(*args, scale=0.0722)
+    b = mla_ops.mla_decode(*args, scale=0.0722)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mla_decode_graph_replay_equals_eager(card, dtype):
+    """The split plan reads nothing on the host: a captured call, replayed
+    after its queries, rings, pos and qpos changed in place (full rings to
+    the served contexts), equals an eager call on the new inputs; the
+    capture counts its one launch."""
+    args = _mla_inputs(card, MLA_CASES[0], dtype)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        mla_ops.mla_decode(*args, scale=0.0722)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = mla_ops.mla_decode.launches
+    with torch.cuda.graph(graph):
+        out = mla_ops.mla_decode(*args, scale=0.0722)
+    assert mla_ops.mla_decode.launches == before + 1
+    for x, y in zip(args, _mla_inputs(card, MLA_CASES[7], dtype, seed=7)):
+        x.copy_(y)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, mla_ops.mla_decode(*args, scale=0.0722))
+
+
 def test_mla_decode_kernel_refuses_other_caches(card):
     qa = torch.ones(1, 8, 32, device=card)
     qr = torch.ones(1, 8, 8, device=card)
@@ -376,6 +453,24 @@ def test_mla_decode_kernel_refuses_other_caches(card):
     with pytest.raises(ValueError, match="16-byte"):
         mla_ops.mla_decode(qa, qa[..., :4], wide, narrow, pos, qpos,
                            scale=1.0)
+
+
+def test_mla_decode_refuses_rows_past_its_shared_memory(card):
+    """R over 512 raises before the launch; fp32 rows of R + Rr = 640 need
+    more shared memory than a CTA may have, so the launch is refused and
+    the wrapper raises, and the next call runs as before."""
+    dims = (1, 16, 512, 128, 64, "full")
+    wide = _mla_inputs(card, dims, torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        mla_ops.mla_decode(*wide, scale=0.0722)
+    qa, qr, ckv, kr, pos, qpos = _mla_inputs(card, (1, 16, 520, 64, 64,
+                                                    "full"), torch.float32)
+    with pytest.raises(ValueError, match="R up to 512"):
+        mla_ops.mla_decode(qa, qr, ckv, kr, pos, qpos, scale=0.0722)
+    args = _mla_inputs(card, MLA_CASES[3], torch.float32)
+    out = mla_ops.mla_decode(*args, scale=0.0722)
+    ref = mla_ops.mla_decode.run_plain(*args, scale=0.0722)
+    assert _rel_err(out, ref) <= FP32_TOL
 
 
 # (B, H, KV, hd, page, pp, contexts): qwen3-14b's decode (G = 5, not a

@@ -34,6 +34,7 @@ from repro_torch.configs.base import smoke_config as tsmoke
 from repro_torch.core import mla
 from repro_torch.kernels import registry
 from repro_torch.kernels.mla_attention import ops as mla_ops
+from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.models.api import Model
 from repro_torch.serve.engine import AdmissionError, Request, ServeEngine
 
@@ -137,6 +138,58 @@ def test_cpu_tensor_runs_plain_and_counts_nothing():
     out = mla_ops.mla_decode(*ours, scale=0.11)
     _close(out, mla_ops.mla_decode.run_plain(*ours, scale=0.11), rtol=0.0)
     assert registry.launch_counts()["mla_decode"] == 0
+
+
+# --- the kernel's split plan (shapes only; the kernel itself runs on the card,
+# tests/test_torch_cuda.py) --------------------------------------------------------
+
+# (B, H, T): DeepSeek-V3's dense decode (four slots, 128 heads, rings of 1024),
+# one slot, a ragged T, longer rings and more slots, the reference's parity
+# shapes (T = 40 among them)
+RING_PLANS = [(4, 128, 1024), (1, 128, 1024), (3, 128, 1000), (4, 128, 2048),
+              (8, 128, 4096), (2, 8, 64), (1, 4, 96), (3, 16, 128),
+              (1, 4, 40)]
+
+
+@pytest.mark.parametrize("dims", RING_PLANS)
+def test_ring_split_plan_tiles_the_ring(dims):
+    """Whole 32-row tiles, at most 128 rows a split, every ring row in
+    exactly one split and no split wholly past the ring, a workspace of
+    B*H*S accumulators of R plus m and l, and a function of the shapes and
+    the SM count alone."""
+    B, H, T = dims
+    for sms in (132, 114):
+        rps, S = mla_ops.ring_split_plan(B, H, T, sms)
+        assert rps % mla_ops.RING_TILE == 0 and 0 < rps <= 128
+        assert rps * S >= T and (S - 1) * rps < T
+        splits = [range(s * rps, min((s + 1) * rps, T)) for s in range(S)]
+        assert [t for r in splits for t in r] == list(range(T))
+        for R in (512, 64):
+            assert paged_ops.workspace_floats(B, H, S, R) == B * H * S * (R + 2)
+
+
+@pytest.mark.parametrize("dims", RING_PLANS)
+def test_ring_split_plan_reaches_two_ctas_per_sm(dims):
+    """The grid (splits x groups of 16 heads x slots) reaches two CTAs per
+    SM wherever the ring has rows enough: it falls short only where half
+    a split would be under the 64-row floor."""
+    B, H, T = dims
+    for sms in (132, 114):
+        rps, S = mla_ops.ring_split_plan(B, H, T, sms)
+        ctas = B * -(-H // 16) * S
+        assert ctas >= 2 * sms or rps // 2 < 64
+
+
+@pytest.mark.parametrize("B,H,T,plan", [(4, 128, 1024, (64, 16)),
+                                        (4, 128, 1000, (64, 16)),
+                                        (1, 128, 1024, (64, 16)),
+                                        (4, 128, 2048, (128, 16)),
+                                        (2, 4, 40, (64, 1))])
+def test_ring_split_plan_at_the_served_shapes(B, H, T, plan):
+    """DeepSeek-V3 on 132 SMs: four rings of 1024 get 64-row splits, 512
+    CTAs (the first kernel ran 64); T = 1000 the same 16 splits, the last
+    of 40 rows; the reference's T = 40 is one split of 64 rows."""
+    assert mla_ops.ring_split_plan(B, H, T, 132) == plan
 
 
 # --- the dense latent ring ------------------------------------------------------
