@@ -8,11 +8,12 @@ from the root of a checkout. Phases, each fatal on failure:
   (a) environment: the card's name and power limit (nvidia-smi), the
       torch/CUDA versions; build every kernel under src/repro_torch/csrc
       with nvcc (one process per source, in parallel) and time the build;
-      ptxas's registers, spills and warnings (any spill in fp8_gemm or
-      mla_decode fails); the count of HGMMA (wgmma) and UTMALDG (TMA load)
-      instructions in flash_prefill's and fp8_gemm's SASS, of UBLKCP (bulk
-      copy) and UTMALDG in moe_gemm's, and of LDGSTS (cp.async) in the
-      three split-KV decode kernels' (cuobjdump); a count of 0 fails;
+      ptxas's registers, spills and warnings (any spill in fp8_gemm,
+      mla_decode or logfmt_encode fails); the count of HGMMA (wgmma) and
+      UTMALDG (TMA load) instructions in flash_prefill's and fp8_gemm's
+      SASS, of UBLKCP (bulk copy) and UTMALDG in moe_gemm's, and of LDGSTS
+      (cp.async) in the three split-KV decode kernels' (cuobjdump); a
+      count of 0 fails;
   (b) kernels: each hand-written kernel against its plain PyTorch version
       on the card, at the shapes the main path gives it, with the stated
       tolerance; per kernel the kernel time, the plain version's time, the
@@ -42,7 +43,12 @@ from the root of a checkout. Phases, each fatal on failure:
       1024, mla_decode at DeepSeek-V3's over four rings of 1024 (bf16: the
       table's row; fp32), T = 1000 with an empty slot (exactly zero), a
       wrapped ring, the served contexts 600-900 and stale rows past qpos,
-      each also timed eagerly, the full rings against SDPA;
+      each also timed eagerly, the full rings against SDPA; the LogFMT pair
+      at the compressed ring's hop chunk, (1792, 18432) fp32 at 8 and 10
+      bits, timed with them before any plain version runs, in a CUDA graph
+      and eagerly, with the wrappers' host time per eager call, and
+      logfmt_encode on the edge tiles of kernels/logfmt/edge.py at 2-16
+      bits (codes equal to the plain version's on the structured ones);
   (c) the main paths, each served by ``ServeEngine(attn_impl="pallas")``
       with seeded random weights drawn on the card, six seeded prompts, 32
       new tokens each, greedy:
@@ -91,8 +97,9 @@ from the root of a checkout. Phases, each fatal on failure:
       inputs, regenerated from their seeds), and the card's ring against
       the same ring on the CPU ranks (plain codec) on (1024, 2048) inputs
       from numpy seeds. Printed: the error at 8 bits, bytes on the wire,
-      wall ms per call (4 gloo ranks on one card: not a wire figure), peak
-      memory per rank; and, in two more processes, whether gloo's
+      wall ms per call (4 gloo ranks on one card: not a wire figure) and
+      the kernels' share of it (at phase (b)'s graph times), peak memory
+      per rank; and, in two more processes, whether gloo's
       point-to-point ops take CUDA tensors.
 
 The line before the last two is one JSON object with the kernel table; the
@@ -206,7 +213,7 @@ SASS_OPS = {"flash_prefill": ("HGMMA", "UTMALDG"),
 
 
 # kernels whose build must spill no register
-NO_SPILLS = ("fp8_gemm", "mla_decode")
+NO_SPILLS = ("fp8_gemm", "mla_decode", "logfmt_encode")
 
 
 def sass_counts(build):
@@ -773,16 +780,70 @@ def logfmt_bytes(N, D, n_bits):
     return N * D * 4 + N * D * (1 if n_bits <= 8 else 2) + 8 * N * D // 128
 
 
-def bench_logfmt_encode(torch, dev, gen):
-    """The ring hop's encode: (1792, 18432) fp32 at 8 and 10 bits.
-    Tolerance as the reference holds its kernel: codes one level apart on
-    under 0.1% of entries, mn within rtol 1e-5 / atol 1e-6, step within
-    rtol 1e-5 / atol 1e-5."""
+def time_logfmt(torch, dev, gen):
+    """The LogFMT pair at the ring's hop chunk, (1792, 18432) fp32, at 8 and
+    10 bits, timed before any plain version runs (after an fp32 plain
+    version every kernel runs up to a fifth slower): in a CUDA graph of 20
+    calls, eagerly, and the wrappers' host us per eager call. Decode reads
+    the kernel's codes. Returns x and {op: [timing per width]}."""
     from repro_torch.kernels.logfmt import ops
     N, D = RING_SHAPE[0] // RING_WORLD, RING_SHAPE[1]
     x = torch.randn(N, D, generator=gen, device=dev)
-    rows = []
+    out = {"logfmt_encode": [], "logfmt_decode": []}
     for n_bits in RING_BITS:
+        codes, mn, step = ops.logfmt_encode(x, n_bits=n_bits)
+        calls = {"logfmt_encode": lambda: ops.logfmt_encode(x, n_bits=n_bits),
+                 "logfmt_decode": lambda: ops.logfmt_decode(
+                     codes, mn, step, n_bits=n_bits, dtype=torch.float32)}
+        for name, fn in calls.items():
+            t = dict(ms=graph_ms(torch, [fn] * 20), eager_ms=cuda_ms(
+                torch, fn, 20))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(100):
+                fn()
+            t["host_us"] = 1e6 * (time.perf_counter() - t0) / 100
+            torch.cuda.synchronize()
+            out[name].append(t)
+        del codes, mn, step
+    return x, out
+
+
+def check_logfmt_edge_tiles(torch, dev):
+    """The edge tiles of ``kernels/logfmt/edge.py`` (fp32) at 2, 3, 8, 10
+    and 16 bits: codes equal to the plain version's on every structured
+    tile (subnormals, the clamp, the step's floor and both sides of the
+    estimate path's line), one level apart on under 0.1% of all."""
+    from repro_torch.kernels.logfmt import edge, ops
+    x, names = edge.edge_tiles()
+    x = torch.from_numpy(x).to(dev)
+    k = len(edge.STRUCTURED)
+    for n_bits in (2, 3, 8, 10, 16):
+        codes, mn, step = ops.logfmt_encode(x, n_bits=n_bits)
+        rc, rmn, rstep = ops.logfmt_encode.run_plain(x, n_bits=n_bits)
+        bad = [names[i] for i in range(k) if not torch.equal(codes[i], rc[i])]
+        diff = codes.to(torch.int32) - rc.to(torch.int32)
+        if bad or not (float((diff != 0).float().mean()) < 1e-3
+                       and int(diff.abs().max()) <= 1):
+            raise AssertionError(f"logfmt_encode {n_bits} bits, edge tiles: "
+                                 f"structured tiles {bad} differ from the "
+                                 "plain version's codes")
+        torch.testing.assert_close(mn, rmn, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(step, rstep, rtol=1e-5, atol=1e-5)
+    log(f"[b]   logfmt_encode edge tiles ({len(names)}: {', '.join(names)}) "
+        "at 2, 3, 8, 10 and 16 bits: the structured tiles' codes equal the "
+        "plain version's")
+
+
+def bench_logfmt_encode(torch, dev, x, timed):
+    """The ring hop's encode, timed by ``time_logfmt``, held against its
+    plain version. Tolerance as the reference holds its kernel: codes one
+    level apart on under 0.1% of entries, mn within rtol 1e-5 / atol 1e-6,
+    step within rtol 1e-5 / atol 1e-5."""
+    from repro_torch.kernels.logfmt import ops
+    N, D = x.shape
+    rows = []
+    for n_bits, t in zip(RING_BITS, timed):
         codes, mn, step = ops.logfmt_encode(x, n_bits=n_bits)
         rc, rmn, rstep = ops.logfmt_encode.run_plain(x, n_bits=n_bits)
         diff = codes.to(torch.int32) - rc.to(torch.int32)
@@ -796,29 +857,32 @@ def bench_logfmt_encode(torch, dev, gen):
         torch.testing.assert_close(step, rstep, rtol=1e-5, atol=1e-5)
         err = max(float((mn - rmn).abs().max()),
                   float((step - rstep).abs().max()))
-        ms = cuda_ms(torch, lambda: ops.logfmt_encode(x, n_bits=n_bits), 20)
         plain = cuda_ms(torch, lambda: ops.logfmt_encode.run_plain(
             x, n_bits=n_bits), 3)
-        # a logf and two expf per value
+        # bytes: x read once, codes and sideband written once; operations:
+        # the reference's three transcendentals a value (a log, two exps)
+        # at the SFU rate, under the byte time at both widths (the kernel
+        # itself evaluates one lg2.approx a value, two expf for the few
+        # values its error bound leaves open, and two logf a tile)
         b, by = bound_ms(logfmt_bytes(N, D, n_bits), 3 * N * D, "sfu")
         rows.append(dict(shape=f"N={N} D={D} fp32, {n_bits} bits",
                          max_abs_err=err, rel_err=off, tol=1e-3,
-                         rel_of="codes (one level apart)", ms=ms,
-                         plain_ms=plain, bound_ms=b, bound_by=by,
-                         library_ms=None))
+                         rel_of="codes (one level apart)", plain_ms=plain,
+                         bound_ms=b, bound_by=by, library_ms=None, **t))
         del codes, mn, step, rc, rmn, rstep, diff
+    check_logfmt_edge_tiles(torch, dev)
     return rows
 
 
-def bench_logfmt_decode(torch, dev, gen):
-    """The ring hop's decode to fp32: codes of (1792, 18432) at 8 and 10
-    bits. Tolerance: allclose(rtol 1e-4, atol 1e-5), the reference's."""
+def bench_logfmt_decode(torch, dev, x, timed):
+    """The ring hop's decode to fp32 of the kernel's codes of x at 8 and 10
+    bits, timed by ``time_logfmt``. Tolerance: allclose(rtol 1e-4, atol
+    1e-5), the reference's."""
     from repro_torch.kernels.logfmt import ops
-    N, D = RING_SHAPE[0] // RING_WORLD, RING_SHAPE[1]
-    x = torch.randn(N, D, generator=gen, device=dev)
+    N, D = x.shape
     rows = []
-    for n_bits in RING_BITS:
-        codes, mn, step = ops.logfmt_encode.run_plain(x, n_bits=n_bits)
+    for n_bits, t in zip(RING_BITS, timed):
+        codes, mn, step = ops.logfmt_encode(x, n_bits=n_bits)
         kw = dict(n_bits=n_bits, dtype=torch.float32)
         y = ops.logfmt_decode(codes, mn, step, **kw)
         ref = ops.logfmt_decode.run_plain(codes, mn, step, **kw)
@@ -826,16 +890,14 @@ def bench_logfmt_decode(torch, dev, gen):
         rel = float((d / (1e-5 + 1e-4 * ref.abs())).max())
         check(f"logfmt_decode {n_bits} bits", rel, 1.0,
               of="the allclose bound")
-        ms = cuda_ms(torch, lambda: ops.logfmt_decode(codes, mn, step, **kw),
-                     20)
         plain = cuda_ms(torch, lambda: ops.logfmt_decode.run_plain(
             codes, mn, step, **kw), 3)
         b, by = bound_ms(logfmt_bytes(N, D, n_bits), N * D, "sfu")
         rows.append(dict(shape=f"N={N} D={D} to fp32, {n_bits} bits",
                          max_abs_err=float(d.max()), rel_err=rel, tol=1.0,
-                         rel_of="allclose(rtol 1e-4, atol 1e-5)", ms=ms,
+                         rel_of="allclose(rtol 1e-4, atol 1e-5)",
                          plain_ms=plain, bound_ms=b, bound_by=by,
-                         library_ms=None))
+                         library_ms=None, **t))
         del codes, mn, step, y, ref, d
     return rows
 
@@ -844,14 +906,16 @@ def phase_kernels(torch):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    # the split-KV decode kernels first: all three are timed before any
-    # plain version runs (right after an fp32 plain version everything runs
-    # up to a fifth slower; kernels/moe_gemm/probe.py), then checked
+    # the split-KV decode kernels and the LogFMT pair first: all five are
+    # timed before any plain version runs (right after an fp32 plain
+    # version everything runs up to a fifth slower; kernels/moe_gemm/
+    # probe.py), then checked
     split = {"paged_mla_decode": bench_paged_mla(torch, dev, gen),
              "paged_gqa_decode": bench_paged_gqa(torch, dev, gen),
              "mla_decode": bench_mla_decode(torch, dev, gen)}
     for op, cases, _ in split.values():
         time_split_rows(torch, op, cases)
+    ring_x, logfmt = time_logfmt(torch, dev, gen)
     split = {name: check_split_rows(torch, op, cases, tol)
              for name, (op, cases, tol) in split.items()}
     torch.cuda.empty_cache()
@@ -859,8 +923,11 @@ def phase_kernels(torch):
            "moe_gemm": bench_moe_gemm(torch, dev, gen),
            **split,
            "flash_prefill": bench_flash_prefill(torch, dev, gen),
-           "logfmt_encode": bench_logfmt_encode(torch, dev, gen),
-           "logfmt_decode": bench_logfmt_decode(torch, dev, gen)}
+           "logfmt_encode": bench_logfmt_encode(
+               torch, dev, ring_x, logfmt["logfmt_encode"]),
+           "logfmt_decode": bench_logfmt_decode(
+               torch, dev, ring_x, logfmt["logfmt_decode"])}
+    del ring_x
     for name, rows in out.items():
         for r in rows:
             lib = ("null" if r["library_ms"] is None
@@ -873,7 +940,9 @@ def phase_kernels(torch):
                 + (f", cold L2 {r['cold_ms']:.4f} ms" if "cold_ms" in r
                    else "")
                 + (f", eager {r['eager_ms']:.4f} ms" if "eager_ms" in r
-                   else ""))
+                   else "")
+                + (f", host {r['host_us']:.1f} us per eager call"
+                   if "host_us" in r else ""))
     torch.cuda.empty_cache()
     return out
 
@@ -1390,8 +1459,10 @@ def run_ranks(target, world, tmp, timeout):
     return [p.exitcode for p in procs], outs
 
 
-def phase_ring(torch, card):
-    """Phase (e); returns the launch counts of rank 0's 8-bit call."""
+def phase_ring(torch, card, kernels):
+    """Phase (e); returns the launch counts of rank 0's 8-bit call.
+    ``kernels``: phase (b)'s rows, whose LogFMT graph times give the
+    kernels' share of a call."""
     import tempfile
     torch.cuda.empty_cache()               # the served paths' cached blocks
     N, D = RING_SHAPE
@@ -1448,6 +1519,13 @@ def phase_ring(torch, card):
             "ranks on one card, wire staged through host memory (not a wire "
             f"figure): first call {[round(c['wall_ms'], 1) for c in calls]}"
             f", second {[round(c['warm_ms'], 1) for c in calls]}")
+        i = RING_BITS.index(n_bits)
+        per_call = hops * (kernels["logfmt_encode"][i]["ms"]
+                           + kernels["logfmt_decode"][i]["ms"])
+        log(f"[e] {n_bits} bits: the kernels' share of a second call, "
+            f"{hops} x (encode + decode) at phase (b)'s graph times = "
+            f"{per_call:.4f} ms: "
+            f"{[round(100 * per_call / c['warm_ms'], 3) for c in calls]} %")
     log(f"[e] peak memory per rank: "
         f"{[round(r['peak_gb'], 2) for r in res]} GB")
     for key in res[0]["small"]:
@@ -1494,7 +1572,7 @@ def main():
             launches.setdefault(k, counts[k])
     for name, engine in REFERENCE_CHECKS:
         phase_reference(torch, name, engine)
-    ring = phase_ring(torch, card)
+    ring = phase_ring(torch, card, kernels)
     for k in ("logfmt_encode", "logfmt_decode"):
         launches[k] = ring[k]            # per rank, one 8-bit call
 

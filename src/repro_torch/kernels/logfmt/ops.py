@@ -14,15 +14,28 @@ Replace the TPU kernels ``src/repro/kernels/logfmt/logfmt.py``
 
 Both reshape any ``(..., D)`` to 2-D and back. The plain versions are
 ``repro_torch.core.logfmt``'s ``encode``/``decode``, the codec the JAX
-kernels are held against (``repro/kernels/logfmt/ref.py``). The kernels
-(``csrc/logfmt_encode.cu``, ``csrc/logfmt_decode.cu``) run one warp per
-1x128 tile, and their grid covers the tiles exactly: the JAX op's padding
-to its ``(bn, bd)`` block grid is TPU blocking and has no counterpart here.
+kernels are held against (``repro/kernels/logfmt/ref.py``). The decode
+kernel (``csrc/logfmt_decode.cu``) runs one warp per 1x128 tile; the encode
+kernel (``csrc/logfmt_encode.cu``) one warp per four consecutive tiles at a
+time, over as many blocks as fit on the card. Neither pads: the JAX op's
+padding to its ``(bn, bd)`` block grid is TPU blocking and has no
+counterpart here.
 
 What bounds them on an H100: the bytes. Encode reads x once and writes the
-codes and the sideband once; decode the reverse. Each value costs a few
-transcendentals on the CUDA cores (a ``logf`` and two ``expf`` to encode,
-one ``expf`` to decode), which stays under the byte time at fp32 inputs.
+codes and the sideband once; decode the reverse. Decode spends one ``expf``
+a value. Encode spends its exact transcendentals per tile, not per value
+(``csrc/logfmt_encode.cu``): the tile's range from two ``logf`` of the
+integer min and max of |x|, each value's level from an ``lg2.approx``
+estimate wherever an error bound settles it, the reference's comparison of
+two grid points where it does not, and the reference's arithmetic for a
+whole tile whose step is under 2^-13. At the compressed ring's hop chunk it
+takes 71% of the byte bound at 8 bits and 77% at 10 (the first version,
+one ``logf``, a division and two ``expf`` a value: 38% and 46%); what each
+lever gave: ``PERF.md`` §6, from ``kernels/logfmt/probe.py``.
+
+Encode treats a subnormal input (|x| < 2^-126) as zero, and a grid point or
+difference below 2^-126 as zero, as the plain version and the reference's
+platforms do.
 """
 from __future__ import annotations
 
@@ -81,6 +94,26 @@ def logfmt_decode_plain(codes: torch.Tensor, mn: torch.Tensor,
 def _check_bits(n_bits: int) -> None:
     if not 2 <= n_bits <= 16:
         raise ValueError(f"LogFMT kernels take 2-16 bits, got {n_bits}")
+
+
+# the positive normal floats, as bit patterns
+NORMALS = (0x00800000, 0x7f7fffff)
+
+
+def logf_sweep(device: torch.device, first: int = NORMALS[0],
+               last: int = NORMALS[1]) -> int:
+    """How many bit patterns b in [first, last) the encode kernel's ``logf``
+    takes to a smaller value at float(b + 1) than at float(b). The kernel
+    takes a tile's min and max of the logs from the logs of its min and max
+    |x|, which is the reference's wherever this is 0."""
+    count = torch.zeros(1, dtype=torch.int64, device=device)
+    fn = build.entry("logfmt_encode", "logfmt_logf_sweep",
+                     [ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p,
+                      ctypes.c_void_p])
+    err = fn(first, last, registry.ptr(count), registry.stream_ptr(count))
+    if err:
+        raise RuntimeError(f"logfmt_logf_sweep: CUDA error {err}")
+    return int(count.item())
 
 
 @functools.cache

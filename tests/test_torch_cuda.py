@@ -39,6 +39,7 @@ from repro_torch.core import fp8, paged
 from repro_torch.kernels import registry
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.fp8_gemm import ops as fp8_ops
+from repro_torch.kernels.logfmt import edge as logfmt_edge
 from repro_torch.kernels.logfmt import ops as logfmt_ops
 from repro_torch.kernels.mla_attention import ops as mla_ops
 from repro_torch.kernels.moe_gemm import ops as moe_ops
@@ -801,13 +802,16 @@ def test_attention_kernels_refuse_what_they_do_not_take(card):
 
 # (N, D, n_bits, dtype): the compressed ring's hop chunk of a DeepSeek-V3
 # w1 gradient (1792 rows of 18432 at 4 ranks), the reference's parity
-# shapes, and ragged row counts
+# shapes, ragged row counts, and the narrowest and widest codes
 LOGFMT_CASES = [(1792, 18432, 8, torch.float32),
                 (1792, 18432, 10, torch.float32),
                 (100, 384, 8, torch.bfloat16),
                 (7, 256, 10, torch.bfloat16),
                 (64, 256, 10, torch.float32),
-                (13, 128, 8, torch.float32)]
+                (13, 128, 8, torch.float32),
+                (64, 512, 2, torch.float32),
+                (64, 512, 3, torch.bfloat16),
+                (256, 1024, 16, torch.float32)]
 
 
 def _logfmt_input(card, N, D, dtype):
@@ -834,6 +838,105 @@ def test_logfmt_encode_kernel_matches_plain(card, case):
     assert bool((codes[0, :3] == 0).all())
     torch.testing.assert_close(mn, rmn, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(step, rstep, rtol=1e-5, atol=1e-5)
+
+
+def _logfmt_edge_check(got, ref, structured):
+    """Codes equal to the plain version's on the ``structured`` tiles (a
+    bool per tile of the 2-D input), the codec's tolerance on the whole
+    (one level apart on under 0.1%); mn and step within their tolerances."""
+    (codes, mn, step), (rc, rmn, rstep) = got, ref
+    N, D = codes.shape
+    tiles = lambda c: c.to(torch.int32).reshape(N * D // 128, 128)
+    keep = structured.reshape(-1)
+    bad = (tiles(codes)[keep] != tiles(rc)[keep]).any(dim=1)
+    assert not bool(bad.any()), (
+        f"{int(bad.sum())} structured tiles differ from the plain version")
+    diff = codes.to(torch.int32) - rc.to(torch.int32)
+    assert float((diff != 0).float().mean()) < 1e-3
+    assert int(diff.abs().max()) <= 1
+    torch.testing.assert_close(mn, rmn, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(step, rstep, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_bits", [2, 3, 8, 10, 16])
+def test_logfmt_encode_edge_tiles_match_plain(card, n_bits, dtype):
+    """The edge tiles of ``kernels/logfmt/edge.py``: subnormals count as
+    zero (inputs, grid points, differences), the range clamp, ±inf and
+    NaN, and steps at the 1e-12 floor, at 2^-23 and at 1/64 of a log unit,
+    which put a tile on either side of the line between the kernel's
+    estimate path and its whole-tile reference arithmetic (the 1/64 tile:
+    step 1.24e-4 at 8 bits, above the 2^-13 line; 3.1e-5 at 10, below)."""
+    x, names = logfmt_edge.edge_tiles()
+    x = torch.from_numpy(x).to(card).to(dtype)
+    got = logfmt_ops.logfmt_encode(x, n_bits=n_bits)
+    ref = logfmt_ops.logfmt_encode.run_plain(x, n_bits=n_bits)
+    structured = torch.tensor([n in logfmt_edge.STRUCTURED for n in names],
+                              device=card)
+    _logfmt_edge_check(got, ref, structured[:, None])
+
+
+@pytest.mark.parametrize("n_bits", [8, 10])
+def test_logfmt_encode_edge_tiles_inside_the_hop_chunk(card, n_bits):
+    """The edge tiles scattered over the ring's hop chunk, where each warp
+    walks many tiles and loads the next before encoding this one."""
+    N, D = 1792, 18432
+    x = _logfmt_input(card, N, D, torch.float32)
+    edge, names = logfmt_edge.edge_tiles()
+    edge = torch.from_numpy(edge).to(card)
+    structured = torch.zeros(N, D // 128, dtype=torch.bool, device=card)
+    g = torch.Generator(device="cpu").manual_seed(n_bits)
+    spots = torch.randperm(N * D // 128, generator=g)[:40 * len(names)]
+    for j, t in enumerate(spots.tolist()):
+        r, c = divmod(t, D // 128)
+        x[r, c * 128:(c + 1) * 128] = edge[j % len(names)]
+        structured[r, c] = names[j % len(names)] in logfmt_edge.STRUCTURED
+    got = logfmt_ops.logfmt_encode(x, n_bits=n_bits)
+    ref = logfmt_ops.logfmt_encode.run_plain(x, n_bits=n_bits)
+    _logfmt_edge_check(got, ref, structured)
+
+
+@pytest.mark.parametrize("n_bits", [3, 8, 10, 16])
+def test_logfmt_encode_grid_points_and_midpoints_match_plain(card, n_bits):
+    """Tiles whose values sit on their own grid points and on the linear
+    midpoints between neighbours (and one ulp either side): the values the
+    kernel's estimate leaves open, settled by the reference's comparison,
+    and its ties. Each tile holds its least and greatest value at positions
+    0 and 1, so its mn and step are those of those two alone. Codes equal
+    to the plain version's."""
+    T, levels = 512, 2 ** (n_bits - 1) - 1
+    g = torch.Generator(device=card).manual_seed(n_bits)
+    lo = torch.exp(torch.rand(T, 1, generator=g, device=card) * 12 - 9)
+    hi = lo * torch.exp(torch.rand(T, 1, generator=g, device=card) * 8 + 0.5)
+    ends = torch.cat([lo, hi, lo.expand(T, 126)], dim=1)
+    _, mn, step = logfmt_ops.logfmt_encode.run_plain(ends, n_bits=n_bits)
+    k = torch.randint(1, max(levels - 2, 2), (T, 126), generator=g,
+                      device=card).float()
+    point = lambda k: torch.exp(mn + step * k)
+    a, b = point(k), point(k + 1)
+    mid = (a + b) / 2
+    pick = torch.randint(0, 4, (T, 126), generator=g, device=card)
+    inner = torch.where(pick == 0, a, torch.where(
+        pick == 1, mid, torch.nextafter(
+            mid, torch.where(pick == 2, b, a))))
+    sign = torch.where(torch.rand(T, 126, generator=g, device=card) < 0.5,
+                       -1.0, 1.0)
+    x = torch.cat([lo, hi, sign * inner], dim=1).reshape(T // 4, 512)
+    got = logfmt_ops.logfmt_encode(x, n_bits=n_bits)
+    ref = logfmt_ops.logfmt_encode.run_plain(x, n_bits=n_bits)
+    torch.testing.assert_close(ref[1].reshape(-1), mn.reshape(-1), rtol=0,
+                               atol=0)
+    _logfmt_edge_check(got, ref, torch.ones(T // 4, 4, dtype=torch.bool,
+                                            device=card))
+
+
+def test_logfmt_encode_logf_is_monotone(card):
+    """The encode kernel takes a tile's min and max of the logs as the logs
+    of its min and max |x|: the reference's wherever its logf never
+    decreases. Every pair of neighbouring positive normal floats."""
+    assert logfmt_ops.logf_sweep(card) == 0
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        logfmt_ops.logf_sweep(card, 5, 5)
 
 
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])

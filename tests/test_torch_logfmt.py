@@ -23,6 +23,7 @@ from repro.kernels.logfmt import ops as jops
 from repro_torch.core import logfmt
 from repro_torch.kernels import registry
 from repro_torch.kernels.logfmt import ops
+from repro_torch.kernels.logfmt.edge import edge_tiles
 
 
 def _gen(tag):
@@ -73,6 +74,53 @@ def test_encode_matches_jax_codec_and_pallas_kernel(shape, n_bits):
     _codes_close(ours, jops.encode(jnp.asarray(x), n_bits=n_bits))
     # the zeros encode as code 0
     assert (ours[0].reshape(-1, shape[-1])[0, :3] == 0).all()
+
+
+@pytest.mark.parametrize("n_bits", [2, 3, 8, 10, 16])
+def test_edge_tiles_match_jax_codec_and_pallas_kernel(n_bits):
+    """One tile per row (``kernels/logfmt/edge.py``): equal magnitudes, a
+    single nonzero, zeros, a range past the 2^32 clamp, subnormals (alone
+    in a wide tile, only, under one normal value), normals near 2^-126,
+    ±inf, NaN, a range of 2^-23 and of 1/64. The reference's platforms
+    compute without subnormals: a subnormal input gets code 0 and no sign
+    bit and stays out of its tile's range, and a grid point or difference
+    below 2^-126 is zero.
+
+    Codes equal ``repro.core.logfmt``'s and the Pallas kernel's (at 16
+    bits within one level on under 0.1%, the tie flips another libm's
+    log/exp may cause), but for the Pallas kernel's on the tile near
+    2^-126, where its step, from its own division, is one ulp off the
+    codec's and flips a tie at 8 bits; mn and step within the codec's
+    tolerances."""
+    x, names = edge_tiles()
+    ours = ops.logfmt_encode(torch.from_numpy(x), n_bits=n_bits)
+    codec = jlogfmt.encode(jnp.asarray(x), n_bits)
+    pallas = jops.encode(jnp.asarray(x), n_bits=n_bits)
+    _codes_close(ours, codec)
+    _codes_close(ours, pallas)
+    if n_bits < 16:
+        np.testing.assert_array_equal(_np(ours[0]), _np(codec[0]))
+        rows = [i for i, n in enumerate(names) if n != "near the least normal"]
+        np.testing.assert_array_equal(_np(ours[0])[rows],
+                                      _np(pallas[0])[rows])
+    codes = dict(zip(names, _np(ours[0]).astype(np.int64)))
+    assert (codes["subnormals only"] == 0).all()
+    assert codes["lone subnormal"][0] == 0
+    assert codes["normal among negative subnormals"].tolist() == (
+        [1] + [0] * 127)
+    assert (codes["zeros"] == 0).all()
+
+
+def test_bf16_edge_tiles_match_jax_codec():
+    """bf16 inputs go through the same rule after widening to fp32: a bf16
+    subnormal counts as zero."""
+    x, _ = edge_tiles()
+    xb = torch.from_numpy(x).bfloat16()
+    ours = ops.logfmt_encode(xb, n_bits=8)
+    jx = jnp.asarray(xb.float().numpy()).astype(jnp.bfloat16)
+    ref = jlogfmt.encode(jx, 8)
+    _codes_close(ours, ref)
+    np.testing.assert_array_equal(_np(ours[0]), _np(ref[0]))
 
 
 def _decode_inputs(shape, n_bits):
