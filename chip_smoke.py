@@ -63,28 +63,37 @@ from the root of a checkout. Phases, each fatal on failure:
         (``paged=False, use_mtp=True``; kernels fp8_gemm, moe_gemm,
         mla_decode, 4 launches a decode step, and never
         paged_mla_decode).
-      Every request must finish with the right count of in-vocabulary
-      tokens, no page may leak, each kernel of the path must have launched
-      (counters zeroed just before the path, read just after) and the MTP
-      path must draft. On the DeepSeek-V3 paths every routed expert matrix
-      must be stored as E4M3 codes (the count stored in the weight dtype,
-      and the expert wall's bytes, are printed) and a decode step must
-      launch moe_gemm three times per MoE layer. Per path: tokens/s end
-      to end, TTFT, steady decode ms/step at four slots (with and without
-      the draft on the MTP path, and there dense rings against a paged
-      pool on the same weights, in turns; the paged paths must launch
-      their attention op once per layer and step: 4 and 40, and so must
-      the dense path: 4; a DeepSeek-V3 step must launch fp8_gemm 29 times
-      paged, 38 times with the MTP draft), the longest prompt's prefill ms
-      (3 runs) and a torch.profiler split of that prefill, peak memory,
-      launches per decode step and a torch.profiler split of a decode step
-      (the groups of fp8_gemm and of each split-KV kernel listing their
-      kernels);
+      The engine decodes through its chunk's CUDA graph (``serve/
+      graph.py``: captured on the second chunk, replayed every tick after;
+      launches counted as the capture's tally times its replays). Every
+      request must finish with the right count of in-vocabulary tokens, no
+      page may leak, each kernel of the path must have launched (counters
+      zeroed just before the path, read just after), the MTP path must
+      draft, the chunk must have been captured once (``trace_counts``), and
+      the same six requests on the same weights through an engine whose
+      chunk runs eagerly must give the same streams (and draft and accept
+      counts). On the DeepSeek-V3 paths every routed expert matrix must be
+      stored as E4M3 codes (the count stored in the weight dtype, and the
+      expert wall's bytes, are printed) and a decode step must launch
+      moe_gemm three times per MoE layer. Per path: tokens/s end to end,
+      TTFT, the graph's capture and instantiation seconds and its pool's
+      bytes, launches per decode step from one replay of the engine's
+      8-step graph (the paged paths must launch their attention op once
+      per layer and step: 4 and 40, and so must the dense path: 4; a
+      DeepSeek-V3 step must launch fp8_gemm 29 times paged, 38 times with
+      the MTP draft), steady decode ms/step at four slots, graphed and
+      eager in turns (with and without the draft on the MTP path, and
+      there dense rings against a paged pool on the same weights, in
+      turns), the longest prompt's prefill ms (3 runs) and a torch.profiler
+      split of that prefill, peak memory, and torch.profiler splits of two
+      eager decode steps and of one graphed chunk (busy share, kernels a
+      step, device ms a step by kernel group; the groups of fp8_gemm and
+      of each split-KV kernel listing their kernels);
   (d) a reference check on a small input, per engine: the same engine at
       smoke width (bf16; qwen3-14b keeps 5 query heads per KV head) on
-      the card, through the kernels, against the plain versions on the
-      CPU, same weights — each path of (c), and qwen3-14b on the dense
-      engine;
+      the card, through the kernels and the decode graph (captured once),
+      against the plain versions on the CPU (eager, nothing captured),
+      same weights — each path of (c), and qwen3-14b on the dense engine;
   (e) the LogFMT-compressed ring all-reduce (``compressed_psum``): 4 rank
       processes on the one card in a gloo group (FileStore in a temporary
       directory; the wire payload staged through pinned host memory), each
@@ -436,6 +445,7 @@ def graph_ms(torch, calls, reps=10):
     CUDA events. The wrappers' host time, which exceeds the paged kernels'
     own, drops out; the capture also shows that the launch holds no host
     read."""
+    from repro_torch.kernels import registry
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -444,7 +454,8 @@ def graph_ms(torch, calls, reps=10):
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    # timing launches: tallied, and never added to the launch counters
+    with registry.tally(), torch.cuda.graph(graph):
         for fn in calls:
             fn()
     ms = cuda_ms(torch, graph.replay, reps, warmup=1) / len(calls)
@@ -1075,42 +1086,14 @@ def phase_main_path(torch, name):
         f"{[round(ttft[r.rid], 3) for r in reqs]}")
     log(f"[c] peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
+    check_graph(torch, eng, spec, reqs)
+
     # steady-state decode: four active slots at the path's contexts, each
     # on its own run of pages (paged) or with its ring filled to its
     # context (dense)
     model, params, cache = eng.model, eng.params, eng.cache
     steady_state(torch, eng, spec)
-    st = model.init_decode_state(4)
-    st["active"][:] = True
-    st["positions"][:] = torch.tensor(spec["steady"], device="cuda",
-                                      dtype=torch.int32)
-    st["left"][:] = 1 << 20
-    mtp = eng.use_mtp
-    model.decode_loop(params, cache, st, 1, use_mtp=mtp)        # warm
-    registry.reset_launch_counts()
-    model.decode_loop(params, cache, st, 1, use_mtp=mtp)
-    per_step = {k: n for k, n in registry.launch_counts().items() if n}
-    log(f"[c] launches per decode step: {per_step}")
-    for k, n in spec.get("per_step", {}).items():
-        if per_step.get(k) != n:
-            raise AssertionError(f"a decode step launched {k} "
-                                 f"{per_step.get(k)} times, want {n}")
-    if moe_layers and per_step.get("moe_gemm") != 3 * moe_layers:
-        raise AssertionError(f"a decode step launched moe_gemm "
-                             f"{per_step.get('moe_gemm')} times, want 3 per "
-                             f"MoE layer ({moe_layers})")
-    for use in ((True, False) if mtp else (False,)):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        model.decode_loop(params, cache, st, 8, use_mtp=use)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        log(f"[c] steady decode{' with the MTP draft' if use else ''}, 4 "
-            f"slots at contexts {spec['steady']} x 8 steps: "
-            f"{1e3 * dt / 8:.2f} ms/step, {32 / dt:.1f} tok/s")
-    profile_decode(torch, name, model, params, cache, st, use_mtp=mtp)
-    if not eng.paged:
-        compare_layouts(torch, eng, spec, st)
+    steady_decode(torch, name, eng, spec, moe_layers)
 
     # prefill alone: the longest prompt, in its bucket
     from repro_torch.serve.engine import bucket_length
@@ -1142,6 +1125,139 @@ def phase_main_path(torch, name):
     del eng, model, params, cache, logits
     torch.cuda.empty_cache()
     return counts
+
+
+def check_graph(torch, eng, spec, reqs):
+    """The decode chunk was captured once, and the same requests on the
+    same weights through an engine whose chunk runs eagerly give the same
+    streams and, on the MTP path, the same draft and accept counts."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    ch = eng._decode
+    log(f"[c] decode graph: trace_counts {eng.trace_counts}; capture "
+        f"{ch.capture_s:.3f} s + instantiation {ch.instantiate_s:.3f} s; "
+        f"graph pool {ch.pool_bytes / 1e6:.1f} MB reserved; one replay "
+        f"({ch.k} steps) launches {ch.tally} of the port's kernels")
+    if eng.trace_counts != {"decode": 1}:
+        raise AssertionError(f"decode chunk captured "
+                             f"{eng.trace_counts['decode']} times, want 1")
+    ref = ServeEngine(eng.cfg, params=eng.params, slots=eng.slots,
+                      max_len=eng.max_len, device=eng.device, seed=0,
+                      **spec["engine"])
+    ref._decode.graphed = False      # the eager chunk, the graph's oracle
+    twins = [Request(r.rid, r.prompt, max_new=r.max_new, seed=r.seed)
+             for r in reqs]
+    t0 = time.perf_counter()
+    for r in twins:
+        ref.submit(r)
+    ref.run_until_done()
+    wall = time.perf_counter() - t0
+    same = sum(a.out == b.out for a, b in zip(reqs, twins))
+
+    def mtp_counts(e):
+        return e.stats["drafts"], e.stats["accepted_drafts"]
+    log(f"[c] the same run with the eager chunk: {wall:.3f} s, "
+        f"trace_counts {ref.trace_counts}; streams equal {same}/{len(reqs)}"
+        + (f"; drafts, accepted: graphed {mtp_counts(eng)}, eager "
+           f"{mtp_counts(ref)}" if eng.use_mtp else ""))
+    if same != len(reqs) or mtp_counts(eng) != mtp_counts(ref):
+        raise AssertionError("the graphed decode chunk disagrees with the "
+                             "eager chunk")
+    del ref
+
+
+def steady_host(spec):
+    """The chunk's host input for the steady decode: four active slots at
+    the path's contexts, budgets that never run out, no EOS."""
+    import numpy as np
+    n = len(spec["steady"])
+    zero = np.zeros(n, np.int64)
+    return dict(tokens=zero, positions=np.asarray(spec["steady"]),
+                active=np.ones(n, bool), left=zero + (1 << 20),
+                eos=zero - 1, tix=zero, seeds=zero)
+
+
+def chunk_ms(torch, chunk, host, graphed):
+    """ms/step of one chunk, host input to host output (the engine's tick),
+    replayed or eager."""
+    chunk.graphed = graphed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chunk(host)
+    ms = 1e3 * (time.perf_counter() - t0) / chunk.k
+    chunk.graphed = True
+    return ms
+
+
+def new_chunk(torch, model, params, cache, host, use_mtp):
+    """A 4-slot decode chunk of 8 steps over ``cache``, run eagerly once
+    and captured (and replayed) once."""
+    from repro_torch.serve.graph import DecodeChunk
+    chunk = DecodeChunk(model, params, cache, len(host["tokens"]), 8,
+                        use_mtp=use_mtp)
+    chunk(host)
+    chunk(host)
+    log(f"[c]   its graph: capture {chunk.capture_s:.3f} s + instantiation "
+        f"{chunk.instantiate_s:.3f} s, pool {chunk.pool_bytes / 1e6:.1f} MB")
+    return chunk
+
+
+def steady_decode(torch, name, eng, spec, moe_layers):
+    """Launches per step from one replay of the engine's graph (its tally
+    counted once), the launch gates, ms/step graphed and eager in turns
+    (with and without the draft on the MTP path), an eager and a graphed
+    profile, and (dense) rings against a paged pool."""
+    from repro_torch.kernels import registry
+    model, params, cache = eng.model, eng.params, eng.cache
+    host = steady_host(spec)
+    chunk = eng._decode
+    k = chunk.k
+    registry.reset_launch_counts()
+    chunk(host)                                   # one replay: k steps
+    counts = {n: c for n, c in registry.launch_counts().items() if c}
+    log(f"[c] launches of one replay of the {k}-step graph: {counts}; per "
+        f"decode step: { {n: c / k for n, c in counts.items()} }")
+    want = dict(spec.get("per_step", {}))
+    if moe_layers:
+        want["moe_gemm"] = 3 * moe_layers         # 3 per MoE layer
+    for n, c in want.items():
+        if counts.get(n) != k * c:
+            raise AssertionError(f"a decode step launched {n} "
+                                 f"{counts.get(n, 0) / k} times, want {c}")
+    mtp = eng.use_mtp
+    chunks, graph_ms = {mtp: chunk}, {}
+    for use in ((True, False) if mtp else (False,)):
+        if use not in chunks:
+            log(f"[c] an {k}-step chunk without the draft, same cache:")
+            chunks[use] = new_chunk(torch, model, params, cache, host, use)
+        ms = {"eager": [], "graph": []}
+        for mode in ("eager", "graph", "graph", "eager"):
+            ms[mode].append(chunk_ms(torch, chunks[use], host,
+                                     mode == "graph"))
+        log(f"[c] steady decode{' with the MTP draft' if use else ''}, 4 "
+            f"slots at contexts {spec['steady']} x {k} steps, in turns "
+            f"(eager, graph, graph, eager): eager "
+            f"{[round(x, 3) for x in ms['eager']]} ms/step, graphed "
+            f"{[round(x, 3) for x in ms['graph']]} ms/step "
+            f"({4e3 / min(ms['graph']):.1f} tok/s graphed)")
+        graph_ms[use] = min(ms["graph"])
+    st = model.init_decode_state(4)
+    st["active"][:] = True
+    st["positions"][:] = torch.tensor(spec["steady"], device=eng.device,
+                                      dtype=torch.int32)
+    st["left"][:] = 1 << 20
+    profile_decode(torch, name, model, params, cache, st, use_mtp=mtp)
+    device_ms = profile_device(
+        torch, f"{name} profile of one graphed {k}-step chunk",
+        lambda: chunk(host), k, "step")
+    if device_ms:
+        # the profiler's window outlasts the replay (its own start-up and
+        # trace flush): the device time it records over the unprofiled
+        # graphed tick of the same chunk is the tick's busy share
+        log(f"[c] {name}: device ms a step under the profiler over the "
+            f"unprofiled graphed ms/step ({graph_ms[mtp]:.3f}): "
+            f"{100 * device_ms / graph_ms[mtp]:.1f}% busy")
+    if not eng.paged:
+        compare_layouts(torch, eng, spec, host, chunks[False])
 
 
 def expert_storage(eng):
@@ -1177,29 +1293,30 @@ def steady_state(torch, eng, spec):
         ring["pos"].copy_(pos.expand_as(ring["pos"]))
 
 
-def compare_layouts(torch, eng, spec, st):
-    """Steady decode without the draft over the engine's dense rings and,
-    on the same model and weights, over a paged fp8 pool of 8-token pages
-    (each slot its own run), in turns: dense, paged, paged, dense."""
+def compare_layouts(torch, eng, spec, host, dense):
+    """Steady decode without the draft over the engine's dense rings
+    (``dense``, its chunk) and, on the same model and weights, over a paged
+    fp8 pool of 8-token pages (each slot its own run), in turns (dense,
+    paged, paged, dense), eager and graphed."""
     model, params = eng.model, eng.params
     page = 8
     pp = spec["max_len"] // page
     pool = model.init_paged_cache(4, spec["max_len"], page, 4 * pp, "fp8")
     pool["page_table"].copy_(torch.arange(
         4 * pp, dtype=torch.int32, device=eng.device).reshape(4, pp))
-    caches = {"dense": eng.cache, "paged": pool}
-    ms = {"dense": [], "paged": []}
-    for layout in ("dense", "paged", "paged", "dense"):
-        model.decode_loop(params, caches[layout], st, 1)         # warm
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        model.decode_loop(params, caches[layout], st, 8)
-        torch.cuda.synchronize()
-        ms[layout].append(1e3 * (time.perf_counter() - t0) / 8)
-    log(f"[c] same weights, in turns (dense, paged, paged, dense), 8 steps "
-        f"each: dense rings {[round(x, 2) for x in ms['dense']]} ms/step, "
-        f"paged fp8 pool {[round(x, 2) for x in ms['paged']]} ms/step")
-    del pool
+    log(f"[c] an {dense.k}-step chunk over a paged fp8 pool, same weights:")
+    chunks = {"dense": dense,
+              "paged": new_chunk(torch, model, params, pool, host, False)}
+    for mode in ("eager", "graph"):
+        ms = {"dense": [], "paged": []}
+        for layout in ("dense", "paged", "paged", "dense"):
+            ms[layout].append(chunk_ms(torch, chunks[layout], host,
+                                       mode == "graph"))
+        log(f"[c] same weights, {mode}, in turns (dense, paged, paged, "
+            f"dense), {dense.k} steps each: dense rings "
+            f"{[round(x, 3) for x in ms['dense']]} ms/step, paged fp8 pool "
+            f"{[round(x, 3) for x in ms['paged']]} ms/step")
+    del chunks, pool
 
 
 # the port's kernels, as the profiler names them (checked in this order,
@@ -1220,7 +1337,8 @@ def profile_decode(torch, name, model, params, cache, st, steps=2,
 def profile_device(torch, label, fn, per, unit):
     """Device time by kernel group over one call of ``fn`` (torch.profiler,
     CUPTI), divided by ``per`` ``unit``s, and the device's busy share of
-    the profiled window."""
+    the profiled window. Returns the device ms per ``unit`` (None when
+    the profiler recorded none)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1242,7 +1360,7 @@ def profile_device(torch, label, fn, per, unit):
     busy = sum(r[0] for r in rows)
     if not busy:
         log(f"[c] {label}: no device time recorded (not measured)")
-        return
+        return None
     rows.sort(reverse=True)
     launched = sum(r[1] for r in rows) // per
     groups = {}
@@ -1272,6 +1390,7 @@ def profile_device(torch, label, fn, per, unit):
             log(f"[c]   group {g}: " + ", ".join(
                 f"{key[:70]} x{n // per} {us / 1e3 / per:.3f} ms"
                 for us, n, key in rows if group_of[key] == g))
+    return busy / 1e3 / per
 
 
 # --- (d) ---------------------------------------------------------------------
@@ -1301,6 +1420,10 @@ def phase_reference(torch, name, engine):
         eng.run_until_done()
         outs[dev] = [r.out for r in reqs]
         drafts[dev] = (eng.stats["drafts"], eng.stats["accepted_drafts"])
+        # the card's engine decodes through its graph; the CPU's eagerly
+        if eng.trace_counts != {"decode": int(dev == "cuda")}:
+            raise AssertionError(f"{dev} engine: decode graph captured "
+                                 f"{eng.trace_counts['decode']} times")
         toks = np.zeros((1, 32), np.int32)
         toks[0, :len(prompts[2])] = prompts[2]
         lg, _ = eng.model.prefill(eng.params, {"tokens": torch.as_tensor(toks)},
@@ -1315,7 +1438,8 @@ def phase_reference(torch, name, engine):
     mtp = (f"; MTP drafts/accepted card {drafts['cuda']}, CPU "
            f"{drafts['cpu']}" if engine.get("use_mtp") else "")
     log(f"[d] {name} {engine} at smoke width ({cfg.num_heads} heads over "
-        f"{cfg.num_kv_heads} KV heads), bf16: first-token logits card vs CPU "
+        f"{cfg.num_kv_heads} KV heads), bf16, the card's decode chunk one "
+        f"CUDA graph: first-token logits card vs CPU "
         f"plain: max err {rel:.3g} of max|logit| (tol 5e-2), cosine "
         f"{cos:.6f} (>= 0.999); greedy tokens equal {same}/24{mtp}")
     if not (rel <= 5e-2 and cos >= 0.999):

@@ -12,15 +12,23 @@ plain-integer launch counter that grows by one each time the kernel is
 launched (:meth:`KernelOp.launch`), and nowhere else, so a run can show
 that its main path went through the kernels.
 
+Under CUDA graph capture a launch runs nothing: the graph launches the
+kernel at each replay. So a capture is made inside :func:`tally`, which
+collects the launches made while it is open instead of counting them,
+and the graph's owner adds that tally to the counters once for each
+replay (:func:`add_launches`). A launch while the stream is capturing
+outside a tally raises, so no replayed kernel goes uncounted.
+
 Ops are made with :func:`op` (not ``kernel``: the repo's lint reserves
 ``X = ....kernel("name")`` in ``kernels/*/ops.py`` for the JAX registry).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import importlib
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -34,6 +42,9 @@ _KERNEL_MODULES = (
 )
 
 _REGISTRY: Dict[str, "KernelOp"] = {}
+
+# the open tallies, innermost last (see :func:`tally`)
+_TALLIES: list = []
 
 
 def pad_to_multiple(x: torch.Tensor, dim: int, mult: int) -> torch.Tensor:
@@ -98,13 +109,23 @@ class KernelOp:
         return self._plain(*args, **kwargs)
 
     def launch(self, fn: "ctypes._CFuncPtr", *args) -> None:
-        """Call a C entry of a built kernel and count the launch. The entry
-        returns ``cudaGetLastError()``: a refused launch raises here."""
+        """Call a C entry of a built kernel and count the launch, or, inside
+        a :func:`tally`, add it to the innermost tally. The entry returns
+        ``cudaGetLastError()``: a refused launch raises here."""
+        t = _TALLIES[-1] if _TALLIES else None
+        if t is None and torch.cuda.is_available() and (
+                torch.cuda.is_current_stream_capturing()):
+            raise RuntimeError(
+                f"kernel {self.name!r} launched under CUDA graph capture "
+                "outside registry.tally(): its replays would go uncounted")
         err = fn(*args)
         if err != 0:
             raise RuntimeError(f"kernel {self.name!r}: CUDA launch failed "
                                f"with error {err}")
-        self.launches += 1
+        if t is None:
+            self.launches += 1
+        else:
+            t[self.name] = t.get(self.name, 0) + 1
 
     def __repr__(self) -> str:
         return f"KernelOp({self.name!r}, launches={self.launches})"
@@ -155,6 +176,26 @@ def names() -> Tuple[str, ...]:
 def launch_counts() -> Dict[str, int]:
     _ensure_populated()
     return {n: k.launches for n, k in sorted(_REGISTRY.items())}
+
+
+@contextlib.contextmanager
+def tally() -> Iterator[Dict[str, int]]:
+    """Collect the launches made while open into a ``{name: count}`` dict
+    instead of counting them: open it around a CUDA graph capture, whose
+    launches run only when the graph is replayed."""
+    t: Dict[str, int] = {}
+    _TALLIES.append(t)
+    try:
+        yield t
+    finally:
+        _TALLIES.pop()
+
+
+def add_launches(t: Dict[str, int], times: int = 1) -> None:
+    """Count a tally's launches ``times`` times: once for each replay of
+    the graph it was collected from."""
+    for name, n in t.items():
+        _REGISTRY[name].launches += n * times
 
 
 def reset_launch_counts() -> None:

@@ -332,15 +332,17 @@ class Model:
     def decode_step(self, params, cache, tokens, positions):
         """One decode step over the dense rings or the paged cache (written
         in place); a paged cache carries its ``page_table``. tokens,
-        positions: (B, 1) int32. With MTP the step's hidden becomes
-        ``cache['mtp_h']``, the next draft's input. Returns (logits
-        (B,1,V), cache)."""
+        positions: (B, 1) int32. With MTP the step's hidden is copied into
+        ``cache['mtp_h']``, the next draft's input: every leaf of the cache
+        stays the tensor it was, so a captured decode chunk reads and
+        writes the same buffers at each replay. Returns (logits (B,1,V),
+        cache)."""
         ctx = self._ctx(params, positions=positions)
         if "page_table" in cache:
             ctx["page_table"] = cache["page_table"]
         h, _ = self._backbone(params, tokens, ctx, cache)
         if self.cfg.mtp:
-            cache["mtp_h"] = h
+            cache["mtp_h"].copy_(h)
         return self._unembed(params, h), cache
 
     def init_decode_state(self, batch: int) -> Dict[str, torch.Tensor]:

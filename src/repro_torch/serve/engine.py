@@ -19,7 +19,10 @@ memory-bound decode, §2.3.3 MTP drafting), of MLA (DeepSeek-V3) and GQA
 ``step()`` runs ``chunk`` fused decode steps (``Model.decode_loop``, with
 the same-step MTP draft under ``use_mtp``) over the decoding slots and
 reads the emitted tokens, the slot state and the draft counters back in
-one copy per chunk.
+one copy per chunk. On the card the chunk is one CUDA graph, captured on
+the engine's second chunk and replayed once a tick (``serve/graph.py``,
+the counterpart of the reference's jitted ``decode_chunk``); on the CPU
+it runs eagerly.
 
 Options of the reference that the port has not reached raise
 ``NotImplementedError`` with a pointer to ROADMAP.md: mesh contexts,
@@ -40,6 +43,7 @@ from repro_torch.bridge import prepare_for_serving
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import paged as paged_mod
 from repro_torch.models.api import Model, sample_logits
+from repro_torch.serve.graph import DecodeChunk
 
 # Smallest prefill bucket: prompts shorter than this share one shape.
 MIN_BUCKET = 8
@@ -194,6 +198,9 @@ class ServeEngine:
         self.max_pending = max_pending
         self._hol_skips = 0
         self._seed_gen = np.random.default_rng(seed + 1)
+        self._decode = DecodeChunk(self.model, self.params, self.cache,
+                                   slots, chunk, temperature=temperature,
+                                   top_k=top_k, use_mtp=self.use_mtp)
         self.stats = {"steps": 0, "tokens": 0, "accepted_drafts": 0,
                       "drafts": 0, "dispatches": 0, "prefills": 0,
                       "splices": 0, "first_tokens": 0, "page_admits": 0,
@@ -398,58 +405,38 @@ class ServeEngine:
         return admitted
 
     # -- decode -------------------------------------------------------------
-    def _device_state(self) -> Dict[str, torch.Tensor]:
-        """Decode state from the host mirrors, in one host-to-device copy."""
-        active = np.array([r is not None for r in self.active], np.int64)
-        host = np.stack([self._tokens, self.positions, active, self._left,
-                         self._eos, self._tix, self._seeds]).astype(np.int64)
-        dev = torch.as_tensor(host).to(self.device)
-        i32 = dev[:6].int()
-        zero = torch.zeros((), dtype=torch.int32, device=self.device)
-        return dict(tokens=i32[0], positions=i32[1], active=dev[2] > 0,
-                    left=i32[3], eos=i32[4], tix=i32[5], seeds=dev[6],
-                    drafts=zero, accepted=zero.clone())
+    def _host_state(self) -> Dict[str, np.ndarray]:
+        """The decode state of every slot from the host mirrors (the
+        chunk's one host-to-device copy)."""
+        return dict(tokens=self._tokens, positions=self.positions,
+                    active=np.array([r is not None for r in self.active]),
+                    left=self._left, eos=self._eos, tix=self._tix,
+                    seeds=self._seeds)
 
     def step(self):
         """One scheduler tick: admit from the pending queue, then one fused
-        ``chunk``-step decode over the decoding slots and one read-back."""
+        ``chunk``-step decode over the decoding slots (one graph replay on
+        the card) and one read-back of the emitted tokens, the slot state
+        and the chunk's draft counters."""
         self._admit_pending()
         if not any(r is not None for r in self.active):
             return
         self.stats["dispatches"] += 1
-        toks, emitted, self.cache, st = self.model.decode_loop(
-            self.params, self.cache, self._device_state(), self.chunk,
-            temperature=self.temperature, top_k=self.top_k,
-            use_mtp=self.use_mtp)
-        # the one host sync per chunk: emitted tokens, slot state and the
-        # chunk's draft counters, packed into one tensor and copied back
-        # together
-        B = self.slots
-        packed = torch.cat([toks, emitted.int(),
-                            torch.stack([st["tokens"], st["positions"],
-                                         st["active"].int(), st["left"],
-                                         st["tix"], st["drafts"].expand(B),
-                                         st["accepted"].expand(B)], dim=1)],
-                           dim=1).cpu()
-        host = packed.numpy()
-        k = self.chunk
-        toks, emitted = host[:, :k], host[:, k:2 * k].astype(bool)
-        tokens, positions, active, left, tix, drafts, accepted = \
-            host[:, 2 * k:].T
+        toks, emitted, st = self._decode(self._host_state())
         self.stats["steps"] += int(emitted.any(axis=0).sum())
-        self.stats["drafts"] += int(drafts[0])
-        self.stats["accepted_drafts"] += int(accepted[0])
-        self._tokens = tokens.astype(np.int32)
-        self.positions = positions.astype(np.int32)
-        self._left = left.astype(np.int32)
-        self._tix = tix.astype(np.int32)
+        self.stats["drafts"] += int(st["drafts"][0])
+        self.stats["accepted_drafts"] += int(st["accepted"][0])
+        self._tokens = st["tokens"]
+        self.positions = st["positions"]
+        self._left = st["left"]
+        self._tix = st["tix"]
         for i, r in enumerate(self.active):
             if r is None:
                 continue
             new = toks[i, emitted[i]]
             r.out.extend(int(t) for t in new)
             self.stats["tokens"] += int(new.size)
-            if not active[i]:
+            if not st["active"][i]:
                 r.done = True
                 self._release_slot(i)
 
@@ -465,6 +452,15 @@ class ServeEngine:
             self.model.release_slot_pages(self.cache, slot)
 
     # -- introspection --------------------------------------------------------
+    @property
+    def trace_counts(self) -> Dict[str, int]:
+        """The reference's introspection, with the key the port has:
+        ``"decode"`` counts the decode chunk's CUDA graph captures — 1 on
+        the card once a second chunk has run, whatever the ticks after;
+        0 on the CPU, where the chunk runs eagerly and nothing is
+        captured."""
+        return {"decode": self._decode.captures}
+
     def pool_stats(self) -> Dict[str, Any]:
         """Page-pool occupancy (zeros for dense engines)."""
         if not self.paged:

@@ -73,6 +73,23 @@ def _row_err(got, ref):
     return float(torch.where(n > 0, d / n.clamp_min(1e-30), d * 1e30).max())
 
 
+def _capture(call):
+    """``call`` run once on a side stream (build, warm-up), then captured in
+    a CUDA graph inside a launch tally. Returns (graph, output, tally); the
+    capture itself counts no launch."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = registry.launch_counts()
+    with registry.tally() as t, torch.cuda.graph(graph):
+        out = call()
+    assert registry.launch_counts() == before
+    return graph, out, t
+
+
 # decode (M <= 64: one, four and eight slots) and prefill (65 and the 128
 # and 1024 buckets) at every served shape, plus ragged N = 72
 FP8_GEMM_SHAPES = list(dict.fromkeys(
@@ -164,19 +181,11 @@ def test_fp8_gemm_gives_the_same_bits_every_call(card, shape):
 def test_fp8_gemm_graph_replay_equals_eager(card, shape):
     """The launch plan reads nothing on the host: a captured call, replayed
     after its input changed in place, equals an eager call on that input;
-    the capture counts its one launch."""
+    the capture's tally holds its one launch."""
     g = torch.Generator(device=card).manual_seed(3)
     xq, xs, wq, ws = _fp8_operands(g, *shape, card)
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fp8_ops.fp8_gemm(xq, xs, wq, ws)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    before = fp8_ops.fp8_gemm.launches
-    with torch.cuda.graph(graph):
-        out = fp8_ops.fp8_gemm(xq, xs, wq, ws)
-    assert fp8_ops.fp8_gemm.launches == before + 1
+    graph, out, t = _capture(lambda: fp8_ops.fp8_gemm(xq, xs, wq, ws))
+    assert t == {"fp8_gemm": 1}
     x2, s2 = fp8.quantize_tilewise(torch.randn(
         xq.shape, generator=g, device=card))
     xq.copy_(x2)
@@ -275,6 +284,42 @@ def _expert(w, e):
         return fp8.Fp8Experts(w.wq[e:e + 1], w.ws[e:e + 1], w.dtype, w.d_in,
                               w.d_out)
     return w[e:e + 1]
+
+
+@pytest.mark.parametrize("fmt", ["bf16", "e4m3"])
+def test_moe_gemm_graph_replay_equals_eager(card, fmt):
+    """The wrapper only pads and allocates: a captured call at the decode
+    shape, replayed after x changed in place, equals an eager call on the
+    new x; each replay adds the tally's one launch."""
+    E, C, D, F = 256, 8, 7168, 2048
+    g = torch.Generator(device=card).manual_seed(5)
+    x = torch.randn(E, C, D, generator=g, device=card).bfloat16()
+    w = _spread_weights(g, E, D, F, card)
+    if fmt == "e4m3":
+        w = fp8.Fp8Experts.quantize(w)
+    graph, out, t = _capture(lambda: moe_ops.grouped_matmul(x, w))
+    assert t == {"moe_gemm": 1}
+    x.copy_(torch.randn(E, C, D, generator=g, device=card))
+    before = moe_ops.grouped_matmul.launches
+    for _ in range(2):
+        graph.replay()
+        registry.add_launches(t, 1)
+    torch.cuda.synchronize()
+    assert moe_ops.grouped_matmul.launches == before + 2
+    assert torch.equal(out, moe_ops.grouped_matmul(x, w))
+
+
+def test_kernel_launch_under_capture_needs_a_tally(card):
+    """A kernel captured outside ``registry.tally()`` would go uncounted at
+    every replay: its launch raises instead."""
+    x = torch.randn(2, 8, 128, device=card).bfloat16()
+    w = torch.randn(2, 128, 128, device=card).bfloat16()
+    moe_ops.grouped_matmul(x, w)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="outside registry.tally"):
+        with torch.cuda.graph(graph):
+            moe_ops.grouped_matmul(x, w)
 
 
 def test_moe_gemm_kernel_refuses_fp32(card):
@@ -422,18 +467,10 @@ def test_mla_decode_graph_replay_equals_eager(card, dtype):
     """The split plan reads nothing on the host: a captured call, replayed
     after its queries, rings, pos and qpos changed in place (full rings to
     the served contexts), equals an eager call on the new inputs; the
-    capture counts its one launch."""
+    capture's tally holds its one launch."""
     args = _mla_inputs(card, MLA_CASES[0], dtype)
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        mla_ops.mla_decode(*args, scale=0.0722)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    before = mla_ops.mla_decode.launches
-    with torch.cuda.graph(graph):
-        out = mla_ops.mla_decode(*args, scale=0.0722)
-    assert mla_ops.mla_decode.launches == before + 1
+    graph, out, t = _capture(lambda: mla_ops.mla_decode(*args, scale=0.0722))
+    assert t == {"mla_decode": 1}
     for x, y in zip(args, _mla_inputs(card, MLA_CASES[7], dtype, seed=7)):
         x.copy_(y)
     graph.replay()
@@ -1029,3 +1066,78 @@ def test_engine_on_the_card_launches_every_kernel(card, path):
         assert eng.free_pages() == eng.pool_pages
     if eng.use_mtp:
         assert eng.stats["drafts"] == 12        # 3 requests x 4 decode steps
+
+
+def _engine_run(cfg, layout, sampling, params=None, eager=False):
+    """Three requests on two slots of a smoke-width engine (the third
+    admitted mid-run into a freed slot), each with its sampling seed; the
+    decode chunk graphed (the card's default) or, through the engine's
+    private seam, eager. Returns (engine, streams, launch counts)."""
+    eng = ServeEngine(cfg, params=params, slots=2, max_len=32, chunk=4,
+                      page_size=8, page_storage="fp8", attn_impl="pallas",
+                      device="cuda", **layout, **sampling)
+    eng._decode.graphed = not eager
+    reqs = [Request(i, np.arange(4 + 3 * i) * (i + 2) % cfg.vocab_size,
+                    max_new=n, seed=100 + i)
+            for i, n in enumerate((5, 11, 8))]
+    registry.reset_launch_counts()
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_done()
+    assert all(r.done for r in reqs)
+    return eng, [r.out for r in reqs], registry.launch_counts()
+
+
+@pytest.mark.parametrize("sampling", [{}, dict(temperature=0.8, top_k=20)],
+                         ids=["greedy", "sampled"])
+@pytest.mark.parametrize("path", sorted(ENGINE_PATHS))
+def test_graphed_engine_equals_the_eager_chunk(card, path, sampling):
+    """The decode chunk captured once and replayed every tick gives the
+    eager chunk's streams (greedy, and seeded temperature/top-k draws), MTP
+    counts and launch counts (the capture's tally times its replays), on
+    the same weights."""
+    arch, overrides, layout, kernels, _ = ENGINE_PATHS[path]
+    cfg = dataclasses.replace(smoke_config(get_config(arch)),
+                              dtype="bfloat16", param_dtype="bfloat16",
+                              fp8_impl="pallas", **overrides)
+    eng, streams, counts = _engine_run(cfg, layout, sampling)
+    ref, ref_streams, ref_counts = _engine_run(cfg, layout, sampling,
+                                               params=eng.params, eager=True)
+    assert eng.trace_counts == {"decode": 1}
+    assert ref.trace_counts == {"decode": 0}
+    assert streams == ref_streams
+    assert counts == ref_counts and all(counts[n] > 0 for n in kernels)
+    assert set(eng._decode.tally) == set(kernels) - {"flash_prefill"}
+    assert (eng.stats["drafts"], eng.stats["accepted_drafts"]) == (
+        ref.stats["drafts"], ref.stats["accepted_drafts"])
+    if eng.use_mtp:
+        assert eng.stats["drafts"] > 0
+
+
+def test_a_host_read_under_capture_raises(card, monkeypatch):
+    """A host read on the decode path is fine in the eager first chunk and
+    fails the capture of the second: ``step()`` raises, and keeps raising,
+    instead of decoding eagerly. (Last in this file: the failed capture
+    leaves its stream's pool behind.)"""
+    from repro_torch.models import api
+    sample = api.sample_logits
+
+    def reading(logits, *a, **k):
+        float(logits.sum())                  # waits on the card
+        return sample(logits, *a, **k)
+
+    monkeypatch.setattr(api, "sample_logits", reading)
+    cfg = dataclasses.replace(smoke_config(get_config("deepseek-v3-671b")),
+                              dtype="bfloat16", param_dtype="bfloat16",
+                              fp8_impl="pallas")
+    eng = ServeEngine(cfg, slots=2, max_len=32, chunk=4, paged=True,
+                      page_size=8, attn_impl="pallas", device=card)
+    req = Request(0, np.arange(6), max_new=16)
+    eng.submit(req)
+    eng.step()
+    n = len(req.out)
+    assert n == 5                             # prefill's token + 4 eager
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            eng.step()
+    assert len(req.out) == n and eng.trace_counts == {"decode": 0}
