@@ -27,8 +27,10 @@ from the root of a checkout. Phases, each fatal on failure:
       its launch plan,
       the bound at the fp16 rate beside the fp8 one, bf16 torch.matmul on
       the dequantized operands (a yardstick) and the wrapper's host time
-      per eager call; flash_prefill at qwen3-14b's 2048 bucket (the table's row) and at
-      the 128 and 512 buckets, each with its kernel / SDPA ratio;
+      per eager call; flash_prefill at qwen3-14b's 2048 bucket (the table's
+      row), at the 128 and 512 buckets, and at its prefill chunk (256
+      queries at positions 1280-1535 against 2048 keys; SDPA with a boolean
+      mask), each with its kernel / SDPA ratio;
       moe_gemm with E4M3 and bf16 weights at C = 8 and 40, w1/w3 and w2
       (the table's row: E4M3, C = 8, w1/w3), each against torch.bmm,
       the two timed in turns before any plain version runs; the three
@@ -88,12 +90,33 @@ from the root of a checkout. Phases, each fatal on failure:
       split of that prefill, peak memory, and torch.profiler splits of two
       eager decode steps and of one graphed chunk (busy share, kernels a
       step, device ms a step by kernel group; the groups of fp8_gemm and
-      of each split-KV kernel listing their kernels);
+      of each split-KV kernel listing their kernels). Each paged path then
+      serves again on the same weights through a chunked-prefill engine
+      (``prefill_chunk=256``, ``phase_chunked``), whose prefill chunk is a
+      CUDA graph too (eager on the engine's first chunk, captured on its
+      second, one replay a chunk after): its six prompts, a request
+      cancelled mid-prefill, three requests sharing a 512-token prefix and
+      a priority-5 arrival that must evict. Gates: every request
+      finishes, the cancel holds, no page leaks, prefix hits, an eviction,
+      one capture of each graph (``trace_counts == {"decode": 1, "chunk":
+      1}``), exact launch counts (per prefill chunk and per decode step),
+      the shared streams equal to each request alone on a cold engine, and
+      a replayed chunk equal to the eager chunk bit for bit (logits,
+      written pages, ``mtp_h``). Printed: the victim against an
+      uninterrupted run, chunked against whole-prompt streams, the TTFT of
+      the longest prompt chunked-graphed, chunked-eager and whole-prompt
+      in turns with three residents decoding, the residents' ms per tick
+      with and without that prompt streaming, ms per chunk graphed and
+      eager with the synchronising calls of each tick, the chunk graph's
+      capture seconds and pool bytes, a profile of one replayed chunk and
+      peak memory;
   (d) a reference check on a small input, per engine: the same engine at
       smoke width (bf16; qwen3-14b keeps 5 query heads per KV head) on
-      the card, through the kernels and the decode graph (captured once),
+      the card, through the kernels and the graphs (each captured once),
       against the plain versions on the CPU (eager, nothing captured),
-      same weights — each path of (c), and qwen3-14b on the dense engine;
+      same weights — each path of (c), qwen3-14b on the dense engine, and
+      both paged paths chunked (``prefill_chunk=8``; their first-token
+      logits through ``Model.prefill_chunk``);
   (e) the LogFMT-compressed ring all-reduce (``compressed_psum``): 4 rank
       processes on the one card in a gloo group (FileStore in a temporary
       directory; the wire payload staged through pinned host memory), each
@@ -725,7 +748,9 @@ def sdpa_mla_ms(torch, qa, qr, ckv, kr, valid, scale, ref):
 
 def bench_flash_prefill(torch, dev, gen):
     """qwen3-14b's prefill attention: the largest bucket (S = T = 2048) for
-    the table, and the 128 and 512 buckets, each against SDPA."""
+    the table, the 128 and 512 buckets, and a prefill chunk (S = 256
+    queries at positions 1280-1535 against T = 2048 keys), each against
+    SDPA."""
     from repro_torch.kernels.flash_attention import ops
     # per output row, relative to the row's own norm: P rounded to bf16
     # for P·V moves a row by ~2^-9 of itself; a key dropped from a row of
@@ -776,7 +801,67 @@ def bench_flash_prefill(torch, dev, gen):
             ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
             library_ms=lib_ms))
         del args, q, k, v, y, ref, qt, kt, vt
+    rows.append(bench_flash_chunk(torch, dev, gen, tol))
     return rows
+
+
+# qwen3-14b's prefill chunk: C queries at positions [CHUNK_START, +C)
+# against every row of a max_len slot
+CHUNK_C, CHUNK_START, CHUNK_T = 256, 1280, 2048
+
+
+def bench_flash_chunk(torch, dev, gen, tol):
+    """flash_prefill at qwen3-14b's chunk shape: q (1, 256, 40, 128) bf16
+    at positions 1280-1535, k and v (1, 2048, 8, 128) at positions
+    0-2047, causal; most key blocks lie wholly above every query. SDPA
+    takes K and V repeated to 40 heads and a boolean mask."""
+    from repro_torch.kernels.flash_attention import ops
+    H, KV, hd = 40, 8, 128
+    S, T, start = CHUNK_C, CHUNK_T, CHUNK_START
+    scale = 1.0 / math.sqrt(hd)
+    q = torch.randn(1, S, H, hd, generator=gen, device=dev).bfloat16()
+    k = torch.randn(1, T, KV, hd, generator=gen, device=dev).bfloat16()
+    v = torch.randn(1, T, KV, hd, generator=gen, device=dev).bfloat16()
+    qp = torch.arange(start, start + S, dtype=torch.int32, device=dev)[None]
+    kp = torch.arange(T, dtype=torch.int32, device=dev)[None]
+    args = (q, k, v, qp, kp)
+    y = ops.flash_prefill(*args, causal=True, scale=scale)
+    ref = ops.flash_prefill.run_plain(*args, causal=True, scale=scale)
+    err, _ = max_err(torch, y, ref)
+    rel = max_row_err(torch, y, ref)
+    check("flash_prefill (chunk)", rel, tol, of="its row's norm")
+    ms = cuda_ms(torch, lambda: ops.flash_prefill(*args, causal=True,
+                                                  scale=scale), 100)
+    plain = cuda_ms(torch, lambda: ops.flash_prefill.run_plain(
+        *args, causal=True, scale=scale), 3)
+    G = H // KV
+    qt = q.transpose(1, 2)
+    kt = k.repeat_interleave(G, dim=2).transpose(1, 2)
+    vt = v.repeat_interleave(G, dim=2).transpose(1, 2)
+    mask = (kp[0][None, :] <= qp[0][:, None])[None, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def lib():
+        return sdpa(qt, kt, vt, attn_mask=mask, scale=scale)
+    lib_rel = max_row_err(torch, lib().transpose(1, 2), ref)
+    lib_ms = cuda_ms(torch, lib, 100)
+    valid = int(mask.sum())                  # (row, key) pairs: Σ (pos + 1)
+    nbytes = 2 * S * H * hd + 2 * 2 * T * KV * hd + 4 * (S + T) \
+        + 4 * S * H * hd
+    b, by = bound_ms(nbytes, 4 * hd * H * valid, "bf16")
+    tiles = -(-S // 128) * H
+    log(f"[b]   flash_prefill chunk S = {S} at {start}-{start + S - 1}, T = "
+        f"{T}: kernel {ms:.4f} ms, SDPA (boolean mask) {lib_ms:.4f} ms "
+        f"(differs from the plain version by {lib_rel:.3g} of a row's "
+        f"norm): kernel / SDPA = {ms / lib_ms:.3f}; {valid} valid pairs, "
+        f"bound {b:.4f} ms ({by}); {tiles} query tiles of 128 rows on "
+        f"{torch.cuda.get_device_properties(dev).multi_processor_count} SMs")
+    del args, q, k, v, y, ref, qt, kt, vt
+    return dict(shape=f"B=1 S={S} at {start}-{start + S - 1}, T={T} H={H} "
+                      f"KV={KV} hd={hd} bf16 causal (a prefill chunk)",
+                max_abs_err=err, rel_err=rel, rel_of="a row's norm", tol=tol,
+                ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                library_ms=lib_ms)
 
 
 # the compressed ring's hop chunk: a DeepSeek-V3 dense w1 gradient (7168 x
@@ -968,17 +1053,26 @@ def phase_kernels(torch):
 PAGED = dict(paged=True, page_storage="fp8", attn_impl="pallas")
 DSV3_PROMPTS = dict(lengths=[16, 120, 250, 380, 490, 600], max_len=1024,
                     steady=[600, 700, 800, 900])
+# the paged paths also serve chunked (``chunked``): the same weights on a
+# chunked-prefill engine (chunks of 256, page 8), its pool sized so the
+# priority-5 arrival of the run must evict (``pool_pages``; see
+# ``phase_chunked``), with each kernel's launches per prefill chunk
 PATHS = {
     "deepseek-v3-671b": dict(
         model="deepseek-v3-671b",
         overrides=dict(num_layers=4, fp8_impl="pallas"), engine=PAGED,
         kernels=("fp8_gemm", "moe_gemm", "paged_mla_decode"), absent=(),
-        per_step={"paged_mla_decode": 4, "fp8_gemm": 29}, **DSV3_PROMPTS),
+        per_step={"paged_mla_decode": 4, "fp8_gemm": 29}, **DSV3_PROMPTS,
+        chunked=dict(prefill_chunk=256, pool_pages=260,
+                     per_chunk={"fp8_gemm": 29, "moe_gemm": 3})),
     "qwen3-14b": dict(
         model="qwen3-14b", overrides={}, engine=PAGED,
         kernels=("flash_prefill", "paged_gqa_decode"), absent=(),
-        per_step={"paged_gqa_decode": 40}, lengths=[16, 200, 500, 900, 1200, 1500], max_len=2048,
-        steady=[600, 900, 1200, 1500]),
+        per_step={"paged_gqa_decode": 40},
+        lengths=[16, 200, 500, 900, 1200, 1500], max_len=2048,
+        steady=[600, 900, 1200, 1500],
+        chunked=dict(prefill_chunk=256, pool_pages=600,
+                     per_chunk={"flash_prefill": 40})),
     "deepseek-v3-671b-dense": dict(
         model="deepseek-v3-671b",
         overrides=dict(num_layers=4, fp8_impl="pallas"),
@@ -992,7 +1086,9 @@ PATHS = {
 # phase (d): each path's engine at smoke width, and qwen3-14b on the dense
 # engine; qwen3-14b's smoke width keeps its 5 query heads per KV head
 REFERENCE_CHECKS = [(p["model"], p["engine"]) for p in PATHS.values()] + [
-    ("qwen3-14b", dict(paged=False, attn_impl="pallas"))]
+    ("qwen3-14b", dict(paged=False, attn_impl="pallas"))] + [
+    (p["model"], dict(p["engine"], prefill_chunk=8))
+    for p in PATHS.values() if "chunked" in p]
 SMOKE_OVERRIDES = {"deepseek-v3-671b": {},
                    "qwen3-14b": dict(num_heads=10, num_kv_heads=2)}
 
@@ -1122,7 +1218,10 @@ def phase_main_path(torch, name):
     if logits.shape != (1, 1, cfg.vocab_size) or not bool(
             torch.isfinite(logits).all()):
         raise AssertionError("main-path logits are not finite (1,1,V)")
-    del eng, model, params, cache, logits
+    del logits
+    if "chunked" in spec:
+        phase_chunked(torch, name, eng, reqs)
+    del eng, model, params, cache
     torch.cuda.empty_cache()
     return counts
 
@@ -1137,9 +1236,9 @@ def check_graph(torch, eng, spec, reqs):
         f"{ch.capture_s:.3f} s + instantiation {ch.instantiate_s:.3f} s; "
         f"graph pool {ch.pool_bytes / 1e6:.1f} MB reserved; one replay "
         f"({ch.k} steps) launches {ch.tally} of the port's kernels")
-    if eng.trace_counts != {"decode": 1}:
-        raise AssertionError(f"decode chunk captured "
-                             f"{eng.trace_counts['decode']} times, want 1")
+    if eng.trace_counts != {"decode": 1, "chunk": 0}:
+        raise AssertionError(f"trace_counts {eng.trace_counts}: want the "
+                             "decode chunk captured once, no prefill chunk")
     ref = ServeEngine(eng.cfg, params=eng.params, slots=eng.slots,
                       max_len=eng.max_len, device=eng.device, seed=0,
                       **spec["engine"])
@@ -1319,6 +1418,406 @@ def compare_layouts(torch, eng, spec, host, dense):
     del chunks, pool
 
 
+# --- (c) chunked prefill --------------------------------------------------------
+
+
+# the chunked run's shared prefix and its three tails, in tokens
+SHARED_PREFIX, SHARED_TAILS = 512, (40, 120, 200)
+
+
+def first_diff(a, b):
+    """Index of the first token where two streams differ, None if equal."""
+    i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if i is None and len(a) != len(b):
+        i = min(len(a), len(b))
+    return i
+
+
+def chunked_engine(eng, spec):
+    """A chunked-prefill engine on the weights ``eng`` already loaded and
+    prepared (nothing is drawn or prepared again)."""
+    from repro_torch.serve.engine import ServeEngine
+    ch = spec["chunked"]
+    return ServeEngine(eng.cfg, params=eng.params, slots=4,
+                       max_len=spec["max_len"], device=eng.device, seed=0,
+                       prefill_chunk=ch["prefill_chunk"],
+                       pool_pages=ch["pool_pages"], **spec["engine"])
+
+
+def drive(eng, limit=400):
+    """Ticks until ``eng`` has no work; returns their count."""
+    n = 0
+    while eng.has_work():
+        eng.step()
+        n += 1
+        if n > limit:
+            raise AssertionError(f"the engine did not finish in {limit} "
+                                 "ticks")
+    return n
+
+
+def phase_chunked(torch, name, eng, whole_reqs):
+    """The path's chunked-prefill engine (same weights as ``eng``), one run
+    with counters zeroed just before it: the path's six prompts; one
+    request cancelled mid-prefill; three requests sharing a 512-token
+    prefix (tails of 40, 120, 200), the last two submitted once the first
+    has graduated; then three long residents and a priority-5 arrival the
+    pool cannot take, which must evict. Gates (fatal): every request not
+    cancelled finishes with its count of in-vocabulary tokens, the cancel
+    returns True, no page leaks, prefix hits, an eviction whose victim
+    finishes, one capture of each graph (``trace_counts``), exact launch
+    counts (each kernel's launches per prefill chunk times the chunks,
+    plus its launches per decode step times the steps), the shared streams
+    equal to each request alone on a cold chunked engine, and a replayed
+    prefill chunk equal to the eager chunk bit for bit (logits, pages and
+    ``mtp_h``). Printed: the victim against an uninterrupted run, and the
+    six streams against whole-prompt prefill's. Measured (``chunked_timing``):
+    TTFT of the longest prompt chunked-graphed, chunked-eager and
+    whole-prompt, in turns; ms per tick of three residents with and
+    without that prompt streaming; ms per chunk graphed and eager; the
+    chunk graph's capture and pool; syncs per chunk; a profile of one
+    replayed chunk; peak memory."""
+    import numpy as np
+    from repro_torch.kernels import registry
+    from repro_torch.serve.engine import Request
+    spec = PATHS[name]
+    ch = spec["chunked"]
+    C, vocab, lengths = ch["prefill_chunk"], eng.cfg.vocab_size, \
+        spec["lengths"]
+    # the whole-prompt engine's steady decode pointed its rows at pages
+    # of its own: back to the trash page before it serves again
+    for slot in eng.free_slots():
+        eng.model.release_slot_pages(eng.cache, slot)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ceng = chunked_engine(eng, spec)
+    log(f"[c] path {name} chunked: ServeEngine(prefill_chunk={C}, page "
+        f"{ceng.page_size}, pool_pages={ceng.pool_pages}, max_len="
+        f"{ceng.max_len}, slots 4), the weights of the paged path")
+    rng = np.random.default_rng(1)
+
+    def prompt(n):
+        return rng.integers(0, vocab, n).astype(np.int32)
+
+    six = [Request(r.rid, r.prompt, max_new=32) for r in whole_reqs]
+    prefix = prompt(SHARED_PREFIX)
+    shared = [Request(10 + i, np.concatenate([prefix, prompt(n)]),
+                      max_new=32) for i, n in enumerate(SHARED_TAILS)]
+    doomed = Request(20, prompt(lengths[3]), max_new=32)
+    residents = [Request(30, prompt(lengths[-1]), max_new=64),
+                 Request(31, prompt(lengths[-1]), max_new=32),
+                 Request(32, prompt(lengths[-2]), max_new=32)]
+    urgent = Request(40, prompt(lengths[2]), max_new=32, priority=5)
+    everyone = six + shared + residents + [urgent]
+
+    registry.reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in six:
+        ceng.submit(r)
+    ticks = drive(ceng)
+    ceng.submit(doomed)
+    ceng.step()
+    mid = [s for s, ps in ceng._prefilling.items() if ps["req"] is doomed]
+    if not mid or not ceng.cancel(doomed.rid):
+        raise AssertionError("cancel of a request mid-prefill failed")
+    ceng.submit(shared[0])
+    while not shared[0].out:
+        ceng.step()
+        ticks += 1
+    for r in shared[1:]:
+        ceng.submit(r)
+    ticks += drive(ceng)
+    for r in residents:
+        ceng.submit(r)
+    while not residents[0].out:
+        ceng.step()
+        ticks += 1
+    need = ceng.pages_needed(urgent)
+    if ceng.can_admit(urgent):
+        raise AssertionError(f"the pool can take the priority-5 request "
+                             f"({need} pages, {ceng.free_pages()} free): "
+                             "it would not evict")
+    log(f"[c] priority-5 request ({len(urgent.prompt)} + 32 tokens, {need} "
+        f"pages) submitted with {ceng.free_pages()} of {ceng.pool_pages} "
+        f"pages free and {len(ceng.free_slots())} slot(s) free")
+    ceng.submit(urgent)
+    ticks += drive(ceng)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = registry.launch_counts()
+    chunks, steps = ceng.stats["chunk_prefills"], ceng._decode.k * \
+        ceng._decode.calls
+    log(f"[c] {name} chunked run: {len(everyone) + 1} requests, {chunks} "
+        f"prefill chunks, {steps} decode steps ({ceng._decode.calls} "
+        f"chunks) in {ticks} ticks, {wall:.3f} s wall; stats {ceng.stats}; "
+        f"prefix_stats {ceng.prefix_stats()}; trace_counts "
+        f"{ceng.trace_counts}; launches {counts}")
+    log(f"[c] {name} chunked: peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    for r in everyone:
+        if not r.done or len(r.out) != r.max_new:
+            raise AssertionError(f"chunked request {r.rid}: done={r.done}, "
+                                 f"{len(r.out)} tokens (want {r.max_new})")
+        if min(r.out) < 0 or max(r.out) >= vocab:
+            raise AssertionError(f"chunked request {r.rid}: token out of "
+                                 "vocabulary")
+    if ceng.free_pages() != ceng.pool_pages:
+        raise AssertionError("chunked engine: pages leaked")
+    if ceng.prefix_stats()["hits"] <= 0:
+        raise AssertionError("chunked engine: no prefix hit")
+    if ceng.stats["evictions"] < 1:
+        raise AssertionError("chunked engine: the priority-5 request "
+                             "evicted nobody")
+    if ceng.trace_counts != {"decode": 1, "chunk": 1}:
+        raise AssertionError(f"chunked engine: trace_counts "
+                             f"{ceng.trace_counts}, want one capture each")
+    if ceng._prefill.calls != chunks:
+        raise AssertionError(f"chunked engine: {ceng._prefill.calls} "
+                             f"prefill chunks run, {chunks} counted")
+    per_step = dict(spec["per_step"])
+    moe_layers = sum(seg.n for seg in ceng.model.segments
+                     if seg.kind == "moe")
+    if moe_layers:
+        per_step["moe_gemm"] = 3 * moe_layers
+    for k in spec["kernels"]:
+        want = (ch["per_chunk"].get(k, 0) * chunks
+                + per_step.get(k, 0) * steps)
+        if counts[k] != want or not want:
+            raise AssertionError(
+                f"chunked {name}: {k} launched {counts[k]} times, want "
+                f"{ch['per_chunk'].get(k, 0)} x {chunks} chunks + "
+                f"{per_step.get(k, 0)} x {steps} decode steps = {want}")
+    log(f"[c] {name} chunked gates held: launches = per chunk "
+        f"{ch['per_chunk']} x {chunks} + per step {per_step} x {steps}; "
+        f"one replay of the chunk graph launches {ceng._prefill.tally}")
+    check_chunk_replay(torch, name, ceng, prompt(2 * C + C // 2))
+
+    # cold engines: each shared request alone (bitwise, fatal); the victim
+    # alone after the first (printed)
+    victim = residents[0]
+    for i, r in enumerate(shared):
+        cold = chunked_engine(eng, spec)
+        twin = Request(r.rid, r.prompt, max_new=r.max_new)
+        cold.submit(twin)
+        drive(cold)
+        if twin.out != r.out:
+            raise AssertionError(
+                f"shared-prefix request {r.rid} differs from itself alone on "
+                f"a cold engine at token {first_diff(twin.out, r.out)}")
+        if i == 0:
+            alone = Request(victim.rid, victim.prompt,
+                            max_new=victim.max_new)
+            cold.submit(alone)
+            drive(cold)
+            d = first_diff(alone.out, victim.out)
+            log(f"[c] {name} chunked: the victim's stream "
+                + ("equals an uninterrupted run" if d is None else
+                   f"first differs from an uninterrupted run at token {d} "
+                   "(its resume's first token comes from a prefill chunk, "
+                   "not the decode kernel)")
+                + " (printed, not gated)")
+        del cold
+        torch.cuda.empty_cache()
+    log(f"[c] {name} chunked: the three shared-prefix streams equal each "
+        "request alone on a cold chunked engine, bitwise")
+    diffs = [first_diff(a.out, b.out) for a, b in zip(six, whole_reqs)]
+    log(f"[c] {name}: chunked vs whole-prompt streams, same weights, first "
+        f"differing token per request (None = equal; printed, not gated): "
+        f"{diffs}")
+    chunked_timing(torch, name, ceng, eng, len(whole_reqs[-1].prompt))
+    del ceng
+    torch.cuda.empty_cache()
+
+
+def check_chunk_replay(torch, name, ceng, prompt):
+    """A replayed prefill chunk equals the eager chunk bit for bit: the
+    same prompt streamed through the engine's captured chunk graph and
+    through an eager ``PrefillChunk`` on the same model, weights and cache,
+    each into fresh pages of one free slot: every chunk's logits, every
+    written page of every pool and the slot's ``mtp_h`` equal (fatal). The
+    eager chunk is the one a prefix sharer's pages may come from."""
+    import numpy as np
+    from repro_torch.serve.graph import PrefillChunk
+    C, L, page = ceng.prefill_chunk, len(prompt), ceng.page_size
+    n = -(-L // page)
+    slot = ceng.free_slots()[0]
+    eager = PrefillChunk(ceng.model, ceng.params, ceng.cache, C,
+                         ceng.pages_per_slot)
+    eager.graphed = False
+    runs = {}
+    for which, chunk in (("replay", ceng._prefill), ("eager", eager)):
+        pages = ceng._alloc.alloc(n)
+        row = np.full((ceng.pages_per_slot,), ceng.pool_pages, np.int32)
+        row[:n] = pages
+        logits = []
+        for start in range(0, L, C):
+            toks = np.zeros((C,), np.int32)
+            toks[:min(L, start + C) - start] = prompt[start:start + C]
+            logits.append(chunk(toks, start, L, slot, row).clone())
+        torch.cuda.synchronize()
+        written = [t[:, pages].clone() for seg in ceng.model.segments
+                   for t in ceng.cache[seg.name].values()]
+        if "mtp_h" in ceng.cache:
+            written.append(ceng.cache["mtp_h"][slot].clone())
+        runs[which] = (logits, written)
+        ceng._alloc.release(pages)
+    (la, wa), (lb, wb) = runs["replay"], runs["eager"]
+    same_logits = all(torch.equal(a, b) for a, b in zip(la, lb))
+    same_pages = all(torch.equal(a, b) for a, b in zip(wa, wb))
+    log(f"[c] {name}: a {L}-token prompt ({len(la)} chunks) through the "
+        f"replayed chunk graph and through the eager chunk: logits equal "
+        f"{same_logits}, written pages{' and mtp_h' if 'mtp_h' in ceng.cache else ''} "
+        f"equal {same_pages} (bit for bit)")
+    if not (same_logits and same_pages):
+        raise AssertionError("a replayed prefill chunk differs from the "
+                             "eager chunk")
+    if ceng.free_pages() != ceng.pool_pages:
+        raise AssertionError("pages leaked by the replay check")
+
+
+def ttft_run(torch, e, long_prompt, C):
+    """Three residents decoding on ``e``, three ticks of theirs alone, then
+    the long prompt submitted: its TTFT and every tick's ms until its first
+    token. Then everything is cancelled (decoding requests). The residents'
+    budget outlasts the run: a tick a chunk of ``C`` tokens of their
+    16-token prompts, three alone, a tick a chunk of the long prompt, two
+    to spare."""
+    import numpy as np
+    from repro_torch.serve.engine import Request
+    new = e.chunk * (3 * -(-16 // C) + 3 + -(-len(long_prompt) // C) + 2)
+    residents = [Request(100 + i, (np.arange(16) * (i + 7)) % 1000,
+                         max_new=new) for i in range(3)]
+    for r in residents:
+        e.submit(r)
+    while not all(r.out for r in residents) or e._prefilling:
+        e.step()
+    idle = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        e.step()
+        idle.append(1e3 * (time.perf_counter() - t0))
+    lr = Request(99, long_prompt, max_new=32)
+    t0 = time.perf_counter()
+    e.submit(lr)
+    ticks = []
+    while not lr.out:
+        t1 = time.perf_counter()
+        e.step()
+        ticks.append(1e3 * (time.perf_counter() - t1))
+    ttft = 1e3 * (time.perf_counter() - t0)
+    if not all(r.out and not r.done for r in residents):
+        raise AssertionError("a resident stopped while the prompt streamed")
+    for r in residents + [lr]:
+        if not e.cancel(r.rid):
+            raise AssertionError(f"cancel of decoding request {r.rid} failed")
+    if e.free_pages() != e.pool_pages:
+        raise AssertionError("pages leaked after cancelling every request")
+    return ttft, idle, ticks
+
+
+def chunk_ticks(torch, ceng, prompt, graphed):
+    """Every tick of ``prompt`` alone on ``ceng`` (no decoding slot: a tick
+    is one chunk, the last one reading its first token back), its chunk
+    graphed or eager: host ms to return and wall ms to the device's end per
+    chunk, the synchronising calls of each tick as
+    ``torch.cuda.set_sync_debug_mode`` flags them, and their messages."""
+    import warnings
+    from repro_torch.serve.engine import Request
+    ceng._prefill.graphed = graphed
+    r = Request(98, prompt, max_new=32)
+    ceng.submit(r)
+    host, wall, syncs, said = [], [], [], set()
+    while not r.out:
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            t0 = time.perf_counter()
+            ceng.step()
+            t1 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        host.append(1e3 * (t1 - t0))
+        wall.append(1e3 * (time.perf_counter() - t0))
+        flagged = [str(w.message) for w in seen
+                   if "synchroniz" in str(w.message)]
+        syncs.append(len(flagged))
+        said.update(m.splitlines()[0][:120] for m in flagged)
+    ceng._prefill.graphed = True
+    ceng.cancel(98)
+    return host, wall, syncs, said
+
+
+def chunked_timing(torch, name, ceng, eng, L):
+    """TTFT of a prompt of the path's longest length with three residents
+    decoding: chunked with the chunk graph, chunked with eager chunks (the
+    same engine, its graph set aside) and whole-prompt (``eng``), in
+    turns, 3 runs each; the residents' ms per tick with and without it;
+    ms per chunk alone, graphed and eager in turns; the chunk graph's
+    capture; a profile of one replayed chunk. Every run takes a prompt of
+    its own, so no prefix hit shortens a chunked one."""
+    import numpy as np
+    from repro_torch.serve.engine import Request
+    C = ceng.prefill_chunk
+    pc = ceng._prefill
+    log(f"[c] {name} chunk graph: trace_counts {ceng.trace_counts}; capture "
+        f"{pc.capture_s:.3f} s + instantiation {pc.instantiate_s:.3f} s; "
+        f"graph pool {pc.pool_bytes / 1e6:.1f} MB reserved; one replay "
+        f"launches {pc.tally} of the port's kernels")
+    rng = np.random.default_rng(2)
+    prompts = iter([rng.integers(0, eng.cfg.vocab_size, L).astype(np.int32)
+                    for _ in range(14)])
+    runs = {"graphed": [], "eager": [], "whole": []}
+    order = ("graphed", "eager", "whole", "whole", "eager", "graphed",
+             "graphed", "eager", "whole")
+    for which in order:
+        e = eng if which == "whole" else ceng
+        pc.graphed = which != "eager"
+        runs[which].append(ttft_run(torch, e, next(prompts), C))
+        pc.graphed = True
+    how = {"graphed": "one chunk replay + one decode replay",
+           "eager": "one eager chunk + one decode replay",
+           "whole": "prefill + admission + one decode replay"}
+    for which, rs in runs.items():
+        log(f"[c] {name} {which}: TTFT of a {L}-token prompt with 3 "
+            f"residents decoding, 3 runs in turns: "
+            f"{[round(t, 2) for t, _, _ in rs]} ms; the residents' ms per "
+            f"tick without prefill "
+            f"{[[round(x, 2) for x in i] for _, i, _ in rs]}, while it "
+            f"streams ({how[which]} a tick) "
+            f"{[[round(x, 2) for x in t] for _, _, t in rs]}")
+    # chunks alone, graphed and eager in turns
+    alone = {True: [], False: []}
+    said = set()
+    for graphed in (True, False, False, True):
+        *r, msgs = chunk_ticks(torch, ceng, next(prompts), graphed)
+        alone[graphed].append(r)
+        said |= msgs
+    for graphed, rs in alone.items():
+        log(f"[c] {name} prefill chunks of {C} tokens alone, "
+            f"{'graphed' if graphed else 'eager'}, 2 runs in turns (the "
+            f"first tick with its admission, the last with the first "
+            f"token's read-back and the first decode chunk): host ms to "
+            f"return "
+            f"{[[round(x, 2) for x in h] for h, _, _ in rs]}, wall ms to "
+            f"the device's end {[[round(x, 2) for x in w] for _, w, _ in rs]}"
+            f", synchronising calls a tick {[s for _, _, s in rs]}")
+    log(f"[c] {name}: what the flagged calls said: {sorted(said)}")
+    ceng.submit(Request(97, next(prompts), max_new=32))
+    ceng.step()                                       # admission + chunk 1
+    device = profile_device(torch, f"{name} profile of one replayed "
+                            f"prefill chunk ({C} tokens at {C}-{2 * C - 1})",
+                            ceng.step, 1, "chunk")
+    ceng.cancel(97)
+    if ceng.free_pages() != ceng.pool_pages:
+        raise AssertionError("pages leaked after cancelling mid-prefill")
+    if device:
+        w = alone[True][0][1][1]
+        log(f"[c] {name}: one graphed chunk's wall ms above its device ms: "
+            f"{w - device:.2f} (unprofiled wall {w:.2f} ms of a chunk at "
+            f"the same position, profiled device {device:.2f})")
+
+
 # the port's kernels, as the profiler names them (checked in this order,
 # so "paged_mla_decode" before "mla_decode", and before the library GEMM
 # group, whose names also say "gemm")
@@ -1410,7 +1909,7 @@ def phase_reference(torch, name, engine):
     params = Model(cfg, device="cpu").init(seed=1)
     prompts = [np.arange(5 + 7 * i) * (i + 3) % cfg.vocab_size
                for i in range(3)]
-    outs, logits, drafts = {}, {}, {}
+    outs, logits, drafts, bf16_pages = {}, {}, {}, {}
     for dev in ("cuda", "cpu"):
         eng = ServeEngine(cfg, params=params, slots=2, max_len=64, chunk=4,
                           device=dev, **engine)
@@ -1420,14 +1919,23 @@ def phase_reference(torch, name, engine):
         eng.run_until_done()
         outs[dev] = [r.out for r in reqs]
         drafts[dev] = (eng.stats["drafts"], eng.stats["accepted_drafts"])
-        # the card's engine decodes through its graph; the CPU's eagerly
-        if eng.trace_counts != {"decode": int(dev == "cuda")}:
-            raise AssertionError(f"{dev} engine: decode graph captured "
-                                 f"{eng.trace_counts['decode']} times")
-        toks = np.zeros((1, 32), np.int32)
-        toks[0, :len(prompts[2])] = prompts[2]
-        lg, _ = eng.model.prefill(eng.params, {"tokens": torch.as_tensor(toks)},
-                                  lengths=[len(prompts[2])])
+        # the card's engine decodes (and prefills chunks) through its
+        # graphs; the CPU's eagerly
+        want = {"decode": int(dev == "cuda"),
+                "chunk": int(dev == "cuda" and "prefill_chunk" in engine)}
+        if eng.trace_counts != want:
+            raise AssertionError(f"{dev} engine: trace_counts "
+                                 f"{eng.trace_counts}, want {want}")
+        if engine.get("prefill_chunk"):
+            lg = chunk_logits(eng, prompts[2])
+            bf16_pages[dev] = chunk_logits(eng, prompts[2],
+                                           "bf16").float().cpu()
+        else:
+            toks = np.zeros((1, 32), np.int32)
+            toks[0, :len(prompts[2])] = prompts[2]
+            lg, _ = eng.model.prefill(eng.params,
+                                      {"tokens": torch.as_tensor(toks)},
+                                      lengths=[len(prompts[2])])
         logits[dev] = lg.float().cpu()
     a, b = logits["cuda"], logits["cpu"]
     rel = float((a - b).abs().max() / b.abs().max())
@@ -1435,18 +1943,46 @@ def phase_reference(torch, name, engine):
                                                       b.flatten(), dim=0))
     same = sum(x == y for o1, o2 in zip(outs["cuda"], outs["cpu"])
                for x, y in zip(o1, o2))
-    mtp = (f"; MTP drafts/accepted card {drafts['cuda']}, CPU "
-           f"{drafts['cpu']}" if engine.get("use_mtp") else "")
+    extra = (f"; MTP drafts/accepted card {drafts['cuda']}, CPU "
+             f"{drafts['cpu']}" if engine.get("use_mtp") else "")
+    how = ("Model.prefill_chunk" if engine.get("prefill_chunk")
+           else "Model.prefill")
+    if bf16_pages:
+        a2, b2 = bf16_pages["cuda"], bf16_pages["cpu"]
+        extra += (f"; the same logits on bf16 pages (printed, not gated): "
+                  f"max err {float((a2 - b2).abs().max() / b2.abs().max()):.3g}")
+    graphs = ("decode and prefill chunks one CUDA graph each"
+              if engine.get("prefill_chunk") else "decode chunk one CUDA graph")
     log(f"[d] {name} {engine} at smoke width ({cfg.num_heads} heads over "
-        f"{cfg.num_kv_heads} KV heads), bf16, the card's decode chunk one "
-        f"CUDA graph: first-token logits card vs CPU "
+        f"{cfg.num_kv_heads} KV heads), bf16, the card's {graphs}: "
+        f"first-token logits ({how}) card vs CPU "
         f"plain: max err {rel:.3g} of max|logit| (tol 5e-2), cosine "
-        f"{cos:.6f} (>= 0.999); greedy tokens equal {same}/24{mtp}")
+        f"{cos:.6f} (>= 0.999); greedy tokens equal {same}/24{extra}")
     if not (rel <= 5e-2 and cos >= 0.999):
         raise AssertionError("kernel path disagrees with the plain path on "
                              "the small input")
     if engine.get("use_mtp") and drafts["cuda"][0] != drafts["cpu"][0]:
         raise AssertionError("MTP draft counts differ between card and CPU")
+
+
+def chunk_logits(eng, prompt, storage=None):
+    """First-token logits of ``prompt`` through ``Model.prefill_chunk``,
+    chunk by chunk, into a fresh pool of the engine's layout (slot 0's row
+    on pages 0..), its page storage or ``storage``."""
+    import numpy as np
+    C, page = eng.prefill_chunk, eng.page_size
+    pp = eng.max_len // page
+    cache = eng.model.init_paged_cache(1, eng.max_len, page, pp,
+                                       storage or eng.page_storage)
+    row = np.arange(pp, dtype=np.int32)[None]
+    L = len(prompt)
+    for start in range(0, L, C):
+        toks = np.zeros((1, C), np.int32)
+        toks[0, :min(L, start + C) - start] = prompt[start:start + C]
+        pos = np.arange(start, start + C, dtype=np.int32)[None]
+        lg, _ = eng.model.prefill_chunk(eng.params, cache, toks, pos, [L],
+                                        row, 0)
+    return lg
 
 
 # --- (e) ---------------------------------------------------------------------

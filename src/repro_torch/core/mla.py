@@ -158,7 +158,8 @@ def _absorb_queries(p: dict, q_nope: torch.Tensor, cfg: ModelConfig):
 def _absorbed_attention(q_abs, q_rope, ckv, kr, valid, cfg: ModelConfig):
     """Absorbed-decode softmax over a dense latent view (the non-kernel
     path): the ring itself or the gathered pages. ckv/kr: (B, T,
-    rank/rope); valid (B, T).
+    rank/rope); valid (B, T) shared by the queries, or (B, S, T) per query
+    (chunked prefill, where ``l <= qpos_i`` is also intra-chunk causality).
     Operands in the compute dtype, fp32 accumulation (exact upcast).
     Returns o_lat (B, S, nh, rank) fp32."""
     m = cfg.mla
@@ -170,7 +171,8 @@ def _absorbed_attention(q_abs, q_rope, ckv, kr, valid, cfg: ModelConfig):
     qr = q_rope.to(cdt).float()
     scores = (torch.einsum("bshc,btc->bhst", qa, ckv.float())
               + torch.einsum("bshr,btr->bhst", qr, kr.float())) * scale
-    scores = scores.masked_fill(~valid[:, None, None, :], -1e30)
+    mask = valid[:, None, None, :] if valid.dim() == 2 else valid[:, None]
+    scores = scores.masked_fill(~mask, -1e30)
     attn = torch.softmax(scores, dim=-1)
     return torch.einsum("bhst,btc->bshc", attn.to(cdt).float(), ckv.float())
 
@@ -228,28 +230,33 @@ def mla_paged_decode_step(p: dict, cache: dict, x: torch.Tensor, *,
                           cfg: ModelConfig, positions: torch.Tensor,
                           page_table: torch.Tensor,
                           impl: str = "xla") -> Tuple[torch.Tensor, dict]:
-    """Paged absorbed-form decode of one token per slot (S = 1).
+    """Paged absorbed-form decode of one token per slot, or a chunk of S > 1.
 
     cache: one layer's pool slice — ckv/kr ``(P+1, page, ...)`` plus
     ``*_scale`` under fp8 storage — written in place. page_table: (B,
-    pages_per_slot). The step quantizes this token's latents into its
-    slot's current page, then attends over the slot's pages (the
-    ``paged_mla_decode`` kernel op on ``impl="pallas"``). Multi-token runs
-    (chunked prefill) come with the scheduler slice. Returns
-    (out (B,1,d), cache)."""
+    pages_per_slot). The step quantizes its latents into the slot's pages,
+    then attends over the slot's pages (the ``paged_mla_decode`` kernel op
+    on ``impl="pallas"``). S > 1 is a chunked-prefill run: a page-aligned
+    run (``positions[:, 0]`` on a page boundary, S a multiple of the page
+    size) written whole pages first, then attended with per-query validity,
+    which subsumes intra-chunk causality; the kernel stays single-token, so
+    S > 1 always takes the gathered, dequantized pages, as the reference's
+    does. That is the reference's own non-kernel computation (its
+    ``impl="xla"`` path), not a plain version of a kernel standing in for
+    one. Returns (out (B,S,d), cache)."""
     m = cfg.mla
-    if x.shape[1] != 1:
-        raise NotImplementedError(
-            "paged MLA decode over S > 1 tokens is chunked prefill, which "
-            "the port has not reached yet (ROADMAP.md, A.5)")
+    S = x.shape[1]
     qpos = positions[:, 0]
     fp8 = "ckv_scale" in cache
 
-    q_nope, q_rope = _queries(p, x, cfg, positions)       # (B,1,nh,*)
-    ckv_new, kr_new = _latents(p, x, cfg, positions)      # (B,1,rank/rope)
+    q_nope, q_rope = _queries(p, x, cfg, positions)       # (B,S,nh,*)
+    ckv_new, kr_new = _latents(p, x, cfg, positions)      # (B,S,rank/rope)
 
     def write(name, vals):
-        paged.page_write(cache[name], page_table, qpos, vals[:, 0])
+        if S == 1:
+            paged.page_write(cache[name], page_table, qpos, vals[:, 0])
+        else:
+            paged.page_write_chunk(cache[name], page_table, qpos, vals)
 
     if fp8:
         qc, sc = paged.quantize_vecs(ckv_new)
@@ -265,7 +272,7 @@ def mla_paged_decode_step(p: dict, cache: dict, x: torch.Tensor, *,
     q_abs = _absorb_queries(p, q_nope, cfg)
     scale = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
 
-    if impl == "pallas":
+    if impl == "pallas" and S == 1:
         from repro_torch.kernels.paged_attention import ops as paged_ops
         o_lat = paged_ops.paged_mla_decode(      # native pools: unit scales
             q_abs[:, 0], q_rope[:, 0].float(), cache["ckv"], cache["kr"],
@@ -283,9 +290,13 @@ def mla_paged_decode_step(p: dict, cache: dict, x: torch.Tensor, *,
             kr_t = paged.table_gather(cache["kr"], page_table)
         T = ckv_t.shape[1]
         # positional validity: everything at or below the query's position
-        # was written by this slot (pages never ring-wrap)
-        valid = (torch.arange(T, device=x.device)[None, :]
-                 <= qpos[:, None])
+        # was written by this slot (pages never ring-wrap); per query for a
+        # chunk, which is exactly intra-chunk causal masking
+        t = torch.arange(T, device=x.device)
+        if S == 1:
+            valid = t[None, :] <= qpos[:, None]
+        else:
+            valid = t[None, None, :] <= positions[:, :, None]
         o_lat = _absorbed_attention(q_abs, q_rope, ckv_t, kr_t, valid, cfg)
 
     return _absorbed_out(p, o_lat, x, cfg), cache

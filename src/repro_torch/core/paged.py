@@ -13,8 +13,8 @@ port of ``repro.core.paged`` (the parts the paged serving path runs).
   value is needed. ``"bf16"`` storage keeps the model's native cache dtype.
 
 JAX arrays are immutable; the port's pool writes (:func:`page_write`,
-:func:`scatter_pages`) update the pool tensor in place, which keeps a
-single copy of the multi-GB pool on the card.
+:func:`page_write_chunk`, :func:`scatter_pages`) update the pool tensor in
+place, which keeps a single copy of the multi-GB pool on the card.
 """
 from __future__ import annotations
 
@@ -105,6 +105,32 @@ def page_write(pool: torch.Tensor, table: torch.Tensor,
     off = (positions % page).long()
     phys = table.gather(1, lp[:, None])[:, 0].long()
     pool[phys, off] = _to_store(pool, vals)
+    return pool
+
+
+def page_write_chunk(pool: torch.Tensor, table: torch.Tensor,
+                     start: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """Write a contiguous, page-aligned run of ``C`` tokens per slot, in
+    place: one indexed write of ``C // page`` whole pages per slot.
+
+    pool ``(P+1, page, ...)``; table ``(B, pages_per_slot)``; start ``(B,)``
+    the run's first position, on a page boundary; vals ``(B, C, ...)`` with
+    ``C`` a multiple of the page size. Pages past a slot's reservation land
+    in the trash page through the table's padding, and so do pages past the
+    table's end (a run that overhangs ``max_len``; the reference clamps
+    those onto the slot's last page). Several pages of one run may go to
+    the trash page, in an order the indexed write leaves unspecified on
+    CUDA: harmless, because nothing reads the trash page unmasked. Returns
+    ``pool``."""
+    page = pool.shape[1]
+    B, C = vals.shape[:2]
+    n = C // page
+    pp = table.shape[1]
+    lp = start[:, None].long() // page + torch.arange(n, device=pool.device)
+    phys = table.gather(1, lp.clamp(0, pp - 1)).long()
+    phys = torch.where(lp < pp, phys, pool.shape[0] - 1)
+    v = vals.reshape(B, n, page, *vals.shape[2:])
+    pool[phys] = _to_store(pool, v)
     return pool
 
 

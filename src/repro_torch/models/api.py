@@ -10,6 +10,9 @@ for serving, MLA (DeepSeek-V3, with its MTP module) and GQA (qwen3-14b).
     cache_batch_axes(batch, max_len)  batch-axis index per cache leaf
     init_paged_cache(...)          shared page pools + per-slot page tables
     prefill_to_pages / install_pages / admit_pages / release_slot_pages
+    prefill_chunk(params, cache, tokens, positions, lengths, row, slot)
+                                   one page-aligned chunk of one slot's
+                                   prompt, written into its pages in place
     decode_step(params, cache, tokens, positions)  over either cache
     decode_loop(params, cache, state, k, use_mtp=)  k decode steps with
                                    on-device sampling, EOS/budget masks
@@ -515,6 +518,57 @@ class Model:
         cache["page_table"][slot] = torch.as_tensor(
             table_row, dtype=torch.int32, device=self.device)
         return cache
+
+    @torch.no_grad()
+    def prefill_chunk(self, params, cache, tokens, positions, lengths, row,
+                      slot):
+        """One chunk of one slot's prompt against the paged cache: the
+        chunked-prefill entry point of the scheduler.
+
+        The chunk writes its K/V (MLA latents) into the slot's pages first,
+        then attends over the gathered pages with per-query positional
+        validity (``l <= qpos_i``), which covers the resident prefix and
+        intra-chunk causality in one path, so every chunk of every prompt
+        and slot runs the same shapes. tokens, positions: (1, C), C a
+        multiple of the page size, positions absolute from a page-aligned
+        start; lengths: (1,) the whole prompt's length — positions past
+        ``lengths - 1`` are pads, whose writes land beyond the live prefix
+        and which ``valid`` drops from the MoE's capacity contest. ``row``
+        (1, pages_per_slot) is the slot's page-table row, an operand: the
+        cache's own row stays at the trash page until the last chunk, so
+        the slot's masked lane in the decode chunks between can never
+        write into the pages the prompt streams into. ``slot`` (1,) picks
+        the slot's ``mtp_h`` row, a device operand like the others, so one
+        CUDA graph serves every slot (``serve/graph.PrefillChunk``). The
+        cache is written in place, no leaf rebound; on an MTP config
+        ``cache["mtp_h"][slot]`` takes the hidden at ``lengths - 1`` (the
+        decode graph reads that leaf). No value is read back to the host.
+        Returns ``(logits (1, 1, V) at the chunk's last real position,
+        cache)``; only the last chunk's logits (position ``lengths - 1``)
+        are meaningful to sample from."""
+        dev = self.device
+        tokens = torch.as_tensor(tokens, device=dev)
+        positions = torch.as_tensor(positions, dtype=torch.int32, device=dev)
+        lengths = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+        table = torch.as_tensor(row, dtype=torch.int32, device=dev)
+        slot = torch.as_tensor(slot, device=dev).reshape(1).long()
+        B, C = tokens.shape
+        # the reference's ctx also carries ``causal`` (read by its
+        # transformer block to pick causal attention) and
+        # ``prompt_lengths`` (read by its SSM and RG-LRU blocks); no block
+        # of the port reads either: paged attention is causal by position,
+        # and ``valid`` brings the length to the MoE
+        ctx = self._ctx(params, positions=positions, page_table=table,
+                        valid=positions < lengths[:, None])
+        h, _ = self._backbone(params, tokens, ctx, cache)
+        idx = (lengths - 1 - positions[:, 0]).clamp(0, C - 1).long()
+        h_last = h[torch.arange(B, device=dev), idx][:, None]
+        if self.cfg.mtp:
+            # the last chunk's value is h at lengths - 1 (chunked prefill
+            # fills no MTP ring: the engine refuses it with use_mtp)
+            mtp_h = cache["mtp_h"]
+            mtp_h.index_copy_(0, slot, h_last.to(mtp_h.dtype))
+        return self._unembed(params, h_last), cache
 
     def release_slot_pages(self, cache, slot: int):
         """Point a freed slot's row at the trash page, so its masked

@@ -177,12 +177,13 @@ def gqa_attention(p: dict, x: torch.Tensor, *, cfg: ModelConfig,
     ``cache`` (``k``/``v``/``pos``, no ``page_table``): one decode step
     that writes this token at row ``position % T`` in place and attends
     over the rows with ``0 <= pos <= position``. With ``cache`` and
-    ``page_table``: one paged decode step. ``cache`` is one layer's K/V
-    pool slice (``core/paged.py`` layout, written in place): the step
-    writes this token's K/V (quantized under fp8 storage) into its slot's
-    current page and attends over the slot's pages, through the
-    ``paged_gqa_decode`` kernel op when ``impl == "pallas"``, else over
-    the gathered, dequantized pages. Returns (out, new_cache or entries).
+    ``page_table``: one paged decode step, or a chunked-prefill run of S >
+    1 tokens. ``cache`` is one layer's K/V pool slice (``core/paged.py``
+    layout, written in place): the step writes its K/V (quantized under
+    fp8 storage) into its slot's pages and attends over the slot's pages,
+    through the ``paged_gqa_decode`` kernel op when ``impl == "pallas"``
+    and S == 1, else over the gathered, dequantized pages. Returns (out,
+    new_cache or entries).
     """
     hd = cfg.head_dim_()
     q = _split_heads(linear(x, p["wq"], cfg, p.get("bq")), cfg.num_heads)
@@ -231,19 +232,23 @@ def _ring_decode(q, k, v, cache: dict, *, cfg: ModelConfig, positions,
 
 def _paged_decode(q, k, v, cache: dict, *, cfg: ModelConfig, positions,
                   page_table, impl: str) -> torch.Tensor:
-    """The paged branch of :func:`gqa_attention` for S == 1 (multi-token
-    runs are chunked prefill, not ported yet). Returns (B, 1, H, hd) in
-    the model dtype."""
-    if q.shape[1] != 1:
-        raise NotImplementedError(
-            "paged GQA attention over S > 1 tokens is chunked prefill, "
-            "which the port has not reached yet (ROADMAP.md, A.c)")
+    """The paged branch of :func:`gqa_attention`. S == 1 is the decode
+    step; S > 1 is a page-aligned chunked-prefill run (``positions[:, 0]``
+    on a page boundary, S a multiple of the page size), written whole pages
+    first with :func:`paged.page_write_chunk` and attended over the slot's
+    gathered pages with per-query validity (``flash_prefill`` with S = C
+    queries against T = ``max_len`` keys on ``impl="pallas"``). Returns
+    (B, S, H, hd) in the model dtype."""
+    S = q.shape[1]
     qpos = positions[:, 0]
     fp8 = "k_scale" in cache
     cdt = torch_dtype(cfg.dtype)
 
     def write(name, vals):
-        paged.page_write(cache[name], page_table, qpos, vals[:, 0])
+        if S == 1:
+            paged.page_write(cache[name], page_table, qpos, vals[:, 0])
+        else:
+            paged.page_write_chunk(cache[name], page_table, qpos, vals)
 
     if fp8:
         qk, sk = paged.quantize_vecs(k, vec_ndim=2)
@@ -256,7 +261,7 @@ def _paged_decode(q, k, v, cache: dict, *, cfg: ModelConfig, positions,
         write("k", k)
         write("v", v)
 
-    if impl == "pallas":
+    if impl == "pallas" and S == 1:
         from repro_torch.kernels.paged_attention import ops as paged_ops
         o = paged_ops.paged_gqa_decode(          # native pools: unit scales
             q[:, 0].float(), cache["k"], cache["v"], cache.get("k_scale"),
@@ -273,7 +278,8 @@ def _paged_decode(q, k, v, cache: dict, *, cfg: ModelConfig, positions,
         vc = paged.table_gather(cache["v"], page_table).to(cdt)
     # positional validity: the logical index is the position (pages never
     # ring-wrap), so the causal mask k_pos <= q_pos is exactly "written by
-    # this slot"; stale and trash rows sit above qpos
+    # this slot" (and, per query of a chunk, intra-chunk causality); stale
+    # and trash rows sit above qpos
     T = kc.shape[1]
     kpos = torch.arange(T, dtype=torch.int32,
                         device=q.device).expand(kc.shape[0], T)

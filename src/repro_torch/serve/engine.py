@@ -16,19 +16,38 @@ memory-bound decode, §2.3.3 MTP drafting), of MLA (DeepSeek-V3) and GQA
   row points at the trash page, so its masked decode lane never writes
   into recycled pages.
 
-``step()`` runs ``chunk`` fused decode steps (``Model.decode_loop``, with
-the same-step MTP draft under ``use_mtp``) over the decoding slots and
-reads the emitted tokens, the slot state and the draft counters back in
-one copy per chunk. On the card the chunk is one CUDA graph, captured on
-the engine's second chunk and replayed once a tick (``serve/graph.py``,
-the counterpart of the reference's jitted ``decode_chunk``); on the CPU
-it runs eagerly.
+With ``prefill_chunk`` (paged engines) the engine is the reference's
+continuous-batching scheduler:
+
+* a prompt streams into its slot's pages in page-aligned chunks of
+  ``prefill_chunk`` tokens (``Model.prefill_chunk``), one chunk of the
+  lowest prefilling slot per tick, between decode chunks; the slot's
+  table row stays at the trash page and its lane out of the decode chunk
+  until its last chunk samples the first token;
+* full prompt pages are indexed by their token prefix, and a later
+  request claims the indexed run copy-on-write (shared pages are never
+  written again; fresh pages take over at the divergence point).
+
+Every engine admits in priority order, FIFO within a class, and a blocked
+arrival preempts a strictly lower-priority resident: the victim returns to
+the queue as a continuation (prompt + delivered tokens, remaining budget,
+advanced stream index), so its stream is the one it would have made
+uninterrupted; under chunked prefill it keeps its written prefix pages
+for its resume. ``cancel(rid)`` frees a request in any state.
+
+``step()`` then runs ``chunk`` fused decode steps (``Model.decode_loop``,
+with the same-step MTP draft under ``use_mtp``) over the decoding slots
+and reads the emitted tokens, the slot state and the draft counters back
+in one copy per chunk. On the card the decode chunk and the prefill chunk
+are one CUDA graph each, captured on the engine's second chunk of each
+kind and replayed after (``serve/graph.py``, the counterparts of the
+reference's jitted ``decode_chunk`` and ``chunk_prefill``); a prefill
+chunk crosses in one non-blocking copy and reads nothing back but the
+last chunk's first token. On the CPU both run eagerly.
 
 Options of the reference that the port has not reached raise
-``NotImplementedError`` with a pointer to ROADMAP.md: mesh contexts,
-chunked prefill, the host KV tier and decode overlap. Priority preemption
-and ``cancel`` come with the scheduler; requests admit in priority order,
-FIFO within a class.
+``NotImplementedError`` with a pointer to ROADMAP.md: mesh contexts, the
+host KV tier and decode overlap.
 """
 from __future__ import annotations
 
@@ -43,7 +62,7 @@ from repro_torch.bridge import prepare_for_serving
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import paged as paged_mod
 from repro_torch.models.api import Model, sample_logits
-from repro_torch.serve.graph import DecodeChunk
+from repro_torch.serve.graph import DecodeChunk, PrefillChunk
 
 # Smallest prefill bucket: prompts shorter than this share one shape.
 MIN_BUCKET = 8
@@ -71,7 +90,9 @@ class Request:
                                  # generator)
     sample_offset: int = 0       # stream index of the first token this
                                  # admission produces (continuations)
-    priority: int = 0            # higher admits first; FIFO within a class
+    priority: int = 0            # higher admits first and may preempt a
+                                 # strictly lower resident; FIFO within a
+                                 # class
     out: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
 
@@ -121,7 +142,11 @@ def _to_device(tree, device):
 
 
 class ServeEngine:
-    """Fixed-slot batch engine (continuous batching-lite)."""
+    """Fixed-slot batch engine (continuous batching-lite).
+
+    ``stats`` holds the reference's counters, with the same values but for
+    ``dispatches``: the port counts its own (a prefill, an admission, a
+    prefill chunk, a graduation, a decode chunk, one each)."""
 
     def __init__(self, cfg: ModelConfig, params=None, slots: int = 4,
                  max_len: int = 128, seed: int = 0,
@@ -139,8 +164,6 @@ class ServeEngine:
                  ctx=None, device=None):
         if ctx is not None:
             raise _waits("ctx=: mesh-sharded serving", "A.8")
-        if prefill_chunk is not None:
-            raise _waits("prefill_chunk=: chunked prefill", "A.5")
         if (host_tier_pages is not None or tier_config is not None
                 or tier_faults is not None):
             raise _waits("host_tier_pages=: the host KV tier", "A.6")
@@ -170,6 +193,21 @@ class ServeEngine:
         self.temperature = temperature
         self.top_k = top_k
         self.paged = paged
+        self.prefill_chunk = prefill_chunk
+        if prefill_chunk is not None:
+            if not paged:
+                raise ValueError(
+                    "prefill_chunk requires paged=True: chunked prefill "
+                    "streams the prompt straight into the slot's pages")
+            if prefill_chunk <= 0 or prefill_chunk % page_size:
+                raise ValueError(
+                    f"prefill_chunk ({prefill_chunk}) must be a positive "
+                    f"multiple of page_size ({page_size}) so every chunk "
+                    "writes whole pages")
+            if self.use_mtp:
+                raise ValueError(
+                    "prefill_chunk is incompatible with use_mtp: chunked "
+                    "prefill does not populate the MTP draft ring")
         if paged:
             # pool_pages defaults to the dense engine's token capacity
             self.page_size = page_size
@@ -196,15 +234,23 @@ class ServeEngine:
         self.pending: Deque[Tuple[Request, Optional[Dict]]] = \
             collections.deque()
         self.max_pending = max_pending
+        # scheduler state: slots mid-chunked-prefill, and the prefix pages
+        # retained by preempted continuations still in the queue
+        self._prefilling: Dict[int, Dict[str, Any]] = {}
+        self._evicted: Dict[int, List[int]] = {}
         self._hol_skips = 0
         self._seed_gen = np.random.default_rng(seed + 1)
         self._decode = DecodeChunk(self.model, self.params, self.cache,
                                    slots, chunk, temperature=temperature,
                                    top_k=top_k, use_mtp=self.use_mtp)
+        self._prefill = (None if prefill_chunk is None else PrefillChunk(
+            self.model, self.params, self.cache, prefill_chunk,
+            self.pages_per_slot))
         self.stats = {"steps": 0, "tokens": 0, "accepted_drafts": 0,
                       "drafts": 0, "dispatches": 0, "prefills": 0,
                       "splices": 0, "first_tokens": 0, "page_admits": 0,
-                      "page_releases": 0, "peak_pages_used": 0}
+                      "page_releases": 0, "peak_pages_used": 0,
+                      "chunk_prefills": 0, "evictions": 0}
 
     # -- prefill ------------------------------------------------------------
     def prefill_request(self, req: Request, extras: Optional[Dict] = None):
@@ -233,12 +279,21 @@ class ServeEngine:
         if self.paged:
             payload = self.model.prefill_to_pages(payload, self.page_size,
                                                   self.page_storage)
-        seed = torch.as_tensor([self._request_seed(req)], device=self.device)
-        tix = torch.as_tensor([offset], dtype=torch.int32, device=self.device)
-        first = sample_logits(logits[:, -1], seed, tix, self.temperature,
-                              self.top_k)
-        # the admission needs the token on the host: one sync per prefill
-        return int(first.cpu()[0]), payload
+        return self._sample_first(req, logits, offset), payload
+
+    def _sample_first(self, req: Request, logits: torch.Tensor,
+                      offset: int) -> int:
+        """A prefill's first token: stream index ``offset`` of the request's
+        sampling stream, from the logits (1, 1, V) at its last prompt
+        position. The seed and the index cross in one non-blocking copy; the
+        admission needs the token on the host: the one sync of a prefill."""
+        ids = torch.tensor([self._request_seed(req), offset],
+                           dtype=torch.int64)
+        if self.device.type == "cuda":
+            ids = ids.pin_memory().to(self.device, non_blocking=True)
+        first = sample_logits(logits[:, -1], ids[:1], ids[1:].int(),
+                              self.temperature, self.top_k)
+        return int(first.cpu()[0])
 
     def _request_seed(self, req: Request) -> int:
         """The request's sampling seed; a seedless request gets one drawn
@@ -273,11 +328,26 @@ class ServeEngine:
         return paged_mod.pages_for(len(req.prompt) + req.max_new,
                                    self.page_size)
 
+    def _prefix_keys(self, prompt: np.ndarray) -> List[bytes]:
+        """Index keys of a prompt's full pages (chunked-prefill engines)."""
+        return paged_mod.prefix_keys(prompt, self.page_size,
+                                     len(prompt) // self.page_size)
+
     def can_admit(self, req: Request) -> bool:
-        """A slot is free and (paged engines) enough pool pages are too."""
+        """A slot is free and (paged engines) enough pool pages are too.
+        Chunked-prefill engines probe the prefix index: a request whose
+        leading pages are resident needs fresh pages only from the
+        divergence point."""
         if not self.free_slots():
             return False
-        return not self.paged or self.pages_needed(req) <= self.free_pages()
+        if not self.paged:
+            return True
+        if self.prefill_chunk is None:
+            return self.pages_needed(req) <= self.free_pages()
+        prompt, max_new, _ = self._effective(req)
+        n = paged_mod.pages_for(len(prompt) + max_new, self.page_size)
+        return self._alloc.can_admit(self._prefix_keys(prompt), n,
+                                     self.prefill_chunk // self.page_size)
 
     def _validate(self, req: Request):
         if not self.paged:
@@ -374,6 +444,107 @@ class ServeEngine:
             _splice({k: self.cache[k] for k in payload["aux"]},
                     payload["aux"], slot, self._axes)
 
+    # -- scheduler ----------------------------------------------------------
+    def _admit_now(self, req: Request, extras: Optional[Dict]):
+        slot = self.free_slots()[0]
+        if self.prefill_chunk is not None:
+            self._admit_chunked(req, extras, slot)
+        else:
+            first, payload = self.prefill_request(req, extras)
+            self.admit_prefilled(req, first, payload, slot)
+
+    def _admit_chunked(self, req: Request, extras: Optional[Dict],
+                       slot: int):
+        """Reserve pages (claiming any indexed prefix run) and start the
+        slot's chunked prefill; the prompt streams through
+        ``_run_prefill_chunk`` one chunk a tick. Pages claimed from the
+        index are shared and never written again: the chunks that would
+        have computed them are skipped, and fresh pages take over from the
+        divergence point (the copy-on-write fork)."""
+        if extras:
+            raise ValueError(
+                "prefill_chunk admission does not support extras "
+                "(encoder/vision payloads need whole-prompt prefill)")
+        prompt, max_new, offset = self._effective(req)
+        L, p, C = len(prompt), self.page_size, self.prefill_chunk
+        n = paged_mod.pages_for(L + max_new, p)
+        keys = self._prefix_keys(prompt)
+        held = self._evicted.pop(req.rid, None)
+        if held is not None:
+            # a resuming continuation re-claims its retained prefix pages
+            # through the index (they stay indexed)
+            self._alloc.release(held)
+        try:
+            hits, fresh = self._alloc.admit(keys, n, C // p)
+        except RuntimeError as e:
+            raise AdmissionError(
+                f"no free pages: request {req.rid} needs up to {n}, pool "
+                f"has {self.free_pages()} of {self.pool_pages}") from e
+        pages = hits + fresh
+        self._slot_pages[slot] = pages
+        row = np.full((self.pages_per_slot,), self.pool_pages, np.int32)
+        row[:n] = pages
+        self.stats["page_admits"] += 1
+        self.stats["peak_pages_used"] = max(
+            self.stats["peak_pages_used"], self.pool_pages - self.free_pages())
+        # the row travels as a chunk operand; the cache's row stays at the
+        # trash page until graduation. Shared pages cover whole chunks, so
+        # prefill resumes at the divergence chunk, but never past the chunk
+        # of the last prompt token, whose logits give the first token (a
+        # re-run of that chunk writes the same bytes into any shared page
+        # it overlaps)
+        skip = min(len(hits) * p, (L - 1) // C * C)
+        self._prefilling[slot] = dict(req=req, keys=keys, next=skip,
+                                      prompt=prompt, max_new=max_new,
+                                      offset=offset, row=row)
+        self.active[slot] = req
+
+    def _run_prefill_chunk(self, slot: int):
+        """Advance one prefilling slot by one chunk (one replay of the
+        chunk graph on the card, ``serve/graph.PrefillChunk``); the last
+        chunk samples the first token and graduates the slot to decoding.
+        A chunk's operands cross in one non-blocking copy, so only the last
+        chunk waits for the card (for its first token)."""
+        ps = self._prefilling[slot]
+        req, prompt = ps["req"], ps["prompt"]
+        C, p, L = self.prefill_chunk, self.page_size, len(prompt)
+        start = ps["next"]
+        toks = np.zeros((C,), np.int32)
+        toks[:min(L, start + C) - start] = prompt[start:start + C]
+        self.stats["dispatches"] += 1
+        self.stats["chunk_prefills"] += 1
+        logits = self._prefill(toks, start, L, slot, ps["row"])
+        # index the chunk's full prompt pages: under the fixed chunk grid
+        # their bytes are a function of the token prefix alone, and the
+        # write is queued, so a sharer's later reads follow it on the stream
+        for j in range(start // p, min((start + C) // p, len(ps["keys"]))):
+            self._alloc.register(ps["keys"][j], self._slot_pages[slot][j])
+        ps["next"] = start + C
+        if ps["next"] < L:
+            return
+        del self._prefilling[slot]
+        # graduation: the slot decodes from the next chunk on, so its row
+        # replaces the trash row in the table the decode graph reads (a
+        # device copy from the chunk's input, ordered after the chunk and
+        # before the next decode replay)
+        self.stats["dispatches"] += 1
+        self.cache["page_table"][slot].copy_(self._prefill.row)
+        first = self._sample_first(req, logits, ps["offset"])
+        req.out.append(first)
+        self.stats["tokens"] += 1
+        self.stats["first_tokens"] += 1
+        if ps["max_new"] <= 1 or (req.eos is not None and first == req.eos):
+            # no decode step: the whole reservation goes back to the pool
+            req.done = True
+            self._release_slot(slot)
+            return
+        self.positions[slot] = L
+        self._tokens[slot] = first
+        self._left[slot] = ps["max_new"] - 1
+        self._eos[slot] = -1 if req.eos is None else req.eos
+        self._seeds[slot] = self._request_seed(req)
+        self._tix[slot] = ps["offset"] + 1
+
     def _pick_admission(self) -> Optional[int]:
         """Pending entry to admit next: highest priority first, FIFO within
         a class, with page-aware skip-ahead bounded by the starvation
@@ -391,47 +562,127 @@ class ServeEngine:
                 return i
         return None
 
+    def _try_evict(self, inc: int) -> bool:
+        """Free capacity for an incoming priority-``inc`` request: evict the
+        lowest-priority decoding resident of strictly lower priority, or,
+        when none qualifies, reclaim the retained prefix pages of a queued
+        continuation of strictly lower priority (it will re-prefill; its
+        stream is the same either way)."""
+        victims = [(r.priority, s) for s, r in enumerate(self.active)
+                   if r is not None and s not in self._prefilling
+                   and r.priority < inc]
+        if victims:
+            self._evict_slot(min(victims)[1])
+            return True
+        held = [(req.priority, i) for i, (req, _) in enumerate(self.pending)
+                if req.priority < inc and req.rid in self._evicted]
+        if held:
+            rid = self.pending[min(held)[1]][0].rid
+            self._alloc.release(self._evicted.pop(rid))
+            return True
+        return False
+
+    def _evict_slot(self, slot: int):
+        """Preempt a resident: free its slot and pages and put it back at
+        the head of the queue as a continuation (prompt + delivered,
+        remaining budget, advanced stream index). Under chunked prefill its
+        full written pages are indexed first and their references kept in
+        ``_evicted``, so its resume re-claims the KV it already computed."""
+        req = self.active[slot]
+        held: List[int] = []
+        if self.paged and self.prefill_chunk is not None:
+            pages = self._slot_pages[slot]
+            prompt, _, _ = self._effective(req)
+            # the KV written so far stops at positions[slot]: the last
+            # emitted token's KV lands only when it is fed
+            n_keys = min(int(self.positions[slot]) // self.page_size,
+                         len(pages))
+            keys = paged_mod.prefix_keys(prompt, self.page_size, n_keys)
+            for j, key in enumerate(keys):
+                self._alloc.register(key, pages[j])
+                if self._alloc.lookup(key) != pages[j]:
+                    break   # another slot owns this prefix from here on
+                held.append(pages[j])
+            if held:
+                self._evicted[req.rid] = held
+                self._slot_pages[slot] = pages[len(held):]
+        self.stats["evictions"] += 1
+        self._release_slot(slot)
+        self.pending.appendleft((req, None))
+
     def _admit_pending(self) -> int:
         admitted = 0
         while self.pending:
             i = self._pick_admission()
-            if i is None:
+            if i is not None:
+                req, extras = self.pending[i]
+                del self.pending[i]
+                self._admit_now(req, extras)
+                admitted += 1
+                continue
+            # everything admissible is in: preempt for the highest-priority
+            # blocked entry, and keep what that frees for it alone (letting
+            # a lower class, often the victim itself, take it would thrash)
+            head_i = max(range(len(self.pending)),
+                         key=lambda j: (self.pending[j][0].priority, -j))
+            head = self.pending[head_i][0]
+            if not self._try_evict(head.priority):
                 break
-            req, extras = self.pending[i]
-            del self.pending[i]
-            first, payload = self.prefill_request(req, extras)
-            self.admit_prefilled(req, first, payload, self.free_slots()[0])
+            while not self.can_admit(head) and self._try_evict(head.priority):
+                pass
+            if not self.can_admit(head):
+                break
+            # eviction re-queues at the left: find the head by identity
+            head_i = next(j for j, (q, _) in enumerate(self.pending)
+                          if q is head)
+            req, extras = self.pending[head_i]
+            del self.pending[head_i]
+            self._admit_now(req, extras)
             admitted += 1
         return admitted
 
     # -- decode -------------------------------------------------------------
+    def _decoding(self) -> np.ndarray:
+        """Slots whose lane the decode chunk runs: occupied and not
+        mid-chunked-prefill."""
+        return np.array([r is not None and i not in self._prefilling
+                         for i, r in enumerate(self.active)])
+
     def _host_state(self) -> Dict[str, np.ndarray]:
         """The decode state of every slot from the host mirrors (the
         chunk's one host-to-device copy)."""
         return dict(tokens=self._tokens, positions=self.positions,
-                    active=np.array([r is not None for r in self.active]),
-                    left=self._left, eos=self._eos, tix=self._tix,
-                    seeds=self._seeds)
+                    active=self._decoding(), left=self._left, eos=self._eos,
+                    tix=self._tix, seeds=self._seeds)
 
     def step(self):
-        """One scheduler tick: admit from the pending queue, then one fused
-        ``chunk``-step decode over the decoding slots (one graph replay on
-        the card) and one read-back of the emitted tokens, the slot state
-        and the chunk's draft counters."""
+        """One scheduler tick: admit from the pending queue (priority order,
+        page-aware, preempting a lower-priority resident for a blocked
+        arrival), advance the lowest prefilling slot by one chunk, then one
+        fused ``chunk``-step decode over the decoding slots (one graph
+        replay on the card) and one read-back of the emitted tokens, the
+        slot state and the chunk's draft counters."""
         self._admit_pending()
-        if not any(r is not None for r in self.active):
+        if self._prefilling:
+            # one chunk of one long-prompt admission a tick, so resident
+            # streams keep decoding between chunks
+            self._run_prefill_chunk(min(self._prefilling))
+        if not self._decoding().any():
             return
         self.stats["dispatches"] += 1
         toks, emitted, st = self._decode(self._host_state())
         self.stats["steps"] += int(emitted.any(axis=0).sum())
         self.stats["drafts"] += int(st["drafts"][0])
         self.stats["accepted_drafts"] += int(st["accepted"][0])
-        self._tokens = st["tokens"]
-        self.positions = st["positions"]
-        self._left = st["left"]
-        self._tix = st["tix"]
+        # prefilling slots keep their host mirrors: their masked lanes
+        # carry stale state
+        keep = np.array([i in self._prefilling for i in range(self.slots)])
+        self._tokens = np.where(keep, self._tokens, st["tokens"])
+        self.positions = np.where(keep, self.positions, st["positions"])
+        self._left = np.where(keep, self._left, st["left"])
+        self._tix = np.where(keep, self._tix, st["tix"])
         for i, r in enumerate(self.active):
-            if r is None:
+            if r is None or keep[i]:
                 continue
             new = toks[i, emitted[i]]
             r.out.extend(int(t) for t in new)
@@ -451,15 +702,41 @@ class ServeEngine:
             self.stats["page_releases"] += 1
             self.model.release_slot_pages(self.cache, slot)
 
+    def cancel(self, rid: int) -> bool:
+        """Abort a request by id: drop it from the pending queue (an
+        evicted continuation also releases the prefix pages it kept), or
+        free its slot, mid-chunked-prefill or decoding alike (its pages go
+        back to the pool and its lane is masked out of the next decode
+        chunk). The request is left as it is (``done`` stays False, ``out``
+        keeps what was delivered). Returns False for an unknown id."""
+        for i, (req, _) in enumerate(self.pending):
+            if req.rid == rid:
+                del self.pending[i]
+                held = self._evicted.pop(rid, None)
+                if held:
+                    self._alloc.release(held)
+                return True
+        for slot, req in enumerate(self.active):
+            if req is not None and req.rid == rid:
+                self._prefilling.pop(slot, None)
+                self._release_slot(slot)
+                return True
+        return False
+
     # -- introspection --------------------------------------------------------
     @property
     def trace_counts(self) -> Dict[str, int]:
-        """The reference's introspection, with the key the port has:
-        ``"decode"`` counts the decode chunk's CUDA graph captures — 1 on
-        the card once a second chunk has run, whatever the ticks after;
-        0 on the CPU, where the chunk runs eagerly and nothing is
-        captured."""
-        return {"decode": self._decode.captures}
+        """The reference's introspection, with the keys the port has, each
+        counting its graph's CUDA captures: ``"decode"``, the decode chunk
+        (1 on the card once a second decode chunk has run, whatever the
+        ticks after), and ``"chunk"``, the prefill chunk (1 on a chunked
+        engine once a second prefill chunk has run; every chunk of every
+        prompt shares one static ``(1, prefill_chunk)`` shape). Both stay 0
+        on the CPU, where the chunks run eagerly and nothing is captured,
+        and ``"chunk"`` stays 0 on an engine without ``prefill_chunk``."""
+        return {"decode": self._decode.captures,
+                "chunk": 0 if self._prefill is None
+                else self._prefill.captures}
 
     def pool_stats(self) -> Dict[str, Any]:
         """Page-pool occupancy (zeros for dense engines)."""
@@ -472,6 +749,17 @@ class ServeEngine:
                     pages_used=used,
                     occupancy=used / self.pool_pages if self.pool_pages
                     else 0.0)
+
+    def prefix_stats(self) -> Dict[str, Any]:
+        """Prefix-index effectiveness (zeros for dense engines): admission
+        lookups of full prompt pages, the hits among them, and the pages
+        that back index entries now."""
+        if not self.paged:
+            return dict(lookups=0, hits=0, hit_rate=0.0, indexed_pages=0)
+        lk = self._alloc.prefix_lookups
+        return dict(lookups=lk, hits=self._alloc.prefix_hits,
+                    hit_rate=self._alloc.prefix_hits / lk if lk else 0.0,
+                    indexed_pages=self._alloc.indexed_pages())
 
     def cache_bytes_per_token(self) -> float:
         """Attention-cache bytes per token of context capacity (the paper's

@@ -749,6 +749,56 @@ def test_flash_prefill_kernel_matches_plain(card, case):
     assert err <= FLASH_TOL[dt]
 
 
+# (S, T, H, KV, start): a prefill chunk of S queries at positions
+# [start, start + S) against every row of the slot's T gathered keys:
+# qwen3-14b's chunk (two 128-row query tiles of a C = 256 chunk, 40 over 8
+# heads) and smoke-sized ones; most key blocks lie wholly above every query
+FLASH_CHUNK_CASES = [(256, 2048, 40, 8, 1280), (256, 2048, 40, 8, 0),
+                     (256, 1024, 10, 2, 512), (16, 64, 10, 2, 8),
+                     (8, 64, 4, 4, 40)]
+
+
+@pytest.mark.parametrize("case", FLASH_CHUNK_CASES)
+def test_flash_prefill_at_a_chunk_shape(card, case):
+    S, T, H, KV, start = case
+    hd = 128
+    g = torch.Generator(device=card).manual_seed(5)
+    q = torch.randn(1, S, H, hd, generator=g, device=card).bfloat16()
+    k = torch.randn(1, T, KV, hd, generator=g, device=card).bfloat16()
+    v = torch.randn(1, T, KV, hd, generator=g, device=card).bfloat16()
+    qp = torch.arange(start, start + S, dtype=torch.int32, device=card)[None]
+    kp = torch.arange(T, dtype=torch.int32, device=card)[None]
+    before = flash_ops.flash_prefill.launches
+    out = flash_ops.flash_prefill(q, k, v, qp, kp, causal=True,
+                                  scale=hd ** -0.5)
+    assert flash_ops.flash_prefill.launches == before + 1
+    ref = flash_ops.flash_prefill.run_plain(q, k, v, qp, kp, causal=True,
+                                            scale=hd ** -0.5)
+    assert _row_err(out, ref) <= FLASH_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("storage", ["fp8", "bf16"])
+def test_page_write_chunk_on_the_card(card, storage):
+    """The chunk's indexed page write on the card against the same write on
+    the CPU: every page but the trash page (several rows of a run may land
+    there, in no fixed order) bit for bit."""
+    g = torch.Generator().manual_seed(6)
+    P, page, KV, hd, B, C = 40, 8, 8, 128, 3, 32
+    vals = torch.randn(B, C, KV, hd, generator=g)
+    table = torch.randperm(P, generator=g)[:B * 8].reshape(B, 8).int()
+    table[2, 2:] = P                                # slot 2 ends early
+    start = torch.tensor([0, 32, 8], dtype=torch.int32)
+    if storage == "fp8":
+        pool = torch.zeros(P + 1, page, KV, hd, dtype=torch.uint8)
+        vals, _ = paged.quantize_vecs(vals, vec_ndim=2)
+    else:
+        pool = torch.zeros(P + 1, page, KV, hd, dtype=torch.bfloat16)
+    ref = paged.page_write_chunk(pool.clone(), table, start, vals)
+    out = paged.page_write_chunk(pool.to(card), table.to(card),
+                                 start.to(card), vals.to(card))
+    assert torch.equal(out[:P].cpu(), ref[:P])
+
+
 def test_flash_prefill_rows_without_keys_are_zero(card):
     q = torch.randn(1, 64, 2, 32, device=card).bfloat16()
     k = torch.randn(1, 64, 1, 32, device=card).bfloat16()
@@ -1103,8 +1153,8 @@ def test_graphed_engine_equals_the_eager_chunk(card, path, sampling):
     eng, streams, counts = _engine_run(cfg, layout, sampling)
     ref, ref_streams, ref_counts = _engine_run(cfg, layout, sampling,
                                                params=eng.params, eager=True)
-    assert eng.trace_counts == {"decode": 1}
-    assert ref.trace_counts == {"decode": 0}
+    assert eng.trace_counts == {"decode": 1, "chunk": 0}
+    assert ref.trace_counts == {"decode": 0, "chunk": 0}
     assert streams == ref_streams
     assert counts == ref_counts and all(counts[n] > 0 for n in kernels)
     assert set(eng._decode.tally) == set(kernels) - {"flash_prefill"}
@@ -1112,6 +1162,153 @@ def test_graphed_engine_equals_the_eager_chunk(card, path, sampling):
         ref.stats["drafts"], ref.stats["accepted_drafts"])
     if eng.use_mtp:
         assert eng.stats["drafts"] > 0
+
+
+def _chunked_run(cfg, params=None, eager=False):
+    """A smoke-width qwen3-14b engine with chunked prefill (chunk 8, page 8,
+    fp8 pages): a first request of one chunk graduates in the first tick
+    (the eager first run of both graphs) and decodes; a second admits in
+    the second tick, whose prefill chunk is captured while the first
+    decodes and whose decode chunk is captured while the second is
+    mid-prefill, and graduates after both captures; then a third shares
+    the second one's prefix. Both chunks graphed or, through the private
+    seams, eager. Returns (engine, streams, whether the prefill chunk was
+    captured while a slot decoded, whether the decode chunk was captured
+    while a slot prefilled)."""
+    eng = ServeEngine(cfg, params=params, slots=2, max_len=64, chunk=4,
+                      paged=True, page_size=8, page_storage="fp8",
+                      prefill_chunk=8, attn_impl="pallas", device="cuda")
+    eng._decode.graphed = eng._prefill.graphed = not eager
+    rng = np.random.default_rng(21)
+    prefix = rng.integers(1, cfg.vocab_size, 16).astype(np.int32)
+    prompts = [rng.integers(1, cfg.vocab_size, 6)] + [
+        np.concatenate([prefix, rng.integers(1, cfg.vocab_size, n)])
+        for n in (26, 9)]
+    news = (40, 10, 10)
+    reqs = [Request(i, p, max_new=m, seed=i)
+            for i, (p, m) in enumerate(zip(prompts, news))]
+    eng.submit(reqs[0])
+    eng.step()
+    assert reqs[0].out and eng._decode.calls == eng._prefill.calls == 1
+    eng.submit(reqs[1])
+    eng.step()
+    chunk_mid_decode = (eng._prefill.calls == 2 and eng._decode.calls == 2
+                        and not reqs[0].done)
+    decode_mid_prefill = bool(eng._prefilling)
+    while not reqs[1].done:
+        eng.step()
+    eng.submit(reqs[2])
+    eng.run_until_done()
+    assert all(r.done and len(r.out) == r.max_new for r in reqs)
+    assert eng.free_pages() == eng.pool_pages
+    return (eng, [r.out for r in reqs], chunk_mid_decode,
+            decode_mid_prefill)
+
+
+def test_chunked_engine_graph_equals_the_eager_chunk(card):
+    """The prefill chunk captured while a slot decodes, the decode chunk
+    captured while a slot is mid-prefill, graduating after it: its row
+    reaches the decode replays through the in-place install, the chunk
+    graph's page writes reach them through the shared pool, and every
+    stream equals the eager chunks'."""
+    cfg = dataclasses.replace(smoke_config(get_config("qwen3-14b")),
+                              dtype="bfloat16", param_dtype="bfloat16",
+                              num_heads=10, num_kv_heads=2)
+    eng, streams, chunk_mid, decode_mid = _chunked_run(cfg)
+    ref, ref_streams, _, _ = _chunked_run(cfg, params=eng.params, eager=True)
+    assert chunk_mid and decode_mid
+    assert eng.trace_counts == {"decode": 1, "chunk": 1}
+    assert ref.trace_counts == {"decode": 0, "chunk": 0}
+    assert streams == ref_streams
+    assert eng.stats["chunk_prefills"] == ref.stats["chunk_prefills"] > 2
+    assert eng.prefix_stats()["hits"] > 0
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "deepseek-v3-671b"])
+def test_replayed_prefill_chunk_equals_the_eager_chunk(card, arch):
+    """A prompt of five chunks through the engine's chunk graph (the first
+    chunk eager, the second captured and replayed, the rest replays) and
+    through eager chunks on the same weights: every chunk's logits, every
+    page of every pool (the trash page aside) and ``mtp_h`` bit for bit.
+    A shared page may come from either, so they must agree."""
+    over = (dict(num_heads=10, num_kv_heads=2) if arch == "qwen3-14b"
+            else {})
+    cfg = dataclasses.replace(smoke_config(get_config(arch)),
+                              dtype="bfloat16", param_dtype="bfloat16",
+                              fp8_impl="pallas", **over)
+    kw = dict(slots=2, max_len=64, chunk=4, paged=True, page_size=8,
+              prefill_chunk=8, attn_impl="pallas", device=card)
+    eng = ServeEngine(cfg, **kw)
+    ref = ServeEngine(cfg, params=eng.params, **kw)
+    ref._prefill.graphed = False
+    rng = np.random.default_rng(23)
+    L = 37
+    prompt = rng.integers(1, cfg.vocab_size, L).astype(np.int32)
+    row = np.full((8,), eng.pool_pages, np.int32)
+    row[:5] = [7, 2, 11, 0, 5]
+    for start in range(0, L, 8):
+        toks = np.zeros((8,), np.int32)
+        toks[:min(L, start + 8) - start] = prompt[start:start + 8]
+        a = eng._prefill(toks, start, L, 1, row).clone()
+        b = ref._prefill(toks, start, L, 1, row).clone()
+        assert torch.isfinite(a).all() and torch.equal(a, b), start
+    assert eng.trace_counts["chunk"] == 1 and ref.trace_counts["chunk"] == 0
+    for seg in eng.model.segments:
+        for n, t in eng.cache[seg.name].items():
+            assert torch.equal(t[:, :-1], ref.cache[seg.name][n][:, :-1]), n
+    if "mtp_h" in eng.cache:
+        assert eng.cache["mtp_h"][1].any()
+        assert torch.equal(eng.cache["mtp_h"], ref.cache["mtp_h"])
+
+
+def test_prefix_sharing_on_the_card_equals_a_cold_engine(card):
+    """Shared prefix pages hold the bytes a recomputation writes: each
+    request's stream on the sharing engine equals its stream alone on a
+    fresh engine (bitwise, on the card's kernels). One prompt is exactly
+    the indexed prefix, so its last chunk re-runs over shared pages while
+    the resident that wrote them decodes: those pages keep their bytes."""
+    cfg = dataclasses.replace(smoke_config(get_config("deepseek-v3-671b")),
+                              dtype="bfloat16", param_dtype="bfloat16",
+                              fp8_impl="pallas")
+    eng = ServeEngine(cfg, slots=3, max_len=64, chunk=4, paged=True,
+                      page_size=8, prefill_chunk=8, attn_impl="pallas",
+                      device=card)
+    rng = np.random.default_rng(22)
+    prefix = rng.integers(1, cfg.vocab_size, 24).astype(np.int32)
+    prompts = [np.concatenate([prefix, rng.integers(1, cfg.vocab_size, n)])
+               for n in (3, 11, 6)] + [prefix]
+    news = [24, 8, 8, 8]
+    reqs = [Request(i, p, max_new=m)
+            for i, (p, m) in enumerate(zip(prompts, news))]
+    eng.submit(reqs[0])
+    for _ in range(4):
+        eng.step()
+    shared = eng._slot_pages[0][:3]
+
+    def pages():
+        return [eng.cache[g][n][:, shared].clone()
+                for g in ("dense0", "blocks") for n in eng.cache[g]]
+
+    before = pages()
+    eng.submit(reqs[3])                  # one chunk, over the third page
+    eng.step()
+    assert eng.stats["chunk_prefills"] == 5 and eng.prefix_stats()["hits"] == 3
+    assert reqs[3].out and not reqs[0].done
+    assert all(torch.equal(a, b) for a, b in zip(pages(), before))
+    for r in reqs[1:3]:
+        eng.submit(r)
+        for _ in range(4):
+            eng.step()
+    eng.run_until_done()
+    assert eng.prefix_stats()["hits"] > 3
+    for r, p, m in zip(reqs, prompts, news):
+        cold = ServeEngine(cfg, params=eng.params, slots=3, max_len=64,
+                           chunk=4, paged=True, page_size=8, prefill_chunk=8,
+                           attn_impl="pallas", device=card)
+        alone = Request(r.rid, p, max_new=m)
+        cold.submit(alone)
+        cold.run_until_done()
+        assert alone.out == r.out
 
 
 def test_a_host_read_under_capture_raises(card, monkeypatch):
@@ -1140,4 +1337,5 @@ def test_a_host_read_under_capture_raises(card, monkeypatch):
     for _ in range(2):
         with pytest.raises(RuntimeError):
             eng.step()
-    assert len(req.out) == n and eng.trace_counts == {"decode": 0}
+    assert len(req.out) == n and eng.trace_counts == {"decode": 0,
+                                                      "chunk": 0}

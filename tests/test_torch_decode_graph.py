@@ -76,6 +76,40 @@ def test_decode_loop_keeps_every_cache_leaf(layout):
         assert after["/mtp_h"].abs().sum() > 0
 
 
+@pytest.mark.parametrize("layout", ["dsv3-paged-fp8-mtp", "qwen-paged-fp8"])
+def test_prefill_chunk_keeps_every_cache_leaf(layout):
+    """The prefill chunk (``graph.PrefillChunk``, eager here) writes the
+    pools and ``mtp_h`` in place: every leaf and its input buffer keep
+    their addresses over two chunks of two slots, the slot operand picks
+    the ``mtp_h`` row, and the page table is left to the engine."""
+    from repro_torch.serve.graph import PrefillChunk
+    arch, storage, _ = LAYOUTS[layout]
+    cfg = tsmoke(tget(arch))
+    model = Model(cfg, device="cpu")
+    params = bridge.prepare_for_serving(model.init(0), cfg, inplace=True)
+    B, T, page, C = 2, 32, 8, 8
+    cache = model.init_paged_cache(B, T, page, 2 * T // page, storage)
+    table = cache["page_table"].clone()
+    before = {k: (v, v.data_ptr()) for k, v in _leaves(cache)}
+    chunk = PrefillChunk(model, params, cache, C, T // page)
+    ptr = chunk.input.data_ptr()
+    rows = np.arange(2 * T // page, dtype=np.int32).reshape(B, -1)
+    for start in (0, C):
+        logits = chunk(np.arange(start + 1, start + C + 1), start, 13, 1,
+                       rows[1])
+        assert logits.shape == (1, 1, cfg.vocab_size)
+    assert chunk.input.data_ptr() == ptr and chunk.calls == 2
+    assert torch.equal(chunk.row, torch.from_numpy(rows[1]))
+    after = dict(_leaves(cache))
+    for k, (t, p) in before.items():
+        assert after[k] is t and after[k].data_ptr() == p, k
+    assert torch.equal(cache["page_table"], table)
+    pool = next(iter(cache[model.segments[0].name].values()))
+    assert pool[:, rows[1, :2]].any() and not pool[:, rows[0]].any()
+    if cfg.mtp:
+        assert cache["mtp_h"][1].any() and not cache["mtp_h"][0].any()
+
+
 def _stub(rc: int):
     """A C entry that launches nothing and returns ``rc`` (the CUDA error
     code a kernel's entry returns)."""
@@ -147,11 +181,11 @@ def test_engine_input_buffer_is_static_and_streams_equal_jax(weights,
             for i, (p, n) in enumerate(zip(prompts, budgets))]
     for r in reqs:
         eng.submit(r)
-    buf = eng._decode.state
+    buf = eng._decode.input
     ptr, first_tick, tick = buf.data_ptr(), {}, 0
     while eng.has_work():
         eng.step()
-        assert eng._decode.state is buf and buf.data_ptr() == ptr
+        assert eng._decode.input is buf and buf.data_ptr() == ptr
         for r in reqs:
             if r.out:
                 first_tick.setdefault(r.rid, tick)
@@ -160,7 +194,7 @@ def test_engine_input_buffer_is_static_and_streams_equal_jax(weights,
     assert [r.out for r in reqs] == [r.out for r in jreqs]
     assert (eng.stats["drafts"], eng.stats["accepted_drafts"]) == (
         jeng.stats["drafts"], jeng.stats["accepted_drafts"])
-    assert eng.trace_counts == {"decode": 0}
+    assert eng.trace_counts == {"decode": 0, "chunk": 0}
 
 
 def test_cpu_engine_captures_nothing(weights):
@@ -175,5 +209,5 @@ def test_cpu_engine_captures_nothing(weights):
         eng.step()
         ticks += 1
     assert ticks >= 3
-    assert eng.trace_counts == {"decode": 0}
+    assert eng.trace_counts == {"decode": 0, "chunk": 0}
     assert not eng._decode.graphed

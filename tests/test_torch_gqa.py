@@ -287,11 +287,13 @@ def _check_prefill(models, impl):
     _close(v, jv)
 
 
-def _check_paged_step(models, storage, impl):
-    """One paged decode step of gqa_attention against the
-    reference: the output and the pool rows it writes."""
+def _check_paged_step(models, storage, impl, S=1):
+    """One paged step of gqa_attention over S tokens a slot (S > 1: a
+    chunked-prefill run) against the reference: the output and the pool
+    rows it writes (at S > 1 the trash page aside: several rows of one run
+    may land there, in an order neither package fixes)."""
     cfg, tcfg, jp, tp = models
-    g = _gen(("step", storage, impl))
+    g = _gen(("step", storage, impl) if S == 1 else ("chunk", storage, impl))
     B, P, page, pp = 3, 9, 4, 3
     KV, hd = cfg.num_kv_heads, cfg.head_dim_()
     k = torch.from_numpy(g.standard_normal(
@@ -307,25 +309,38 @@ def _check_paged_step(models, storage, impl):
     else:
         tcache = dict(k=k, v=v)
     jcache = {n: _to_jax(t) for n, t in tcache.items()}
-    table = np.array([[0, 4, 9], [2, 1, 9], [9, 9, 9]], np.int32)
-    pos = np.array([[6], [3], [5]], np.int32)
-    x = g.standard_normal((B, 1, cfg.d_model)).astype(np.float32)
-    jout, jnew = jlayers.gqa_attention(
-        _jlayer0(jp["blocks"]["attn"]), jnp.asarray(x), cfg=cfg,
-        positions=jnp.asarray(pos), cache=jcache,
-        page_table=jnp.asarray(table), impl=impl)
+    if S == 1:
+        table = np.array([[0, 4, 9], [2, 1, 9], [9, 9, 9]], np.int32)
+        pos = np.array([[6], [3], [5]], np.int32)
+    else:     # page-aligned runs: after a resident page, in a fresh slot,
+        # and into the trash page (a slot with no pages, output not held)
+        table = np.array([[0, 4, 5], [2, 1, 6], [9, 9, 9]], np.int32)
+        pos = np.array([4, 0, 0], np.int32)[:, None] + np.arange(S,
+                                                                dtype=np.int32)
+    x = g.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+    # a run's T = 12 keys are no multiple of the Pallas kernel's key
+    # block, so the reference's run attends through its ref backend
+    with kernels.use_backend("ref" if S > 1 else kernels.active_backend(),
+                             clear_caches=False):
+        jout, jnew = jlayers.gqa_attention(
+            _jlayer0(jp["blocks"]["attn"]), jnp.asarray(x), cfg=cfg,
+            positions=jnp.asarray(pos), cache=jcache,
+            page_table=jnp.asarray(table), impl=impl)
     out, new = layers.gqa_attention(
         _layer0(tp["blocks"]["attn"]), torch.from_numpy(x), cfg=tcfg,
         positions=torch.from_numpy(pos), cache=tcache,
         page_table=torch.from_numpy(table), impl=impl)
-    _close(out, jout)
+    live = B if S == 1 else 2         # the trash-page slot reads any bytes
+    # at S = 1 every page, the trash page too, has one writer a row
+    sl = slice(None) if S == 1 else slice(0, P)
+    _close(out[:live], np.asarray(jout)[:live])
     assert new is tcache                      # written in place
     for n in new:        # the written token rows agree
         a, b = new[n], jnew[n]
         if a.dtype == torch.uint8:
             a, b = paged.e4m3_decode(a), paged.e4m3_decode(
                 torch.from_numpy(_bytes(b)))
-        _close(a, b, rtol=1e-6)
+        _close(a[sl], np.asarray(b)[sl], rtol=1e-6)
 
 
 class TestGqaAttention:
@@ -357,17 +372,18 @@ class TestGqaAttention:
     def test_grouped_paged_decode_step(self, qwen_grouped, storage, impl):
         _check_paged_step(qwen_grouped, storage, impl)
 
+    @pytest.mark.parametrize("storage", ["fp8", "bf16"])
+    @pytest.mark.parametrize("impl", ["xla", "pallas"])
+    def test_paged_chunk_step(self, qwen, storage, impl):
+        _check_paged_step(qwen, storage, impl, S=8)
+
+    @pytest.mark.parametrize("storage", ["fp8", "bf16"])
+    @pytest.mark.parametrize("impl", ["xla", "pallas"])
+    def test_grouped_paged_chunk_step(self, qwen_grouped, storage, impl):
+        _check_paged_step(qwen_grouped, storage, impl, S=8)
+
     def test_unported_branches_raise(self, qwen):
-        _, tcfg, _, tp = qwen
-        p = _layer0(tp["blocks"]["attn"])
-        pool = _layer0(layers.init_paged_gqa_cache(tcfg, 1, 4, 4, "fp8",
-                                                   "cpu"))
-        x = torch.zeros(1, 2, tcfg.d_model)
-        pos = torch.zeros(1, 2, dtype=torch.int32)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            layers.gqa_attention(p, x, cfg=tcfg, positions=pos, cache=pool,
-                                 page_table=torch.zeros(1, 1,
-                                                        dtype=torch.int32))
+        _, tcfg, _, _ = qwen
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             layers.init_gqa_cache(tcfg, 1, 1, 16, "cpu", window=8)
 

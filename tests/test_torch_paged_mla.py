@@ -242,6 +242,44 @@ class TestPagePrimitives:
             np.asarray(jpaged.table_gather(jpool, jnp.asarray(table))))
 
     @pytest.mark.parametrize("storage", ["fp8", "bf16"])
+    def test_page_write_chunk_matches_reference(self, storage):
+        """Runs of two pages: whole pages into the slot's pages, a slot
+        without pages into the trash page; every page but the trash page
+        equals the reference's. A run that overhangs the table lands its
+        overhang in the trash page (the reference clamps it onto the
+        slot's last page, over rows the slot wrote)."""
+        g = _gen(("pwc", storage))
+        P1, page, R, B, C = 9, 4, 16, 3, 8
+        table = np.array([[0, 2, 5], [1, 3, 7], [8, 8, 8]], np.int32)
+        start = np.array([4, 0, 0], np.int32)
+        vals = g.standard_normal((B, C, R)).astype(np.float32)
+        if storage == "fp8":
+            pool = np.zeros((P1, page, R), np.uint8)
+            q, _ = paged.quantize_vecs(torch.from_numpy(vals))
+            jq, _ = jpaged.quantize_vecs(jnp.asarray(vals))
+        else:
+            pool = np.zeros((P1, page, R), np.float32)
+            q, jq = torch.from_numpy(vals), jnp.asarray(vals)
+        ours = paged.page_write_chunk(torch.from_numpy(pool.copy()),
+                                      torch.from_numpy(table),
+                                      torch.from_numpy(start), q)
+        ref = jpaged.page_write_chunk(jnp.asarray(pool), jnp.asarray(table),
+                                      jnp.asarray(start), jq)
+        np.testing.assert_array_equal(ours.numpy()[:-1], np.asarray(ref)[:-1])
+        assert ours.numpy()[[2, 5, 1, 3]].any()
+        # positions 8-15 of a 3-page table: the overhang goes to trash
+        ours = paged.page_write_chunk(ours, torch.from_numpy(table),
+                                      torch.from_numpy(start + 4), q)
+        np.testing.assert_array_equal(ours[5],
+                                      paged._to_store(ours, q)[0, :page])
+        # the reference clamps the overhang (positions 12-15) onto the
+        # slot's last page, over positions 8-11 (ROADMAP.md §C)
+        ref = jpaged.page_write_chunk(ref, jnp.asarray(table),
+                                      jnp.asarray(start + 4), jq)
+        np.testing.assert_array_equal(
+            np.asarray(ref)[5], paged._to_store(ours, q)[0, page:].numpy())
+
+    @pytest.mark.parametrize("storage", ["fp8", "bf16"])
     def test_entries_to_pages_and_scatter(self, storage):
         g = _gen(("e2p", storage))
         leaf = g.standard_normal((2, 1, 16, 8)).astype(np.float32)
@@ -283,6 +321,55 @@ def _layer0(tree):
     return {k: v[0] for k, v in tree.items()}
 
 
+def _check_mla_step(dsv3, storage, impl, S):
+    """One paged step of ``mla_paged_decode_step`` over S tokens a slot
+    against the reference: the output and every pool page it writes (at S > 1
+    the trash page aside: several rows of one run may land there, in an
+    order neither package fixes)."""
+    cfg, tcfg, jp, tp = dsv3
+    g = _gen(("step", storage, impl) if S == 1 else ("chunk", storage, impl))
+    B, P, page, pp = 3, 9, 4, 3
+    R, Rr = cfg.mla.kv_lora_rank, cfg.mla.qk_rope_dim
+    ckv = torch.from_numpy(g.standard_normal((P + 1, page, R)).astype(np.float32))
+    kr = torch.from_numpy(g.standard_normal((P + 1, page, Rr)).astype(np.float32))
+    if storage == "fp8":
+        qc, sc = paged.quantize_vecs(ckv)
+        qk, sk = paged.quantize_vecs(kr)
+        tcache = dict(ckv=qc.view(torch.uint8).clone(),
+                      kr=qk.view(torch.uint8).clone(),
+                      ckv_scale=sc, kr_scale=sk)
+    else:
+        tcache = dict(ckv=ckv, kr=kr)
+    jcache = {k: jnp.asarray(v.numpy()) for k, v in tcache.items()}
+    if S == 1:
+        table = np.array([[0, 4, 9], [2, 1, 9], [9, 9, 9]], np.int32)
+        pos = np.array([[6], [3], [5]], np.int32)
+    else:     # page-aligned runs: after a resident page, in a fresh slot,
+        # and into the trash page (a slot with no pages, output not held)
+        table = np.array([[0, 4, 5], [2, 1, 6], [9, 9, 9]], np.int32)
+        pos = np.array([4, 0, 0], np.int32)[:, None] + np.arange(S,
+                                                                dtype=np.int32)
+    x = g.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+    jout, jnew = jmla.mla_paged_decode_step(
+        jax.tree.map(lambda v: v[0], jp["dense0"]["attn"]),
+        jcache, jnp.asarray(x), cfg=cfg, positions=jnp.asarray(pos),
+        page_table=jnp.asarray(table), impl=impl)
+    out, new = mla.mla_paged_decode_step(
+        _layer0(tp["dense0"]["attn"]), tcache, torch.from_numpy(x),
+        cfg=tcfg, positions=torch.from_numpy(pos),
+        page_table=torch.from_numpy(table), impl=impl)
+    live = B if S == 1 else 2         # the trash-page slot reads any bytes
+    # at S = 1 every page, the trash page too, has one writer a row
+    sl = slice(None) if S == 1 else slice(0, P)
+    _close(out[:live], np.asarray(jout)[:live])
+    for k in new:      # the written token rows agree
+        a = (paged.e4m3_decode(new[k]) if new[k].dtype == torch.uint8
+             else new[k])
+        b = (jpaged.e4m3_decode(jnew[k]) if jnew[k].dtype == jnp.uint8
+             else jnew[k])
+        _close(a[sl], np.asarray(b)[sl], rtol=1e-6)
+
+
 class TestMla:
     def test_prefill_attention_and_entries(self, dsv3):
         cfg, tcfg, jp, tp = dsv3
@@ -304,48 +391,28 @@ class TestMla:
     @pytest.mark.parametrize("storage", ["fp8", "bf16"])
     @pytest.mark.parametrize("impl", ["xla", "pallas"])
     def test_paged_decode_step(self, dsv3, storage, impl):
-        cfg, tcfg, jp, tp = dsv3
-        g = _gen(("step", storage, impl))
-        B, P, page, pp = 3, 9, 4, 3
-        R, Rr = cfg.mla.kv_lora_rank, cfg.mla.qk_rope_dim
-        ckv = torch.from_numpy(g.standard_normal((P + 1, page, R)).astype(np.float32))
-        kr = torch.from_numpy(g.standard_normal((P + 1, page, Rr)).astype(np.float32))
-        if storage == "fp8":
-            qc, sc = paged.quantize_vecs(ckv)
-            qk, sk = paged.quantize_vecs(kr)
-            tcache = dict(ckv=qc.view(torch.uint8).clone(),
-                          kr=qk.view(torch.uint8).clone(),
-                          ckv_scale=sc, kr_scale=sk)
-        else:
-            tcache = dict(ckv=ckv, kr=kr)
-        jcache = {k: jnp.asarray(v.numpy()) for k, v in tcache.items()}
-        table = np.array([[0, 4, 9], [2, 1, 9], [9, 9, 9]], np.int32)
-        pos = np.array([[6], [3], [5]], np.int32)
-        x = g.standard_normal((B, 1, cfg.d_model)).astype(np.float32)
-        jout, jnew = jmla.mla_paged_decode_step(
-            jax.tree.map(lambda v: v[0], jp["dense0"]["attn"]),
-            jcache, jnp.asarray(x), cfg=cfg, positions=jnp.asarray(pos),
-            page_table=jnp.asarray(table), impl=impl)
-        out, new = mla.mla_paged_decode_step(
-            _layer0(tp["dense0"]["attn"]), tcache, torch.from_numpy(x),
-            cfg=tcfg, positions=torch.from_numpy(pos),
-            page_table=torch.from_numpy(table), impl=impl)
-        _close(out, jout)
-        for k in new:      # the written token rows agree
-            _close(paged.e4m3_decode(new[k]) if new[k].dtype == torch.uint8
-                   else new[k],
-                   jpaged.e4m3_decode(jnew[k]) if jnew[k].dtype == jnp.uint8
-                   else jnew[k], rtol=1e-6)
+        _check_mla_step(dsv3, storage, impl, S=1)
 
-    def test_decode_step_rejects_multi_token_runs(self, dsv3):
-        cfg, tcfg, jp, tp = dsv3
-        cache = mla.init_paged_mla_cache(tcfg, 1, 4, 4, "fp8", "cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            mla.mla_paged_decode_step(
-                _layer0(tp["dense0"]["attn"]), _layer0(cache),
-                torch.zeros(1, 2, tcfg.d_model), cfg=tcfg,
-                positions=torch.zeros(1, 2, dtype=torch.int32),
-                page_table=torch.zeros(1, 1, dtype=torch.int32))
+    @pytest.mark.parametrize("storage", ["fp8", "bf16"])
+    @pytest.mark.parametrize("impl", ["xla", "pallas"])
+    def test_paged_chunk_step(self, dsv3, storage, impl):
+        """A chunked-prefill run of S = 8 tokens (two pages) per slot."""
+        _check_mla_step(dsv3, storage, impl, S=8)
+
+    def test_chunk_step_never_reaches_the_decode_kernel(self, dsv3,
+                                                        monkeypatch):
+        """The kernel stays single-token: on ``impl="pallas"`` a run of S > 1
+        tokens never reaches the ``paged_mla_decode`` op and takes the
+        gathered pages, as the reference's does."""
+        calls = []
+        op = registry.get("paged_mla_decode")
+        plain = op._plain
+        monkeypatch.setattr(op, "_plain",
+                            lambda *a, **k: calls.append(1) or plain(*a, **k))
+        _check_mla_step(dsv3, "fp8", "pallas", S=8)
+        assert not calls
+        _check_mla_step(dsv3, "fp8", "pallas", S=1)
+        assert calls
 
     def test_kv_bytes_per_token_table1(self):
         cfg = tget("deepseek-v3-671b")

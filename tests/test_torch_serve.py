@@ -310,8 +310,7 @@ def test_cache_bytes_per_token_match_reference(weights, storage):
 
 
 @pytest.mark.parametrize("option", [
-    dict(prefill_chunk=8), dict(host_tier_pages=4),
-    dict(decode_overlap=True), dict(ctx=object())])
+    dict(host_tier_pages=4), dict(decode_overlap=True), dict(ctx=object())])
 def test_options_not_ported_yet_raise(option):
     kw = dict(KW, **option)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
