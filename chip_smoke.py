@@ -134,6 +134,40 @@ from the root of a checkout. Phases, each fatal on failure:
       per rank; and, in two more processes, whether gloo's
       point-to-point ops take CUDA tensors.
 
+  (f) run right after each paged path's phase (c), on its weights (counters
+      zeroed just before each run and read just after; every gate fatal):
+      - the host KV tier on qwen3-14b whole (``phase_tier``): a chunked
+        engine of two slots (chunks of 256, max_len 2048, fp8 pages) whose
+        pool holds two full requests and whose host tier holds three times
+        that, decode quantum 2, and an untiered engine of as large a pool
+        (nobody preempted) serve eight seeded prompts of 400-1500 tokens, 32
+        new tokens each. Gates: streams bitwise equal, suspensions > 0 and
+        as many resumes, spilled pages == fetched pages > 0, no CRC failure
+        or degradation, no page leaked and no tier entry left,
+        ``trace_counts == {"decode": 1, "chunk": 1}``, every cache leaf's
+        ``data_ptr`` unchanged, every staged copy into pinned memory,
+        flash_prefill and paged_gqa_decode launched. Printed: spill and
+        fetch bytes, ms and GB/s of each staged copy, page-CRC ms per spill
+        and per fetch, ms per tick with and without a staged copy, the host
+        tier's peak bytes;
+      - the gateway on DeepSeek-V3 paged (``phase_gateway``): two replicas
+        of a chunked engine with a host tier on phase (c)'s weights, six
+        requests of 300-600 tokens; a fault-free pass, then ``crash:1`` at
+        the first tick where replica 1 has a request mid-decode and
+        ``pcie_drop:0`` from the tick after replica 0's first spill. Gates:
+        every request done with its tokens, no delivered token regenerated,
+        replica 1 DEAD and its residents retried on replica 0, the expert
+        codes one tensor across phase (c)'s engine and both replicas, the
+        gateway's growth in allocated memory under its pools plus their
+        graph pools (plus 256 MB), the three kernels launched, a replica
+        spilled. Printed: where each retried stream parts from the
+        fault-free one;
+      - disaggregation on DeepSeek-V3 paged (``phase_disagg``):
+        ``Disaggregator(paged=True)`` on phase (c)'s six prompts. Gates:
+        streams bitwise equal to the engine's own admission, handoff_bytes
+        the sum of ``cache_nbytes`` over the payloads, the kernels launched.
+        Printed: bytes per request.
+
 The line before the last two is one JSON object with the kernel table; the
 next is the nvidia-smi name and power limit; the last is
 ``{"ok": true, "device": {...}}``. Without a card, or outside a checkout,
@@ -1056,7 +1090,10 @@ DSV3_PROMPTS = dict(lengths=[16, 120, 250, 380, 490, 600], max_len=1024,
 # the paged paths also serve chunked (``chunked``): the same weights on a
 # chunked-prefill engine (chunks of 256, page 8), its pool sized so the
 # priority-5 arrival of the run must evict (``pool_pages``; see
-# ``phase_chunked``), with each kernel's launches per prefill chunk
+# ``phase_chunked``), with each kernel's launches per prefill chunk; and
+# phase (f) on the same weights: the host KV tier on qwen3-14b
+# (``tier``), the gateway and the disaggregator on DeepSeek-V3
+# (``gateway``)
 PATHS = {
     "deepseek-v3-671b": dict(
         model="deepseek-v3-671b",
@@ -1064,7 +1101,8 @@ PATHS = {
         kernels=("fp8_gemm", "moe_gemm", "paged_mla_decode"), absent=(),
         per_step={"paged_mla_decode": 4, "fp8_gemm": 29}, **DSV3_PROMPTS,
         chunked=dict(prefill_chunk=256, pool_pages=260,
-                     per_chunk={"fp8_gemm": 29, "moe_gemm": 3})),
+                     per_chunk={"fp8_gemm": 29, "moe_gemm": 3}),
+        gateway=True),
     "qwen3-14b": dict(
         model="qwen3-14b", overrides={}, engine=PAGED,
         kernels=("flash_prefill", "paged_gqa_decode"), absent=(),
@@ -1072,7 +1110,8 @@ PATHS = {
         lengths=[16, 200, 500, 900, 1200, 1500], max_len=2048,
         steady=[600, 900, 1200, 1500],
         chunked=dict(prefill_chunk=256, pool_pages=600,
-                     per_chunk={"flash_prefill": 40})),
+                     per_chunk={"flash_prefill": 40}),
+        tier=True),
     "deepseek-v3-671b-dense": dict(
         model="deepseek-v3-671b",
         overrides=dict(num_layers=4, fp8_impl="pallas"),
@@ -1221,6 +1260,12 @@ def phase_main_path(torch, name):
     del logits
     if "chunked" in spec:
         phase_chunked(torch, name, eng, reqs)
+    if spec.get("tier"):
+        check_tier(torch, phase_tier(torch, eng))
+        torch.cuda.empty_cache()
+    if spec.get("gateway"):
+        phase_gateway(torch, eng)
+        phase_disagg(torch, eng)
     del eng, model, params, cache
     torch.cuda.empty_cache()
     return counts
@@ -2203,6 +2248,526 @@ def phase_ring(torch, card, kernels):
             raise AssertionError(f"card ring's RMS error differs from the "
                                  f"CPU ring's by over 10% ({key} bits)")
     return res[0]["calls"]["8"]["launches"]
+
+
+# --- (f) ---------------------------------------------------------------------
+
+
+# the host KV tier on qwen3-14b whole: the reference's bench sizing
+# (tests/test_kv_tier.py: two slots, a device pool that holds two full
+# requests, a host tier three times that), eight seeded prompts of 400-1500
+# tokens, 32 new tokens each, a decode quantum of 2 ticks so residents
+# rotate through the tier while others wait
+TIER = dict(prefill_chunk=256, slots=2, quantum=2, n=8, lengths=(400, 1500),
+            max_new=32)
+# two DeepSeek-V3 replicas on phase (c)'s weights, each a chunked paged
+# engine of three slots whose pool holds two of the six requests (so a
+# third waits and the quantum rotates residents through the host tier);
+# the faulted pass crashes replica 1 mid-decode and drops replica 0's
+# tier link for pcie_ticks ticks from the tick after its first spill
+GATEWAY = dict(replicas=2, slots=3, prefill_chunk=256, quantum=2,
+               lengths=(300, 600), n=6, max_new=32, pcie_ticks=6)
+# the gateway's allowance over its replicas' pools and graph pools: the
+# engines' small device state (decode inputs, sampling state) and the
+# cuBLAS workspaces of their graphs' streams — far under one copy of the
+# 11.28 GB expert wall
+GATEWAY_SLACK = 256 << 20
+
+
+def _sync(torch, dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def leaf_ptrs(tree):
+    """Every cache leaf's data_ptr, by path."""
+    if isinstance(tree, dict):
+        return {k: leaf_ptrs(v) for k, v in tree.items()}
+    return tree.data_ptr()
+
+
+class TierMeter:
+    """Times what the tier does on the card, around the engine's own calls:
+    each staged copy (``serve/tier.staged_get`` / ``staged_put``: bytes,
+    ms and GB/s; the card synchronised before and after, so a copy's time
+    is its own) and each page-CRC pass (ms, by whether a spill or a fetch
+    made it). Installed for one run, then removed."""
+
+    def __init__(self, torch, eng):
+        from repro_torch.core import paged as paged_mod
+        from repro_torch.serve import tier as tier_mod
+        self.torch, self.eng, self.dev = torch, eng, eng.device
+        self.paged_mod, self.tier_mod = paged_mod, tier_mod
+        self.copies = {"get": [], "put": []}
+        self.crc = {"spill": [], "fetch": []}
+        self.pinned = []
+        self._where = None
+        self._saved = (tier_mod.staged_get, tier_mod.staged_put,
+                       paged_mod.payload_page_crcs)
+
+    def _copy(self, kind, fn):
+        torch, meter = self.torch, self
+
+        def timed(tree, *a):
+            _sync(torch, meter.dev)
+            t0 = time.perf_counter()
+            out = fn(tree, *a)
+            _sync(torch, meter.dev)
+            ms = 1e3 * (time.perf_counter() - t0)
+            host = out if kind == "get" else tree
+            meter.copies[kind].append((meter.paged_mod.payload_nbytes(host),
+                                       ms))
+            if kind == "get":
+                meter.pinned += [t.is_pinned() for t in
+                                 meter.paged_mod.payload_leaves(out)]
+            return out
+        return timed
+
+    def _crcs(self, fn):
+        meter = self
+
+        def timed(payload, n):
+            t0 = time.perf_counter()
+            out = fn(payload, n)
+            meter.crc.setdefault(meter._where, []).append(
+                1e3 * (time.perf_counter() - t0))
+            return out
+        return timed
+
+    def _tag(self, name, where):
+        meter, fn = self, getattr(self.eng, name)
+
+        def tagged(*a):
+            meter._where = where
+            try:
+                return fn(*a)
+            finally:
+                meter._where = None
+        setattr(self.eng, name, tagged)
+
+    def __enter__(self):
+        get, put, crcs = self._saved
+        self.tier_mod.staged_get = self._copy("get", get)
+        self.tier_mod.staged_put = self._copy("put", put)
+        self.paged_mod.payload_page_crcs = self._crcs(crcs)
+        self._tag("_begin_suspend", "spill")
+        self._tag("_finish_fetch", "fetch")
+        return self
+
+    def __exit__(self, *exc):
+        (self.tier_mod.staged_get, self.tier_mod.staged_put,
+         self.paged_mod.payload_page_crcs) = self._saved
+        for name in ("_begin_suspend", "_finish_fetch"):
+            del self.eng.__dict__[name]
+        return False
+
+    def n_copies(self):
+        return len(self.copies["get"]) + len(self.copies["put"])
+
+    def summary(self, kind):
+        """Each copy in order as MB / ms / GB/s."""
+        rows = self.copies[kind]
+        if not rows:
+            return "none"
+        each = ", ".join(f"{b / 1e6:.2f}/{m:.3f}/{b / m / 1e6:.2f}"
+                         for b, m in rows)
+        return (f"{len(rows)} copies, {sum(b for b, _ in rows) / 1e6:.2f} "
+                f"MB in all; MB/ms/GB/s each: {each}")
+
+
+def tier_prompts(np, vocab, spec, seed):
+    rng = np.random.default_rng(seed)
+    lo, hi = spec["lengths"]
+    return [rng.integers(0, vocab, int(n)).astype(np.int32)
+            for n in rng.integers(lo, hi + 1, spec["n"])]
+
+
+def phase_tier(torch, eng, spec=TIER, seed=5):
+    """qwen3-14b whole with the host KV tier, on the weights of phase (c)'s
+    engine ``eng``: a tiered chunked engine (``spec``) and an untiered one
+    whose pool is as large, so nobody is preempted, serve the same eight
+    requests; counters zeroed just before the tiered run and read just
+    after. Gates (fatal): streams bitwise equal to the untiered engine's;
+    suspensions > 0 and as many resumes; spilled pages == fetched pages >
+    0; no CRC failure, no degradation; no page leaked and no tier entry
+    left; both graphs captured once (``trace_counts``) and every cache leaf
+    the tensor it was (``data_ptr``); every staged copy into pinned memory;
+    flash_prefill and paged_gqa_decode launched. Printed: spill and fetch
+    bytes, ms and GB/s of each staged copy, CRC ms per spill and per fetch,
+    ms per tick with and without a transfer, and the host tier's bytes."""
+    import numpy as np
+    from repro_torch.kernels import registry
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.tier import TierConfig
+    dev = eng.device
+    for slot in eng.free_slots():
+        eng.model.release_slot_pages(eng.cache, slot)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    pps = eng.max_len // eng.page_size
+    pool, host = 2 * pps, 6 * pps
+
+    def engine(tiered):
+        kw = (dict(host_tier_pages=host,
+                   tier_config=TierConfig(quantum=spec["quantum"]))
+              if tiered else {})
+        return ServeEngine(eng.cfg, params=eng.params, slots=spec["slots"],
+                           max_len=eng.max_len, device=dev, seed=0,
+                           page_size=eng.page_size,
+                           prefill_chunk=spec["prefill_chunk"],
+                           pool_pages=pool, paged=True,
+                           page_storage=eng.page_storage,
+                           attn_impl=eng.attn_impl, **kw)
+
+    prompts = tier_prompts(np, eng.cfg.vocab_size, spec, seed)
+    log(f"[f] tier: {eng.cfg.name}, {eng.cfg.num_layers} layers, "
+        f"ServeEngine(slots={spec['slots']}, max_len={eng.max_len}, page "
+        f"{eng.page_size}, pool_pages={pool}, host_tier_pages={host}, "
+        f"prefill_chunk={spec['prefill_chunk']}, TierConfig(quantum="
+        f"{spec['quantum']})); {len(prompts)} prompts "
+        f"{[len(p) for p in prompts]}, {spec['max_new']} new tokens each")
+
+    flat = engine(False)
+    base = [Request(i, p, max_new=spec["max_new"])
+            for i, p in enumerate(prompts)]
+    for r in base:
+        flat.submit(r)
+    t0 = time.perf_counter()
+    flat_ticks = drive(flat)
+    _sync(torch, dev)
+    flat_wall = time.perf_counter() - t0
+    if flat.stats["evictions"]:
+        raise AssertionError("the untiered engine preempted")
+    del flat
+
+    ceng = engine(True)
+    reqs = [Request(i, p, max_new=spec["max_new"])
+            for i, p in enumerate(prompts)]
+    before = leaf_ptrs(ceng.cache)
+    registry.reset_launch_counts()
+    ticks = {"with": [], "without": []}
+    peak_host = 0
+    t0 = time.perf_counter()
+    with TierMeter(torch, ceng) as meter:
+        for r in reqs:
+            ceng.submit(r)
+        n = 0
+        while ceng.has_work():
+            copies = meter.n_copies()
+            _sync(torch, dev)
+            t1 = time.perf_counter()
+            ceng.step()
+            _sync(torch, dev)
+            ms = 1e3 * (time.perf_counter() - t1)
+            ticks["with" if meter.n_copies() > copies else
+                  "without"].append(ms)
+            peak_host = max(peak_host, ceng.tier.host_bytes())
+            n += 1
+            if n > 600:
+                raise AssertionError("the tiered engine did not finish in "
+                                     "600 ticks")
+    wall = time.perf_counter() - t0
+    counts = registry.launch_counts()
+    ts = ceng.tier_stats()
+    log(f"[f] tier: untiered run {flat_ticks} ticks {flat_wall:.3f} s; "
+        f"tiered run {n} ticks {wall:.3f} s; tier_stats {ts}; stats "
+        f"{ceng.stats}; trace_counts {ceng.trace_counts}; launches {counts}")
+    return dict(base=base, reqs=reqs, eng=ceng, ts=ts, counts=counts,
+                before=before, meter=meter, ticks=ticks, peak_host=peak_host,
+                pool=pool)
+
+
+def check_tier(torch, out):
+    """Phase (f)'s tier gates and figures (see ``phase_tier``)."""
+    ceng, ts, meter = out["eng"], out["ts"], out["meter"]
+    for a, b in zip(out["base"], out["reqs"]):
+        d = first_diff(a.out, b.out)
+        if d is not None or not b.done:
+            raise AssertionError(f"tiered request {b.rid}: done={b.done}, "
+                                 f"first differs from the untiered stream "
+                                 f"at token {d}")
+    if not (ts["suspensions"] > 0 and ts["resumes"] == ts["suspensions"]):
+        raise AssertionError(f"tier: {ts['suspensions']} suspensions, "
+                             f"{ts['resumes']} resumes")
+    if not ts["spilled_pages"] == ts["fetched_pages"] > 0:
+        raise AssertionError(f"tier: {ts['spilled_pages']} pages spilled, "
+                             f"{ts['fetched_pages']} fetched")
+    if ts["crc_failures"] or ts["degraded"]:
+        raise AssertionError(f"tier: {ts['crc_failures']} CRC failures, "
+                             f"{ts['degraded']} degraded")
+    if (ceng.free_pages() != out["pool"] or ceng.tier.entries()
+            or ts["suspended"] or ts["transfers_inflight"]):
+        raise AssertionError("tier: pages leaked or tier entries left")
+    want_tc = {"decode": 1, "chunk": 1} if ceng.device.type == "cuda" \
+        else {"decode": 0, "chunk": 0}
+    if ceng.trace_counts != want_tc:
+        raise AssertionError(f"tier: trace_counts {ceng.trace_counts}")
+    if leaf_ptrs(ceng.cache) != out["before"]:
+        raise AssertionError("tier: a cache leaf was rebound")
+    if ceng.device.type == "cuda" and not all(meter.pinned):
+        raise AssertionError("tier: a staged copy left pinned memory")
+    for k in ("flash_prefill", "paged_gqa_decode"):
+        if ceng.device.type == "cuda" and out["counts"][k] <= 0:
+            raise AssertionError(f"tier: {k} never launched")
+    log(f"[f] tier gates held: {len(out['reqs'])} streams bitwise equal to "
+        f"the untiered engine's; {ts['suspensions']} suspensions, "
+        f"{ts['resumes']} resumes, {ts['spilled_pages']} pages spilled and "
+        f"fetched, 0 CRC failures, 0 degraded, no page or entry left, "
+        f"trace_counts {ceng.trace_counts}, no cache leaf rebound")
+    page = sum(t[:, 0].numel() * t.element_size()
+               for seg in ceng.model.segments
+               for t in ceng.cache[seg.name].values())
+    log(f"[f] tier bytes: spill {ts['spill_bytes']} B (suspensions "
+        f"{ts['spilled_pages']} pages, harvested prefix pages "
+        f"{ts['prefix_spilled']}), fetch {ts['fetch_bytes']} B; {page} B a "
+        f"page; {ts['spilled_pages'] * page / ts['suspensions'] / 1e6:.2f} "
+        f"MB a suspension")
+    log(f"[f] staged_get (device -> pinned host, then one wait): "
+        f"{meter.summary('get')}")
+    log(f"[f] staged_put (pinned host -> device, non-blocking, timed to its "
+        f"end): {meter.summary('put')}")
+    for kind in ("spill", "fetch"):
+        ms = meter.crc[kind]
+        if ms:
+            log(f"[f] page CRCs per {kind}: {len(ms)} passes, "
+                f"{min(ms):.2f}-{max(ms):.2f} ms (mean "
+                f"{sum(ms) / len(ms):.2f})")
+    for kind in ("with", "without"):
+        ms = out["ticks"][kind]
+        if ms:
+            log(f"[f] ms per tick {kind} a staged copy: {len(ms)} ticks, "
+                f"median {sorted(ms)[len(ms) // 2]:.2f}, "
+                f"{min(ms):.2f}-{max(ms):.2f}")
+    log(f"[f] host tier: peak {out['peak_host'] / 1e6:.2f} MB held in "
+        f"pinned host memory (capacity {ceng.tier.capacity_pages} pages)")
+
+
+def gateway_requests(np, vocab, spec, seed=6):
+    return [(p, spec["max_new"]) for p in
+            tier_prompts(np, vocab, spec, seed)]
+
+
+def new_gateway(eng, spec, injector=None):
+    from repro_torch.serve.gateway import Gateway
+    from repro_torch.serve.tier import TierConfig
+    _, hi = spec["lengths"]
+    # two of the longest requests fit the pool, a third does not
+    per = -(-(hi + spec["max_new"]) // eng.page_size)
+    return Gateway(eng.cfg, params=eng.params, replicas=spec["replicas"],
+                   slots=spec["slots"], max_len=eng.max_len, chunk=8,
+                   paged=True, page_size=eng.page_size, pool_pages=2 * per,
+                   page_storage=eng.page_storage,
+                   prefill_chunk=spec["prefill_chunk"],
+                   host_tier_pages=6 * per,
+                   tier_config=TierConfig(quantum=spec["quantum"]),
+                   injector=injector, attn_impl=eng.attn_impl,
+                   device=eng.device)
+
+
+def run_gateway(torch, gw, work, crash_at=None):
+    """Submit ``work`` and tick ``gw`` to the end; returns the requests,
+    each request's delivered stream at tick ``crash_at - 1``, and the tick
+    of replica 0's first spill."""
+    reqs = [gw.submit(p, max_new=m) for p, m in work]
+    e0 = gw.registry.replicas[0].engine
+    pre = spill_at = None
+    for _ in range(400):
+        if not gw.outstanding():
+            break
+        gw.tick()
+        if crash_at is not None and gw.clock == crash_at - 1:
+            pre = [list(r.delivered) for r in reqs]
+        if spill_at is None and e0.tstats["suspensions"]:
+            spill_at = gw.clock
+    if gw.outstanding():
+        raise AssertionError("the gateway did not finish in 400 ticks")
+    _sync(torch, e0.device)
+    return reqs, pre, spill_at
+
+
+def engine_bytes(tree):
+    if isinstance(tree, dict):
+        return sum(engine_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def phase_gateway(torch, eng, spec=GATEWAY):
+    """Two DeepSeek-V3 gateway replicas on the weights of phase (c)'s
+    engine ``eng``, each a chunked paged engine with a host tier; a
+    fault-free pass, then a pass that crashes replica 1 mid-decode and
+    drops replica 0's tier link (``crash:1``, ``pcie_drop:0``). Gates
+    (fatal): every request finishes with its token count; a retried
+    request's delivered prefix is never regenerated; replica 1 is DEAD
+    and its residents were retried on replica 0; the replicas share the
+    weights (the expert codes' data_ptr is phase (c)'s), and the gateway's
+    growth in allocated memory is under its replicas' pools plus their
+    graph pools (plus ``GATEWAY_SLACK``); fp8_gemm, moe_gemm and
+    paged_mla_decode launched. Printed: where each retried stream first
+    parts from the fault-free one, the tier counters of each replica."""
+    import numpy as np
+    from repro_torch.kernels import registry
+    from repro_torch.serve.fault import ServeFaultInjector
+    from repro_torch.serve.gateway import DEAD
+    dev = eng.device
+    cuda = dev.type == "cuda"
+    for slot in eng.free_slots():
+        eng.model.release_slot_pages(eng.cache, slot)
+    if cuda:
+        torch.cuda.empty_cache()
+    work = gateway_requests(np, eng.cfg.vocab_size, spec)
+    log(f"[f] gateway: {eng.cfg.name}, {eng.cfg.num_layers} layers, "
+        f"{spec['replicas']} replicas x ServeEngine(slots={spec['slots']}, "
+        f"max_len={eng.max_len}, prefill_chunk={spec['prefill_chunk']}, "
+        f"host tier, quantum {spec['quantum']}); {len(work)} requests, "
+        f"prompts {[len(p) for p, _ in work]}, {spec['max_new']} new tokens")
+
+    a0 = torch.cuda.memory_allocated() if cuda else 0
+    registry.reset_launch_counts()
+    gw = new_gateway(eng, spec)
+    a1 = torch.cuda.memory_allocated() if cuda else 0
+    t0 = time.perf_counter()
+    clean, _, spill_at = run_gateway(torch, gw, work)
+    wall = time.perf_counter() - t0
+    a2 = torch.cuda.memory_allocated() if cuda else 0
+    counts = registry.launch_counts()
+    reps = list(gw.registry.replicas.values())
+    pools = sum(engine_bytes(r.engine.cache) for r in reps)
+    graphs = sum(r.engine._decode.pool_bytes + r.engine._prefill.pool_bytes
+                 for r in reps)
+    log(f"[f] gateway fault-free pass: {gw.clock} ticks, {wall:.3f} s; "
+        f"stats {gw.stats}; per replica tier_stats "
+        f"{[r.engine.tier_stats() for r in reps]}; trace_counts "
+        f"{[r.engine.trace_counts for r in reps]}; launches {counts}")
+    log(f"[f] gateway memory: allocated +{(a1 - a0) / 1e6:.1f} MB at "
+        f"construction, +{(a2 - a0) / 1e6:.1f} MB after the pass; the two "
+        f"pools {pools / 1e6:.1f} MB, their graph pools "
+        f"{graphs / 1e6:.1f} MB")
+    def codes(params):                   # E4M3 codes, or the plain stack
+        w1 = params["blocks"]["moe"]["w1"]
+        return getattr(w1, "wq", w1).data_ptr()
+    ptr = {codes(r.engine.params) for r in reps} | {codes(eng.params)}
+    if len(ptr) != 1:
+        raise AssertionError("gateway: the replicas hold their own copies "
+                             "of the expert codes")
+    if cuda and (a1 - a0 > pools + GATEWAY_SLACK
+                 or a2 - a0 > pools + graphs + GATEWAY_SLACK):
+        raise AssertionError("gateway: allocated memory grew past the "
+                             "replicas' pools and graph pools")
+    for k in ("fp8_gemm", "moe_gemm", "paged_mla_decode"):
+        if cuda and counts[k] <= 0:
+            raise AssertionError(f"gateway: {k} never launched")
+    if not any(r.engine.tstats["suspensions"] for r in reps):
+        raise AssertionError("gateway: no replica used its host tier")
+    # the faulted pass: replica 1 crashes at the first tick where it has a
+    # request mid-decode; replica 0's link drops from the tick after its
+    # first spill
+    crash_at = next(gr.first_token_tick + 1 for gr in clean
+                    if gr.replica == 1 and gr.first_token_tick is not None
+                    and gr.finished_tick > gr.first_token_tick + 1)
+    if spill_at is None:
+        raise AssertionError("gateway: replica 0 never spilled")
+    del gw, reps
+    if cuda:
+        torch.cuda.empty_cache()
+    sched = {crash_at: "crash:1", spill_at + 1: "pcie_drop:0"}
+    inj = ServeFaultInjector(sched, pcie_ticks=spec["pcie_ticks"])
+    gw = new_gateway(eng, spec, inj)
+    t0 = time.perf_counter()
+    faulted, pre, _ = run_gateway(torch, gw, work, crash_at)
+    wall = time.perf_counter() - t0
+    reps = list(gw.registry.replicas.values())
+    log(f"[f] gateway faulted pass ({sched}, pcie_ticks "
+        f"{spec['pcie_ticks']}): {gw.clock} ticks, {wall:.3f} s; stats "
+        f"{gw.stats}; health {gw.registry.states()}; events "
+        f"{inj.events}; replica 0 tier_stats {reps[0].engine.tier_stats()}")
+    for gr, (_, m) in zip(faulted, work):
+        if gr.state != "done" or len(gr.delivered) != m:
+            raise AssertionError(f"gateway request {gr.gid}: {gr.state}, "
+                                 f"{len(gr.delivered)} tokens (want {m})")
+    for before, gr in zip(pre, faulted):
+        if gr.delivered[:len(before)] != before:
+            raise AssertionError(f"gateway request {gr.gid}: a delivered "
+                                 "token was regenerated")
+    retried = [gr for gr in faulted if gr.retries]
+    if (gw.registry.replicas[1].state != DEAD or not retried
+            or gw.stats["replica_deaths"] != 1
+            or any(gr.replica != 0 for gr in retried)):
+        raise AssertionError("gateway: replica 1 is not dead, or its "
+                             "residents were not retried on replica 0")
+    diffs = [first_diff(a.delivered, b.delivered)
+             for a, b in zip(clean, faulted)]
+    log(f"[f] gateway gates held: every request done with its tokens, "
+        f"{len(retried)} retried on replica 0 with the delivered prefix "
+        f"kept, replica 1 DEAD, one copy of the weights; first token where "
+        f"each stream parts from the fault-free pass (None = equal; "
+        f"printed, not gated: a continuation's first token comes from a "
+        f"prefill chunk, and the MoE's capacity contest depends on which "
+        f"requests share a step): {diffs}")
+    del gw, reps
+    if cuda:
+        torch.cuda.empty_cache()
+
+
+def phase_disagg(torch, eng):
+    """``Disaggregator(paged=True)`` on DeepSeek-V3, phase (c)'s weights
+    and requests: prefill, the handoff of each request's quantized pages,
+    admission and decode. Gates (fatal): streams bitwise equal to the same
+    requests through the engine's own admission, ``handoff_bytes`` equal
+    to the sum of ``cache_nbytes`` over the payloads, the path's kernels
+    launched. Printed: bytes per request."""
+    import numpy as np
+    from repro_torch.kernels import registry
+    from repro_torch.serve.disagg import Disaggregator, cache_nbytes
+    from repro_torch.serve.engine import Request, ServeEngine
+    dev = eng.device
+    for slot in eng.free_slots():
+        eng.model.release_slot_pages(eng.cache, slot)
+    rng = np.random.default_rng(0)
+    lengths = DSV3_PROMPTS["lengths"]
+    prompts = [rng.integers(0, eng.cfg.vocab_size, L).astype(np.int32)
+               for L in lengths]
+    registry.reset_launch_counts()
+    dis = Disaggregator(eng.cfg, params=eng.params, decode_slots=4,
+                        max_len=eng.max_len, paged=True,
+                        page_size=eng.page_size,
+                        page_storage=eng.page_storage,
+                        attn_impl=eng.attn_impl, device=dev)
+    reqs = [Request(i, p, max_new=32) for i, p in enumerate(prompts)]
+    t0 = time.perf_counter()
+    wire = []
+    for r in reqs:
+        dis.submit(r)
+        wire.append(cache_nbytes(dis.queue[-1].cache1))
+    dis.run()
+    _sync(torch, dev)
+    wall = time.perf_counter() - t0
+    counts = registry.launch_counts()
+    own = ServeEngine(eng.cfg, params=eng.params, slots=4,
+                      max_len=eng.max_len, paged=True,
+                      page_size=eng.page_size, page_storage=eng.page_storage,
+                      attn_impl=eng.attn_impl, device=dev, seed=0)
+    twins = [Request(r.rid, r.prompt, max_new=32) for r in reqs]
+    for r in twins:
+        own.submit(r)
+    own.run_until_done()
+    log(f"[f] disagg: Disaggregator(paged=True, fp8 pages, decode_slots=4) "
+        f"{len(reqs)} requests, prompts {list(lengths)}, {wall:.3f} s; "
+        f"handoff bytes per request {wire} ({[round(w / len(p), 1) for w, p in zip(wire, prompts)]} B a prompt "
+        f"token, the payload padded to its bucket), handoff_bytes "
+        f"{dis.handoff_bytes}; launches {counts}")
+    diffs = [first_diff(a.out, b.out) for a, b in zip(reqs, twins)]
+    if any(d is not None for d in diffs) or not all(r.done for r in reqs):
+        raise AssertionError(f"disagg streams differ from the engine's own "
+                             f"admission at tokens {diffs}")
+    if dis.handoff_bytes != sum(wire):
+        raise AssertionError(f"disagg: handoff_bytes {dis.handoff_bytes} "
+                             f"!= {sum(wire)}")
+    for k in ("fp8_gemm", "moe_gemm", "paged_mla_decode"):
+        if dev.type == "cuda" and counts[k] <= 0:
+            raise AssertionError(f"disagg: {k} never launched")
+    log("[f] disagg gates held: streams bitwise equal to the engine's own "
+        "admission, handoff_bytes the sum of cache_nbytes over the payloads")
+    del dis, own
 
 
 # --- main ----------------------------------------------------------------------

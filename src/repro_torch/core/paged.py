@@ -15,11 +15,16 @@ port of ``repro.core.paged`` (the parts the paged serving path runs).
 JAX arrays are immutable; the port's pool writes (:func:`page_write`,
 :func:`page_write_chunk`, :func:`scatter_pages`) update the pool tensor in
 place, which keeps a single copy of the multi-GB pool on the card.
+
+* **Host tier** — :class:`HostPageTier` parks suspended slots' page sets
+  and cold prefix pages in host memory behind the device pool, each page
+  with a CRC32 (:func:`payload_page_crcs`) checked when it comes back.
 """
 from __future__ import annotations
 
+import zlib
 from collections import OrderedDict
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -322,3 +327,259 @@ class PrefixPageAllocator:
             self.refs[pid] = 1
             out.append((pid, key))
         return out
+
+
+# ---------------------------------------------------------------------------
+# Host-memory page tier
+# ---------------------------------------------------------------------------
+
+# Residency states of a tier entry. A page set starts on DEVICE (no entry),
+# enters SPILLING when a host reservation is made and the device->host
+# transfer is in flight, becomes HOST once the bytes are durable, and
+# FETCHING while a host->device transfer is in flight; a completed fetch
+# frees the entry (back to DEVICE). Transitions outside this cycle raise.
+TIER_SPILLING = "spilling"
+TIER_HOST = "host"
+TIER_FETCHING = "fetching"
+
+_TIER_TRANSITIONS = {
+    (TIER_SPILLING, TIER_HOST),     # commit
+    (TIER_HOST, TIER_FETCHING),     # begin_fetch
+    (TIER_FETCHING, TIER_HOST),     # abort_fetch (retry / preempted fetch)
+}
+
+
+def payload_leaves(payload: Any) -> List[Any]:
+    """The leaves of a payload tree (dicts of CPU tensors or numpy arrays)
+    in the reference's order: ``jax.tree.leaves`` walks dict keys
+    sorted."""
+    if isinstance(payload, dict):
+        return [x for k in sorted(payload) for x in payload_leaves(payload[k])]
+    return [] if payload is None else [payload]
+
+
+def _host_bytes(leaf: Any) -> np.ndarray:
+    """A leaf's bytes in C order as a uint8 array. A tensor is read through
+    a ``uint8`` view (numpy has no E4M3), so an E4M3 tensor and the same
+    codes held as uint8 (the port's fp8 pools) give the same bytes."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().contiguous().reshape(-1)
+        return t.view(torch.uint8).numpy()
+    return np.ascontiguousarray(leaf).reshape(-1).view(np.uint8)
+
+
+def payload_page_crcs(payload: Any, n_pages: int) -> List[int]:
+    """CRC32 per page over a gathered page payload whose leaves are
+    ``(layers, n_pages, page, ...)``. Page ``j``'s checksum folds that
+    page's bytes of every leaf, leaves in :func:`payload_leaves` order,
+    so a flipped byte anywhere in a spilled page is caught at fetch time;
+    the same bytes give the reference's checksums."""
+    crcs = [0] * n_pages
+    for leaf in payload_leaves(payload):
+        # the page axis first: each page's bytes, layers outermost, are
+        # then one contiguous run, the order of the leaf's ``[:, j]``
+        if isinstance(leaf, torch.Tensor):
+            pages = leaf.detach().movedim(1, 0).contiguous()
+        else:
+            pages = np.ascontiguousarray(np.moveaxis(np.asarray(leaf), 1, 0))
+        buf = _host_bytes(pages).reshape(pages.shape[0], -1)
+        for j in range(n_pages):
+            crcs[j] = zlib.crc32(buf[j], crcs[j])
+    return crcs
+
+
+def payload_crc(payload: Any) -> int:
+    """Single CRC32 over a whole payload tree (aux leaves, one page)."""
+    crc = 0
+    for leaf in payload_leaves(payload):
+        crc = zlib.crc32(_host_bytes(leaf), crc)
+    return crc
+
+
+def payload_nbytes(payload: Any) -> int:
+    """Total byte size of a payload tree (transfer accounting)."""
+    return sum(leaf.numel() * leaf.element_size()
+               if isinstance(leaf, torch.Tensor) else np.asarray(leaf).nbytes
+               for leaf in payload_leaves(payload))
+
+
+class TierEntry:
+    """One suspended slot's page set parked in (or moving through) the
+    host tier. Payloads are opaque trees of host tensors; the tier
+    validates residency transitions and capacity, nothing else."""
+
+    __slots__ = ("eid", "n_pages", "state", "payload", "aux", "crcs",
+                 "aux_crc")
+
+    def __init__(self, eid: int, n_pages: int):
+        self.eid = eid
+        self.n_pages = n_pages
+        self.state = TIER_SPILLING
+        self.payload: Any = None
+        self.aux: Any = None
+        self.crcs: List[int] = []
+        self.aux_crc: int = 0
+
+
+class HostPageTier:
+    """Host-side page store behind the device pool, copied from the
+    reference.
+
+    Capacity is counted in pages. Two kinds of content share it:
+
+    * **Slot entries** — a suspended request's whole page set plus its
+      decode aux leaves, reserved atomically via :meth:`reserve` and
+      tracked through the SPILLING -> HOST -> FETCHING state machine.
+    * **Prefix pages** — individual refcount-0 warm-LRU pages harvested
+      from the device allocator's prefix cache, one page each, kept in
+      their own LRU. They are cache copies, not the only copy, so they are
+      always evictable: a slot reservation squeezes the oldest prefix
+      pages out first.
+
+    Every spilled page carries a CRC32 (:func:`payload_page_crcs`) checked
+    at fetch time; the tier never touches a device buffer — staging
+    device<->host is the caller's job (``serve/tier.py``).
+    """
+
+    def __init__(self, capacity_pages: int):
+        if capacity_pages <= 0:
+            raise ValueError(f"host tier needs capacity > 0, "
+                             f"got {capacity_pages}")
+        self.capacity_pages = capacity_pages
+        self._entries: Dict[int, TierEntry] = {}
+        self._next_eid = 0
+        # key -> (payload, crc); insertion order is LRU order
+        self._prefix: "OrderedDict[bytes, Tuple[Any, int]]" = OrderedDict()
+        self.prefix_evictions = 0
+
+    # -- capacity ----------------------------------------------------------
+
+    def slot_pages(self) -> int:
+        return sum(e.n_pages for e in self._entries.values())
+
+    def prefix_pages(self) -> int:
+        return len(self._prefix)
+
+    def used_pages(self) -> int:
+        return self.slot_pages() + self.prefix_pages()
+
+    def free_pages(self) -> int:
+        return self.capacity_pages - self.used_pages()
+
+    def occupancy(self) -> float:
+        return self.used_pages() / self.capacity_pages
+
+    def entries(self) -> int:
+        return len(self._entries)
+
+    def host_bytes(self) -> int:
+        """Bytes of the page sets, aux leaves and prefix pages held now."""
+        return sum(payload_nbytes(e.payload) + payload_nbytes(e.aux)
+                   for e in self._entries.values()) + sum(
+            payload_nbytes(pg) for pg, _ in self._prefix.values())
+
+    # -- slot entries ------------------------------------------------------
+
+    def reserve(self, n_pages: int) -> Optional[int]:
+        """Reserve ``n_pages`` for a suspending slot; returns an entry id
+        (state SPILLING) or None when the tier cannot fit it. Oldest
+        prefix pages are evicted to make room — they are cache copies and
+        a suspension is the only copy."""
+        if n_pages > self.capacity_pages:
+            return None
+        while self.free_pages() < n_pages and self._prefix:
+            self._prefix.popitem(last=False)
+            self.prefix_evictions += 1
+        if self.free_pages() < n_pages:
+            return None
+        eid = self._next_eid
+        self._next_eid += 1
+        self._entries[eid] = TierEntry(eid, n_pages)
+        return eid
+
+    def _entry(self, eid: int, *states: str) -> TierEntry:
+        e = self._entries.get(eid)
+        if e is None:
+            raise KeyError(f"tier entry {eid} does not exist")
+        if states and e.state not in states:
+            raise ValueError(f"tier entry {eid} is {e.state}, "
+                             f"expected one of {states}")
+        return e
+
+    def _transition(self, e: TierEntry, to: str) -> None:
+        if (e.state, to) not in _TIER_TRANSITIONS:
+            raise ValueError(f"illegal tier transition {e.state} -> {to} "
+                             f"for entry {e.eid}")
+        e.state = to
+
+    def commit(self, eid: int, payload: Any, aux: Any,
+               crcs: Sequence[int], aux_crc: int) -> None:
+        """Land a spill: SPILLING -> HOST with the page bytes durable."""
+        e = self._entry(eid, TIER_SPILLING)
+        if len(crcs) != e.n_pages:
+            raise ValueError(f"entry {eid}: {len(crcs)} CRCs for "
+                             f"{e.n_pages} pages")
+        self._transition(e, TIER_HOST)
+        e.payload, e.aux, e.crcs, e.aux_crc = payload, aux, list(crcs), aux_crc
+
+    def begin_fetch(self, eid: int) -> TierEntry:
+        """HOST -> FETCHING; returns the entry (payload/crcs readable)."""
+        e = self._entry(eid, TIER_HOST)
+        self._transition(e, TIER_FETCHING)
+        return e
+
+    def abort_fetch(self, eid: int) -> None:
+        """FETCHING -> HOST (failed/preempted fetch keeps the host copy)."""
+        e = self._entry(eid, TIER_FETCHING)
+        self._transition(e, TIER_HOST)
+
+    def state(self, eid: int) -> str:
+        return self._entry(eid).state
+
+    def free(self, eid: int) -> None:
+        """Drop an entry in any state (fetch completed, cancel, degrade)."""
+        self._entry(eid)
+        del self._entries[eid]
+
+    # -- prefix page cache -------------------------------------------------
+
+    def put_prefix(self, key: bytes, payload: Any, crc: int) -> bool:
+        """Park one harvested prefix page under ``key``. Evicts older
+        prefix pages LRU to fit, never slot entries; returns False when
+        slot entries alone leave no room."""
+        if key in self._prefix:
+            self._prefix.move_to_end(key)
+            return True
+        while self.free_pages() < 1 and self._prefix:
+            self._prefix.popitem(last=False)
+            self.prefix_evictions += 1
+        if self.free_pages() < 1:
+            return False
+        self._prefix[key] = (payload, crc)
+        return True
+
+    def prefix_run(self, keys: Sequence[bytes], granularity: int = 1) -> int:
+        """Length (pages, rounded down to ``granularity``) of the leading
+        contiguous run of ``keys`` present in the prefix cache."""
+        n = 0
+        for key in keys:
+            if key not in self._prefix:
+                break
+            n += 1
+        return n // granularity * granularity
+
+    def take_prefix(self, keys: Sequence[bytes]
+                    ) -> List[Tuple[Any, int]]:
+        """Read ``(payload, crc)`` per key (all must be present), touching
+        each entry to MRU. Entries stay cached — a fetch copies them back
+        to the device, it does not remove the host copy."""
+        out = []
+        for key in keys:
+            if key not in self._prefix:
+                raise KeyError("prefix page vanished from the tier")
+            self._prefix.move_to_end(key)
+            out.append(self._prefix[key])
+        return out
+
+    def drop_prefix(self, key: bytes) -> None:
+        self._prefix.pop(key, None)

@@ -9,7 +9,8 @@ for serving, MLA (DeepSeek-V3, with its MTP module) and GQA (qwen3-14b).
     init_cache(batch, max_len)     dense ring caches (+ the MTP ring)
     cache_batch_axes(batch, max_len)  batch-axis index per cache leaf
     init_paged_cache(...)          shared page pools + per-slot page tables
-    prefill_to_pages / install_pages / admit_pages / release_slot_pages
+    prefill_to_pages / install_pages / gather_pages / admit_pages /
+    release_slot_pages
     prefill_chunk(params, cache, tokens, positions, lengths, row, slot)
                                    one page-aligned chunk of one slot's
                                    prompt, written into its pages in place
@@ -510,6 +511,16 @@ class Model:
             for k, pages in payload_pages[seg.name].items():
                 paged_mod.scatter_pages(pool[k], pages, ids)
         return cache
+
+    def gather_pages(self, cache, ids):
+        """Read physical pages ``ids`` out of every pool — the inverse of
+        :meth:`install_pages`, ``(layers, len(ids), page, ...)`` per leaf,
+        in new tensors (no cache leaf is touched). The device side of a
+        tier spill: the caller stages the result to host memory."""
+        ids = torch.as_tensor(ids, device=self.device).long()
+        return {seg.name: {k: pool[:, ids]
+                           for k, pool in cache[seg.name].items()}
+                for seg in self.segments}
 
     def admit_pages(self, cache, payload_pages, ids, table_row, slot: int):
         """Scatter a request's prefill pages and install its page-table

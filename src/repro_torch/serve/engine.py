@@ -35,6 +35,21 @@ advanced stream index), so its stream is the one it would have made
 uninterrupted; under chunked prefill it keeps its written prefix pages
 for its resume. ``cancel(rid)`` frees a request in any state.
 
+With ``host_tier_pages`` (paged engines) the device pool is a cache over a
+host-memory page tier (paper §4.5's memory hierarchy;
+``core/paged.HostPageTier``, ``serve/tier.py``): a preempted resident, or
+one whose decode quantum expired while others wait, is *suspended* — its
+pages and slot-resident aux leaves are gathered and staged to the host,
+each page with a CRC32, its table row goes to the trash page at once and
+its lane leaves the decode chunk — and resumes, without recompute, once
+its pages are fetched back and a slot frees. Cold refcount-0 prefix pages
+spill ahead of reuse and come back through admission's tier probe. The
+reference's tick-clocked transfer model (``TransferClock``) decides when a
+transfer lands, can drop or stretch it under injected faults
+(``tier_faults``), and a failure walks the reference's degradation
+ladder: a failed spill resumes in place, a failed or corrupted fetch
+re-queues the request as a continuation.
+
 ``step()`` then runs ``chunk`` fused decode steps (``Model.decode_loop``,
 with the same-step MTP draft under ``use_mtp``) over the decoding slots
 and reads the emitted tokens, the slot state and the draft counters back
@@ -46,8 +61,8 @@ chunk crosses in one non-blocking copy and reads nothing back but the
 last chunk's first token. On the CPU both run eagerly.
 
 Options of the reference that the port has not reached raise
-``NotImplementedError`` with a pointer to ROADMAP.md: mesh contexts, the
-host KV tier and decode overlap.
+``NotImplementedError`` with a pointer to ROADMAP.md: mesh contexts and
+decode overlap.
 """
 from __future__ import annotations
 
@@ -62,6 +77,7 @@ from repro_torch.bridge import prepare_for_serving
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import paged as paged_mod
 from repro_torch.models.api import Model, sample_logits
+from repro_torch.serve import tier as tier_mod
 from repro_torch.serve.graph import DecodeChunk, PrefillChunk
 
 # Smallest prefill bucket: prompts shorter than this share one shape.
@@ -108,9 +124,10 @@ def bucket_length(length: int, max_len: int,
     return min(b, max_len)
 
 
-def _waits(what: str, item: str) -> NotImplementedError:
+def _waits(what: str, item: str,
+           entry: str = "ServeEngine") -> NotImplementedError:
     return NotImplementedError(
-        f"ServeEngine({what}) is not ported yet: see ROADMAP.md, {item}")
+        f"{entry}({what}) is not ported yet: see ROADMAP.md, {item}")
 
 
 def _splice(big, small, slot: int, axes) -> None:
@@ -133,6 +150,16 @@ def _splice(big, small, slot: int, axes) -> None:
         dst.fill_(-1 if not src.dtype.is_floating_point else 0)
         dst = dst[tuple(slice(0, n) for n in src.shape)]
     dst.copy_(src)
+
+
+def _slot_slice(cache, slot: int, axes):
+    """Slot ``slot`` of the batch leaves named by ``axes`` as a batch-1
+    tree of views — the inverse of :func:`_splice`. The tier's suspension
+    stages the slot's aux leaves (the MTP hidden and ring) with its
+    pages."""
+    if isinstance(axes, dict):
+        return {k: _slot_slice(cache[k], slot, axes[k]) for k in axes}
+    return cache.narrow(axes, slot, 1)
 
 
 def _to_device(tree, device):
@@ -164,9 +191,6 @@ class ServeEngine:
                  ctx=None, device=None):
         if ctx is not None:
             raise _waits("ctx=: mesh-sharded serving", "A.8")
-        if (host_tier_pages is not None or tier_config is not None
-                or tier_faults is not None):
-            raise _waits("host_tier_pages=: the host KV tier", "A.6")
         if decode_overlap:
             raise _waits("decode_overlap=True", "A.8")
         paged_mod.validate_storage(page_storage)
@@ -223,6 +247,35 @@ class ServeEngine:
         else:
             self.cache = self.model.init_cache(slots, max_len)
             self._axes = self.model.cache_batch_axes(slots, max_len)
+        # host-memory KV page tier: the device pool becomes a cache over
+        # ``host_tier_pages`` of host capacity (module docstring)
+        self.tier: Optional[paged_mod.HostPageTier] = None
+        if host_tier_pages is not None:
+            if not paged:
+                raise ValueError("host_tier_pages requires paged=True: the "
+                                 "tier spills page sets, dense rings have "
+                                 "none")
+            self.tier = paged_mod.HostPageTier(host_tier_pages)
+        elif tier_faults is not None:
+            raise ValueError("tier_faults without host_tier_pages: there "
+                             "is no tier transfer path to inject into")
+        self.tier_cfg = (tier_config if tier_config is not None
+                         else tier_mod.TierConfig())
+        self.tier_faults = (tier_faults if tier_faults is not None
+                            else tier_mod.NullFaultHook())
+        self._xfers = tier_mod.TransferClock(self.tier_cfg)
+        # rid -> suspension entry; insertion order is the resume order
+        self._suspended: "collections.OrderedDict[int, Dict[str, Any]]" = \
+            collections.OrderedDict()
+        self._spilling_slots: Dict[int, int] = {}   # slot -> rid
+        self._slot_tick0 = np.zeros((slots,), np.int64)
+        self._tick = 0
+        self.tstats = {"suspensions": 0, "resumes": 0, "spilled_pages": 0,
+                       "fetched_pages": 0, "spill_bytes": 0,
+                       "fetch_bytes": 0, "prefetch_stalls": 0,
+                       "degraded": 0, "crc_failures": 0, "spill_aborts": 0,
+                       "tier_full_refusals": 0, "peak_resident_pages": 0,
+                       "prefix_spilled": 0, "prefix_fetched": 0}
         # host mirrors of the per-slot decode state
         self.positions = np.zeros((slots,), np.int32)   # next position
         self._tokens = np.zeros((slots,), np.int32)     # last emitted token
@@ -422,6 +475,7 @@ class ServeEngine:
         self._seeds[slot] = self._request_seed(req)
         self._tix[slot] = offset + 1     # prefill drew stream index offset
         self.active[slot] = req
+        self._slot_tick0[slot] = self._tick
 
     def _admit_pages(self, payload, n: int, slot: int) -> None:
         """Reserve ``n`` pages for ``slot``, scatter the payload's pages
@@ -498,6 +552,39 @@ class ServeEngine:
                                       prompt=prompt, max_new=max_new,
                                       offset=offset, row=row)
         self.active[slot] = req
+        self._slot_tick0[slot] = self._tick
+        if self.tier is not None:
+            self._probe_tier_prefix(slot, hits, fresh, keys, L, skip)
+
+    def _probe_tier_prefix(self, slot: int, hits: List[int],
+                           fresh: List[int], keys: List[bytes], L: int,
+                           skip: int):
+        """Extend a chunked admission's shared-prefix run with host-tier
+        prefix pages: pages past the device hit run that the tier holds
+        are fetched into the slot's fresh pages instead of recomputed. The
+        prefill cursor advances only when the fetch lands CRC-clean
+        (``_finish_prefix_fetch``); until then the slot runs no chunk, so
+        no chunk reads a page before its bytes are installed."""
+        p, C = self.page_size, self.prefill_chunk
+        ppc = C // p
+        h = len(hits)
+        if skip != h * p:
+            return   # device hits already reach the final-chunk bound
+        bound_pages = ((L - 1) // C * C) // p
+        run = min(self.tier.prefix_run(keys[h:], ppc),
+                  bound_pages - h) // ppc * ppc
+        if run <= 0:
+            return
+        tkeys = keys[h:h + run]
+        stored = self.tier.take_prefix(tkeys)
+        ps = self._prefilling[slot]
+        ps["tier_xfer"] = True
+        self._xfers.submit(
+            tier_mod.PREFIX_FETCH, ps["req"].rid, None,
+            sum(paged_mod.payload_nbytes(pg) for pg, _ in stored),
+            slow=self.tier_faults.slow(), slot=slot, req=ps["req"],
+            keys=tkeys, stored=stored, pages=fresh[:run],
+            end=(h + run) * p)
 
     def _run_prefill_chunk(self, slot: int):
         """Advance one prefilling slot by one chunk (one replay of the
@@ -544,6 +631,7 @@ class ServeEngine:
         self._eos[slot] = -1 if req.eos is None else req.eos
         self._seeds[slot] = self._request_seed(req)
         self._tix[slot] = ps["offset"] + 1
+        self._slot_tick0[slot] = self._tick   # quantum clock: decode start
 
     def _pick_admission(self) -> Optional[int]:
         """Pending entry to admit next: highest priority first, FIFO within
@@ -565,15 +653,40 @@ class ServeEngine:
     def _try_evict(self, inc: int) -> bool:
         """Free capacity for an incoming priority-``inc`` request: evict the
         lowest-priority decoding resident of strictly lower priority, or,
-        when none qualifies, reclaim the retained prefix pages of a queued
-        continuation of strictly lower priority (it will re-prefill; its
-        stream is the same either way)."""
+        when none qualifies, abort the fetch of a strictly-lower-priority
+        suspended entry (its host copy survives; the fetch restarts later),
+        or reclaim the retained prefix pages of a queued continuation of
+        strictly lower priority (it will re-prefill; its stream is the same
+        either way). Tiered engines prefer *spilling* the victim to
+        evicting it — its KV moves to the host instead of being recomputed
+        — and then return False: the capacity arrives when the spill lands,
+        and the caller must not preempt again for the same arrival this
+        tick."""
         victims = [(r.priority, s) for s, r in enumerate(self.active)
                    if r is not None and s not in self._prefilling
+                   and s not in self._spilling_slots
                    and r.priority < inc]
         if victims:
-            self._evict_slot(min(victims)[1])
+            slot = min(victims)[1]
+            if self.tier is not None and self._begin_suspend(slot):
+                return False
+            self._evict_slot(slot)
             return True
+        if self.tier is not None:
+            fetching = [(e["req"].priority, rid)
+                        for rid, e in self._suspended.items()
+                        if e["state"] == "fetching"
+                        and e["req"].priority < inc]
+            if fetching:
+                rid = min(fetching)[1]
+                e = self._suspended[rid]
+                self._xfers.cancel(lambda t: t.rid == rid
+                                   and t.kind == tier_mod.FETCH)
+                self.tier.abort_fetch(e["eid"])
+                self._alloc.release(e["fetch_pages"])
+                e["fetch_pages"], e["tier_entry"] = None, None
+                e["state"] = "host"
+                return True
         held = [(req.priority, i) for i, (req, _) in enumerate(self.pending)
                 if req.priority < inc and req.rid in self._evicted]
         if held:
@@ -641,11 +754,332 @@ class ServeEngine:
             admitted += 1
         return admitted
 
+    # -- host page tier (paper §4.5 memory hierarchy) ------------------------
+    def _begin_suspend(self, slot: int) -> bool:
+        """Start spilling ``slot``'s whole page set to the host tier.
+
+        The gather and the staged copy happen now (the slot's masked decode
+        lane would otherwise keep writing its aux leaves, and a reused slot
+        would overwrite them), the table row goes to the trash page at once
+        so no later chunk writes into the captured pages, and the transfer
+        clock decides when the host copy counts as durable: the slot and
+        its device pages stay held until the spill lands, so a failed spill
+        resumes in place with no work lost. Returns False when the tier
+        cannot take the pages (the caller evicts instead)."""
+        req = self.active[slot]
+        pages = self._slot_pages[slot]
+        n = len(pages)
+        if n == 0:
+            return False
+        if self.tier_faults.full():
+            self.tstats["tier_full_refusals"] += 1
+            return False
+        eid = self.tier.reserve(n)
+        if eid is None:
+            self.tstats["tier_full_refusals"] += 1
+            return False
+        self.stats["dispatches"] += 1
+        host = tier_mod.staged_get(dict(
+            pages=self.model.gather_pages(self.cache, pages),
+            aux=_slot_slice(self.cache, slot, self._axes)))
+        payload, aux = host["pages"], host["aux"]
+        crcs = paged_mod.payload_page_crcs(payload, n)
+        aux_crc = paged_mod.payload_crc(aux)
+        nbytes = (paged_mod.payload_nbytes(payload)
+                  + paged_mod.payload_nbytes(aux))
+        # trash the row now: the captured bytes must stay as they are while
+        # the transfer is in flight (the lane is masked out of decode, but
+        # a masked lane still writes through its row)
+        self.stats["dispatches"] += 1
+        self.model.release_slot_pages(self.cache, slot)
+        mirrors = dict(pos=int(self.positions[slot]),
+                       tok=int(self._tokens[slot]),
+                       left=int(self._left[slot]),
+                       eos=int(self._eos[slot]),
+                       seed=int(self._seeds[slot]),
+                       tix=int(self._tix[slot]))
+        self._xfers.submit(tier_mod.SPILL, req.rid, eid, nbytes,
+                           slow=self.tier_faults.slow())
+        self._suspended[req.rid] = dict(
+            req=req, state="spilling", eid=eid, n=n, slot=slot, pages=None,
+            fetch_pages=None, tier_entry=None, payload=payload, aux=aux,
+            crcs=crcs, aux_crc=aux_crc, mirrors=mirrors)
+        self._spilling_slots[slot] = req.rid
+        self.tstats["suspensions"] += 1
+        return True
+
+    def _finish_spill(self, t: tier_mod.TierTransfer):
+        """A spill landed: the host copy is durable, so the device side —
+        slot and pages — frees (the row was trashed at suspend)."""
+        e = self._suspended.get(t.rid)
+        if e is None or e["state"] != "spilling":
+            return   # cancelled while in flight
+        self.tier.commit(e["eid"], e["payload"], e["aux"], e["crcs"],
+                         e["aux_crc"])
+        slot = e.pop("slot")
+        del self._spilling_slots[slot]
+        self._alloc.release(self._slot_pages[slot])
+        self._slot_pages[slot] = []
+        self.stats["page_releases"] += 1
+        self.active[slot] = None
+        e["state"] = "host"
+        e["payload"] = None   # the tier owns the bytes now
+        self.tstats["spilled_pages"] += e["n"]
+        self.tstats["spill_bytes"] += t.nbytes
+
+    def _fail_spill(self, t: tier_mod.TierTransfer):
+        """A spill failed for good: resume in place. The device pages were
+        never released, so installing the row and the aux leaves again
+        loses nothing — the degradation ladder's cheapest rung."""
+        e = self._suspended.pop(t.rid, None)
+        if e is None:
+            return
+        self.tier.free(e["eid"])
+        slot = e["slot"]
+        del self._spilling_slots[slot]
+        self.tstats["spill_aborts"] += 1
+        self._install_slot(slot, self._slot_pages[slot], e["aux"])
+        self._restore_mirrors(slot, e["mirrors"])
+        self._slot_tick0[slot] = self._tick
+
+    def _install_slot(self, slot: int, pages: List[int], aux) -> None:
+        """Point ``slot``'s table row at ``pages`` and write its aux leaves
+        back, in place: the row and the aux cross in one staged copy, then
+        two device copies into the leaves the graphs read."""
+        row = np.full((self.pages_per_slot,), self.pool_pages, np.int32)
+        row[:len(pages)] = pages
+        self.stats["dispatches"] += 1
+        dev = tier_mod.staged_put(dict(row=torch.from_numpy(row), aux=aux),
+                                  self.device)
+        self.cache["page_table"][slot].copy_(dev["row"])
+        if aux:
+            _splice({k: self.cache[k] for k in aux}, dev["aux"], slot,
+                    self._axes)
+
+    def _restore_mirrors(self, slot: int, m: Dict[str, Any]):
+        self.positions[slot] = m["pos"]
+        self._tokens[slot] = m["tok"]
+        self._left[slot] = m["left"]
+        self._eos[slot] = m["eos"]
+        self._seeds[slot] = m["seed"]
+        self._tix[slot] = m["tix"]
+
+    def _start_fetches(self):
+        """Prefetch ahead: start host->device transfers for suspended
+        entries, oldest suspension first, with whatever pool pages
+        admission left this tick. A page-blocked entry blocks the ones
+        behind it, and once the pending head's starvation guard has
+        tripped the freed pages are its alone, so no fetch starts."""
+        if self.tier is None:
+            return
+        if self.pending and self._hol_skips >= STARVATION_LIMIT:
+            return
+        for rid, e in self._suspended.items():
+            if e["state"] != "host":
+                continue
+            n = e["n"]
+            if n > self.free_pages():
+                break
+            e["fetch_pages"] = self._alloc.alloc(n)
+            ent = self.tier.begin_fetch(e["eid"])
+            e["tier_entry"] = ent
+            e["state"] = "fetching"
+            nbytes = (paged_mod.payload_nbytes(ent.payload)
+                      + paged_mod.payload_nbytes(ent.aux))
+            self._xfers.submit(tier_mod.FETCH, rid, e["eid"], nbytes,
+                               slow=self.tier_faults.slow())
+
+    def _finish_fetch(self, t: tier_mod.TierTransfer):
+        """A fetch landed: CRC-check the host bytes, install them into the
+        reserved device pages (a staged copy and an in-place scatter,
+        queued before the next replay) and mark the entry ready to resume
+        when a slot frees. A CRC mismatch walks the degradation ladder."""
+        e = self._suspended.get(t.rid)
+        if e is None or e["state"] != "fetching":
+            return
+        ent, n = e["tier_entry"], e["n"]
+        if (paged_mod.payload_page_crcs(ent.payload, n) != ent.crcs
+                or paged_mod.payload_crc(ent.aux) != ent.aux_crc):
+            self.tstats["crc_failures"] += 1
+            self._degrade(t.rid)
+            return
+        pages = e["fetch_pages"]
+        self.stats["dispatches"] += 1
+        self.model.install_pages(
+            self.cache, tier_mod.staged_put(ent.payload, self.device), pages)
+        e["aux"] = ent.aux
+        e["pages"], e["fetch_pages"] = pages, None
+        e["tier_entry"] = None
+        e["state"] = "ready"
+        self.tier.free(e["eid"])
+        self.tstats["fetched_pages"] += n
+        self.tstats["fetch_bytes"] += t.nbytes
+
+    def _degrade(self, rid: int):
+        """Unrecoverable fetch (retries exhausted, timeout or CRC): drop
+        the tiered copy and re-queue the request as a continuation, which
+        re-prefills prompt + delivered at the advanced stream index."""
+        e = self._suspended.pop(rid, None)
+        if e is None:
+            return
+        if e["fetch_pages"]:
+            self._alloc.release(e["fetch_pages"])
+        self.tier.free(e["eid"])
+        self.tstats["degraded"] += 1
+        self.pending.appendleft((e["req"], None))
+
+    def _resume_ready(self) -> int:
+        """Re-admit fetched entries (suspension order) into free slots: the
+        row and aux installed, the host mirrors restored — no prefill, no
+        recompute. Runs after admission, so new requests get the first
+        claim on slots."""
+        resumed = 0
+        for rid in list(self._suspended):
+            e = self._suspended[rid]
+            if e["state"] != "ready":
+                continue
+            free = self.free_slots()
+            if not free:
+                break
+            slot = free[0]
+            self._install_slot(slot, e["pages"], e["aux"])
+            del self._suspended[rid]
+            self._slot_pages[slot] = e["pages"]
+            self.active[slot] = e["req"]
+            self._restore_mirrors(slot, e["mirrors"])
+            self._slot_tick0[slot] = self._tick
+            self.tstats["resumes"] += 1
+            resumed += 1
+        return resumed
+
+    def _rotate(self):
+        """Time-slice rotation: with waiters (queued requests or suspended
+        entries), suspend the longest-resident decoding slot whose quantum
+        expired, so an oversubscribed workload round-robins through the
+        device pool instead of re-prefilling or starving the queue."""
+        waiters = [req.priority for req, _ in self.pending]
+        waiters += [e["req"].priority for e in self._suspended.values()
+                    if e["state"] != "spilling"]
+        if not waiters:
+            return
+        cap = max(waiters)
+        decoding = [s for s in range(self.slots)
+                    if self.active[s] is not None
+                    and s not in self._prefilling
+                    and s not in self._spilling_slots]
+        ready = any(e["state"] == "ready"
+                    for e in self._suspended.values())
+        if len(decoding) <= 1 and not ready:
+            return   # never idle the whole pool waiting on the PCIe link
+        expired = [(self._slot_tick0[s], s) for s in decoding
+                   if self._tick - self._slot_tick0[s] >= self.tier_cfg.quantum
+                   and self.active[s].priority <= cap]
+        if expired:
+            self._begin_suspend(min(expired)[1])
+
+    def _harvest_prefix(self):
+        """Warm-LRU prefix spill: when the plain free pool runs dry and
+        refcount-0 prefix pages sit in the device cache, move the coldest
+        batch to the tier's prefix store; they come back through
+        admission's tier probe instead of being recomputed. The pages stay
+        pinned until the host copy is durable; a failed spill indexes them
+        again (nothing is lost either way: they are cache copies)."""
+        if self.prefill_chunk is None or self.tier_faults.full():
+            return
+        if self._alloc.plain_free() > 0 or self._alloc.cached_free() == 0:
+            return
+        k = min(self.tier_cfg.harvest_batch, self.pages_per_slot,
+                self.tier.free_pages())
+        harvested = self._alloc.harvest(k)
+        if not harvested:
+            return
+        self.stats["dispatches"] += 1
+        payload = tier_mod.staged_get(self.model.gather_pages(
+            self.cache, [pid for pid, _ in harvested]))
+        self._xfers.submit(tier_mod.PREFIX_SPILL, None, None,
+                           paged_mod.payload_nbytes(payload),
+                           slow=self.tier_faults.slow(),
+                           harvest=harvested, payload=payload)
+
+    def _finish_prefix_spill(self, t: tier_mod.TierTransfer):
+        for j, (pid, key) in enumerate(t.meta["harvest"]):
+            pg = tier_mod.slice_page(t.meta["payload"], j)
+            self.tier.put_prefix(key, pg, paged_mod.payload_crc(pg))
+        self._alloc.release([pid for pid, _ in t.meta["harvest"]])
+        self.tstats["prefix_spilled"] += len(t.meta["harvest"])
+        self.tstats["spill_bytes"] += t.nbytes
+
+    def _fail_prefix_spill(self, t: tier_mod.TierTransfer):
+        # the device copy never left: index the pages again (the release
+        # parks them back in the warm cache) and count the abort
+        for pid, key in t.meta["harvest"]:
+            self._alloc.register(key, pid)
+        self._alloc.release([pid for pid, _ in t.meta["harvest"]])
+        self.tstats["spill_aborts"] += 1
+
+    def _finish_prefix_fetch(self, t: tier_mod.TierTransfer):
+        """Tier prefix pages arrived for a prefilling slot: check their
+        CRCs, install them into the slot's reserved fresh pages, index
+        them, and move the prefill cursor past the chunks they cover. A CRC
+        mismatch drops the poisoned tier entries and leaves the cursor
+        alone: the chunks recompute into the same pages, bit for bit."""
+        m = t.meta
+        slot = m["slot"]
+        ps = self._prefilling.get(slot)
+        if ps is None or ps.get("req") is not m["req"]:
+            return   # slot cancelled/recycled while the fetch flew
+        ps["tier_xfer"] = False
+        bad = [j for j, (pg, crc) in enumerate(m["stored"])
+               if paged_mod.payload_crc(pg) != crc]
+        if bad:
+            self.tstats["crc_failures"] += 1
+            for j in bad:
+                self.tier.drop_prefix(m["keys"][j])
+            return
+        pages = m["pages"]
+        self.stats["dispatches"] += 1
+        self.model.install_pages(
+            self.cache, tier_mod.staged_put(tier_mod.concat_pages(
+                [pg for pg, _ in m["stored"]]), self.device), pages)
+        for j, key in enumerate(m["keys"]):
+            self._alloc.register(key, pages[j])
+        ps["next"] = m["end"]
+        self.tstats["prefix_fetched"] += len(pages)
+        self.tstats["fetch_bytes"] += t.nbytes
+
+    def _fail_prefix_fetch(self, t: tier_mod.TierTransfer):
+        ps = self._prefilling.get(t.meta["slot"])
+        if ps is not None and ps.get("req") is t.meta["req"]:
+            ps["tier_xfer"] = False   # cursor untouched: chunks recompute
+
+    def _advance_transfers(self):
+        done, failed = self._xfers.advance(self.tier_faults)
+        for t in done:
+            if t.kind == tier_mod.SPILL:
+                self._finish_spill(t)
+            elif t.kind == tier_mod.FETCH:
+                self._finish_fetch(t)
+            elif t.kind == tier_mod.PREFIX_SPILL:
+                self._finish_prefix_spill(t)
+            elif t.kind == tier_mod.PREFIX_FETCH:
+                self._finish_prefix_fetch(t)
+        for t in failed:
+            if t.kind == tier_mod.SPILL:
+                self._fail_spill(t)
+            elif t.kind == tier_mod.FETCH:
+                self._degrade(t.rid)
+            elif t.kind == tier_mod.PREFIX_SPILL:
+                self._fail_prefix_spill(t)
+            elif t.kind == tier_mod.PREFIX_FETCH:
+                self._fail_prefix_fetch(t)
+
     # -- decode -------------------------------------------------------------
     def _decoding(self) -> np.ndarray:
-        """Slots whose lane the decode chunk runs: occupied and not
-        mid-chunked-prefill."""
+        """Slots whose lane the decode chunk runs: occupied, not
+        mid-chunked-prefill and not mid-spill (a spilling slot's row is at
+        the trash page and its pages are being copied out)."""
         return np.array([r is not None and i not in self._prefilling
+                         and i not in self._spilling_slots
                          for i, r in enumerate(self.active)])
 
     def _host_state(self) -> Dict[str, np.ndarray]:
@@ -661,12 +1095,44 @@ class ServeEngine:
         arrival), advance the lowest prefilling slot by one chunk, then one
         fused ``chunk``-step decode over the decoding slots (one graph
         replay on the card) and one read-back of the emitted tokens, the
-        slot state and the chunk's draft counters."""
-        self._admit_pending()
-        if self._prefilling:
-            # one chunk of one long-prompt admission a tick, so resident
-            # streams keep decoding between chunks
-            self._run_prefill_chunk(min(self._prefilling))
+        slot state and the chunk's draft counters.
+
+        Tiered engines first advance the transfer clock (a landed spill
+        frees its slot and pages, a landed fetch readies a resume), admit,
+        resume fetched entries into free slots, rotate a quantum-expired
+        resident out for waiters, start prefetches with the pages left and
+        harvest cold prefix pages; spilling slots stay out of the decode
+        chunk. Fetches start once more after the decode, so pages freed by
+        this tick's completions are in flight by the next."""
+        if self.tier is not None:
+            self._tick += 1
+            self.tier_faults.on_tick()
+            self._advance_transfers()
+            admitted = self._admit_pending()
+            resumed = self._resume_ready()
+            if (not admitted and not resumed and self.free_slots()
+                    and any(e["state"] in ("host", "fetching")
+                            for e in self._suspended.values())):
+                # a slot sat idle this tick because tiered KV was not back
+                # yet: the prefetch schedule exists to keep this at 0
+                self.tstats["prefetch_stalls"] += 1
+            self._rotate()
+            self._start_fetches()
+            self._harvest_prefix()
+            live = sum(len(p) for p in self._slot_pages) + sum(
+                e["n"] for e in self._suspended.values()
+                if e["state"] != "spilling")
+            self.tstats["peak_resident_pages"] = max(
+                self.tstats["peak_resident_pages"], live)
+        else:
+            self._admit_pending()
+        # one chunk of one long-prompt admission a tick, so resident streams
+        # keep decoding between chunks; a slot whose prefix pages are on
+        # their way from the tier waits for them
+        runnable = [s for s, ps in self._prefilling.items()
+                    if not ps.get("tier_xfer")]
+        if runnable:
+            self._run_prefill_chunk(min(runnable))
         if not self._decoding().any():
             return
         self.stats["dispatches"] += 1
@@ -674,9 +1140,11 @@ class ServeEngine:
         self.stats["steps"] += int(emitted.any(axis=0).sum())
         self.stats["drafts"] += int(st["drafts"][0])
         self.stats["accepted_drafts"] += int(st["accepted"][0])
-        # prefilling slots keep their host mirrors: their masked lanes
-        # carry stale state
-        keep = np.array([i in self._prefilling for i in range(self.slots)])
+        # prefilling and spilling slots keep their host mirrors: their
+        # masked lanes carry stale state (a spilling slot's own mirrors
+        # ride its tier entry)
+        keep = np.array([i in self._prefilling or i in self._spilling_slots
+                         for i in range(self.slots)])
         self._tokens = np.where(keep, self._tokens, st["tokens"])
         self.positions = np.where(keep, self.positions, st["positions"])
         self._left = np.where(keep, self._left, st["left"])
@@ -690,6 +1158,11 @@ class ServeEngine:
             if not st["active"][i]:
                 r.done = True
                 self._release_slot(i)
+        if self.tier is not None:
+            # pages freed by this tick's completions feed the prefetch
+            # schedule at once: the fetch lands on the next tick's clock
+            # advance, before the freed slot is scheduled again
+            self._start_fetches()
 
     def _release_slot(self, slot: int):
         """Free ``slot``: clear occupancy and (paged) return its whole page
@@ -704,11 +1177,14 @@ class ServeEngine:
 
     def cancel(self, rid: int) -> bool:
         """Abort a request by id: drop it from the pending queue (an
-        evicted continuation also releases the prefix pages it kept), or
-        free its slot, mid-chunked-prefill or decoding alike (its pages go
-        back to the pool and its lane is masked out of the next decode
-        chunk). The request is left as it is (``done`` stays False, ``out``
-        keeps what was delivered). Returns False for an unknown id."""
+        evicted continuation also releases the prefix pages it kept), free
+        its slot, mid-chunked-prefill or decoding alike (its pages go back
+        to the pool and its lane is masked out of the next decode chunk),
+        or, on tiered engines, unwind whichever tier state it is in
+        (spilling, host, fetching, ready): device and host pages both free
+        and its in-flight transfers leave the clock. The request is left as
+        it is (``done`` stays False, ``out`` keeps what was delivered).
+        Returns False for an unknown id."""
         for i, (req, _) in enumerate(self.pending):
             if req.rid == rid:
                 del self.pending[i]
@@ -716,9 +1192,30 @@ class ServeEngine:
                 if held:
                     self._alloc.release(held)
                 return True
+        e = self._suspended.pop(rid, None)
+        if e is not None:
+            self._xfers.cancel(lambda t: t.rid == rid)
+            st = e["state"]
+            if st == "spilling":
+                # slot and device pages still held; row already trashed
+                slot = e["slot"]
+                del self._spilling_slots[slot]
+                self.tier.free(e["eid"])
+                self._release_slot(slot)
+            elif st == "host":
+                self.tier.free(e["eid"])
+            elif st == "fetching":
+                self.tier.free(e["eid"])
+                if e["fetch_pages"]:
+                    self._alloc.release(e["fetch_pages"])
+            else:   # ready: tier entry already freed, device pages held
+                self._alloc.release(e["pages"])
+            return True
         for slot, req in enumerate(self.active):
             if req is not None and req.rid == rid:
                 self._prefilling.pop(slot, None)
+                if self.tier is not None:
+                    self._xfers.cancel(lambda t: t.rid == rid)
                 self._release_slot(slot)
                 return True
         return False
@@ -733,33 +1230,71 @@ class ServeEngine:
         engine once a second prefill chunk has run; every chunk of every
         prompt shares one static ``(1, prefill_chunk)`` shape). Both stay 0
         on the CPU, where the chunks run eagerly and nothing is captured,
-        and ``"chunk"`` stays 0 on an engine without ``prefill_chunk``."""
+        and ``"chunk"`` stays 0 on an engine without ``prefill_chunk``. The
+        reference's other keys count jit traces the port has no counterpart
+        of: its bucketed prefill, admission, release and table installs,
+        and the tier's gather, scatter and resume, all run eagerly here, so
+        tier spills and fetches leave both counts as they are."""
         return {"decode": self._decode.captures,
                 "chunk": 0 if self._prefill is None
                 else self._prefill.captures}
 
     def pool_stats(self) -> Dict[str, Any]:
-        """Page-pool occupancy (zeros for dense engines)."""
+        """Page-pool occupancy (zeros for dense engines); tiered engines add
+        the host side."""
         if not self.paged:
             return dict(pages_total=0, pages_free=0, pages_used=0,
                         occupancy=0.0)
         free = self.free_pages()
         used = self.pool_pages - free
-        return dict(pages_total=self.pool_pages, pages_free=free,
-                    pages_used=used,
-                    occupancy=used / self.pool_pages if self.pool_pages
-                    else 0.0)
+        out = dict(pages_total=self.pool_pages, pages_free=free,
+                   pages_used=used,
+                   occupancy=used / self.pool_pages if self.pool_pages
+                   else 0.0)
+        if self.tier is not None:
+            out.update(host_pages_total=self.tier.capacity_pages,
+                       host_pages_free=self.tier.free_pages(),
+                       host_occupancy=self.tier.occupancy())
+        return out
+
+    def tier_stats(self) -> Dict[str, Any]:
+        """Host-tier residency and transfer counters (``tstats`` plus the
+        live tier and clock occupancy); the zeroed counters on an engine
+        without a tier."""
+        out = dict(self.tstats)
+        if self.tier is None:
+            out.update(host_pages_total=0, host_pages_used=0,
+                       host_pages_free=0, host_occupancy=0.0,
+                       host_prefix_pages=0, suspended=0,
+                       transfers_inflight=0, retries=0, timeouts=0)
+            return out
+        out.update(host_pages_total=self.tier.capacity_pages,
+                   host_pages_used=self.tier.used_pages(),
+                   host_pages_free=self.tier.free_pages(),
+                   host_occupancy=self.tier.occupancy(),
+                   host_prefix_pages=self.tier.prefix_pages(),
+                   suspended=len(self._suspended),
+                   transfers_inflight=len(self._xfers.inflight),
+                   retries=self._xfers.retries,
+                   timeouts=self._xfers.timeouts)
+        return out
 
     def prefix_stats(self) -> Dict[str, Any]:
         """Prefix-index effectiveness (zeros for dense engines): admission
         lookups of full prompt pages, the hits among them, and the pages
-        that back index entries now."""
+        that back index entries now; tiered engines add the tier's prefix
+        store."""
         if not self.paged:
             return dict(lookups=0, hits=0, hit_rate=0.0, indexed_pages=0)
         lk = self._alloc.prefix_lookups
-        return dict(lookups=lk, hits=self._alloc.prefix_hits,
-                    hit_rate=self._alloc.prefix_hits / lk if lk else 0.0,
-                    indexed_pages=self._alloc.indexed_pages())
+        out = dict(lookups=lk, hits=self._alloc.prefix_hits,
+                   hit_rate=self._alloc.prefix_hits / lk if lk else 0.0,
+                   indexed_pages=self._alloc.indexed_pages())
+        if self.tier is not None:
+            out.update(tier_prefix_pages=self.tier.prefix_pages(),
+                       tier_prefix_evictions=self.tier.prefix_evictions,
+                       tier_prefix_fetched=self.tstats["prefix_fetched"])
+        return out
 
     def cache_bytes_per_token(self) -> float:
         """Attention-cache bytes per token of context capacity (the paper's
@@ -782,7 +1317,13 @@ class ServeEngine:
             / (self.slots * self.max_len))
 
     def has_work(self) -> bool:
-        return bool(self.pending) or any(r is not None for r in self.active)
+        """Whether another ``step()`` can make progress: queued or resident
+        requests, entries parked in the host tier, or transfers still on
+        the clock."""
+        return (bool(self.pending)
+                or any(r is not None for r in self.active)
+                or bool(self._suspended)
+                or bool(self._xfers.inflight))
 
     def run_until_done(self, max_steps: int = 1000):
         """Drive ticks until every submitted/admitted request completes."""

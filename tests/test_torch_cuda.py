@@ -1311,6 +1311,146 @@ def test_prefix_sharing_on_the_card_equals_a_cold_engine(card):
         assert alone.out == r.out
 
 
+def _tree_equal(a, b):
+    la, lb = paged.payload_leaves(a), paged.payload_leaves(b)
+    return len(la) == len(lb) and all(
+        x.shape == y.shape and torch.equal(x.cpu(), y.cpu())
+        for x, y in zip(la, lb))
+
+
+def _wide_dsv3():
+    cfg = smoke_config(get_config("deepseek-v3-671b"))
+    # no capacity drops: a request's stream does not depend on which
+    # others share its decode steps, so a tiered run can equal an untiered
+    return dataclasses.replace(
+        cfg, dtype="bfloat16", param_dtype="bfloat16", fp8_impl="pallas",
+        moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
+
+
+def test_spill_fetch_resume_round_trip_on_a_graphed_engine(card):
+    """Suspensions and resumes between replays of both captured graphs:
+    each fetch installs the spilled bytes exactly (pages read back equal
+    the host copy), each resume writes the slot's ``mtp_h`` and MTP ring
+    rows back as they were at suspend, no cache leaf is rebound, both
+    graphs are captured once, and every stream equals an untiered twin's
+    on the same weights."""
+    from repro_torch.serve import tier
+    from repro_torch.serve.engine import _slot_slice
+    cfg = _wide_dsv3()
+    kw = dict(slots=2, max_len=64, chunk=4, paged=True, page_size=8,
+              page_storage="fp8", prefill_chunk=8, attn_impl="pallas",
+              device=card)
+    eng = ServeEngine(cfg, pool_pages=16, host_tier_pages=48,
+                      tier_config=tier.TierConfig(quantum=4), **kw)
+    twin = ServeEngine(cfg, params=eng.params, **kw)
+    checks = {"fetch": 0, "aux": 0}
+    finish, install = eng._finish_fetch, eng._install_slot
+
+    def finish_fetch(t):
+        e = eng._suspended.get(t.rid)
+        ent = e["tier_entry"] if e else None
+        finish(t)
+        if ent is not None and e["state"] == "ready":
+            back = tier.staged_get(eng.model.gather_pages(eng.cache,
+                                                          e["pages"]))
+            assert _tree_equal(back, ent.payload)
+            checks["fetch"] += 1
+
+    def install_slot(slot, pages, aux):
+        install(slot, pages, aux)
+        back = tier.staged_get(_slot_slice(eng.cache, slot, eng._axes))
+        assert aux and _tree_equal(back, aux)
+        checks["aux"] += 1
+
+    eng._finish_fetch, eng._install_slot = finish_fetch, install_slot
+
+    def ptrs(tree):
+        if isinstance(tree, dict):
+            return {k: ptrs(v) for k, v in tree.items()}
+        return tree.data_ptr()
+
+    before = ptrs(eng.cache)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, cfg.vocab_size, 9 + i).astype(np.int32)
+               for i in range(6)]
+    runs = []
+    for e in (eng, twin):
+        reqs = [Request(i, p, max_new=24, seed=i)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            e.submit(r)
+        e.run_until_done()
+        assert all(r.done for r in reqs)
+        runs.append([r.out for r in reqs])
+    ts = eng.tier_stats()
+    assert ts["suspensions"] > 0 and ts["resumes"] == ts["suspensions"]
+    assert checks["fetch"] == ts["resumes"] and checks["aux"] >= ts["resumes"]
+    assert ts["crc_failures"] == 0 and ts["degraded"] == 0
+    assert eng.trace_counts == {"decode": 1, "chunk": 1}
+    assert ptrs(eng.cache) == before
+    assert eng.free_pages() == eng.pool_pages and eng.tier.entries() == 0
+    assert runs[0] == runs[1]
+
+
+def test_a_prefix_fetch_lands_before_the_captured_chunk_reads_it(card):
+    """Warm prefix pages harvested to the host tier come back into fresh
+    pages through a staged copy and an in-place scatter queued before the
+    replayed prefill chunk that reads them: the repeat's stream equals the
+    same request alone on a cold untiered engine, bit for bit."""
+    from repro_torch.serve import tier
+    cfg = dataclasses.replace(smoke_config(get_config("qwen3-14b")),
+                              dtype="bfloat16", param_dtype="bfloat16",
+                              num_heads=10, num_kv_heads=2)
+    kw = dict(slots=2, max_len=64, chunk=4, paged=True, page_size=8,
+              page_storage="fp8", pool_pages=12, prefill_chunk=8,
+              attn_impl="pallas", device=card)
+    eng = ServeEngine(cfg, host_tier_pages=24,
+                      tier_config=tier.TierConfig(quantum=4), **kw)
+    rng = np.random.default_rng(11)
+    prefix = rng.integers(1, cfg.vocab_size, 16).astype(np.int32)
+    prompt_a = np.concatenate([prefix, rng.integers(1, cfg.vocab_size, 5)])
+    prompt_b = np.concatenate([prefix, rng.integers(1, cfg.vocab_size, 7)])
+    fillers = [rng.integers(1, cfg.vocab_size, 17 + i).astype(np.int32)
+               for i in range(4)]
+    work = [Request(0, prompt_a, max_new=8, seed=9)] + [
+        Request(10 + i, p, max_new=8, seed=20 + i)
+        for i, p in enumerate(fillers)]
+    for r in work[:1] + work[1:]:
+        eng.submit(r)
+        eng.run_until_done()
+    assert eng.tstats["prefix_spilled"] >= 2
+    assert eng.trace_counts == {"decode": 1, "chunk": 1}
+    repeat = Request(99, prompt_b, max_new=8, seed=3)
+    eng.submit(repeat)
+    eng.run_until_done()
+    assert eng.tstats["prefix_fetched"] >= 2
+    cold = ServeEngine(cfg, params=eng.params, **kw)
+    alone = Request(99, prompt_b, max_new=8, seed=3)
+    cold.submit(alone)
+    cold.run_until_done()
+    assert repeat.done and repeat.out == alone.out
+    assert eng.trace_counts == {"decode": 1, "chunk": 1}
+
+
+def test_gateway_replicas_share_the_expert_codes(card):
+    """Two gateway replicas on one parameter set: the second engine gets
+    the first's prepared weights, the same E4M3 expert codes (one
+    data_ptr), and both serve."""
+    from repro_torch.serve.gateway import Gateway
+    cfg = _wide_dsv3()
+    gw = Gateway(cfg, replicas=2, slots=2, max_len=64, chunk=4, paged=True,
+                 page_size=8, prefill_chunk=8, attn_impl="pallas",
+                 device=card)
+    a, b = (r.engine.params for r in gw.registry.replicas.values())
+    wa, wb = a["blocks"]["moe"]["w1"], b["blocks"]["moe"]["w1"]
+    assert isinstance(wa, fp8.Fp8Experts)
+    assert wa.wq.data_ptr() == wb.wq.data_ptr()
+    reqs = [gw.submit(np.arange(4) + 10 * i, max_new=6) for i in range(4)]
+    gw.run_until_done()
+    assert all(r.state == "done" and len(r.delivered) == 6 for r in reqs)
+    assert {r.replica for r in reqs} == {0, 1}
+
+
 def test_a_host_read_under_capture_raises(card, monkeypatch):
     """A host read on the decode path is fine in the eager first chunk and
     fails the capture of the second: ``step()`` raises, and keeps raising,

@@ -310,11 +310,18 @@ def test_cache_bytes_per_token_match_reference(weights, storage):
 
 
 @pytest.mark.parametrize("option", [
-    dict(host_tier_pages=4), dict(decode_overlap=True), dict(ctx=object())])
+    dict(extras={"src_embeds": np.zeros((1, 4, 8), np.float32)}),
+    dict(decode_overlap=True), dict(ctx=object())])
 def test_options_not_ported_yet_raise(option):
+    """Constructor options, and per-request extras (encoder or vision
+    payloads), that the port has not reached raise with a pointer into
+    ROADMAP.md."""
     kw = dict(KW, **option)
+    extras = kw.pop("extras", None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine(tsmoke(tget("deepseek-v3-671b")), device="cpu", **kw)
+        eng = ServeEngine(tsmoke(tget("deepseek-v3-671b")), device="cpu",
+                          **kw)
+        eng.add_request(Request(0, np.arange(4), max_new=2), extras)
 
 
 def test_entry_points_default_to_the_card():
