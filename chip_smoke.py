@@ -168,8 +168,49 @@ from the root of a checkout. Phases, each fatal on failure:
         the sum of ``cache_nbytes`` over the payloads, the kernels launched.
         Printed: bytes per request.
 
-The line before the last two is one JSON object with the kernel table; the
-next is the nvidia-smi name and power limit; the last is
+  (g) training on the card (counters zeroed just before each step and read
+      just after; every gate fatal):
+      - (g.1) the three fp8_gemm products of every FP8 weight of the
+        training config at T = 1024 tokens: the forward (T, K=d_in) x
+        (d_in, N=d_out), the backward's dx (T, K=d_out) x (d_out, N=d_in)
+        and dw (d_in, K=T) x (T, d_out), their operands made as the FP8
+        linear makes them (``fp8_gemm.operands``: x2ᵀ a transposed view,
+        w_kr's K = 64 padded), each within 2e-5 of the plain version's max,
+        timed in a CUDA graph, with its launch plan, the bound at the fp8
+        and fp16 rates, torch._scaled_mm and bf16 torch.matmul on the
+        dequantized operands as yardsticks, and the eager call with its
+        plain quantization; then a step's sums by pass;
+      - (g.2) DeepSeek-V3's dense prefix at published widths (its three
+        dense layers and the MTP module: ``family="dense", moe=None,
+        num_layers=3``, 4.29 B parameters; the MoE layers' 11.3 B would
+        not fit with their optimizer state), bf16, ``fp8_impl="pallas"``,
+        trained 6 steps by ``Trainer`` (parameters drawn on the card from
+        a seed, ``SyntheticCorpus`` 2 x 512 tokens, peak lr 3e-4, warmup
+        2, no checkpoints). Gates: fp32 master and bf16 m, v and
+        parameters; one forward pass launches fp8_gemm once per FP8
+        linear of the specs (41) and each step exactly three times that
+        and nothing else; every master leaf unchanged after step 0 (lr 0)
+        and changed after step 1; finite losses; peak memory under the
+        card's. Printed: losses, ms a step, tokens/s, peak memory against
+        the state's 12 B a parameter, and a torch.profiler split of a
+        seventh step's forward, backward and optimizer;
+      - (g.3) on small inputs, the same weights and batches on the card
+        (kernels, CUDA plain ops) and on the CPU (plain versions), three
+        steps each: (i) the dense prefix at smoke width, bf16, FP8 through
+        fp8_gemm (15 launches a step); (ii) smoke DeepSeek-V3 with its MoE
+        layers, fp32, FP8 inline; each step's loss within 2e-2 relative,
+        each master leaf within 2.1 x the steps' summed lr of the CPU's
+        element by element (Adam's step bound) and its update within
+        cosine 0.9 of the CPU's; (iii)
+        a Trainer with checkpoints and FailureInjector({9: "node", 18:
+        "sdc"}) on the card must end at step 22 with one restart and the
+        alarm at 18; and moe_gemm and fp8_gemm called with a grad-requiring
+        input must raise.
+
+The line before the last two is one JSON object with the kernel table
+(fp8_gemm's training backward rows, dx and dw at the FFN's w_gate/w_up,
+added after the eight kernels); the next is the nvidia-smi name and power
+limit; the last is
 ``{"ok": true, "device": {...}}``. Without a card, or outside a checkout,
 it exits non-zero before printing any result.
 """
@@ -2773,6 +2814,441 @@ def phase_disagg(torch, eng):
 # --- main ----------------------------------------------------------------------
 
 
+# --- (g) ---------------------------------------------------------------------
+
+# the card's training configuration: DeepSeek-V3's dense prefix at published
+# widths (its three dense layers and its MTP module; the MoE layers wait for
+# expert parallelism, ROADMAP.md A.8), bf16, FP8 linears through fp8_gemm
+TRAIN = dict(model="deepseek-v3-671b",
+             overrides=dict(family="dense", moe=None, num_layers=3,
+                            fp8_impl="pallas"),
+             seq_len=512, global_batch=2, steps=6, peak_lr=3e-4, warmup=2,
+             tokens=1024)
+# the fp8 path's input-width threshold (models/layers.linear)
+FP8_MIN_K = 256
+
+
+def fp8_linears(model):
+    """FP8 linears of one forward pass, from the parameter specs: every
+    stacked 2-D weight under attn/mlp/mtp whose input width reaches the FP8
+    path, once per layer."""
+    from repro_torch.train.optimizer import tree_items
+    return sum(s.shape[0] for path, s in tree_items(model.specs())
+               if len(s.shape) == 3 and s.shape[1] >= FP8_MIN_K
+               and any(k in path for k in ("attn", "mlp", "mtp")))
+
+
+# uses of each (K, N) of ops.SERVED_KN in one forward pass of the training
+# config: 3 dense layers and the MTP block each hold one of each MLA and
+# FFN weight (w_uk and w_uv, w_gate and w_up share a shape); w_proj is the
+# MTP module's own
+TRAIN_USES = {"w_proj": 1, "w_uk/w_uv": 8, "w_gate/w_up": 8}
+
+
+def bench_fp8_train(torch, dev, gen):
+    """The three fp8_gemm products of every FP8 weight of the card's
+    training config, at T = 1024 tokens, in phase (b)'s style: the forward
+    (T, K=d_in) x (d_in, N=d_out); the backward's dx = Q_tile(g) @
+    Q_block(wᵀ), (T, K=d_out) x (d_out, N=d_in), and dw = Q_tile(x2ᵀ) @
+    Q_block(g2), (d_in, K=T) x (T, N=d_out), x2ᵀ a transposed view.
+    Operands are made as the FP8 linear makes them
+    (``fp8_gemm.operands``); each product is timed in a CUDA graph and held
+    within 2e-5 of the plain version's max, and the eager call with its
+    plain quantization of both operands is timed beside it. Ends with
+    the step's sums by pass (each shape times its uses, ``TRAIN_USES``)."""
+    from repro_torch.core import fp8
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.fp8_gemm import ops
+    tol = 2e-5
+    T = TRAIN["tokens"]
+    sms = registry.sm_count(dev)
+    rows = []
+    for what, (d_in, d_out) in ops.SERVED_KN.items():
+        w = (torch.randn(d_in, d_out, generator=gen, device=dev) * 0.02
+             ).bfloat16()
+        g2 = torch.randn(T, d_out, generator=gen, device=dev) * 1e-3
+        x2 = torch.randn(T, d_in, generator=gen, device=dev).bfloat16()
+        for kind, (a, b) in (("fwd", (x2, w)), ("dx", (g2, w.t())),
+                             ("dw", (x2.float().t(), g2))):
+            xq, xs, wq, ws = ops.operands(a, b)
+            M, K = xq.shape
+            N = wq.shape[1]
+            y = ops.fp8_gemm(xq, xs, wq, ws)
+            ref = ops.fp8_gemm.run_plain(xq, xs, wq, ws)
+            err, rel = max_err(torch, y, ref)
+            check(f"fp8_gemm backward {kind} {what}", rel, tol)
+            plan = ops.launch_plan(M, N, K, sms)
+            row = dict(shape=f"{kind} of {what}: M={M} K={K} N={N}",
+                       max_abs_err=err, rel_err=rel, tol=tol, plan=plan,
+                       weight=what, kind=kind)
+            row["ms"] = graph_ms(torch, [
+                lambda: ops.fp8_gemm(xq, xs, wq, ws)] * 10)
+            xb = fp8.dequant_tilewise(xq, xs).bfloat16()
+            wb = fp8.dequant_blockwise(wq, ws).bfloat16()
+            row["bf16_mm_ms"] = graph_ms(torch, [
+                lambda: torch.matmul(xb, wb)] * 10)
+            row["plain_ms"] = cuda_ms(torch, lambda: ops.fp8_gemm.run_plain(
+                xq, xs, wq, ws), 3)
+            # the whole product as the backward calls it (plain tensor
+            # quantization of both operands, then the kernel), eagerly
+            row["call_ms"] = cuda_ms(torch, lambda: ops.fp8_matmul(a, b), 5)
+            nbytes = M * K + M * (K // 128) * 4 + K * N + ws.numel() * 4 \
+                + M * N * 4
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                nbytes, 2 * M * N * K, "fp8")
+            row["bound16_ms"], _ = bound_ms(nbytes, 2 * M * N * K, "bf16")
+            row["library_ms"] = scaled_mm_ms(torch, xq, xs, wq, ws, ref)
+            split = (f"decode: {plan.grid} CTAs x {plan.per} units"
+                     if plan.mode == "decode" else
+                     f"prefill: {plan.grid} persistent CTAs over "
+                     f"{-(-M // 128) * -(-N // 128)} tiles, K split "
+                     f"{plan.maxc}")
+            lib = ("null" if row["library_ms"] is None
+                   else f"{row['library_ms']:.4f}")
+            row["uses"] = TRAIN_USES.get(what, 4)
+            log(f"[g.1] fp8_gemm {row['shape']}: max err {rel:.3g} of "
+                f"max|plain| (tol {tol:g}); {split}; graph "
+                f"{row['ms']:.4f} ms; bound {row['bound_ms']:.4f} ms at the "
+                f"fp8 rate ({row['bound_by']}), {row['bound16_ms']:.4f} at "
+                f"the fp16 rate; plain {row['plain_ms']:.4f} ms; "
+                f"scaled_mm {lib} ms; bf16 torch.matmul on the dequantized "
+                f"operands {row['bf16_mm_ms']:.4f} ms (kernel / matmul "
+                f"{row['ms'] / row['bf16_mm_ms']:.3f}); the eager call with "
+                f"its quantization {row['call_ms']:.4f} ms")
+            rows.append(row)
+            del xq, xs, wq, ws, y, ref, xb, wb
+        del w, g2, x2
+        torch.cuda.empty_cache()
+    for kind in ("fwd", "dx", "dw"):
+        rs = [r for r in rows if r["kind"] == kind]
+        k = sum(r["uses"] * r["ms"] for r in rs)
+        c = sum(r["uses"] * r["call_ms"] for r in rs)
+        b = sum(r["uses"] * r["bound16_ms"] for r in rs)
+        log(f"[g.1] a step's {kind} products ({sum(r['uses'] for r in rs)} "
+            f"launches): kernels {k:.2f} ms in graphs (fp16-rate bound "
+            f"{b:.2f} ms), the eager calls with their plain quantization "
+            f"{c:.2f} ms")
+    return rows
+
+
+def leaf_sums(torch, tree):
+    """One int64 sum of each leaf's bits (no copy of the leaf): a leaf
+    whose sum moved has changed."""
+    from repro_torch.train.optimizer import tree_items
+    out = {}
+    for path, t in tree_items(tree):
+        ints = {4: torch.int32, 2: torch.int16}[t.element_size()]
+        out[path] = int(t.view(ints).sum(dtype=torch.int64))
+    return out
+
+
+def train_step_profile(torch, tr):
+    """One more step of ``tr`` split in three profiled windows: the
+    forward (``Model.loss``), the backward (``torch.autograd.grad``) and
+    the optimizer with the router-bias update (``optimizer.update``), the
+    same calls in the order ``trainer.make_train_step`` makes them."""
+    from repro_torch.train import optimizer as optim
+    from repro_torch.train import schedule as sched
+    batch = {k: torch.from_numpy(v).to(tr.device)
+             for k, v in tr.data.batch_at(tr.step).items()}
+    items = optim.tree_items(tr.params)
+    leaves = [t for _, t in items]
+    st = {}
+    for t in leaves:
+        t.requires_grad_(True)
+
+    def fwd():
+        st["loss"], _ = tr.model.loss(tr.params, batch)
+
+    def bwd():
+        st["grads"] = torch.autograd.grad(st["loss"], leaves,
+                                          allow_unused=True)
+
+    fwd_ms = profile_device(torch, "[g.2] forward (Model.loss)", fwd, 1,
+                            "step")
+    bwd_ms = profile_device(torch, "[g.2] backward (autograd.grad)", bwd, 1,
+                            "step")
+    for t in leaves:
+        t.requires_grad_(False)
+    gtree = {}
+    for (path, _), g in zip(items, st.pop("grads")):
+        node = gtree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = g
+    tc = tr.tc
+    lr = sched.warmup_cosine(tr.step, peak_lr=tc.peak_lr, warmup=tc.warmup,
+                             total=tc.total_steps)
+
+    def opt():
+        optim.update(gtree, tr.opt_state, tr.params, lr=lr,
+                     weight_decay=tc.weight_decay, clip_norm=tc.clip_norm)
+
+    opt_ms = profile_device(torch, "[g.2] optimizer (AdamW, in place)", opt,
+                            1, "step")
+    tr.step += 1
+    return fwd_ms, bwd_ms, opt_ms
+
+
+def phase_train(torch):
+    """(g.2): the card's training config trained for ``TRAIN["steps"]``
+    steps through ``Trainer``; returns the backward launches of the run."""
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticCorpus
+    from repro_torch.kernels import registry
+    from repro_torch.train.optimizer import tree_items
+    from repro_torch.train.trainer import Trainer, TrainConfig
+
+    cfg = get_config(TRAIN["model"], **TRAIN["overrides"])
+    tc = TrainConfig(peak_lr=TRAIN["peak_lr"], warmup=TRAIN["warmup"],
+                     total_steps=TRAIN["steps"])
+    data = SyntheticCorpus(cfg.vocab_size, TRAIN["seq_len"],
+                           TRAIN["global_batch"], seed=tc.seed)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, tc, data=data, device="cuda")
+    torch.cuda.synchronize()
+    n = sum(t.numel() for _, t in tree_items(tr.params))
+    state_gb = 12 * n / 1e9
+    log(f"[g.2] {cfg.name} dense prefix ({cfg.num_layers} layers + MTP, "
+        f"d_model {cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), "
+        f"{n} parameters drawn on the card in {time.perf_counter() - t0:.2f}"
+        f" s; state {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated"
+        f" (10 B a parameter: {10 * n / 1e9:.2f} GB; with bf16 grads "
+        f"{state_gb:.2f} GB)")
+    dts = {(k, t.dtype) for k, tree in (("param", tr.params),
+                                         ("master", tr.opt_state.master),
+                                         ("m", tr.opt_state.m),
+                                         ("v", tr.opt_state.v))
+           for _, t in tree_items(tree)}
+    want = {("param", torch.bfloat16), ("master", torch.float32),
+            ("m", torch.bfloat16), ("v", torch.bfloat16)}
+    if dts != want:
+        raise AssertionError(f"state dtypes {sorted(map(str, dts))}, want "
+                             f"{sorted(map(str, want))}")
+    per_pass = fp8_linears(tr.model)
+    batch0 = {k: torch.from_numpy(v).cuda()
+              for k, v in data.batch_at(0).items()}
+    registry.reset_launch_counts()
+    with torch.no_grad():
+        tr.model.loss(tr.params, batch0)
+    fwd = registry.launch_counts()["fp8_gemm"]
+    log(f"[g.2] fp8_gemm launches of one forward pass: {fwd} (the FP8 "
+        f"linears by the specs: {per_pass})")
+    if fwd != per_pass:
+        raise AssertionError(f"forward launched fp8_gemm {fwd} times, the "
+                             f"specs hold {per_pass} FP8 linears")
+    del batch0
+    before = leaf_sums(torch, tr.opt_state.master)
+    step_ms, counts = [], []
+    for i in range(TRAIN["steps"]):
+        registry.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.run(1)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        c = registry.launch_counts()
+        counts.append(c)
+        if c["fp8_gemm"] != 3 * fwd or any(
+                v for k, v in c.items() if k != "fp8_gemm"):
+            raise AssertionError(f"step {i}: launches {c}, want fp8_gemm "
+                                 f"{3 * fwd} (3 per FP8 linear) only")
+        after = leaf_sums(torch, tr.opt_state.master)
+        moved = [p for p in after if after[p] != before[p]]
+        if i == 0 and moved:
+            raise AssertionError(f"step 0 runs at lr 0 but moved {moved}")
+        if i == 1 and len(moved) != len(after):
+            raise AssertionError("after step 1 the master copies of "
+                                 f"{sorted(set(after) - set(moved))} have "
+                                 "not changed")
+        before = after
+    h = tr.history
+    losses = [x["loss"] for x in h]
+    if len(h) != TRAIN["steps"] or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"losses {losses}")
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    if peak >= total:
+        raise AssertionError(f"peak memory {peak} >= the card's {total}")
+    tokens = TRAIN["global_batch"] * TRAIN["seq_len"]
+    steady = step_ms[2:]
+    log(f"[g.2] losses {[round(v, 4) for v in losses]}; ce "
+        f"{[round(x['ce'], 4) for x in h]}; mtp_loss "
+        f"{[round(x['mtp_loss'], 4) for x in h]}; grad_norm "
+        f"{[round(x['grad_norm'], 3) for x in h]}; lr "
+        f"{[x['lr'] for x in h]}")
+    log(f"[g.2] fp8_gemm launches a step {counts[-1]['fp8_gemm']} = 3 x "
+        f"{fwd} (forward, dx, dw); every master leaf unchanged after step 0 "
+        "(lr 0) and changed after step 1")
+    log(f"[g.2] ms a step {[round(v, 2) for v in step_ms]} (steps 1-6; "
+        f"steps 3-6 mean {np.mean(steady):.2f}, min {min(steady):.2f}); "
+        f"{tokens} tokens a step: {1e3 * tokens / np.mean(steady):.1f} "
+        f"tokens/s; peak memory {peak / 1e9:.2f} GB of the card's "
+        f"{total / 1e9:.2f} (state reckoned at {state_gb:.2f} GB, so "
+        f"{(peak / 1e9 - state_gb):.2f} GB of activations and temporaries)")
+    fwd_ms, bwd_ms, opt_ms = train_step_profile(torch, tr)
+    if None not in (fwd_ms, bwd_ms, opt_ms):
+        log(f"[g.2] profiled step (step 7): device forward {fwd_ms:.2f} ms,"
+            f" backward {bwd_ms:.2f}, optimizer {opt_ms:.2f}; "
+            f"{fwd_ms + bwd_ms + opt_ms:.2f} ms of device time")
+    back = sum(c["fp8_gemm"] - fwd for c in counts)
+    del tr
+    gc_cuda(torch)
+    return back, step_ms
+
+
+def gc_cuda(torch):
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def train_smoke_config(which):
+    """(g.3)'s small configs: (i) the dense prefix of (g.2) at smoke width,
+    bf16, FP8 through fp8_gemm (smoke d_ff 256 and the MTP projection's
+    2 x 128 reach the FP8 path); (ii) smoke DeepSeek-V3 with its MoE
+    layers, fp32, FP8 inline (``fp8_impl="ref"``): routing, dispatch and
+    the bias update on CUDA, plain."""
+    import dataclasses
+    from repro_torch.configs.base import get_config, smoke_config
+    if which == "dense":
+        return dataclasses.replace(
+            smoke_config(get_config(TRAIN["model"], **TRAIN["overrides"])),
+            dtype="bfloat16", param_dtype="bfloat16")
+    return smoke_config(get_config(TRAIN["model"]))
+
+
+# (g.3) tolerances, card (kernels, CUDA plain ops) against the CPU (plain
+# versions): the loss of each step within LOSS_TOL relative; each master
+# leaf after the steps within ADAM_SLACK x (the sum of the steps' lr) of
+# the CPU's, element by element: Adam moves an element by at most about
+# lr a step whatever its gradient (|m̂/√v̂| <= 1.0004 over these steps), so
+# an element whose gradient is near zero may step the other way on the
+# other device; and the direction of each leaf's whole update (master
+# after - master before) within cosine UPDATE_COS of the CPU's (a wrong
+# or transposed gradient would point elsewhere). Seen: least cosines
+# 0.985 (bf16, the embedding, whose gradient accumulates by atomics on
+# the card) and 0.996 (fp32).
+LOSS_TOL = 2e-2
+ADAM_SLACK = 2.1
+UPDATE_COS = 0.9
+
+
+def compare_training(torch, label, card, cpu):
+    """Gate one card run against its CPU twin (``train_on`` results)."""
+    from repro_torch.train import optimizer as optim
+    hc, m0, m1c, n_fp8 = card
+    hp, _, m1p, _ = cpu
+    lerr = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+               for a, b in zip(hc, hp))
+    slack = ADAM_SLACK * sum(x["lr"] for x in hp)
+    cos, worst, dmax = 1.0, None, 0.0
+    for (path, a1), (_, b1), (_, a0) in zip(
+            optim.tree_items(m1c), optim.tree_items(m1p),
+            optim.tree_items(m0)):
+        dmax = max(dmax, float((a1 - b1).abs().max()))
+        da, db = (a1 - a0).flatten(), (b1 - a0).flatten()
+        c = float(torch.nn.functional.cosine_similarity(
+            da.double(), db.double(), dim=0))
+        if c < cos:
+            cos, worst = c, path
+    log(f"[g.3] {label}: losses card {[round(x['loss'], 5) for x in hc]}, "
+        f"CPU {[round(x['loss'], 5) for x in hp]} (max rel err {lerr:.3g},"
+        f" tol {LOSS_TOL:g}); master leaves card vs CPU: max abs diff "
+        f"{dmax:.3g} (<= {slack:.3g}, {ADAM_SLACK} x the steps' lr), "
+        f"updates' cosine least {cos:.6f} at {'/'.join(worst)} (>= "
+        f"{UPDATE_COS}); fp8_gemm launches {n_fp8}")
+    if not (lerr <= LOSS_TOL and dmax <= slack and cos >= UPDATE_COS):
+        raise AssertionError(f"{label}: the card's training disagrees with "
+                             "the CPU's")
+
+
+def train_on(torch, cfg, params, dev, steps=3, **trainer_kw):
+    """``steps`` Trainer steps of ``cfg`` on ``dev`` from ``params`` (CPU
+    tensors, copied); returns (history, master before, master after, fp8
+    launches)."""
+    from repro_torch.kernels import registry
+    from repro_torch.train import optimizer as optim
+    from repro_torch.train.trainer import Trainer, TrainConfig
+    tc = TrainConfig(peak_lr=1e-3, warmup=1, total_steps=steps)
+    tr = Trainer(cfg, tc, global_batch=2, seq_len=32, device=dev,
+                 **trainer_kw)
+    tr.params = optim.tree_map(lambda t: t.to(dev, copy=True), params)
+    tr.opt_state = optim.init(tr.params)
+    m0 = optim.tree_map(lambda t: t.float().cpu().clone(),
+                        tr.opt_state.master)
+    registry.reset_launch_counts()
+    out = tr.run(steps)
+    fp8_n = registry.launch_counts()["fp8_gemm"]
+    m1 = optim.tree_map(lambda t: t.float().cpu(), tr.opt_state.master)
+    return out["history"], m0, m1, fp8_n
+
+
+def phase_train_reference(torch):
+    """(g.3): the card against the CPU on small inputs, and the trainer's
+    fault path on the card."""
+    import tempfile
+    from repro_torch.kernels.fp8_gemm import ops as fp8_ops
+    from repro_torch.kernels.moe_gemm import ops as moe_ops
+    from repro_torch.models.api import Model
+    from repro_torch.train.fault import FailureInjector
+    from repro_torch.train.trainer import Trainer, TrainConfig
+
+    for label, which, want_fp8 in (("(i) dense prefix, bf16, fp8_gemm",
+                                    "dense", True),
+                                   ("(ii) MoE, fp32, FP8 inline", "moe",
+                                    False)):
+        cfg = train_smoke_config(which)
+        params = Model(cfg, device="cpu").init(seed=1)
+        runs = {dev: train_on(torch, cfg, params, dev)
+                for dev in ("cuda", "cpu")}
+        n_fp8 = runs["cuda"][3]
+        per_step = 3 * fp8_linears(Model(cfg, device="meta"))
+        if n_fp8 != (3 * per_step if want_fp8 else 0):
+            raise AssertionError(f"{label}: fp8_gemm launched {n_fp8} times "
+                                 f"in 3 steps, want "
+                                 f"{3 * per_step if want_fp8 else 0}")
+        compare_training(torch, label, runs["cuda"], runs["cpu"])
+
+    cfg = train_smoke_config("dense")
+    with tempfile.TemporaryDirectory() as d:
+        tc = TrainConfig(peak_lr=1e-3, warmup=2, total_steps=30, ckpt_dir=d,
+                         ckpt_every=4, sdc_check_every=9)
+        tr = Trainer(cfg, tc, injector=FailureInjector({9: "node",
+                                                        18: "sdc"}),
+                     global_batch=2, seq_len=16, device="cuda")
+        out = tr.run(22)
+    log(f"[g.3] (iii) Trainer with checkpoints and FailureInjector({{9: "
+        f"node, 18: sdc}}) on the card: final_step {out['final_step']}, "
+        f"restarts {out['restarts']}, sdc_alarms {out['sdc_alarms']}, "
+        f"{len(out['history'])} steps run, last loss "
+        f"{out['history'][-1]['loss']:.4f}")
+    if (out["final_step"], out["restarts"], out["sdc_alarms"]) != (22, 1,
+                                                                  [18]):
+        raise AssertionError("the trainer's fault path on the card")
+    del tr
+
+    dev = torch.device("cuda")
+    x = torch.randn(4, 8, 256, device=dev, requires_grad=True)
+    w = torch.randn(4, 256, 128, device=dev).bfloat16()
+    for name, call in (("moe_gemm", lambda: moe_ops.grouped_matmul(
+            x.bfloat16(), w)),
+                       ("fp8_gemm", lambda: fp8_ops.fp8_matmul(x[0], w[0]))):
+        try:
+            call()
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+            log(f"[g.3] {name} with a grad-requiring input raises: "
+                f"{str(e)[:150]}")
+        else:
+            raise AssertionError(f"{name} launched on a grad-requiring "
+                                 "input: its gradients would be zero")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2800,6 +3276,13 @@ def main():
     ring = phase_ring(torch, card, kernels)
     for k in ("logfmt_encode", "logfmt_decode"):
         launches[k] = ring[k]            # per rank, one 8-bit call
+    gc_cuda(torch)
+    log(f"[g] {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated before "
+        "training")
+    backward = bench_fp8_train(torch, torch.device("cuda"),
+                               torch.Generator(device="cuda").manual_seed(7))
+    back_launches, _ = phase_train(torch)
+    phase_train_reference(torch)
 
     # one entry per kernel: the main path's shape (decode-time where the
     # kernel runs at decode; E4M3 codes and w1/w3 for moe_gemm, the fp8
@@ -2820,6 +3303,21 @@ def main():
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             shape=r["shape"]))
+    # fp8_gemm's backward products in training (g.1), at the FFN's
+    # w_gate/w_up as its forward row; launches: the backward's, over
+    # phase (g.2)'s run (dx and dw alike)
+    op = registry.get("fp8_gemm")
+    for r in backward:
+        if r["weight"] != "w_gate/w_up" or r["kind"] == "fwd":
+            continue
+        table.append(dict(
+            name="fp8_gemm", route="cuda",
+            source="src/repro_torch/csrc/fp8_gemm.cu",
+            replaces=op.replaces.split()[0], launches=back_launches // 2,
+            max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            shape=f"training backward, {r['shape']}"))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))
     print(card)

@@ -5,6 +5,11 @@
   for key into torch tensors with the dtypes kept (bf16 included). Tests
   use it so that any mismatch between the packages is the port's math,
   not its random numbers.
+* :func:`train_state_from_jax` carries a JAX training state (its
+  parameters and ``AdamWState``, numpy leaves) across as the port's
+  parameters and ``train.optimizer.AdamWState``, so both trainers can
+  start from one state; :func:`to_numpy` takes a port tree back to numpy
+  for comparisons.
 * :func:`prepare_for_serving` does, once at load, the weight work the
   reference repeats on every call: with ``cfg.fp8`` each expert and
   shared-expert weight is replaced by its straight-through 128x128-block
@@ -53,6 +58,36 @@ def params_from_jax(tree) -> Dict[str, Any]:
     if isinstance(tree, dict):
         return {k: params_from_jax(v) for k, v in tree.items()}
     return _to_torch(tree)
+
+
+def train_state_from_jax(params, opt_state, device="cpu"):
+    """A JAX ``(params, AdamWState)`` with numpy leaves -> the port's
+    ``(params, AdamWState)`` on ``device``, dtypes kept (fp32 master, bf16
+    moments). ``opt_state`` is read by field name (``step``, ``master``,
+    ``m``, ``v``); its ``None`` moment leaves (non-float parameters) have
+    no counterpart in the port, whose parameters are all floating."""
+    from repro_torch.train import optimizer as optim
+
+    def move(tree):
+        return optim.tree_map(lambda t: t.to(device), params_from_jax(tree))
+
+    state = optim.AdamWState(
+        _to_torch(opt_state.step).to(torch.int32).reshape(()).to(device),
+        move(opt_state.master), move(opt_state.m), move(opt_state.v))
+    return move(params), state
+
+
+def to_numpy(tree):
+    """Nested dicts (or NamedTuples) of tensors -> the same nesting of
+    numpy arrays, bf16 widened to fp32 (exact), for comparisons."""
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(to_numpy(v) for v in tree))
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()
 
 
 def _quantize_linear(w: torch.Tensor) -> fp8.Fp8Weight:

@@ -1,9 +1,12 @@
 """FP8 fine-grained mixed-precision path (paper §3.1, T4) — port of
-``repro.core.fp8`` (forward only; the backward GEMMs come with training).
+``repro.core.fp8``.
 
 * activations: 1x128 tile-wise scales along the contraction dim
 * weights:     128x128 block-wise scales
 * accumulation: fp32
+* gradients:   1x128 tile-wise E4M3 on both backward GEMMs
+  (:func:`fp8_linear` is an ``autograd.Function``, the reference's
+  ``custom_vjp``)
 
 Quantization is bitwise equal to the reference: the same fp32 amax, the
 same ``max(amax, 1e-12) / 448`` scale, the same IEEE division and the same
@@ -226,10 +229,13 @@ def qdq_block(w: torch.Tensor, block: int = BLOCK) -> torch.Tensor:
 
 
 def ste_qdq(x: torch.Tensor, qdq) -> torch.Tensor:
-    """Forward value of the reference's straight-through quant-dequant,
-    ``x + (qdq(x) - x)``, evaluated literally in x's dtype (in bf16 the two
-    roundings can differ from ``qdq(x)`` alone)."""
-    return x + (qdq(x) - x)
+    """The reference's straight-through quant-dequant, ``x + stop_grad(
+    qdq(x) - x)``: the forward value evaluated literally in x's dtype (in
+    bf16 the two roundings can differ from ``qdq(x)`` alone), the gradient
+    the identity."""
+    with torch.no_grad():
+        d = qdq(x) - x
+    return x + d
 
 
 def scaled_matmul_ref(xq, xs, wq, ws, tile: int = TILE) -> torch.Tensor:
@@ -256,8 +262,49 @@ def _matmul_qdq(x: torch.Tensor, w: Union[torch.Tensor, Fp8Weight],
     return scaled_matmul_ref(xq, xs, wq, ws)
 
 
+class _Fp8Linear(torch.autograd.Function):
+    """``y = Q(x) @ Q(w)`` with the reference's backward
+    (``_fp8_linear_bwd``): ``dx = Q_tile(g) @ Q_block(wᵀ)`` and ``dw =
+    Q_tile(x2ᵀ) @ Q_block(g2)``, x2 and g2 the token-flattened x and g
+    (the dw tiles run along the tokens). With ``impl="pallas"`` on a CUDA
+    tensor all three products are ``fp8_gemm`` launches
+    (``kernels/fp8_gemm/ops.fp8_matmul``); otherwise they are
+    ``scaled_matmul_ref``, as in the reference."""
+
+    @staticmethod
+    def forward(ctx, x, w, impl):
+        ctx.impl = impl
+        ctx.save_for_backward(x, w)
+        return _matmul_qdq(x, w, impl).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gf = g.float()
+        g2 = gf.reshape(-1, gf.shape[-1])
+        dx = dw = None
+        if ctx.impl == "pallas" and g.is_cuda:
+            from repro_torch.kernels.fp8_gemm import ops as fp8_ops
+            mm = fp8_ops.fp8_matmul
+        else:
+            def mm(a, b):
+                aq, as_ = quantize_tilewise(a)
+                bq, bs = quantize_blockwise(b)
+                return scaled_matmul_ref(aq, as_, bq, bs)
+        if ctx.needs_input_grad[0]:
+            dx = mm(g2, w.t()).reshape(*g.shape[:-1], w.shape[0])
+            dx = dx.to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            x2 = x.reshape(-1, x.shape[-1]).float()
+            dw = mm(x2.t(), g2).to(w.dtype)
+        return dx, dw, None
+
+
 def fp8_linear(x: torch.Tensor, w: Union[torch.Tensor, Fp8Weight],
                impl: str = "ref") -> torch.Tensor:
-    """FP8-path linear (forward). x: (..., d) bf16/f32, w: (d, f) or its
-    :class:`Fp8Weight`. Returns (..., f) in x.dtype."""
-    return _matmul_qdq(x, w, impl).to(x.dtype)
+    """FP8-path linear: forward and both backward GEMMs quantized (paper
+    recipe). x: (..., d) bf16/f32, w: (d, f) or its :class:`Fp8Weight`
+    (serving: frozen, no backward). Returns (..., f) in x.dtype."""
+    if isinstance(w, Fp8Weight) or not torch.is_grad_enabled():
+        return _matmul_qdq(x, w, impl).to(x.dtype)
+    return _Fp8Linear.apply(x, w, impl)

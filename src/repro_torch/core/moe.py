@@ -56,13 +56,13 @@ def moe_specs(cfg: ModelConfig, layers: int) -> dict:
 
 
 def ste_qdq_tile(x: torch.Tensor) -> torch.Tensor:
-    """Forward value of the straight-through 1x128-tile quant-dequant."""
+    """Straight-through 1x128-tile quant-dequant (activations)."""
     return fp8.ste_qdq(x, fp8.qdq_tile)
 
 
 def ste_qdq_block(w: torch.Tensor) -> torch.Tensor:
-    """Forward value of the straight-through 128x128-block quant-dequant
-    (per expert for a stacked ``(E, d, f)`` weight)."""
+    """Straight-through 128x128-block quant-dequant (weights; per expert
+    for a stacked ``(E, d, f)`` weight)."""
     return fp8.ste_qdq(w, fp8.qdq_block)
 
 
@@ -165,17 +165,19 @@ def dispatch_plan(expert_idx: torch.Tensor, E: int, C: int,
 
 def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig,
             valid: Optional[torch.Tensor] = None,
-            weights_qdq: bool = False
+            weights_qdq: bool = False, stats: bool = True
             ) -> Tuple[torch.Tensor, routing.RouteResult, torch.Tensor]:
     """Single-device MoE layer. x: (B, S, d) or (T, d). ``valid`` masks
     bucket-padding tokens out of the capacity contest. Returns (y,
-    route_result, drop_frac)."""
+    route_result, drop_frac); the route result carries ``load`` and
+    ``aux_loss`` when ``stats``."""
     mc = cfg.moe
     shape = x.shape
     xt = x.reshape(-1, shape[-1])
     T = xt.shape[0]
     rr = routing.route(xt, p["w_gate"], mc,
-                       bias=p.get("bias") if mc.router_bias else None)
+                       bias=p.get("bias") if mc.router_bias else None,
+                       stats=stats)
     C = capacity(T, mc)
     if valid is None:
         plan = dispatch_plan(rr.expert_idx, mc.num_experts, C)

@@ -1,11 +1,12 @@
 """Multi-Token Prediction module (paper §2.3.3, T6) — port of
-``repro.core.mtp`` for serving (the training loss comes with training).
+``repro.core.mtp``: the training loss and the serving draft.
 
 Each MTP module m (depth starts at 1) is a single extra transformer block:
 
     h'_k = W_proj [ RMSNorm(h_k) ; RMSNorm(Emb(t_{k+m})) ]
     h_k  = Block_m(h'_k)           -> logits for t_{k+m+1} (shared unemb)
 
+Training adds ``loss_weight``-scaled CE per module (:func:`mtp_losses`).
 At serving, module 1 drafts the token after the one the main model emits
 this step (same-step speculation, ``mtp_draft_tokens``); the fused decode
 loop verifies it against that step's sample and counts acceptances. The
@@ -45,6 +46,34 @@ def mtp_hidden(p_m: dict, h: torch.Tensor, emb_next: torch.Tensor, *,
                    rmsnorm(emb_next, p_m["norm_e"], cfg.rms_eps)], dim=-1)
     x = linear(x, p_m["w_proj"], cfg)
     return block_apply(p_m["block"], x, positions)
+
+
+def mtp_losses(p: dict, h: torch.Tensor, tokens: torch.Tensor,
+               emb_fn: Callable, unemb_fn: Callable, *, cfg: ModelConfig,
+               positions: torch.Tensor,
+               block_apply: Callable) -> torch.Tensor:
+    """Summed weighted CE over MTP depths. tokens: (B,S) inputs; the target
+    of depth m at position k is tokens[k+m+1] (the last m+1 positions,
+    whose targets wrap around, are masked out). Returns a scalar."""
+    n = cfg.mtp.num_modules
+    B, S = tokens.shape
+    total = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for m in range(1, n + 1):
+        # input tokens shifted by m: at position k we feed Emb(t_{k+m})
+        shifted = torch.roll(tokens, -m, dims=1)
+        h = mtp_hidden(layer(p, m - 1), h, emb_fn(shifted), cfg=cfg,
+                       positions=positions, block_apply=block_apply)
+        logits = unemb_fn(h).float()                     # (B,S,V)
+        targets = torch.roll(tokens, -(m + 1), dims=1).long()
+        valid = torch.arange(S, device=tokens.device) < S - (m + 1)
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, targets[..., None])[..., 0]
+        ce = torch.where(valid[None, :], lse - ll, 0.0)
+        # a device divisor: a true division on the card too
+        count = torch.tensor(float(max(max(S - (m + 1), 0) * B, 1)),
+                             device=tokens.device)
+        total = total + cfg.mtp.loss_weight / n * (ce.sum() / count)
+    return total
 
 
 def mtp_draft(p: dict, h_last: torch.Tensor, emb_next: torch.Tensor, *,

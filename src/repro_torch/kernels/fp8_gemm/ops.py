@@ -224,9 +224,19 @@ def _fp8_gemm_cuda(xq: torch.Tensor, xs: torch.Tensor, wq: torch.Tensor,
     return y
 
 
-def fp8_matmul(x: torch.Tensor,
-               w: Union[torch.Tensor, fp8.Fp8Weight]) -> torch.Tensor:
-    """y = Q(x) @ Q(w) in fp32. x: (M, K); w: (K, N) or its Fp8Weight."""
+def operands(x: torch.Tensor, w: Union[torch.Tensor, fp8.Fp8Weight]
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                        torch.Tensor]:
+    """``(xq, xs, wq, ws)`` of ``fp8_matmul(x, w)``: x quantized per 1x128
+    tile, w per 128x128 block (or as held by its Fp8Weight) and laid out
+    K-contiguous, K zero-padded to the 128 grid.
+
+    The training backward passes operands the forward never does: a
+    transposed, non-contiguous x (``x2ᵀ`` of the weight gradient), a plain
+    tensor as the "weight" (the gradient ``g2``, or ``wᵀ``), a token
+    count K that is no multiple of 128, and K = 64 (``w_kr``'s input
+    gradient). Each is quantized and laid out here as the forward lays
+    out an unprepared weight."""
     if isinstance(w, fp8.Fp8Weight):
         wq, ws = w.wq, w.ws
     else:
@@ -239,7 +249,13 @@ def fp8_matmul(x: torch.Tensor,
         # a multiple of 128 already)
         xq = _pad_fp8(xq, 1, BLOCK)
         wq = _pad_fp8(wq.t(), 1, BLOCK).t()      # stays K-contiguous
-    return fp8_gemm(xq, xs, wq, ws)
+    return xq, xs, wq, ws
+
+
+def fp8_matmul(x: torch.Tensor,
+               w: Union[torch.Tensor, fp8.Fp8Weight]) -> torch.Tensor:
+    """y = Q(x) @ Q(w) in fp32. x: (M, K); w: (K, N) or its Fp8Weight."""
+    return fp8_gemm(*operands(x, w))
 
 
 def _pad_fp8(q: torch.Tensor, dim: int, mult: int) -> torch.Tensor:

@@ -7,10 +7,19 @@ Port of ``repro.kernels.registry`` with the backend policy the card needs:
   * a CPU tensor goes to the op's plain PyTorch version.
 
 There is no environment switch and no ``try`` that falls back: which
-implementation runs is decided by where the data lives. Each op carries a
-plain-integer launch counter that grows by one each time the kernel is
-launched (:meth:`KernelOp.launch`), and nowhere else, so a run can show
-that its main path went through the kernels.
+implementation runs is decided by where the data lives.
+
+A kernel writes its output through ctypes, out of autograd's sight: a
+loss reaching one with grad enabled would get silently zero gradients.
+So a CUDA dispatch raises while grad mode is on and a tensor argument
+requires grad (inside an ``autograd.Function``, as the FP8 linear's
+``fp8_gemm`` launches run, grad mode is off). The plain versions
+differentiate, as the reference's do; its Pallas kernels have no VJP
+either.
+
+Each op carries a plain-integer launch counter that grows by one each
+time the kernel is launched (:meth:`KernelOp.launch`), and nowhere else,
+so a run can show that its main path went through the kernels.
 
 Under CUDA graph capture a launch runs nothing: the graph launches the
 kernel at each replay. So a capture is made inside :func:`tally`, which
@@ -67,6 +76,11 @@ def contiguous16(t: torch.Tensor) -> torch.Tensor:
     return t.clone() if t.data_ptr() % 16 else t
 
 
+# the ROADMAP item each kernel's backward waits for: training (A.9), and
+# for the experts expert parallelism (A.8)
+_BACKWARD_ITEM = {"moe_gemm": "A.8"}
+
+
 def _first_tensor(args, kwargs) -> torch.Tensor:
     for a in list(args) + list(kwargs.values()):
         if isinstance(a, torch.Tensor):
@@ -97,6 +111,15 @@ class KernelOp:
     def __call__(self, *args, **kwargs):
         dev = _first_tensor(args, kwargs).device
         if dev.type == "cuda":
+            if torch.is_grad_enabled() and any(
+                    isinstance(a, torch.Tensor) and a.requires_grad
+                    for a in list(args) + list(kwargs.values())):
+                raise RuntimeError(
+                    f"kernel {self.name!r} has no backward: its CUDA launch "
+                    "would give zero gradients. Training runs it only "
+                    "inside an autograd.Function (not ported yet: see "
+                    "ROADMAP.md, "
+                    f"{_BACKWARD_ITEM.get(self.name, 'A.9')})")
             return self._cuda(*args, **kwargs)
         if dev.type == "cpu":
             return self._plain(*args, **kwargs)

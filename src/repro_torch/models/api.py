@@ -3,6 +3,9 @@ for serving, MLA (DeepSeek-V3, with its MTP module) and GQA (qwen3-14b).
 
     specs() / init(seed)           ParamSpec dict (the reference's key
                                    names) and materialized tensors
+    loss(params, batch)            (scalar, metrics): teacher forcing with
+                                   the MTP loss and the MoE diagnostics,
+                                   differentiable (the training path)
     prefill(params, batch, extra_slots=, lengths=)  (last-position logits,
                                    cache); the bucketed form pad-masks the
                                    prompt, ``extra_slots`` widens the rings
@@ -205,22 +208,86 @@ class Model:
                     **self.impl_ctx)
 
     def _run_segment(self, seg: Segment, p, x, ctx, cache):
-        outs = []
+        """The segment's layers in turn. Returns (x, per-layer outputs,
+        stats): each MoE stat stacked over the layers, as the reference's
+        scan stacks them (``load`` (n, E)); {} where none."""
+        outs, stats = [], []
         for i in range(seg.n):
             c = None if cache is None else layer(cache, i)
-            x, out = tfm.block_apply(layer(p, i), x, self.cfg, ctx, c)
+            x, out, st = tfm.block_apply(layer(p, i), x, self.cfg, ctx, c)
             outs.append(out)
-        return x, outs
+            stats.append(st)
+        if not stats or not stats[0]:
+            return x, outs, {}
+        return x, outs, {k: torch.stack([st[k] for st in stats])
+                         for k in stats[0]}
 
     def _backbone(self, params, tokens, ctx, cache):
-        """Embed + all segments. Returns (h, per-segment layer outputs)."""
+        """Embed + all segments. Returns (h, per-segment layer outputs,
+        per-segment stats)."""
         x = self._embed(params, tokens)
-        outs = {}
+        outs, stats = {}, {}
         for seg in self.segments:
             c = cache.get(seg.name) if cache else None
-            x, outs[seg.name] = self._run_segment(seg, params[seg.name], x,
-                                                  ctx, c)
-        return x, outs
+            x, outs[seg.name], st = self._run_segment(
+                seg, params[seg.name], x, ctx, c)
+            if st:
+                stats[seg.name] = st
+        return x, outs, stats
+
+    # -- loss (training) -------------------------------------------------------
+    def _ce(self, params, h, labels):
+        """Mean CE of hidden states against labels (-1 = pad), logits in
+        fp32. Returns (loss, ntokens)."""
+        logits = self._unembed(params, h).float()
+        valid = labels >= 0
+        lab = torch.where(valid, labels, 0).long()
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, lab[..., None])[..., 0]
+        ce = torch.where(valid, lse - ll, 0.0)
+        ntok = valid.sum().clamp_min(1)
+        return ce.sum() / ntok, ntok
+
+    def loss(self, params, batch):
+        """Teacher-forcing loss (the reference's ``Model.loss``): CE, plus
+        the MTP loss on an MTP config. Differentiable: the training path.
+        Returns ``(loss, metrics)``: ``ce``, ``ntokens``, ``aux_loss``
+        (diagnostic, not in the loss), per MoE segment ``<seg>/drop_frac``
+        and ``<seg>/load_layers`` (n, E), and ``mtp_loss``.
+
+        Takes the raw weights (no ``prepare_for_serving``) and reads no
+        ``impl_ctx``: attention runs on the plain path, as the reference's
+        training does; the FP8 linears follow ``cfg.fp8_impl``."""
+        if params.get("prepared"):
+            raise ValueError("Model.loss takes the raw weights, not a tree "
+                             "made by bridge.prepare_for_serving")
+        cfg = self.cfg
+        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        labels = torch.as_tensor(batch["labels"], device=self.device)
+        B, S = tokens.shape
+        pos = torch.arange(S, dtype=torch.int32,
+                           device=self.device).expand(B, S)
+        ctx = dict(positions=pos, stats=True)
+        h, _, stats = self._backbone(params, tokens, ctx, None)
+        loss, ntok = self._ce(params, h, labels)
+        metrics: Dict[str, Any] = {"ce": loss.detach(), "ntokens": ntok}
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        for segname, st in stats.items():
+            aux = aux + st["aux_loss"].mean()
+            metrics[f"{segname}/drop_frac"] = st["drop"].mean()
+            metrics[f"{segname}/load_layers"] = st["load"]
+        metrics["aux_loss"] = aux
+        if cfg.mtp:
+            mtp_l = mtp_mod.mtp_losses(
+                params["mtp"], h, tokens,
+                emb_fn=lambda t: self._embed(params, t),
+                unemb_fn=lambda hh: self._unembed(params, hh),
+                cfg=cfg, positions=pos,
+                block_apply=lambda p, x, positions: tfm.block_apply(
+                    p, x, cfg, dict(ctx, positions=positions), None)[0])
+            metrics["mtp_loss"] = mtp_l.detach()
+            loss = loss + mtp_l
+        return loss, metrics
 
     # -- prefill ---------------------------------------------------------------
     @torch.no_grad()
@@ -247,7 +314,7 @@ class Model:
                                   device=self.device).expand(B)
         ctx = self._ctx(params, positions=pos, collect_cache=True,
                         valid=pos < lengths[:, None])
-        h, entries = self._backbone(params, tokens, ctx, None)
+        h, entries, _ = self._backbone(params, tokens, ctx, None)
         idx = (lengths - 1).clamp(0, S - 1).long()
         h_last = h[torch.arange(B, device=self.device), idx][:, None]
         logits = self._unembed(params, h_last)
@@ -307,7 +374,7 @@ class Model:
         entries = {}
 
         def bapply(pb, x, p_):
-            out, entries["e"] = tfm.block_apply(
+            out, entries["e"], _ = tfm.block_apply(
                 pb, x, cfg, dict(positions=p_, collect_cache=True,
                                  valid=pair_valid), None)
             return out
@@ -344,7 +411,7 @@ class Model:
         ctx = self._ctx(params, positions=positions)
         if "page_table" in cache:
             ctx["page_table"] = cache["page_table"]
-        h, _ = self._backbone(params, tokens, ctx, cache)
+        h, _, _ = self._backbone(params, tokens, ctx, cache)
         if self.cfg.mtp:
             cache["mtp_h"].copy_(h)
         return self._unembed(params, h), cache
@@ -571,7 +638,7 @@ class Model:
         # and ``valid`` brings the length to the MoE
         ctx = self._ctx(params, positions=positions, page_table=table,
                         valid=positions < lengths[:, None])
-        h, _ = self._backbone(params, tokens, ctx, cache)
+        h, _, _ = self._backbone(params, tokens, ctx, cache)
         idx = (lengths - 1 - positions[:, 0]).clamp(0, C - 1).long()
         h_last = h[torch.arange(B, device=dev), idx][:, None]
         if self.cfg.mtp:

@@ -2,7 +2,9 @@
 parts of ``repro.models.transformer`` the MLA and GQA archs run. Pre-norm
 residual blocks; ``*_block_specs(cfg, n)`` returns a ParamSpec dict whose
 leaves stack ``n`` layers on their leading axis; ``block_apply`` consumes
-one layer slice.
+one layer slice and returns, as the reference's, the layer's MoE stats
+beside its output and cache (``aux_loss``, ``load``, ``drop``; computed
+when ``ctx["stats"]`` is set: the loss sets it, serving reads none).
 """
 from __future__ import annotations
 
@@ -82,20 +84,25 @@ def _self_attention(p: dict, h: torch.Tensor, cfg: ModelConfig, ctx: dict,
 
 
 def _ffn(p: dict, h: torch.Tensor, cfg: ModelConfig, ctx: dict):
-    """Routed-MoE or dense FFN (single device)."""
+    """Routed-MoE or dense FFN (single device). Returns (y, stats)."""
     if "moe" in p:
-        y, _, _ = moe_mod.moe_ffn(p["moe"], h, cfg, valid=ctx.get("valid"),
-                                  weights_qdq=ctx.get("weights_qdq", False))
-        return y
-    return Lyr.mlp(p["mlp"], h, cfg)
+        stats = bool(ctx.get("stats"))
+        y, rr, drop = moe_mod.moe_ffn(
+            p["moe"], h, cfg, valid=ctx.get("valid"),
+            weights_qdq=ctx.get("weights_qdq", False), stats=stats)
+        if not stats:
+            return y, {}
+        return y, {"aux_loss": rr.aux_loss, "load": rr.load,
+                   "drop": drop.detach()}
+    return Lyr.mlp(p["mlp"], h, cfg), {}
 
 
 def block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: dict,
                 cache=None):
-    """Dense or MoE self-attention block. Returns (x, cache_out)."""
+    """Dense or MoE self-attention block. Returns (x, cache_out, stats)."""
     h, cache_out = _self_attention(p["attn"],
                                    Lyr.rmsnorm(x, p["ln1"], cfg.rms_eps),
                                    cfg, ctx, cache)
     x = x + h
-    f = _ffn(p, Lyr.rmsnorm(x, p["ln2"], cfg.rms_eps), cfg, ctx)
-    return x + f, cache_out
+    f, stats = _ffn(p, Lyr.rmsnorm(x, p["ln2"], cfg.rms_eps), cfg, ctx)
+    return x + f, cache_out, stats

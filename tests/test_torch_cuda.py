@@ -5,6 +5,9 @@ paged_mla_decode; qwen3-14b: flash_prefill, paged_gqa_decode; dense
 DeepSeek-V3 with MTP drafting: fp8_gemm, moe_gemm, mla_decode). The two
 LogFMT kernels of the compressed ring all-reduce are held against their
 plain versions here; the ring itself runs in phase (e) of chip_smoke.py.
+Training: the FP8 linear's forward, dx and dw through fp8_gemm against
+the plain products, a kernel on a grad-requiring input raising, and
+three trainer steps on the card against the CPU.
 Every test needs an NVIDIA GPU and nvcc (the kernels have no CPU mode) and
 skips without one.
 
@@ -111,6 +114,118 @@ def test_fp8_gemm_kernel_matches_plain(card, shape):
     xq, xs = fp8.quantize_tilewise(x)
     wq, ws = fp8.quantize_blockwise(w)
     assert _rel_err(y, fp8.scaled_matmul_ref(xq, xs, wq, ws)) <= FP32_TOL
+
+
+# the FP8 linears of the card's training config (DeepSeek-V3's dense prefix
+# at published widths): (d_in, d_out) per weight, at T = 1024 tokens (2 x
+# 512) and at a token count that is no multiple of 128
+TRAIN_LINEARS = sorted(fp8_ops.SERVED_KN.items())
+
+
+@pytest.mark.parametrize("T", [1024, 200])
+@pytest.mark.parametrize("weight,dims", TRAIN_LINEARS)
+def test_fp8_linear_backward_through_fp8_gemm(card, weight, dims, T):
+    """The FP8 linear's forward and both backward GEMMs on the kernel
+    (``impl="pallas"``: three ``fp8_gemm`` launches) against the same
+    products on the plain version (``impl="ref"``: ``scaled_matmul_ref``)
+    on the card, same operands: dx (T, K=d_out) x (d_out, d_in), including
+    ``w_kr``'s K = 64; dw (d_in, K=T) x (T, d_out), x2ᵀ a transposed view,
+    M up to ``w_down``'s 18432."""
+    d_in, d_out = dims
+    g = torch.Generator(device=card).manual_seed(3)
+    x = torch.randn(2, T // 2, d_in, generator=g, device=card).bfloat16()
+    w = (torch.randn(d_in, d_out, generator=g, device=card) * 0.02
+         ).bfloat16()
+    ct = (torch.randn(2, T // 2, d_out, generator=g, device=card) * 1e-2
+          ).bfloat16()
+    out = {}
+    for impl in ("pallas", "ref"):
+        a = x.clone().requires_grad_(True)
+        b = w.clone().requires_grad_(True)
+        before = fp8_ops.fp8_gemm.launches
+        y = fp8.fp8_linear(a, b, impl)
+        dx, dw = torch.autograd.grad(y, (a, b), ct)
+        launched = fp8_ops.fp8_gemm.launches - before
+        assert launched == (3 if impl == "pallas" else 0)
+        assert (y.dtype, dx.dtype, dw.dtype) == (torch.bfloat16,) * 3
+        out[impl] = (y, dx, dw)
+    # bf16 outputs of fp32 products within 2e-5 of each other: one bf16
+    # rounding apart at most
+    for got, ref in zip(out["pallas"], out["ref"]):
+        assert _rel_err(got.detach(), ref.detach()) <= BF16_TOL
+
+
+def test_fp8_linear_backward_products_match_plain_in_fp32(card):
+    """The backward's products themselves, fp32, at w_down's dw (M =
+    18432, K = 1024 tokens) and w_kr's dx (K = 64): within 2e-5."""
+    g = torch.Generator(device=card).manual_seed(4)
+    x2 = torch.randn(1024, 18432, generator=g, device=card).bfloat16()
+    g2 = torch.randn(1024, 7168, generator=g, device=card) * 1e-3
+    wkr = (torch.randn(7168, 64, generator=g, device=card) * 0.02
+           ).bfloat16()
+    gkr = torch.randn(1024, 64, generator=g, device=card) * 1e-3
+    for a, b in ((x2.float().t(), g2), (gkr, wkr.t())):
+        args = fp8_ops.operands(a, b)
+        assert _rel_err(fp8_ops.fp8_gemm(*args),
+                        fp8_ops.fp8_gemm.run_plain(*args)) <= FP32_TOL
+
+
+def test_kernels_raise_under_autograd(card):
+    """A kernel launch writes out of autograd's sight: with grad enabled and
+    an input requiring grad, the CUDA dispatch raises (the experts' names
+    ROADMAP A.8, the others A.9); under no_grad it launches."""
+    x = torch.randn(4, 8, 256, device=card, requires_grad=True)
+    w = torch.randn(4, 256, 128, device=card).bfloat16()
+    with pytest.raises(RuntimeError, match="A.8"):
+        moe_ops.grouped_matmul(x.bfloat16(), w)
+    with pytest.raises(RuntimeError, match="A.9"):
+        fp8_ops.fp8_matmul(x[0], w[0].float())
+    with torch.no_grad():
+        assert moe_ops.grouped_matmul(x.bfloat16(), w).shape == (4, 8, 128)
+        assert fp8_ops.fp8_matmul(x[0], w[0].float()).shape == (8, 128)
+
+
+def test_train_steps_on_the_card_match_the_cpu(card):
+    """Three Trainer steps of the dense prefix at smoke width, bf16, FP8
+    through fp8_gemm, on the card and on the CPU from one state, held as
+    chip_smoke.py (g.3) holds them: losses within 2e-2 relative; each
+    master leaf within 2.1 x the steps' summed lr of the CPU's element by
+    element (Adam moves an element by at most about lr a step, whatever
+    its gradient, so an element with a near-zero gradient may step the
+    other way on the other device); each leaf's update within cosine 0.9
+    of the CPU's."""
+    import dataclasses
+    from repro_torch.models.api import Model
+    from repro_torch.train import optimizer as optim
+    from repro_torch.train.trainer import Trainer, TrainConfig
+    cfg = dataclasses.replace(smoke_config(get_config(
+        "deepseek-v3-671b", family="dense", moe=None, num_layers=3,
+        fp8_impl="pallas")), dtype="bfloat16", param_dtype="bfloat16")
+    params = Model(cfg, device="cpu").init(seed=1)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        tr = Trainer(cfg, TrainConfig(peak_lr=1e-3, warmup=1, total_steps=3),
+                     global_batch=2, seq_len=32, device=dev)
+        tr.params = optim.tree_map(lambda t: t.to(dev, copy=True), params)
+        tr.opt_state = optim.init(tr.params)
+        before = fp8_ops.fp8_gemm.launches
+        out = tr.run(3)
+        runs[dev] = (out["history"], tr.opt_state.master,
+                     fp8_ops.fp8_gemm.launches - before)
+    (hc, mc, nc), (hp, mp, npl) = runs["cuda"], runs["cpu"]
+    assert nc == 3 * 3 * 5 and npl == 0   # 5 FP8 linears, 3 GEMMs, 3 steps
+    for a, b in zip(hc, hp):
+        assert abs(a["loss"] - b["loss"]) <= 2e-2 * abs(b["loss"])
+    slack = 2.1 * sum(x["lr"] for x in hp)
+    p0 = dict(optim.tree_items(params))
+    cpu = dict(optim.tree_items(mp))
+    for path, m in optim.tree_items(mc):
+        d0, m = p0[path].float(), m.cpu()
+        assert float((m - cpu[path]).abs().max()) <= slack, path
+        cos = torch.nn.functional.cosine_similarity(
+            (m - d0).flatten().double(), (cpu[path] - d0).flatten().double(),
+            dim=0)
+        assert float(cos) >= 0.9, path
 
 
 def _spread_weights(g, E, D, F, device):
