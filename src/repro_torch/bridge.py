@@ -164,18 +164,34 @@ def expert_storage(params: Dict[str, Any]) -> Dict[str, int]:
 
 
 def prepare_for_serving(params: Dict[str, Any], cfg: ModelConfig, *,
-                        inplace: bool = False) -> Dict[str, Any]:
+                        inplace: bool = False,
+                        specs: Any = None) -> Dict[str, Any]:
     """Load-time weight preparation (see the module docstring). Returns a
     new tree marked ``"prepared": True``; the model then skips the per-call
     expert qdq. ``inplace=True`` overwrites the expert tensors of
     ``params`` instead of copying them (for an engine that owns its
     weights: no second copy of the expert wall). A tree already prepared
-    is returned as it is."""
+    is returned as it is.
+
+    ``params`` may be a mesh rank's slice of the tree whose global
+    ``ParamSpec``s are ``specs`` (the FP8 choice then reads the global
+    input width): valid where every cut of a block-quantized weight falls
+    on 128 boundaries (``parallel/sharding.block_cuts_ok``), since the
+    block quantization of such a slice is the slice of the global one.
+    Elsewhere a mesh prepares the global tree and cuts it."""
     if params.get("prepared"):
         return params
     if not cfg.fp8:
         return dict(params, prepared=True)
     fallbacks = 0
+
+    def d_in(path, k, v):
+        spec = specs
+        if spec is None:
+            return v.shape[1]
+        for key in path + (k,):
+            spec = spec[key]
+        return spec.shape[1]
 
     def walk(tree, path):
         nonlocal fallbacks
@@ -193,7 +209,7 @@ def prepare_for_serving(params: Dict[str, Any], cfg: ModelConfig, *,
             elif k in ("w1", "w3", "w2", "ws1", "ws3", "ws2") \
                     and "moe" in path:
                 out[k] = _qdq_experts(v, inplace)
-            elif (v.dim() == 3 and v.shape[1] >= 256
+            elif (v.dim() == 3 and d_in(path, k, v) >= 256
                   and any(s in path for s in _LINEAR_SUBTREES)):
                 out[k] = _quantize_linear(v)
             else:

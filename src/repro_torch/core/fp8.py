@@ -26,7 +26,7 @@ their straight-through forward value is exactly ``code x scale``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -166,16 +166,22 @@ def _pad_to(x: torch.Tensor, dim: int, mult: int) -> torch.Tensor:
     return torch.cat([x, x.new_zeros(shape)], dim=dim)
 
 
-def quantize_tilewise(x: torch.Tensor, tile: int = TILE
+def quantize_tilewise(x: torch.Tensor, tile: int = TILE,
+                      amax: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Quantize along the last axis in 1 x ``tile`` groups.
 
     Returns ``(q, scale)``: q (E4M3) of x's shape, scale fp32 of shape
-    ``x.shape[:-1] + (ceil(d/tile),)``."""
+    ``x.shape[:-1] + (ceil(d/tile),)``. ``amax`` (that shape) overrides
+    each tile's own: a tensor-parallel rank holding part of a tile
+    quantizes with the whole tile's amax, taken over the ranks."""
     d = x.shape[-1]
     xp = _pad_to(x.float(), -1, tile)
     t = xp.reshape(*xp.shape[:-1], -1, tile)
-    amax = t.abs().amax(dim=-1, keepdim=True)
+    if amax is None:
+        amax = t.abs().amax(dim=-1, keepdim=True)
+    else:
+        amax = amax.float()[..., None]
     scale = amax.clamp_min(1e-12) / E4M3_MAX
     q = (t / scale).to(E4M3)
     q = q.reshape(xp.shape)[..., :d]
@@ -248,17 +254,22 @@ def scaled_matmul_ref(xq, xs, wq, ws, tile: int = TILE) -> torch.Tensor:
     return torch.matmul(x, w)
 
 
-def _matmul_qdq(x: torch.Tensor, w: Union[torch.Tensor, Fp8Weight],
-                impl: str) -> torch.Tensor:
-    """y = Q(x) @ Q(w) with fine-grained scales, fp32 accumulation."""
+def matmul_qdq(x: torch.Tensor, w: Union[torch.Tensor, Fp8Weight],
+               impl: str, x_amax: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
+    """y = Q(x) @ Q(w) with fine-grained scales, fp32 accumulation, in
+    fp32. ``x_amax``: the tile amaxes to quantize x with (see
+    :func:`quantize_tilewise`)."""
     if impl == "pallas":
         from repro_torch.kernels.fp8_gemm import ops as fp8_ops
         shape = x.shape
-        y = fp8_ops.fp8_matmul(x.reshape(-1, shape[-1]), w)
+        y = fp8_ops.fp8_matmul(
+            x.reshape(-1, shape[-1]), w,
+            None if x_amax is None else x_amax.reshape(-1, x_amax.shape[-1]))
         return y.reshape(*shape[:-1], y.shape[-1])
     wq, ws = ((w.wq, w.ws) if isinstance(w, Fp8Weight)
               else quantize_blockwise(w))
-    xq, xs = quantize_tilewise(x)
+    xq, xs = quantize_tilewise(x, amax=x_amax)
     return scaled_matmul_ref(xq, xs, wq, ws)
 
 
@@ -275,7 +286,7 @@ class _Fp8Linear(torch.autograd.Function):
     def forward(ctx, x, w, impl):
         ctx.impl = impl
         ctx.save_for_backward(x, w)
-        return _matmul_qdq(x, w, impl).to(x.dtype)
+        return matmul_qdq(x, w, impl).to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -306,5 +317,5 @@ def fp8_linear(x: torch.Tensor, w: Union[torch.Tensor, Fp8Weight],
     recipe). x: (..., d) bf16/f32, w: (d, f) or its :class:`Fp8Weight`
     (serving: frozen, no backward). Returns (..., f) in x.dtype."""
     if isinstance(w, Fp8Weight) or not torch.is_grad_enabled():
-        return _matmul_qdq(x, w, impl).to(x.dtype)
+        return matmul_qdq(x, w, impl).to(x.dtype)
     return _Fp8Linear.apply(x, w, impl)

@@ -23,7 +23,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import paged
 from repro_torch.device import torch_dtype
 from repro_torch.models.layers import (apply_rope, attention_scores, linear,
-                                       raw, rmsnorm)
+                                       page_write_step, raw, rmsnorm)
 from repro_torch.models.param import ParamSpec
 
 
@@ -49,10 +49,16 @@ def mla_specs(cfg: ModelConfig, layers: int) -> dict:
     }
 
 
+def _heads(p: dict, cfg: ModelConfig) -> int:
+    """This rank's query heads (all of them on a single device)."""
+    m = cfg.mla
+    return p["w_uq"].shape[-1] // (m.qk_nope_dim + m.qk_rope_dim)
+
+
 def _queries(p: dict, x: torch.Tensor, cfg: ModelConfig,
              positions: torch.Tensor):
     m = cfg.mla
-    nh = cfg.num_heads
+    nh = _heads(p, cfg)
     cq = rmsnorm(linear(x, p["w_dq"], cfg), p["q_norm"], cfg.rms_eps)
     q = linear(cq, p["w_uq"], cfg)
     q = q.reshape(*q.shape[:-1], nh, m.qk_nope_dim + m.qk_rope_dim)
@@ -77,7 +83,7 @@ def mla_attention(p: dict, x: torch.Tensor, *, cfg: ModelConfig,
     out (B, S, d) and optionally the latent cache entries (ckv (B,S,rank),
     kr (B,S,rope))."""
     m = cfg.mla
-    nh = cfg.num_heads
+    nh = _heads(p, cfg)
     B, S, _ = x.shape
     q_nope, q_rope = _queries(p, x, cfg, positions)
     ckv, kr = _latents(p, x, cfg, positions)
@@ -92,7 +98,7 @@ def mla_attention(p: dict, x: torch.Tensor, *, cfg: ModelConfig,
     out = attention_scores(qq, kk, v, causal=True, q_pos=positions,
                            k_pos=positions, scale=scale)
     out = out.reshape(B, S, nh * m.v_head_dim).to(x.dtype)
-    out = linear(out, p["w_o"], cfg)
+    out = linear(out, p["w_o"], cfg, tp="row")
     if return_cache_entries:
         return out, (ckv, kr)
     return out
@@ -150,7 +156,7 @@ def init_paged_mla_cache(cfg: ModelConfig, layers: int, pool_pages: int,
 
 def _absorb_queries(p: dict, q_nope: torch.Tensor, cfg: ModelConfig):
     """q_abs[h] = q_nope[h] @ W_uk[h]^T — queries into latent space."""
-    m, nh = cfg.mla, cfg.num_heads
+    m, nh = cfg.mla, _heads(p, cfg)
     w_uk = raw(p["w_uk"]).reshape(m.kv_lora_rank, nh, m.qk_nope_dim)
     return torch.einsum("bshn,chn->bshc", q_nope.float(), w_uk.float())
 
@@ -180,12 +186,12 @@ def _absorbed_attention(q_abs, q_rope, ckv, kr, valid, cfg: ModelConfig):
 def _absorbed_out(p: dict, o_lat: torch.Tensor, x: torch.Tensor,
                   cfg: ModelConfig) -> torch.Tensor:
     """Absorb W_uv on the way out: out[h] = o_lat[h] @ W_uv[h]."""
-    m, nh = cfg.mla, cfg.num_heads
+    m, nh = cfg.mla, _heads(p, cfg)
     B, S = o_lat.shape[:2]
     w_uv = raw(p["w_uv"]).reshape(m.kv_lora_rank, nh, m.v_head_dim)
     out = torch.einsum("bshc,chv->bshv", o_lat, w_uv.float())
     out = out.reshape(B, S, nh * m.v_head_dim).to(x.dtype)
-    return linear(out, p["w_o"], cfg)
+    return linear(out, p["w_o"], cfg, tp="row")
 
 
 def mla_decode_step(p: dict, cache: dict, x: torch.Tensor, *,
@@ -228,8 +234,8 @@ def mla_decode_step(p: dict, cache: dict, x: torch.Tensor, *,
 
 def mla_paged_decode_step(p: dict, cache: dict, x: torch.Tensor, *,
                           cfg: ModelConfig, positions: torch.Tensor,
-                          page_table: torch.Tensor,
-                          impl: str = "xla") -> Tuple[torch.Tensor, dict]:
+                          page_table: torch.Tensor, impl: str = "xla",
+                          dp_write=None) -> Tuple[torch.Tensor, dict]:
     """Paged absorbed-form decode of one token per slot, or a chunk of S > 1.
 
     cache: one layer's pool slice — ckv/kr ``(P+1, page, ...)`` plus
@@ -254,7 +260,8 @@ def mla_paged_decode_step(p: dict, cache: dict, x: torch.Tensor, *,
 
     def write(name, vals):
         if S == 1:
-            paged.page_write(cache[name], page_table, qpos, vals[:, 0])
+            page_write_step(cache[name], page_table, qpos, vals[:, 0],
+                            dp_write)
         else:
             paged.page_write_chunk(cache[name], page_table, qpos, vals)
 

@@ -27,6 +27,8 @@ from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.core import fp8, routing
 from repro_torch.models.layers import act_fn
 from repro_torch.models.param import ParamSpec
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel import context as pctx
 
 
 def moe_specs(cfg: ModelConfig, layers: int) -> dict:
@@ -92,6 +94,10 @@ def expert_ffn(xbuf: torch.Tensor, w1, w3, w2, cfg: ModelConfig,
 
 def shared_expert(p: dict, x: torch.Tensor, cfg: ModelConfig,
                   weights_qdq: bool = False) -> torch.Tensor:
+    """The always-on shared expert. Under a mesh ctx with a model axis it
+    is tensor-parallel over ``mlp`` (this rank's column slices of ``ws1``,
+    ``ws3``, its row slice of ``ws2``): the fp32 partials of the last
+    product are summed over the model group, then rounded once."""
     if "ws1" not in p:
         return torch.zeros_like(x)
     w1, w3, w2 = p["ws1"], p["ws3"], p["ws2"]
@@ -101,7 +107,10 @@ def shared_expert(p: dict, x: torch.Tensor, cfg: ModelConfig,
             w1, w3, w2 = map(ste_qdq_block, (w1, w3, w2))
     dt = x.dtype
     h = act_fn(cfg.act)(x @ w1.to(dt)) * (x @ w3.to(dt))
-    return h @ w2.to(dt)
+    group = pctx.get().tp_group
+    if group is None:
+        return h @ w2.to(dt)
+    return coll.all_reduce(h.float() @ w2.float(), group).to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -109,19 +118,26 @@ def shared_expert(p: dict, x: torch.Tensor, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 
-def capacity(tokens: int, mc: MoEConfig) -> int:
-    """Static per-expert capacity-buffer rows for ``tokens`` assignments,
-    floored at 8 and rounded up to a multiple of 8 (reference rule)."""
-    c = int(math.ceil(tokens * mc.top_k / mc.num_experts
-                      * mc.capacity_factor))
+def capacity(tokens: int, mc: MoEConfig, experts: Optional[int] = None,
+             k: Optional[int] = None) -> int:
+    """Static per-expert capacity-buffer rows for ``tokens`` assignments
+    over ``experts`` buckets (default: the config's experts) with ``k``
+    choices a token (default: top-k), floored at 8 and rounded up to a
+    multiple of 8 (reference rule). The EP dispatch sizes its column,
+    group and local-expert buffers with it."""
+    e = experts or mc.num_experts
+    c = int(math.ceil(tokens * (k or mc.top_k) / e * mc.capacity_factor))
     return max(8, -(-c // 8) * 8)
 
 
-def capacity_dynamic(tokens: torch.Tensor, mc: MoEConfig) -> torch.Tensor:
+def capacity_dynamic(tokens: torch.Tensor, mc: MoEConfig,
+                     experts: Optional[int] = None,
+                     k: Optional[int] = None) -> torch.Tensor:
     """``capacity`` for a token count held in a tensor (bucketed prefill):
     the keep threshold an exact-length dispatch would get."""
-    c = torch.ceil(tokens.float() * mc.top_k * mc.capacity_factor
-                   / mc.num_experts).to(torch.int64)
+    e = experts or mc.num_experts
+    c = torch.ceil(tokens.float() * (k or mc.top_k) * mc.capacity_factor
+                   / e).to(torch.int64)
     return torch.clamp_min(-(-c // 8) * 8, 8)
 
 

@@ -52,6 +52,18 @@ def pages_for(tokens: int, page_size: int) -> int:
     return -(-tokens // page_size)
 
 
+def pool_model_axes(leaf_name: str, ndim: int):
+    """Model-axis shardability of one pool leaf, declared by name: GQA K/V
+    pools ``(layers, P+1, page, KV, hd)`` can shard their KV-head axis over
+    the model axis; per-token scale sidebands ``(layers, P+1, page)`` and
+    the MLA latent/rope pools (no head axis: the latent is shared by every
+    head) replicate. The page axis is never sharded: admission scatters
+    and decode gathers index physical page ids."""
+    if leaf_name in ("k", "v") and ndim == 5:
+        return 3
+    return None
+
+
 def e4m3_decode(q: torch.Tensor) -> torch.Tensor:
     """E4M3 (or its uint8 bytes) -> fp32 through a 256-entry table indexed
     by the raw byte: bit-identical to the value cast for every code (the
@@ -73,14 +85,18 @@ def _to_store(pool: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     return vals.to(pool.dtype)
 
 
-def quantize_vecs(x: torch.Tensor, vec_ndim: int = 1
+def quantize_vecs(x: torch.Tensor, vec_ndim: int = 1, reduce=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-token-vector FP8 quantization: the trailing ``vec_ndim`` axes
     form one token's vector. Returns ``(q E4M3 of x's shape, scale fp32 of
-    the token shape)``; bitwise equal to the reference."""
+    the token shape)``; bitwise equal to the reference. ``reduce`` maps
+    this rank's amaxes to the whole vector's, where a mesh rank holds a
+    slice of each vector (GQA K/V over their KV heads)."""
     xf = x.float()
     dims = tuple(range(x.dim() - vec_ndim, x.dim()))
     amax = xf.abs().amax(dim=dims)
+    if reduce is not None:
+        amax = reduce(amax)
     scale = amax.clamp_min(1e-12) / E4M3_MAX
     q = (xf / scale.reshape(scale.shape + (1,) * vec_ndim)).to(E4M3)
     return q, scale
@@ -166,8 +182,8 @@ def gather_dequant(pool: torch.Tensor, scale_pool: torch.Tensor,
 
 
 def entries_to_pages(leaf: torch.Tensor, page_size: int, storage: str,
-                     store_dtype: torch.dtype,
-                     vec_ndim: int = 1) -> Dict[str, torch.Tensor]:
+                     store_dtype: torch.dtype, vec_ndim: int = 1,
+                     reduce=None) -> Dict[str, torch.Tensor]:
     """Reshape a batch-1 prefill cache leaf ``(n, 1, T, ...)`` into page
     data ``{"q": (n, T//page, page, ...)}`` plus ``{"scale": ...}`` for fp8
     storage. Pad rows (zeroed by prefill assembly) quantize to zero."""
@@ -178,7 +194,7 @@ def entries_to_pages(leaf: torch.Tensor, page_size: int, storage: str,
                          f"page size {page_size}")
     paged = leaf.reshape(n, T // page_size, page_size, *leaf.shape[3:])
     if storage == "fp8":
-        q, s = quantize_vecs(paged, vec_ndim)
+        q, s = quantize_vecs(paged, vec_ndim, reduce)
         return {"q": q, "scale": s}
     return {"q": paged.to(store_dtype)}
 

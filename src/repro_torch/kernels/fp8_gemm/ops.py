@@ -224,7 +224,8 @@ def _fp8_gemm_cuda(xq: torch.Tensor, xs: torch.Tensor, wq: torch.Tensor,
     return y
 
 
-def operands(x: torch.Tensor, w: Union[torch.Tensor, fp8.Fp8Weight]
+def operands(x: torch.Tensor, w: Union[torch.Tensor, fp8.Fp8Weight],
+             x_amax: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                         torch.Tensor]:
     """``(xq, xs, wq, ws)`` of ``fp8_matmul(x, w)``: x quantized per 1x128
@@ -242,7 +243,7 @@ def operands(x: torch.Tensor, w: Union[torch.Tensor, fp8.Fp8Weight]
     else:
         wq, ws = fp8.quantize_blockwise(w)
         wq = fp8.k_major(wq)
-    xq, xs = fp8.quantize_tilewise(x)
+    xq, xs = fp8.quantize_tilewise(x, amax=x_amax)
     if xq.shape[1] % BLOCK:
         # K to the 128 grid: padding quantizes to zeros, so it changes
         # neither the tile/block scales nor the product (every served K is
@@ -253,9 +254,12 @@ def operands(x: torch.Tensor, w: Union[torch.Tensor, fp8.Fp8Weight]
 
 
 def fp8_matmul(x: torch.Tensor,
-               w: Union[torch.Tensor, fp8.Fp8Weight]) -> torch.Tensor:
-    """y = Q(x) @ Q(w) in fp32. x: (M, K); w: (K, N) or its Fp8Weight."""
-    return fp8_gemm(*operands(x, w))
+               w: Union[torch.Tensor, fp8.Fp8Weight],
+               x_amax: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """y = Q(x) @ Q(w) in fp32. x: (M, K); w: (K, N) or its Fp8Weight;
+    ``x_amax`` (M, ceil(K/128)): x's tile amaxes, where a tensor-parallel
+    rank holds part of each tile."""
+    return fp8_gemm(*operands(x, w, x_amax))
 
 
 def _pad_fp8(q: torch.Tensor, dim: int, mult: int) -> torch.Tensor:

@@ -27,6 +27,15 @@ reference); the port walks them with a Python loop where the reference
 scans. PyTorch runs eagerly, so ``decode_loop`` is a loop of ``k`` steps
 whose state stays on the card: the host reads it once per chunk.
 
+Under a mesh ctx (``pctx=`` of ``prefill``, ``decode_step`` and
+``decode_loop``; ``parallel/context``) the params and caches are this
+rank's shards and the layers issue the tensor-parallel collectives; the
+embedding lookup is masked to this rank's vocab rows and summed over the
+model group, and the vocab-sharded logits are gathered, so every rank
+samples the same token. A decode whose slots are split over the data axis
+(``batch_sharded``) reads its own page-table rows and writes every data
+row's new rows into the replicated pool.
+
 Sampling: greedy is exact argmax. ``temperature > 0`` draws with the
 port's own counter-based generator keyed by ``(request seed, stream
 index)`` — the reference's invariant (a token's draw depends only on its
@@ -36,6 +45,7 @@ not its bits (the reference uses threefry).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -48,6 +58,8 @@ from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import layers as Lyr
 from repro_torch.models import transformer as tfm
 from repro_torch.models.param import ParamSpec, init_params, layer
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel import context as pctx_mod
 
 # ---------------------------------------------------------------------------
 # Sampling
@@ -148,6 +160,16 @@ def _kind_cache(cfg: ModelConfig, seg: Segment, batch: int, max_len: int,
     return Lyr.init_gqa_cache(cfg, seg.n, batch, max_len, device)
 
 
+def _under_pctx(fn):
+    """A Model entry point run under the mesh ctx of its ``pctx=`` keyword
+    (none given: the current one)."""
+    @functools.wraps(fn)
+    def run(self, *args, pctx=None, **kwargs):
+        with pctx_mod.use(pctx):
+            return fn(self, *args, **kwargs)
+    return run
+
+
 def _fill(tree, value):
     """The same nesting of dicts with every leaf replaced by ``value``."""
     if isinstance(tree, dict):
@@ -191,7 +213,18 @@ class Model:
 
     # -- shared pieces -------------------------------------------------------
     def _embed(self, params, tokens):
-        return params["embed"]["emb"][tokens].to(torch_dtype(self.cfg.dtype))
+        emb = params["embed"]["emb"]
+        dt = torch_dtype(self.cfg.dtype)
+        V = emb.shape[0]
+        if V == self.cfg.vocab_size:
+            return emb[tokens].to(dt)
+        # this rank's vocab rows: the lookup is masked to them, and the
+        # model group's sum holds every token's one row
+        c = pctx_mod.get()
+        local = tokens.long() - c.index(c.tp_axis) * V
+        inside = (local >= 0) & (local < V)
+        e = emb[local.clamp(0, V - 1)].masked_fill(~inside[..., None], 0)
+        return coll.all_reduce(e, c.tp_group).to(dt)
 
     def _unembed(self, params, h):
         emb = params["embed"]
@@ -199,7 +232,10 @@ class Model:
         w = emb.get("unemb")
         if w is None:
             w = emb["emb"].T
-        return torch.matmul(h, w.to(h.dtype))
+        logits = torch.matmul(h, w.to(h.dtype))
+        if logits.shape[-1] != self.cfg.vocab_size:
+            logits = coll.all_gather(logits, pctx_mod.get().tp_group, dim=-1)
+        return logits
 
     def _ctx(self, params, **kw) -> dict:
         # weights_qdq: expert weights were quant-dequantized at load
@@ -291,6 +327,7 @@ class Model:
 
     # -- prefill ---------------------------------------------------------------
     @torch.no_grad()
+    @_under_pctx
     def prefill(self, params, batch, extra_slots: int = 0, lengths=None):
         """Process the prompt; returns (last-position logits (B,1,V),
         cache). ``lengths`` (B,) enables the bucketed path: ``tokens`` is
@@ -302,7 +339,8 @@ class Model:
         with ``pos`` — and, with MTP, the last hidden ``mtp_h`` and the MTP
         module's ring over the prompt. At ``extra_slots=0`` it is the input
         of ``prefill_to_pages``; the dense engine splices a ``max_len``
-        ring."""
+        ring.
+        ``pctx=``: the mesh ctx to run under (module docstring)."""
         tokens = batch["tokens"].to(self.device)
         B, S = tokens.shape
         pos = torch.arange(S, dtype=torch.int32,
@@ -400,17 +438,28 @@ class Model:
 
     # -- decode ----------------------------------------------------------------
     @torch.no_grad()
-    def decode_step(self, params, cache, tokens, positions):
+    @_under_pctx
+    def decode_step(self, params, cache, tokens, positions,
+                    batch_sharded: bool = False):
         """One decode step over the dense rings or the paged cache (written
         in place); a paged cache carries its ``page_table``. tokens,
         positions: (B, 1) int32. With MTP the step's hidden is copied into
         ``cache['mtp_h']``, the next draft's input: every leaf of the cache
         stays the tensor it was, so a captured decode chunk reads and
-        writes the same buffers at each replay. Returns (logits (B,1,V),
-        cache)."""
-        ctx = self._ctx(params, positions=positions)
+        writes the same buffers at each replay. ``batch_sharded``: the
+        B slots are this data row's share of a page table over every
+        slot; ``pctx=``, the mesh ctx. Returns (logits (B,1,V), cache)."""
+        ctx = self._ctx(params, positions=positions,
+                        batch_sharded=batch_sharded)
         if "page_table" in cache:
-            ctx["page_table"] = cache["page_table"]
+            table = ctx["page_table"] = cache["page_table"]
+            B = tokens.shape[0]
+            if table.shape[0] != B:
+                c = pctx_mod.get()
+                d, g = c.index(c.dp_axis), c.dp_group
+                ctx["page_table"] = table[d * B:(d + 1) * B]
+                ctx["dp_write"] = (g, table,
+                                   coll.all_gather(positions[:, 0], g))
         h, _, _ = self._backbone(params, tokens, ctx, cache)
         if self.cfg.mtp:
             cache["mtp_h"].copy_(h)
@@ -435,16 +484,18 @@ class Model:
         )
 
     @torch.no_grad()
+    @_under_pctx
     def decode_loop(self, params, cache, state, k: int, *,
                     temperature: float = 0.0, top_k: int = 0,
-                    use_mtp: bool = False):
+                    use_mtp: bool = False, batch_sharded: bool = False):
         """``k`` decode steps with sampling, EOS and budget masking on the
         card. With ``use_mtp`` each step first drafts from the carried pair
         ``(mtp_h, token)`` against the MTP ring (``core/mtp.py``), then
         verifies the draft against the token the step samples; ``drafts``
         and ``accepted`` in the state count active steps and hits. Returns
         ``(tokens (B,k), emitted (B,k) bool, cache, state)``; tokens are -1
-        where the slot was inactive."""
+        where the slot was inactive. ``pctx=`` and ``batch_sharded``: as
+        :meth:`decode_step`'s."""
         if use_mtp and not self.cfg.mtp:
             raise ValueError(f"use_mtp: {self.cfg.name} has no MTP module")
         st = dict(state)
@@ -458,7 +509,8 @@ class Model:
                     embed_fn=lambda t: self._embed(params, t),
                     unembed_fn=lambda hh: self._unembed(params, hh))
             logits, cache = self.decode_step(params, cache, tok[:, None],
-                                             pos[:, None])
+                                             pos[:, None],
+                                             batch_sharded=batch_sharded)
             nxt = sample_logits(logits[:, 0], st["seeds"], st["tix"],
                                 temperature, top_k)
             if use_mtp:
@@ -519,10 +571,12 @@ class Model:
 
     # -- paged cache family (block pool + page tables; core/paged.py) -------
     def init_paged_cache(self, batch: int, max_len: int, page_size: int,
-                         pool_pages: int, storage: str = "fp8"):
+                         pool_pages: int, storage: str = "fp8", device=None):
         """Shared page pools (``pool_pages`` + 1 trash page per segment, no
         batch axis; MLA latent or GQA K/V pools per the config) and
-        ``page_table`` (B, max_len // page_size), trash where unmapped."""
+        ``page_table`` (B, max_len // page_size), trash where unmapped.
+        ``device`` defaults to the model's."""
+        dev = self.device if device is None else device
         paged_mod.validate_storage(storage)
         if max_len % page_size:
             raise ValueError(f"max_len {max_len} not a multiple of "
@@ -530,14 +584,14 @@ class Model:
         cache: Dict[str, Any] = {
             "page_table": torch.full((batch, max_len // page_size),
                                      paged_mod.trash_page(pool_pages),
-                                     dtype=torch.int32, device=self.device)}
+                                     dtype=torch.int32, device=dev)}
         init = (mla_mod.init_paged_mla_cache if self.cfg.attention == "mla"
                 else Lyr.init_paged_gqa_cache)
         for seg in self.segments:
             cache[seg.name] = init(self.cfg, seg.n, pool_pages, page_size,
-                                   storage, self.device)
+                                   storage, dev)
         if self.cfg.mtp:
-            cache.update(self._mtp_leaves(batch, max_len, self.device))
+            cache.update(self._mtp_leaves(batch, max_len, dev))
         return cache
 
     def paged_aux_axes(self) -> Dict[str, Any]:
@@ -546,12 +600,15 @@ class Model:
         return {k: v for k, v in self.cache_batch_axes(1, 8).items()
                 if k in ("mtp_h", "mtp")}
 
+    @_under_pctx
     def prefill_to_pages(self, cache1, page_size: int, storage: str):
         """Quantize a batch-1 prefill cache (``extra_slots=0``) into page
         payload ``{"pages": {segment: {leaf: (n, bucket//page, page,
         ...)}}, "aux": {...}}`` (fp8: E4M3 values + per-token scales; a GQA
         token's scale covers its whole ``(KV, hd)`` entry). ``aux`` carries
-        the slot-resident leaves as they are (MTP hidden and ring)."""
+        the slot-resident leaves as they are (MTP hidden and ring). Under
+        a KV-head cut (``pctx=``) each token's scale is the model group's
+        max over its whole entry."""
         store = torch_dtype(self.cfg.cache_dtype_())
         pages: Dict[str, Any] = {}
         for seg in self.segments:
@@ -559,9 +616,13 @@ class Model:
             for name in ("ckv", "kr", "k", "v"):
                 if name not in cache1[seg.name]:
                     continue
-                vnd = 2 if name in ("k", "v") else 1
-                d = paged_mod.entries_to_pages(cache1[seg.name][name],
-                                               page_size, storage, store, vnd)
+                leaf = cache1[seg.name][name]
+                vnd, reduce = 1, None
+                if name in ("k", "v"):
+                    vnd = 2
+                    reduce = Lyr.kv_amax_reduce(leaf.shape[-2], self.cfg)
+                d = paged_mod.entries_to_pages(leaf, page_size, storage,
+                                               store, vnd, reduce)
                 out[name] = d["q"]
                 if "scale" in d:
                     out[name + "_scale"] = d["scale"]

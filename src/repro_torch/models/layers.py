@@ -6,6 +6,13 @@ Sliding windows are not ported yet (ROADMAP.md, A.10).
 
 All layers are functional: ``*_specs(cfg)`` returns a ParamSpec dict,
 apply functions take the materialized tensors.
+
+Under a mesh ctx (``parallel/context``) the layers take this rank's
+slices of the weights and read their head counts off them: column-parallel
+products need no collective, a row-parallel product (``linear(...,
+tp="row")``) sums its fp32 partials over the model group, and a paged
+decode step under a data-split batch writes every data row's rows into the
+replicated pool (``page_write_step``).
 """
 from __future__ import annotations
 
@@ -13,13 +20,16 @@ import math
 from typing import Optional, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import paged
-from repro_torch.core.fp8 import Fp8Weight
+from repro_torch.core.fp8 import TILE, Fp8Weight
 from repro_torch.device import torch_dtype
 from repro_torch.models.param import ParamSpec
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel import context as pctx
 
 # ---------------------------------------------------------------------------
 # Basics
@@ -45,19 +55,68 @@ def raw(w: Union[torch.Tensor, Fp8Weight]) -> torch.Tensor:
 
 def linear(x: torch.Tensor, w: Union[torch.Tensor, Fp8Weight],
            cfg: Optional[ModelConfig] = None,
-           b: Optional[torch.Tensor] = None) -> torch.Tensor:
+           b: Optional[torch.Tensor] = None,
+           tp: Optional[str] = None) -> torch.Tensor:
     """Dense GEMM plus an optional bias; routes through the FP8
     fine-grained-scaled path (paper T4) when the config enables it and the
     input width is at least 256. With ``cfg.fp8_impl='pallas'`` the GEMM
-    dispatches through the kernel registry (``repro_torch.kernels``)."""
-    if cfg is not None and cfg.fp8 and w.ndim == 2 and x.shape[-1] >= 256:
+    dispatches through the kernel registry (``repro_torch.kernels``).
+
+    ``tp="row"``: under a mesh ctx ``w`` is this rank's row slice of a
+    row-parallel product and x its slice of the contraction; the fp32
+    partial products are summed over the model group, then rounded once.
+    The FP8 decision reads the global width, and an x slice inside one
+    1x128 tile is quantized with the whole tile's amax, so the codes are
+    the single device's."""
+    group = pctx.get().tp_group if tp == "row" else None
+    n = 1 if group is None else dist.get_world_size(group)
+    fp8_path = (cfg is not None and cfg.fp8 and w.ndim == 2
+                and x.shape[-1] * n >= 256)
+    if group is None and fp8_path:
         from repro_torch.core import fp8
         y = fp8.fp8_linear(x, w, impl=cfg.fp8_impl)
-    else:
+    elif group is None:
         y = torch.matmul(x, raw(w).to(x.dtype))
+    else:
+        if fp8_path:
+            from repro_torch.core import fp8
+            amax = (None if x.shape[-1] % TILE == 0
+                    else _tile_amax(x, group, n))
+            y = fp8.matmul_qdq(x, w, cfg.fp8_impl, amax)
+        else:
+            y = torch.matmul(x.float(), raw(w).float())
+        y = coll.all_reduce(y, group).to(x.dtype)
     if b is not None:
         y = y + b.to(y.dtype)
     return y
+
+
+def _tile_amax(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """(..., 1): the amax of the 1x128 tile that this rank's slice of the
+    contraction lies in, over the ranks sharing it (raises where a slice
+    crosses a tile boundary)."""
+    from repro_torch.parallel.sharding import cut_blocks
+    kl = x.shape[-1]
+    me = dist.get_rank(group)
+    cut_blocks(kl * n, n, me, TILE)
+    a = x.float().abs().amax(dim=-1, keepdim=True)
+    every = coll.all_gather(a[None], group)              # (n, ..., 1)
+    tile = me * kl // TILE
+    members = [r for r in range(n) if r * kl // TILE == tile]
+    return every[members].amax(dim=0)
+
+
+def page_write_step(pool: torch.Tensor, table: torch.Tensor,
+                    qpos: torch.Tensor, vals: torch.Tensor,
+                    dp_write=None) -> None:
+    """One decode step's rows into a pool (``paged.page_write``). Under a
+    data-split batch (``dp_write = (group, full table, every slot's
+    position)``) the rows of every data row's slots are gathered and
+    written on every rank, so the replicated pool stays whole."""
+    if dp_write is not None:
+        group, table, qpos = dp_write
+        vals = coll.all_gather(vals, group)
+    paged.page_write(pool, table, qpos, vals)
 
 
 # ---------------------------------------------------------------------------
@@ -166,7 +225,8 @@ def attention_scores(q, k, v, *, causal: bool, q_pos, k_pos,
 def gqa_attention(p: dict, x: torch.Tensor, *, cfg: ModelConfig,
                   positions: torch.Tensor, cache: Optional[dict] = None,
                   page_table: Optional[torch.Tensor] = None,
-                  impl: str = "xla", return_cache_entries: bool = False):
+                  impl: str = "xla", return_cache_entries: bool = False,
+                  dp_write=None):
     """Causal GQA self-attention (also MHA/MQA; optional qk-norm and qkv
     bias).
 
@@ -186,35 +246,67 @@ def gqa_attention(p: dict, x: torch.Tensor, *, cfg: ModelConfig,
     new_cache or entries).
     """
     hd = cfg.head_dim_()
-    q = _split_heads(linear(x, p["wq"], cfg, p.get("bq")), cfg.num_heads)
-    k = _split_heads(linear(x, p["wk"], cfg, p.get("bk")), cfg.num_kv_heads)
-    v = _split_heads(linear(x, p["wv"], cfg, p.get("bv")), cfg.num_kv_heads)
+    # this rank's heads (all of them on a single device)
+    nh, nkv = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
+    q = _split_heads(linear(x, p["wq"], cfg, p.get("bq")), nh)
+    k = _split_heads(linear(x, p["wk"], cfg, p.get("bk")), nkv)
+    v = _split_heads(linear(x, p["wv"], cfg, p.get("bv")), nkv)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.rms_eps)
         k = rmsnorm(k, p["k_norm"], cfg.rms_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    sel = _kv_heads_of(nh, nkv, cfg)
 
     aux = None
     if cache is None:
-        out = attention_scores(q, k, v, causal=True, q_pos=positions,
+        out = attention_scores(q, k[..., sel, :], v[..., sel, :],
+                               causal=True, q_pos=positions,
                                k_pos=positions, impl=impl)
         if return_cache_entries:
             aux = (k, v)
     elif page_table is None:
         out = _ring_decode(q, k, v, cache, cfg=cfg, positions=positions,
-                           impl=impl)
+                           impl=impl, sel=sel)
         aux = cache
     else:
         out = _paged_decode(q, k, v, cache, cfg=cfg, positions=positions,
-                            page_table=page_table, impl=impl)
+                            page_table=page_table, impl=impl,
+                            dp_write=dp_write, sel=sel)
         aux = cache
-    out = out.reshape(*out.shape[:-2], cfg.num_heads * hd)
-    return linear(out, p["wo"], cfg), aux
+    out = out.reshape(*out.shape[:-2], nh * hd)
+    return linear(out, p["wo"], cfg, tp="row"), aux
+
+
+def kv_amax_reduce(nkv: int, cfg: ModelConfig):
+    """Where this rank holds ``nkv`` of the config's KV heads (a KV-head
+    cut), the max over the model group that makes a token's FP8 scale the
+    whole (KV, hd) entry's, as on one device; else None."""
+    group = pctx.get().tp_group
+    if group is None or nkv == cfg.num_kv_heads:
+        return None
+    return lambda amax: coll.all_reduce(amax, group, op="max")
+
+
+def _kv_heads_of(nh: int, nkv: int, cfg: ModelConfig) -> slice:
+    """The KV heads this rank's ``nh`` query heads read. All of them on a
+    single device or under a head-aligned cut; where the mesh's head cut
+    would split a KV head, K/V stay replicated (written whole) and each
+    rank reads the KV heads of its query heads."""
+    G = cfg.num_heads // cfg.num_kv_heads
+    if nkv * G == nh:
+        return slice(None)
+    if nh % G and G % nh:
+        raise ValueError(f"{nh} query heads a rank over KV groups of {G}: "
+                         "a rank's query heads must cover whole groups or "
+                         "lie inside one")
+    c = pctx.get()
+    lo = c.index(c.tp_axis) * nh // G
+    return slice(lo, lo + max(1, nh // G))
 
 
 def _ring_decode(q, k, v, cache: dict, *, cfg: ModelConfig, positions,
-                 impl: str) -> torch.Tensor:
+                 impl: str, sel: slice = slice(None)) -> torch.Tensor:
     """The dense ring branch of :func:`gqa_attention`: write k, v (B, 1,
     KV, hd) at ring row ``position % T`` of each slot, then attend with the
     ring's ``pos`` as key positions (-1 rows are empty)."""
@@ -225,13 +317,15 @@ def _ring_decode(q, k, v, cache: dict, *, cfg: ModelConfig, positions,
     cache["v"][ba, idx] = v[:, 0].to(cache["v"].dtype)
     cache["pos"][ba, idx] = positions[:, 0].to(torch.int32)
     cdt = torch_dtype(cfg.dtype)
-    return attention_scores(q, cache["k"].to(cdt), cache["v"].to(cdt),
+    return attention_scores(q, cache["k"][..., sel, :].to(cdt),
+                            cache["v"][..., sel, :].to(cdt),
                             causal=True, q_pos=positions,
                             k_pos=cache["pos"], impl=impl)
 
 
 def _paged_decode(q, k, v, cache: dict, *, cfg: ModelConfig, positions,
-                  page_table, impl: str) -> torch.Tensor:
+                  page_table, impl: str, dp_write=None,
+                  sel: slice = slice(None)) -> torch.Tensor:
     """The paged branch of :func:`gqa_attention`. S == 1 is the decode
     step; S > 1 is a page-aligned chunked-prefill run (``positions[:, 0]``
     on a page boundary, S a multiple of the page size), written whole pages
@@ -246,13 +340,15 @@ def _paged_decode(q, k, v, cache: dict, *, cfg: ModelConfig, positions,
 
     def write(name, vals):
         if S == 1:
-            paged.page_write(cache[name], page_table, qpos, vals[:, 0])
+            page_write_step(cache[name], page_table, qpos, vals[:, 0],
+                            dp_write)
         else:
             paged.page_write_chunk(cache[name], page_table, qpos, vals)
 
     if fp8:
-        qk, sk = paged.quantize_vecs(k, vec_ndim=2)
-        qv, sv = paged.quantize_vecs(v, vec_ndim=2)
+        reduce = kv_amax_reduce(k.shape[-2], cfg)
+        qk, sk = paged.quantize_vecs(k, vec_ndim=2, reduce=reduce)
+        qv, sv = paged.quantize_vecs(v, vec_ndim=2, reduce=reduce)
         write("k", qk)
         write("v", qv)
         write("k_scale", sk)
@@ -264,7 +360,8 @@ def _paged_decode(q, k, v, cache: dict, *, cfg: ModelConfig, positions,
     if impl == "pallas" and S == 1:
         from repro_torch.kernels.paged_attention import ops as paged_ops
         o = paged_ops.paged_gqa_decode(          # native pools: unit scales
-            q[:, 0].float(), cache["k"], cache["v"], cache.get("k_scale"),
+            q[:, 0].float(), cache["k"][..., sel, :],
+            cache["v"][..., sel, :], cache.get("k_scale"),
             cache.get("v_scale"), page_table, qpos,
             scale=1.0 / math.sqrt(cfg.head_dim_()))
         return o[:, None].to(cdt)
@@ -276,6 +373,7 @@ def _paged_decode(q, k, v, cache: dict, *, cfg: ModelConfig, positions,
     else:
         kc = paged.table_gather(cache["k"], page_table).to(cdt)
         vc = paged.table_gather(cache["v"], page_table).to(cdt)
+    kc, vc = kc[..., sel, :], vc[..., sel, :]
     # positional validity: the logical index is the position (pages never
     # ring-wrap), so the causal mask k_pos <= q_pos is exactly "written by
     # this slot" (and, per query of a chunk, intra-chunk causality); stale
@@ -346,4 +444,4 @@ def mlp_specs(cfg: ModelConfig, layers: int,
 def mlp(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     g = act_fn(cfg.act)(linear(x, p["w_gate"], cfg))
     u = linear(x, p["w_up"], cfg)
-    return linear(g * u, p["w_down"], cfg)
+    return linear(g * u, p["w_down"], cfg, tp="row")

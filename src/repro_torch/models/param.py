@@ -6,7 +6,11 @@ so a JAX parameter tree copies across key for key (``bridge.py``).
 ``init_params`` materializes the tree on a device from a seed with the
 reference's distributions (normal: std 0.02·scale; fan_in: scale/√fan;
 zeros; ones). It does not reproduce ``jax.random``'s bits: tests that
-compare the packages copy the JAX weights instead.
+compare the packages copy the JAX weights instead. With a ``placement``
+(a mesh rank's PartitionSpecs, ``parallel/sharding``) it keeps only that
+rank's slice of each leaf: every leaf is still drawn whole, block by block
+from its own generator, so the slices of all ranks tile the tree one
+device would draw from the same seed.
 """
 from __future__ import annotations
 
@@ -48,41 +52,75 @@ class ParamSpec:
             return self.scale / math.sqrt(fan)
         raise ValueError(self.init)
 
-    def materialize(self, gen: torch.Generator,
-                    device: torch.device) -> torch.Tensor:
+    def materialize(self, gen: torch.Generator, device: torch.device,
+                    region: Optional[Tuple[Tuple[int, int], ...]] = None
+                    ) -> torch.Tensor:
+        """The leaf, or only its ``region`` (a ``(start, stop)`` per axis)
+        of the same draw."""
         dt = torch_dtype(self.dtype)
+        region = region or tuple((0, n) for n in self.shape)
+        local = tuple(b - a for a, b in region)
         if self.init == "zeros":
-            return torch.zeros(self.shape, dtype=dt, device=device)
+            return torch.zeros(local, dtype=dt, device=device)
         if self.init == "ones":
-            return torch.ones(self.shape, dtype=dt, device=device)
+            return torch.ones(local, dtype=dt, device=device)
         std = self.std()
-        out = torch.empty(self.shape, dtype=dt, device=device)
-        # draw in fp32 (the reference's draw dtype), cast per row block
-        flat = out.view(-1, self.shape[-1])
-        per = max(1, _CHUNK_BYTES // (4 * self.shape[-1]))
-        for i in range(0, flat.shape[0], per):
-            blk = flat[i:i + per]
-            blk.copy_(torch.randn(blk.shape, generator=gen, device=device,
-                                  dtype=torch.float32) * std)
+        out = torch.empty(local, dtype=dt, device=device)
+        # draw in fp32 (the reference's draw dtype) per block of rows of the
+        # whole leaf, cast, and keep the rows and columns of the region
+        last = self.shape[-1]
+        lead = self.shape[:-1]
+        rows = math.prod(lead)
+        c0, c1 = region[-1]
+        oflat = out.view(-1, c1 - c0)
+        whole_rows = all(r == (0, n) for r, n in zip(region, lead))
+        per = max(1, _CHUNK_BYTES // (4 * last))
+        for i in range(0, rows, per):
+            n = min(per, rows - i)
+            blk = torch.randn((n, last), generator=gen, device=device,
+                              dtype=torch.float32) * std
+            if whole_rows:
+                oflat[i:i + n] = blk[:, c0:c1]
+                continue
+            r = torch.arange(i, i + n, device=device)
+            inside = torch.ones(n, dtype=torch.bool, device=device)
+            lrow = torch.zeros(n, dtype=torch.int64, device=device)
+            stride = 1
+            for d in reversed(range(len(lead))):
+                c = r % lead[d]
+                r = r // lead[d]
+                a, b = region[d]
+                inside &= (c >= a) & (c < b)
+                lrow += (c - a) * stride
+                stride *= b - a
+            sel = inside.nonzero()[:, 0]
+            oflat[lrow[sel]] = blk[sel, c0:c1].to(dt)
         return out
 
 
-def init_params(spec_tree, seed: int = 0, device=None):
+def init_params(spec_tree, seed: int = 0, device=None, placement=None):
     """Materialize every ParamSpec on ``device`` (default ``cuda``) from
     ``seed``: one ``torch.Generator`` on that device per leaf, seeded from
-    (seed, the leaf's index in sorted-key order)."""
+    (seed, the leaf's index in sorted-key order). ``placement``: ``(pspecs,
+    mesh)`` of a live mesh rank; each leaf is then this rank's slice (its
+    peak is its shard plus one drawn block of at most 1 GB)."""
     dev = resolve_device(device)
     index = [0]
 
-    def walk(tree):
+    def walk(tree, pspecs):
         if not isinstance(tree, ParamSpec):
-            return {k: walk(tree[k]) for k in sorted(tree)}
+            return {k: walk(tree[k], None if pspecs is None else pspecs[k])
+                    for k in sorted(tree)}
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed * 1_000_003 + index[0])
         index[0] += 1
-        return tree.materialize(gen, dev)
+        region = None
+        if pspecs is not None:
+            from repro_torch.parallel.sharding import region_of
+            region = region_of(tree.shape, pspecs, placement[1])
+        return tree.materialize(gen, dev, region)
 
-    return walk(spec_tree)
+    return walk(spec_tree, None if placement is None else placement[0])
 
 
 def layer(tree, i: int):

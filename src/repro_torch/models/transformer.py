@@ -17,6 +17,7 @@ from repro_torch.core import mla as mla_mod
 from repro_torch.core import moe as moe_mod
 from repro_torch.models import layers as Lyr
 from repro_torch.models.param import ParamSpec
+from repro_torch.parallel import context as pctx
 
 
 def _norm_spec(cfg: ModelConfig, n: int) -> ParamSpec:
@@ -66,11 +67,13 @@ def _self_attention(p: dict, h: torch.Tensor, cfg: ModelConfig, ctx: dict,
             p, h, cfg=cfg, positions=ctx["positions"], cache=cache,
             page_table=ctx["page_table"] if paged else None,
             impl=ctx.get("gqa_impl", "xla"),
-            return_cache_entries=bool(ctx.get("collect_cache")))
+            return_cache_entries=bool(ctx.get("collect_cache")),
+            dp_write=ctx.get("dp_write"))
     if paged:
         return mla_mod.mla_paged_decode_step(
             p, cache, h, cfg=cfg, positions=ctx["positions"],
-            page_table=ctx["page_table"], impl=ctx.get("mla_impl", "xla"))
+            page_table=ctx["page_table"], impl=ctx.get("mla_impl", "xla"),
+            dp_write=ctx.get("dp_write"))
     if cache is not None:
         return mla_mod.mla_decode_step(
             p, cache, h, cfg=cfg, positions=ctx["positions"],
@@ -84,12 +87,24 @@ def _self_attention(p: dict, h: torch.Tensor, cfg: ModelConfig, ctx: dict,
 
 
 def _ffn(p: dict, h: torch.Tensor, cfg: ModelConfig, ctx: dict):
-    """Routed-MoE or dense FFN (single device). Returns (y, stats)."""
+    """Routed-MoE or dense FFN. Returns (y, stats). Under a mesh ctx with
+    an EP ``moe_impl`` the MoE runs ``parallel/ep.moe_ffn_sharded`` (the
+    reference's ``transformer.py`` dispatch); ``ctx["batch_sharded"]``
+    says the tokens are this data row's own (decode), not the same on
+    every row (a batch-1 prefill)."""
     if "moe" in p:
         stats = bool(ctx.get("stats"))
-        y, rr, drop = moe_mod.moe_ffn(
-            p["moe"], h, cfg, valid=ctx.get("valid"),
-            weights_qdq=ctx.get("weights_qdq", False), stats=stats)
+        c = pctx.get()
+        if c.ep_enabled:
+            from repro_torch.parallel import ep
+            y, rr, drop = ep.moe_ffn_sharded(
+                p["moe"], h, cfg, c, valid=ctx.get("valid"),
+                weights_qdq=ctx.get("weights_qdq", False),
+                replicated=not ctx.get("batch_sharded", False), stats=stats)
+        else:
+            y, rr, drop = moe_mod.moe_ffn(
+                p["moe"], h, cfg, valid=ctx.get("valid"),
+                weights_qdq=ctx.get("weights_qdq", False), stats=stats)
         if not stats:
             return y, {}
         return y, {"aux_loss": rr.aux_loss, "load": rr.load,

@@ -13,6 +13,14 @@ their plain versions. Under NCCL the device tensors travel as they are;
 under gloo, a payload on the card goes through pinned host buffers (the
 codes and the sideband only, never the fp32 chunk).
 
+The mesh's plain collectives (``all_reduce``, ``all_gather``,
+``all_to_all``, ``exchange``) run over one process group, the group of an
+axis line of ``parallel/context.Mesh``. Under gloo a CUDA payload goes
+through pinned host buffers, the only way ranks that share one card can
+talk (NCCL refuses two ranks on one device). Each call adds the bytes of
+the buffer this rank hands it to :data:`BYTES` under its kind, and its
+wall time to :data:`SECONDS` when it staged through the host.
+
 Also the cross-replica checksums of the SDC guard (paper §6.1):
 ``fletcher64``/``tree_checksum`` on the tensor's device, equal to the
 reference's uint32 hash bit for bit, and ``device_checksums`` of a rank's
@@ -21,6 +29,9 @@ local tensors, read back to the host.
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Tuple
+
+import collections
+import time
 
 import numpy as np
 import torch
@@ -46,6 +57,38 @@ def _neighbours(group, n: int, me: int) -> Tuple[int, int]:
     return dist.get_global_rank(g, nxt), dist.get_global_rank(g, prv)
 
 
+# bytes this rank handed to each kind of collective, and the wall seconds
+# of the calls staged through host memory (``reset_counters`` zeroes both)
+BYTES: Dict[str, int] = collections.Counter()
+SECONDS: Dict[str, float] = collections.Counter()
+
+
+def reset_counters() -> None:
+    BYTES.clear()
+    SECONDS.clear()
+
+
+def _staged(group, t: torch.Tensor) -> bool:
+    """A CUDA payload on a gloo group crosses through pinned host memory."""
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _to_host(ts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Pinned host copies of CUDA tensors, after one wait for the copies."""
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            for t in ts]
+    for h, t in zip(host, ts):
+        h.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(ts[0].device).synchronize()
+    return host
+
+
+def _count(kind: str, nbytes: int, t0: Optional[float]) -> None:
+    BYTES[kind] += nbytes
+    if t0 is not None:
+        SECONDS[kind] += time.perf_counter() - t0
+
+
 def _exchange(payload: Sequence[torch.Tensor], group, nxt: int, prv: int
               ) -> List[torch.Tensor]:
     """Send each tensor of ``payload`` to global rank ``nxt`` and receive
@@ -54,14 +97,8 @@ def _exchange(payload: Sequence[torch.Tensor], group, nxt: int, prv: int
     through pinned host buffers and the received tensors go back to it."""
     dev = payload[0].device
     staged = dev.type == "cuda" and dist.get_backend(group) == "gloo"
-    if staged:
-        send = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                for t in payload]
-        for host, t in zip(send, payload):
-            host.copy_(t, non_blocking=True)
-        torch.cuda.current_stream(dev).synchronize()
-    else:
-        send = list(payload)
+    t0 = time.perf_counter() if staged else None
+    send = _to_host(payload) if staged else list(payload)
     recv = [torch.empty(t.shape, dtype=t.dtype, device=t.device,
                         pin_memory=staged) for t in send]
     p2p = ([dist.P2POp(dist.isend, t, nxt, group, tag)
@@ -72,7 +109,72 @@ def _exchange(payload: Sequence[torch.Tensor], group, nxt: int, prv: int
         work.wait()
     if staged:
         recv = [t.to(dev, non_blocking=True) for t in recv]
+    _count("exchange", sum(t.numel() * t.element_size() for t in send), t0)
     return recv
+
+
+def exchange(payload: Sequence[torch.Tensor], group, nxt: int, prv: int
+             ) -> List[torch.Tensor]:
+    """Point-to-point exchange inside ``group``: send to the group member
+    ``nxt`` and receive from ``prv`` (ranks within the group)."""
+    return _exchange(payload, group, dist.get_global_rank(group, nxt),
+                     dist.get_global_rank(group, prv))
+
+
+def _bytes_view(x: torch.Tensor) -> torch.Tensor:
+    """x's bytes as a uint8 tensor ``(x.shape[0], -1)``."""
+    return x.contiguous().reshape(-1).view(torch.uint8).reshape(
+        x.shape[0], -1)
+
+
+def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """Sum (``op="sum"``) or max (``"max"``) of ``x`` over ``group``, in a
+    new tensor: every member gets the same bytes."""
+    t0 = time.perf_counter() if _staged(group, x) else None
+    buf = _to_host([x])[0] if t0 is not None else x.clone()
+    dist.all_reduce(buf, op=dist.ReduceOp.MAX if op == "max"
+                    else dist.ReduceOp.SUM, group=group)
+    if t0 is not None:
+        buf = buf.to(x.device, non_blocking=True)
+    _count("all_reduce", x.numel() * x.element_size(), t0)
+    return buf
+
+
+def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The members' ``x`` concatenated along ``dim`` in group-rank order
+    (moved as bytes: any dtype)."""
+    n = dist.get_world_size(group)
+    t0 = time.perf_counter() if _staged(group, x) else None
+    src = x.movedim(dim, 0).contiguous()
+    b = _bytes_view(src)
+    if t0 is not None:
+        b = _to_host([b])[0]
+    parts = [torch.empty_like(b) for _ in range(n)]
+    dist.all_gather(parts, b, group=group)
+    out = torch.cat(parts).view(src.dtype).reshape(
+        (n * src.shape[0],) + src.shape[1:])
+    if t0 is not None:
+        out = out.to(x.device, non_blocking=True)
+    _count("all_gather", x.numel() * x.element_size(), t0)
+    return out.movedim(0, dim)
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Tiled all-to-all over ``group`` along axis 0: ``x`` is ``(n * c,
+    ...)``; chunk j goes to member j, and the result's chunk j came from
+    member j (JAX's ``all_to_all(x, axis, 0, 0, tiled=True)``). Moved as
+    bytes, so any dtype crosses as it is."""
+    t0 = time.perf_counter() if _staged(group, x) else None
+    b = _bytes_view(x)
+    if t0 is not None:
+        b = _to_host([b])[0]
+    out = torch.empty_like(b)
+    dist.all_to_all_single(out, b, group=group)
+    out = out.view(x.dtype).reshape(x.shape)
+    if t0 is not None:
+        out = out.to(x.device, non_blocking=True)
+    _count("all_to_all", x.numel() * x.element_size(), t0)
+    return out
 
 
 def compressed_psum(x: torch.Tensor, group: Optional[dist.ProcessGroup] = None,

@@ -1,0 +1,249 @@
+"""Parallel execution context — port of ``repro.parallel.context`` for
+explicit SPMD on ``torch.distributed``: one process per mesh position.
+
+Models are written once and consult this context to decide how to execute
+(local vs expert-parallel MoE, the tensor-parallel collectives). The
+serving engine (``serve/engine.ServeEngine(ctx=...)``) scopes its ctx
+around every prefill and decode; without one, everything runs on a single
+device.
+
+The reference's ``Mesh`` is JAX's; the port keeps its own (:class:`Mesh`):
+the axis names and sizes, this rank's coordinates, and the process group
+of this rank's line along each axis. Ranks are laid out row-major over
+the axes (``rank = d * |model| + m`` on ``("data", "model")``), and every
+rank creates the group of every axis line, in the same order, as
+``torch.distributed.new_group`` requires.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import itertools
+import math
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+AXES = ("data", "model")
+
+
+class Mesh:
+    """A device mesh of ``torch.distributed`` ranks.
+
+    ``shape`` maps each axis name to its size, in axis order (as
+    ``jax.sharding.Mesh.shape``). A mesh made by :meth:`abstract` holds
+    shapes only (enough for the sharding rules); one made by
+    :meth:`create` also knows this process's rank, its coordinates and the
+    group of each of its axis lines."""
+
+    def __init__(self, shape: Sequence[int],
+                 axis_names: Sequence[str] = AXES, rank: Optional[int] = None,
+                 groups: Optional[Dict[str, object]] = None):
+        if len(shape) != len(axis_names):
+            raise ValueError(f"mesh shape {tuple(shape)} does not match axes "
+                             f"{tuple(axis_names)}")
+        self.axis_names = tuple(axis_names)
+        self.shape: Dict[str, int] = dict(zip(self.axis_names,
+                                              (int(n) for n in shape)))
+        self.rank = rank
+        self.groups = groups or {}
+
+    @classmethod
+    def abstract(cls, shape: Sequence[int],
+                 axis_names: Sequence[str] = AXES) -> "Mesh":
+        return cls(shape, axis_names)
+
+    @classmethod
+    def create(cls, shape: Sequence[int],
+               axis_names: Sequence[str] = AXES,
+               ranks: Optional[Sequence[int]] = None) -> "Mesh":
+        """The mesh over ``ranks`` of the initialized default process
+        group (all of them by default; their count is the mesh size), mesh
+        position i on ``ranks[i]``. Every rank of the default group calls
+        it with the same arguments: each axis line's group is created on
+        every rank, axis by axis, lines in row-major order of the other
+        coordinates. A rank outside ``ranks`` gets a mesh without a
+        position (``rank`` None)."""
+        import torch.distributed as dist
+        size = math.prod(shape)
+        ranks = list(range(dist.get_world_size()) if ranks is None
+                     else ranks)
+        if len(ranks) != size:
+            raise ValueError(f"mesh {tuple(shape)} needs {size} ranks; "
+                             f"given {len(ranks)}")
+        me = dist.get_rank()
+        pos = ranks.index(me) if me in ranks else None
+        groups = {}
+        for a in range(len(shape)):
+            others = [range(n) if i != a else [0]
+                      for i, n in enumerate(shape)]
+            for base in itertools.product(*others):
+                line = []
+                for j in range(shape[a]):
+                    c = list(base)
+                    c[a] = j
+                    line.append(ranks[_rank_of(c, shape)])
+                g = dist.new_group(line)
+                if me in line:
+                    groups[axis_names[a]] = g
+        return cls(shape, axis_names, pos, groups)
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    @property
+    def coords(self) -> Dict[str, int]:
+        if self.rank is None:
+            raise ValueError("an abstract mesh has no rank")
+        return dict(zip(self.axis_names,
+                        _coords(self.rank, tuple(self.shape.values()))))
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, rank={self.rank})"
+
+
+def _coords(rank: int, shape: Sequence[int]) -> Tuple[int, ...]:
+    out = []
+    for n in reversed(shape):
+        out.append(rank % n)
+        rank //= n
+    return tuple(reversed(out))
+
+
+def _rank_of(coords: Sequence[int], shape: Sequence[int]) -> int:
+    r = 0
+    for c, n in zip(coords, shape):
+        r = r * n + c
+    return r
+
+
+# fields of the reference that nothing in the port reads yet (training
+# under a mesh, sequence-sharded prefill): a value other than the default
+# raises instead of being ignored
+_NOT_READ = {"remat": "none", "seq_axis": None, "pin_attn": True,
+             "microbatches": 2}
+
+
+@dataclasses.dataclass
+class ParallelCtx:
+    """The reference's fields, with ``mesh`` the port's :class:`Mesh` (a
+    shape tuple builds one over the default process group, axes
+    ``("data", "model")``). ``remat``, ``seq_axis``, ``pin_attn`` and
+    ``microbatches`` are kept at their defaults: nothing in the port
+    reads them yet, and another value raises."""
+    mesh: Optional[Union[Mesh, Tuple[int, ...]]] = None
+    dp_axes: Tuple[str, ...] = ("data",)   # axes carrying the batch dim
+    ep_axis: Optional[str] = "model"       # axis carrying experts
+    tp_axis: Optional[str] = "model"       # axis for tensor parallelism
+    pod_axis: Optional[str] = None         # slow inter-pod axis (if any)
+    moe_impl: str = "local"                # local | ep_flat | ep_dedup
+    ep_ftp: bool = False                   # decode: expert-FF TP over data
+    wire: str = "fp8"                      # EP dispatch wire: fp8|bf16|fp32
+    remat: str = "none"                    # none | full | dots
+    seq_axis: Optional[str] = None         # sequence sharding for prefill
+    pin_attn: bool = True                  # GSPMD hint in the reference;
+                                           # explicit SPMD holds its shards
+    microbatches: int = 2                  # train step (paper §2.3.1)
+
+    def __post_init__(self):
+        for name, default in _NOT_READ.items():
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"ParallelCtx({name}={getattr(self, name)!r}) is not "
+                    "ported yet: see ROADMAP.md, A.8")
+        if self.mesh is not None and not isinstance(self.mesh, Mesh):
+            self.mesh = Mesh.create(tuple(self.mesh))
+
+    @property
+    def ep_enabled(self) -> bool:
+        return self.mesh is not None and self.moe_impl != "local"
+
+    @property
+    def dp_size(self) -> int:
+        """Total data-parallel degree (1 when unmeshed)."""
+        if self.mesh is None:
+            return 1
+        n = 1
+        for a in self.dp_axes:
+            n *= self.mesh.shape[a]
+        return n
+
+    @property
+    def model_size(self) -> int:
+        """Size of the model/TP axis (1 when unmeshed) — the EP degree of
+        the serving deployment when ``ep_axis == tp_axis``."""
+        if self.mesh is None or self.tp_axis is None:
+            return 1
+        return self.mesh.shape[self.tp_axis]
+
+    # -- explicit SPMD: this rank's place on the mesh ------------------------
+    def group(self, axis: Optional[str]):
+        """The process group of this rank's line along ``axis``; None when
+        unmeshed, for no axis, or where the axis has size 1 (nothing to
+        exchange)."""
+        if self.mesh is None or axis is None or self.mesh.shape[axis] == 1:
+            return None
+        return self.mesh.groups[axis]
+
+    def index(self, axis: Optional[str]) -> int:
+        """This rank's coordinate along ``axis`` (0 when unmeshed)."""
+        if self.mesh is None or axis is None:
+            return 0
+        return self.mesh.coords[axis]
+
+    @property
+    def dp_axis(self) -> str:
+        if len(self.dp_axes) != 1:
+            raise NotImplementedError(
+                f"dp_axes={self.dp_axes}: the port's explicit SPMD carries "
+                "the batch over one data axis (ROADMAP.md, A.8)")
+        return self.dp_axes[0]
+
+    @property
+    def tp_group(self):
+        return self.group(self.tp_axis)
+
+    @property
+    def dp_group(self):
+        return None if self.mesh is None else self.group(self.dp_axis)
+
+
+_CURRENT = ParallelCtx()
+
+
+def get() -> ParallelCtx:
+    return _CURRENT
+
+
+def set_ctx(ctx: ParallelCtx) -> None:
+    global _CURRENT
+    _CURRENT = ctx
+
+
+@contextlib.contextmanager
+def use(ctx: Optional[ParallelCtx]):
+    """Scope ``ctx`` (None: leave the current one) over a block."""
+    global _CURRENT
+    prev = _CURRENT
+    if ctx is not None:
+        _CURRENT = ctx
+    try:
+        yield _CURRENT
+    finally:
+        _CURRENT = prev
+
+
+def shard_act(x, vocab_axis: bool = False):
+    """The identity, kept for API parity with the reference; nothing in
+    the port calls it. In the reference this pins an activation's GSPMD
+    sharding (batch over the data axes, vocab over the model axis); under
+    explicit SPMD every rank already holds its own shard, and the layers
+    issue the collectives that move data."""
+    return x
+
+
+def shard_heads(x):
+    """The identity, kept for API parity with the reference; nothing in
+    the port calls it. The reference's GSPMD hint pins (B, S, H, hd)
+    attention tensors to batch x head sharding. Explicit SPMD computes
+    each rank's heads from its own column slices of the projections."""
+    return x

@@ -60,9 +60,25 @@ reference's jitted ``decode_chunk`` and ``chunk_prefill``); a prefill
 chunk crosses in one non-blocking copy and reads nothing back but the
 last chunk's first token. On the CPU both run eagerly.
 
+``ctx=`` (a ``parallel.context.ParallelCtx`` with a mesh) makes the
+engine one rank of a mesh-sharded deployment, in explicit SPMD: every
+rank of the mesh builds the same engine and runs the same host scheduler
+on the same requests. Params are this rank's slices per
+``sharding.serve_rules`` (heads and dense matmuls tensor-parallel over
+the model axis, experts expert-parallel on it, the rest replicated), the
+caches per ``sharding.explicit_cache_pspecs`` (slots over the data axis;
+the page pool replicated over it, GQA K/V pools over the model axis), and
+a data row decodes only its own slots: after each decode chunk the
+sampled tokens, slot state and MTP counters are gathered over the data
+axis, so every rank's host mirrors are whole. Prefill of one prompt is
+replicated over the data rows, as the reference's. A meshed engine on a
+gloo group runs its decode chunk eagerly (a collective staged through
+host memory cannot be captured; ``trace_counts["decode"] == 0``); its
+kernels launch as on one device. Under a mesh, ``prefill_chunk`` and
+``host_tier_pages`` raise (ROADMAP.md, A.8).
+
 Options of the reference that the port has not reached raise
-``NotImplementedError`` with a pointer to ROADMAP.md: mesh contexts and
-decode overlap.
+``NotImplementedError`` with a pointer to ROADMAP.md: decode overlap.
 """
 from __future__ import annotations
 
@@ -77,6 +93,8 @@ from repro_torch.bridge import prepare_for_serving
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import paged as paged_mod
 from repro_torch.models.api import Model, sample_logits
+from repro_torch.models.param import init_params
+from repro_torch.parallel import collectives as coll
 from repro_torch.serve import tier as tier_mod
 from repro_torch.serve.graph import DecodeChunk, PrefillChunk
 
@@ -162,6 +180,73 @@ def _slot_slice(cache, slot: int, axes):
     return cache.narrow(axes, slot, 1)
 
 
+def serve_param_pspecs(cfg: ModelConfig, ctx, specs):
+    """``sharding.param_pspecs`` under ``serve_rules`` for ``ctx``'s mesh,
+    with the layouts explicit SPMD needs: K/V projections replicate where
+    the cut would split a KV head (each rank then reads its query heads'
+    KV heads), routed experts replicate under ``moe_impl="local"``; a
+    query-head, FF or vocab axis the divisibility fallback left whole
+    raises (a row-parallel product needs its cut)."""
+    from repro_torch.parallel import sharding
+    mesh = ctx.mesh
+    rules = sharding.serve_rules("pod" in mesh.axis_names, ep_ftp=ctx.ep_ftp)
+    n = ctx.model_size
+    kv_whole = cfg.num_kv_heads % n != 0
+
+    def one(path, spec):
+        ps = list(sharding.spec_to_pspec(spec, mesh, rules))
+        for i, ax in enumerate(spec.axes):
+            if ax == "kv_heads" and kv_whole:
+                ps[i] = None
+            elif (ax in ("heads", "mlp", "vocab") and n > 1
+                  and ps[i] is None):
+                raise NotImplementedError(
+                    f"{'/'.join(path)}: axis {ax!r} of {spec.shape} "
+                    f"does not split over {n} model columns")
+            elif ax == "heads" and n > 1 and cfg.num_heads % n:
+                raise NotImplementedError(
+                    f"{cfg.num_heads} heads do not split over {n} "
+                    "model columns")
+            elif (ax == "experts" and ctx.moe_impl == "local"
+                  and "moe" in path):
+                ps[i] = None
+        return sharding.P(*ps)
+
+    return sharding.map_with_path(one, specs)
+
+
+def place_params(model: Model, ctx, params, seed: int, device,
+                 sliced: Optional[bool] = None):
+    """This rank's slices of ``model``'s prepared weights on ``ctx``'s mesh
+    (:func:`serve_param_pspecs`). ``sliced``: draw each leaf's slice alone
+    (``init_params(placement=)``) and prepare it in place
+    (``prepare_for_serving(specs=)``), this rank's peak its shard plus one
+    drawing block; else prepare the global tree (drawn from ``seed``, or
+    the given ``params``), then cut it. Both give the same bytes where
+    every block-quantized cut falls on 128 boundaries; by default the
+    engine slices there and only for a tree it draws itself (smoke
+    widths, whose cuts lie inside one block, are prepared globally)."""
+    from repro_torch.parallel import sharding
+    cfg, mesh = model.cfg, ctx.mesh
+    specs = model.specs()
+    pspecs = serve_param_pspecs(cfg, ctx, specs)
+    if sliced is None:
+        sliced = params is None and sharding.block_cuts_ok(specs, pspecs,
+                                                           mesh)
+    if sliced:
+        if params is not None or not sharding.block_cuts_ok(specs, pspecs,
+                                                            mesh):
+            raise ValueError("a sliced draw needs no given params and "
+                             "every block cut on 128 boundaries")
+        local = init_params(specs, seed, device, placement=(pspecs, mesh))
+        return prepare_for_serving(local, cfg, inplace=True, specs=specs)
+    if params is None:
+        tree = prepare_for_serving(model.init(seed), cfg, inplace=True)
+    else:
+        tree = prepare_for_serving(_to_device(params, device), cfg)
+    return sharding.shard_tree(tree, pspecs, mesh)
+
+
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
@@ -189,10 +274,14 @@ class ServeEngine:
                  attn_impl: str = "",
                  decode_overlap: bool = False,
                  ctx=None, device=None):
-        if ctx is not None:
-            raise _waits("ctx=: mesh-sharded serving", "A.8")
         if decode_overlap:
             raise _waits("decode_overlap=True", "A.8")
+        self.ctx = ctx
+        self.meshed = ctx is not None and ctx.mesh is not None
+        if self.meshed and prefill_chunk is not None:
+            raise _waits("ctx= with prefill_chunk=", "A.8")
+        if self.meshed and host_tier_pages is not None:
+            raise _waits("ctx= with host_tier_pages=", "A.8")
         paged_mod.validate_storage(page_storage)
         self.cfg = cfg
         self.model = Model(cfg, device)
@@ -203,7 +292,18 @@ class ServeEngine:
             self.model.impl_ctx = {"gqa_impl": attn_impl,
                                    "mla_impl": attn_impl}
         self.attn_impl = attn_impl
-        if params is None:
+        # this rank's slots: a data row decodes its own (all of them
+        # unmeshed, or where the data axis does not divide the slots)
+        self._rows = slice(0, slots)
+        self._split = False
+        if self.meshed:
+            dp = ctx.dp_size
+            self._split = dp > 1 and slots % dp == 0
+            if self._split:
+                d = ctx.index(ctx.dp_axis)
+                self._rows = slice(d * slots // dp, (d + 1) * slots // dp)
+            self.params = self._mesh_params(params, seed)
+        elif params is None:
             # the engine owns these weights: prepare them in place
             self.params = prepare_for_serving(self.model.init(seed), cfg,
                                               inplace=True)
@@ -239,13 +339,20 @@ class ServeEngine:
             self.pool_pages = (pool_pages if pool_pages is not None
                                else slots * self.pages_per_slot)
             self.page_storage = page_storage
-            self.cache = self.model.init_paged_cache(
-                slots, max_len, page_size, self.pool_pages, page_storage)
+            if self.meshed:
+                self.cache = self._mesh_cache(self.model.init_paged_cache(
+                    slots, max_len, page_size, self.pool_pages, page_storage,
+                    device="meta"))
+            else:
+                self.cache = self.model.init_paged_cache(
+                    slots, max_len, page_size, self.pool_pages, page_storage)
             self._alloc = paged_mod.PrefixPageAllocator(self.pool_pages)
             self._slot_pages: List[List[int]] = [[] for _ in range(slots)]
             self._axes = self.model.paged_aux_axes()
         else:
-            self.cache = self.model.init_cache(slots, max_len)
+            self.cache = (self._mesh_cache(self.model.init_cache(
+                slots, max_len, device="meta")) if self.meshed
+                else self.model.init_cache(slots, max_len))
             self._axes = self.model.cache_batch_axes(slots, max_len)
         # host-memory KV page tier: the device pool becomes a cache over
         # ``host_tier_pages`` of host capacity (module docstring)
@@ -293,9 +400,14 @@ class ServeEngine:
         self._evicted: Dict[int, List[int]] = {}
         self._hol_skips = 0
         self._seed_gen = np.random.default_rng(seed + 1)
-        self._decode = DecodeChunk(self.model, self.params, self.cache,
-                                   slots, chunk, temperature=temperature,
-                                   top_k=top_k, use_mtp=self.use_mtp)
+        self._decode = DecodeChunk(
+            self.model, self.params, self.cache,
+            self._rows.stop - self._rows.start, chunk,
+            temperature=temperature, top_k=top_k, use_mtp=self.use_mtp,
+            pctx=ctx if self.meshed else None, batch_sharded=self._split)
+        if self.meshed:
+            # a collective staged through host memory cannot be captured
+            self._decode.graphed = False
         self._prefill = (None if prefill_chunk is None else PrefillChunk(
             self.model, self.params, self.cache, prefill_chunk,
             self.pages_per_slot))
@@ -304,6 +416,74 @@ class ServeEngine:
                       "splices": 0, "first_tokens": 0, "page_admits": 0,
                       "page_releases": 0, "peak_pages_used": 0,
                       "chunk_prefills": 0, "evictions": 0}
+
+    # -- mesh install --------------------------------------------------------
+    def _mesh_params(self, params, seed: int):
+        """This rank's slices of the prepared weights
+        (:func:`place_params`). Another meshed engine's ``params`` (marked
+        with their placement) are taken as they are when the placement is
+        this engine's."""
+        ctx = self.ctx
+        placement = (tuple(ctx.mesh.shape.items()), ctx.mesh.rank,
+                     ctx.moe_impl == "local", ctx.ep_ftp)
+        if params is not None and "placement" in params:
+            if params["placement"] != placement:
+                raise ValueError(
+                    f"params placed for {params['placement']}, this engine "
+                    f"needs {placement}")
+            return params
+        out = place_params(self.model, ctx, params, seed, self.device)
+        out["placement"] = placement
+        return out
+
+    def _mesh_cache(self, struct):
+        """This rank's cache, zero-filled (``pos`` -1, the page table at
+        the trash page) in the local shapes of the port's placement
+        (``sharding.explicit_cache_pspecs``) of the global ``struct`` (meta
+        tensors)."""
+        from repro_torch.parallel import sharding
+        ctx = self.ctx
+        pspecs = sharding.explicit_cache_pspecs(
+            struct, ctx.mesh, ctx.dp_axes, ctx.tp_axis or "model",
+            paged=self.paged)
+        self._cache_pspecs = pspecs
+
+        def one(path, leaf):
+            shape = sharding.local_shape(leaf.shape, sharding.at_path(
+                pspecs, path), ctx.mesh)
+            fill = (-1 if path[-1] == "pos" else
+                    paged_mod.trash_page(self.pool_pages)
+                    if path[-1] == "page_table" else 0)
+            return torch.full(shape, fill, dtype=leaf.dtype,
+                              device=self.device)
+
+        return sharding.map_with_path(one, struct)
+
+    def _local_slot(self, slot: int) -> Optional[int]:
+        """``slot``'s index in this rank's slot-resident leaves, None where
+        another data row holds it."""
+        if not self._rows.start <= slot < self._rows.stop:
+            return None
+        return slot - self._rows.start
+
+    def _splice_slot(self, big, small, slot: int, axes) -> None:
+        """:func:`_splice` into this rank's rows (a no-op for a slot of
+        another data row)."""
+        local = self._local_slot(slot)
+        if local is not None:
+            _splice(big, small, local, axes)
+
+    def decode_alltoall_bytes(self) -> int:
+        """Bytes this rank's all-to-alls move in one MoE layer of one decode
+        step over every slot (``parallel/ep.alltoall_bytes``): the paper's
+        §4.3 wire-byte accounting on the serving hot path, the quantity
+        the reference reads off its lowered decode chunk. 0 for unmeshed
+        engines, local-MoE ones and models without experts."""
+        if not (self.meshed and self.ctx.ep_enabled and self.cfg.moe):
+            return 0
+        from repro_torch.parallel import ep
+        return ep.alltoall_bytes(self.cfg, self.ctx,
+                                 self._rows.stop - self._rows.start)
 
     # -- prefill ------------------------------------------------------------
     def prefill_request(self, req: Request, extras: Optional[Dict] = None):
@@ -328,10 +508,12 @@ class ServeEngine:
         extra = 0 if self.paged else self.max_len - bucket
         logits, payload = self.model.prefill(
             self.params, {"tokens": torch.as_tensor(toks)},
-            extra_slots=extra, lengths=np.asarray([L], np.int32))
+            extra_slots=extra, lengths=np.asarray([L], np.int32),
+            pctx=self.ctx if self.meshed else None)
         if self.paged:
-            payload = self.model.prefill_to_pages(payload, self.page_size,
-                                                  self.page_storage)
+            payload = self.model.prefill_to_pages(
+                payload, self.page_size, self.page_storage,
+                pctx=self.ctx if self.meshed else None)
         return self._sample_first(req, logits, offset), payload
 
     def _sample_first(self, req: Request, logits: torch.Tensor,
@@ -467,7 +649,7 @@ class ServeEngine:
             self._admit_pages(payload, n, slot)
         else:
             self.stats["splices"] += 1
-            _splice(self.cache, payload, slot, self._axes)
+            self._splice_slot(self.cache, payload, slot, self._axes)
         self.positions[slot] = len(prompt)
         self._tokens[slot] = first
         self._left[slot] = max_new - 1
@@ -495,8 +677,8 @@ class ServeEngine:
             self.stats["peak_pages_used"], self.pool_pages - self.free_pages())
         self.model.admit_pages(self.cache, payload["pages"], ids, row, slot)
         if payload["aux"]:
-            _splice({k: self.cache[k] for k in payload["aux"]},
-                    payload["aux"], slot, self._axes)
+            self._splice_slot({k: self.cache[k] for k in payload["aux"]},
+                              payload["aux"], slot, self._axes)
 
     # -- scheduler ----------------------------------------------------------
     def _admit_now(self, req: Request, extras: Optional[Dict]):
@@ -1089,6 +1271,32 @@ class ServeEngine:
                     active=self._decoding(), left=self._left, eos=self._eos,
                     tix=self._tix, seeds=self._seeds)
 
+    def _run_decode(self, host: Dict[str, np.ndarray]):
+        """One decode chunk over this rank's slots; on a data-split mesh
+        the results of every data row are gathered into whole-slot arrays
+        (one gather of one packed int64 block), so every rank's mirrors
+        update alike. The MTP counters come back summed over the rows."""
+        if not self._split:
+            return self._decode(host)
+        r = self._rows
+        toks, emitted, st = self._decode({k: v[r] for k, v in host.items()})
+        k = toks.shape[1]
+        names = list(st)
+        block = np.concatenate([toks, emitted, np.stack(
+            [st[n] for n in names], axis=1)], axis=1).astype(np.int64)
+        t = torch.from_numpy(block)
+        g = self.ctx.dp_group
+        if torch.distributed.get_backend(g) != "gloo":
+            t = t.to(self.device)
+        every = coll.all_gather(t, g).cpu().numpy()
+        per = r.stop - r.start
+        out = {n: every[:, 2 * k + i].astype(np.int32)
+               for i, n in enumerate(names)}
+        for n in ("drafts", "accepted"):
+            out[n] = np.full(self.slots, out[n][::per].sum(), np.int32)
+        return (every[:, :k].astype(np.int32),
+                every[:, k:2 * k].astype(bool), out)
+
     def step(self):
         """One scheduler tick: admit from the pending queue (priority order,
         page-aware, preempting a lower-priority resident for a blocked
@@ -1136,7 +1344,7 @@ class ServeEngine:
         if not self._decoding().any():
             return
         self.stats["dispatches"] += 1
-        toks, emitted, st = self._decode(self._host_state())
+        toks, emitted, st = self._run_decode(self._host_state())
         self.stats["steps"] += int(emitted.any(axis=0).sum())
         self.stats["drafts"] += int(st["drafts"][0])
         self.stats["accepted_drafts"] += int(st["accepted"][0])

@@ -1,0 +1,122 @@
+"""Rank body of ``tests/test_torch_ep.py``: the port's expert-parallel MoE
+(``repro_torch.parallel.ep``) on 8 gloo ranks on the CPU.
+
+It imports torch, numpy and the port only, so a spawned rank starts
+without JAX. Each rank reads the MoE layer's weights and the cases'
+inputs from ``inputs.npz``, runs every case on its mesh and writes its
+outputs to ``rank<r>.npz``.
+"""
+import dataclasses
+import os
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+# case -> (mesh, moe_impl, wire, ep_ftp, token layout): "split" gives each
+# data row its slice of the batch, "replicated" every row all of it
+CASES = {
+    "flat": ((2, 4), "ep_flat", "fp32", False, "split"),
+    "dedup": ((2, 4), "ep_dedup", "fp32", False, "split"),
+    "dedup_cpg2": ((1, 8), "ep_dedup", "fp32", False, "split"),
+    "ftp": ((2, 4), "ep_dedup", "fp32", True, "replicated"),
+    "ftp_split": ((2, 4), "ep_flat", "fp32", True, "split"),
+    "fp8_wire": ((1, 4), "ep_flat", "fp8", False, "split"),
+}
+BYTES_SLOTS = 64
+
+
+def moe_config():
+    """DeepSeek-V3 smoke without FP8 GEMMs, capacity headroom 8 (the
+    reference's ``TestEP`` config)."""
+    from repro_torch.configs.base import get_config, smoke_config
+    cfg = smoke_config(get_config("deepseek-v3-671b"))
+    return dataclasses.replace(cfg, fp8=False, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=8.0))
+
+
+def bench_config():
+    """The port's copy of ``benchmarks.train_bench.bench_config``."""
+    from repro_torch.configs.base import ModelConfig, MoEConfig
+    return ModelConfig(
+        name="train-bench-moe", family="moe", num_layers=2, d_model=128,
+        num_heads=4, num_kv_heads=2, d_ff=256, vocab_size=512, head_dim=32,
+        attention="gqa",
+        moe=MoEConfig(num_experts=8, top_k=4, expert_ff=64, num_shared=1,
+                      shared_ff=64, num_groups=4, group_limit=2, group_top=2,
+                      capacity_factor=2.0, router_bias=True,
+                      score_fn="sigmoid", layout="all"),
+        dtype="float32", param_dtype="float32")
+
+
+def _meshes():
+    """Every mesh of the cases, made on every rank in one order."""
+    from repro_torch.parallel.context import Mesh
+    return {(2, 4): Mesh.create((2, 4)), (1, 8): Mesh.create((1, 8)),
+            (1, 4): Mesh.create((1, 4), ranks=range(4))}
+
+
+def run_case(name, mesh, cfg, params, x):
+    from repro_torch.core import moe as moe_mod
+    from repro_torch.parallel import context, ep
+    from repro_torch.parallel import sharding as sh
+    _, impl, wire, ftp, layout = CASES[name]
+    ctx = context.ParallelCtx(mesh=mesh, moe_impl=impl, wire=wire,
+                              ep_ftp=ftp)
+    specs = moe_mod.moe_specs(cfg, 1)
+    ps = sh.param_pspecs(mesh, specs, sh.serve_rules(False, ep_ftp=ftp))
+    p = {k: v[0] for k, v in sh.shard_tree(params, ps, mesh).items()}
+    dp, d = ctx.dp_size, ctx.index("data")
+    split = layout == "split" and dp > 1
+    if split:
+        per = x.shape[0] // dp
+        x = x[d * per:(d + 1) * per]
+    with context.use(ctx):
+        y, _, _ = ep.moe_ffn_sharded(p, x, cfg, ctx, replicated=not split)
+    return y
+
+
+def bytes_case(mesh):
+    """``decode_alltoall_bytes()`` of engines on ``bench_config`` at 64
+    slots, and the all-to-all bytes one decode step of each really moves,
+    per MoE layer."""
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import context
+    from repro_torch.serve.engine import ServeEngine
+    cfg = bench_config()
+    out = {}
+    for impl in ("ep_flat", "ep_dedup"):
+        ctx = context.ParallelCtx(mesh=mesh, moe_impl=impl, wire="fp8")
+        eng = ServeEngine(cfg, slots=BYTES_SLOTS, max_len=32, chunk=8,
+                          ctx=ctx, device="cpu")
+        B = BYTES_SLOTS // ctx.dp_size
+        zeros = torch.zeros((B, 1), dtype=torch.int32)
+        before = coll.BYTES["all_to_all"]
+        eng.model.decode_step(eng.params, eng.cache, zeros, zeros, pctx=ctx,
+                              batch_sharded=True)
+        moved = (coll.BYTES["all_to_all"] - before) // cfg.num_layers
+        out[impl] = np.array([eng.decode_alltoall_bytes(), moved])
+    return out
+
+
+def run_rank(rank: int, world: int, store_path: str, out_dir: str) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    meshes = _meshes()
+    inputs = np.load(os.path.join(out_dir, "inputs.npz"))
+    cfg = moe_config()
+    params = {k[2:]: torch.from_numpy(inputs[k]) for k in inputs.files
+              if k.startswith("p:")}
+    out = {}
+    for name, (shape, *_rest) in CASES.items():
+        mesh = meshes[shape]
+        if mesh.rank is None:
+            continue
+        y = run_case(name, mesh, cfg, params,
+                     torch.from_numpy(inputs["x:" + name]))
+        out[name] = y.numpy()
+    for impl, v in bytes_case(meshes[(2, 4)]).items():
+        out["bytes:" + impl] = v
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+    dist.destroy_process_group()

@@ -1,0 +1,116 @@
+"""Rank body of ``tests/test_torch_serve_mesh.py``: the port's
+``ServeEngine(ctx=...)`` on 8 gloo ranks on the CPU, mesh (2, 4).
+
+It imports torch, numpy and the port only, so a spawned rank starts
+without JAX. Each rank reads the weights (bridged from the JAX init) from
+``weights.npz``, serves every scenario in turn and writes, per scenario,
+its streams, its MTP counters, a CRC of its host mirrors and streams, and
+a CRC of each pool leaf to ``rank<r>.npz``.
+"""
+import dataclasses
+import os
+import zlib
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+MESH = (2, 4)
+# scenario -> (model, ctx kwargs or None for one device, engine kwargs)
+PAGED_BF16 = dict(paged=True, page_size=8, page_storage="bf16")
+CARD = dict(paged=True, page_size=8, page_storage="fp8", attn_impl="pallas")
+SCENARIOS = {
+    "gqa_dense": ("qwen", {}, {}),
+    "gqa_paged": ("qwen", {}, PAGED_BF16),
+    "gqa_paged_fp8": ("qwen", {}, dict(PAGED_BF16, page_storage="fp8")),
+    "ep_flat": ("moe", dict(moe_impl="ep_flat", wire="fp32"), {}),
+    "ep_dedup": ("moe", dict(moe_impl="ep_dedup", wire="fp32"), {}),
+    "fp8_wire": ("moe", dict(moe_impl="ep_flat", wire="fp8"), {}),
+    "mtp": ("moe", dict(moe_impl="ep_flat", wire="fp32"),
+            dict(use_mtp=True)),
+    "mla_paged": ("moe", dict(moe_impl="ep_flat", wire="fp32"), PAGED_BF16),
+    "card_path": ("moe_pallas", dict(moe_impl="ep_flat", wire="fp8"), CARD),
+    "card_path_single": ("moe_pallas", None, CARD),
+}
+
+
+def configs():
+    from repro_torch.configs.base import get_config, smoke_config
+    moe = smoke_config(get_config("deepseek-v3-671b"))
+    moe = dataclasses.replace(moe, moe=dataclasses.replace(
+        moe.moe, capacity_factor=8.0))
+    return {"qwen": smoke_config(get_config("qwen3-14b")), "moe": moe,
+            "moe_pallas": dataclasses.replace(moe, fp8_impl="pallas")}
+
+
+def prompts_for(vocab, n=5):
+    return [np.arange(4 + i * 3) * (i + 3) % vocab for i in range(n)]
+
+
+def unflatten(arrays, prefix):
+    out = {}
+    for k in arrays.files:
+        if not k.startswith(prefix):
+            continue
+        node = out
+        *path, leaf = k[len(prefix):].split("/")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = torch.from_numpy(arrays[k])
+    return out
+
+
+def _crc(*arrays) -> int:
+    c = 0
+    for a in arrays:
+        c = zlib.crc32(np.ascontiguousarray(a).tobytes(), c)
+    return c
+
+
+def serve(cfg, params, ctx, engine_kw):
+    from repro_torch.serve.engine import Request, ServeEngine
+    eng = ServeEngine(cfg, params=params, slots=4, max_len=32, seed=0,
+                      chunk=4, ctx=ctx, device="cpu", **engine_kw)
+    reqs = [Request(i, p, max_new=6)
+            for i, p in enumerate(prompts_for(cfg.vocab_size))]
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_done()
+    assert all(r.done for r in reqs)
+    assert eng.trace_counts["decode"] == 0          # eager under a mesh
+    if eng.paged:
+        assert eng.free_pages() == eng.pool_pages   # no page leaked
+    return eng, [list(r.out) for r in reqs]
+
+
+def run_rank(rank: int, world: int, store_path: str, out_dir: str) -> None:
+    from repro_torch.parallel.context import Mesh, ParallelCtx
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    mesh = Mesh.create(MESH)
+    weights = np.load(os.path.join(out_dir, "weights.npz"))
+    cfgs = configs()
+    params = {"qwen": unflatten(weights, "qwen/"),
+              "moe": unflatten(weights, "moe/")}
+    params["moe_pallas"] = params["moe"]
+    out = {}
+    for name, (model, ctx_kw, engine_kw) in SCENARIOS.items():
+        ctx = None if ctx_kw is None else ParallelCtx(mesh=mesh, **ctx_kw)
+        eng, streams = serve(cfgs[model], params[model], ctx, engine_kw)
+        L = max(len(s) for s in streams)
+        out[name] = np.array([s + [-1] * (L - len(s)) for s in streams])
+        out[name + ":mtp"] = np.array([eng.stats["drafts"],
+                                       eng.stats["accepted_drafts"]])
+        out[name + ":mirrors"] = np.array([_crc(
+            eng.positions, eng._tokens, eng._left, eng._tix,
+            out[name])], np.int64)
+        if eng.paged:
+            out[name + ":pool"] = np.array(
+                [_crc(t.contiguous().reshape(-1).view(torch.uint8).numpy())
+                 for seg in eng.model.segments
+                 for t in eng.cache[seg.name].values()], np.int64)
+        if ctx is not None:
+            out[name + ":a2a"] = np.array([eng.decode_alltoall_bytes()])
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+    dist.destroy_process_group()

@@ -29,6 +29,7 @@ from repro_torch.configs.base import get_config as tget
 from repro_torch.configs.base import smoke_config as tsmoke
 from repro_torch.kernels import registry
 from repro_torch.models.api import Model, counter_uniform
+from repro_torch.parallel.context import Mesh, ParallelCtx
 from repro_torch.serve.engine import AdmissionError, Request, ServeEngine
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -311,11 +312,12 @@ def test_cache_bytes_per_token_match_reference(weights, storage):
 
 @pytest.mark.parametrize("option", [
     dict(extras={"src_embeds": np.zeros((1, 4, 8), np.float32)}),
-    dict(decode_overlap=True), dict(ctx=object())])
+    dict(decode_overlap=True),
+    dict(ctx=ParallelCtx(mesh=Mesh.abstract((1, 2))), prefill_chunk=8)])
 def test_options_not_ported_yet_raise(option):
     """Constructor options, and per-request extras (encoder or vision
     payloads), that the port has not reached raise with a pointer into
-    ROADMAP.md."""
+    ROADMAP.md (a mesh ctx serves, but not with chunked prefill yet)."""
     kw = dict(KW, **option)
     extras = kw.pop("extras", None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
