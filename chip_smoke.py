@@ -214,7 +214,33 @@ from the root of a checkout. Phases, each fatal on failure:
       "ep_flat"`` at the fp32 and the FP8 wire (its 256 experts 64 a
       rank, 32 of 128 heads a rank), then qwen3-14b whole (10 of 40 heads
       over 2 of 8 KV heads a rank), on phase (c)'s weights and prompts.
-      Gates and figures: ``phase_mesh``.
+      Gates and figures: ``phase_mesh``. Then the dual-microbatch decode
+      (``decode_overlap=True``) and the cross-mesh disaggregator:
+      - first, on one device in this process (``phase_overlap_single``),
+        DeepSeek-V3 (4 layers, published widths, dense ring, no draft)
+        and qwen3-14b whole on the dense ring, graphed, single and dual
+        engines on one set of weights; gates: one capture each, every
+        request done, each kernel's launches a dual step twice the single
+        step's (``OVERLAP_STEP``: fp8_gemm 58, moe_gemm 6, mla_decode 8),
+        the first dual step's logits within ``OVERLAP_LIMITS`` of the
+        single step's on the same cache; printed: graphed ms a step in
+        turns, where the streams part, a profile of each chunk;
+      - in the 4 ranks, DeepSeek-V3 on the dense ring at (1, 4),
+        ``ep_flat``, FP8 wire, single and dual on the paged run's placed
+        weights (``mesh_overlap``); gates: all-to-alls a MoE layer and
+        step exactly 2x, their bytes in [1x, 2x] and equal to each
+        engine's ``decode_alltoall_bytes()``, the first dual step's
+        logits within ``MESH_LIMITS`` of the single-scan mesh's; printed:
+        eager ms a step in turns, host seconds inside staged collectives
+        and seconds a half's collective was in flight under the other
+        half's work (``collectives.record()``);
+      - in the 4 ranks, ``Disaggregator(ctx=, prefill_ctx=)`` on
+        DeepSeek-V3, prefill at (1, 4), decode at (1, 2) over ranks 0-1,
+        paged fp8 and dense (``mesh_disagg``); gates: every rank
+        cross-mesh, every request done on the decode ranks,
+        ``handoff_bytes`` the sum of ``cache_nbytes`` over the payloads,
+        the kernels launched, peak memory a rank under the card's;
+        printed: streams against phase (c)'s.
 
 The line before the last two is one JSON object with the kernel table
 (fp8_gemm's training backward rows, dx and dw at the FFN's w_gate/w_up,
@@ -3286,6 +3312,26 @@ MESH_FAULTS = {"deepseek-v3-671b": ("experts_shifted", "w_o_scales_shifted"),
 MOE_CHECK_TOKENS = 8
 # single-device streams of phase (c), by path (for phase (h))
 SERVED = {}
+# phase (h)'s dual-microbatch decode (``decode_overlap=True``) on one
+# device, graphed, on the dense ring: DeepSeek-V3 at phase (c)'s depth cut
+# without the draft, and qwen3-14b whole; each op's launches a dual step
+# (twice the single step's; qwen3-14b's dense-ring decode runs no kernel
+# of the port)
+OVERLAP_ENGINE = dict(paged=False, attn_impl="pallas")
+OVERLAP_STEP = {"deepseek-v3-671b": {"fp8_gemm": 58, "moe_gemm": 6,
+                                     "mla_decode": 8},
+                "qwen3-14b": {}}
+# the first dual step's logits against the single step's on the same cache,
+# max err over max|logit| and least cosine: the mesh's limits (a half-batch
+# changes cuBLAS's algorithm and the split plans, as the mesh reorders its
+# sums; at published widths one ulp flips E4M3 codes downstream)
+OVERLAP_LIMITS = {"deepseek-v3-671b": (0.1, 0.995),
+                  "qwen3-14b": (0.04, 0.9993)}
+# the meshed dual decode: DeepSeek-V3 on the dense ring at (1, 4), ep_flat,
+# FP8 wire, with and without overlap; then the cross-mesh disaggregator:
+# prefill on (1, 4), decode on (1, 2) over ranks 0-1, paged fp8 and dense
+DISAGG_DECODE_MESH = (1, 2)
+DISAGG_RUNS = (("paged", PAGED), ("dense", OVERLAP_ENGINE))
 
 
 def mesh_rank(rank, store_path, out_path):
@@ -3313,6 +3359,9 @@ def mesh_rank(rank, store_path, out_path):
     dist.init_process_group("gloo", rank=rank, world_size=MESH_WORLD,
                             store=dist.FileStore(store_path, MESH_WORLD))
     mesh = Mesh.create(MESH)
+    # every rank creates the decode mesh's groups, in the same order
+    dmesh = Mesh.create(DISAGG_DECODE_MESH,
+                        ranks=range(math.prod(DISAGG_DECODE_MESH)))
     inputs = json.loads((pathlib.Path(store_path).parent
                          / "mesh_in.json").read_text())
     res = {"rank": rank, "t_start": t_start, "t_ready": time.time(),
@@ -3417,11 +3466,274 @@ def mesh_rank(rank, store_path, out_path):
             mirrors=mirrors, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
             bytes=dict(coll.BYTES))
         del eng
+        if model == "deepseek-v3-671b" and wire == "fp8":
+            res["overlap"] = mesh_overlap(torch, mesh, params[model],
+                                          inputs[model])
         if model != "deepseek-v3-671b" or wire == "fp8":
             params = {}
         gc_cuda(torch)
+    res["disagg"] = mesh_disagg(torch, mesh, dmesh,
+                                inputs["deepseek-v3-671b"])
     pathlib.Path(out_path).write_text(json.dumps(res))
     dist.destroy_process_group()
+
+
+def overlap_step_logits(torch, eng, served, pctx=None):
+    """One decode step over four slots admitted with the first four served
+    prompts, fed each request's served first token at its prompt length
+    (``reference_logits``'s inputs): the single step's logits, then the
+    dual step's (``overlap.dual_decode_step`` on the cache's halves) on
+    the same cache, each ``(4, V)`` fp32 on the host. The engine is left
+    empty."""
+    import numpy as np
+    from repro_torch.parallel import context, overlap
+    from repro_torch.serve.engine import Request
+    model, params, dev = eng.model, eng.params, eng.device
+    reqs = [Request(200 + i, np.asarray(p, np.int32), max_new=2)
+            for i, p in enumerate(served["prompts"][:4])]
+    for r in reqs:
+        eng.add_request(r)
+    toks = torch.tensor([[o[0]] for o in served["outs"][:4]],
+                        dtype=torch.int32, device=dev)
+    pos = torch.tensor([[len(p)] for p in served["prompts"][:4]],
+                       dtype=torch.int32, device=dev)
+    one, _ = model.decode_step(params, eng.cache, toks, pos, pctx=pctx)
+    halfA, halfB = overlap.cache_halves(model, eng.cache)
+    with torch.no_grad(), context.use(pctx):
+        la, lb, _, _ = overlap.dual_decode_step(
+            model, params, halfA, halfB, toks[:2], toks[2:], pos[:2],
+            pos[2:])
+    for r in reqs:
+        eng.cancel(r.rid)
+    return (one[:, 0].float().cpu().numpy(),
+            torch.cat([la, lb])[:, 0].float().cpu().numpy())
+
+
+def serve_all(eng, prompts, max_new=32, limit=400):
+    """Serve ``prompts`` through ``eng`` to the end; returns the requests
+    and the ticks taken."""
+    import numpy as np
+    from repro_torch.serve.engine import Request
+    reqs = [Request(i, np.asarray(p, np.int32), max_new=max_new)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    ticks = 0
+    while eng.has_work():
+        eng.step()
+        ticks += 1
+        if ticks > limit:
+            raise AssertionError(f"not finished in {limit} ticks")
+    return reqs, ticks
+
+
+def phase_overlap_single(torch):
+    """Phase (h), one device: ``ServeEngine(decode_overlap=True)`` on the
+    dense ring, graphed (``OVERLAP_STEP``'s paths), beside the single path
+    on the same weights, on phase (c)'s prompts. Gates (fatal): every
+    request done on both; each engine's decode chunk captured once
+    (``trace_counts["decode"] == 1``); each kernel's launches a dual step,
+    read off one replay's tally, exactly twice the single step's and equal
+    to ``OVERLAP_STEP``; the first dual step's logits within
+    ``OVERLAP_LIMITS`` of the single step's on the same cache. Printed:
+    graphed ms/step at the steady contexts in turns (single, dual, dual,
+    single), where each dual stream first parts from the single one, and a
+    profile of one graphed chunk of each."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.serve.engine import ServeEngine
+    out = {}
+    for name, want in OVERLAP_STEP.items():
+        path = PATHS[name]
+        cfg = get_config(path["model"], **path["overrides"])
+        kw = dict(slots=4, max_len=path["max_len"], device="cuda", seed=0,
+                  **OVERLAP_ENGINE)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        single = ServeEngine(cfg, **kw)
+        dual = ServeEngine(cfg, params=single.params, decode_overlap=True,
+                           **kw)
+        torch.cuda.synchronize()
+        log(f"[h] {name}, one device, dense ring {OVERLAP_ENGINE}, 4 slots: "
+            f"single and dual engines up in {time.perf_counter() - t0:.2f} "
+            "s on one set of weights")
+        steps, streams = {}, {}
+        for label, eng in (("single", single), ("dual", dual)):
+            t0 = time.perf_counter()
+            reqs, ticks = serve_all(eng, SERVED[name]["prompts"])
+            wall = time.perf_counter() - t0
+            ch = eng._decode
+            steps[label] = {k: c / ch.k for k, c in ch.tally.items() if c}
+            streams[label] = [list(map(int, r.out)) for r in reqs]
+            log(f"[h] {name} {label}: {len(reqs)} requests served in "
+                f"{wall:.3f} s over {ticks} ticks; trace_counts "
+                f"{eng.trace_counts}; capture {ch.capture_s:.3f} s + "
+                f"instantiation {ch.instantiate_s:.3f} s; launches a step "
+                f"(one replay's tally over {ch.k} steps) {steps[label]}")
+            if not all(r.done and len(r.out) == 32 for r in reqs):
+                raise AssertionError(f"[h] {name} {label}: a request "
+                                     "unfinished")
+            if eng.trace_counts["decode"] != 1:
+                raise AssertionError(f"[h] {name} {label}: trace_counts "
+                                     f"{eng.trace_counts}, want one capture")
+        if steps["dual"] != {k: 2 * c for k, c in steps["single"].items()} \
+                or any(steps["dual"].get(k) != c for k, c in want.items()):
+            raise AssertionError(f"[h] {name}: launches a step, dual "
+                                 f"{steps['dual']}, single {steps['single']}"
+                                 f"; want dual {want}, twice the single's")
+        parts = [first_diff(a, b) for a, b in zip(streams["single"],
+                                                  streams["dual"])]
+        one, two = overlap_step_logits(torch, dual, SERVED[name])
+        a = logit_agreement(two, one)
+        err, cos = OVERLAP_LIMITS[name]
+        log(f"[h] {name}: the first dual step's logits vs the single step's "
+            f"on the same cache: max err {a['err']:.5f} of max|logit| (rows "
+            f"{a['rows_err']}), least cosine {a['cos']:.6f}, greedy tokens "
+            f"equal {a['argmax']}/{a['rows']} (limits err <= {err}, cos >= "
+            f"{cos}); free-running greedy streams, dual vs single, first "
+            f"differing token per request {parts} (printed, not gated)")
+        if a["err"] > err or a["cos"] < cos:
+            raise AssertionError(f"[h] {name}: dual step logits off the "
+                                 "single step's")
+        for eng in (single, dual):
+            steady_state(torch, eng, path)
+        host = steady_host(path)
+        ms = {"single": [], "dual": []}
+        for label in ("single", "dual", "dual", "single"):
+            eng = single if label == "single" else dual
+            ms[label].append(chunk_ms(torch, eng._decode, host, True))
+        log(f"[h] {name}: graphed steady decode, 4 slots at contexts "
+            f"{path['steady']} x {single._decode.k} steps, in turns (single, "
+            f"dual, dual, single): single {[round(x, 3) for x in ms['single']]}"
+            f" ms/step, dual {[round(x, 3) for x in ms['dual']]} ms/step; "
+            f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        for label, eng in (("single", single), ("dual", dual)):
+            profile_device(torch, f"phase (h) {name} {label}: one graphed "
+                           f"{eng._decode.k}-step chunk",
+                           lambda: eng._decode(host), eng._decode.k, "step")
+        out[name] = dict(ms=ms, steps=steps, parts=parts, logits=a)
+        # the chunks hold the weights, the rings and the graph pools
+        del single, dual, eng, ch
+        gc_cuda(torch)
+    return out
+
+
+def mesh_overlap(torch, mesh, params, served):
+    """Phase (h) in a mesh rank: DeepSeek-V3 on the dense ring at (1, 4),
+    ``ep_flat``, FP8 wire, on the rank's placed weights, single and dual
+    (``decode_overlap=True``) engines. Each serves phase (c)'s requests;
+    then, at the steady contexts, one eager chunk each in turns (single,
+    dual, dual, single) under ``collectives.record()``: ms a step, the
+    all-to-alls and their bytes a MoE layer and step, the host's seconds
+    inside staged collectives, and the seconds a half's collective was in
+    flight while the other half's work was queued; and the first dual
+    step's logits against the single step's. Returns them (gated by
+    ``phase_mesh``)."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import registry
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.context import ParallelCtx
+    from repro_torch.serve.engine import ServeEngine
+    name = "deepseek-v3-671b"
+    path = PATHS[name]
+    cfg = get_config(path["model"], **path["overrides"])
+    ctx = ParallelCtx(mesh=mesh, moe_impl="ep_flat", wire="fp8")
+    kw = dict(slots=4, max_len=path["max_len"], device="cuda", seed=0,
+              ctx=ctx, params=params, **OVERLAP_ENGINE)
+    engines = {"single": ServeEngine(cfg, **kw),
+               "dual": ServeEngine(cfg, decode_overlap=True, **kw)}
+    moe = sum(seg.n for seg in engines["single"].model.segments
+              if seg.kind == "moe")
+    out = {}
+    for label, eng in engines.items():
+        dist.barrier()
+        t0 = time.perf_counter()
+        reqs, ticks = serve_all(eng, served["prompts"])
+        out[label] = dict(outs=[list(map(int, r.out)) for r in reqs],
+                          done=all(r.done for r in reqs),
+                          served_s=time.perf_counter() - t0, ticks=ticks,
+                          claimed=eng.decode_alltoall_bytes(), turns=[])
+        steady_state(torch, eng, path)
+    host = steady_host(path)
+    for label in ("single", "dual", "dual", "single"):
+        eng = engines[label]
+        dist.barrier()
+        coll.reset_counters()
+        registry.reset_launch_counts()
+        torch.cuda.synchronize()
+        with coll.record() as rec:
+            t0 = time.perf_counter()
+            eng._decode(host)
+            wall = time.perf_counter() - t0
+        a2a = rec.collectives("all_to_all")
+        k = eng._decode.k
+        out[label]["turns"].append(dict(
+            ms=1e3 * wall / k, launches={
+                n: c / k for n, c in registry.launch_counts().items() if c},
+            a2a=len(a2a) / (k * moe),
+            a2a_bytes=sum(e.nbytes for e in a2a) / (k * moe),
+            staged_s=sum(coll.SECONDS.values()) / k,
+            in_flight_s=rec.in_flight_s() / k,
+            collectives=len(rec.collectives()) / k))
+    one, two = overlap_step_logits(torch, engines["dual"], served, pctx=ctx)
+    out["logits"] = logit_agreement(two, one)
+    del engines, eng
+    return out
+
+
+def mesh_disagg(torch, mesh, dmesh, served):
+    """Phase (h) in a mesh rank: cross-mesh disaggregation on DeepSeek-V3,
+    prefill on ``mesh`` (every rank), decode on ``dmesh`` (ranks 0-1),
+    ``ep_flat``, FP8 wire, paged fp8 and dense (``DISAGG_RUNS``), each on
+    weights drawn for it from the seed (one parameter set, placed by each
+    mesh's rules), phase (c)'s requests. Returns per run what the rank
+    saw: on the decode mesh or not, every request done, the streams, the
+    handoff bytes and the sum of ``cache_nbytes`` over the payloads it
+    queued, launches, seconds, peak memory."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import registry
+    from repro_torch.parallel.context import ParallelCtx
+    from repro_torch.serve.disagg import Disaggregator, cache_nbytes
+    from repro_torch.serve.engine import Request
+    import numpy as np
+    path = PATHS["deepseek-v3-671b"]
+    cfg = get_config(path["model"], **path["overrides"])
+    out = {}
+    for label, engine in DISAGG_RUNS:
+        gc_cuda(torch)
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        t0 = time.perf_counter()
+        dis = Disaggregator(
+            cfg, decode_slots=4, max_len=path["max_len"], device="cuda",
+            prefill_ctx=ParallelCtx(mesh=mesh, moe_impl="ep_flat"),
+            ctx=ParallelCtx(mesh=dmesh, moe_impl="ep_flat"), **engine)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        reqs = [Request(i, np.asarray(p, np.int32), max_new=32)
+                for i, p in enumerate(served["prompts"])]
+        dist.barrier()
+        registry.reset_launch_counts()
+        t0 = time.perf_counter()
+        wire = 0
+        for r in reqs:
+            dis.submit(r)
+            if dis.decode is not None:
+                wire += cache_nbytes(dis.queue[-1].cache1)
+        dis.run()
+        torch.cuda.synchronize()
+        out[label] = dict(
+            decode=dis.decode is not None, cross=dis.cross_mesh,
+            done=all(r.done for r in reqs), build_s=build_s,
+            wall_s=time.perf_counter() - t0,
+            outs=[list(map(int, r.out)) for r in reqs],
+            handoff=dis.handoff_bytes, wire=wire,
+            counts=registry.launch_counts(),
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del dis
+    gc_cuda(torch)
+    return out
 
 
 def _swap_leaves(tree, pick, make, saved):
@@ -3708,14 +4020,24 @@ def phase_mesh(torch, card):
     run two)."""
     import tempfile
     gc_cuda(torch)
+    t0 = time.time()
+    phase_overlap_single(torch)
+    gc_cuda(torch)
+    log(f"[h] dual-microbatch decode on one device: {time.time() - t0:.1f} "
+        f"s; {torch.cuda.memory_reserved() / 1e9:.2f} GB reserved here "
+        "before the ranks start")
     log(f"[h] mesh-sharded serving: {MESH_WORLD} gloo ranks sharing the "
-        f"card ({card}), mesh {MESH} (data, model); runs {MESH_RUNS}")
+        f"card ({card}), mesh {MESH} (data, model); runs {MESH_RUNS}, then "
+        f"DeepSeek-V3 on the dense ring with and without decode overlap, "
+        f"then cross-mesh disaggregation (prefill {MESH}, decode "
+        f"{DISAGG_DECODE_MESH} over ranks 0-"
+        f"{math.prod(DISAGG_DECODE_MESH) - 1}) {[r for r, _ in DISAGG_RUNS]}")
     t0 = time.time()
     with tempfile.TemporaryDirectory() as tmp:
         (pathlib.Path(tmp) / "mesh_in.json").write_text(json.dumps(
             {m: dict(prompts=SERVED[m]["prompts"], outs=SERVED[m]["outs"])
              for m, _ in MESH_RUNS}))
-        codes, outs = run_ranks(mesh_rank, MESH_WORLD, tmp, 700)
+        codes, outs = run_ranks(mesh_rank, MESH_WORLD, tmp, 900)
         if codes != [0] * MESH_WORLD:
             raise AssertionError(f"mesh ranks exited with {codes}")
         res = [json.loads(pathlib.Path(o).read_text()) for o in outs]
@@ -3787,9 +4109,132 @@ def phase_mesh(torch, card):
                 "moved a decode step a MoE layer, counted "
                 f"{[round(run['a2a_step_layer'], 1) for run in runs]}; "
                 f"collective bytes of the run, rank 0: {runs[0]['bytes']}")
+    bad += mesh_overlap_gate(torch, res)
+    bad += mesh_disagg_gate(torch, res)
     if bad:
         raise AssertionError("[h] " + "; ".join(bad))
     return res
+
+
+def mesh_overlap_gate(torch, res):
+    """The meshed dual decode's gates (``mesh_overlap``): every request
+    done on every rank; in each timed chunk, each kernel's launches a dual
+    step ``OVERLAP_STEP``'s and twice the single step's, the all-to-alls a
+    MoE layer and step exactly twice the single path's, their bytes in
+    [1x, 2x] of its and each path's equal to its
+    ``decode_alltoall_bytes()``; the
+    first dual step's logits within ``MESH_LIMITS`` of the single-scan
+    mesh's; every rank's dual streams alike. Prints the figures."""
+    bad = []
+    key = "deepseek-v3-671b dense ring, ep_flat, fp8 wire"
+    ovs = [r["overlap"] for r in res]
+    for r, ov in enumerate(ovs):
+        s, d = ov["single"], ov["dual"]
+        if not (s["done"] and d["done"]):
+            bad.append(f"{key} rank {r}: a request unfinished")
+        for ts, td in zip(s["turns"], d["turns"]):
+            want = OVERLAP_STEP["deepseek-v3-671b"]
+            if td["launches"] != want or td["launches"] != {
+                    n: 2 * c for n, c in ts["launches"].items()}:
+                bad.append(f"{key} rank {r}: launches a step, dual "
+                           f"{td['launches']}, single {ts['launches']}; "
+                           f"want dual {want}, twice the single's")
+            if not (ts["a2a"] > 0 and td["a2a"] == 2 * ts["a2a"]):
+                bad.append(f"{key} rank {r}: all-to-alls a MoE layer and "
+                           f"step, dual {td['a2a']}, single {ts['a2a']}")
+            if not (ts["a2a_bytes"] <= td["a2a_bytes"]
+                    <= 2 * ts["a2a_bytes"]) or \
+                    td["a2a_bytes"] != d["claimed"] or \
+                    ts["a2a_bytes"] != s["claimed"]:
+                bad.append(f"{key} rank {r}: all-to-all bytes a MoE layer "
+                           f"and step, dual {td['a2a_bytes']} (claimed "
+                           f"{d['claimed']}), single {ts['a2a_bytes']} "
+                           f"(claimed {s['claimed']})")
+        if ov["dual"]["outs"] != ovs[0]["dual"]["outs"]:
+            bad.append(f"{key}: rank {r}'s dual streams differ from rank 0's")
+    ov = ovs[0]
+    a = ov["logits"]
+    err, cos = MESH_LIMITS["deepseek-v3-671b"]
+    log(f"[h] {key}: the first dual step's logits vs the single-scan mesh's "
+        f"on the same cache: max err {a['err']:.5f} of max|logit| (rows "
+        f"{a['rows_err']}), least cosine {a['cos']:.6f}, greedy tokens equal "
+        f"{a['argmax']}/{a['rows']} (limits err <= {err}, cos >= {cos})")
+    if a["err"] > err or a["cos"] < cos:
+        bad.append(f"{key}: dual step logits off the single-scan mesh's")
+    parts = [first_diff(x, y) for x, y in zip(ov["single"]["outs"],
+                                              ov["dual"]["outs"])]
+    log(f"[h] {key}: served {len(parts)} requests, single "
+        f"{ov['single']['served_s']:.2f} s / dual {ov['dual']['served_s']:.2f}"
+        f" s (rank 0); dual vs single greedy streams, first differing token "
+        f"per request {parts} (printed, not gated)")
+    for label in ("single", "dual"):
+        t = [o[label]["turns"] for o in ovs]
+        log(f"[h] {key} {label}: eager steady chunk in turns (single, dual, "
+            "dual, single), per rank: ms a step "
+            f"{[[round(x['ms'], 2) for x in tt] for tt in t]}; host s a step "
+            "inside staged collectives "
+            f"{[[round(x['staged_s'], 4) for x in tt] for tt in t]}; s a "
+            "step a half's collective was in flight while the other half's "
+            "work was queued "
+            f"{[[round(x['in_flight_s'], 4) for x in tt] for tt in t]}; "
+            f"launches a step {t[0][0]['launches']}, "
+            f"collectives a step {t[0][0]['collectives']}, all-to-alls a "
+            f"MoE layer and step {t[0][0]['a2a']}, their bytes "
+            f"{t[0][0]['a2a_bytes']} (decode_alltoall_bytes() "
+            f"{ovs[0][label]['claimed']})")
+    return bad
+
+
+def mesh_disagg_gate(torch, res):
+    """The cross-mesh disaggregator's gates (``mesh_disagg``): every rank
+    cross-mesh, on the decode mesh exactly the decode ranks; there every
+    request done, ``handoff_bytes`` equal to the sum of ``cache_nbytes``
+    over the payloads queued (and > 0), the decode path's kernels
+    launched; on a prefill-only rank the prefill's; peak memory a rank
+    under the card's. Prints the streams against phase (c)'s."""
+    bad = []
+    cap = torch.cuda.get_device_properties(0).total_memory / 1e9
+    n_dec = math.prod(DISAGG_DECODE_MESH)
+    handoff = {}
+    for label, engine in DISAGG_RUNS:
+        runs = [r["disagg"][label] for r in res]
+        attn = "paged_mla_decode" if engine.get("paged") else "mla_decode"
+        for r, run in enumerate(runs):
+            on = r < n_dec
+            need = ("fp8_gemm", "moe_gemm") + ((attn,) if on else ())
+            if run["decode"] != on or not run["cross"]:
+                bad.append(f"disagg {label} rank {r}: decode "
+                           f"{run['decode']}, cross_mesh {run['cross']}")
+            if on and not (run["done"] and run["handoff"] == run["wire"] > 0):
+                bad.append(f"disagg {label} rank {r}: done {run['done']}, "
+                           f"handoff_bytes {run['handoff']} vs the payloads' "
+                           f"{run['wire']}")
+            for k in need:
+                if run["counts"][k] <= 0:
+                    bad.append(f"disagg {label} rank {r}: {k} never "
+                               "launched")
+            if run["peak_gb"] >= cap:
+                bad.append(f"disagg {label} rank {r}: peak {run['peak_gb']}"
+                           f" GB over the card's {cap}")
+        one = SERVED["deepseek-v3-671b"]["outs"]
+        outs = runs[0]["outs"]
+        handoff[label] = runs[0]["handoff"]
+        log(f"[h] cross-mesh disagg {label}: build (two engines) s per rank "
+            f"{[round(x['build_s'], 2) for x in runs]}, served in "
+            f"{runs[0]['wall_s']:.2f} s (rank 0); handoff_bytes "
+            f"{runs[0]['handoff']} (the payloads' cache_nbytes "
+            f"{runs[0]['wire']}); peak GB per rank "
+            f"{[round(x['peak_gb'], 2) for x in runs]}; launches rank 0 "
+            f"{ {k: c for k, c in runs[0]['counts'].items() if c} }, rank "
+            f"{n_dec} (prefill only) "
+            f"{ {k: c for k, c in runs[n_dec]['counts'].items() if c} }; "
+            f"streams vs phase (c)'s single device: tokens equal "
+            f"{match_frac(one, outs):.4f}, first differing token per "
+            f"request {[first_diff(a, b) for a, b in zip(one, outs)]} "
+            "(printed, not gated)")
+    log(f"[h] cross-mesh disagg: handoff_bytes paged fp8 {handoff['paged']}"
+        f" vs dense {handoff['dense']}")
+    return bad
 
 
 def mesh_logit_gate(key, logits, outs):

@@ -6,6 +6,8 @@ for serving, MLA (DeepSeek-V3, with its MTP module) and GQA (qwen3-14b).
     loss(params, batch)            (scalar, metrics): teacher forcing with
                                    the MTP loss and the MoE diagnostics,
                                    differentiable (the training path)
+    loss_dual(params, batchA, batchB)  the same over two anti-phase
+                                   microbatches (``parallel/overlap.py``)
     prefill(params, batch, extra_slots=, lengths=)  (last-position logits,
                                    cache); the bucketed form pad-masks the
                                    prompt, ``extra_slots`` widens the rings
@@ -18,9 +20,11 @@ for serving, MLA (DeepSeek-V3, with its MTP module) and GQA (qwen3-14b).
                                    one page-aligned chunk of one slot's
                                    prompt, written into its pages in place
     decode_step(params, cache, tokens, positions)  over either cache
-    decode_loop(params, cache, state, k, use_mtp=)  k decode steps with
-                                   on-device sampling, EOS/budget masks
-                                   and the same-step MTP draft
+    decode_loop(params, cache, state, k, use_mtp=, overlap=)  k decode
+                                   steps with on-device sampling,
+                                   EOS/budget masks and the same-step MTP
+                                   draft; ``overlap``: as two half-batches
+                                   (dual microbatch, paper §2.3.1)
 
 Layers are stored stacked per segment (``(n, ...)`` leaves, as in the
 reference); the port walks them with a Python loop where the reference
@@ -170,6 +174,30 @@ def _under_pctx(fn):
     return run
 
 
+def stack_stats(stats: List[dict]) -> Dict[str, torch.Tensor]:
+    """Per-layer MoE stats stacked over a segment's layers, as the
+    reference's scan stacks them (``load`` (n, E)); {} where none."""
+    if not stats or not stats[0]:
+        return {}
+    return {k: torch.stack([st[k] for st in stats]) for k in stats[0]}
+
+
+def _advance(st: dict, logits: torch.Tensor, temperature: float,
+             top_k: int):
+    """One decode step's sampling and state update from the step's logits
+    (B, 1, V): the sampled tokens, the emitted tokens (-1 where a slot was
+    inactive) and the new state (EOS and budget masks applied)."""
+    tok, active, eos = st["tokens"], st["active"], st["eos"]
+    nxt = sample_logits(logits[:, 0], st["seeds"], st["tix"], temperature,
+                        top_k)
+    left2 = st["left"] - active.int()
+    done = active & (((eos >= 0) & (nxt == eos)) | (left2 <= 0))
+    return nxt, torch.where(active, nxt, -1), dict(
+        st, tokens=torch.where(active, nxt, tok),
+        positions=st["positions"] + active.int(), active=active & ~done,
+        left=left2, tix=st["tix"] + active.int())
+
+
 def _fill(tree, value):
     """The same nesting of dicts with every leaf replaced by ``value``."""
     if isinstance(tree, dict):
@@ -245,18 +273,17 @@ class Model:
 
     def _run_segment(self, seg: Segment, p, x, ctx, cache):
         """The segment's layers in turn. Returns (x, per-layer outputs,
-        stats): each MoE stat stacked over the layers, as the reference's
-        scan stacks them (``load`` (n, E)); {} where none."""
+        stats): each MoE stat stacked over the layers (:func:`stack_stats`).
+        Each layer's collectives carry its name (``collectives.tagged``)."""
         outs, stats = [], []
         for i in range(seg.n):
             c = None if cache is None else layer(cache, i)
-            x, out, st = tfm.block_apply(layer(p, i), x, self.cfg, ctx, c)
+            with coll.tagged(f"{seg.name}/{i}"):
+                x, out, st = tfm.block_apply(layer(p, i), x, self.cfg, ctx,
+                                             c)
             outs.append(out)
             stats.append(st)
-        if not stats or not stats[0]:
-            return x, outs, {}
-        return x, outs, {k: torch.stack([st[k] for st in stats])
-                         for k in stats[0]}
+        return x, outs, stack_stats(stats)
 
     def _backbone(self, params, tokens, ctx, cache):
         """Embed + all segments. Returns (h, per-segment layer outputs,
@@ -314,16 +341,41 @@ class Model:
             metrics[f"{segname}/load_layers"] = st["load"]
         metrics["aux_loss"] = aux
         if cfg.mtp:
-            mtp_l = mtp_mod.mtp_losses(
-                params["mtp"], h, tokens,
-                emb_fn=lambda t: self._embed(params, t),
-                unemb_fn=lambda hh: self._unembed(params, hh),
-                cfg=cfg, positions=pos,
-                block_apply=lambda p, x, positions: tfm.block_apply(
-                    p, x, cfg, dict(ctx, positions=positions), None)[0])
+            mtp_l = self._mtp_loss(params, h, tokens, pos, ctx)
             metrics["mtp_loss"] = mtp_l.detach()
             loss = loss + mtp_l
         return loss, metrics
+
+    def _mtp_loss(self, params, h, tokens, pos, ctx):
+        """The MTP modules' loss on the backbone's hidden ``h``."""
+        cfg = self.cfg
+        return mtp_mod.mtp_losses(
+            params["mtp"], h, tokens,
+            emb_fn=lambda t: self._embed(params, t),
+            unemb_fn=lambda hh: self._unembed(params, hh),
+            cfg=cfg, positions=pos,
+            block_apply=lambda p, x, positions: tfm.block_apply(
+                p, x, cfg, dict(ctx, positions=positions), None)[0])
+
+    def loss_dual(self, params, batchA, batchB):
+        """The loss over two anti-phase microbatches (paper §2.3.1
+        overlap; the reference's ``Model.loss_dual``): each layer runs on
+        both before the next, so under a mesh each microbatch's MoE
+        all-to-alls would be in flight under the other's compute
+        (``parallel/overlap.py``). Returns ``(loss, metrics)`` with
+        ``loss``'s metrics schema, microbatch-averaged, the CE weighted by
+        each half's valid tokens (it equals ``loss`` on the joined batch).
+        Under a mesh ctx it waits for the meshed train step."""
+        if pctx_mod.get().mesh is not None:
+            raise NotImplementedError(
+                "Model.loss_dual under a mesh ctx: the meshed train step "
+                "(its EP backward, sharded_global_norm) is not ported yet "
+                "(ROADMAP.md, A.8)")
+        if params.get("prepared"):
+            raise ValueError("Model.loss_dual takes the raw weights, not a "
+                             "tree made by bridge.prepare_for_serving")
+        from repro_torch.parallel import overlap
+        return overlap.dual_loss_and_metrics(self, params, batchA, batchB)
 
     # -- prefill ---------------------------------------------------------------
     @torch.no_grad()
@@ -487,7 +539,8 @@ class Model:
     @_under_pctx
     def decode_loop(self, params, cache, state, k: int, *,
                     temperature: float = 0.0, top_k: int = 0,
-                    use_mtp: bool = False, batch_sharded: bool = False):
+                    use_mtp: bool = False, overlap: bool = False,
+                    batch_sharded: bool = False):
         """``k`` decode steps with sampling, EOS and budget masking on the
         card. With ``use_mtp`` each step first drafts from the carried pair
         ``(mtp_h, token)`` against the MTP ring (``core/mtp.py``), then
@@ -495,14 +548,27 @@ class Model:
         and ``accepted`` in the state count active steps and hits. Returns
         ``(tokens (B,k), emitted (B,k) bool, cache, state)``; tokens are -1
         where the slot was inactive. ``pctx=`` and ``batch_sharded``: as
-        :meth:`decode_step`'s."""
+        :meth:`decode_step`'s.
+
+        ``overlap=True`` runs the batch as two anti-phase half-batches,
+        layer by layer (``parallel/overlap.dual_decode_step``), so that
+        under a mesh each half's MoE all-to-alls are in flight while the
+        other half computes: the paper's §2.3.1 dual microbatch applied
+        to decode. Dense caches only (a paged pool is shared by the
+        slots), no MTP, an even batch."""
+        if overlap:
+            if use_mtp:
+                raise ValueError("decode overlap is incompatible with "
+                                 "use_mtp: the draft ring is not split")
+            return self._decode_loop_dual(
+                params, cache, state, k, temperature=temperature,
+                top_k=top_k, batch_sharded=batch_sharded)
         if use_mtp and not self.cfg.mtp:
             raise ValueError(f"use_mtp: {self.cfg.name} has no MTP module")
         st = dict(state)
         toks, was_active = [], []
         for _ in range(k):
-            tok, pos = st["tokens"], st["positions"]
-            active, left, eos = st["active"], st["left"], st["eos"]
+            tok, pos, active = st["tokens"], st["positions"], st["active"]
             if use_mtp:
                 draft = mtp_mod.mtp_draft_tokens(
                     params, cache, self.cfg, tok, pos,
@@ -511,21 +577,68 @@ class Model:
             logits, cache = self.decode_step(params, cache, tok[:, None],
                                              pos[:, None],
                                              batch_sharded=batch_sharded)
-            nxt = sample_logits(logits[:, 0], st["seeds"], st["tix"],
-                                temperature, top_k)
+            nxt, emitted, st2 = _advance(st, logits, temperature, top_k)
             if use_mtp:
-                st["drafts"] = st["drafts"] + active.sum(dtype=torch.int32)
-                st["accepted"] = st["accepted"] + (
+                st2["drafts"] = st["drafts"] + active.sum(dtype=torch.int32)
+                st2["accepted"] = st["accepted"] + (
                     active & (draft == nxt)).sum(dtype=torch.int32)
-            left2 = left - active.int()
-            done = active & (((eos >= 0) & (nxt == eos)) | (left2 <= 0))
-            toks.append(torch.where(active, nxt, -1))
+            toks.append(emitted)
             was_active.append(active)
-            st.update(tokens=torch.where(active, nxt, tok),
-                      positions=pos + active.int(), active=active & ~done,
-                      left=left2, tix=st["tix"] + active.int())
+            st = st2
         return (torch.stack(toks, dim=1), torch.stack(was_active, dim=1),
                 cache, st)
+
+    def _dense_cache_axes(self, cache) -> Dict[str, Any]:
+        """The batch axis of each leaf of a dense decode cache in hand
+        (``cache_batch_axes`` keyed off the cache itself): 0 for
+        ``mtp_h`` and ``memory``, 1 behind the stacked-layers axis for
+        every ring."""
+        return {key: (0 if key in ("memory", "mtp_h") else _fill(sub, 1))
+                for key, sub in cache.items()}
+
+    def _decode_loop_dual(self, params, cache, state, k: int, *,
+                          temperature: float, top_k: int,
+                          batch_sharded: bool):
+        """:meth:`decode_loop` over two anti-phase half-batches: the cache
+        and the state split at the batch axis into views (slots ``[0,
+        b)`` and ``[b, 2b)``), each step through
+        ``overlap.dual_decode_step``, which writes the rings in place (so
+        a captured chunk replays them); the halves' tokens and state are
+        joined back, slot ``i`` at index ``i``. The streams are those of
+        the single path wherever routing is per-token deterministic."""
+        from repro_torch.parallel import overlap
+        B = state["tokens"].shape[0]
+        if B % 2:
+            raise ValueError(f"decode overlap needs an even batch, got {B}")
+        if "page_table" in cache:
+            raise ValueError(
+                "decode overlap requires a dense cache: paged page pools "
+                "are shared across slots and have no batch axis to split")
+        if "memory" in cache:
+            raise ValueError("decode overlap supports decoder-only "
+                             "caches (enc/vlm memory is not threaded "
+                             "through the dual step)")
+        b = B // 2
+        halves = overlap.cache_halves(self, cache)
+        sts = [{kk: (v[i * b:(i + 1) * b] if v.dim() else v)
+                for kk, v in state.items()} for i in range(2)]
+        toks, was_active = [[], []], [[], []]
+        for _ in range(k):
+            la, lb, _, _ = overlap.dual_decode_step(
+                self, params, halves[0], halves[1],
+                sts[0]["tokens"][:, None], sts[1]["tokens"][:, None],
+                sts[0]["positions"][:, None], sts[1]["positions"][:, None],
+                batch_sharded=batch_sharded)
+            for i, logits in enumerate((la, lb)):
+                was_active[i].append(sts[i]["active"])
+                _, emitted, sts[i] = _advance(sts[i], logits, temperature,
+                                              top_k)
+                toks[i].append(emitted)
+        joined = {kk: (torch.cat([sts[0][kk], sts[1][kk]]) if v.dim() else
+                       sts[0][kk]) for kk, v in state.items()}
+        return (torch.cat([torch.stack(toks[i], dim=1) for i in range(2)]),
+                torch.cat([torch.stack(was_active[i], dim=1)
+                           for i in range(2)]), cache, joined)
 
     # -- dense cache family (per-slot rings) ---------------------------------
     def _init_mtp_ring(self, batch: int, max_len: int, device=None) -> dict:

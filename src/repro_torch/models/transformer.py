@@ -17,6 +17,7 @@ from repro_torch.core import mla as mla_mod
 from repro_torch.core import moe as moe_mod
 from repro_torch.models import layers as Lyr
 from repro_torch.models.param import ParamSpec
+from repro_torch.parallel import collectives as coll
 from repro_torch.parallel import context as pctx
 
 
@@ -92,12 +93,18 @@ def _ffn(p: dict, h: torch.Tensor, cfg: ModelConfig, ctx: dict):
     reference's ``transformer.py`` dispatch); ``ctx["batch_sharded"]``
     says the tokens are this data row's own (decode), not the same on
     every row (a batch-1 prefill)."""
+    return coll.drive(_ffn_phases(p, h, cfg, ctx))
+
+
+def _ffn_phases(p: dict, h: torch.Tensor, cfg: ModelConfig, ctx: dict):
+    """:func:`_ffn` as phases (``collectives.drive``): the EP MoE yields
+    with each of its collectives in flight; the rest runs through."""
     if "moe" in p:
         stats = bool(ctx.get("stats"))
         c = pctx.get()
         if c.ep_enabled:
             from repro_torch.parallel import ep
-            y, rr, drop = ep.moe_ffn_sharded(
+            y, rr, drop = yield from ep.moe_ffn_phases(
                 p["moe"], h, cfg, c, valid=ctx.get("valid"),
                 weights_qdq=ctx.get("weights_qdq", False),
                 replicated=not ctx.get("batch_sharded", False), stats=stats)
@@ -115,9 +122,20 @@ def _ffn(p: dict, h: torch.Tensor, cfg: ModelConfig, ctx: dict):
 def block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: dict,
                 cache=None):
     """Dense or MoE self-attention block. Returns (x, cache_out, stats)."""
+    return coll.drive(block_phases(p, x, cfg, ctx, cache))
+
+
+def block_phases(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: dict,
+                 cache=None):
+    """:func:`block_apply` as phases (``collectives.drive``): attention and
+    the gate, then the EP MoE's dispatch and combine, each yield with a
+    collective in flight (``parallel/overlap.py`` runs two blocks' phases
+    in turns). The attention's tensor-parallel reductions run through."""
+    coll.mark("attention")
     h, cache_out = _self_attention(p["attn"],
                                    Lyr.rmsnorm(x, p["ln1"], cfg.rms_eps),
                                    cfg, ctx, cache)
     x = x + h
-    f, stats = _ffn(p, Lyr.rmsnorm(x, p["ln2"], cfg.rms_eps), cfg, ctx)
+    f, stats = yield from _ffn_phases(p, Lyr.rmsnorm(x, p["ln2"],
+                                                     cfg.rms_eps), cfg, ctx)
     return x + f, cache_out, stats

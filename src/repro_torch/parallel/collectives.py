@@ -18,8 +18,21 @@ The mesh's plain collectives (``all_reduce``, ``all_gather``,
 axis line of ``parallel/context.Mesh``. Under gloo a CUDA payload goes
 through pinned host buffers, the only way ranks that share one card can
 talk (NCCL refuses two ranks on one device). Each call adds the bytes of
-the buffer this rank hands it to :data:`BYTES` under its kind, and its
-wall time to :data:`SECONDS` when it staged through the host.
+the buffer this rank hands it to :data:`BYTES` under its kind, and the
+host's seconds inside it to :data:`SECONDS` when it staged through the
+host.
+
+Each has an issued form (``all_to_all_start`` and so on) that returns a
+:class:`Pending` whose ``wait()`` gives the result, so that a caller can
+queue other work while the collective is in flight (the dual-microbatch
+decode, ``parallel/overlap.py``); the plain call is the issue, waited at
+once. Under gloo the issue stages the payload (the host waits for its
+copy alone) and hands it to the group's threads; the wait takes the
+result back to the card. Under NCCL (written, not yet run: it needs a
+card a rank) the issue is ``async_op=True`` on the card's tensors and
+the wait makes the current stream wait. :func:`record` lists every
+collective issued in a block with its kind, bytes, group, and the layer
+and half that issued it (:func:`tagged`), beside the caller's marks.
 
 Also the cross-replica checksums of the SDC guard (paper §6.1):
 ``fletcher64``/``tree_checksum`` on the tensor's device, equal to the
@@ -28,9 +41,11 @@ local tensors, read back to the host.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import collections
+import contextlib
+import dataclasses
 import time
 
 import numpy as np
@@ -58,7 +73,8 @@ def _neighbours(group, n: int, me: int) -> Tuple[int, int]:
 
 
 # bytes this rank handed to each kind of collective, and the wall seconds
-# of the calls staged through host memory (``reset_counters`` zeroes both)
+# the host spent inside the calls staged through host memory, issue and
+# wait (``reset_counters`` zeroes both)
 BYTES: Dict[str, int] = collections.Counter()
 SECONDS: Dict[str, float] = collections.Counter()
 
@@ -68,36 +84,188 @@ def reset_counters() -> None:
     SECONDS.clear()
 
 
+# ---------------------------------------------------------------------------
+# the record of collectives
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Entry:
+    """One collective of a :class:`Record` (or one mark, ``event ==
+    "mark"``, zero bytes): its kind, the bytes this rank handed it, its
+    process group, the layer and half that issued it (the tags of
+    :func:`tagged` at the issue; None outside them), and the host's
+    ``perf_counter`` at the start and end of its issue and of its wait
+    (``issued``, ``waited``; a mark has neither wait nor end)."""
+    kind: str
+    nbytes: int
+    group: Any
+    layer: Optional[str]
+    half: Optional[str]
+    event: str                      # "collective" | "mark"
+    issued: Tuple[float, float] = (0.0, 0.0)
+    waited: Optional[Tuple[float, float]] = None
+
+
+class Record:
+    """The collectives a block issued, in order (:func:`record`).
+    ``events`` lists ``("issue" | "wait" | "mark", entry)`` in program
+    order; ``entries`` the entries in order of issue."""
+
+    def __init__(self):
+        self.events: List[Tuple[str, Entry]] = []
+
+    @property
+    def entries(self) -> List[Entry]:
+        return [e for ev, e in self.events if ev in ("issue", "mark")]
+
+    def collectives(self, kind: Optional[str] = None) -> List[Entry]:
+        return [e for e in self.entries if e.event == "collective"
+                and (kind is None or e.kind == kind)]
+
+    def in_flight_s(self, kind: Optional[str] = None) -> float:
+        """Seconds between the end of each collective's issue and the start
+        of its wait, summed: the host time it was in flight while the
+        caller queued other work."""
+        return sum(e.waited[0] - e.issued[1] for e in self.collectives(kind)
+                   if e.waited is not None)
+
+    def position(self, event: str, **match) -> int:
+        """Index in ``events`` of the first event of kind ``event`` whose
+        entry's fields equal ``match``."""
+        for i, (ev, e) in enumerate(self.events):
+            if ev == event and all(getattr(e, k) == v
+                                   for k, v in match.items()):
+                return i
+        raise KeyError((event, match))
+
+
+_RECORD: Optional[Record] = None
+_TAG: Dict[str, Optional[str]] = {"layer": None, "half": None}
+
+
+@contextlib.contextmanager
+def record():
+    """Record every collective issued in the block, and every
+    :func:`mark` (the port's own count of its collectives, read by tests
+    and ``chip_smoke.py``). Yields the :class:`Record`."""
+    global _RECORD
+    prev, _RECORD = _RECORD, Record()
+    try:
+        yield _RECORD
+    finally:
+        _RECORD = prev
+
+
+@contextlib.contextmanager
+def tagged(layer: Optional[str] = None, half: Optional[str] = None):
+    """Tag the collectives and marks issued in the block with the layer and
+    the half (``"A"``/``"B"`` of a dual microbatch) that issue them."""
+    prev = dict(_TAG)
+    _TAG.update(layer=layer, half=half)
+    try:
+        yield
+    finally:
+        _TAG.update(prev)
+
+
+def mark(kind: str) -> None:
+    """Note, in the open record, that the caller starts ``kind`` (say,
+    ``"attention"``) now, under the current tags."""
+    if _RECORD is not None:
+        t = time.perf_counter()
+        _RECORD.events.append(("mark", Entry(kind, 0, None, _TAG["layer"],
+                                             _TAG["half"], "mark", (t, t))))
+
+
+# ---------------------------------------------------------------------------
+# issue and wait
+# ---------------------------------------------------------------------------
+
+
+class Pending:
+    """A collective in flight. ``wait()`` waits for it and returns its
+    result (the same object on a later call). Under gloo the transfer runs
+    on the process group's threads from the issue on; on a card under
+    NCCL, ``wait()`` makes the current stream wait for the collective's
+    stream (the host does not block)."""
+
+    def __init__(self, kind: str, works, finish, staged: bool,
+                 entry: Optional[Entry] = None, rec: Optional[Record] = None):
+        self._kind, self._works, self._finish = kind, list(works), finish
+        # the record the issue went to takes the wait too
+        self._staged, self._entry, self._rec = staged, entry, rec
+        self._done, self._out = False, None
+
+    def wait(self):
+        if self._done:
+            return self._out
+        t0 = time.perf_counter()
+        for w in self._works:
+            w.wait()
+        self._out = self._finish()
+        t1 = time.perf_counter()
+        if self._staged:
+            SECONDS[self._kind] += t1 - t0
+        if self._entry is not None:
+            self._entry.waited = (t0, t1)
+            self._rec.events.append(("wait", self._entry))
+        self._done, self._works, self._finish = True, [], None
+        self._rec = None
+        return self._out
+
+
+def _issue(kind: str, nbytes: int, group, staged: bool, t0: float, works,
+           finish) -> Pending:
+    """Count an issued collective (bytes, staged seconds, the record) and
+    wrap it."""
+    t1 = time.perf_counter()
+    BYTES[kind] += nbytes
+    if staged:
+        SECONDS[kind] += t1 - t0
+    entry = None
+    if _RECORD is not None:
+        entry = Entry(kind, nbytes, group, _TAG["layer"], _TAG["half"],
+                      "collective", (t0, t1))
+        _RECORD.events.append(("issue", entry))
+    return Pending(kind, works, finish, staged, entry, _RECORD)
+
+
 def _staged(group, t: torch.Tensor) -> bool:
     """A CUDA payload on a gloo group crosses through pinned host memory."""
     return t.is_cuda and dist.get_backend(group) == "gloo"
 
 
 def _to_host(ts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """Pinned host copies of CUDA tensors, after one wait for the copies."""
+    """Pinned host copies of CUDA tensors. The host waits for the copies
+    alone (an event recorded right after them, behind the payload's
+    producers), not for whatever the stream is given later."""
     host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             for t in ts]
     for h, t in zip(host, ts):
         h.copy_(t, non_blocking=True)
-    torch.cuda.current_stream(ts[0].device).synchronize()
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(ts[0].device))
+    done.synchronize()
     return host
 
 
-def _count(kind: str, nbytes: int, t0: Optional[float]) -> None:
-    BYTES[kind] += nbytes
-    if t0 is not None:
-        SECONDS[kind] += time.perf_counter() - t0
+def _back(t: torch.Tensor, device, staged: bool) -> torch.Tensor:
+    """A received host buffer back to the payload's card (queued on the
+    current stream; the caching host allocator keeps the pinned block
+    until the copy has run)."""
+    return t.to(device, non_blocking=True) if staged else t
 
 
-def _exchange(payload: Sequence[torch.Tensor], group, nxt: int, prv: int
-              ) -> List[torch.Tensor]:
-    """Send each tensor of ``payload`` to global rank ``nxt`` and receive
-    one of the same shape and type from ``prv``, all in one
+def _exchange_start(payload: Sequence[torch.Tensor], group, nxt: int,
+                    prv: int) -> Pending:
+    """Issue: send each tensor of ``payload`` to global rank ``nxt`` and
+    receive one of the same shape and type from ``prv``, all in one
     ``batch_isend_irecv``. Under gloo a payload on the card is staged
     through pinned host buffers and the received tensors go back to it."""
     dev = payload[0].device
     staged = dev.type == "cuda" and dist.get_backend(group) == "gloo"
-    t0 = time.perf_counter() if staged else None
+    t0 = time.perf_counter()
     send = _to_host(payload) if staged else list(payload)
     recv = [torch.empty(t.shape, dtype=t.dtype, device=t.device,
                         pin_memory=staged) for t in send]
@@ -105,20 +273,29 @@ def _exchange(payload: Sequence[torch.Tensor], group, nxt: int, prv: int
             for tag, t in enumerate(send)]
            + [dist.P2POp(dist.irecv, t, prv, group, tag)
               for tag, t in enumerate(recv)])
-    for work in dist.batch_isend_irecv(p2p):
-        work.wait()
-    if staged:
-        recv = [t.to(dev, non_blocking=True) for t in recv]
-    _count("exchange", sum(t.numel() * t.element_size() for t in send), t0)
-    return recv
+    works = dist.batch_isend_irecv(p2p)
+    return _issue("exchange", sum(t.numel() * t.element_size() for t in send),
+                  group, staged, t0, works,
+                  lambda: [_back(t, dev, staged) for t in recv])
+
+
+def _exchange(payload: Sequence[torch.Tensor], group, nxt: int, prv: int
+              ) -> List[torch.Tensor]:
+    return _exchange_start(payload, group, nxt, prv).wait()
+
+
+def exchange_start(payload: Sequence[torch.Tensor], group, nxt: int,
+                   prv: int) -> Pending:
+    """Issue a point-to-point exchange inside ``group``: send to the group
+    member ``nxt`` and receive from ``prv`` (ranks within the group)."""
+    return _exchange_start(payload, group, dist.get_global_rank(group, nxt),
+                           dist.get_global_rank(group, prv))
 
 
 def exchange(payload: Sequence[torch.Tensor], group, nxt: int, prv: int
              ) -> List[torch.Tensor]:
-    """Point-to-point exchange inside ``group``: send to the group member
-    ``nxt`` and receive from ``prv`` (ranks within the group)."""
-    return _exchange(payload, group, dist.get_global_rank(group, nxt),
-                     dist.get_global_rank(group, prv))
+    """:func:`exchange_start`, waited."""
+    return exchange_start(payload, group, nxt, prv).wait()
 
 
 def _bytes_view(x: torch.Tensor) -> torch.Tensor:
@@ -127,54 +304,85 @@ def _bytes_view(x: torch.Tensor) -> torch.Tensor:
         x.shape[0], -1)
 
 
+def all_reduce_start(x: torch.Tensor, group, op: str = "sum") -> Pending:
+    """Issue the sum (``op="sum"``) or max (``"max"``) of ``x`` over
+    ``group``; ``wait()`` gives it in a new tensor: every member gets the
+    same bytes."""
+    staged = _staged(group, x)
+    t0 = time.perf_counter()
+    buf = _to_host([x])[0] if staged else x.clone()
+    work = dist.all_reduce(buf, op=dist.ReduceOp.MAX if op == "max"
+                           else dist.ReduceOp.SUM, group=group,
+                           async_op=True)
+    return _issue("all_reduce", x.numel() * x.element_size(), group, staged,
+                  t0, [work], lambda: _back(buf, x.device, staged))
+
+
 def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
-    """Sum (``op="sum"``) or max (``"max"``) of ``x`` over ``group``, in a
-    new tensor: every member gets the same bytes."""
-    t0 = time.perf_counter() if _staged(group, x) else None
-    buf = _to_host([x])[0] if t0 is not None else x.clone()
-    dist.all_reduce(buf, op=dist.ReduceOp.MAX if op == "max"
-                    else dist.ReduceOp.SUM, group=group)
-    if t0 is not None:
-        buf = buf.to(x.device, non_blocking=True)
-    _count("all_reduce", x.numel() * x.element_size(), t0)
-    return buf
+    """:func:`all_reduce_start`, waited."""
+    return all_reduce_start(x, group, op).wait()
+
+
+def all_gather_start(x: torch.Tensor, group, dim: int = 0) -> Pending:
+    """Issue the gather of the members' ``x`` concatenated along ``dim`` in
+    group-rank order (moved as bytes: any dtype)."""
+    n = dist.get_world_size(group)
+    staged = _staged(group, x)
+    t0 = time.perf_counter()
+    src = x.movedim(dim, 0).contiguous()
+    b = _bytes_view(src)
+    if staged:
+        b = _to_host([b])[0]
+    parts = [torch.empty_like(b) for _ in range(n)]
+    work = dist.all_gather(parts, b, group=group, async_op=True)
+
+    def finish():
+        out = torch.cat(parts).view(src.dtype).reshape(
+            (n * src.shape[0],) + src.shape[1:])
+        return _back(out, x.device, staged).movedim(0, dim)
+
+    return _issue("all_gather", x.numel() * x.element_size(), group, staged,
+                  t0, [work], finish)
 
 
 def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
-    """The members' ``x`` concatenated along ``dim`` in group-rank order
-    (moved as bytes: any dtype)."""
-    n = dist.get_world_size(group)
-    t0 = time.perf_counter() if _staged(group, x) else None
-    src = x.movedim(dim, 0).contiguous()
-    b = _bytes_view(src)
-    if t0 is not None:
+    """:func:`all_gather_start`, waited."""
+    return all_gather_start(x, group, dim).wait()
+
+
+def all_to_all_start(x: torch.Tensor, group) -> Pending:
+    """Issue a tiled all-to-all over ``group`` along axis 0: ``x`` is ``(n
+    * c, ...)``; chunk j goes to member j, and the result's chunk j came
+    from member j (JAX's ``all_to_all(x, axis, 0, 0, tiled=True)``). Moved
+    as bytes, so any dtype crosses as it is."""
+    staged = _staged(group, x)
+    t0 = time.perf_counter()
+    b = _bytes_view(x)
+    if staged:
         b = _to_host([b])[0]
-    parts = [torch.empty_like(b) for _ in range(n)]
-    dist.all_gather(parts, b, group=group)
-    out = torch.cat(parts).view(src.dtype).reshape(
-        (n * src.shape[0],) + src.shape[1:])
-    if t0 is not None:
-        out = out.to(x.device, non_blocking=True)
-    _count("all_gather", x.numel() * x.element_size(), t0)
-    return out.movedim(0, dim)
+    out = torch.empty_like(b)
+    work = dist.all_to_all_single(out, b, group=group, async_op=True)
+    return _issue("all_to_all", x.numel() * x.element_size(), group, staged,
+                  t0, [work], lambda: _back(
+                      out.view(x.dtype).reshape(x.shape), x.device, staged))
 
 
 def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
-    """Tiled all-to-all over ``group`` along axis 0: ``x`` is ``(n * c,
-    ...)``; chunk j goes to member j, and the result's chunk j came from
-    member j (JAX's ``all_to_all(x, axis, 0, 0, tiled=True)``). Moved as
-    bytes, so any dtype crosses as it is."""
-    t0 = time.perf_counter() if _staged(group, x) else None
-    b = _bytes_view(x)
-    if t0 is not None:
-        b = _to_host([b])[0]
-    out = torch.empty_like(b)
-    dist.all_to_all_single(out, b, group=group)
-    out = out.view(x.dtype).reshape(x.shape)
-    if t0 is not None:
-        out = out.to(x.device, non_blocking=True)
-    _count("all_to_all", x.numel() * x.element_size(), t0)
-    return out
+    """:func:`all_to_all_start`, waited."""
+    return all_to_all_start(x, group).wait()
+
+
+def drive(phases):
+    """Run a phase generator to its end and return its value. A phase
+    generator yields (None) each time it has issued a collective it will
+    wait for after resuming, so that a scheduler may run other work there
+    (``parallel/overlap.py`` runs two of them in turns); driven alone, each
+    collective is waited for at once, as the plain call is."""
+    while True:
+        try:
+            next(phases)
+        except StopIteration as stop:
+            return stop.value
 
 
 def compressed_psum(x: torch.Tensor, group: Optional[dist.ProcessGroup] = None,

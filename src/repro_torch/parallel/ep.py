@@ -96,21 +96,29 @@ def _slice_tokens(x, mask, cols: int, j: int):
     return x[j * per:(j + 1) * per], mask[j * per:(j + 1) * per]
 
 
-def _unslice_tokens(y: torch.Tensor, group) -> torch.Tensor:
-    return y if group is None else coll.all_gather(y, group)
+def _unslice_tokens(y: torch.Tensor, group):
+    """Phases: the model group's token slices gathered back (one all-gather
+    in flight)."""
+    if group is None:
+        return y
+    pend = coll.all_gather_start(y, group)
+    yield
+    return pend.wait()
 
 
-def _a2a(group, parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """One tiled all-to-all of several ``(cols, c, ...)`` buffers, packed
-    row by row as bytes; returns the received buffers, shapes and dtypes
-    kept."""
+def _a2a(group, parts: Sequence[torch.Tensor]):
+    """Phases: one tiled all-to-all of several ``(cols, c, ...)`` buffers,
+    packed row by row as bytes, in flight across one yield; returns the
+    received buffers, shapes and dtypes kept."""
     if group is None:
         return list(parts)
     cols, c = parts[0].shape[:2]
     views = [p.contiguous().reshape(-1).view(torch.uint8).reshape(cols, c, -1)
              for p in parts]
     widths = [v.shape[-1] for v in views]
-    out = coll.all_to_all(torch.cat(views, dim=-1), group)
+    pend = coll.all_to_all_start(torch.cat(views, dim=-1), group)
+    yield
+    out = pend.wait()
     got, o = [], 0
     for p, w in zip(parts, widths):
         got.append(out[..., o:o + w].contiguous().reshape(-1).view(p.dtype)
@@ -124,30 +132,34 @@ def _a2a(group, parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
 # ---------------------------------------------------------------------------
 
 
-def _group_allgather(z: torch.Tensor, group, j: int, cpg: int
-                     ) -> torch.Tensor:
-    """z: this column's hop-1 chunk (owner rank = col % cpg). Returns
-    (cpg, *z.shape) with index r = the chunk owned by group-rank r."""
+def _group_allgather(zs: Sequence[torch.Tensor], group, j: int, cpg: int):
+    """Phases. zs: this column's hop-1 chunks (owner rank = col % cpg).
+    Returns, per chunk, (cpg, *z.shape) with index r = the chunk owned by
+    group-rank r; each step's exchange carries every chunk, in flight
+    across one yield."""
     base, rj = j // cpg * cpg, j % cpg
-    received = [z]                                   # rank rj
+    received = [list(zs)]                            # rank rj
     for step in range(1, cpg):
-        got, = coll.exchange([z], group, base + (rj + step) % cpg,
-                             base + (rj - step) % cpg)
-        received.append(got)                         # rank (rj - step) % cpg
+        pend = coll.exchange_start(list(zs), group, base + (rj + step) % cpg,
+                                   base + (rj - step) % cpg)
+        yield
+        received.append(pend.wait())                 # rank (rj - step) % cpg
     order = [(rj - r) % cpg for r in range(cpg)]
-    return torch.stack(received)[order]
+    return [torch.stack([r[i] for r in received])[order]
+            for i in range(len(zs))]
 
 
-def _group_reduce(parts: torch.Tensor, group, j: int, cpg: int
-                  ) -> torch.Tensor:
-    """parts: (cpg, ...) this column's partial outputs indexed by owner
-    rank. Returns this column's own chunk summed over the group."""
+def _group_reduce(parts: torch.Tensor, group, j: int, cpg: int):
+    """Phases. parts: (cpg, ...) this column's partial outputs indexed by
+    owner rank. Returns this column's own chunk summed over the group."""
     base, rj = j // cpg * cpg, j % cpg
     acc = parts[rj]
     for step in range(1, cpg):
-        got, = coll.exchange([parts[(rj + step) % cpg].contiguous()], group,
-                             base + (rj + step) % cpg,
-                             base + (rj - step) % cpg)
+        pend = coll.exchange_start([parts[(rj + step) % cpg].contiguous()],
+                                   group, base + (rj + step) % cpg,
+                                   base + (rj - step) % cpg)
+        yield
+        got, = pend.wait()
         acc = acc + got
     return acc
 
@@ -160,6 +172,9 @@ def _group_reduce(parts: torch.Tensor, group, j: int, cpg: int
 def _ep_flat_local(wg, bias, w1, w3, w2, x, mask, cfg: ModelConfig, group,
                    j: int, cols: int, wire: str = "fp8",
                    weights_qdq: bool = False, stats: bool = False):
+    """Phases of flat EP (module docstring): routing and the dispatch
+    issued | dispatch waited, the experts, the combine issued | combine
+    waited, the token slices' gather issued | gathered."""
     mc = cfg.moe
     E_l = mc.num_experts // cols
     xt, mt = _slice_tokens(x, mask, cols, j)
@@ -184,7 +199,7 @@ def _ep_flat_local(wg, bias, w1, w3, w2, x, mask, cfg: ModelConfig, group,
 
     # dispatch all-to-all (FP8 wire): payload, scales and metadata in one
     q, s = _wire_encode(send, wire)
-    q, s, ids, wts = _a2a(group, [q, s, ids, wts])
+    q, s, ids, wts = yield from _a2a(group, [q, s, ids, wts])
     recv = _wire_decode(q.reshape(cols * Cc, d), s.reshape(cols * Cc, -1),
                         torch_dtype(cfg.dtype), wire)
     ids = ids.reshape(-1).long()
@@ -202,12 +217,13 @@ def _ep_flat_local(wg, bias, w1, w3, w2, x, mask, cfg: ModelConfig, group,
 
     # combine all-to-all (BF16 wire)
     cdt = torch.float32 if wire == "fp32" else torch.bfloat16
-    y, = _a2a(group, [y.reshape(cols, Cc, d).to(cdt)])
+    y, = yield from _a2a(group, [y.reshape(cols, Cc, d).to(cdt)])
     y = y.reshape(cols * Cc, d).float()
     y = torch.cat([y, y.new_zeros((Cc, d))], 0)          # overflow rows
     back = y[plan.dest] * plan.keep[:, None]
     yt = back.reshape(t, k, d).sum(1).to(xt.dtype)
-    return _unslice_tokens(yt, group), rr.load, plan.drop_frac, rr.aux_loss
+    yt = yield from _unslice_tokens(yt, group)
+    return yt, rr.load, plan.drop_frac, rr.aux_loss
 
 
 # ---------------------------------------------------------------------------
@@ -218,6 +234,9 @@ def _ep_flat_local(wg, bias, w1, w3, w2, x, mask, cfg: ModelConfig, group,
 def _ep_dedup_local(wg, bias, w1, w3, w2, x, mask, cfg: ModelConfig, group,
                     j: int, cols: int, wire: str = "fp8",
                     weights_qdq: bool = False, stats: bool = False):
+    """Phases of the two-hop protocol (module docstring), as
+    :func:`_ep_flat_local`'s with hop 2's exchanges (each in flight across
+    a yield) after the dispatch and before the combine."""
     mc = cfg.moe
     G = mc.num_groups
     assert cols % G == 0, (cols, G)
@@ -269,14 +288,13 @@ def _ep_dedup_local(wg, bias, w1, w3, w2, x, mask, cfg: ModelConfig, group,
         return z.reshape((cols, Ck) + tuple(z.shape[2:]))
 
     q, s = _wire_encode(send, wire)
-    q, s, me, mw = _a2a(group, [chunks(q), chunks(s), chunks(meta_e),
-                                chunks(meta_w)])
+    q, s, me, mw = yield from _a2a(group, [chunks(q), chunks(s),
+                                           chunks(meta_e), chunks(meta_w)])
 
-    # hop 2: intra-group exchange -> every column holds the full group buffer
-    gq = _group_allgather(q, group, j, cpg)              # (cpg, cols, Ck, d)
-    gs = _group_allgather(s, group, j, cpg)
-    gme = _group_allgather(me, group, j, cpg)
-    gmw = _group_allgather(mw, group, j, cpg)
+    # hop 2: intra-group exchange -> every column holds the full group
+    # buffer, (cpg, cols, Ck, ...) each
+    gq, gs, gme, gmw = yield from _group_allgather([q, s, me, mw], group, j,
+                                                   cpg)
 
     n_recv = cpg * cols * Ck
     recv = _wire_decode(gq.reshape(n_recv, d), gs.reshape(n_recv, -1),
@@ -301,16 +319,17 @@ def _ep_dedup_local(wg, bias, w1, w3, w2, x, mask, cfg: ModelConfig, group,
     partial = partial.reshape(cpg, cols, Ck, d)
 
     # combine hop 2: intra-group partial sums back to the chunk owner
-    total = _group_reduce(partial, group, j, cpg)        # (cols, Ck, d)
+    total = yield from _group_reduce(partial, group, j, cpg)  # (cols, Ck, d)
 
     # combine hop 1: reverse all-to-all (BF16 wire)
     cdt = torch.float32 if wire == "fp32" else torch.bfloat16
-    y, = _a2a(group, [total.to(cdt)])
+    y, = yield from _a2a(group, [total.to(cdt)])
     y = y.reshape(G, Cg, d).float()
     y = torch.cat([y, y.new_zeros((1, Cg, d))], 0)
     backh = y.reshape(-1, d)[plan.dest] * plan.keep[:, None]
     yt = backh.reshape(t, L, d).sum(1).to(xt.dtype)
-    return _unslice_tokens(yt, group), rr.load, plan.drop_frac, rr.aux_loss
+    yt = yield from _unslice_tokens(yt, group)
+    return yt, rr.load, plan.drop_frac, rr.aux_loss
 
 
 # ---------------------------------------------------------------------------
@@ -339,7 +358,22 @@ def moe_ffn_sharded(p: dict, x: torch.Tensor, cfg: ModelConfig,
                     pctx: ParallelCtx, valid: Optional[torch.Tensor] = None,
                     weights_qdq: bool = False, replicated: bool = False,
                     stats: bool = False):
-    """MoE layer over the mesh: this rank's part. x: (B, S, d), this data
+    """:func:`moe_ffn_phases` run through, each collective waited for at
+    once."""
+    return coll.drive(moe_ffn_phases(p, x, cfg, pctx, valid, weights_qdq,
+                                     replicated, stats))
+
+
+def moe_ffn_phases(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                   pctx: ParallelCtx, valid: Optional[torch.Tensor] = None,
+                   weights_qdq: bool = False, replicated: bool = False,
+                   stats: bool = False):
+    """MoE layer over the mesh: this rank's part, as phases
+    (``collectives.drive``): routing and the dispatch issued; the dispatch
+    waited, the experts, the combine issued (``ep_dedup``: hop 2's
+    exchanges between); the combine waited, the token slices' gather
+    issued; gathered, the shared expert. Each yield leaves one collective
+    in flight. x: (B, S, d), this data
     row's tokens (``replicated``: the same tokens on every data row, as a
     batch-1 prefill), the same on every model column. Returns (y,
     RouteResult-like, drop_frac) for the same tokens.
@@ -384,9 +418,9 @@ def moe_ffn_sharded(p: dict, x: torch.Tensor, cfg: ModelConfig,
     if bias is None:
         bias = torch.zeros((mc.num_experts,), dtype=torch.float32,
                            device=x.device)
-    y, load, drop, aux = body(p["w_gate"], bias, p["w1"], p["w3"], p["w2"],
-                              xt, mask, cfg, group, j, cols,
-                              pctx.wire, weights_qdq, stats)
+    y, load, drop, aux = yield from body(
+        p["w_gate"], bias, p["w1"], p["w3"], p["w2"], xt, mask, cfg, group,
+        j, cols, pctx.wire, weights_qdq, stats)
     if ftp and dgroup is not None:
         y = coll.all_reduce(y.float(), dgroup).to(y.dtype)   # FF partials
     y = y[:T]

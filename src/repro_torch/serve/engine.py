@@ -77,8 +77,13 @@ host memory cannot be captured; ``trace_counts["decode"] == 0``); its
 kernels launch as on one device. Under a mesh, ``prefill_chunk`` and
 ``host_tier_pages`` raise (ROADMAP.md, A.8).
 
-Options of the reference that the port has not reached raise
-``NotImplementedError`` with a pointer to ROADMAP.md: decode overlap.
+``decode_overlap=True`` runs the decode chunk as two anti-phase
+half-batches of the slots (``Model.decode_loop(overlap=True)``,
+``parallel/overlap.py``): under a mesh with EP each half's dispatch and
+combine are in flight while the other half computes (paper §2.3.1). A
+dense cache, no MTP and an even slot count (on each data row, under a
+mesh), as the reference asks; on the card the unmeshed dual chunk is one
+CUDA graph as the single one is. It never falls back to the single path.
 """
 from __future__ import annotations
 
@@ -168,6 +173,21 @@ def _splice(big, small, slot: int, axes) -> None:
         dst.fill_(-1 if not src.dtype.is_floating_point else 0)
         dst = dst[tuple(slice(0, n) for n in src.shape)]
     dst.copy_(src)
+
+
+def validate_request(req: Request, max_len: int, page_size: int,
+                     pool_pages: int) -> None:
+    """A paged engine's admission limits: the request fits ``max_len``
+    (the paged cache never ring-wraps) and the pool."""
+    if len(req.prompt) + req.max_new > max_len:
+        raise ValueError(
+            f"request {req.rid}: prompt ({len(req.prompt)}) + max_new "
+            f"({req.max_new}) exceeds max_len ({max_len}); the paged cache "
+            "never ring-wraps")
+    need = paged_mod.pages_for(len(req.prompt) + req.max_new, page_size)
+    if need > pool_pages:
+        raise ValueError(f"request {req.rid}: needs {need} pages but the "
+                         f"pool only has {pool_pages}")
 
 
 def _slot_slice(cache, slot: int, axes):
@@ -274,8 +294,6 @@ class ServeEngine:
                  attn_impl: str = "",
                  decode_overlap: bool = False,
                  ctx=None, device=None):
-        if decode_overlap:
-            raise _waits("decode_overlap=True", "A.8")
         self.ctx = ctx
         self.meshed = ctx is not None and ctx.mesh is not None
         if self.meshed and prefill_chunk is not None:
@@ -313,6 +331,28 @@ class ServeEngine:
         self.slots = slots
         self.max_len = max_len
         self.use_mtp = use_mtp and cfg.mtp is not None
+        self.decode_overlap = decode_overlap
+        if decode_overlap:
+            # §2.3.1 dual-microbatch decode: the chunk runs the slots as
+            # two anti-phase halves so each half's EP all-to-alls are in
+            # flight under the other's compute
+            if paged:
+                raise ValueError(
+                    "decode_overlap requires a dense cache: paged page "
+                    "pools are shared across slots and cannot be split "
+                    "into independent halves")
+            if self.use_mtp:
+                raise ValueError("decode_overlap is incompatible with "
+                                 "use_mtp: the MTP draft ring is not "
+                                 "split across halves")
+            if slots % 2:
+                raise ValueError(f"decode_overlap needs an even slot "
+                                 f"count, got {slots}")
+            local = self._rows.stop - self._rows.start
+            if local % 2:
+                raise ValueError(
+                    f"decode_overlap needs an even slot count on each data "
+                    f"row, got {local} of {slots} here")
         self.chunk = chunk
         self.temperature = temperature
         self.top_k = top_k
@@ -404,7 +444,8 @@ class ServeEngine:
             self.model, self.params, self.cache,
             self._rows.stop - self._rows.start, chunk,
             temperature=temperature, top_k=top_k, use_mtp=self.use_mtp,
-            pctx=ctx if self.meshed else None, batch_sharded=self._split)
+            overlap=decode_overlap, pctx=ctx if self.meshed else None,
+            batch_sharded=self._split)
         if self.meshed:
             # a collective staged through host memory cannot be captured
             self._decode.graphed = False
@@ -473,17 +514,67 @@ class ServeEngine:
         if local is not None:
             _splice(big, small, local, axes)
 
+    def _payload_pspecs(self, payload):
+        """The model-axis cut of each leaf of a handoff payload of this
+        engine (``prefill_request``'s): its cache leaf's placement with the
+        data axes dropped (a batch-1 payload is replicated over the data
+        rows)."""
+        from repro_torch.parallel import sharding
+        tp = self.ctx.tp_axis
+
+        def model_only(path, leaf):
+            spec = sharding.at_path(self._cache_pspecs, path)
+            return sharding.P(*(e if e == tp else None for e in spec))
+
+        if not self.paged:
+            return sharding.map_with_path(model_only, payload)
+        # a paged payload's pages and aux leaves sit where the cache's do
+        return {part: sharding.map_with_path(model_only, payload[part])
+                for part in ("pages", "aux")}
+
+    def whole_payload(self, payload):
+        """A handoff payload of this engine made whole, the same on every
+        rank: each leaf the model group cut is gathered over it. The
+        mesh-agnostic form a cross-mesh handoff carries
+        (``serve/disagg.py``); unmeshed, the payload itself."""
+        if not self.meshed:
+            return payload
+        from repro_torch.parallel import sharding
+        pspecs = self._payload_pspecs(payload)
+        group = self.ctx.tp_group
+
+        def gather(path, leaf):
+            for d, e in enumerate(sharding.at_path(pspecs, path)):
+                if e is not None:
+                    leaf = coll.all_gather(leaf, group, dim=d)
+            return leaf
+
+        return sharding.map_with_path(gather, payload)
+
+    def local_payload(self, payload):
+        """This rank's cut of a whole handoff payload (:meth:`whole_payload`
+        of any engine of this model), as this engine's own prefill gives
+        it."""
+        if not self.meshed:
+            return payload
+        from repro_torch.parallel import sharding
+        return sharding.shard_tree(payload, self._payload_pspecs(payload),
+                                   self.ctx.mesh)
+
     def decode_alltoall_bytes(self) -> int:
         """Bytes this rank's all-to-alls move in one MoE layer of one decode
         step over every slot (``parallel/ep.alltoall_bytes``): the paper's
         §4.3 wire-byte accounting on the serving hot path, the quantity
-        the reference reads off its lowered decode chunk. 0 for unmeshed
-        engines, local-MoE ones and models without experts."""
+        the reference reads off its lowered decode chunk; under
+        ``decode_overlap`` both halves' bytes. 0 for unmeshed engines,
+        local-MoE ones and models without experts."""
         if not (self.meshed and self.ctx.ep_enabled and self.cfg.moe):
             return 0
         from repro_torch.parallel import ep
-        return ep.alltoall_bytes(self.cfg, self.ctx,
-                                 self._rows.stop - self._rows.start)
+        local = self._rows.stop - self._rows.start
+        if self.decode_overlap:
+            return 2 * ep.alltoall_bytes(self.cfg, self.ctx, local // 2)
+        return ep.alltoall_bytes(self.cfg, self.ctx, local)
 
     # -- prefill ------------------------------------------------------------
     def prefill_request(self, req: Request, extras: Optional[Dict] = None):
@@ -585,17 +676,9 @@ class ServeEngine:
                                      self.prefill_chunk // self.page_size)
 
     def _validate(self, req: Request):
-        if not self.paged:
-            return
-        if len(req.prompt) + req.max_new > self.max_len:
-            raise ValueError(
-                f"request {req.rid}: prompt ({len(req.prompt)}) + max_new "
-                f"({req.max_new}) exceeds max_len ({self.max_len}); the "
-                "paged cache never ring-wraps")
-        if self.pages_needed(req) > self.pool_pages:
-            raise ValueError(
-                f"request {req.rid}: needs {self.pages_needed(req)} pages "
-                f"but the pool only has {self.pool_pages}")
+        if self.paged:
+            validate_request(req, self.max_len, self.page_size,
+                             self.pool_pages)
 
     def submit(self, req: Request, extras: Optional[Dict] = None):
         """Queue a request; ``step()`` admits it when a slot and its pages

@@ -129,14 +129,15 @@ class DecodeChunk(_Graphed):
 
     def __init__(self, model, params, cache, slots: int, k: int, *,
                  temperature: float = 0.0, top_k: int = 0,
-                 use_mtp: bool = False, pctx=None,
+                 use_mtp: bool = False, overlap: bool = False, pctx=None,
                  batch_sharded: bool = False):
         super().__init__(model.device)
         self.model, self.params, self.cache = model, params, cache
         self.k = k
-        # pctx / batch_sharded: one mesh rank's slots (``decode_loop``)
+        # overlap: the dual-microbatch loop; pctx / batch_sharded: one mesh
+        # rank's slots (``decode_loop``)
         self.sampling = dict(temperature=temperature, top_k=top_k,
-                             use_mtp=use_mtp, pctx=pctx,
+                             use_mtp=use_mtp, overlap=overlap, pctx=pctx,
                              batch_sharded=batch_sharded)
         self.input = torch.zeros((len(STATE_ROWS), slots),
                                  dtype=torch.int64, device=model.device)

@@ -26,6 +26,7 @@ from repro.serve.engine import Request as JRequest
 from repro_torch import bridge
 from repro_torch.configs.base import get_config as tget
 from repro_torch.configs.base import smoke_config as tsmoke
+from repro_torch.parallel.context import ParallelCtx
 from repro_torch.serve import disagg
 from repro_torch.serve.engine import AdmissionError, Request, ServeEngine
 
@@ -131,7 +132,9 @@ def test_bounded_queue_and_validation(dsv3):
                                  max_len=32, device="cpu", **LAYOUTS["bf16"])
     with pytest.raises(ValueError, match="ring-wraps"):
         paged.submit(Request(0, np.arange(20), max_new=20))
-    for kw in (dict(ctx=object()), dict(prefill_ctx=object())):
-        with pytest.raises(NotImplementedError, match="A.8"):
-            disagg.Disaggregator(tcfg, params=tp, device="cpu", **kw)
-    assert not dis.cross_mesh
+    # without a prefill_ctx the decode pool prefills itself (an unmeshed
+    # ctx here; a meshed one in tests/test_torch_serve_mesh.py)
+    one = disagg.Disaggregator(tcfg, params=tp, device="cpu",
+                               ctx=ParallelCtx())
+    assert not dis.cross_mesh and not one.cross_mesh
+    assert one.prefill_pool is one.decode

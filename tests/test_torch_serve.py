@@ -312,12 +312,13 @@ def test_cache_bytes_per_token_match_reference(weights, storage):
 
 @pytest.mark.parametrize("option", [
     dict(extras={"src_embeds": np.zeros((1, 4, 8), np.float32)}),
-    dict(decode_overlap=True),
+    dict(ctx=ParallelCtx(mesh=Mesh.abstract((1, 2))), host_tier_pages=8),
     dict(ctx=ParallelCtx(mesh=Mesh.abstract((1, 2))), prefill_chunk=8)])
 def test_options_not_ported_yet_raise(option):
     """Constructor options, and per-request extras (encoder or vision
     payloads), that the port has not reached raise with a pointer into
-    ROADMAP.md (a mesh ctx serves, but not with chunked prefill yet)."""
+    ROADMAP.md (a mesh ctx serves, but not with chunked prefill or the
+    host tier yet)."""
     kw = dict(KW, **option)
     extras = kw.pop("extras", None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -19,7 +19,18 @@ single-device engine, run here while the ranks serve:
 * paged bf16 MLA against the sharded dense engine: at least 0.9;
 * paged fp8 DeepSeek-V3 on the kernel path's plain versions (the card's
   path: ``fp8_impl``/``attn_impl`` "pallas", FP8 wire) against the port's
-  single-device engine of the same options: at least 0.9.
+  single-device engine of the same options: at least 0.9;
+* dual-microbatch decode (``decode_overlap=True``, ``ep_flat`` and
+  ``ep_dedup`` at the fp32 wire): streams exact; per MoE layer and decode
+  step exactly twice the single path's all-to-alls, their bytes in [1x,
+  2x] of its and equal to ``decode_alltoall_bytes()``, and half B's
+  attention issued between half A's dispatch issue and its wait
+  (``collectives.record()``; the reference's ``TestDecodeOverlap``);
+* cross-mesh disaggregation (``TestCrossMeshDisagg``): prefill on (2, 4)
+  over the 8 ranks, decode on (1, 4) over ranks 0-3, ``ep_flat``, fp32
+  wire: dense streams exact, paged bf16 at least 0.9, and the paged
+  handoff under the dense one; and qwen3-14b, whose K/V heads both meshes
+  cut, dense streams exact.
 
 On every scenario: every rank's host mirrors and streams are identical
 (one CRC per rank), the decode chunk ran eagerly (``trace_counts
@@ -27,8 +38,9 @@ On every scenario: every rank's host mirrors and streams are identical
 the data rows. A stream the reference asserts exact that parts in the
 port is accepted only where the top-2 logit gap at its first differing
 token is under 1e-5 of the logit scale (a reordered sum); the gap is
-printed. Unmeshed contexts and ``decode_overlap`` run in process. The
-module takes about 70 s (the ranks and the JAX engines side by side).
+printed. Unmeshed contexts and ``decode_overlap``'s constructor checks
+run in process. The module takes about 80 s (the ranks and the JAX
+engines side by side).
 """
 import multiprocessing
 import os
@@ -157,7 +169,8 @@ def _exact_or_bounded_parting(ours_s, ref_s, model, np_params):
 @pytest.mark.parametrize("name,model,ref_key", [
     ("gqa_dense", "qwen", "qwen"), ("gqa_paged", "qwen", "qwen"),
     ("gqa_paged_fp8", "qwen", "qwen_fp8"),
-    ("ep_flat", "moe", "moe"), ("ep_dedup", "moe", "moe")])
+    ("ep_flat", "moe", "moe"), ("ep_dedup", "moe", "moe"),
+    ("ep_flat_overlap", "moe", "moe"), ("ep_dedup_overlap", "moe", "moe")])
 def test_streams_exact_like_the_reference(run, name, model, ref_key):
     ref, ours, np_params = run
     _exact_or_bounded_parting(_streams(ours, name), ref[ref_key][0], model,
@@ -193,7 +206,8 @@ def test_paged_mla_within_documented_tolerance(run, name, against):
 
 
 @pytest.mark.parametrize("name", [n for n, (_, c, _) in
-                                  body.SCENARIOS.items() if c is not None])
+                                  body.SCENARIOS.items()
+                                  if c is not None and n not in body.DISAGG])
 def test_every_rank_holds_the_same_mirrors_and_streams(run, name):
     _, ours, _ = run
     assert len({int(o[name + ":mirrors"][0]) for o in ours}) == 1
@@ -203,7 +217,8 @@ def test_every_rank_holds_the_same_mirrors_and_streams(run, name):
 
 @pytest.mark.parametrize("name", [n for n, (_, c, e) in
                                   body.SCENARIOS.items()
-                                  if c is not None and e.get("paged")])
+                                  if c is not None and e.get("paged")
+                                  and n not in body.DISAGG])
 def test_pools_byte_equal_across_data_rows(run, name):
     """The pool has no batch axis and replicates over the data axis: each
     model column's pool is the same bytes on both data rows."""
@@ -236,7 +251,77 @@ def test_ctx_none_and_unmeshed_ctx_are_single_device():
         assert eng.decode_alltoall_bytes() == 0
 
 
+@pytest.mark.parametrize("impl", ["ep_flat", "ep_dedup"])
+def test_overlap_doubles_the_alltoalls_in_one_step(run, impl):
+    """Per MoE layer and decode step the dual path issues exactly twice
+    the single path's all-to-alls (both halves' dispatch and combine),
+    moving between 1x and 2x its bytes (2x where the half-batches pad to
+    the capacity floor), and exactly ``decode_alltoall_bytes()``."""
+    _, ours, _ = run
+    print(impl, "all-to-alls a MoE layer and step, and bytes: single",
+          ours[0][impl + ":record"][:2], "dual",
+          ours[0][impl + "_overlap:record"][:2])
+    for o in ours:
+        n1, b1, _ = o[impl + ":record"]
+        n2, b2, _ = o[impl + "_overlap:record"]
+        assert n1 > 0 and n2 == 2 * n1, (n1, n2)
+        assert b1 <= b2 <= 2 * b1, (b1, b2)
+        assert b1 == o[impl + ":a2a"][0], (b1, o[impl + ":a2a"])
+        assert b2 == o[impl + "_overlap:a2a"][0], (b2,
+                                                   o[impl + "_overlap:a2a"])
+
+
+@pytest.mark.parametrize("impl", ["ep_flat", "ep_dedup"])
+def test_overlap_issues_b_between_a_dispatch_and_its_wait(run, impl):
+    """In every MoE layer half B's attention is issued after half A's
+    dispatch all-to-all and before A waits for it: A's dispatch is in
+    flight under B's compute (the record of every rank)."""
+    _, ours, _ = run
+    assert all(o[impl + "_overlap:record"][2] == 1.0 for o in ours)
+
+
+def test_cross_mesh_disaggregation(run):
+    """Prefill on (2, 4), decode on (1, 4) over ranks 0-3, the payload
+    through host memory: dense streams exactly the JAX single-device
+    engine's (DeepSeek-V3, and qwen3-14b whose K/V the model axis cuts),
+    paged bf16 at least 0.9 of them, the paged handoff smaller than the
+    dense one; ranks 4-7 only prefill."""
+    ref, ours, _ = run
+    dense, paged = _streams(ours, "disagg_dense"), _streams(ours,
+                                                            "disagg_paged")
+    assert dense == ref["moe"][0], (dense, ref["moe"][0])
+    # GQA K/V cut over the model axis on both meshes: the whole payload
+    # crosses, each decode rank takes its KV heads
+    gqa = _streams(ours, "disagg_gqa")
+    assert gqa == ref["qwen"][0], (gqa, ref["qwen"][0])
+    mf = _match_frac(ref["moe"][0], paged)
+    print("cross-mesh paged bf16 matched", mf)
+    assert mf >= 0.9, mf
+    decode_ranks = body.DECODE_MESH[0] * body.DECODE_MESH[1]
+    for r, o in enumerate(ours):
+        (nd, cross_d), (np_, cross_p) = (o["disagg_dense:handoff"],
+                                         o["disagg_paged:handoff"])
+        assert cross_d == cross_p == 1
+        if r < decode_ranks:
+            assert 0 < np_ < nd, (r, np_, nd)
+            np.testing.assert_array_equal(o["disagg_dense"],
+                                          ours[0]["disagg_dense"])
+        else:
+            assert nd == np_ == 0 and (o["disagg_dense"] < 0).all()
+
+
 def test_decode_overlap_still_raises():
-    with pytest.raises(NotImplementedError, match="A.8"):
-        ServeEngine(tsmoke(tget("qwen3-14b")), slots=4, max_len=32,
+    """``decode_overlap=True`` serves; the reference's constructor checks
+    still raise: an odd slot count, a paged cache, MTP drafting."""
+    cfg = tsmoke(tget("qwen3-14b"))
+    with pytest.raises(ValueError, match="even"):
+        ServeEngine(cfg, slots=3, max_len=32, decode_overlap=True,
+                    device="cpu")
+    with pytest.raises(ValueError, match="paged"):
+        ServeEngine(cfg, slots=4, max_len=32, paged=True, page_size=8,
                     decode_overlap=True, device="cpu")
+    with pytest.raises(ValueError, match="use_mtp"):
+        ServeEngine(tsmoke(tget("deepseek-v3-671b")), slots=4, max_len=32,
+                    use_mtp=True, decode_overlap=True, device="cpu")
+    assert ServeEngine(cfg, slots=4, max_len=32, decode_overlap=True,
+                       device="cpu").decode_overlap
