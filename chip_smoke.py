@@ -193,7 +193,10 @@ from the root of a checkout. Phases, each fatal on failure:
         and changed after step 1; finite losses; peak memory under the
         card's. Printed: losses, ms a step, tokens/s, peak memory against
         the state's 12 B a parameter, and a torch.profiler split of a
-        seventh step's forward, backward and optimizer;
+        seventh step's forward, backward and optimizer; then the same six
+        steps with the FP8 linears on the plain path (``fp8_impl="ref"``)
+        and at a tenth of the peak lr (``TRAIN_CURVES``), the three
+        curves printed side by side;
       - (g.3) on small inputs, the same weights and batches on the card
         (kernels, CUDA plain ops) and on the CPU (plain versions), three
         steps each: (i) the dense prefix at smoke width, bf16, FP8 through
@@ -242,6 +245,38 @@ from the root of a checkout. Phases, each fatal on failure:
         the kernels launched, peak memory a rank under the card's;
         printed: streams against phase (c)'s.
 
+  (i) the meshed train step (``phase_train_mesh``): ``Trainer(ctx=
+      ParallelCtx(mesh=...))`` on 4 spawned gloo ranks sharing the card.
+      - (i.1) DeepSeek-V3's dense prefix at published widths cut to one
+        dense layer plus the MTP module (``MESH_TRAIN``), bf16,
+        ``fp8_impl="pallas"``, global batch 4 x 256 tokens, mesh (2, 2):
+        FSDP over data (each layer's data cut gathered as the model
+        reaches it, its gradient reduce-scattered), TP over model, the
+        dual microbatch, 3 steps. First, in this process, the same config
+        on one device from the same seed-drawn weights, and the witness
+        (one device with its sums reordered as the mesh's:
+        ``mesh_witness``, ``witness_step``), keeping only losses, grad
+        norms and the step-1 update at a seeded sample of each leaf's
+        elements (``master_samples``). Gates: every step finite;
+        fp8_gemm exactly 2 x 3 x the FP8 linears of a forward a rank and
+        step, nothing else; fp32 master and bf16 m, v on every rank; the
+        mesh and the witness within ``MESH_TRAIN_LIMITS`` of one device
+        (``train_gate``: loss, grad norm, least update cosine) and each
+        planted fault (``MESH_TRAIN_FAULTS``: one data rank's gradients
+        left out of the data-axis reduction; the column-parallel input's
+        backward all-reduce skipped) outside them; peak memory a rank and
+        the ranks' sum under the card's. Printed: ms a step a rank, host
+        s inside staged collectives, bytes gathered and reduce-scattered
+        over data a step, launches;
+      - (i.2) smoke DeepSeek-V3 with its MoE layers, fp32, capacity 8:
+        ``ep_flat`` at (2, 2) at the fp32 and the FP8 wire, ``ep_dedup``
+        at (1, 4), 3 steps each against one device on the card (losses
+        within 5e-3, the FP8 wire within 5% of the fp32 wire); then a
+        Trainer at (2, 2) with checkpoints and ``FailureInjector({3:
+        "node"})`` must end at (1, 2) after one restart, ranks 2-3 gone;
+      - (i.3) ``pipeline_forward`` on ("pipe",) of the 4 ranks: forward
+        within 1e-5 and gradients within 1e-4 of the sequential stages.
+
 The line before the last two is one JSON object with the kernel table
 (fp8_gemm's training backward rows, dx and dw at the FFN's w_gate/w_up,
 added after the eight kernels); the next is the nvidia-smi name and power
@@ -252,6 +287,7 @@ it exits non-zero before printing any result.
 import contextlib
 import json
 import math
+import os
 import pathlib
 import re
 import subprocess
@@ -3138,7 +3174,48 @@ def phase_train(torch):
     back = sum(c["fp8_gemm"] - fwd for c in counts)
     del tr
     gc_cuda(torch)
-    return back, step_ms
+    return back, step_ms, losses
+
+
+# (g.2)'s two more curves, the same six steps from the same seed: the FP8
+# linears on the plain path (``fp8_impl="ref"``: inline quantization and
+# fp32 products, no fp8_gemm) and at a tenth of the peak lr; a fault of
+# fp8_gemm would part its curve from the plain one's
+TRAIN_CURVES = (("fp8_impl=ref", dict(fp8_impl="ref"), 1.0),
+                ("peak lr / 10", {}, 0.1))
+
+
+def phase_train_curves(torch, losses):
+    """(g.2): ``TRAIN_CURVES`` beside the fp8_gemm run's ``losses``; each
+    run on one device, freed after. Returns {label: losses}."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticCorpus
+    from repro_torch.train.trainer import Trainer, TrainConfig
+    curves = {"fp8_gemm": losses}
+    for label, over, lr_scale in TRAIN_CURVES:
+        cfg = get_config(TRAIN["model"], **dict(TRAIN["overrides"], **over))
+        tc = TrainConfig(peak_lr=TRAIN["peak_lr"] * lr_scale,
+                         warmup=TRAIN["warmup"], total_steps=TRAIN["steps"])
+        data = SyntheticCorpus(cfg.vocab_size, TRAIN["seq_len"],
+                               TRAIN["global_batch"], seed=tc.seed)
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, tc, data=data, device="cuda")
+        out = tr.run(TRAIN["steps"])
+        curves[label] = [x["loss"] for x in out["history"]]
+        if not all(math.isfinite(v) for v in curves[label]):
+            raise AssertionError(f"(g.2) {label}: losses {curves[label]}")
+        log(f"[g.2] {label}: losses "
+            f"{[round(v, 4) for v in curves[label]]}, grad_norm "
+            f"{[round(x['grad_norm'], 3) for x in out['history']]} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        del tr
+        gc_cuda(torch)
+    ref = curves["fp8_impl=ref"]
+    log(f"[g.2] the fp8_gemm curve against the plain path's: max abs diff "
+        f"{max(abs(a - b) for a, b in zip(losses, ref)):.4g}, max rel "
+        f"{max(abs(a - b) / abs(b) for a, b in zip(losses, ref)):.4g}")
+    return curves
 
 
 def gc_cuda(torch):
@@ -4304,6 +4381,665 @@ def mesh_logit_gate(key, logits, outs):
     return bad
 
 
+# phase (i): the meshed train step, 4 gloo ranks sharing the card.
+# (i.1) DeepSeek-V3's dense prefix at published widths cut to one dense
+# layer plus the MTP module, bf16, FP8 through fp8_gemm, at (2, 2): FSDP
+# over data and TP over model both cut; the dual microbatch engages
+# (global batch 4 = 2 x dp x 1)
+MESH_TRAIN = dict(model="deepseek-v3-671b",
+                  overrides=dict(family="dense", moe=None, num_layers=1,
+                                 fp8_impl="pallas"),
+                  seq_len=256, global_batch=4, steps=3, peak_lr=3e-4,
+                  warmup=2, mesh=(2, 2))
+MESH_TRAIN_WORLD = 4
+# the faults' runs stop after the step-1 update the gate reads
+MESH_TRAIN_FAULT_STEPS = 2
+# elements of each leaf whose step-1 update the gate compares (a seeded
+# sample of the leaf's logical indices; all of a smaller leaf)
+UPDATE_SAMPLES = 1 << 16
+# (i.2) smoke DeepSeek-V3 with its MoE layers, fp32, capacity 8: runs
+# (name, mesh, moe_impl, wire), each 3 steps against one device on the
+# card; the reference's bounds: losses 5e-3, the FP8 wire within 5% of
+# the fp32 wire
+MESH_TRAIN_SMOKE = (("ep_flat fp32", (2, 2), "ep_flat", "fp32"),
+                    ("ep_flat fp8", (2, 2), "ep_flat", "fp8"),
+                    ("ep_dedup fp32", (1, 4), "ep_dedup", "fp32"))
+SMOKE_TRAIN = dict(global_batch=8, seq_len=16, steps=3, peak_lr=1e-3,
+                   warmup=2, total_steps=10, loss_tol=5e-3, wire_tol=0.05)
+# (i.3) pipeline_forward on ("pipe",) of the 4 ranks: the reference's case
+PIPE_CASE = dict(P=4, M=8, mb=2, d=16, fwd_tol=1e-5, grad_tol=1e-4)
+
+
+def _tdev():
+    """Phase (i)'s device: the card. ``CHIP_SMOKE_TRAIN_DEVICE=cpu`` runs
+    its functions on the CPU at smoke width (a rehearsal of the code
+    paths; the card's gates on launches and memory are skipped there)."""
+    return os.environ.get("CHIP_SMOKE_TRAIN_DEVICE", "cuda")
+
+
+def _tcard():
+    return _tdev() == "cuda"
+
+
+def _tsync(torch):
+    if _tcard():
+        torch.cuda.synchronize()
+
+
+def _tpeak(torch, reset=False):
+    if not _tcard():
+        return 0.0
+    if reset:
+        torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def _tgc(torch):
+    if _tcard():
+        gc_cuda(torch)
+
+
+def mesh_train_config():
+    from repro_torch.configs.base import get_config, smoke_config
+    cfg = get_config(MESH_TRAIN["model"], **MESH_TRAIN["overrides"])
+    if not _tcard():
+        import dataclasses
+        cfg = dataclasses.replace(smoke_config(cfg), dtype="bfloat16",
+                                  param_dtype="bfloat16")
+    return cfg
+
+
+def smoke_moe_train_config():
+    import dataclasses
+    from repro_torch.configs.base import get_config, smoke_config
+    cfg = smoke_config(get_config("deepseek-v3-671b"))
+    return dataclasses.replace(cfg, fp8=False, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=8.0))
+
+
+def sample_index(np, path, shape):
+    """The step-1 update's sampled elements of a leaf: (k, ndim) logical
+    indices, seeded by the leaf's path (every element of a small leaf)."""
+    import zlib
+    n = math.prod(shape)
+    if n <= UPDATE_SAMPLES:
+        flat = np.arange(n)
+    else:
+        flat = np.random.default_rng(zlib.crc32("/".join(path).encode())
+                                     ).integers(0, n, UPDATE_SAMPLES)
+    return np.stack(np.unravel_index(flat, shape), axis=1).astype(np.int64)
+
+
+def master_samples(torch, np, tree, pspecs=None, mesh=None):
+    """{path: the master copy at ``sample_index``} (fp32, on the host); the
+    step-1 update is the difference of two of them. Meshed (``pspecs``,
+    ``mesh``): ``tree`` is a rank's shards; each rank reads the samples
+    inside its region and the parts are summed over the axes that cut the
+    leaf, so every rank holds the whole sample."""
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.sharding import at_path, region_of
+    from repro_torch.train.optimizer import tree_items
+    out = {}
+    for path, a in tree_items(tree):
+        spec = (None,) * a.dim() if pspecs is None else tuple(
+            at_path(pspecs, path))
+        shape = tuple(n * _parts(mesh, e) for n, e in zip(a.shape, spec))
+        idx = torch.from_numpy(sample_index(np, path, shape)).to(a.device)
+        if pspecs is None:
+            out["/".join(path)] = a[tuple(idx.T)].float().cpu().numpy()
+            continue
+        reg = region_of(shape, spec, mesh)
+        lo = torch.tensor([r[0] for r in reg], device=a.device)
+        hi = torch.tensor([r[1] for r in reg], device=a.device)
+        inside = ((idx >= lo) & (idx < hi)).all(dim=1)
+        vals = torch.zeros(idx.shape[0], device=a.device)
+        vals[inside] = a[tuple((idx[inside] - lo).T)].float()
+        for e in spec:
+            if e is not None and mesh.shape[e] > 1:
+                vals = coll.all_gather(vals[None], mesh.groups[e]).sum(0)
+        out["/".join(path)] = vals.cpu().numpy()
+    return out
+
+
+def sampled_update(before, after):
+    return {k: (after[k] - before[k]).tolist() for k in after}
+
+
+def _parts(mesh, entry):
+    return 1 if entry is None else mesh.shape[entry]
+
+
+@contextlib.contextmanager
+def planted_train_fault(fault, data_index):
+    """Phase (i.1)'s planted faults in a meshed rank:
+    ``data_rank_dropped`` leaves data rank 1's gradients out of the
+    data-axis reduction (its reduce-scatter inputs and replicated-leaf
+    gradients enter as zeros); ``copy_to_group_skipped`` makes
+    ``collectives.copy_to_group`` the identity (a column-parallel input's
+    backward all-reduce never runs)."""
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.train import trainer
+    saved = (coll.reduce_scatter, coll.copy_to_group,
+             trainer._reduce_over_data)
+    rs, _, red = saved
+    drop = data_index == 1
+    if fault == "data_rank_dropped":
+        coll.reduce_scatter = lambda x, group, dim=0: rs(
+            x * 0 if drop else x, group, dim)
+
+        def reduce(grads, specs, group):
+            if drop:
+                grads[:] = [None if g is None else g * 0 for g in grads]
+            red(grads, specs, group)
+        trainer._reduce_over_data = reduce
+    else:
+        coll.copy_to_group = lambda x, group: x
+    try:
+        yield
+    finally:
+        (coll.reduce_scatter, coll.copy_to_group,
+         trainer._reduce_over_data) = saved
+
+
+@contextlib.contextmanager
+def mesh_witness(model, params):
+    """One device with its sums reordered as the (2, 2) mesh's: each
+    row-parallel product (``w_o``, ``w_down``) as two fp32 partials over
+    the halves of its contraction, summed, then rounded; each
+    column-parallel one (``w_uq``, ``w_uk``, ``w_uv``, ``w_gate``,
+    ``w_up``) as two products over the halves of its outputs, so the
+    backward sums two partial dx. Weights are told apart by their layer
+    slices' data pointers. (The data axis and the dual halves are
+    reordered by ``witness_step``.)"""
+    import torch
+    from repro_torch.core import fp8
+    from repro_torch.models import layers as Lyr
+    from repro_torch.models.param import layer
+    from repro_torch.train.optimizer import tree_items
+    ptrs = {"row": set(), "col": set()}
+    kinds = {"w_o": "row", "w_down": "row", "w_uq": "col", "w_uk": "col",
+             "w_uv": "col", "w_gate": "col", "w_up": "col"}
+    for path, t in tree_items(params):
+        if path[-1] in kinds and t.dim() == 3:
+            for i in range(t.shape[0]):
+                ptrs[kinds[path[-1]]].add(layer(t, i).data_ptr())
+    orig = Lyr.linear
+
+    def linear(x, w, cfg=None, b=None, tp=None):
+        ptr = Lyr.raw(w).data_ptr()
+        if ptr in ptrs["row"]:
+            k = x.shape[-1] // 2
+            fp8_path = cfg is not None and cfg.fp8 and x.shape[-1] >= 256
+            ys = []
+            for h in (slice(0, k), slice(k, None)):
+                if fp8_path:
+                    ys.append(fp8.fp8_linear(x[..., h], w[h], cfg.fp8_impl,
+                                             out_fp32=True))
+                else:
+                    ys.append(torch.matmul(x[..., h].float(), w[h].float()))
+            y = (ys[0] + ys[1]).to(x.dtype)
+            return y if b is None else y + b.to(y.dtype)
+        if ptr in ptrs["col"]:
+            n = w.shape[-1] // 2
+            return torch.cat([orig(x, w[:, h], cfg) for h in (
+                slice(0, n), slice(n, None))], dim=-1) + (
+                    0 if b is None else b.to(x.dtype))
+        return orig(x, w, cfg, b, tp)
+
+    mods = [Lyr, __import__("repro_torch.core.mla", fromlist=["mla"]),
+            __import__("repro_torch.core.mtp", fromlist=["mtp"])]
+    saved = [(m, m.linear) for m in mods]
+    for m in mods:
+        m.linear = linear
+    try:
+        yield
+    finally:
+        for m, f in saved:
+            m.linear = f
+
+
+def witness_step(model, tc):
+    """The one-device step of the witness: the loss as the (2, 2) mesh
+    splits it (each data rank's rows, halved into the dual microbatch,
+    at its share of the global count), the two data ranks' gradients
+    summed in fp32, then AdamW on them (``optimizer.update``)."""
+    import torch
+    from repro_torch.train import optimizer as optim
+    from repro_torch.train import schedule as sched
+    from repro_torch.train.trainer import _tree_of
+
+    def step_fn(params, opt_state, batch, step):
+        items = optim.tree_items(params)
+        leaves = [t for _, t in items]
+        for t in leaves:
+            t.requires_grad_(True)
+        B = batch["tokens"].shape[0]
+        per = B // MESH_TRAIN["mesh"][0]
+        grads, loss_v = None, 0.0
+        n_all = (batch["labels"] >= 0).sum()
+        try:
+            for d in range(MESH_TRAIN["mesh"][0]):
+                rows = {k: v[d * per:(d + 1) * per] for k, v in batch.items()}
+                share = (rows["labels"] >= 0).sum() / n_all
+                loss, _ = model.loss_dual(
+                    params, {k: v[0::2] for k, v in rows.items()},
+                    {k: v[1::2] for k, v in rows.items()})
+                g = torch.autograd.grad(loss * share, leaves,
+                                        allow_unused=True)
+                loss_v = loss_v + float(loss.detach() * share)
+                grads = ([None if x is None else x.float() for x in g]
+                         if grads is None else
+                         [a if x is None else a + x.float()
+                          for a, x in zip(grads, g)])
+        finally:
+            for t in leaves:
+                t.requires_grad_(False)
+        grads = [None if g is None else g.to(t.dtype)
+                 for g, t in zip(grads, leaves)]
+        lr = sched.warmup_cosine(step, peak_lr=tc.peak_lr, warmup=tc.warmup,
+                                 total=tc.total_steps)
+        params, opt_state, ostats = optim.update(
+            _tree_of(items, grads), opt_state, params, lr=lr,
+            weight_decay=tc.weight_decay, clip_norm=tc.clip_norm)
+        out = dict(ostats, loss=torch.tensor(loss_v))
+        return params, opt_state, out
+
+    return step_fn
+
+
+def one_device_train(torch, np, cfg, tc, data, steps, witness=False):
+    """``steps`` Trainer steps on one device from the seed's weights;
+    keeps on the host only the losses, grad norms, the step-1 update's
+    samples and the step times, and frees the rest."""
+    from repro_torch.train.trainer import Trainer
+    tr = Trainer(cfg, tc, data=data, device=_tdev())
+    ctx = (mesh_witness(tr.model, tr.params) if witness
+           else contextlib.nullcontext())
+    if witness:
+        tr._step_fn = witness_step(tr.model, tc)
+    ms, seen = [], []
+    with ctx:
+        for i in range(steps):
+            _tsync(torch)
+            t0 = time.perf_counter()
+            tr.run(1)
+            _tsync(torch)
+            ms.append(1e3 * (time.perf_counter() - t0))
+            if i < 2:
+                seen.append(master_samples(torch, np, tr.opt_state.master))
+    samples = sampled_update(*seen)
+    h = tr.history
+    out = dict(loss=[x["loss"] for x in h],
+               grad_norm=[x["grad_norm"] for x in h], samples=samples, ms=ms,
+               peak_gb=_tpeak(torch))
+    del tr
+    _tgc(torch)
+    return out
+
+
+def train_mesh_rank(rank, store_path, out_path):
+    """One rank of phase (i), in a spawned process: (i.1) the published-
+    width dense prefix at (2, 2), sound and under each planted fault;
+    (i.2) smoke DeepSeek-V3 with its MoE layers on ``MESH_TRAIN_SMOKE``,
+    then the re-mesh run; (i.3) ``pipeline_forward``. Writes JSON."""
+    # four ranks share the card: let each allocator return what it frees
+    # between the gathers' transients (set before CUDA starts here)
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import SyntheticCorpus
+    from repro_torch.kernels import registry
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.context import Mesh, ParallelCtx
+    from repro_torch.train import optimizer as optim
+    from repro_torch.train.fault import FailureInjector
+    from repro_torch.train.trainer import Trainer, TrainConfig
+
+    torch.set_num_threads(2)
+    if _tcard():
+        torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", rank=rank, world_size=MESH_TRAIN_WORLD,
+                            store=dist.FileStore(store_path,
+                                                 MESH_TRAIN_WORLD))
+    meshes = {(2, 2): Mesh.create((2, 2)), (1, 4): Mesh.create((1, 4)),
+              "pipe": Mesh.create((MESH_TRAIN_WORLD,), ("pipe",))}
+    res = {"rank": rank, "runs": {}}
+
+    # (i.1)
+    cfg = mesh_train_config()
+    mesh = meshes[MESH_TRAIN["mesh"]]
+    tc = TrainConfig(peak_lr=MESH_TRAIN["peak_lr"],
+                     warmup=MESH_TRAIN["warmup"],
+                     total_steps=MESH_TRAIN["steps"])
+    data = SyntheticCorpus(cfg.vocab_size, MESH_TRAIN["seq_len"],
+                           MESH_TRAIN["global_batch"], seed=tc.seed)
+    for run in ("sound",) + MESH_TRAIN_FAULTS:
+        _tgc(torch)
+        _tpeak(torch, reset=True)
+        dist.barrier()
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, tc, data=data, ctx=ParallelCtx(mesh=mesh),
+                     device=_tdev())
+        _tsync(torch)
+        r = dict(build_s=time.perf_counter() - t0)
+        if run == "sound":
+            r["dtypes"] = sorted({f"{k}:{t.dtype}" for k, tree in (
+                ("param", tr.params), ("master", tr.opt_state.master),
+                ("m", tr.opt_state.m), ("v", tr.opt_state.v))
+                for _, t in optim.tree_items(tree)})
+            r["params"] = sum(t.numel() for _, t in
+                              optim.tree_items(tr.params))
+        steps = (MESH_TRAIN["steps"] if run == "sound"
+                 else MESH_TRAIN_FAULT_STEPS)
+        pspecs = tr.state_pspecs()["params"]
+        fault = (contextlib.nullcontext() if run == "sound" else
+                 planted_train_fault(run, mesh.coords["data"]))
+        seen, counts, ms, coll_s, data_bytes = [], [], [], [], []
+        with fault:
+            for i in range(steps):
+                registry.reset_launch_counts()
+                coll.reset_counters()
+                dist.barrier()
+                _tsync(torch)
+                t1 = time.perf_counter()
+                tr.run(1)
+                _tsync(torch)
+                ms.append(1e3 * (time.perf_counter() - t1))
+                counts.append(registry.launch_counts())
+                coll_s.append(sum(coll.SECONDS.values()))
+                data_bytes.append(dict(coll.BYTES))
+                if i < 2:
+                    seen.append(master_samples(torch, np,
+                                               tr.opt_state.master, pspecs,
+                                               mesh))
+        r["samples"] = sampled_update(*seen)
+        h = tr.history
+        r.update(loss=[x["loss"] for x in h],
+                 grad_norm=[x["grad_norm"] for x in h], ms=ms,
+                 counts=counts, coll_s=coll_s, bytes=data_bytes,
+                 peak_gb=_tpeak(torch))
+        res["runs"]["i1 " + run] = r
+        del tr
+    _tgc(torch)
+
+    # (i.2)
+    scfg = smoke_moe_train_config()
+    stc = TrainConfig(peak_lr=SMOKE_TRAIN["peak_lr"],
+                      warmup=SMOKE_TRAIN["warmup"],
+                      total_steps=SMOKE_TRAIN["total_steps"])
+    for name, shape, impl, wire in MESH_TRAIN_SMOKE:
+        tr = Trainer(scfg, stc, global_batch=SMOKE_TRAIN["global_batch"],
+                     seq_len=SMOKE_TRAIN["seq_len"], device=_tdev(),
+                     ctx=ParallelCtx(mesh=meshes[shape], moe_impl=impl,
+                                     wire=wire))
+        out = tr.run(SMOKE_TRAIN["steps"])
+        res["runs"]["i2 " + name] = dict(
+            loss=[x["loss"] for x in out["history"]])
+        del tr
+    ckdir = str(pathlib.Path(store_path).parent / "remesh_ckpt")
+    tr = Trainer(scfg, TrainConfig(
+        peak_lr=SMOKE_TRAIN["peak_lr"], warmup=SMOKE_TRAIN["warmup"],
+        total_steps=8, ckpt_dir=ckdir, ckpt_every=2),
+        injector=FailureInjector({3: "node"}),
+        global_batch=SMOKE_TRAIN["global_batch"],
+        seq_len=SMOKE_TRAIN["seq_len"], device=_tdev(),
+        ctx=ParallelCtx(mesh=meshes[(2, 2)], moe_impl="ep_flat"))
+    out = tr.run(6)
+    res["remesh"] = {k: out[k] for k in ("final_step", "restarts",
+                                         "mesh_shape", "left")}
+    del tr
+    _tgc(torch)
+
+    # (i.3)
+    from repro_torch.parallel.pipeline import pipeline_forward
+    pm = meshes["pipe"]
+    c = PIPE_CASE
+    g = torch.Generator(device=_tdev()).manual_seed(0)
+    Ws = torch.randn(c["P"], c["d"], c["d"], generator=g,
+                     device=_tdev()) * 0.3
+    x = torch.randn(c["M"], c["mb"], c["d"], generator=g, device=_tdev())
+    s = pm.coords["pipe"]
+
+    def stage(w, v):
+        return torch.tanh(v @ w)
+
+    w = Ws[s].clone().requires_grad_(True)
+    y = pipeline_forward(stage, w, x, pm)
+    g1, = torch.autograd.grad((y ** 2).sum(), [w])
+    W2 = Ws.clone().requires_grad_(True)
+    ref = x
+    for i in range(c["P"]):
+        ref = stage(W2[i], ref)
+    g2, = torch.autograd.grad((ref ** 2).sum(), [W2])
+    res["pipe"] = dict(fwd=float((y - ref).abs().max()),
+                       grad=float((g1 - g2[s]).abs().max()
+                                  / g2.abs().max()))
+    res["peak_gb"] = _tpeak(torch)
+    pathlib.Path(out_path).write_text(json.dumps(res))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_train_mesh(torch, card):
+    """Phase (i), the meshed train step (``Trainer(ctx=ParallelCtx(
+    mesh=...))``) on four gloo ranks sharing the card
+    (``train_mesh_rank``). First, in this process, the one-device runs it
+    is held to: (i.1)'s config from the same seed-drawn weights and its
+    witness (``mesh_witness``, ``witness_step``), then (i.2)'s smoke
+    config; each freed before the spawn. Gates (fatal): (i.1) every step
+    finite; fp8_gemm launched exactly 2 x 3 x the FP8 linears of a
+    forward (``fp8_linears``) a rank and step, no other kernel; fp32
+    master and bf16 m, v on every rank; the sound run and the witness
+    pass ``train_gate`` against the one-device run, each planted fault
+    fails it; peak memory a rank and all ranks' sum under the card's.
+    (i.2) every run's losses within 5e-3 of one device, the FP8 wire
+    within 5% of the fp32 wire; the re-mesh run ends at (1, 2) after one
+    restart with ranks 2-3 gone. (i.3) forward 1e-5, gradients 1e-4
+    relative. Printed: ms a step a rank, host s inside staged
+    collectives, bytes gathered and reduce-scattered over data a step,
+    launches. Returns the fp8_gemm launches a rank and step."""
+    import tempfile
+
+    import numpy as np
+    from repro_torch.data.pipeline import SyntheticCorpus
+    from repro_torch.models.api import Model
+    from repro_torch.train.trainer import Trainer, TrainConfig
+    t_phase = time.time()
+    _tgc(torch)
+    cfg = mesh_train_config()
+    tc = TrainConfig(peak_lr=MESH_TRAIN["peak_lr"],
+                     warmup=MESH_TRAIN["warmup"],
+                     total_steps=MESH_TRAIN["steps"])
+    data = SyntheticCorpus(cfg.vocab_size, MESH_TRAIN["seq_len"],
+                           MESH_TRAIN["global_batch"], seed=tc.seed)
+    _tpeak(torch, reset=True)
+    one = one_device_train(torch, np, cfg, tc, data, MESH_TRAIN["steps"])
+    wit = one_device_train(torch, np, cfg, tc, data, MESH_TRAIN["steps"],
+                           witness=True)
+    log(f"[i.1] one device ({cfg.name} dense prefix cut to 1 layer + MTP, "
+        f"{MESH_TRAIN['global_batch']} x {MESH_TRAIN['seq_len']} tokens a "
+        f"step): losses {[round(v, 5) for v in one['loss']]}, grad norms "
+        f"{[round(v, 4) for v in one['grad_norm']]}, ms a step "
+        f"{[round(v, 1) for v in one['ms']]}, peak {one['peak_gb']:.2f} GB; "
+        f"the witness: losses {[round(v, 5) for v in wit['loss']]}, grad "
+        f"norms {[round(v, 4) for v in wit['grad_norm']]}")
+    scfg = smoke_moe_train_config()
+    st = SMOKE_TRAIN
+    str_ = Trainer(scfg, TrainConfig(peak_lr=st["peak_lr"],
+                                     warmup=st["warmup"],
+                                     total_steps=st["total_steps"]),
+                   global_batch=st["global_batch"], seq_len=st["seq_len"],
+                   device=_tdev())
+    smoke_one = [x["loss"] for x in str_.run(st["steps"])["history"]]
+    del str_
+    _tgc(torch)
+    per_fwd = fp8_linears(Model(cfg, device="meta"))
+    want_fp8 = 2 * 3 * per_fwd
+    log(f"[i] {MESH_TRAIN_WORLD} gloo ranks sharing the card ({card}), "
+        f"(i.1) at {MESH_TRAIN['mesh']}; one-device runs took "
+        f"{time.time() - t_phase:.1f} s; this process holds "
+        f"{torch.cuda.memory_reserved() / 1e9 if _tcard() else 0:.2f} GB "
+        "of the card before the spawn")
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        codes, outs = run_ranks(train_mesh_rank, MESH_TRAIN_WORLD, tmp, 900)
+        if codes != [0] * MESH_TRAIN_WORLD:
+            raise AssertionError(f"phase (i) ranks exited with {codes}")
+        res = [json.loads(pathlib.Path(o).read_text()) for o in outs]
+    log(f"[i] ranks done in {time.time() - t0:.1f} s")
+    bad = []
+    total = (torch.cuda.get_device_properties(0).total_memory / 1e9
+             if _tcard() else math.inf)
+    sound = [r["runs"]["i1 sound"] for r in res]
+    want_dt = ["m:torch.bfloat16", "master:torch.float32",
+               "param:torch.bfloat16", "v:torch.bfloat16"]
+    for k, run in enumerate(sound):
+        if run["dtypes"] != want_dt:
+            bad.append(f"rank {k}: state dtypes {run['dtypes']}")
+        if not all(math.isfinite(v) for v in run["loss"] + run["grad_norm"]):
+            bad.append(f"rank {k}: a step not finite {run['loss']}")
+        for i, c in enumerate(run["counts"] if _tcard() else ()):
+            if c.get("fp8_gemm") != want_fp8 or any(
+                    v for n, v in c.items() if n != "fp8_gemm"):
+                bad.append(f"rank {k} step {i}: launches {c}, want "
+                           f"fp8_gemm {want_fp8} only")
+    peak_sum = sum(max(r["runs"][f"i1 {x}"]["peak_gb"]
+                       for x in ("sound",) + MESH_TRAIN_FAULTS)
+                   for r in res)
+    if max(r["peak_gb"] for r in res) >= total or peak_sum >= total:
+        bad.append(f"peak memory {[r['peak_gb'] for r in res]} GB a rank, "
+                   f"{peak_sum:.2f} together, the card {total:.2f}")
+    ref_s = one["samples"]
+    figs = {}
+    for label, run in [("mesh", sound[0]), ("witness", wit)] + [
+            (f, res[0]["runs"][f"i1 {f}"]) for f in MESH_TRAIN_FAULTS]:
+        n = len(run["loss"])
+        ok, fig = train_gate(
+            dict(loss=one["loss"][:n], grad_norm=one["grad_norm"][:n]),
+            run, leaf_cosines(np, ref_s, run["samples"]))
+        figs[label] = fig
+        want_ok = label in ("mesh", "witness")
+        if ok != want_ok:
+            bad.append(f"(i.1) {label}: gate {'passed' if ok else 'failed'}"
+                       f" {fig}")
+        log(f"[i.1] {label} vs one device: loss max rel err "
+            f"{fig['loss']:.3g} (limit {MESH_TRAIN_LIMITS['loss']:g}), grad "
+            f"norm {fig['grad_norm']:.3g} (limit "
+            f"{MESH_TRAIN_LIMITS['grad_norm']:g}), least step-1 update "
+            f"cosine {fig['cos']:.6f} at {fig['worst']} (limit "
+            f"{MESH_TRAIN_LIMITS['cos']:g}): "
+            f"{'passes' if ok else 'fails'}")
+    for k, run in enumerate(sound):
+        steady = run["ms"][1:]
+        b = run["bytes"][-1]
+        log(f"[i.1] rank {k}: {run['params']} parameters a rank, built in "
+            f"{run['build_s']:.1f} s; losses "
+            f"{[round(v, 5) for v in run['loss']]}; ms a step "
+            f"{[round(v, 1) for v in run['ms']]} (steps 2-3 mean "
+            f"{np.mean(steady):.1f}); host s a step inside staged "
+            f"collectives {[round(v, 3) for v in run['coll_s']]}; bytes a "
+            f"step (last): all_gather {b.get('all_gather', 0)}, "
+            f"reduce_scatter {b.get('reduce_scatter', 0)}, all_reduce "
+            f"{b.get('all_reduce', 0)}, exchange {b.get('exchange', 0)}; "
+            f"launches a step {run['counts'][-1]} (want fp8_gemm "
+            f"{want_fp8} = 2 halves x 3 x {per_fwd}); peak "
+            f"{run['peak_gb']:.2f} GB")
+    log(f"[i.1] peak GB a rank over its runs "
+        f"{[round(r['peak_gb'], 2) for r in res]}, sum of the ranks' "
+        f"{peak_sum:.2f} of the card's {total:.2f}")
+    # (i.2)
+    fp32 = None
+    for name, shape, _, wire in MESH_TRAIN_SMOKE:
+        for k, r in enumerate(res):
+            got = r["runs"]["i2 " + name]["loss"]
+            d = max(abs(a - b) for a, b in zip(got, smoke_one))
+            if not all(math.isfinite(v) for v in got):
+                bad.append(f"(i.2) {name} rank {k}: losses {got}")
+            if wire != "fp8" and d >= st["loss_tol"]:
+                bad.append(f"(i.2) {name} rank {k}: losses {got} vs one "
+                           f"device {smoke_one}")
+        got = res[0]["runs"]["i2 " + name]["loss"]
+        if name == "ep_flat fp32":
+            fp32 = got
+        rel = (max(abs(a - b) / abs(a) for a, b in zip(fp32, got))
+               if fp32 else None)
+        if wire == "fp8" and not rel < st["wire_tol"]:
+            bad.append(f"(i.2) {name}: {rel} of the fp32 wire")
+        log(f"[i.2] {name} at {shape}: losses {[round(v, 5) for v in got]}"
+            f" (one device {[round(v, 5) for v in smoke_one]}; max abs diff "
+            f"{max(abs(a - b) for a, b in zip(got, smoke_one)):.3g}"
+            + (f", {rel:.3g} of the fp32 wire" if wire == "fp8" else "")
+            + ")")
+    rm = [r["remesh"] for r in res]
+    want_rm = [dict(final_step=6, restarts=1, mesh_shape=[1, 2], left=False)
+               ] * 2
+    if rm[:2] != want_rm or not all(x["left"] and x["mesh_shape"] == [1, 2]
+                                    for x in rm[2:]):
+        bad.append(f"(i.2) re-mesh: {rm}")
+    log(f"[i.2] Trainer at (2, 2) with checkpoints and FailureInjector({{3: "
+        f"node}}): {rm}")
+    pipe = [r["pipe"] for r in res]
+    if any(p["fwd"] >= PIPE_CASE["fwd_tol"] or p["grad"] >= PIPE_CASE[
+            "grad_tol"] for p in pipe):
+        bad.append(f"(i.3) pipeline {pipe}")
+    log(f"[i.3] pipeline_forward over ('pipe',) of {MESH_TRAIN_WORLD} on "
+        f"the card: forward max err {[p['fwd'] for p in pipe]} (tol "
+        f"{PIPE_CASE['fwd_tol']:g}), gradients "
+        f"{[p['grad'] for p in pipe]} of the largest (tol "
+        f"{PIPE_CASE['grad_tol']:g})")
+    log(f"[i] phase (i) {time.time() - t_phase:.1f} s")
+    if bad:
+        raise AssertionError("phase (i): " + "; ".join(bad))
+    return want_fp8
+
+
+# phase (i.1)'s gate, the meshed train step against the one-device run of
+# the same config from the same weights and batches: each step's loss and
+# grad norm within these relative errors, and the least cosine over the
+# leaves of the step-1 update (master after step 1 - after step 0; step 0
+# runs at lr 0) at least ``cos``. Set between the sound runs (the mesh and
+# the witness, one device with its sums reordered as the mesh's: grad
+# norms within 1.25e-3, cosines 0.9786 and above) and the planted faults
+# (``MESH_TRAIN_FAULTS``: grad norms 0.40-0.58 off, cosines 0.45 and
+# below), PR 28 call 2 on one H100; the losses of the faults' two steps
+# (the first at lr 0) move by 1.5e-5, so the loss limit is a bound on
+# sound runs (1.1e-3 seen), not a fault detector. PERF.md §6, PR 28.
+MESH_TRAIN_LIMITS = dict(loss=1e-2, grad_norm=2e-2, cos=0.9)
+MESH_TRAIN_FAULTS = ("data_rank_dropped", "copy_to_group_skipped")
+
+
+def leaf_cosines(np, ref, got):
+    """{path: cosine} of two {path: array} trees of updates (in float64;
+    a leaf whose both updates are zero counts 1)."""
+    out = {}
+    for path, a in ref.items():
+        a = np.asarray(a, np.float64).ravel()
+        b = np.asarray(got[path], np.float64).ravel()
+        na, nb = np.linalg.norm(a), np.linalg.norm(b)
+        out[path] = (1.0 if na == nb == 0 else
+                     float(a @ b / max(na * nb, 1e-300)))
+    return out
+
+
+def train_gate(ref, got, cosines, limits=MESH_TRAIN_LIMITS):
+    """Phase (i.1)'s gate (``MESH_TRAIN_LIMITS``): ``ref`` and ``got`` hold
+    per-step ``loss`` and ``grad_norm``; ``cosines`` the step-1 update's
+    cosine by leaf. Returns (passed, figures)."""
+    def rel(key):
+        return max(abs(a - b) / abs(b) for a, b in zip(got[key], ref[key]))
+
+    worst = min(cosines, key=cosines.get)
+    fig = dict(loss=rel("loss"), grad_norm=rel("grad_norm"),
+               cos=cosines[worst], worst=worst)
+    ok = (fig["loss"] <= limits["loss"]
+          and fig["grad_norm"] <= limits["grad_norm"]
+          and fig["cos"] >= limits["cos"])
+    return ok, fig
+
+
 def get_vocab(model):
     from repro_torch.configs.base import get_config
     return get_config(model).vocab_size
@@ -4341,9 +5077,12 @@ def main():
         "training")
     backward = bench_fp8_train(torch, torch.device("cuda"),
                                torch.Generator(device="cuda").manual_seed(7))
-    back_launches, _ = phase_train(torch)
+    back_launches, _, losses = phase_train(torch)
+    phase_train_curves(torch, losses)
     phase_train_reference(torch)
     phase_mesh(torch, card)
+    gc_cuda(torch)
+    mesh_fp8 = phase_train_mesh(torch, card)
 
     # one entry per kernel: the main path's shape (decode-time where the
     # kernel runs at decode; E4M3 codes and w1/w3 for moe_gemm, the fp8
@@ -4379,6 +5118,7 @@ def main():
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             shape=f"training backward, {r['shape']}"))
+    log(f"[i] fp8_gemm launches a rank and meshed train step: {mesh_fp8}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))
     print(card)

@@ -280,13 +280,18 @@ class _Fp8Linear(torch.autograd.Function):
     (the dw tiles run along the tokens). With ``impl="pallas"`` on a CUDA
     tensor all three products are ``fp8_gemm`` launches
     (``kernels/fp8_gemm/ops.fp8_matmul``); otherwise they are
-    ``scaled_matmul_ref``, as in the reference."""
+    ``scaled_matmul_ref``, as in the reference. ``x_amax`` (the tile
+    amaxes a tensor-parallel rank quantizes its slice of the contraction
+    with) and the scales carry no gradient, as in the reference's
+    ``custom_vjp``; ``out_fp32`` keeps the fp32 product (a row-parallel
+    partial, summed before its rounding)."""
 
     @staticmethod
-    def forward(ctx, x, w, impl):
+    def forward(ctx, x, w, impl, x_amax=None, out_fp32=False):
         ctx.impl = impl
         ctx.save_for_backward(x, w)
-        return matmul_qdq(x, w, impl).to(x.dtype)
+        y = matmul_qdq(x, w, impl, x_amax)
+        return y if out_fp32 else y.to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -308,14 +313,19 @@ class _Fp8Linear(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             x2 = x.reshape(-1, x.shape[-1]).float()
             dw = mm(x2.t(), g2).to(w.dtype)
-        return dx, dw, None
+        return dx, dw, None, None, None
 
 
 def fp8_linear(x: torch.Tensor, w: Union[torch.Tensor, Fp8Weight],
-               impl: str = "ref") -> torch.Tensor:
+               impl: str = "ref", x_amax: Optional[torch.Tensor] = None,
+               out_fp32: bool = False) -> torch.Tensor:
     """FP8-path linear: forward and both backward GEMMs quantized (paper
     recipe). x: (..., d) bf16/f32, w: (d, f) or its :class:`Fp8Weight`
-    (serving: frozen, no backward). Returns (..., f) in x.dtype."""
+    (serving: frozen, no backward). Returns (..., f) in x.dtype (fp32
+    with ``out_fp32``). ``x_amax``: as :func:`matmul_qdq`'s (detached)."""
+    if x_amax is not None:
+        x_amax = x_amax.detach()
     if isinstance(w, Fp8Weight) or not torch.is_grad_enabled():
-        return matmul_qdq(x, w, impl).to(x.dtype)
-    return _Fp8Linear.apply(x, w, impl)
+        y = matmul_qdq(x, w, impl, x_amax)
+        return y if out_fp32 else y.to(x.dtype)
+    return _Fp8Linear.apply(x, w, impl, x_amax, out_fp32)

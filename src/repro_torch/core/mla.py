@@ -25,6 +25,8 @@ from repro_torch.device import torch_dtype
 from repro_torch.models.layers import (apply_rope, attention_scores, linear,
                                        page_write_step, raw, rmsnorm)
 from repro_torch.models.param import ParamSpec
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel import context as pctx
 
 
 def mla_specs(cfg: ModelConfig, layers: int) -> dict:
@@ -60,6 +62,9 @@ def _queries(p: dict, x: torch.Tensor, cfg: ModelConfig,
     m = cfg.mla
     nh = _heads(p, cfg)
     cq = rmsnorm(linear(x, p["w_dq"], cfg), p["q_norm"], cfg.rms_eps)
+    # the replicated latent feeds this rank's heads (``copy_to_group``:
+    # its gradient is summed over the model group)
+    cq = coll.copy_to_group(cq, pctx.get().tp_group)
     q = linear(cq, p["w_uq"], cfg)
     q = q.reshape(*q.shape[:-1], nh, m.qk_nope_dim + m.qk_rope_dim)
     q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
@@ -87,13 +92,17 @@ def mla_attention(p: dict, x: torch.Tensor, *, cfg: ModelConfig,
     B, S, _ = x.shape
     q_nope, q_rope = _queries(p, x, cfg, positions)
     ckv, kr = _latents(p, x, cfg, positions)
-    k_nope = linear(ckv, p["w_uk"], cfg).reshape(B, S, nh, m.qk_nope_dim)
-    v = linear(ckv, p["w_uv"], cfg).reshape(B, S, nh, m.v_head_dim)
+    group = pctx.get().tp_group
+    ckv_f = coll.copy_to_group(ckv, group)
+    kr_f = coll.copy_to_group(kr, group)
+    k_nope = linear(ckv_f, p["w_uk"], cfg).reshape(B, S, nh, m.qk_nope_dim)
+    v = linear(ckv_f, p["w_uv"], cfg).reshape(B, S, nh, m.v_head_dim)
     # combined-head form: K = [k_nope ; kr] (shared rope key); qk head dim
     # 192 differs from v's 128, which keeps MLA prefill on the direct path
     scale = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
     qq = torch.cat([q_nope, q_rope], dim=-1)
-    kk = torch.cat([k_nope, kr[:, :, None].expand(B, S, nh, m.qk_rope_dim)],
+    kk = torch.cat([k_nope,
+                    kr_f[:, :, None].expand(B, S, nh, m.qk_rope_dim)],
                    dim=-1)
     out = attention_scores(qq, kk, v, causal=True, q_pos=positions,
                            k_pos=positions, scale=scale)

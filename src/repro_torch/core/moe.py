@@ -96,10 +96,14 @@ def shared_expert(p: dict, x: torch.Tensor, cfg: ModelConfig,
                   weights_qdq: bool = False) -> torch.Tensor:
     """The always-on shared expert. Under a mesh ctx with a model axis it
     is tensor-parallel over ``mlp`` (this rank's column slices of ``ws1``,
-    ``ws3``, its row slice of ``ws2``): the fp32 partials of the last
-    product are summed over the model group, then rounded once."""
+    ``ws3``, its row slice of ``ws2``): x enters through
+    ``collectives.copy_to_group`` and the fp32 partials of the last
+    product are summed over the model group (``reduce_sum``), then
+    rounded once."""
     if "ws1" not in p:
         return torch.zeros_like(x)
+    group = pctx.get().tp_group
+    x = coll.copy_to_group(x, group)
     w1, w3, w2 = p["ws1"], p["ws3"], p["ws2"]
     if cfg.fp8:
         x = ste_qdq_tile(x)
@@ -107,10 +111,9 @@ def shared_expert(p: dict, x: torch.Tensor, cfg: ModelConfig,
             w1, w3, w2 = map(ste_qdq_block, (w1, w3, w2))
     dt = x.dtype
     h = act_fn(cfg.act)(x @ w1.to(dt)) * (x @ w3.to(dt))
-    group = pctx.get().tp_group
     if group is None:
         return h @ w2.to(dt)
-    return coll.all_reduce(h.float() @ w2.float(), group).to(dt)
+    return coll.reduce_sum(h.float() @ w2.float(), group).to(dt)
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,7 @@ block is supplied by the host model (``block_specs``/``block_apply``).
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -50,11 +50,13 @@ def mtp_hidden(p_m: dict, h: torch.Tensor, emb_next: torch.Tensor, *,
 
 def mtp_losses(p: dict, h: torch.Tensor, tokens: torch.Tensor,
                emb_fn: Callable, unemb_fn: Callable, *, cfg: ModelConfig,
-               positions: torch.Tensor,
-               block_apply: Callable) -> torch.Tensor:
+               positions: torch.Tensor, block_apply: Callable,
+               rows: Optional[int] = None) -> torch.Tensor:
     """Summed weighted CE over MTP depths. tokens: (B,S) inputs; the target
     of depth m at position k is tokens[k+m+1] (the last m+1 positions,
-    whose targets wrap around, are masked out). Returns a scalar."""
+    whose targets wrap around, are masked out). Returns a scalar.
+    ``rows``: the batch rows each mean is over (default B; a data rank
+    passes the global batch's, so its loss is its part of the mean)."""
     n = cfg.mtp.num_modules
     B, S = tokens.shape
     total = torch.zeros((), dtype=torch.float32, device=tokens.device)
@@ -70,7 +72,8 @@ def mtp_losses(p: dict, h: torch.Tensor, tokens: torch.Tensor,
         ll = logits.gather(-1, targets[..., None])[..., 0]
         ce = torch.where(valid[None, :], lse - ll, 0.0)
         # a device divisor: a true division on the card too
-        count = torch.tensor(float(max(max(S - (m + 1), 0) * B, 1)),
+        count = torch.tensor(float(max(max(S - (m + 1), 0) * (rows or B),
+                                       1)),
                              device=tokens.device)
         total = total + cfg.mtp.loss_weight / n * (ce.sum() / count)
     return total

@@ -64,6 +64,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.param import ParamSpec, init_params, layer
 from repro_torch.parallel import collectives as coll
 from repro_torch.parallel import context as pctx_mod
+from repro_torch.parallel import sharding
 
 # ---------------------------------------------------------------------------
 # Sampling
@@ -241,7 +242,7 @@ class Model:
 
     # -- shared pieces -------------------------------------------------------
     def _embed(self, params, tokens):
-        emb = params["embed"]["emb"]
+        emb = sharding.gathered(params["embed"], ("embed",))["emb"]
         dt = torch_dtype(self.cfg.dtype)
         V = emb.shape[0]
         if V == self.cfg.vocab_size:
@@ -252,18 +253,24 @@ class Model:
         local = tokens.long() - c.index(c.tp_axis) * V
         inside = (local >= 0) & (local < V)
         e = emb[local.clamp(0, V - 1)].masked_fill(~inside[..., None], 0)
-        return coll.all_reduce(e, c.tp_group).to(dt)
+        return coll.reduce_sum(e, c.tp_group).to(dt)
 
     def _unembed(self, params, h):
-        emb = params["embed"]
+        """Final norm and logits. Vocab-parallel under a model group: the
+        hidden enters through ``copy_to_group``, each rank's vocab columns
+        are gathered (``collectives.gather``) and every rank computes the
+        CE on the whole logits, so the gather's backward is this rank's
+        slice of their gradient (not a vocab-parallel log-sum-exp)."""
+        emb = sharding.gathered(params["embed"], ("embed",))
         h = Lyr.rmsnorm(h, emb["final_norm"], self.cfg.rms_eps)
         w = emb.get("unemb")
         if w is None:
             w = emb["emb"].T
-        logits = torch.matmul(h, w.to(h.dtype))
-        if logits.shape[-1] != self.cfg.vocab_size:
-            logits = coll.all_gather(logits, pctx_mod.get().tp_group, dim=-1)
-        return logits
+        if w.shape[-1] == self.cfg.vocab_size:
+            return torch.matmul(h, w.to(h.dtype))
+        group = pctx_mod.get().tp_group
+        logits = torch.matmul(coll.copy_to_group(h, group), w.to(h.dtype))
+        return coll.gather(logits, group, dim=-1)
 
     def _ctx(self, params, **kw) -> dict:
         # weights_qdq: expert weights were quant-dequantized at load
@@ -279,8 +286,9 @@ class Model:
         for i in range(seg.n):
             c = None if cache is None else layer(cache, i)
             with coll.tagged(f"{seg.name}/{i}"):
-                x, out, st = tfm.block_apply(layer(p, i), x, self.cfg, ctx,
-                                             c)
+                x, out, st = tfm.block_apply(
+                    sharding.gathered(p, (seg.name,), i), x, self.cfg, ctx,
+                    c)
             outs.append(out)
             stats.append(st)
         return x, outs, stack_stats(stats)
@@ -299,17 +307,31 @@ class Model:
         return x, outs, stats
 
     # -- loss (training) -------------------------------------------------------
-    def _ce(self, params, h, labels):
-        """Mean CE of hidden states against labels (-1 = pad), logits in
-        fp32. Returns (loss, ntokens)."""
+    def _ce_sum(self, params, h, labels):
+        """Summed CE of hidden states against labels (-1 = pad), logits in
+        fp32, and the valid-token count. Returns (sum, count)."""
         logits = self._unembed(params, h).float()
         valid = labels >= 0
         lab = torch.where(valid, labels, 0).long()
         lse = torch.logsumexp(logits, dim=-1)
         ll = logits.gather(-1, lab[..., None])[..., 0]
         ce = torch.where(valid, lse - ll, 0.0)
-        ntok = valid.sum().clamp_min(1)
-        return ce.sum() / ntok, ntok
+        return ce.sum(), valid.sum()
+
+    @staticmethod
+    def data_total(v: torch.Tensor) -> torch.Tensor:
+        """A count summed over the data axis (no gradient): under a mesh
+        each data rank holds its own batch rows, and the CE and MTP means
+        are over the global batch, as the reference's."""
+        g = pctx_mod.get().dp_group
+        return v if g is None else coll.all_reduce(v.detach(), g)
+
+    @staticmethod
+    def data_sum(x: torch.Tensor) -> torch.Tensor:
+        """The data ranks' parts of the loss summed (``reduce_sum``): the
+        value is the global loss on every rank, the gradient this rank's
+        part's, so the data-axis reduction of the gradients sums them."""
+        return coll.reduce_sum(x, pctx_mod.get().dp_group)
 
     def loss(self, params, batch):
         """Teacher-forcing loss (the reference's ``Model.loss``): CE, plus
@@ -320,7 +342,13 @@ class Model:
 
         Takes the raw weights (no ``prepare_for_serving``) and reads no
         ``impl_ctx``: attention runs on the plain path, as the reference's
-        training does; the FP8 linears follow ``cfg.fp8_impl``."""
+        training does; the FP8 linears follow ``cfg.fp8_impl``.
+
+        Under a mesh ctx ``batch`` is this data rank's rows and ``params``
+        this rank's shards (gathered by the ctx's ZeRO-3 plan,
+        ``sharding.Zero3``, where they are cut over ``data``); the means are over the global batch
+        (:meth:`data_total`) and the loss and its metrics are the global
+        ones on every rank (:meth:`data_sum`)."""
         if params.get("prepared"):
             raise ValueError("Model.loss takes the raw weights, not a tree "
                              "made by bridge.prepare_for_serving")
@@ -332,8 +360,11 @@ class Model:
                            device=self.device).expand(B, S)
         ctx = dict(positions=pos, stats=True)
         h, _, stats = self._backbone(params, tokens, ctx, None)
-        loss, ntok = self._ce(params, h, labels)
-        metrics: Dict[str, Any] = {"ce": loss.detach(), "ntokens": ntok}
+        s, n = self._ce_sum(params, h, labels)
+        ntok = self.data_total(n).clamp_min(1)
+        loss = s / ntok
+        metrics: Dict[str, Any] = {"ce": self.data_sum(loss.detach()),
+                                   "ntokens": ntok}
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         for segname, st in stats.items():
             aux = aux + st["aux_loss"].mean()
@@ -342,35 +373,34 @@ class Model:
         metrics["aux_loss"] = aux
         if cfg.mtp:
             mtp_l = self._mtp_loss(params, h, tokens, pos, ctx)
-            metrics["mtp_loss"] = mtp_l.detach()
+            metrics["mtp_loss"] = self.data_sum(mtp_l.detach())
             loss = loss + mtp_l
-        return loss, metrics
+        return self.data_sum(loss), metrics
 
     def _mtp_loss(self, params, h, tokens, pos, ctx):
-        """The MTP modules' loss on the backbone's hidden ``h``."""
+        """The MTP modules' loss on the backbone's hidden ``h``: this data
+        rank's part of the global mean."""
         cfg = self.cfg
+        c = pctx_mod.get()
         return mtp_mod.mtp_losses(
-            params["mtp"], h, tokens,
+            sharding.gathered(params["mtp"], ("mtp",)), h, tokens,
             emb_fn=lambda t: self._embed(params, t),
             unemb_fn=lambda hh: self._unembed(params, hh),
             cfg=cfg, positions=pos,
             block_apply=lambda p, x, positions: tfm.block_apply(
-                p, x, cfg, dict(ctx, positions=positions), None)[0])
+                p, x, cfg, dict(ctx, positions=positions), None)[0],
+            rows=tokens.shape[0] * c.dp_size)
 
     def loss_dual(self, params, batchA, batchB):
         """The loss over two anti-phase microbatches (paper §2.3.1
         overlap; the reference's ``Model.loss_dual``): each layer runs on
         both before the next, so under a mesh each microbatch's MoE
-        all-to-alls would be in flight under the other's compute
+        all-to-alls are in flight under the other's compute
         (``parallel/overlap.py``). Returns ``(loss, metrics)`` with
         ``loss``'s metrics schema, microbatch-averaged, the CE weighted by
         each half's valid tokens (it equals ``loss`` on the joined batch).
-        Under a mesh ctx it waits for the meshed train step."""
-        if pctx_mod.get().mesh is not None:
-            raise NotImplementedError(
-                "Model.loss_dual under a mesh ctx: the meshed train step "
-                "(its EP backward, sharded_global_norm) is not ported yet "
-                "(ROADMAP.md, A.8)")
+        Under a mesh ctx each half is this data rank's part of it, as in
+        :meth:`loss`."""
         if params.get("prepared"):
             raise ValueError("Model.loss_dual takes the raw weights, not a "
                              "tree made by bridge.prepare_for_serving")

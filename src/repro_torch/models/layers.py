@@ -64,10 +64,15 @@ def linear(x: torch.Tensor, w: Union[torch.Tensor, Fp8Weight],
 
     ``tp="row"``: under a mesh ctx ``w`` is this rank's row slice of a
     row-parallel product and x its slice of the contraction; the fp32
-    partial products are summed over the model group, then rounded once.
-    The FP8 decision reads the global width, and an x slice inside one
-    1x128 tile is quantized with the whole tile's amax, so the codes are
-    the single device's."""
+    partial products are summed over the model group
+    (``collectives.reduce_sum``: the backward is the identity), then
+    rounded once. The FP8 decision reads the global width, and an x slice
+    inside one 1x128 tile is quantized with the whole tile's amax, so the
+    codes are the single device's; under autograd the FP8 product is
+    ``fp8_linear`` (dx and dw through ``fp8_gemm`` on the card) with that
+    amax, which carries no gradient. A column-parallel product needs no
+    collective here: its caller passes x through
+    ``collectives.copy_to_group``, once for every product that shares it."""
     group = pctx.get().tp_group if tp == "row" else None
     n = 1 if group is None else dist.get_world_size(group)
     fp8_path = (cfg is not None and cfg.fp8 and w.ndim == 2
@@ -82,10 +87,17 @@ def linear(x: torch.Tensor, w: Union[torch.Tensor, Fp8Weight],
             from repro_torch.core import fp8
             amax = (None if x.shape[-1] % TILE == 0
                     else _tile_amax(x, group, n))
-            y = fp8.matmul_qdq(x, w, cfg.fp8_impl, amax)
+            if amax is not None and not isinstance(w, Fp8Weight) and \
+                    torch.is_grad_enabled() and w.requires_grad:
+                raise ValueError(
+                    f"training a row-parallel FP8 linear whose contraction "
+                    f"slice ({x.shape[-1]} a rank) is not whole 128-blocks: "
+                    "its weight blocks would be quantized over part of a "
+                    "block")
+            y = fp8.fp8_linear(x, w, cfg.fp8_impl, amax, out_fp32=True)
         else:
             y = torch.matmul(x.float(), raw(w).float())
-        y = coll.all_reduce(y, group).to(x.dtype)
+        y = coll.reduce_sum(y, group).to(x.dtype)
     if b is not None:
         y = y + b.to(y.dtype)
     return y
@@ -94,12 +106,12 @@ def linear(x: torch.Tensor, w: Union[torch.Tensor, Fp8Weight],
 def _tile_amax(x: torch.Tensor, group, n: int) -> torch.Tensor:
     """(..., 1): the amax of the 1x128 tile that this rank's slice of the
     contraction lies in, over the ranks sharing it (raises where a slice
-    crosses a tile boundary)."""
+    crosses a tile boundary). A scale carries no gradient: detached."""
     from repro_torch.parallel.sharding import cut_blocks
     kl = x.shape[-1]
     me = dist.get_rank(group)
     cut_blocks(kl * n, n, me, TILE)
-    a = x.float().abs().amax(dim=-1, keepdim=True)
+    a = x.detach().float().abs().amax(dim=-1, keepdim=True)
     every = coll.all_gather(a[None], group)              # (n, ..., 1)
     tile = me * kl // TILE
     members = [r for r in range(n) if r * kl // TILE == tile]
@@ -248,14 +260,25 @@ def gqa_attention(p: dict, x: torch.Tensor, *, cfg: ModelConfig,
     hd = cfg.head_dim_()
     # this rank's heads (all of them on a single device)
     nh, nkv = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
-    q = _split_heads(linear(x, p["wq"], cfg, p.get("bq")), nh)
-    k = _split_heads(linear(x, p["wk"], cfg, p.get("bk")), nkv)
-    v = _split_heads(linear(x, p["wv"], cfg, p.get("bv")), nkv)
+    # under a model group each rank computes its own heads: their
+    # replicated inputs (x; the qk norms; whole K/V where the head cut
+    # would split a KV head) enter through copy_to_group, whose backward
+    # sums the ranks' partial gradients
+    group = pctx.get().tp_group
+    kv_cut = nkv < cfg.num_kv_heads
+    xf = coll.copy_to_group(x, group)
+    q = _split_heads(linear(xf, p["wq"], cfg, p.get("bq")), nh)
+    xk = xf if kv_cut else x
+    k = _split_heads(linear(xk, p["wk"], cfg, p.get("bk")), nkv)
+    v = _split_heads(linear(xk, p["wv"], cfg, p.get("bv")), nkv)
     if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"], cfg.rms_eps)
-        k = rmsnorm(k, p["k_norm"], cfg.rms_eps)
+        q = rmsnorm(q, coll.copy_to_group(p["q_norm"], group), cfg.rms_eps)
+        k = rmsnorm(k, coll.copy_to_group(p["k_norm"], group)
+                    if kv_cut else p["k_norm"], cfg.rms_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    if not kv_cut:
+        k, v = coll.copy_to_group(k, group), coll.copy_to_group(v, group)
     sel = _kv_heads_of(nh, nkv, cfg)
 
     aux = None
@@ -285,7 +308,7 @@ def kv_amax_reduce(nkv: int, cfg: ModelConfig):
     group = pctx.get().tp_group
     if group is None or nkv == cfg.num_kv_heads:
         return None
-    return lambda amax: coll.all_reduce(amax, group, op="max")
+    return lambda amax: coll.all_reduce(amax.detach(), group, op="max")
 
 
 def _kv_heads_of(nh: int, nkv: int, cfg: ModelConfig) -> slice:
@@ -442,6 +465,9 @@ def mlp_specs(cfg: ModelConfig, layers: int,
 
 
 def mlp(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """SwiGLU; under a model group column-parallel over ``mlp`` (x enters
+    through ``copy_to_group``), ``w_down`` row-parallel."""
+    x = coll.copy_to_group(x, pctx.get().tp_group)
     g = act_fn(cfg.act)(linear(x, p["w_gate"], cfg))
     u = linear(x, p["w_up"], cfg)
     return linear(g * u, p["w_down"], cfg, tp="row")

@@ -31,8 +31,22 @@ copy alone) and hands it to the group's threads; the wait takes the
 result back to the card. Under NCCL (written, not yet run: it needs a
 card a rank) the issue is ``async_op=True`` on the card's tensors and
 the wait makes the current stream wait. :func:`record` lists every
-collective issued in a block with its kind, bytes, group, and the layer
-and half that issued it (:func:`tagged`), beside the caller's marks.
+collective issued in a block with its kind, bytes, group, the layer and
+half that issued it (:func:`tagged`) and its pass (``phase``, ``"fwd"``
+or ``"bwd"``), beside the caller's marks.
+
+Training differentiates through them (explicit SPMD has no GSPMD to
+transpose its collectives): :func:`reduce_sum` (sum; backward the
+identity), :func:`copy_to_group` (the identity; backward the sum: the
+pair of Megatron's ``g`` and ``f``), :func:`gather` (backward this
+rank's slice where the consumer is replicated, else the reduce-scatter),
+:func:`scatter_sum` (the reduce-scatter; backward the gather) and
+:func:`waited` (any issued collective, with its transpose as its
+backward: the reverse all-to-all, the reverse exchange). Without grad
+they are the plain calls. A backward's collectives run in autograd's
+order, tagged with the layer and half of their forward and
+``phase="bwd"``. :func:`sharded_global_norm` is the gradient norm over
+a mesh.
 
 Also the cross-replica checksums of the SDC guard (paper §6.1):
 ``fletcher64``/``tree_checksum`` on the tensor's device, equal to the
@@ -96,7 +110,8 @@ class Entry:
     process group, the layer and half that issued it (the tags of
     :func:`tagged` at the issue; None outside them), and the host's
     ``perf_counter`` at the start and end of its issue and of its wait
-    (``issued``, ``waited``; a mark has neither wait nor end)."""
+    (``issued``, ``waited``; a mark has neither wait nor end), and the
+    pass that issued it (``phase``)."""
     kind: str
     nbytes: int
     group: Any
@@ -105,6 +120,7 @@ class Entry:
     event: str                      # "collective" | "mark"
     issued: Tuple[float, float] = (0.0, 0.0)
     waited: Optional[Tuple[float, float]] = None
+    phase: str = "fwd"              # "fwd" | "bwd" (a backward's)
 
 
 class Record:
@@ -141,7 +157,8 @@ class Record:
 
 
 _RECORD: Optional[Record] = None
-_TAG: Dict[str, Optional[str]] = {"layer": None, "half": None}
+_TAG: Dict[str, Optional[str]] = {"layer": None, "half": None,
+                                  "phase": None}
 
 
 @contextlib.contextmanager
@@ -158,11 +175,13 @@ def record():
 
 
 @contextlib.contextmanager
-def tagged(layer: Optional[str] = None, half: Optional[str] = None):
+def tagged(layer: Optional[str] = None, half: Optional[str] = None,
+           phase: Optional[str] = None):
     """Tag the collectives and marks issued in the block with the layer and
-    the half (``"A"``/``"B"`` of a dual microbatch) that issue them."""
+    the half (``"A"``/``"B"`` of a dual microbatch) that issue them, and
+    the pass (``phase="bwd"`` inside a backward; None: the forward)."""
     prev = dict(_TAG)
-    _TAG.update(layer=layer, half=half)
+    _TAG.update(layer=layer, half=half, phase=phase)
     try:
         yield
     finally:
@@ -175,7 +194,8 @@ def mark(kind: str) -> None:
     if _RECORD is not None:
         t = time.perf_counter()
         _RECORD.events.append(("mark", Entry(kind, 0, None, _TAG["layer"],
-                                             _TAG["half"], "mark", (t, t))))
+                                             _TAG["half"], "mark", (t, t),
+                                             phase=_TAG["phase"] or "fwd")))
 
 
 # ---------------------------------------------------------------------------
@@ -226,7 +246,7 @@ def _issue(kind: str, nbytes: int, group, staged: bool, t0: float, works,
     entry = None
     if _RECORD is not None:
         entry = Entry(kind, nbytes, group, _TAG["layer"], _TAG["half"],
-                      "collective", (t0, t1))
+                      "collective", (t0, t1), phase=_TAG["phase"] or "fwd")
         _RECORD.events.append(("issue", entry))
     return Pending(kind, works, finish, staged, entry, _RECORD)
 
@@ -370,6 +390,201 @@ def all_to_all_start(x: torch.Tensor, group) -> Pending:
 def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     """:func:`all_to_all_start`, waited."""
     return all_to_all_start(x, group).wait()
+
+
+def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The sum of the members' ``x`` over ``group``, cut along ``dim`` into
+    ``n`` parts in group-rank order; this member gets its part, summed in
+    fp32 in group-rank order (the same bits on any member that would hold
+    it) and returned in x's dtype. One tiled all-to-all (gloo has no
+    reduce-scatter), counted as ``"reduce_scatter"``."""
+    n = dist.get_world_size(group)
+    src = x.movedim(dim, 0).contiguous()
+    if src.shape[0] % n:
+        raise ValueError(f"reduce_scatter: axis {dim} of {tuple(x.shape)} "
+                         f"does not split into {n}")
+    staged = _staged(group, src)
+    t0 = time.perf_counter()
+    b = _bytes_view(src)
+    if staged:
+        b = _to_host([b])[0]
+    out = torch.empty_like(b)
+    work = dist.all_to_all_single(out, b, group=group, async_op=True)
+
+    def finish():
+        # the parts cross back one at a time: the card holds the fp32 sum
+        # and one part, not all n
+        parts = out.view(src.dtype).reshape(
+            (n, src.shape[0] // n) + src.shape[1:])
+        acc = _back(parts[0], x.device, staged).float()
+        for j in range(1, n):
+            acc += _back(parts[j], x.device, staged).float()
+        return acc.to(x.dtype).movedim(0, dim)
+
+    return _issue("reduce_scatter", x.numel() * x.element_size(), group,
+                  staged, t0, [work], finish).wait()
+
+
+# ---------------------------------------------------------------------------
+# differentiable collectives (the training path)
+# ---------------------------------------------------------------------------
+
+
+def _needs_grad(xs) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in xs)
+
+
+class _Collective(torch.autograd.Function):
+    """A collective as an autograd node: ``fwd()`` gives its outputs (a
+    tensor or a tuple), ``bwd(grads)`` the inputs' gradients (its
+    transpose, run with the forward's layer and half tags and
+    ``phase="bwd"``). ``inputs`` only link the node into the graph."""
+
+    @staticmethod
+    def forward(ctx, fwd, bwd, tags, keep, *inputs):
+        ctx.bwd, ctx.tags = bwd, tags
+        out = fwd()
+        outs = out if isinstance(out, tuple) else (out,)
+        if keep is None:
+            keep = [o.is_floating_point() for o in outs]
+        ctx.mark_non_differentiable(*[o for o, k in zip(outs, keep)
+                                      if not k])
+        return out
+
+    @staticmethod
+    def backward(ctx, *grads):
+        with tagged(*ctx.tags, phase="bwd"):
+            got = ctx.bwd(list(grads))
+        return (None, None, None, None) + tuple(got)
+
+
+def _apply(fwd, bwd, inputs, keep=None):
+    """Run ``fwd`` plainly, or, where an input needs a gradient, as an
+    autograd node whose backward is ``bwd``. ``keep``: per output, whether
+    it is differentiable (default: every floating output)."""
+    if not _needs_grad(inputs):
+        return fwd()
+    return _Collective.apply(fwd, bwd, (_TAG["layer"], _TAG["half"]),
+                             None if keep is None else tuple(keep), *inputs)
+
+
+def reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum over ``group`` (Megatron's ``g``): the row-parallel product's
+    partials, the vocab-parallel embedding. The backward is the identity:
+    the consumer of the sum is replicated over the group, so its gradient
+    is each member's already. None: the identity."""
+    if group is None:
+        return x
+    return _apply(lambda: all_reduce(x.detach(), group),
+                  lambda g: [g[0]], [x])
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """The identity into a region where each member computes its own part
+    (Megatron's ``f``: a column-parallel product's replicated input, a
+    replicated leaf used by this member's heads, the tokens an EP member
+    takes its slice of). The backward sums the members' partial
+    gradients over ``group`` in fp32. None: the identity."""
+    if group is None or not _needs_grad([x]):
+        return x
+
+    def bwd(g):
+        g0 = g[0]
+        return [all_reduce(g0.float(), group).to(g0.dtype)]
+
+    return _apply(lambda: x.view_as(x), bwd, [x])
+
+
+def own_part(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This member's part of ``t`` cut along ``dim`` into the group's size
+    (the backward of a gather whose consumer is replicated)."""
+    n, me = dist.get_world_size(group), dist.get_rank(group)
+    per = t.shape[dim] // n
+    return t.narrow(dim, me * per, per).contiguous()
+
+
+def gather(x: torch.Tensor, group, dim: int = 0,
+           backward: str = "slice") -> torch.Tensor:
+    """:func:`all_gather` along ``dim``, differentiable. ``backward="slice"``:
+    the consumer is replicated over the group (each member's gradient of
+    the whole is the same), so this member's gradient is its slice of it;
+    ``"reduce_scatter"``: each member's consumer is its own (a ZeRO-3
+    weight gathered for this member's batch rows), so the members'
+    gradients are summed (in fp32, :func:`reduce_scatter`) and cut. None:
+    the identity."""
+    if group is None:
+        return x
+
+    def bwd(g):
+        g0 = g[0]
+        if backward == "slice":
+            return [own_part(g0, group, dim)]
+        return [reduce_scatter(g0, group, dim).to(x.dtype)]
+
+    return _apply(lambda: all_gather(x.detach(), group, dim), bwd, [x])
+
+
+def scatter_sum(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """:func:`reduce_scatter`, differentiable: the backward gathers the
+    gradient's parts. None: the identity."""
+    if group is None:
+        return x
+    return _apply(lambda: reduce_scatter(x.detach(), group, dim),
+                  lambda g: [all_gather(g[0], group, dim)], [x])
+
+
+def waited(pend: Pending, inputs: Sequence[torch.Tensor], bwd,
+           keep: Optional[Sequence[bool]] = None, finish=None):
+    """The result of an issued collective (``pend.wait()``, then
+    ``finish`` of it if given: a tensor or a list), as an autograd node
+    over the ``inputs`` it was issued with (their values were sent at the
+    issue). ``bwd(grads)`` gives the inputs' gradients from the outputs'
+    (None where an output got none): the collective's transpose. ``keep``:
+    per output, whether it carries a gradient (default: every floating
+    one)."""
+    def fwd():
+        out = pend.wait()
+        if finish is not None:
+            out = finish(out)
+        return tuple(out) if isinstance(out, list) else out
+
+    res = _apply(fwd, bwd, list(inputs), keep)
+    return list(res) if isinstance(res, tuple) else res
+
+
+def sharded_global_norm(tree, mesh, pspecs) -> torch.Tensor:
+    """Global L2 norm of a sharded gradient tree (the reference's
+    ``sharded_global_norm``): each rank's fp32 sum of squares of its
+    leaves, each divided by the leaf's replication factor (the sizes of
+    the mesh axes its PartitionSpec does not use: replicas hold the same
+    bits, so each counts once), summed over every axis of the mesh. The
+    sums are gathered and added in rank order, so every rank holds the
+    same bits (the clip scale must not differ between replicas).
+    ``tree`` and ``pspecs`` are nested dicts of the same keys; ``None``
+    leaves add nothing."""
+    from repro_torch.train.optimizer import tree_items
+    specs = dict(tree_items(pspecs))
+    total = None
+    for path, g in tree_items(tree):
+        if g is None:
+            continue
+        used = set()
+        for e in specs[path]:
+            if e is not None:
+                used.update((e,) if isinstance(e, str) else e)
+        r = 1
+        for a in mesh.axis_names:
+            if a not in used:
+                r *= mesh.shape[a]
+        s = torch.sum(g.float() ** 2) / float(r)
+        total = s if total is None else total + s
+    for a in mesh.axis_names:
+        if mesh.shape[a] > 1:
+            total = all_gather(total.reshape(1), mesh.groups[a]).sum(0)
+    t = total.reshape(())
+    # correctly rounded: the CPU's vectorized fp32 sqrt is not always
+    return t.sqrt() if t.is_cuda else torch.sqrt(t.double()).float()
 
 
 def drive(phases):

@@ -20,7 +20,7 @@ import contextlib
 import dataclasses
 import itertools
 import math
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 AXES = ("data", "model")
 
@@ -31,12 +31,14 @@ class Mesh:
     ``shape`` maps each axis name to its size, in axis order (as
     ``jax.sharding.Mesh.shape``). A mesh made by :meth:`abstract` holds
     shapes only (enough for the sharding rules); one made by
-    :meth:`create` also knows this process's rank, its coordinates and the
-    group of each of its axis lines."""
+    :meth:`create` also knows this process's position (``rank``), its
+    coordinates, the group of each of its axis lines and the default
+    group's rank at each position (``ranks``)."""
 
     def __init__(self, shape: Sequence[int],
                  axis_names: Sequence[str] = AXES, rank: Optional[int] = None,
-                 groups: Optional[Dict[str, object]] = None):
+                 groups: Optional[Dict[str, object]] = None,
+                 ranks: Optional[Sequence[int]] = None):
         if len(shape) != len(axis_names):
             raise ValueError(f"mesh shape {tuple(shape)} does not match axes "
                              f"{tuple(axis_names)}")
@@ -45,6 +47,8 @@ class Mesh:
                                               (int(n) for n in shape)))
         self.rank = rank
         self.groups = groups or {}
+        # the default group's rank at each mesh position (create only)
+        self.ranks = None if ranks is None else list(ranks)
 
     @classmethod
     def abstract(cls, shape: Sequence[int],
@@ -84,7 +88,7 @@ class Mesh:
                 g = dist.new_group(line)
                 if me in line:
                     groups[axis_names[a]] = g
-        return cls(shape, axis_names, pos, groups)
+        return cls(shape, axis_names, pos, groups, ranks)
 
     @property
     def size(self) -> int:
@@ -116,20 +120,20 @@ def _rank_of(coords: Sequence[int], shape: Sequence[int]) -> int:
     return r
 
 
-# fields of the reference that nothing in the port reads yet (training
-# under a mesh, sequence-sharded prefill): a value other than the default
-# raises instead of being ignored
-_NOT_READ = {"remat": "none", "seq_axis": None, "pin_attn": True,
-             "microbatches": 2}
+# fields of the reference that nothing in the port reads yet
+# (rematerialization, sequence-sharded prefill): a value other than the
+# default raises instead of being ignored
+_NOT_READ = {"remat": "none", "seq_axis": None, "pin_attn": True}
 
 
 @dataclasses.dataclass
 class ParallelCtx:
     """The reference's fields, with ``mesh`` the port's :class:`Mesh` (a
     shape tuple builds one over the default process group, axes
-    ``("data", "model")``). ``remat``, ``seq_axis``, ``pin_attn`` and
-    ``microbatches`` are kept at their defaults: nothing in the port
-    reads them yet, and another value raises."""
+    ``("data", "model")``). ``remat``, ``seq_axis`` and ``pin_attn`` are
+    kept at their defaults: nothing in the port reads them yet, and
+    another value raises. ``microbatches`` (2 or more: the meshed train
+    step's dual microbatch) is read by ``train/trainer.py``."""
     mesh: Optional[Union[Mesh, Tuple[int, ...]]] = None
     dp_axes: Tuple[str, ...] = ("data",)   # axes carrying the batch dim
     ep_axis: Optional[str] = "model"       # axis carrying experts
@@ -143,6 +147,9 @@ class ParallelCtx:
     pin_attn: bool = True                  # GSPMD hint in the reference;
                                            # explicit SPMD holds its shards
     microbatches: int = 2                  # train step (paper §2.3.1)
+    # the port's own: the meshed train step's ZeRO-3 plan for one loss
+    # evaluation (``parallel/sharding.Zero3``; None: no gathering)
+    zero3: Any = None
 
     def __post_init__(self):
         for name, default in _NOT_READ.items():
@@ -182,6 +189,10 @@ class ParallelCtx:
         exchange)."""
         if self.mesh is None or axis is None or self.mesh.shape[axis] == 1:
             return None
+        if axis not in self.mesh.groups:
+            raise ValueError(
+                f"no process group for axis {axis!r} on this rank: the mesh "
+                "is abstract, or this rank is off it")
         return self.mesh.groups[axis]
 
     def index(self, axis: Optional[str]) -> int:

@@ -98,38 +98,88 @@ def _slice_tokens(x, mask, cols: int, j: int):
 
 def _unslice_tokens(y: torch.Tensor, group):
     """Phases: the model group's token slices gathered back (one all-gather
-    in flight)."""
+    in flight). The consumer is replicated over the group, so the
+    backward takes this column's slice of the gradient."""
     if group is None:
         return y
-    pend = coll.all_gather_start(y, group)
+    pend = coll.all_gather_start(y.detach(), group)
     yield
-    return pend.wait()
+    return coll.waited(pend, [y],
+                       lambda g: [coll.own_part(g[0], group, 0)])
 
 
-def _a2a(group, parts: Sequence[torch.Tensor]):
-    """Phases: one tiled all-to-all of several ``(cols, c, ...)`` buffers,
-    packed row by row as bytes, in flight across one yield; returns the
-    received buffers, shapes and dtypes kept."""
-    if group is None:
-        return list(parts)
+def _pack(parts: Sequence[torch.Tensor]):
+    """Several ``(cols, c, ...)`` buffers as one ``(cols, c, bytes)``
+    uint8 buffer, row by row; returns it and each part's byte width."""
     cols, c = parts[0].shape[:2]
-    views = [p.contiguous().reshape(-1).view(torch.uint8).reshape(cols, c, -1)
-             for p in parts]
-    widths = [v.shape[-1] for v in views]
-    pend = coll.all_to_all_start(torch.cat(views, dim=-1), group)
-    yield
-    out = pend.wait()
+    views = [p.detach().contiguous().reshape(-1).view(torch.uint8).reshape(
+        cols, c, -1) for p in parts]
+    return torch.cat(views, dim=-1), [v.shape[-1] for v in views]
+
+
+def _unpack(buf: torch.Tensor, likes: Sequence[torch.Tensor], widths):
     got, o = [], 0
-    for p, w in zip(parts, widths):
-        got.append(out[..., o:o + w].contiguous().reshape(-1).view(p.dtype)
+    for p, w in zip(likes, widths):
+        got.append(buf[..., o:o + w].contiguous().reshape(-1).view(p.dtype)
                    .reshape(p.shape))
         o += w
     return got
 
 
+def _carries(parts: Sequence[torch.Tensor]) -> List[bool]:
+    """Which parts carry a gradient across a collective (the same on every
+    rank: it follows the program, not the data)."""
+    return [p.is_floating_point() and p.requires_grad for p in parts]
+
+
+def _a2a(group, parts: Sequence[torch.Tensor]):
+    """Phases: one tiled all-to-all of several ``(cols, c, ...)`` buffers,
+    packed row by row as bytes, in flight across one yield; returns the
+    received buffers, shapes and dtypes kept. Under autograd the parts
+    that carry a gradient (floating and requiring one: the payload at the
+    bf16/fp32 wire, the FP8 wire's scales, the routing weights, the
+    combine's rows; never the E4M3 codes, moved as bytes) go back in the
+    backward's one reverse all-to-all, packed the same way."""
+    if group is None:
+        return list(parts)
+    buf, widths = _pack(parts)
+    pend = coll.all_to_all_start(buf, group)
+    yield
+    keep = _carries(parts)
+
+    def bwd(gs):
+        gs = [torch.zeros_like(p) if g is None else g.to(p.dtype)
+              for g, p, k in zip(gs, parts, keep) if k]
+        gbuf, gw = _pack(gs)
+        back = iter(_unpack(coll.all_to_all(gbuf, group), gs, gw))
+        return [next(back) if k else None for k in keep]
+
+    return coll.waited(pend, list(parts), bwd, keep,
+                       finish=lambda out: _unpack(out, parts, widths))
+
+
 # ---------------------------------------------------------------------------
 # intra-group exchange primitives (the "NVLink domain" of the paper)
 # ---------------------------------------------------------------------------
+
+
+def _exchange(parts: Sequence[torch.Tensor], group, nxt: int, prv: int):
+    """Phases: one intra-group exchange (send ``parts`` to group member
+    ``nxt``, receive the same shapes from ``prv``) in flight across one
+    yield. Its backward sends the received parts' gradients back to
+    ``prv`` and takes those of the sent ones from ``nxt``."""
+    pend = coll.exchange_start([p.detach().contiguous() for p in parts],
+                               group, nxt, prv)
+    yield
+    keep = _carries(parts)
+
+    def bwd(gs):
+        send = [torch.zeros_like(p) if g is None else g.to(p.dtype)
+                for g, p, k in zip(gs, parts, keep) if k]
+        back = iter(coll.exchange(send, group, prv, nxt))
+        return [next(back) if k else None for k in keep]
+
+    return coll.waited(pend, list(parts), bwd, keep)
 
 
 def _group_allgather(zs: Sequence[torch.Tensor], group, j: int, cpg: int):
@@ -140,10 +190,9 @@ def _group_allgather(zs: Sequence[torch.Tensor], group, j: int, cpg: int):
     base, rj = j // cpg * cpg, j % cpg
     received = [list(zs)]                            # rank rj
     for step in range(1, cpg):
-        pend = coll.exchange_start(list(zs), group, base + (rj + step) % cpg,
+        got = yield from _exchange(list(zs), group, base + (rj + step) % cpg,
                                    base + (rj - step) % cpg)
-        yield
-        received.append(pend.wait())                 # rank (rj - step) % cpg
+        received.append(got)                         # rank (rj - step) % cpg
     order = [(rj - r) % cpg for r in range(cpg)]
     return [torch.stack([r[i] for r in received])[order]
             for i in range(len(zs))]
@@ -155,11 +204,9 @@ def _group_reduce(parts: torch.Tensor, group, j: int, cpg: int):
     base, rj = j // cpg * cpg, j % cpg
     acc = parts[rj]
     for step in range(1, cpg):
-        pend = coll.exchange_start([parts[(rj + step) % cpg].contiguous()],
-                                   group, base + (rj + step) % cpg,
-                                   base + (rj - step) % cpg)
-        yield
-        got, = pend.wait()
+        got, = yield from _exchange([parts[(rj + step) % cpg].contiguous()],
+                                    group, base + (rj + step) % cpg,
+                                    base + (rj - step) % cpg)
         acc = acc + got
     return acc
 
@@ -348,6 +395,9 @@ def uses_dedup(cfg: ModelConfig, pctx: ParallelCtx) -> bool:
 
 
 def _pmean(v: torch.Tensor, groups) -> torch.Tensor:
+    """The mean over each group in turn; a metric (the router's load, its
+    aux loss, the drop fraction), so detached: no gradient."""
+    v = v.detach()
     for g in groups:
         if g is not None:
             v = coll.all_reduce(v.float(), g) / dist.get_world_size(g)
@@ -418,11 +468,16 @@ def moe_ffn_phases(p: dict, x: torch.Tensor, cfg: ModelConfig,
     if bias is None:
         bias = torch.zeros((mc.num_experts,), dtype=torch.float32,
                            device=x.device)
+    # each column routes and sends its own token slice: the replicated
+    # tokens and router weight enter through copy_to_group (their
+    # gradients are summed over the model group)
+    xt = coll.copy_to_group(xt, group)
+    wg = coll.copy_to_group(p["w_gate"], group)
     y, load, drop, aux = yield from body(
-        p["w_gate"], bias, p["w1"], p["w3"], p["w2"], xt, mask, cfg, group,
+        wg, bias, p["w1"], p["w3"], p["w2"], xt, mask, cfg, group,
         j, cols, pctx.wire, weights_qdq, stats)
     if ftp and dgroup is not None:
-        y = coll.all_reduce(y.float(), dgroup).to(y.dtype)   # FF partials
+        y = coll.reduce_sum(y.float(), dgroup).to(y.dtype)   # FF partials
     y = y[:T]
     if gather:
         n = dist.get_world_size(dgroup)

@@ -53,6 +53,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.api import stack_stats
 from repro_torch.models.param import layer
 from repro_torch.parallel import collectives as coll
+from repro_torch.parallel import sharding
 
 
 def _layer(phasesA, phasesB, name: str):
@@ -86,7 +87,7 @@ def _dual_segments(model, params, xA, xB, ctxA: dict, ctxB: dict,
         cB = None if cacheB is None else cacheB.get(seg.name)
         sa, sb = [], []
         for i in range(seg.n):
-            pl = layer(p, i)
+            pl = sharding.gathered(p, (seg.name,), i)
             (xA, _, stA), (xB, _, stB) = _layer(
                 tfm.block_phases(pl, xA, cfg, ctxA,
                                  None if cA is None else layer(cA, i)),
@@ -129,23 +130,31 @@ def dual_loss_and_metrics(model, params, batchA: Dict, batchB: Dict
     The MTP term reuses the CE token fractions as weights: exact when the
     halves' MTP-valid proportions match their CE-valid ones (always for
     unpadded batches; an approximation under uneven padding). MoE metrics
-    are microbatch-averaged. Differentiable, as ``Model.loss``."""
+    are microbatch-averaged. Differentiable, as ``Model.loss``: under a
+    mesh the halves' EP collectives are issued as in the decode (each in
+    flight under the other half's work) and their backward all-to-alls
+    run in autograd's order; each half is this data rank's part of the
+    global half, its counts and means global as ``Model.loss``'s."""
     dev = model.device
     tokA = torch.as_tensor(batchA["tokens"], device=dev)
     tokB = torch.as_tensor(batchB["tokens"], device=dev)
     ctxA, posA = _mkctx(tokA)
     ctxB, posB = _mkctx(tokB)
     hA, hB, stA, stB = dual_backbone(model, params, tokA, tokB, ctxA, ctxB)
-    lossA, ntokA = model._ce(params, hA, torch.as_tensor(batchA["labels"],
-                                                         device=dev))
-    lossB, ntokB = model._ce(params, hB, torch.as_tensor(batchB["labels"],
-                                                         device=dev))
+    sA, nA = model._ce_sum(params, hA, torch.as_tensor(batchA["labels"],
+                                                       device=dev))
+    sB, nB = model._ce_sum(params, hB, torch.as_tensor(batchB["labels"],
+                                                       device=dev))
+    ntokA = model.data_total(nA).clamp_min(1)
+    ntokB = model.data_total(nB).clamp_min(1)
+    lossA, lossB = sA / ntokA, sB / ntokB
     # valid-token-weighted: Model.loss's global mean even when pad labels
     # leave the halves unequal (0.5 / 0.5 for balanced halves)
     wA = ntokA / (ntokA + ntokB)
     wB = 1.0 - wA
     loss = wA * lossA + wB * lossB
-    metrics: Dict[str, Any] = {"ce": loss.detach(), "ntokens": ntokA + ntokB}
+    metrics: Dict[str, Any] = {"ce": model.data_sum(loss.detach()),
+                               "ntokens": ntokA + ntokB}
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     for segname in stA:
         a, b = stA[segname], stB[segname]
@@ -157,9 +166,9 @@ def dual_loss_and_metrics(model, params, batchA: Dict, batchB: Dict
     if model.cfg.mtp:
         mtp_l = (wA * model._mtp_loss(params, hA, tokA, posA, ctxA)
                  + wB * model._mtp_loss(params, hB, tokB, posB, ctxB))
-        metrics["mtp_loss"] = mtp_l.detach()
+        metrics["mtp_loss"] = model.data_sum(mtp_l.detach())
         loss = loss + mtp_l
-    return loss, metrics
+    return model.data_sum(loss), metrics
 
 
 def dual_microbatch_loss(model, params, batchA: Dict, batchB: Dict):

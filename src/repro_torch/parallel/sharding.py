@@ -18,6 +18,13 @@ reference's, but for the dense rings, whose length axis stays whole on
 each model column (GSPMD resolves a length-sharded softmax; explicit SPMD
 would need a cross-rank one): the MLA latent ring replicates over the
 model axis and the GQA ring shards its KV-head axis instead.
+
+The train state (the explicit half of the reference's
+``train_state_shardings``): :func:`train_pspecs` and :func:`shard_state`
+cut the parameters and the AdamW state; under a ctx with a ZeRO-3 plan
+(``ParallelCtx.zero3``, a :class:`Zero3`) the model gathers each leaf's
+``data`` cut as it uses it (:func:`gathered`) and its gradient is
+reduce-scattered back.
 """
 from __future__ import annotations
 
@@ -480,3 +487,120 @@ def block_cuts_ok(spec_tree, pspecs, mesh: Mesh) -> bool:
 
     map_with_path(one, spec_tree)
     return ok[0]
+
+
+# ---------------------------------------------------------------------------
+# The train state under explicit SPMD: FSDP (ZeRO-3) over the data axis
+# ---------------------------------------------------------------------------
+
+
+def train_pspecs(mesh: Mesh, spec_tree, multi_pod: bool = False):
+    """The parameters' training placements (``fsdp_tp_rules``: ``embed``
+    over ``data``, heads, mlp, vocab and experts over ``model``)."""
+    return param_pspecs(mesh, spec_tree, fsdp_tp_rules(multi_pod))
+
+
+def shard_state(state, pspecs, mesh: Mesh):
+    """This rank's slice of an ``AdamWState`` (fp32 master, bf16 m and v by
+    the parameters' placements; the step counter replicated)."""
+    return type(state)(state.step, shard_tree(state.master, pspecs, mesh),
+                       shard_tree(state.m, pspecs, mesh),
+                       shard_tree(state.v, pspecs, mesh))
+
+
+def data_dim(pspec, axis: str = "data") -> Optional[int]:
+    """The dimension a PartitionSpec cuts over ``axis`` (None: replicated
+    over it). A dimension cut over ``axis`` and another axis together is
+    not ported (one data axis, ROADMAP.md A.8)."""
+    for d, e in enumerate(pspec):
+        if e == axis:
+            return d
+        if isinstance(e, tuple) and axis in e:
+            raise NotImplementedError(
+                f"a dimension cut over {e}: the port's ZeRO-3 gathers over "
+                "one data axis (ROADMAP.md, A.8)")
+    return None
+
+
+class Zero3:
+    """A rank's ZeRO-3 plan for one loss evaluation: the training
+    placements of the parameter tree and the mesh. :meth:`take` gathers
+    the ``data`` cut of each leaf of a subtree before its use
+    (``collectives.gather(..., backward="reduce_scatter")``: the backward
+    reduce-scatters the leaf's gradient over ``data``, which is also its
+    data-axis reduction). The model gathers one layer at a time, as it
+    reaches it (``Model._run_segment``, ``overlap._dual_segments``; the
+    embedding and the MTP module once per evaluation); a subtree taken
+    again in the same evaluation is the same gathered tensors. The
+    backward does not re-gather: autograd keeps each gathered weight for
+    its products' backward, so a rank holds every gathered layer (its
+    model column's cut, whole along ``data``) from its use to the end of
+    the backward. Leaves that replicate over ``data`` pass through; the
+    train step all-reduces their gradients over ``data``."""
+
+    def __init__(self, mesh: Mesh, pspecs, axis: str = "data"):
+        self.mesh, self.pspecs, self.axis = mesh, pspecs, axis
+        self.group = (mesh.groups.get(axis) if mesh.shape.get(axis, 1) > 1
+                      else None)
+        self._taken: Dict[Tuple, Any] = {}
+
+    def take(self, tree, path: Tuple[str, ...], index: Optional[int] = None):
+        """``tree`` (the subtree at ``path``, or layer ``index`` of it)
+        with its data-cut leaves gathered."""
+        key = (path, index)
+        if key in self._taken:
+            return self._taken[key]
+        from repro_torch.parallel import collectives as coll
+        lead = 0 if index is None else 1
+
+        def one(sub, leaf):
+            spec = at_path(self.pspecs, path + sub)
+            d = data_dim(tuple(spec)[lead:], self.axis)
+            if d is None or self.group is None:
+                return leaf
+            return coll.gather(leaf, self.group, d, backward="reduce_scatter")
+
+        out = map_with_path(one, tree)
+        self._taken[key] = out
+        return out
+
+
+def gathered(tree, path: Tuple[str, ...], index: Optional[int] = None):
+    """The parameters at ``path`` (layer ``index`` of a stacked subtree)
+    as the model uses them: under a ctx with a ZeRO-3 plan
+    (``ParallelCtx.zero3``, a :class:`Zero3`) with their data cuts
+    gathered, else as they are."""
+    from repro_torch.models.param import layer
+    from repro_torch.parallel.context import get
+    sub = tree if index is None else layer(tree, index)
+    plan = get().zero3
+    return sub if plan is None else plan.take(sub, path, index)
+
+
+def check_fp8_train_cuts(spec_tree, pspecs, mesh: Mesh,
+                         min_k: int = 256) -> None:
+    """Training quantizes each FP8 linear's weight on its rank in 128x128
+    blocks (the reference quantizes the whole weight). Raise unless every
+    model-axis cut of an FP8 linear's matrix (a 2-D weight a layer under
+    attn/mlp/mtp whose input width reaches the FP8 path) falls on 128
+    boundaries, so that a rank's blocks are the single device's. Data
+    cuts are gathered before use (:class:`Zero3`)."""
+    def one(path, spec):
+        if not any(s in path for s in ("attn", "mlp", "mtp")):
+            return spec
+        if len(spec.shape) != 3 or spec.shape[1] < min_k:
+            return spec
+        pspec = at_path(pspecs, path)
+        for d in (1, 2):
+            e = pspec[d] if d < len(pspec) else None
+            if e is None or e == "data":
+                continue
+            n = _mesh_size(mesh, e)
+            if n > 1 and (spec.shape[d] // n) % BLOCK:
+                raise ValueError(
+                    f"{'/'.join(path)} {spec.shape}: its cut over {e} gives "
+                    f"{spec.shape[d] // n} a rank, not whole 128-blocks; "
+                    "its FP8 blocks would differ from the single device's")
+        return spec
+
+    map_with_path(one, spec_tree)

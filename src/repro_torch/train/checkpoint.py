@@ -21,8 +21,13 @@ directory names are ignored.
 
 bf16 arrays are stored as their uint16 bits, their dtype in the manifest
 (numpy has no bf16 without ``ml_dtypes``). Arrays are stored whole
-(logical), as the reference's; restoring onto another mesh (the elastic
-re-shard) waits for ROADMAP.md, A.8.
+(logical), as the reference's. Under a mesh (``save(..., mesh=,
+pspecs=)``) every rank gathers each leaf's cuts over the mesh, one leaf
+at a time, and the rank at mesh position 0 writes them (the ``.tmp``
+rename stays the one atomic step); the others wait on the mesh's
+barrier. ``restore(..., mesh=, pspecs=)`` cuts each rank's region of
+every logical array by the placements of the mesh it is given, which
+may be another mesh than the one that saved (the elastic re-shard).
 
 A tree is nested dicts, NamedTuples (the optimizer state: their field
 names are path parts) and tensors; restore rebuilds the structure of the
@@ -80,17 +85,54 @@ def _from_numpy(a: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True))
 
 
+def _logical(leaf: torch.Tensor, pspec, mesh) -> torch.Tensor:
+    """A rank's cut of a leaf gathered over the mesh into the whole
+    (every rank of the mesh calls it, leaf by leaf in one order)."""
+    from repro_torch.parallel import collectives as coll
+    for d, e in enumerate(pspec):
+        if e is None or mesh.shape[e] == 1:
+            continue
+        if not isinstance(e, str):
+            raise NotImplementedError(f"a dimension cut over {e}")
+        leaf = coll.all_gather(leaf, mesh.groups[e], dim=d)
+    return leaf
+
+
+def mesh_barrier(mesh) -> None:
+    """Every rank of ``mesh`` waits for every other: a barrier on each
+    axis line, the last axis first (after it, each line of the first axis
+    holds ranks that have all waited for their own line)."""
+    import torch.distributed as dist
+    for a in reversed(mesh.axis_names):
+        if mesh.shape[a] > 1:
+            dist.barrier(group=mesh.groups[a])
+
+
 def save(directory: str, step: int, tree, extras: Optional[dict] = None,
-         keep: int = 3) -> str:
-    os.makedirs(directory, exist_ok=True)
+         keep: int = 3, mesh=None, pspecs=None) -> str:
+    """Write ``tree`` as step ``step`` (atomically), keeping the newest
+    ``keep`` steps. With ``mesh`` and ``pspecs`` (a tree of
+    PartitionSpecs of ``tree``'s structure) the tree is a rank's shards:
+    every rank of the mesh calls it; the logical arrays are gathered and
+    the rank at mesh position 0 writes them."""
+    writer = mesh is None or mesh.rank == 0
     final = os.path.join(directory, f"step_{step:08d}")
+    flat, dtypes = {}, {}
+    specs = None if pspecs is None else dict(_items(pspecs))
+    for k, leaf in _items(tree):
+        t = torch.as_tensor(leaf)
+        if mesh is not None:
+            t = _logical(t, specs[k], mesh)
+        if writer:
+            flat[k], dtypes[k] = _to_numpy(t)
+    if not writer:
+        mesh_barrier(mesh)
+        return final
+    os.makedirs(directory, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    flat, dtypes = {}, {}
-    for k, leaf in _items(tree):
-        flat[k], dtypes[k] = _to_numpy(torch.as_tensor(leaf))
     np.savez(os.path.join(tmp, "arrays.npz"), **flat)
     manifest = {
         "step": step,
@@ -106,6 +148,8 @@ def save(directory: str, step: int, tree, extras: Optional[dict] = None,
         shutil.rmtree(final)
     os.rename(tmp, final)
     _gc(directory, keep)
+    if mesh is not None:
+        mesh_barrier(mesh)
     return final
 
 
@@ -151,11 +195,14 @@ def _load_verified(directory: str, step: int) -> Tuple[dict, Dict[str, Any]]:
 
 
 def restore(directory: str, tree_like, step: Optional[int] = None,
-            device=None) -> Tuple[Any, dict]:
+            device=None, pspecs=None, mesh=None) -> Tuple[Any, dict]:
     """Restore into the structure of ``tree_like`` on ``device`` (default:
     the CPU). ``step=None`` loads the newest intact checkpoint, warning
     about each damaged one it skips; an explicit ``step=`` raises on any
-    defect. Returns ``(tree, extras)``."""
+    defect. With ``pspecs`` (a tree of PartitionSpecs of ``tree_like``'s
+    structure) and a live ``mesh`` each leaf is this rank's region of the
+    logical array (``sharding.region_of``), bit for bit. Returns ``(tree,
+    extras)``."""
     if step is None:
         candidates = _step_ids(directory)
         if not candidates:
@@ -176,9 +223,15 @@ def restore(directory: str, tree_like, step: Optional[int] = None,
     else:
         manifest, data = _load_verified(directory, step)
 
+    specs = None if pspecs is None else dict(_items(pspecs))
+
     def leaf(key, _):
-        return _from_numpy(data[key], manifest["dtypes"][key]).to(
-            device or "cpu")
+        a = data[key]
+        if specs is not None:
+            from repro_torch.parallel.sharding import region_of
+            a = a[tuple(slice(*r) for r in region_of(a.shape, specs[key],
+                                                     mesh))]
+        return _from_numpy(a, manifest["dtypes"][key]).to(device or "cpu")
 
     return _rebuild(tree_like, leaf), manifest["extras"]
 

@@ -1,6 +1,6 @@
 """Fault tolerance & straggler mitigation (paper §6.1) — port of
-``repro.train.fault``. ``replica_step_times`` (per-shard completion times
-on a device mesh) is meshed and waits for ROADMAP.md, A.8.
+``repro.train.fault``, with ``replica_step_times`` (each rank's step
+time, gathered over the mesh: one entry per data replica).
 
 The paper lists interconnect failures, node crashes and silent data
 corruption as the dominant large-scale risks. This module provides the
@@ -18,7 +18,10 @@ trainer-side machinery, exercised in tests via injection:
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Optional
+
+import torch
 
 from repro_torch import faultspec
 
@@ -54,6 +57,38 @@ class FailureInjector:
             fs = faultspec.parse_spec(kind, faultspec.TRAIN_KINDS)
             return fs.replica if fs.replica is not None else 0
         return None
+
+
+def replica_step_times(out: torch.Tensor, mesh, dp_axes, t0: float
+                       ) -> List[float]:
+    """Per-replica step times under explicit SPMD (the reference's
+    ``replica_step_times``). Each rank times its own step to its
+    completion (``out``, any output of the step: on the card a
+    synchronize of its device, on the CPU the wall clock), the ranks
+    gather their times over every axis of the mesh, and a data replica's
+    time is the max over its ranks on the other axes. Returns one entry
+    per data replica, the same on every rank.
+
+    As in the reference this measures completion skew: collectives inside
+    the step (the gradient norm, the EP all-to-alls) hold the replicas
+    together, so a slow replica lengthens every reading; the trainer's
+    injector perturbs these readings (``slow:<r>``) to drive the
+    monitor."""
+    from repro_torch.parallel import collectives as coll
+    if out.is_cuda:
+        torch.cuda.synchronize(out.device)
+    t = torch.tensor([time.perf_counter() - t0], dtype=torch.float64)
+    names = list(mesh.axis_names)
+    for a in reversed(names):                 # -> the mesh's shape
+        t = (coll.all_gather(t[None], mesh.groups[a])
+             if mesh.shape[a] > 1 else t[None])
+    t = t.reshape([mesh.shape[a] for a in names])
+    dp = [names.index(a) for a in dp_axes]
+    t = t.permute(dp + [i for i in range(len(names)) if i not in dp])
+    n_rep = 1
+    for a in dp_axes:
+        n_rep *= mesh.shape[a]
+    return t.reshape(n_rep, -1).max(dim=1).values.tolist()
 
 
 class StragglerMonitor:

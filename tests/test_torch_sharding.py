@@ -337,8 +337,7 @@ def test_sliced_draw_equals_the_cut_of_the_global_tree(arch, moe_impl):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("remat", "full"), ("seq_axis", "model"), ("pin_attn", False),
-    ("microbatches", 1)])
+    ("remat", "full"), ("seq_axis", "model"), ("pin_attn", False)])
 def test_unread_ctx_fields_raise(field, value):
     """Fields of the reference's ParallelCtx that nothing in the port
     reads yet raise at another value than the default (ROADMAP.md, A.8)
@@ -347,3 +346,19 @@ def test_unread_ctx_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match="A.8"):
         ParallelCtx(**{field: value})
     ParallelCtx()
+
+
+def test_microbatches_is_read():
+    """``microbatches`` is the meshed train step's (``train/trainer.py``):
+    any value is taken, and the dual step engages at 2 or more when the
+    global batch splits into two halves a data rank."""
+    from repro_torch.configs.base import get_config, smoke_config
+    from repro_torch.parallel.context import ParallelCtx
+    from repro_torch.train.trainer import dual_microbatch_engaged
+    cfg = smoke_config(get_config("qwen3-14b"))
+    mesh = Mesh.abstract((2, 2))
+    assert not dual_microbatch_engaged(
+        cfg, ParallelCtx(mesh=mesh, microbatches=1), 8)
+    assert dual_microbatch_engaged(cfg, ParallelCtx(mesh=mesh), 8)
+    assert not dual_microbatch_engaged(cfg, ParallelCtx(mesh=mesh), 6)
+    assert not dual_microbatch_engaged(cfg, ParallelCtx(), 8)

@@ -316,12 +316,19 @@ def test_train_checkpoint_serve_roundtrip():
 
 
 def test_meshed_training_waits_for_expert_parallelism():
+    """Meshed training is ported (``tests/test_torch_train_mesh.py``); a
+    ``ctx`` that is not a ParallelCtx is refused, and an unmeshed one is
+    the single-device step."""
+    from repro_torch.parallel.context import ParallelCtx
     cfg = tsmoke(tget("qwen3-14b"))
-    with pytest.raises(NotImplementedError, match="A.8"):
+    with pytest.raises(TypeError, match="ParallelCtx"):
         Trainer(cfg, TrainConfig(), ctx=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A.8"):
+    with pytest.raises(TypeError, match="ParallelCtx"):
         make_train_step(Model(cfg, device="cpu"), TrainConfig(),
                         ctx=object())
+    tr = Trainer(cfg, TrainConfig(), ctx=ParallelCtx(), global_batch=2,
+                 seq_len=8, device="cpu")
+    assert not tr.meshed and tr.run(1)["mesh_shape"] is None
 
 
 def test_loss_refuses_prepared_weights():
