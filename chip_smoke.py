@@ -28,11 +28,16 @@ from the root of a checkout. Phases, each fatal on failure:
       the bound at the fp16 rate beside the fp8 one, bf16 torch.matmul on
       the dequantized operands (a yardstick) and the wrapper's host time
       per eager call; flash_prefill at qwen3-14b's 2048 bucket (the table's
-      row), at the 128 and 512 buckets, and at its prefill chunk (256
+      row), at the 128 and 512 buckets, at the 2048 bucket of glm4-9b
+      (32 heads over 2) and qwen1.5-4b (20 over 20), and at qwen3-14b's
+      prefill chunk (256
       queries at positions 1280-1535 against 2048 keys; SDPA with a boolean
       mask), each with its kernel / SDPA ratio;
       moe_gemm with E4M3 and bf16 weights at C = 8 and 40, w1/w3 and w2
-      (the table's row: E4M3, C = 8, w1/w3), each against torch.bmm,
+      (the table's row: E4M3, C = 8, w1/w3), and bf16 at qwen3-moe's
+      (128 x 2048 <-> 768) and llama4's (128 x 5120 <-> 8192) experts at
+      C = 8 and at the 2048 bucket's capacity (160 and 24), each against
+      torch.bmm,
       the two timed in turns before any plain version runs; the three
       split-KV decode kernels first of all, every row of the three timed
       before any plain version runs, inside a CUDA graph (their wrappers'
@@ -40,7 +45,8 @@ from the root of a checkout. Phases, each fatal on failure:
       of the pools or rings whose rows exceed twice the 50 MB L2), with its
       split plan, active CTAs and partial bytes: paged_gqa_decode at
       qwen3-14b's widths, four slots at contexts 600-1500 (fp8 pool: the
-      table's row; bf16 pool) and one at 2048, paged_mla_decode at
+      table's row; bf16 pool) and one at 2048, and on fp8 pools at the
+      other GQA paths' G = 1, 7, 8 and 16 (``GQA_ROWS``), paged_mla_decode at
       DeepSeek-V3's, four slots at 64-1024 (the table's row) and one at
       1024, mla_decode at DeepSeek-V3's over four rings of 1024 (bf16: the
       table's row; fp32), T = 1000 with an empty slot (exactly zero), a
@@ -64,7 +70,22 @@ from the root of a checkout. Phases, each fatal on failure:
       - DeepSeek-V3 as above on the dense ring cache with MTP drafting
         (``paged=False, use_mtp=True``; kernels fp8_gemm, moe_gemm,
         mla_decode, 4 launches a decode step, and never
-        paged_mla_decode).
+        paged_mla_decode);
+      - qwen3-moe-30b-a3b whole (48 layers, 30.53 B parameters, bf16),
+        ``fp8_impl="pallas"``, paged fp8 cache, qwen3-14b's prompts and
+        max_len: softmax routing, its bf16 routed experts through
+        moe_gemm's bf16 format (144 launches a step), flash_prefill,
+        paged_gqa_decode (48 a step), never fp8_gemm; the graphed step is
+        printed against the expert wall's bytes at the card's memory rate
+        (a floor: the capacity-buffer product reads every expert); then
+        chunked (one TTFT run of each kind);
+      - llama4-maverick at published widths cut 48 -> 4 layers (two
+        dense/MoE pairs, 35.29 B parameters): top-1 routing plus the
+        shared expert, moe_gemm's bf16 format 6 launches a step,
+        paged_gqa_decode 4, never fp8_gemm;
+      - glm4-9b (G = 16), qwen1.5-4b (G = 1) and yi-34b (G = 7), published
+        widths cut to 8 layers each: flash_prefill, paged_gqa_decode 8 a
+        step.
       The engine decodes through its chunk's CUDA graph (``serve/
       graph.py``: captured on the second chunk, replayed every tick after;
       launches counted as the capture's tally times its replays). Every
@@ -76,8 +97,8 @@ from the root of a checkout. Phases, each fatal on failure:
       chunk runs eagerly must give the same streams (and draft and accept
       counts). On the DeepSeek-V3 paths every routed expert matrix must be
       stored as E4M3 codes (the count stored in the weight dtype, and the
-      expert wall's bytes, are printed) and a decode step must launch
-      moe_gemm three times per MoE layer. Per path: tokens/s end to end,
+      expert wall's bytes, are printed), on the bf16 MoE paths none, and a
+      decode step must launch moe_gemm three times per MoE layer. Per path: tokens/s end to end,
       TTFT, the graph's capture and instantiation seconds and its pool's
       bytes, launches per decode step from one replay of the engine's
       8-step graph (the paged paths must launch their attention op once
@@ -111,11 +132,12 @@ from the root of a checkout. Phases, each fatal on failure:
       capture seconds and pool bytes, a profile of one replayed chunk and
       peak memory;
   (d) a reference check on a small input, per engine: the same engine at
-      smoke width (bf16; qwen3-14b keeps 5 query heads per KV head) on
+      smoke width (bf16; each GQA path keeps its published query heads per
+      KV head at head_dim 32, ``SMOKE_OVERRIDES``) on
       the card, through the kernels and the graphs (each captured once),
       against the plain versions on the CPU (eager, nothing captured),
       same weights — each path of (c), qwen3-14b on the dense engine, and
-      both paged paths chunked (``prefill_chunk=8``; their first-token
+      the chunked paths chunked (``prefill_chunk=8``; their first-token
       logits through ``Model.prefill_chunk``);
   (e) the LogFMT-compressed ring all-reduce (``compressed_psum``): 4 rank
       processes on the one card in a gloo group (FileStore in a temporary
@@ -548,25 +570,40 @@ def scaled_mm_ms(torch, xq, xs, wq, ws, ref):
     return None
 
 
+# the routed-expert products of the served MoE paths: (E, D, F, which, the
+# capacities, the weight formats). DeepSeek-V3 (FP8 path: E4M3 codes, and
+# bf16) at decode (C = 8) and its 1024-token bucket (C = 40); qwen3-moe and
+# llama4, whose experts serve as bf16, at decode and the 2048-token
+# bucket's capacity (top-8: 160 rows, top-1: 24)
+MOE_GEMM_ROWS = (
+    (256, 7168, 2048, "w1/w3", (8, 40), ("e4m3", "bf16")),
+    (256, 2048, 7168, "w2", (8, 40), ("e4m3", "bf16")),
+    (128, 2048, 768, "qwen3-moe w1/w3", (8, 160), ("bf16",)),
+    (128, 768, 2048, "qwen3-moe w2", (8, 160), ("bf16",)),
+    (128, 5120, 8192, "llama4 w1/w3", (8, 24), ("bf16",)),
+    (128, 8192, 5120, "llama4 w2", (8, 24), ("bf16",)))
+
+
 def bench_moe_gemm(torch, dev, gen):
-    """DeepSeek-V3's routed experts: w1/w3 (7168 -> 2048) and w2 (2048 ->
-    7168) over 256 experts, at decode (C = 8) and at the 1024-token prefill
-    bucket (C = 40), with the weights as E4M3 codes and block scales (the
-    FP8 path's storage) and as bf16. ``library_ms`` is torch.bmm on the
-    bf16 weights, which for the codes are their dequantized values (the
-    same function)."""
+    """The rows of ``MOE_GEMM_ROWS``: DeepSeek-V3's routed experts, w1/w3
+    (7168 -> 2048) and w2 (2048 -> 7168) over 256 experts, with the weights
+    as E4M3 codes and block scales (the FP8 path's storage) and as bf16;
+    qwen3-moe's (2048 <-> 768) and llama4's (5120 <-> 8192) over 128
+    experts as bf16. ``library_ms`` is torch.bmm on the bf16 weights, which
+    for the codes are their dequantized values (the same function)."""
     from repro_torch.core import fp8
     from repro_torch.kernels.moe_gemm import ops
     tol = 2 ** -7   # bf16 output: one rounding step of the largest value
-    E = 256
     rows = []
-    for D, F, what in ((7168, 2048, "w1/w3"), (2048, 7168, "w2")):
+    for E, D, F, what, caps, formats in MOE_GEMM_ROWS:
         w = (torch.randn(E, D, F, generator=gen, device=dev) * 0.02).bfloat16()
-        codes = fp8.Fp8Experts.quantize(w)
-        values = codes.dequant()         # the bf16 weights the codes hold
+        codes = fp8.Fp8Experts.quantize(w) if "e4m3" in formats else None
         xs = {C: torch.randn(E, C, D, generator=gen, device=dev).bfloat16()
-              for C in (8, 40)}
-        fmts = (("e4m3", codes, values), ("bf16", w, w))
+              for C in caps}
+        fmts = (("bf16", w, w),)
+        if codes is not None:
+            # the bf16 weights the codes hold
+            fmts = (("e4m3", codes, codes.dequant()),) + fmts
         # The kernel and torch.bmm first, in turns (kernel, bmm, bmm,
         # kernel): whatever runs right after an fp32 plain version runs up
         # to a fifth slower (kernels/moe_gemm/probe.py), so no plain version
@@ -601,7 +638,7 @@ def bench_moe_gemm(torch, dev, gen):
                     plain_ms=plain, bound_ms=b, bound_by=by,
                     library_ms=lib))
                 torch.cuda.empty_cache()
-        del w, codes, values, xs
+        del w, codes, xs, fmts
         torch.cuda.empty_cache()
     return rows
 
@@ -736,21 +773,31 @@ def bench_paged_mla(torch, dev, gen):
     return ops.paged_mla_decode, cases, tol
 
 
+# paged_gqa_decode's rows: (heads, KV heads, pool storage, contexts).
+# qwen3-14b (G = 5) as the table's row, its bf16 pool and one slot at 2048;
+# then the other served GQA paths' decode, four slots at 600-1500 on an fp8
+# pool: qwen1.5-4b (G = 1), yi-34b (G = 7, the kernel's runtime-G branch),
+# qwen3-moe-30b-a3b (G = 8) and glm4-9b (G = 16, runtime G)
+GQA_ROWS = ((40, 8, "fp8", [600, 900, 1200, 1500]),
+            (40, 8, "bf16", [600, 900, 1200, 1500]),
+            (40, 8, "fp8", [2048]),
+            (20, 20, "fp8", [600, 900, 1200, 1500]),
+            (56, 8, "fp8", [600, 900, 1200, 1500]),
+            (32, 4, "fp8", [600, 900, 1200, 1500]),
+            (32, 2, "fp8", [600, 900, 1200, 1500]))
+
+
 def bench_paged_gqa(torch, dev, gen):
-    """qwen3-14b's decode attention: 40 heads over 8 KV heads (G = 5), hd
-    128, page 8, 256 pages a slot (max_len 2048); four slots at contexts
-    600-1500 with an fp8 pool (the table's row) and a bf16 pool, and one
-    slot at 2048 with an fp8 pool. Returns (op, cases, tolerance)."""
+    """The served GQA paths' decode attention (``GQA_ROWS``), hd 128, page
+    8, 256 pages a slot (max_len 2048). Returns (op, cases, tolerance)."""
     from repro_torch.core import paged
     from repro_torch.kernels import registry
     from repro_torch.kernels.paged_attention import ops
     tol = 2e-5    # fp32 online vs full softmax, same exact dequantization
-    H, KV, hd, page, pp = 40, 8, 128, 8, 256
+    hd, page, pp = 128, 8, 256
     scale = 1.0 / math.sqrt(hd)
     cases = []
-    for storage, ctx in (("fp8", [600, 900, 1200, 1500]),
-                         ("bf16", [600, 900, 1200, 1500]),
-                         ("fp8", [2048])):
+    for H, KV, storage, ctx in GQA_ROWS:
         B = len(ctx)
         P = B * pp
         q = torch.randn(B, H, hd, generator=gen, device=dev)
@@ -774,8 +821,8 @@ def bench_paged_gqa(torch, dev, gen):
             args=(q, k, v, ks, vs, table.int(), qpos), scale=scale,
             pools=(1, 2, 3, 4), plan=(rps, S), active=active,
             partial=active * (H // KV) * (hd + 2) * 4,
-            shape=f"B={B} H={H} KV={KV} hd={hd} page={page} contexts={ctx} "
-                  f"({storage} pool)",
+            shape=f"B={B} H={H} KV={KV} (G={H // KV}) hd={hd} page={page} "
+                  f"contexts={ctx} ({storage} pool)",
             row_bytes=tokens * (2 * KV * hd * k.element_size()
                                 + (8 if storage == "fp8" else 0)),
             bytes=(tokens * (2 * KV * hd * k.element_size()
@@ -893,20 +940,27 @@ def sdpa_mla_ms(torch, qa, qr, ckv, kr, valid, scale, ref):
     return cuda_ms(torch, lib, 20)
 
 
+# flash_prefill's bucket rows: (S = T, heads, KV heads): qwen3-14b's 2048
+# bucket (the table's row), its 512 and 128 buckets, and the 2048 bucket of
+# glm4-9b (G = 16), qwen1.5-4b (G = 1), qwen3-moe-30b-a3b (G = 8) and
+# yi-34b (G = 7)
+FLASH_ROWS = ((2048, 40, 8), (512, 40, 8), (128, 40, 8), (2048, 32, 2),
+              (2048, 20, 20), (2048, 32, 4), (2048, 56, 8))
+
+
 def bench_flash_prefill(torch, dev, gen):
-    """qwen3-14b's prefill attention: the largest bucket (S = T = 2048) for
-    the table, the 128 and 512 buckets, and a prefill chunk (S = 256
-    queries at positions 1280-1535 against T = 2048 keys), each against
-    SDPA."""
+    """The served prefill attention (``FLASH_ROWS``, hd 128) and qwen3-14b's
+    prefill chunk (S = 256 queries at positions 1280-1535 against T = 2048
+    keys), each against SDPA."""
     from repro_torch.kernels.flash_attention import ops
     # per output row, relative to the row's own norm: P rounded to bf16
     # for P·V moves a row by ~2^-9 of itself; a key dropped from a row of
     # 2048 moves it by ~1/sqrt(2048) = 2e-2
     tol = 1e-2
     rows = []
-    H, KV, hd = 40, 8, 128
+    hd = 128
     scale = 1.0 / math.sqrt(hd)
-    for S in (2048, 512, 128):
+    for S, H, KV in FLASH_ROWS:
         q = torch.randn(1, S, H, hd, generator=gen, device=dev).bfloat16()
         k = torch.randn(1, S, KV, hd, generator=gen, device=dev).bfloat16()
         v = torch.randn(1, S, KV, hd, generator=gen, device=dev).bfloat16()
@@ -916,13 +970,14 @@ def bench_flash_prefill(torch, dev, gen):
         ref = ops.flash_prefill.run_plain(*args, causal=True, scale=scale)
         err, _ = max_err(torch, y, ref)
         rel = max_row_err(torch, y, ref)
-        check(f"flash_prefill (S = {S})", rel, tol, of="its row's norm")
+        check(f"flash_prefill (S = {S}, {H} heads over {KV})", rel, tol,
+              of="its row's norm")
         iters = 20 if S >= 2048 else 100
         ms = cuda_ms(torch, lambda: ops.flash_prefill(*args, causal=True,
                                                       scale=scale), iters)
         plain = cuda_ms(torch, lambda: ops.flash_prefill.run_plain(
             *args, causal=True, scale=scale), 3)
-        # yardstick: SDPA over K/V repeated to 40 heads (no row is empty in
+        # yardstick: SDPA over K/V repeated to H heads (no row is empty in
         # bucketed prefill, so it computes the same function here)
         G = H // KV
         qt = q.transpose(1, 2)
@@ -934,7 +989,8 @@ def bench_flash_prefill(torch, dev, gen):
             return sdpa(qt, kt, vt, is_causal=True, scale=scale)
         lib_rel = max_row_err(torch, lib().transpose(1, 2), ref)
         lib_ms = cuda_ms(torch, lib, iters)
-        log(f"[b]   flash_prefill S = T = {S}: kernel {ms:.4f} ms, SDPA "
+        log(f"[b]   flash_prefill S = T = {S}, H = {H}, KV = {KV}: kernel "
+            f"{ms:.4f} ms, SDPA "
             f"{lib_ms:.4f} ms (differs from the plain version by "
             f"{lib_rel:.3g} of a row's norm): kernel / SDPA = "
             f"{ms / lib_ms:.3f}")
@@ -1200,6 +1256,8 @@ def phase_kernels(torch):
 PAGED = dict(paged=True, page_storage="fp8", attn_impl="pallas")
 DSV3_PROMPTS = dict(lengths=[16, 120, 250, 380, 490, 600], max_len=1024,
                     steady=[600, 700, 800, 900])
+QWEN_PROMPTS = dict(lengths=[16, 200, 500, 900, 1200, 1500], max_len=2048,
+                    steady=[600, 900, 1200, 1500])
 # the paged paths also serve chunked (``chunked``): the same weights on a
 # chunked-prefill engine (chunks of 256, page 8), its pool sized so the
 # priority-5 arrival of the run must evict (``pool_pages``; see
@@ -1219,9 +1277,7 @@ PATHS = {
     "qwen3-14b": dict(
         model="qwen3-14b", overrides={}, engine=PAGED,
         kernels=("flash_prefill", "paged_gqa_decode"), absent=(),
-        per_step={"paged_gqa_decode": 40},
-        lengths=[16, 200, 500, 900, 1200, 1500], max_len=2048,
-        steady=[600, 900, 1200, 1500],
+        per_step={"paged_gqa_decode": 40}, **QWEN_PROMPTS,
         chunked=dict(prefill_chunk=256, pool_pages=600,
                      per_chunk={"flash_prefill": 40}),
         tier=True),
@@ -1233,16 +1289,57 @@ PATHS = {
         absent=("paged_mla_decode",),
         per_step={"mla_decode": 4, "fp8_gemm": 38},
         **DSV3_PROMPTS),
+    # the whole model at published widths, bf16 (30.53 B parameters): its
+    # routed experts reach moe_gemm's bf16 format (fp8=False), 3 products
+    # a MoE layer a step, each streaming all 128 experts
+    "qwen3-moe-30b-a3b": dict(
+        model="qwen3-moe-30b-a3b", overrides=dict(fp8_impl="pallas"),
+        engine=PAGED, kernels=("flash_prefill", "paged_gqa_decode",
+                               "moe_gemm"),
+        absent=("fp8_gemm",),
+        per_step={"paged_gqa_decode": 48, "moe_gemm": 144},
+        **QWEN_PROMPTS,
+        chunked=dict(prefill_chunk=256, pool_pages=600,
+                     per_chunk={"flash_prefill": 48, "moe_gemm": 144})),
+    # published widths, depth 48 -> 4: two dense/MoE pairs (35.29 B
+    # parameters, 70.6 GB in bf16), top-1 routing plus the shared expert
+    "llama4-maverick-400b-a17b": dict(
+        model="llama4-maverick-400b-a17b",
+        overrides=dict(num_layers=4, fp8_impl="pallas"), engine=PAGED,
+        kernels=("flash_prefill", "paged_gqa_decode", "moe_gemm"),
+        absent=("fp8_gemm",),
+        per_step={"paged_gqa_decode": 4, "moe_gemm": 6}, **QWEN_PROMPTS),
+    # published widths, depth cut to 8 layers each: the decode kernel's
+    # G = 16 (runtime branch), 1 and 7 (runtime branch) on served paths
+    "glm4-9b": dict(
+        model="glm4-9b", overrides=dict(num_layers=8), engine=PAGED,
+        kernels=("flash_prefill", "paged_gqa_decode"), absent=(),
+        per_step={"paged_gqa_decode": 8}, **QWEN_PROMPTS),
+    "qwen1.5-4b": dict(
+        model="qwen1.5-4b", overrides=dict(num_layers=8), engine=PAGED,
+        kernels=("flash_prefill", "paged_gqa_decode"), absent=(),
+        per_step={"paged_gqa_decode": 8}, **QWEN_PROMPTS),
+    "yi-34b": dict(
+        model="yi-34b", overrides=dict(num_layers=8), engine=PAGED,
+        kernels=("flash_prefill", "paged_gqa_decode"), absent=(),
+        per_step={"paged_gqa_decode": 8}, **QWEN_PROMPTS),
 }
 
 # phase (d): each path's engine at smoke width, and qwen3-14b on the dense
-# engine; qwen3-14b's smoke width keeps its 5 query heads per KV head
+# engine; the GQA paths' smoke widths keep their published query heads per
+# KV head at head_dim 32 (qwen1.5-4b's smoke config has G = 1 already)
 REFERENCE_CHECKS = [(p["model"], p["engine"]) for p in PATHS.values()] + [
     ("qwen3-14b", dict(paged=False, attn_impl="pallas"))] + [
     (p["model"], dict(p["engine"], prefill_chunk=8))
     for p in PATHS.values() if "chunked" in p]
 SMOKE_OVERRIDES = {"deepseek-v3-671b": {},
-                   "qwen3-14b": dict(num_heads=10, num_kv_heads=2)}
+                   "qwen3-14b": dict(num_heads=10, num_kv_heads=2),
+                   "glm4-9b": dict(num_heads=32, num_kv_heads=2),
+                   "qwen1.5-4b": {},
+                   "yi-34b": dict(num_heads=14, num_kv_heads=2),
+                   "qwen3-moe-30b-a3b": dict(num_heads=16, num_kv_heads=2),
+                   "llama4-maverick-400b-a17b": dict(num_heads=10,
+                                                     num_kv_heads=2)}
 
 
 def path_config(name):
@@ -1278,8 +1375,7 @@ def phase_main_path(torch, name):
     log(f"[c] engine up (weights drawn on the card, load-time preparation): "
         f"{time.perf_counter() - t0:.2f} s, "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
-    moe_layers = sum(seg.n for seg in eng.model.segments
-                     if seg.kind == "moe")
+    moe_layers = moe_layer_count(eng.model)
     if moe_layers:
         expert_storage(eng)
 
@@ -1503,6 +1599,18 @@ def steady_decode(torch, name, eng, spec, moe_layers):
             f"{[round(x, 3) for x in ms['graph']]} ms/step "
             f"({4e3 / min(ms['graph']):.1f} tok/s graphed)")
         graph_ms[use] = min(ms["graph"])
+    if moe_layers:
+        # the capacity-buffer moe_gemm reads every expert of every MoE
+        # layer each step: the expert wall over the card's memory rate is a
+        # floor under the step
+        from repro_torch import bridge
+        wall = bridge.expert_storage(params)["bytes"]
+        floor = 1e3 * wall / HBM_BYTES_PER_S
+        log(f"[c] {name}: the expert wall ({wall / 1e9:.2f} GB over "
+            f"{moe_layers} MoE layers) read once a step at "
+            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s is a floor of {floor:.3f} "
+            f"ms; the graphed step {graph_ms[mtp]:.3f} ms is "
+            f"{graph_ms[mtp] / floor:.2f}x that floor")
     st = model.init_decode_state(4)
     st["active"][:] = True
     st["positions"][:] = torch.tensor(spec["steady"], device=eng.device,
@@ -1523,18 +1631,30 @@ def steady_decode(torch, name, eng, spec, moe_layers):
         compare_layouts(torch, eng, spec, host, chunks[False])
 
 
+def moe_layer_count(model):
+    """MoE layers of a model: its MoE segments' layers and one per
+    dense/MoE pair (llama4's ``interleave:2``)."""
+    return sum(seg.n for seg in model.segments
+               if seg.kind in ("moe", "dense_moe"))
+
+
 def expert_storage(eng):
-    """Print how the engine stores its routed experts; fail unless every
-    matrix is E4M3 codes and scales (the load check kept none in the
-    weight dtype)."""
+    """Print how the engine stores its routed experts; on the FP8 path fail
+    unless every matrix is E4M3 codes and scales (the load check kept none
+    in the weight dtype), on a bf16 path unless none is. Returns the expert
+    wall's bytes."""
     from repro_torch import bridge
     st = bridge.expert_storage(eng.params)
     kept = eng.params.get("plain_expert_matrices")
     log(f"[c] routed expert matrices: {st['e4m3']} as E4M3 codes + block "
         f"scales, {st['plain']} in the weight dtype ({kept} kept there by "
         f"the load check); expert wall {st['bytes'] / 1e9:.3f} GB")
-    if st["plain"] or kept or not st["e4m3"]:
+    if eng.cfg.fp8 and (st["plain"] or kept or not st["e4m3"]):
         raise AssertionError("routed experts not all stored as E4M3 codes")
+    if not eng.cfg.fp8 and (st["e4m3"] or not st["plain"]):
+        raise AssertionError("a bf16 path's routed experts are not all "
+                             "plain bf16 tensors")
+    return st["bytes"]
 
 
 def steady_state(torch, eng, spec):
@@ -1550,9 +1670,13 @@ def steady_state(torch, eng, spec):
     ctx = torch.tensor(spec["steady"], device=dev)
     t = torch.arange(spec["max_len"], device=dev)
     pos = torch.where(t[None] < ctx[:, None], t[None], -1).int()
-    rings = [cache[seg.name] for seg in eng.model.segments]
-    rings += [cache["mtp"]] if "mtp" in cache else []
-    for ring in rings:
+    def rings(tree):
+        if "pos" in tree:
+            return [tree]
+        return [r for sub in tree.values() for r in rings(sub)]
+    for ring in rings({seg.name: cache[seg.name]
+                       for seg in eng.model.segments}) + (
+            [cache["mtp"]] if "mtp" in cache else []):
         ring["pos"].copy_(pos.expand_as(ring["pos"]))
 
 
@@ -1739,8 +1863,7 @@ def phase_chunked(torch, name, eng, whole_reqs):
         raise AssertionError(f"chunked engine: {ceng._prefill.calls} "
                              f"prefill chunks run, {chunks} counted")
     per_step = dict(spec["per_step"])
-    moe_layers = sum(seg.n for seg in ceng.model.segments
-                     if seg.kind == "moe")
+    moe_layers = moe_layer_count(ceng.model)
     if moe_layers:
         per_step["moe_gemm"] = 3 * moe_layers
     for k in spec["kernels"]:
@@ -5060,18 +5183,30 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     t_start = time.perf_counter()
+    clock = [t_start]
+
+    def lap(what):
+        now = time.perf_counter()
+        log(f"[time] {what}: {now - clock[0]:.1f} s")
+        clock[0] = now
+
     card = phase_env(torch, build)
+    lap("(a) environment and build")
     kernels = phase_kernels(torch)
+    lap("(b) kernels")
     launches = {}
     for path, spec in PATHS.items():
         counts = phase_main_path(torch, path)
         for k in spec["kernels"]:        # each kernel: the first path of it
             launches.setdefault(k, counts[k])
+        lap(f"(c) path {path}")
     for name, engine in REFERENCE_CHECKS:
         phase_reference(torch, name, engine)
+    lap("(d) reference checks")
     ring = phase_ring(torch, card, kernels)
     for k in ("logfmt_encode", "logfmt_decode"):
         launches[k] = ring[k]            # per rank, one 8-bit call
+    lap("(e) compressed ring")
     gc_cuda(torch)
     log(f"[g] {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated before "
         "training")
@@ -5080,9 +5215,12 @@ def main():
     back_launches, _, losses = phase_train(torch)
     phase_train_curves(torch, losses)
     phase_train_reference(torch)
+    lap("(g) training")
     phase_mesh(torch, card)
+    lap("(h) mesh serving")
     gc_cuda(torch)
     mesh_fp8 = phase_train_mesh(torch, card)
+    lap("(i) meshed training")
 
     # one entry per kernel: the main path's shape (decode-time where the
     # kernel runs at decode; E4M3 codes and w1/w3 for moe_gemm, the fp8

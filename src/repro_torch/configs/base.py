@@ -170,8 +170,17 @@ def list_archs() -> list[str]:
     return sorted(_REGISTRY)
 
 
-# Only the archs the port runs; the reference registers eleven.
-_ARCH_MODULES = ["deepseek_v3_671b", "qwen3_14b"]
+# Only the archs the port runs: the reference's seven decoder-only
+# transformers (it registers eleven).
+_ARCH_MODULES = [
+    "deepseek_v3_671b",
+    "glm4_9b",
+    "yi_34b",
+    "qwen1_5_4b",
+    "qwen3_14b",
+    "qwen3_moe_30b_a3b",
+    "llama4_maverick_400b_a17b",
+]
 
 _loaded = False
 

@@ -1,7 +1,8 @@
 """Node-limited TopK expert selection (paper §4.3, T3) with aux-loss-free
 bias balancing (DeepSeek-V3) — port of ``repro.core.routing.route``.
 
-  scores  = score_fn(x @ Wg)                  (sigmoid for V3)
+  scores  = score_fn(x @ Wg)                  (sigmoid for V3, softmax
+                                               for qwen3-moe)
   select  on scores + bias (selection only, never the mixture weights)
   group_score(g) = sum of top-``group_top`` biased scores in group g
   keep top-``group_limit`` groups, mask the rest, take top-k experts
@@ -35,11 +36,13 @@ def route(x: torch.Tensor, w_gate: torch.Tensor, cfg: MoEConfig,
           stats: bool = True) -> RouteResult:
     """x: (..., d); w_gate: (d, E); bias: (E,) or None. ``stats``: also
     the balancing diagnostics ``load`` and ``aux_loss`` (no gradient)."""
-    if cfg.score_fn != "sigmoid":
-        raise NotImplementedError(
-            f"score_fn={cfg.score_fn!r}: the port routes with DeepSeek-V3's "
-            "sigmoid scores only so far")
-    scores = torch.sigmoid(torch.matmul(x.float(), w_gate.float()))
+    logits = torch.matmul(x.float(), w_gate.float())
+    if cfg.score_fn == "sigmoid":
+        scores = torch.sigmoid(logits)
+    elif cfg.score_fn == "softmax":
+        scores = torch.softmax(logits, dim=-1)
+    else:
+        raise ValueError(cfg.score_fn)
 
     sel = scores if bias is None else scores + bias.float()
     E, G = cfg.num_experts, cfg.num_groups

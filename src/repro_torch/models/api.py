@@ -1,5 +1,7 @@
 """Model API — port of the transformer ``Model`` of ``repro.models.api``
-for serving, MLA (DeepSeek-V3, with its MTP module) and GQA (qwen3-14b).
+for the decoder-only transformers: MLA (DeepSeek-V3, with its MTP module)
+and GQA (qwen3-14b, glm4-9b, yi-34b, qwen1.5-4b, qwen3-moe-30b-a3b and
+llama4-maverick, whose ``interleave:2`` layout stacks dense/MoE pairs).
 
     specs() / init(seed)           ParamSpec dict (the reference's key
                                    names) and materialized tensors
@@ -25,6 +27,7 @@ for serving, MLA (DeepSeek-V3, with its MTP module) and GQA (qwen3-14b).
                                    EOS/budget masks and the same-step MTP
                                    draft; ``overlap``: as two half-batches
                                    (dual microbatch, paper §2.3.1)
+    count_params(cfg, active_only)  the reference's parameter count
 
 Layers are stored stacked per segment (``(n, ...)`` leaves, as in the
 reference); the port walks them with a Python loop where the reference
@@ -50,6 +53,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -120,8 +124,14 @@ def sample_logits(logits: torch.Tensor, seeds: torch.Tensor,
 @dataclasses.dataclass(frozen=True)
 class Segment:
     name: str
-    kind: str        # dense | moe
-    n: int           # stacked layers
+    kind: str        # dense | moe | dense_moe (a dense block, then a MoE
+                     # block, per step: llama4's "interleave:2")
+    n: int           # stacked layers (dense_moe: stacked pairs)
+
+
+# the blocks of one dense_moe step, in order: each has its own subtree of
+# the segment's parameters and caches
+PAIR = ("dense", "moe")
 
 
 def _segments(cfg: ModelConfig) -> List[Segment]:
@@ -136,15 +146,47 @@ def _segments(cfg: ModelConfig) -> List[Segment]:
             n0 = int(lay.split(":")[1])
             return [Segment("dense0", "dense", n0),
                     Segment("blocks", "moe", L - n0)]
+        if lay.startswith("interleave:"):
+            k = int(lay.split(":")[1])
+            assert k == 2 and L % 2 == 0, (lay, L)
+            return [Segment("pat", "dense_moe", L // 2)]
+        raise ValueError(lay)
     raise NotImplementedError(
-        f"family={cfg.family!r} / layout: the port runs the dense and "
-        "dense_first/all MoE transformers so far (ROADMAP.md, A.10)")
+        f"family={cfg.family!r}: the port runs the decoder-only "
+        "transformers so far (ROADMAP.md, A.10)")
+
+
+def per_block(seg: Segment, fn, *trees):
+    """``fn`` over the segment's block subtrees: once on ``trees`` for a
+    dense or MoE segment, per block of :data:`PAIR` on a dense_moe one
+    (``{"dense": fn(...), "moe": fn(...)}``, as the reference nests
+    them)."""
+    if seg.kind == "dense_moe":
+        return {k: fn(*(t[k] for t in trees)) for k in PAIR}
+    return fn(*trees)
+
+
+def step_phases(seg: Segment, p, x, cfg: ModelConfig, ctx: dict, cache):
+    """One step of a segment as phases (``collectives.drive``): one block,
+    or a dense_moe pair's dense block then its MoE block (the reference's
+    ``_apply_kind``). Returns (x, cache_out, stats); a pair's cache out is
+    per block and its stats are the MoE block's."""
+    if seg.kind != "dense_moe":
+        return (yield from tfm.block_phases(p, x, cfg, ctx, cache))
+    outs, st = {}, {}
+    for k in PAIR:
+        x, outs[k], st = yield from tfm.block_phases(
+            p[k], x, cfg, ctx, None if cache is None else cache[k])
+    return x, outs, st
 
 
 def _kind_specs(cfg: ModelConfig, seg: Segment) -> dict:
     if seg.kind == "dense":
         return tfm.dense_block_specs(cfg, seg.n)
-    return tfm.moe_block_specs(cfg, seg.n)
+    if seg.kind == "moe":
+        return tfm.moe_block_specs(cfg, seg.n)
+    return {"dense": tfm.dense_block_specs(cfg, seg.n),
+            "moe": tfm.moe_block_specs(cfg, seg.n)}
 
 
 def _embed_specs(cfg: ModelConfig) -> dict:
@@ -160,9 +202,23 @@ def _embed_specs(cfg: ModelConfig) -> dict:
 
 def _kind_cache(cfg: ModelConfig, seg: Segment, batch: int, max_len: int,
                 device) -> dict:
+    if seg.kind == "dense_moe":
+        return {k: Lyr.init_gqa_cache(cfg, seg.n, batch, max_len, device)
+                for k in PAIR}
     if cfg.attention == "mla":
         return mla_mod.init_mla_cache(cfg, seg.n, batch, max_len, device)
     return Lyr.init_gqa_cache(cfg, seg.n, batch, max_len, device)
+
+
+def _kind_paged_cache(cfg: ModelConfig, seg: Segment, pool_pages: int,
+                      page_size: int, storage: str, device) -> dict:
+    if seg.kind == "dense_moe":
+        return {k: Lyr.init_paged_gqa_cache(cfg, seg.n, pool_pages,
+                                            page_size, storage, device)
+                for k in PAIR}
+    init = (mla_mod.init_paged_mla_cache if cfg.attention == "mla"
+            else Lyr.init_paged_gqa_cache)
+    return init(cfg, seg.n, pool_pages, page_size, storage, device)
 
 
 def _under_pctx(fn):
@@ -279,16 +335,17 @@ class Model:
                     **self.impl_ctx)
 
     def _run_segment(self, seg: Segment, p, x, ctx, cache):
-        """The segment's layers in turn. Returns (x, per-layer outputs,
-        stats): each MoE stat stacked over the layers (:func:`stack_stats`).
-        Each layer's collectives carry its name (``collectives.tagged``)."""
+        """The segment's steps in turn (:func:`step_phases`). Returns (x,
+        per-step outputs, stats): each MoE stat stacked over the steps
+        (:func:`stack_stats`). Each step's collectives carry its name
+        (``collectives.tagged``)."""
         outs, stats = [], []
         for i in range(seg.n):
             c = None if cache is None else layer(cache, i)
             with coll.tagged(f"{seg.name}/{i}"):
-                x, out, st = tfm.block_apply(
-                    sharding.gathered(p, (seg.name,), i), x, self.cfg, ctx,
-                    c)
+                x, out, st = coll.drive(step_phases(
+                    seg, sharding.gathered(p, (seg.name,), i), x, self.cfg,
+                    ctx, c))
             outs.append(out)
             stats.append(st)
         return x, outs, stack_stats(stats)
@@ -439,14 +496,24 @@ class Model:
         h_last = h[torch.arange(B, device=self.device), idx][:, None]
         logits = self._unembed(params, h_last)
         T = S + extra_slots
-        cache = {seg.name: self._entries_to_cache(entries[seg.name], S, T,
-                                                  lengths)
+        cache = {seg.name: self._seg_cache(seg, entries[seg.name], S, T,
+                                           lengths)
                  for seg in self.segments}
         if self.cfg.mtp:
             cache["mtp_h"] = h_last
             cache["mtp"] = self._mtp_prefill_ring(params, h, tokens, pos, T,
                                                   lengths)
         return logits, cache
+
+    def _seg_cache(self, seg: Segment, step_entries, S: int, T: int,
+                   lengths):
+        """A segment's ring leaves from its per-step prefill entries (a
+        dense_moe step's are per block)."""
+        if seg.kind == "dense_moe":
+            return {k: self._entries_to_cache([e[k] for e in step_entries],
+                                              S, T, lengths)
+                    for k in PAIR}
+        return self._entries_to_cache(step_entries, S, T, lengths)
 
     def _entries_to_cache(self, layer_entries, S: int, T: int, lengths):
         """Per-layer prefill entries — MLA ``(ckv, kr)`` or GQA ``(k, v)``,
@@ -728,11 +795,9 @@ class Model:
             "page_table": torch.full((batch, max_len // page_size),
                                      paged_mod.trash_page(pool_pages),
                                      dtype=torch.int32, device=dev)}
-        init = (mla_mod.init_paged_mla_cache if self.cfg.attention == "mla"
-                else Lyr.init_paged_gqa_cache)
         for seg in self.segments:
-            cache[seg.name] = init(self.cfg, seg.n, pool_pages, page_size,
-                                   storage, dev)
+            cache[seg.name] = _kind_paged_cache(self.cfg, seg, pool_pages,
+                                                page_size, storage, dev)
         if self.cfg.mtp:
             cache.update(self._mtp_leaves(batch, max_len, dev))
         return cache
@@ -753,13 +818,13 @@ class Model:
         a KV-head cut (``pctx=``) each token's scale is the model group's
         max over its whole entry."""
         store = torch_dtype(self.cfg.cache_dtype_())
-        pages: Dict[str, Any] = {}
-        for seg in self.segments:
+
+        def seg_pages(sub):
             out = {}
             for name in ("ckv", "kr", "k", "v"):
-                if name not in cache1[seg.name]:
+                if name not in sub:
                     continue
-                leaf = cache1[seg.name][name]
+                leaf = sub[name]
                 vnd, reduce = 1, None
                 if name in ("k", "v"):
                     vnd = 2
@@ -769,7 +834,10 @@ class Model:
                 out[name] = d["q"]
                 if "scale" in d:
                     out[name + "_scale"] = d["scale"]
-            pages[seg.name] = out
+            return out
+
+        pages = {seg.name: per_block(seg, seg_pages, cache1[seg.name])
+                 for seg in self.segments}
         aux = {k: cache1[k] for k in ("mtp_h", "mtp") if k in cache1}
         return {"pages": pages, "aux": aux}
 
@@ -777,10 +845,14 @@ class Model:
         """Scatter page payload into the pools at physical ``ids``, in
         place (trash-padded ids land in the scratch page)."""
         ids = torch.as_tensor(ids, device=self.device)
+
+        def seg_scatter(pool, pages):
+            for k, pg in pages.items():
+                paged_mod.scatter_pages(pool[k], pg, ids)
+
         for seg in self.segments:
-            pool = cache[seg.name]
-            for k, pages in payload_pages[seg.name].items():
-                paged_mod.scatter_pages(pool[k], pages, ids)
+            per_block(seg, seg_scatter, cache[seg.name],
+                      payload_pages[seg.name])
         return cache
 
     def gather_pages(self, cache, ids):
@@ -789,8 +861,10 @@ class Model:
         in new tensors (no cache leaf is touched). The device side of a
         tier spill: the caller stages the result to host memory."""
         ids = torch.as_tensor(ids, device=self.device).long()
-        return {seg.name: {k: pool[:, ids]
-                           for k, pool in cache[seg.name].items()}
+        return {seg.name: per_block(
+                    seg, lambda pools: {k: pool[:, ids]
+                                        for k, pool in pools.items()},
+                    cache[seg.name])
                 for seg in self.segments}
 
     def admit_pages(self, cache, payload_pages, ids, table_row, slot: int):
@@ -855,7 +929,32 @@ class Model:
     def release_slot_pages(self, cache, slot: int):
         """Point a freed slot's row at the trash page, so its masked
         decode lane can never write into pages recycled to a new owner."""
-        pool = next(iter(cache[self.segments[0].name].values()))
+        pool = paged_mod.payload_leaves(cache[self.segments[0].name])[0]
         cache["page_table"][slot] = pool.shape[1] - 1
         return cache
+
+
+# ---------------------------------------------------------------------------
+# Param counting (the reference's convention: MODEL_FLOPS = 6·N·D)
+# ---------------------------------------------------------------------------
+
+
+def _spec_leaves(tree):
+    if isinstance(tree, ParamSpec):
+        return [tree]
+    return [s for k in sorted(tree) for s in _spec_leaves(tree[k])]
+
+
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Parameters of ``cfg`` from its specs (nothing allocated; the
+    embedding counted once, the unembedding beside it). ``active_only``:
+    each routed-expert stack counts ``top_k / num_experts`` of itself, as
+    the reference rounds it."""
+    total = 0
+    for s in _spec_leaves(Model(cfg, device="meta").specs()):
+        sz = math.prod(s.shape)
+        if active_only and "experts" in s.axes:
+            sz = int(sz * cfg.moe.top_k / cfg.moe.num_experts)
+        total += sz
+    return total
 

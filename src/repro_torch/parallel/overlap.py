@@ -9,8 +9,9 @@ leaves the overlap to XLA's latency-hiding scheduler. Eager PyTorch runs
 ops in program order, so the port writes the schedule itself.
 
 Each layer of each half is a phase generator (``transformer.
-block_phases``; ``collectives.drive``): it yields each time it has issued
-an EP collective it will wait for after resuming. :func:`_layer` runs the
+block_phases``, or a dense/MoE pair of them: ``api.step_phases``;
+``collectives.drive``): it yields each time it has issued an EP
+collective it will wait for after resuming. :func:`_layer` runs the
 two halves' generators of one layer in turns, and both halves' phases of
 a layer come before the next layer's. On a mesh with EP the order is
 
@@ -49,8 +50,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.models import transformer as tfm
-from repro_torch.models.api import stack_stats
+from repro_torch.models.api import stack_stats, step_phases
 from repro_torch.models.param import layer
 from repro_torch.parallel import collectives as coll
 from repro_torch.parallel import sharding
@@ -89,10 +89,10 @@ def _dual_segments(model, params, xA, xB, ctxA: dict, ctxB: dict,
         for i in range(seg.n):
             pl = sharding.gathered(p, (seg.name,), i)
             (xA, _, stA), (xB, _, stB) = _layer(
-                tfm.block_phases(pl, xA, cfg, ctxA,
-                                 None if cA is None else layer(cA, i)),
-                tfm.block_phases(pl, xB, cfg, ctxB,
-                                 None if cB is None else layer(cB, i)),
+                step_phases(seg, pl, xA, cfg, ctxA,
+                            None if cA is None else layer(cA, i)),
+                step_phases(seg, pl, xB, cfg, ctxB,
+                            None if cB is None else layer(cB, i)),
                 f"{seg.name}/{i}")
             sa.append(stA)
             sb.append(stB)

@@ -300,6 +300,9 @@ class ServeEngine:
             raise _waits("ctx= with prefill_chunk=", "A.8")
         if self.meshed and host_tier_pages is not None:
             raise _waits("ctx= with host_tier_pages=", "A.8")
+        if self.meshed and cfg.moe and cfg.moe.layout.startswith(
+                "interleave:"):
+            raise _waits(f"ctx= with layout {cfg.moe.layout!r}", "A.11")
         paged_mod.validate_storage(page_storage)
         self.cfg = cfg
         self.model = Model(cfg, device)
@@ -751,8 +754,7 @@ class ServeEngine:
         trash = self.pool_pages
         row = np.full((self.pages_per_slot,), trash, np.int32)
         row[:n] = alloc
-        seg0 = payload["pages"][self.model.segments[0].name]
-        n_p = next(iter(seg0.values())).shape[1]
+        n_p = paged_mod.payload_leaves(payload["pages"])[0].shape[1]
         ids = np.asarray([alloc[i] if i < n else trash for i in range(n_p)],
                          np.int64)
         self.stats["page_admits"] += 1
@@ -1593,15 +1595,12 @@ class ServeEngine:
         max_len`` tokens. Paged: pool pages (values + scales, trash page
         excluded) over ``pool_pages * page_size`` tokens, plus the page
         table."""
-        segs = self.model.segments
+        leaves = paged_mod.payload_leaves(
+            {seg.name: self.cache[seg.name] for seg in self.model.segments})
+        total = sum(t.numel() * t.element_size() for t in leaves)
         if not self.paged:
-            total = sum(t.numel() * t.element_size() for seg in segs
-                        for t in self.cache[seg.name].values())
             return total / (self.slots * self.max_len)
-        per_page = sum(
-            t.numel() * t.element_size() / (self.pool_pages + 1)
-            for seg in segs
-            for t in self.cache[seg.name].values())
+        per_page = total / (self.pool_pages + 1)
         table = self.cache["page_table"]
         return per_page / self.page_size + (
             table.numel() * table.element_size()

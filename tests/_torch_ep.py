@@ -22,15 +22,20 @@ CASES = {
     "ftp": ((2, 4), "ep_dedup", "fp32", True, "replicated"),
     "ftp_split": ((2, 4), "ep_flat", "fp32", True, "split"),
     "fp8_wire": ((1, 4), "ep_flat", "fp8", False, "split"),
+    "fp8_wire_qwen3_moe": ((1, 4), "ep_flat", "fp8", False, "split"),
 }
+# the arch of each case's MoE layer (DeepSeek-V3 where not named): the
+# reference's own FP8-wire case routes qwen3-moe's softmax scores
+ARCHS = {"fp8_wire_qwen3_moe": "qwen3-moe-30b-a3b"}
+DSV3 = "deepseek-v3-671b"
 BYTES_SLOTS = 64
 
 
-def moe_config():
-    """DeepSeek-V3 smoke without FP8 GEMMs, capacity headroom 8 (the
-    reference's ``TestEP`` config)."""
+def moe_config(arch=DSV3):
+    """``arch``'s smoke config without FP8 GEMMs, capacity headroom 8 (the
+    reference's ``TestEP`` configs)."""
     from repro_torch.configs.base import get_config, smoke_config
-    cfg = smoke_config(get_config("deepseek-v3-671b"))
+    cfg = smoke_config(get_config(arch))
     return dataclasses.replace(cfg, fp8=False, moe=dataclasses.replace(
         cfg.moe, capacity_factor=8.0))
 
@@ -105,15 +110,15 @@ def run_rank(rank: int, world: int, store_path: str, out_dir: str) -> None:
                             rank=rank, world_size=world)
     meshes = _meshes()
     inputs = np.load(os.path.join(out_dir, "inputs.npz"))
-    cfg = moe_config()
-    params = {k[2:]: torch.from_numpy(inputs[k]) for k in inputs.files
-              if k.startswith("p:")}
     out = {}
     for name, (shape, *_rest) in CASES.items():
         mesh = meshes[shape]
         if mesh.rank is None:
             continue
-        y = run_case(name, mesh, cfg, params,
+        arch = ARCHS.get(name, DSV3)
+        params = {k.split(":")[2]: torch.from_numpy(inputs[k])
+                  for k in inputs.files if k.startswith(f"p:{arch}:")}
+        y = run_case(name, mesh, moe_config(arch), params,
                      torch.from_numpy(inputs["x:" + name]))
         out[name] = y.numpy()
     for impl, v in bytes_case(meshes[(2, 4)]).items():

@@ -324,9 +324,19 @@ def test_fp8_gemm_refuses_weights_it_does_not_take(card):
         fp8_ops.fp8_gemm(xq, xs, off.t().view(fp8.E4M3), ws)
 
 
+# (E, C, D, F): the bf16 routed experts of qwen3-moe-30b-a3b (2048 -> 768
+# -> 2048) and llama4-maverick (5120 -> 8192 -> 5120) at decode's C = 8 and
+# at the capacity of the 2048-token prefill bucket (top-8: 160; top-1: 24)
+MOE_BF16_SHAPES = [(128, 8, 2048, 768), (128, 8, 768, 2048),
+                   (128, 160, 2048, 768), (128, 160, 768, 2048),
+                   (128, 8, 5120, 8192), (128, 8, 8192, 5120),
+                   (128, 24, 5120, 8192), (128, 24, 8192, 5120)]
+
+
 @pytest.mark.parametrize("fmt", ["bf16", "e4m3"])
 @pytest.mark.parametrize("dims", [(256, 8, 7168, 2048), (256, 8, 2048, 7168),
-                                  (256, 40, 7168, 2048), (3, 40, 72, 96)])
+                                  (256, 40, 7168, 2048), (3, 40, 72, 96),
+                                  *MOE_BF16_SHAPES])
 def test_moe_gemm_kernel_matches_plain(card, dims, fmt):
     """Both weight formats, on weights whose block magnitudes span six
     decades, held over the whole output and within each F block; the plain
@@ -627,11 +637,18 @@ def test_mla_decode_refuses_rows_past_its_shared_memory(card):
 
 
 # (B, H, KV, hd, page, pp, contexts): qwen3-14b's decode (G = 5, not a
-# power of two), then the reference's parity shapes (G = 4, 1, 8)
+# power of two), then the reference's parity shapes (G = 4, 1, 8), then the
+# decode of glm4-9b (G = 16), yi-34b (G = 7: the runtime-G branch, as 16),
+# qwen3-moe-30b-a3b (G = 8) and qwen1.5-4b (G = 1, 20 heads) at published
+# widths
 GQA_CASES = [(4, 40, 8, 128, 8, 256, (600, 900, 1200, 1500)),
              (2, 8, 2, 32, 16, 4, (33, 36)),
              (1, 4, 4, 64, 8, 6, (24,)),
-             (3, 16, 2, 32, 4, 8, (16, 19, 22))]
+             (3, 16, 2, 32, 4, 8, (16, 19, 22)),
+             (4, 32, 2, 128, 8, 256, (600, 900, 1200, 1500)),
+             (4, 56, 8, 128, 8, 256, (600, 900, 1200, 1500)),
+             (4, 32, 4, 128, 8, 256, (600, 900, 1200, 1500)),
+             (4, 20, 20, 128, 8, 256, (600, 900, 1200, 1500))]
 
 
 @pytest.mark.parametrize("storage", ["fp8", "bf16", "fp32"])
@@ -839,7 +856,13 @@ FLASH_CASES = [(1, 2048, 2048, 40, 8, 128, torch.bfloat16, True),
                (3, 200, 200, 10, 2, 128, torch.bfloat16, True),
                (2, 70, 130, 10, 2, 64, torch.bfloat16, False),
                (2, 256, 256, 10, 2, 32, torch.bfloat16, True),
-               (2, 256, 256, 10, 2, 64, torch.bfloat16, True)]
+               (2, 256, 256, 10, 2, 64, torch.bfloat16, True),
+               # the 2048 bucket of glm4-9b (G = 16), qwen1.5-4b (G = 1),
+               # yi-34b (G = 7) and qwen3-moe-30b-a3b (G = 8)
+               (1, 2048, 2048, 32, 2, 128, torch.bfloat16, True),
+               (1, 2048, 2048, 20, 20, 128, torch.bfloat16, True),
+               (1, 2048, 2048, 56, 8, 128, torch.bfloat16, True),
+               (1, 2048, 2048, 32, 4, 128, torch.bfloat16, True)]
 
 
 @pytest.mark.parametrize("case", FLASH_CASES)
@@ -1205,6 +1228,26 @@ ENGINE_PATHS = {
                                dict(paged=False, use_mtp=True),
                                {"fp8_gemm", "moe_gemm", "mla_decode"},
                                {"paged_mla_decode"}),
+    # the published query heads per KV head at head_dim 32; the MoE archs'
+    # bf16 experts reach moe_gemm, and nothing fp8_gemm
+    "glm4-9b": ("glm4-9b", dict(num_heads=32, num_kv_heads=2),
+                dict(paged=True), {"flash_prefill", "paged_gqa_decode"},
+                {"fp8_gemm", "moe_gemm"}),
+    "qwen1.5-4b": ("qwen1.5-4b", {}, dict(paged=True),
+                   {"flash_prefill", "paged_gqa_decode"},
+                   {"fp8_gemm", "moe_gemm"}),
+    "yi-34b": ("yi-34b", dict(num_heads=14, num_kv_heads=2),
+               dict(paged=True), {"flash_prefill", "paged_gqa_decode"},
+               {"fp8_gemm", "moe_gemm"}),
+    "qwen3-moe-30b-a3b": ("qwen3-moe-30b-a3b",
+                          dict(num_heads=16, num_kv_heads=2),
+                          dict(paged=True),
+                          {"flash_prefill", "paged_gqa_decode", "moe_gemm"},
+                          {"fp8_gemm"}),
+    "llama4-maverick-400b-a17b": (
+        "llama4-maverick-400b-a17b", dict(num_heads=10, num_kv_heads=2),
+        dict(paged=True), {"flash_prefill", "paged_gqa_decode", "moe_gemm"},
+        {"fp8_gemm"}),
 }
 
 

@@ -14,8 +14,9 @@ computed here on the same weights (the reference's tests hold its
   (1, 8);
 * ``ep_ftp`` on (2, 4), tokens replicated over the data axis, and with a
   data-split batch (gathered over the data axis first);
-* the FP8 wire on (1, 4) within 0.05 (on DeepSeek-V3 smoke: the port has
-  no softmax routing for the reference's qwen3-moe case yet).
+* the FP8 wire on (1, 4) within 0.05, on the reference's own case
+  (smoke qwen3-moe-30b-a3b: softmax routing, top-2 from 2 of 4 groups,
+  its input drawn from the reference's key) and on DeepSeek-V3 smoke.
 
 The wire codec is bitwise JAX's, in process. ``decode_alltoall_bytes()``
 on ``benchmarks/train_bench.bench_config()`` at (2, 4), 64 slots: the
@@ -49,8 +50,11 @@ SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 # per-case x shapes (the reference's TestEP), besides ftp_split
 SHAPES = {"flat": (4, 16), "dedup": (4, 16), "dedup_cpg2": (8, 8),
-          "ftp": (3, 1), "ftp_split": (4, 1), "fp8_wire": (4, 16)}
-TOL = {"fp8_wire": 0.05}
+          "ftp": (3, 1), "ftp_split": (4, 1), "fp8_wire": (4, 16),
+          "fp8_wire_qwen3_moe": (4, 16)}
+TOL = {"fp8_wire": 0.05, "fp8_wire_qwen3_moe": 0.05}
+# the reference's draw of each case's input (keys 1, 2, ... otherwise)
+KEYS = {"fp8_wire_qwen3_moe": 1}
 
 JAX_BYTES = """
 from repro.compat import make_mesh as mk
@@ -68,8 +72,8 @@ for impl in ("ep_flat", "ep_dedup"):
 """
 
 
-def _config():
-    cfg = smoke_config(get_config("deepseek-v3-671b"))
+def _config(arch=_torch_ep.DSV3):
+    cfg = smoke_config(get_config(arch))
     return dataclasses.replace(cfg, fp8=False, moe=dataclasses.replace(
         cfg.moe, capacity_factor=8.0))
 
@@ -77,17 +81,20 @@ def _config():
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     d = tmp_path_factory.mktemp("ep")
-    cfg = _config()
-    params = JModel(cfg).init(jax.random.PRNGKey(0))
-    pm = jax.tree.map(lambda x: x[0], params["blocks"])["moe"]
-    inputs, refs = {}, {}
-    for k, v in pm.items():
-        inputs["p:" + k] = np.asarray(v)[None]     # one stacked layer
+    inputs, refs, layers = {}, {}, {}
+    for arch in {_torch_ep.DSV3, *_torch_ep.ARCHS.values()}:
+        params = JModel(_config(arch)).init(jax.random.PRNGKey(0))
+        layers[arch] = pm = jax.tree.map(lambda x: x[0],
+                                         params["blocks"])["moe"]
+        for k, v in pm.items():
+            inputs[f"p:{arch}:{k}"] = np.asarray(v)[None]  # one layer
     for i, (name, shape) in enumerate(SHAPES.items()):
-        x = jax.random.normal(jax.random.PRNGKey(1 + i),
+        arch = _torch_ep.ARCHS.get(name, _torch_ep.DSV3)
+        cfg = _config(arch)
+        x = jax.random.normal(jax.random.PRNGKey(KEYS.get(name, 1 + i)),
                               shape + (cfg.d_model,), jnp.float32) * 0.5
         inputs["x:" + name] = np.asarray(x)
-        y, _, _ = jmoe.moe_ffn(pm, x, cfg, capacity_override=512)
+        y, _, _ = jmoe.moe_ffn(layers[arch], x, cfg, capacity_override=512)
         refs[name] = np.asarray(y)
     np.savez(d / "inputs.npz", **inputs)
     env = dict(os.environ)

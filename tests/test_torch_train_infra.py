@@ -8,8 +8,8 @@ against the reference's; and 5-step ``Trainer`` trajectories on smoke
 DeepSeek-V3 against the reference's ``Trainer``, started from one state
 (``bridge.train_state_from_jax``).
 
-The reference's failure-recovery test trains ``qwen1.5-4b``, which the
-port does not have yet; here it trains smoke qwen3-14b. Trajectory
+The failure-recovery test trains the reference's ``qwen1.5-4b`` and, as
+before the port had that config, smoke qwen3-14b. Trajectory
 tolerances: the loss per step within 1e-5 relative without FP8 and 2e-3
 with it (an FP8 quantization is discontinuous: an ulp of difference in
 its input now and then flips an E4M3 code, see ``test_torch_train.py``;
@@ -208,20 +208,30 @@ class TestCheckpoint:
             assert ckpt.latest_step(d) == 8
 
 
+def _failure_recovery(arch):
+    """The reference's failure-recovery run: a node failure at step 9
+    (restart from the step-8 checkpoint) and an SDC alarm at 18."""
+    cfg = tsmoke(tget(arch))
+    with tempfile.TemporaryDirectory() as d:
+        tc = TrainConfig(peak_lr=1e-3, warmup=2, total_steps=30,
+                         ckpt_dir=d, ckpt_every=4, sdc_check_every=9)
+        inj = FailureInjector({9: "node", 18: "sdc"})
+        tr = Trainer(cfg, tc, injector=inj, global_batch=2, seq_len=16,
+                     device="cpu")
+        out = tr.run(22)
+        assert out["final_step"] == 22
+        assert out["restarts"] == 1
+        assert out["sdc_alarms"] == [18]
+        assert [h["step"] for h in out["history"]][:9] == list(range(9))
+
+
 class TestFaultTolerance:
     def test_failure_recovery_end_to_end(self):
-        cfg = tsmoke(tget("qwen3-14b"))
-        with tempfile.TemporaryDirectory() as d:
-            tc = TrainConfig(peak_lr=1e-3, warmup=2, total_steps=30,
-                             ckpt_dir=d, ckpt_every=4, sdc_check_every=9)
-            inj = FailureInjector({9: "node", 18: "sdc"})
-            tr = Trainer(cfg, tc, injector=inj, global_batch=2, seq_len=16,
-                         device="cpu")
-            out = tr.run(22)
-            assert out["final_step"] == 22
-            assert out["restarts"] == 1
-            assert out["sdc_alarms"] == [18]
-            assert [h["step"] for h in out["history"]][:9] == list(range(9))
+        _failure_recovery("qwen3-14b")
+
+    def test_failure_recovery_end_to_end_qwen1_5_4b(self):
+        """The reference's own case: smoke qwen1.5-4b (MHA, QKV bias)."""
+        _failure_recovery("qwen1.5-4b")
 
     def test_node_failure_without_a_checkpoint_starts_over(self):
         cfg = tsmoke(tget("qwen3-14b"))
