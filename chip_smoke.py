@@ -85,7 +85,21 @@ from the root of a checkout. Phases, each fatal on failure:
         paged_gqa_decode 4, never fp8_gemm;
       - glm4-9b (G = 16), qwen1.5-4b (G = 1) and yi-34b (G = 7), published
         widths cut to 8 layers each: flash_prefill, paged_gqa_decode 8 a
-        step.
+        step;
+      - the recurrent families on the dense engine, whole at published
+        widths, bf16 (``phase_recurrent_path``): mamba2-2.7b (64 SSD
+        layers, qwen3-14b's prompts and max_len) and recurrentgemma-9b (12
+        x (recurrent, recurrent, local attention) + 2 recurrent, window
+        2048, prompts of 16-3000 tokens, max_len 4096: the 3000-token
+        prompt wraps the windowed ring in prefill, the 2040-token one
+        during decode). No op of the port's registry may launch (the
+        reference dispatches none for them); no cache leaf's data_ptr may
+        move; the recurrent states must be fp32; the decode chunk must be
+        captured once and equal the eager chunk. Printed: tok/s, TTFT,
+        graphed and eager ms a step in turns against the step's byte
+        floor, a profile of one graphed chunk, the longest prompt's
+        prefill ms (2 runs), peak memory, and the decode state's bytes a
+        slot beside DeepSeek-V3's MLA latent at the same context.
       The engine decodes through its chunk's CUDA graph (``serve/
       graph.py``: captured on the second chunk, replayed every tick after;
       launches counted as the capture's tally times its replays). Every
@@ -136,9 +150,11 @@ from the root of a checkout. Phases, each fatal on failure:
       KV head at head_dim 32, ``SMOKE_OVERRIDES``) on
       the card, through the kernels and the graphs (each captured once),
       against the plain versions on the CPU (eager, nothing captured),
-      same weights — each path of (c), qwen3-14b on the dense engine, and
-      the chunked paths chunked (``prefill_chunk=8``; their first-token
-      logits through ``Model.prefill_chunk``);
+      same weights — each path of (c), qwen3-14b on the dense engine, the
+      chunked paths chunked (``prefill_chunk=8``; their first-token
+      logits through ``Model.prefill_chunk``), and recurrentgemma at 5
+      layers (its rg_tail); the recurrent families' prompts (28-50
+      tokens) pass the smoke window of 32;
   (e) the LogFMT-compressed ring all-reduce (``compressed_psum``): 4 rank
       processes on the one card in a gloo group (FileStore in a temporary
       directory; the wire payload staged through pinned host memory), each
@@ -238,7 +254,8 @@ from the root of a checkout. Phases, each fatal on failure:
       DeepSeek-V3 paged fp8 as phase (c)'s path with ``moe_impl=
       "ep_flat"`` at the fp32 and the FP8 wire (its 256 experts 64 a
       rank, 32 of 128 heads a rank), then qwen3-14b whole (10 of 40 heads
-      over 2 of 8 KV heads a rank), on phase (c)'s weights and prompts.
+      over 2 of 8 KV heads a rank, 8 new tokens a request: ``MESH_NEW``),
+      on phase (c)'s weights and prompts.
       Gates and figures: ``phase_mesh``. Then the dual-microbatch decode
       (``decode_overlap=True``) and the cross-mesh disaggregator:
       - first, on one device in this process (``phase_overlap_single``),
@@ -1254,6 +1271,11 @@ def phase_kernels(torch):
 # must launch and those it must not, its prompt lengths, max_len, and the
 # four contexts of the steady decode
 PAGED = dict(paged=True, page_storage="fp8", attn_impl="pallas")
+RECURRENT = dict(paged=False, attn_impl="pallas")
+# every op of the port's kernel registry
+KERNEL_OPS = ("fp8_gemm", "moe_gemm", "paged_mla_decode", "paged_gqa_decode",
+              "flash_prefill", "mla_decode", "logfmt_encode",
+              "logfmt_decode")
 DSV3_PROMPTS = dict(lengths=[16, 120, 250, 380, 490, 600], max_len=1024,
                     steady=[600, 700, 800, 900])
 QWEN_PROMPTS = dict(lengths=[16, 200, 500, 900, 1200, 1500], max_len=2048,
@@ -1323,6 +1345,23 @@ PATHS = {
         model="yi-34b", overrides=dict(num_layers=8), engine=PAGED,
         kernels=("flash_prefill", "paged_gqa_decode"), absent=(),
         per_step={"paged_gqa_decode": 8}, **QWEN_PROMPTS),
+    # the recurrent families, whole at published widths, bf16, on the dense
+    # engine (they have no paged layout): no kernel of the port lies on
+    # their paths (the reference dispatches none), so every op's launches
+    # must stay 0. mamba2-2.7b: 64 SSD layers, qwen3-14b's prompts;
+    # recurrentgemma-9b: 12 x (recurrent, recurrent, local attention) + 2
+    # recurrent, window 2048: the 3000-token prompt wraps the windowed ring
+    # in prefill, the 2040-token one during decode. ``steady``: the four
+    # slots' contexts of the steady decode (recurrentgemma: past the
+    # window, every ring row valid)
+    "mamba2-2.7b": dict(
+        model="mamba2-2.7b", overrides={}, engine=RECURRENT,
+        kernels=(), absent=KERNEL_OPS, recurrent=True, **QWEN_PROMPTS),
+    "recurrentgemma-9b": dict(
+        model="recurrentgemma-9b", overrides={}, engine=RECURRENT,
+        kernels=(), absent=KERNEL_OPS, recurrent=True,
+        lengths=[16, 300, 1200, 2040, 2600, 3000], max_len=4096,
+        steady=[2100, 2600, 3100, 3600]),
 }
 
 # phase (d): each path's engine at smoke width, and qwen3-14b on the dense
@@ -1331,8 +1370,14 @@ PATHS = {
 REFERENCE_CHECKS = [(p["model"], p["engine"]) for p in PATHS.values()] + [
     ("qwen3-14b", dict(paged=False, attn_impl="pallas"))] + [
     (p["model"], dict(p["engine"], prefill_chunk=8))
-    for p in PATHS.values() if "chunked" in p]
+    for p in PATHS.values() if "chunked" in p] + [
+    ("recurrentgemma-9b", RECURRENT, dict(num_layers=5))]
+# the recurrent families' smoke prompts: past the smoke window of 32, so the
+# windowed ring wraps in prefill (its decode of the 28-token one wraps too)
+RECURRENT_SMOKE_LENGTHS = (28, 40, 50)
 SMOKE_OVERRIDES = {"deepseek-v3-671b": {},
+                   "mamba2-2.7b": {},
+                   "recurrentgemma-9b": {},
                    "qwen3-14b": dict(num_heads=10, num_kv_heads=2),
                    "glm4-9b": dict(num_heads=32, num_kv_heads=2),
                    "qwen1.5-4b": {},
@@ -1349,6 +1394,13 @@ def path_config(name):
     cfg = get_config(spec["model"], **spec["overrides"])
     heads = (f"{cfg.num_heads} MLA heads" if cfg.mla else
              f"{cfg.num_heads} heads over {cfg.num_kv_heads} KV heads")
+    if cfg.ssm:
+        heads = (f"SSD: {cfg.ssm.num_heads(cfg.d_model)} heads of "
+                 f"{cfg.ssm.head_dim}, d_state {cfg.ssm.d_state}, conv "
+                 f"{cfg.ssm.d_conv}")
+    if cfg.rglru:
+        heads += (f", RG-LRU width {cfg.rglru.lru_width}, pattern "
+                  f"{cfg.rglru.pattern}, window {cfg.rglru.window}")
     moe = (f", {cfg.moe.num_experts} experts top-{cfg.moe.top_k} "
            f"({cfg.moe.layout})" if cfg.moe else "")
     log(f"[c] path {name}: {cfg.name}, {cfg.num_layers} of {full.num_layers} "
@@ -1482,6 +1534,206 @@ def phase_main_path(torch, name):
                                              spec["max_len"]))
         SERVED[name]["witness"] = witness(torch, eng, name, reqs)
     del eng, model, params, cache
+    torch.cuda.empty_cache()
+    return counts
+
+
+# DeepSeek-V3's decode state a token: its bf16 MLA latent, (512 + 64) x 2 B
+# x 61 layers (the paper's Table 1)
+MLA_BYTES_PER_TOKEN = 70272
+
+
+def flat_leaves(tree, path=()):
+    """A nested dict of tensors as {key path: tensor}."""
+    if isinstance(tree, dict):
+        return {p: t for k, v in tree.items()
+                for p, t in flat_leaves(v, path + (k,)).items()}
+    return {path: tree}
+
+
+def recurrent_state(eng):
+    """An engine's decode state by kind: the recurrent leaves (conv tails,
+    SSD states, RG-LRU states) and the windowed rings' leaves."""
+    leaves = flat_leaves({seg.name: eng.cache[seg.name]
+                          for seg in eng.model.segments})
+    rec = {p: t for p, t in leaves.items() if p[-1] in ("conv", "state",
+                                                         "h")}
+    rings = {p: t for p, t in leaves.items() if p not in rec}
+    return rec, rings
+
+
+def step_floor_bytes(eng):
+    """The bytes a decode step of four slots must move at least: every
+    weight once but the embedding table (four of its rows), the recurrent
+    leaves read and written, the rings read."""
+    params = flat_leaves({k: v for k, v in eng.params.items()
+                          if isinstance(v, dict)})
+    emb = params[("embed", "emb")]
+    weights = (engine_bytes(params) - engine_bytes(emb)
+               + 4 * emb.shape[1] * emb.element_size())
+    rec, rings = recurrent_state(eng)
+    return weights, 2 * engine_bytes(rec), engine_bytes(rings)
+
+
+def steady_rings(torch, eng, spec):
+    """Point every windowed ring of the four slots at the steady contexts:
+    row t valid with the newest position p < context, p = t (mod rows)."""
+    ctx = torch.tensor(spec["steady"], device=eng.device)[:, None]
+    for path, ring in recurrent_state(eng)[1].items():
+        if path[-1] != "pos":
+            continue
+        W = ring.shape[-1]
+        t = torch.arange(W, device=eng.device)[None]
+        src = t + torch.div(ctx - 1 - t, W, rounding_mode="floor") * W
+        ring.copy_(torch.where(src >= 0, src, -1).int().expand_as(ring))
+
+
+def phase_recurrent_path(torch, name):
+    """Serve one recurrent family's path (mamba2-2.7b, recurrentgemma-9b)
+    whole on the dense engine; returns the launch counts of its run. Gates:
+    every request done with 32 in-vocabulary tokens, every op of the
+    port's registry launched 0 times (the reference dispatches none for
+    these families), no cache leaf's ``data_ptr`` moved over the run, the
+    recurrent state leaves fp32, the decode chunk captured once and equal
+    to the eager chunk (``check_graph``), finite logits of the right
+    shape. Printed: tok/s, TTFT, graphed and eager ms a step against the
+    step's byte floor, a profile of one graphed chunk, the longest
+    prompt's prefill ms, peak memory, and the decode state's bytes a slot
+    beside DeepSeek-V3's MLA latent at the same context."""
+    import numpy as np
+    from repro_torch.kernels import registry
+    from repro_torch.models.api import count_params
+    from repro_torch.serve.engine import Request, ServeEngine, bucket_length
+
+    spec = PATHS[name]
+    cfg = path_config(name)
+    max_len = spec["max_len"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, slots=4, max_len=max_len, device="cuda", seed=0,
+                      **spec["engine"])
+    torch.cuda.synchronize()
+    log(f"[c] engine up (weights drawn on the card): "
+        f"{time.perf_counter() - t0:.2f} s, {count_params(cfg)} parameters, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    rec, rings = recurrent_state(eng)
+    log(f"[c] decode state of 4 slots: " + ", ".join(
+        f"{'/'.join(p)} {tuple(t.shape)} {str(t.dtype)[6:]}"
+        for p, t in {**rec, **rings}.items()))
+    bad = [p for p, t in rec.items()
+           if p[-1] in ("state", "h") and t.dtype != torch.float32]
+    if bad or not any(p[-1] in ("state", "h") for p in rec):
+        raise AssertionError(f"recurrent state leaves not fp32: {bad}")
+
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, L).astype(np.int32),
+                    max_new=32) for i, L in enumerate(spec["lengths"])]
+    ptrs = leaf_ptrs(eng.cache)
+    registry.reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    ttft, ticks = {}, 0
+    while eng.has_work():
+        eng.step()
+        ticks += 1
+        now = time.perf_counter() - t0
+        for r in reqs:
+            if r.out and r.rid not in ttft:
+                ttft[r.rid] = now
+        if ticks > 200:
+            raise AssertionError("main path did not finish in 200 ticks")
+    wall = time.perf_counter() - t0
+    counts = registry.launch_counts()
+    log(f"[c] launches on the {name} path: {counts}")
+    for r in reqs:
+        if not r.done or len(r.out) != 32:
+            raise AssertionError(f"request {r.rid}: done={r.done}, "
+                                 f"{len(r.out)} tokens (want 32)")
+        if min(r.out) < 0 or max(r.out) >= cfg.vocab_size:
+            raise AssertionError(f"request {r.rid}: token out of vocabulary")
+    for k in spec["absent"]:
+        if counts[k]:
+            raise AssertionError(f"kernel {k} launched on the {name} path")
+    if leaf_ptrs(eng.cache) != ptrs:
+        raise AssertionError("a cache leaf was rebound over the served run")
+    SERVED[name] = dict(prompts=[r.prompt.tolist() for r in reqs],
+                        outs=[list(map(int, r.out)) for r in reqs])
+    ntok = sum(len(r.out) for r in reqs)
+    log(f"[c] {len(reqs)} requests, prompts {spec['lengths']}, {ntok} "
+        f"tokens in {wall:.3f} s over {ticks} ticks ({ntok / wall:.1f} "
+        f"tok/s end to end); TTFT (at tick granularity) s: "
+        f"{[round(ttft[r.rid], 3) for r in reqs]}; every cache leaf kept "
+        "its data_ptr")
+    log(f"[c] peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    check_graph(torch, eng, spec, reqs)
+
+    # steady decode: the four slots at the path's contexts (the windowed
+    # rings full), graphed and eager in turns, against the byte floor
+    steady_rings(torch, eng, spec)
+    host = steady_host(spec)
+    chunk = eng._decode
+    chunk(host)
+    ms = {"eager": [], "graph": []}
+    for mode in ("eager", "graph", "graph", "eager"):
+        ms[mode].append(chunk_ms(torch, chunk, host, mode == "graph"))
+    w, st, rg = step_floor_bytes(eng)
+    floor = 1e3 * (w + st + rg) / HBM_BYTES_PER_S
+    log(f"[c] steady decode, 4 slots at contexts {spec['steady']} x "
+        f"{chunk.k} steps, in turns (eager, graph, graph, eager): eager "
+        f"{[round(x, 3) for x in ms['eager']]} ms/step, graphed "
+        f"{[round(x, 3) for x in ms['graph']]} ms/step "
+        f"({4e3 / min(ms['graph']):.1f} tok/s graphed); byte floor "
+        f"{floor:.3f} ms ({w / 1e9:.3f} GB of weights read, "
+        f"{st / 1e9:.3f} GB of recurrent state read and written, "
+        f"{rg / 1e9:.3f} GB of rings read, at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s): the graphed step is "
+        f"{min(ms['graph']) / floor:.2f}x the floor")
+    if leaf_ptrs(eng.cache) != ptrs:
+        raise AssertionError("a cache leaf was rebound by the decode chunk")
+    device_ms = profile_device(
+        torch, f"{name} profile of one graphed {chunk.k}-step chunk",
+        lambda: chunk(host), chunk.k, "step")
+    if device_ms:
+        log(f"[c] {name}: device ms a step under the profiler over the "
+            f"unprofiled graphed ms/step ({min(ms['graph']):.3f}): "
+            f"{100 * device_ms / min(ms['graph']):.1f}% busy")
+
+    model, params = eng.model, eng.params
+    p = reqs[-1].prompt
+    bucket = bucket_length(len(p), max_len)
+    toks = np.zeros((1, bucket), np.int32)
+    toks[0, :len(p)] = p
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(params, {"tokens": torch.as_tensor(toks)},
+                      lengths=[len(p)])
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    log(f"[c] prefill of a {len(p)}-token prompt (bucket {bucket}), 2 runs: "
+        f"{[round(x, 2) for x in walls]} ms; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    # the decode state a slot, beside DeepSeek-V3's latent at one context
+    per_slot = (engine_bytes(rec) + engine_bytes(rings)) / eng.slots
+    for c in sorted({len(p), max_len}):
+        mla = MLA_BYTES_PER_TOKEN * c
+        log(f"[c] {name}: decode state a slot {per_slot / 1e6:.3f} MB "
+            f"({engine_bytes(rec) / eng.slots / 1e6:.3f} MB recurrent, "
+            f"{engine_bytes(rings) / eng.slots / 1e6:.3f} MB of rings) "
+            f"at any context; DeepSeek-V3's bf16 MLA latent at {c} tokens "
+            f"{mla / 1e6:.3f} MB ({MLA_BYTES_PER_TOKEN} B a token): "
+            f"{per_slot / mla:.3f}x; equal at "
+            f"{per_slot / MLA_BYTES_PER_TOKEN:.0f} tokens")
+
+    logits, _ = model.prefill(params, {"tokens": torch.as_tensor(
+        reqs[0].prompt[None])})
+    if logits.shape != (1, 1, cfg.vocab_size) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError("main-path logits are not finite (1,1,V)")
+    del logits, eng, model, params
     torch.cuda.empty_cache()
     return counts
 
@@ -2182,20 +2434,23 @@ def profile_device(torch, label, fn, per, unit):
 # --- (d) ---------------------------------------------------------------------
 
 
-def phase_reference(torch, name, engine):
+def phase_reference(torch, name, engine, overrides=None):
     import dataclasses
 
     import numpy as np
     from repro_torch.configs.base import get_config, smoke_config
     from repro_torch.models.api import Model
-    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.engine import Request, ServeEngine, bucket_length
 
     cfg = dataclasses.replace(
         smoke_config(get_config(name)), dtype="bfloat16",
-        param_dtype="bfloat16", fp8_impl="pallas", **SMOKE_OVERRIDES[name])
+        param_dtype="bfloat16", fp8_impl="pallas", **SMOKE_OVERRIDES[name],
+        **(overrides or {}))
     params = Model(cfg, device="cpu").init(seed=1)
-    prompts = [np.arange(5 + 7 * i) * (i + 3) % cfg.vocab_size
-               for i in range(3)]
+    lengths = (RECURRENT_SMOKE_LENGTHS if cfg.family in ("ssm", "hybrid")
+               else (5, 12, 19))
+    prompts = [np.arange(L) * (i + 3) % cfg.vocab_size
+               for i, L in enumerate(lengths)]
     outs, logits, drafts, bf16_pages = {}, {}, {}, {}
     for dev in ("cuda", "cpu"):
         eng = ServeEngine(cfg, params=params, slots=2, max_len=64, chunk=4,
@@ -2218,7 +2473,8 @@ def phase_reference(torch, name, engine):
             bf16_pages[dev] = chunk_logits(eng, prompts[2],
                                            "bf16").float().cpu()
         else:
-            toks = np.zeros((1, 32), np.int32)
+            toks = np.zeros((1, bucket_length(len(prompts[2]), 64)),
+                            np.int32)
             toks[0, :len(prompts[2])] = prompts[2]
             lg, _ = eng.model.prefill(eng.params,
                                       {"tokens": torch.as_tensor(toks)},
@@ -2240,8 +2496,9 @@ def phase_reference(torch, name, engine):
                   f"max err {float((a2 - b2).abs().max() / b2.abs().max()):.3g}")
     graphs = ("decode and prefill chunks one CUDA graph each"
               if engine.get("prefill_chunk") else "decode chunk one CUDA graph")
-    log(f"[d] {name} {engine} at smoke width ({cfg.num_heads} heads over "
-        f"{cfg.num_kv_heads} KV heads), bf16, the card's {graphs}: "
+    log(f"[d] {name} {engine} at smoke width ({cfg.num_layers} layers, "
+        f"{cfg.num_heads} heads over {cfg.num_kv_heads} KV heads), bf16, the "
+        f"card's {graphs}: "
         f"first-token logits ({how}) card vs CPU "
         f"plain: max err {rel:.3g} of max|logit| (tol 5e-2), cosine "
         f"{cos:.6f} (>= 0.999); greedy tokens equal {same}/24{extra}")
@@ -3503,6 +3760,17 @@ MESH_STEP = {"deepseek-v3-671b": {"fp8_gemm": 29, "moe_gemm": 3,
                                   "paged_mla_decode": 4},
              "qwen3-14b": {"paged_gqa_decode": 40}}
 MESH_PREFILL = {"qwen3-14b": {"flash_prefill": 40}}
+# each meshed run's requests: phase (c)'s first prompts and new tokens a
+# request (phase (c) served six of 32). qwen3-14b's eager meshed prefill
+# takes ~6.6 ms a token and its decode ~1.35 s a step, so its run serves
+# the first four prompts (16-900 tokens) 16 tokens each: every request
+# decodes two chunks, so the served run has decode-only ticks for the
+# per-step launch gate. The logit gates read the served first tokens,
+# the same at any budget, over the run's prompts
+MESH_PROMPTS = {"deepseek-v3-671b": 6, "qwen3-14b": 4}
+MESH_NEW = {"deepseek-v3-671b": 32, "qwen3-14b": 16}
+# timed runs of the longest prompt's meshed prefill (printed, not gated)
+MESH_PREFILL_RUNS = 1
 # faults planted on the meshed engine after its run (``plant_fault``):
 # the logit gate must reject each
 MESH_FAULTS = {"deepseek-v3-671b": ("experts_shifted", "w_o_scales_shifted"),
@@ -3581,7 +3849,7 @@ def mesh_rank(rank, store_path, out_path):
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         params = {model: eng.params}
-        reqs = [Request(i, np.asarray(p, np.int32), max_new=32)
+        reqs = [Request(i, np.asarray(p, np.int32), max_new=MESH_NEW[model])
                 for i, p in enumerate(inputs[model]["prompts"])]
         for r in reqs:
             eng.submit(r)
@@ -3627,7 +3895,7 @@ def mesh_rank(rank, store_path, out_path):
         ptoks = np.zeros((1, bucket), np.int32)
         ptoks[0, :len(p)] = p
         prefill_ms = []
-        for i in range(3):
+        for i in range(MESH_PREFILL_RUNS):
             dist.barrier()
             torch.cuda.synchronize()
             t1 = time.perf_counter()
@@ -3640,10 +3908,13 @@ def mesh_rank(rank, store_path, out_path):
         if rank == 0:
             np.savez(f"{out_path}.{model}.{wire}.npz", **ref)
         # the gate's other side: the same logits with a fault planted
+        # (each fault fails the decode step's or the MoE layer's reading:
+        # the prefill logits are not replayed under it)
         for fault in MESH_FAULTS[model] if wire != "fp8" else ():
             with plant_fault(torch, fault, eng, ctx):
                 ref = reference_logits(torch, eng, inputs[model],
-                                       spec["max_len"], pctx=ctx)
+                                       spec["max_len"], pctx=ctx,
+                                       prefill=False)
             if rank == 0:
                 np.savez(f"{out_path}.{model}.{fault}.npz", **ref)
         outs = [list(map(int, r.out)) for r in reqs]
@@ -4116,10 +4387,10 @@ def moe_layer_out(torch, eng, x, pctx=None):
     return y.float().cpu().numpy().reshape(-1, y.shape[-1])
 
 
-def reference_logits(torch, eng, served, max_len, pctx=None):
+def reference_logits(torch, eng, served, max_len, pctx=None, prefill=True):
     """The logits phase (h) holds the meshed engine to, on this engine
-    (phase (c)'s, or a rank's meshed one): the bucketed prefill of each of
-    the served prompts, ``(n, V)``; and one decode step over four slots
+    (phase (c)'s, or a rank's meshed one): with ``prefill``, the bucketed
+    prefill of each of the served prompts, ``(n, V)``; one decode step over four slots
     admitted with the first four prompts, fed each request's served first
     token at its prompt length, ``(4, V)`` (the same inputs on both sides
     whatever token each prefill picks); on a model with experts, the first
@@ -4129,7 +4400,7 @@ def reference_logits(torch, eng, served, max_len, pctx=None):
     from repro_torch.serve.engine import Request, bucket_length
     model, params = eng.model, eng.params
     pre = []
-    for p in served["prompts"]:
+    for p in served["prompts"] if prefill else ():
         toks = np.zeros((1, bucket_length(len(p), max_len)), np.int32)
         toks[0, :len(p)] = p
         logits, _ = model.prefill(params, {"tokens": torch.as_tensor(toks)},
@@ -4148,7 +4419,9 @@ def reference_logits(torch, eng, served, max_len, pctx=None):
     step = step[:, 0].float().cpu().numpy()
     for r in reqs:
         eng.cancel(r.rid)
-    out = {"prefill_logits": np.stack(pre), "step_logits": step}
+    out = {"step_logits": step}
+    if prefill:
+        out["prefill_logits"] = np.stack(pre)
     if eng.cfg.moe:
         out["moe_out"] = moe_layer_out(torch, eng, moe_check_input(
             torch, eng.cfg, dev), pctx)
@@ -4235,7 +4508,8 @@ def phase_mesh(torch, card):
     t0 = time.time()
     with tempfile.TemporaryDirectory() as tmp:
         (pathlib.Path(tmp) / "mesh_in.json").write_text(json.dumps(
-            {m: dict(prompts=SERVED[m]["prompts"], outs=SERVED[m]["outs"])
+            {m: {k: SERVED[m][k][:MESH_PROMPTS[m]] for k in ("prompts",
+                                                             "outs")}
              for m, _ in MESH_RUNS}))
         codes, outs = run_ranks(mesh_rank, MESH_WORLD, tmp, 900)
         if codes != [0] * MESH_WORLD:
@@ -4274,7 +4548,7 @@ def phase_mesh(torch, card):
                     bad.append(f"{key} rank {r}: launches {what}, tick by "
                                f"tick of the served run, {got}; want {want}")
             for o in run["outs"]:
-                if len(o) != 32 or min(o) < 0 or \
+                if len(o) != MESH_NEW[model] or min(o) < 0 or \
                         max(o) >= get_vocab(model):
                     bad.append(f"{key}: bad stream {o[:8]}")
         if len({run["mirrors"] for run in runs}) != 1:
@@ -4301,7 +4575,8 @@ def phase_mesh(torch, card):
             f"{[round(run['decode_ms_step'], 2) for run in runs]}, of which "
             "inside staged collectives "
             f"{[round(run['coll_ms_step'], 2) for run in runs]}; prefill of "
-            f"the {runs[0]['prefill_len']}-token prompt ms (3 runs, rank 0) "
+            f"the {runs[0]['prefill_len']}-token prompt ms "
+            f"({MESH_PREFILL_RUNS} run(s), rank 0) "
             f"{[round(x, 2) for x in runs[0]['prefill_ms']]}")
         if wire != "None":
             log(f"[h] {key}: decode_alltoall_bytes() per rank "
@@ -4452,7 +4727,7 @@ def mesh_logit_gate(key, logits, outs):
 
     def reading(what, ours, ref, limits=MESH_LIMITS[model]):
         err, cos = limits
-        a = logit_agreement(ours, ref)
+        a = logit_agreement(ours, ref[:len(ours)])    # the run's prompts
         ok = a["err"] <= err and a["cos"] >= cos
         log(f"[h] {key}: {what}: max err {a['err']:.5f} of max|ref| "
             f"(rows {a['rows_err']}), least cosine {a['cos']:.6f} (rows "
@@ -4483,7 +4758,7 @@ def mesh_logit_gate(key, logits, outs):
         f = logits[f"{model} {fault}"]
         caught = [not reading(f"planted fault {fault}, {part} vs single "
                               "device", f[part], one[part])
-                  for part in ("step_logits", "prefill_logits")]
+                  for part in ("step_logits", "prefill_logits") if part in f]
         if moe:
             caught.append(not reading(
                 f"planted fault {fault}, the routed experts' part of the "
@@ -4491,7 +4766,12 @@ def mesh_logit_gate(key, logits, outs):
                 f["moe_out"], one["moe_out"], MOE_LIMITS))
         if not any(caught):
             bad.append(f"{key}: the gate passes planted fault {fault}")
-    log(f"[h] {key}: free-running greedy streams (32 tokens x "
+    # the single device and the witness served 32 tokens, the mesh
+    # MESH_NEW[model]: compared over the mesh's
+    n = len(outs[0])
+    one = dict(outs=[o[:n] for o in one["outs"]])
+    wit = dict(outs=[o[:n] for o in wit["outs"]])
+    log(f"[h] {key}: free-running greedy streams ({n} tokens x "
         f"{len(outs)}), tokens equal: mesh vs single device "
         f"{match_frac(one['outs'], outs):.4f}, witness vs single device "
         f"{match_frac(one['outs'], wit['outs']):.4f}, mesh vs witness "
@@ -5196,12 +5476,13 @@ def main():
     lap("(b) kernels")
     launches = {}
     for path, spec in PATHS.items():
-        counts = phase_main_path(torch, path)
+        counts = (phase_recurrent_path if spec.get("recurrent")
+                  else phase_main_path)(torch, path)
         for k in spec["kernels"]:        # each kernel: the first path of it
             launches.setdefault(k, counts[k])
         lap(f"(c) path {path}")
-    for name, engine in REFERENCE_CHECKS:
-        phase_reference(torch, name, engine)
+    for name, engine, *overrides in REFERENCE_CHECKS:
+        phase_reference(torch, name, engine, *overrides)
     lap("(d) reference checks")
     ring = phase_ring(torch, card, kernels)
     for k in ("logfmt_encode", "logfmt_decode"):

@@ -17,7 +17,8 @@
   exactly as ``ste_qdq_block`` computes it), and each 2-D weight that
   reaches the FP8 ``linear`` (input width >= 256), the MTP module's
   included, gains its ``(wq, ws)`` block quantization as a
-  ``core.fp8.Fp8Weight``, its codes stored K-contiguous for the
+  ``core.fp8.Fp8Weight`` (the recurrent blocks' ``w_in``, ``w_out``,
+  ``w_x`` and ``w_y`` too), its codes stored K-contiguous for the
   ``fp8_gemm`` kernel. Same values as the
   per-call reference; at published widths the per-call expert qdq would
   need ~15 GB of fp32 temporaries per expert matrix.
@@ -43,6 +44,9 @@ from repro_torch.core import fp8
 # "w_gate" is not one of them, nor are the expert stacks; the MTP module's
 # norms are 1-D)
 _LINEAR_SUBTREES = ("attn", "mlp", "mtp")
+# the recurrent blocks' weights that feed linear, by name (their fp32 gate
+# matrices "wa", "wi" and the depthwise "conv_w" never do)
+_RECURRENT_LINEARS = ("w_in", "w_out", "w_x", "w_y")
 
 
 def _to_torch(a) -> torch.Tensor:
@@ -210,7 +214,8 @@ def prepare_for_serving(params: Dict[str, Any], cfg: ModelConfig, *,
                     and "moe" in path:
                 out[k] = _qdq_experts(v, inplace)
             elif (v.dim() == 3 and d_in(path, k, v) >= 256
-                  and any(s in path for s in _LINEAR_SUBTREES)):
+                  and (k in _RECURRENT_LINEARS
+                       or any(s in path for s in _LINEAR_SUBTREES))):
                 out[k] = _quantize_linear(v)
             else:
                 out[k] = v

@@ -58,22 +58,28 @@ class MoEConfig:
 
 @dataclass(frozen=True)
 class SSMConfig:
-    """Mamba-2 SSD config (schema only: the port runs no SSM yet)."""
+    """Mamba-2 SSD config."""
 
     d_state: int = 128
     d_conv: int = 4
     expand: int = 2
     head_dim: int = 64
-    chunk: int = 256
+    chunk: int = 256  # SSD block size
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def num_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
 
 
 @dataclass(frozen=True)
 class RGLRUConfig:
-    """RecurrentGemma config (schema only: the port runs no RG-LRU yet)."""
+    """RecurrentGemma RG-LRU + local-attention hybrid config."""
 
-    lru_width: int = 0
+    lru_width: int = 0           # 0 -> d_model
     conv_width: int = 4
-    window: int = 2048
+    window: int = 2048           # local attention window
     pattern: Tuple[str, ...] = ("recurrent", "recurrent", "attention")
 
 
@@ -171,7 +177,7 @@ def list_archs() -> list[str]:
 
 
 # Only the archs the port runs: the reference's seven decoder-only
-# transformers (it registers eleven).
+# transformers and its two recurrent families (it registers eleven).
 _ARCH_MODULES = [
     "deepseek_v3_671b",
     "glm4_9b",
@@ -180,6 +186,8 @@ _ARCH_MODULES = [
     "qwen3_14b",
     "qwen3_moe_30b_a3b",
     "llama4_maverick_400b_a17b",
+    "mamba2_2_7b",
+    "recurrentgemma_9b",
 ]
 
 _loaded = False
@@ -227,6 +235,13 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
             cfg.moe, num_experts=8, top_k=min(cfg.moe.top_k, 2), expert_ff=64,
             shared_ff=64 if cfg.moe.num_shared else 0,
             num_groups=4, group_limit=2, layout=layout)
+    if cfg.ssm:
+        kw["ssm"] = SSMConfig(d_state=16, d_conv=4, expand=2, head_dim=32,
+                              chunk=32)
+    if cfg.rglru:
+        kw["rglru"] = dataclasses.replace(cfg.rglru, lru_width=0, window=32)
+        kw["num_layers"] = 3   # one full pattern block
+        kw["num_kv_heads"] = 1
     if cfg.mtp:
         kw["mtp"] = cfg.mtp
     return dataclasses.replace(cfg, name=cfg.name + "-smoke", **kw)

@@ -1,7 +1,11 @@
-"""Model API — port of the transformer ``Model`` of ``repro.models.api``
-for the decoder-only transformers: MLA (DeepSeek-V3, with its MTP module)
-and GQA (qwen3-14b, glm4-9b, yi-34b, qwen1.5-4b, qwen3-moe-30b-a3b and
-llama4-maverick, whose ``interleave:2`` layout stacks dense/MoE pairs).
+"""Model API — port of the ``Model`` of ``repro.models.api`` for the
+decoder-only transformers: MLA (DeepSeek-V3, with its MTP module) and GQA
+(qwen3-14b, glm4-9b, yi-34b, qwen1.5-4b, qwen3-moe-30b-a3b and
+llama4-maverick, whose ``interleave:2`` layout stacks dense/MoE pairs),
+and the recurrent families: Mamba-2 SSD (mamba2-2.7b, ``models/ssm.py``)
+and RecurrentGemma (recurrentgemma-9b: RG-LRU blocks and sliding-window
+GQA in ``rg3`` pattern steps, ``models/rglru.py``), whose decode state
+does not grow with the context and which serve on the dense cache only.
 
     specs() / init(seed)           ParamSpec dict (the reference's key
                                    names) and materialized tensors
@@ -64,6 +68,8 @@ from repro_torch.core import mtp as mtp_mod
 from repro_torch.core import paged as paged_mod
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import layers as Lyr
+from repro_torch.models import rglru as rg_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.param import ParamSpec, init_params, layer
 from repro_torch.parallel import collectives as coll
@@ -125,8 +131,10 @@ def sample_logits(logits: torch.Tensor, seeds: torch.Tensor,
 class Segment:
     name: str
     kind: str        # dense | moe | dense_moe (a dense block, then a MoE
-                     # block, per step: llama4's "interleave:2")
-    n: int           # stacked layers (dense_moe: stacked pairs)
+                     # block, per step: llama4's "interleave:2") | ssd |
+                     # rg3 (one cfg.rglru.pattern a step) | rg_tail
+    n: int           # stacked layers (dense_moe: pairs; rg3: patterns)
+    window: int = 0  # sliding window of the attention blocks (0 = full)
 
 
 # the blocks of one dense_moe step, in order: each has its own subtree of
@@ -151,9 +159,37 @@ def _segments(cfg: ModelConfig) -> List[Segment]:
             assert k == 2 and L % 2 == 0, (lay, L)
             return [Segment("pat", "dense_moe", L // 2)]
         raise ValueError(lay)
+    if cfg.family == "ssm":
+        return [Segment("blocks", "ssd", L)]
+    if cfg.family == "hybrid":
+        plen = len(cfg.rglru.pattern)
+        segs = [Segment("pat", "rg3", L // plen, window=cfg.rglru.window)]
+        if L % plen:
+            segs.append(Segment("tail", "rg_tail", 1))
+        return segs
     raise NotImplementedError(
         f"family={cfg.family!r}: the port runs the decoder-only "
-        "transformers so far (ROADMAP.md, A.10)")
+        "transformers and the recurrent families so far (ROADMAP.md, A.10)")
+
+
+def _pages(seg: Segment) -> bool:
+    """Whether a segment has a paged layout: non-windowed attention
+    caches only. Recurrent state (ssd, rg3, rg_tail) and windowed rings
+    stay on the dense cache, as in the reference."""
+    return seg.kind not in ("ssd", "rg3", "rg_tail") and not seg.window
+
+
+def _rg_tail_len(cfg: ModelConfig) -> int:
+    return cfg.num_layers % len(cfg.rglru.pattern)
+
+
+def _pattern_keys(cfg: ModelConfig, seg: Segment) -> List[Tuple[str, str]]:
+    """(subtree key, block kind) of one rg3 / rg_tail step, in order:
+    ``r{i}`` recurrent, ``a{i}`` attention (the reference's keys)."""
+    if seg.kind == "rg_tail":
+        return [(f"r{i}", "recurrent") for i in range(_rg_tail_len(cfg))]
+    return [(f"r{i}" if k == "recurrent" else f"a{i}", k)
+            for i, k in enumerate(cfg.rglru.pattern)]
 
 
 def per_block(seg: Segment, fn, *trees):
@@ -168,9 +204,27 @@ def per_block(seg: Segment, fn, *trees):
 
 def step_phases(seg: Segment, p, x, cfg: ModelConfig, ctx: dict, cache):
     """One step of a segment as phases (``collectives.drive``): one block,
-    or a dense_moe pair's dense block then its MoE block (the reference's
-    ``_apply_kind``). Returns (x, cache_out, stats); a pair's cache out is
-    per block and its stats are the MoE block's."""
+    a dense_moe pair's dense block then its MoE block, one SSD block, or
+    an rg3 / rg_tail step's blocks in ``cfg.rglru.pattern`` order (the
+    reference's ``_apply_kind``; a windowed segment's attention is local).
+    Returns (x, cache_out, stats); a pair's or a pattern's cache out is per
+    block, and a pair's stats are the MoE block's. The recurrent blocks
+    issue no collective: they run through."""
+    if seg.window:
+        ctx = dict(ctx, window=seg.window)
+    if seg.kind == "ssd":
+        return ssm_mod.ssd_block_apply(p, x, cfg, ctx, cache)
+    if seg.kind in ("rg3", "rg_tail"):
+        outs = {}
+        for key, kind in _pattern_keys(cfg, seg):
+            c = None if cache is None else cache[key]
+            if kind == "recurrent":
+                x, outs[key], _ = rg_mod.recurrent_block_apply(
+                    p[key], x, cfg, ctx, c)
+            else:
+                x, outs[key], _ = yield from tfm.block_phases(
+                    p[key], x, cfg, ctx, c)
+        return x, outs, {}
     if seg.kind != "dense_moe":
         return (yield from tfm.block_phases(p, x, cfg, ctx, cache))
     outs, st = {}, {}
@@ -185,6 +239,13 @@ def _kind_specs(cfg: ModelConfig, seg: Segment) -> dict:
         return tfm.dense_block_specs(cfg, seg.n)
     if seg.kind == "moe":
         return tfm.moe_block_specs(cfg, seg.n)
+    if seg.kind == "ssd":
+        return ssm_mod.ssd_block_specs(cfg, seg.n)
+    if seg.kind in ("rg3", "rg_tail"):
+        return {key: (rg_mod.recurrent_block_specs(cfg, seg.n)
+                      if kind == "recurrent"
+                      else tfm.dense_block_specs(cfg, seg.n))
+                for key, kind in _pattern_keys(cfg, seg)}
     return {"dense": tfm.dense_block_specs(cfg, seg.n),
             "moe": tfm.moe_block_specs(cfg, seg.n)}
 
@@ -202,6 +263,14 @@ def _embed_specs(cfg: ModelConfig) -> dict:
 
 def _kind_cache(cfg: ModelConfig, seg: Segment, batch: int, max_len: int,
                 device) -> dict:
+    if seg.kind == "ssd":
+        return ssm_mod.init_ssd_cache(cfg, seg.n, batch, device)
+    if seg.kind in ("rg3", "rg_tail"):
+        return {key: (rg_mod.init_rglru_cache(cfg, seg.n, batch, device)
+                      if kind == "recurrent"
+                      else Lyr.init_gqa_cache(cfg, seg.n, batch, max_len,
+                                              device, window=seg.window))
+                for key, kind in _pattern_keys(cfg, seg)}
     if seg.kind == "dense_moe":
         return {k: Lyr.init_gqa_cache(cfg, seg.n, batch, max_len, device)
                 for k in PAIR}
@@ -212,6 +281,16 @@ def _kind_cache(cfg: ModelConfig, seg: Segment, batch: int, max_len: int,
 
 def _kind_paged_cache(cfg: ModelConfig, seg: Segment, pool_pages: int,
                       page_size: int, storage: str, device) -> dict:
+    """Paged pool for one segment (attention caches only). Recurrent state
+    and windowed rings have no paged layout: asking for one is a config
+    error (the reference's ``ValueError``), not a silent fallback."""
+    if not _pages(seg):
+        raise ValueError(
+            f"segment {seg.name!r} (kind={seg.kind!r}, window={seg.window})"
+            " has no paged layout: only non-windowed attention caches page "
+            "— recurrent SSM/RG-LRU state stays slot-resident at full "
+            "precision and windowed rings are dense-only. Use the "
+            "dense-cache engine for this arch.")
     if seg.kind == "dense_moe":
         return {k: Lyr.init_paged_gqa_cache(cfg, seg.n, pool_pages,
                                             page_size, storage, device)
@@ -255,6 +334,13 @@ def _advance(st: dict, logits: torch.Tensor, temperature: float,
         left=left2, tix=st["tix"] + active.int())
 
 
+def _stacked(layer_entries, names) -> Dict[str, torch.Tensor]:
+    """Per-layer entry tuples -> ``{name: (n, ...)}``, stacked over the
+    layers."""
+    return {name: torch.stack([e[i] for e in layer_entries])
+            for i, name in enumerate(names)}
+
+
 def _fill(tree, value):
     """The same nesting of dicts with every leaf replaced by ``value``."""
     if isinstance(tree, dict):
@@ -272,7 +358,8 @@ class Model:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.segments = _segments(cfg)
-        tfm.attn_specs(cfg, 1)    # raises for an attention not ported yet
+        if cfg.family != "ssm":
+            tfm.attn_specs(cfg, 1)   # raises for an attention not ported yet
         if cfg.expert_dtype:
             raise NotImplementedError(
                 "expert_dtype (fp8 expert storage) is not ported yet "
@@ -490,7 +577,7 @@ class Model:
                                   dtype=torch.int32,
                                   device=self.device).expand(B)
         ctx = self._ctx(params, positions=pos, collect_cache=True,
-                        valid=pos < lengths[:, None])
+                        valid=pos < lengths[:, None], prompt_lengths=lengths)
         h, entries, _ = self._backbone(params, tokens, ctx, None)
         idx = (lengths - 1).clamp(0, S - 1).long()
         h_last = h[torch.arange(B, device=self.device), idx][:, None]
@@ -507,21 +594,36 @@ class Model:
 
     def _seg_cache(self, seg: Segment, step_entries, S: int, T: int,
                    lengths):
-        """A segment's ring leaves from its per-step prefill entries (a
-        dense_moe step's are per block)."""
+        """A segment's cache leaves from its per-step prefill entries (a
+        dense_moe or pattern step's are per block). The SSD and RG-LRU
+        entries (conv tail, final state) are exact at the prompt's length
+        already (the blocks gate the pads out) and are stacked as they
+        are; a windowed segment's rings hold ``min(T, window)`` rows."""
         if seg.kind == "dense_moe":
             return {k: self._entries_to_cache([e[k] for e in step_entries],
                                               S, T, lengths)
                     for k in PAIR}
+        if seg.kind == "ssd":
+            return _stacked(step_entries, ("conv", "state"))
+        if seg.kind in ("rg3", "rg_tail"):
+            return {key: (_stacked([e[key] for e in step_entries],
+                                   ("conv", "h"))
+                          if kind == "recurrent" else self._entries_to_cache(
+                              [e[key] for e in step_entries], S, T, lengths,
+                              seg.window))
+                    for key, kind in _pattern_keys(self.cfg, seg)}
         return self._entries_to_cache(step_entries, S, T, lengths)
 
-    def _entries_to_cache(self, layer_entries, S: int, T: int, lengths):
+    def _entries_to_cache(self, layer_entries, S: int, T: int, lengths,
+                          window: int = 0):
         """Per-layer prefill entries — MLA ``(ckv, kr)`` or GQA ``(k, v)``,
-        ``(B, S, ...)`` each — -> ring leaves ``(n, B, T, ...)`` in the
+        ``(B, S, ...)`` each — -> ring leaves ``(n, B, Tc, ...)`` in the
         cache dtype with ``pos`` (-1 on empty rows, whose values are
-        zeroed). Ring row t holds the newest prompt token whose position p
-        satisfies p ≡ t (mod T): a per-row gather that serves a ring at
-        least as long as the prompt and one shorter than it."""
+        zeroed); ``Tc = T``, or ``min(T, window)`` under a window. Ring row
+        t holds the newest prompt token whose position p satisfies p ≡ t
+        (mod Tc): a per-row gather that serves a ring at least as long as
+        the prompt and one shorter than it (a window the prompt wraps)."""
+        T = min(T, window) if window else T
         cdt = torch_dtype(self.cfg.cache_dtype_())
         names = ("ckv", "kr") if self.cfg.attention == "mla" else ("k", "v")
         leaves = {name: torch.stack([e[i] for e in layer_entries])
@@ -780,6 +882,12 @@ class Model:
         return axes
 
     # -- paged cache family (block pool + page tables; core/paged.py) -------
+    def supports_paged(self) -> bool:
+        """True iff every segment has a paged layout (non-windowed
+        attention). The recurrent and windowed families are dense-cache
+        only."""
+        return all(_pages(seg) for seg in self.segments)
+
     def init_paged_cache(self, batch: int, max_len: int, page_size: int,
                          pool_pages: int, storage: str = "fp8", device=None):
         """Shared page pools (``pool_pages`` + 1 trash page per segment, no
@@ -911,9 +1019,10 @@ class Model:
         B, C = tokens.shape
         # the reference's ctx also carries ``causal`` (read by its
         # transformer block to pick causal attention) and
-        # ``prompt_lengths`` (read by its SSM and RG-LRU blocks); no block
-        # of the port reads either: paged attention is causal by position,
-        # and ``valid`` brings the length to the MoE
+        # ``prompt_lengths`` (read by the SSM and RG-LRU blocks when they
+        # collect a cache, which a chunk does not: those families have no
+        # paged layout); paged attention is causal by position, and
+        # ``valid`` brings the length to the MoE
         ctx = self._ctx(params, positions=positions, page_table=table,
                         valid=positions < lengths[:, None])
         h, _, _ = self._backbone(params, tokens, ctx, cache)

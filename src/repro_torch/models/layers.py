@@ -1,8 +1,9 @@
 """Shared layers: norms, RoPE, dense linears (optionally on the FP8 path),
 attention (direct, or the ``flash_prefill`` kernel op), GQA attention
-with its dense ring and paged decode caches, SwiGLU MLP — port of
-``repro.models.layers`` for the archs the port runs (MLA and GQA).
-Sliding windows are not ported yet (ROADMAP.md, A.10).
+with its dense ring (a ``window``-row ring under sliding-window
+attention) and paged decode caches, SwiGLU/GeGLU MLP — port of
+``repro.models.layers`` for the archs the port runs (MLA and GQA, local
+attention included).
 
 All layers are functional: ``*_specs(cfg)`` returns a ParamSpec dict,
 apply functions take the materialized tensors.
@@ -44,8 +45,14 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor,
     return (xf * gamma.float()).to(dt)
 
 
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu's default is the tanh approximation, not torch's exact
+    # erf form
+    return F.gelu(x, approximate="tanh")
+
+
 def act_fn(name: str):
-    return {"silu": F.silu}[name]
+    return {"silu": F.silu, "gelu": _gelu}[name]
 
 
 def raw(w: Union[torch.Tensor, Fp8Weight]) -> torch.Tensor:
@@ -185,11 +192,13 @@ def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
     return x.reshape(*x.shape[:-1], n, x.shape[-1] // n)
 
 
-def _attn_direct(q, k, v, *, causal: bool, q_pos, k_pos, scale: float):
+def _attn_direct(q, k, v, *, causal: bool, q_pos, k_pos, scale: float,
+                 window: int = 0):
     """Unchunked attention. q: (B,S,H,hd) k/v: (B,T,KV,hd'). Mask: attend
-    iff k_pos <= q_pos (causal) and k_pos >= 0. Operands stay in the model
-    dtype and the products accumulate in fp32 (the upcast is exact), as
-    the reference's ``preferred_element_type=float32`` einsums."""
+    iff k_pos <= q_pos (causal), q_pos - k_pos < window (if window > 0)
+    and k_pos >= 0. Operands stay in the model dtype and the products
+    accumulate in fp32 (the upcast is exact), as the reference's
+    ``preferred_element_type=float32`` einsums."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -198,6 +207,8 @@ def _attn_direct(q, k, v, *, causal: bool, q_pos, k_pos, scale: float):
     mask = k_pos[:, None, :] >= 0
     if causal:
         mask = mask & (k_pos[:, None, :] <= q_pos[:, :, None])
+    if window:
+        mask = mask & (q_pos[:, :, None] - k_pos[:, None, :] < window)
     scores = scores.masked_fill(~mask[:, None, None], -1e30)
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,btkh->bskgh", p.to(v.dtype).float(), v.float())
@@ -210,15 +221,17 @@ ATTN_BLOCK_Q = 512
 
 
 def attention_scores(q, k, v, *, causal: bool, q_pos, k_pos,
-                     scale: float = 0.0, impl: str = "xla"):
+                     scale: float = 0.0, impl: str = "xla",
+                     window: int = 0):
     """Attention over query blocks: each block's S_b x T score tile lives
-    only transiently. ``impl="pallas"`` sends multi-token attention
-    through the ``flash_prefill`` kernel op (block-tiled online softmax
-    over the bucket: no S x T score matrix at all), as the reference
-    does."""
+    only transiently. ``impl="pallas"`` sends multi-token unwindowed
+    attention through the ``flash_prefill`` kernel op (block-tiled online
+    softmax over the bucket: no S x T score matrix at all), as the
+    reference does; windowed attention stays on the direct path there
+    too."""
     B, S, H, hd = q.shape
     scale = scale or 1.0 / math.sqrt(hd)
-    if (impl == "pallas" and S > 1 and k.shape[-1] == hd
+    if (impl == "pallas" and S > 1 and not window and k.shape[-1] == hd
             and v.shape[-1] == hd):
         from repro_torch.kernels.flash_attention import ops as flash_ops
         out = flash_ops.flash_prefill(q, k, v, q_pos, k_pos, causal=causal,
@@ -227,9 +240,10 @@ def attention_scores(q, k, v, *, causal: bool, q_pos, k_pos,
     bq = ATTN_BLOCK_Q
     if S <= bq or S % bq != 0:
         return _attn_direct(q, k, v, causal=causal, q_pos=q_pos,
-                            k_pos=k_pos, scale=scale)
+                            k_pos=k_pos, scale=scale, window=window)
     outs = [_attn_direct(q[:, i:i + bq], k, v, causal=causal,
-                         q_pos=q_pos[:, i:i + bq], k_pos=k_pos, scale=scale)
+                         q_pos=q_pos[:, i:i + bq], k_pos=k_pos, scale=scale,
+                         window=window)
             for i in range(0, S, bq)]
     return torch.cat(outs, dim=1)
 
@@ -238,9 +252,11 @@ def gqa_attention(p: dict, x: torch.Tensor, *, cfg: ModelConfig,
                   positions: torch.Tensor, cache: Optional[dict] = None,
                   page_table: Optional[torch.Tensor] = None,
                   impl: str = "xla", return_cache_entries: bool = False,
-                  dp_write=None):
+                  dp_write=None, window: int = 0):
     """Causal GQA self-attention (also MHA/MQA; optional qk-norm and qkv
-    bias).
+    bias); ``window`` > 0 makes it local (sliding-window) attention, whose
+    dense ring holds ``window`` rows. A paged cache has no windowed
+    layout: the model refuses one before a step gets here.
 
     Without ``cache``: prefill over the whole sequence; with
     ``return_cache_entries`` it also returns this layer's ``(k, v)``
@@ -285,12 +301,12 @@ def gqa_attention(p: dict, x: torch.Tensor, *, cfg: ModelConfig,
     if cache is None:
         out = attention_scores(q, k[..., sel, :], v[..., sel, :],
                                causal=True, q_pos=positions,
-                               k_pos=positions, impl=impl)
+                               k_pos=positions, impl=impl, window=window)
         if return_cache_entries:
             aux = (k, v)
     elif page_table is None:
         out = _ring_decode(q, k, v, cache, cfg=cfg, positions=positions,
-                           impl=impl, sel=sel)
+                           impl=impl, sel=sel, window=window)
         aux = cache
     else:
         out = _paged_decode(q, k, v, cache, cfg=cfg, positions=positions,
@@ -329,10 +345,12 @@ def _kv_heads_of(nh: int, nkv: int, cfg: ModelConfig) -> slice:
 
 
 def _ring_decode(q, k, v, cache: dict, *, cfg: ModelConfig, positions,
-                 impl: str, sel: slice = slice(None)) -> torch.Tensor:
+                 impl: str, sel: slice = slice(None),
+                 window: int = 0) -> torch.Tensor:
     """The dense ring branch of :func:`gqa_attention`: write k, v (B, 1,
     KV, hd) at ring row ``position % T`` of each slot, then attend with the
-    ring's ``pos`` as key positions (-1 rows are empty)."""
+    ring's ``pos`` as key positions (-1 rows are empty) and, under a
+    ``window``, only over the last ``window`` positions."""
     B, T = cache["pos"].shape
     idx = (positions[:, 0] % T).long()
     ba = torch.arange(B, device=q.device)
@@ -343,7 +361,7 @@ def _ring_decode(q, k, v, cache: dict, *, cfg: ModelConfig, positions,
     return attention_scores(q, cache["k"][..., sel, :].to(cdt),
                             cache["v"][..., sel, :].to(cdt),
                             causal=True, q_pos=positions,
-                            k_pos=cache["pos"], impl=impl)
+                            k_pos=cache["pos"], impl=impl, window=window)
 
 
 def _paged_decode(q, k, v, cache: dict, *, cfg: ModelConfig, positions,
@@ -410,14 +428,13 @@ def _paged_decode(q, k, v, cache: dict, *, cfg: ModelConfig, positions,
 
 def init_gqa_cache(cfg: ModelConfig, layers: int, batch: int, max_len: int,
                    device: torch.device, window: int = 0) -> dict:
-    """Dense K/V ring: ``k``/``v`` ``(layers, batch, max_len, KV, hd)`` in
-    the cache dtype and ``pos`` ``(layers, batch, max_len)`` int32, -1
-    where a row is empty."""
-    if window:
-        raise NotImplementedError(
-            "sliding-window rings are not ported yet (ROADMAP.md, A.10)")
+    """Dense K/V ring: ``k``/``v`` ``(layers, batch, T, KV, hd)`` in the
+    cache dtype and ``pos`` ``(layers, batch, T)`` int32, -1 where a row is
+    empty. ``T = max_len``, or ``min(max_len, window)`` for windowed
+    attention (RecurrentGemma's bounded cache)."""
+    T = min(max_len, window) if window else max_len
     dt = torch_dtype(cfg.cache_dtype_())
-    shape = (layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim_())
+    shape = (layers, batch, T, cfg.num_kv_heads, cfg.head_dim_())
     return dict(k=torch.zeros(shape, dtype=dt, device=device),
                 v=torch.zeros(shape, dtype=dt, device=device),
                 pos=torch.full(shape[:3], -1, dtype=torch.int32,
@@ -448,7 +465,7 @@ def init_paged_gqa_cache(cfg: ModelConfig, layers: int, pool_pages: int,
 
 
 # ---------------------------------------------------------------------------
-# MLP (SwiGLU)
+# MLP (SwiGLU / GeGLU)
 # ---------------------------------------------------------------------------
 
 
@@ -465,7 +482,7 @@ def mlp_specs(cfg: ModelConfig, layers: int,
 
 
 def mlp(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """SwiGLU; under a model group column-parallel over ``mlp`` (x enters
+    """SwiGLU (GeGLU under ``act="gelu"``); under a model group column-parallel over ``mlp`` (x enters
     through ``copy_to_group``), ``w_down`` row-parallel."""
     x = coll.copy_to_group(x, pctx.get().tp_group)
     g = act_fn(cfg.act)(linear(x, p["w_gate"], cfg))

@@ -1,5 +1,6 @@
-"""Transformer blocks (dense and MoE, MLA or GQA attention) — port of the
-parts of ``repro.models.transformer`` the MLA and GQA archs run. Pre-norm
+"""Transformer blocks (dense and MoE, MLA or GQA attention; GQA also as
+the local attention of the hybrid family) — port of the parts of
+``repro.models.transformer`` the MLA and GQA archs run. Pre-norm
 residual blocks; ``*_block_specs(cfg, n)`` returns a ParamSpec dict whose
 leaves stack ``n`` layers on their leading axis; ``block_apply`` consumes
 one layer slice and returns, as the reference's, the layer's MoE stats
@@ -21,6 +22,11 @@ from repro_torch.parallel import collectives as coll
 from repro_torch.parallel import context as pctx
 
 
+# the attention kinds that run GQA: "local" is the hybrid family's
+# sliding-window attention (its window rides in the block's ctx)
+GQA_KINDS = ("gqa", "local")
+
+
 def _norm_spec(cfg: ModelConfig, n: int) -> ParamSpec:
     return ParamSpec((n, cfg.d_model), cfg.param_dtype, ("layers", None),
                      "ones")
@@ -29,7 +35,7 @@ def _norm_spec(cfg: ModelConfig, n: int) -> ParamSpec:
 def attn_specs(cfg: ModelConfig, n: int) -> dict:
     if cfg.attention == "mla":
         return mla_mod.mla_specs(cfg, n)
-    if cfg.attention == "gqa":
+    if cfg.attention in GQA_KINDS:
         return Lyr.gqa_specs(cfg, n)
     raise NotImplementedError(
         f"attention={cfg.attention!r}: the port runs MLA and GQA so far "
@@ -61,15 +67,16 @@ def _self_attention(p: dict, h: torch.Tensor, cfg: ModelConfig, ctx: dict,
     step: over the dense ring when the slice has a ``pos`` leaf, else over
     the page pool (the page table rides in ctx). Without, prefill, which
     returns the layer's cache entries (MLA latents, GQA ``(k, v)``) when
-    ``collect_cache``."""
+    ``collect_cache``. ``ctx["window"]`` (set by a windowed segment) makes
+    GQA local attention."""
     paged = cache is not None and "pos" not in cache
-    if cfg.attention == "gqa":
+    if cfg.attention in GQA_KINDS:
         return Lyr.gqa_attention(
             p, h, cfg=cfg, positions=ctx["positions"], cache=cache,
             page_table=ctx["page_table"] if paged else None,
             impl=ctx.get("gqa_impl", "xla"),
             return_cache_entries=bool(ctx.get("collect_cache")),
-            dp_write=ctx.get("dp_write"))
+            dp_write=ctx.get("dp_write"), window=ctx.get("window", 0))
     if paged:
         return mla_mod.mla_paged_decode_step(
             p, cache, h, cfg=cfg, positions=ctx["positions"],

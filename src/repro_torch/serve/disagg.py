@@ -46,7 +46,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.serve import tier as tier_mod
 from repro_torch.serve.engine import (AdmissionError, Request, ServeEngine,
-                                      validate_request)
+                                      _waits, validate_request)
 
 
 def cache_nbytes(cache) -> int:
@@ -90,6 +90,8 @@ class Disaggregator:
                  max_queue: Optional[int] = None,
                  ctx=None, prefill_ctx=None,
                  attn_impl: str = "", device=None):
+        if cfg.sub_quadratic():                     # SSD, RG-LRU state
+            raise _waits(f"family {cfg.family!r}", "A.12", "Disaggregator")
         self.prefill_ep = prefill_ep
         self.decode_ep = decode_ep
         common = dict(max_len=max_len, use_mtp=use_mtp, chunk=chunk,

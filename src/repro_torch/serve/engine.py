@@ -303,6 +303,8 @@ class ServeEngine:
         if self.meshed and cfg.moe and cfg.moe.layout.startswith(
                 "interleave:"):
             raise _waits(f"ctx= with layout {cfg.moe.layout!r}", "A.11")
+        if self.meshed and cfg.sub_quadratic():     # SSD, RG-LRU state
+            raise _waits(f"ctx= with family {cfg.family!r}", "A.12")
         paged_mod.validate_storage(page_storage)
         self.cfg = cfg
         self.model = Model(cfg, device)

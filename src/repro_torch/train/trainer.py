@@ -102,6 +102,10 @@ def _meshed_checks(model: Model, ctx: pctx_mod.ParallelCtx, pspecs) -> None:
     """The meshed step's conditions; each unmet one raises (no fallback)."""
     cfg = model.cfg
     ctx.dp_axis                                   # one data axis (A.8)
+    if cfg.sub_quadratic():                       # SSD, RG-LRU state
+        raise NotImplementedError(
+            f"family {cfg.family!r} under a mesh is not ported yet: see "
+            "ROADMAP.md, A.12")
     if any(seg.kind == "dense_moe" for seg in model.segments):
         raise NotImplementedError(
             f"{cfg.moe.layout} (dense/MoE pairs) under a mesh is not "

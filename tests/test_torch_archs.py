@@ -85,7 +85,12 @@ def _rel(a, b):
 
 
 def test_list_archs_holds_the_seven_decoder_only_transformers():
-    assert list_archs() == sorted(ARCHS + ("deepseek-v3-671b", "qwen3-14b"))
+    """The seven decoder-only transformers, and beside them the two
+    recurrent families (``test_torch_archs_recurrent.py``): 9 of the
+    reference's 11."""
+    assert list_archs() == sorted(ARCHS + ("deepseek-v3-671b", "qwen3-14b",
+                                           "mamba2-2.7b",
+                                           "recurrentgemma-9b"))
     for arch in ARCHS:
         assert dataclasses.asdict(tget(arch)) == dataclasses.asdict(
             get_config(arch)), arch

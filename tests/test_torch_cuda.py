@@ -1248,6 +1248,15 @@ ENGINE_PATHS = {
         "llama4-maverick-400b-a17b", dict(num_heads=10, num_kv_heads=2),
         dict(paged=True), {"flash_prefill", "paged_gqa_decode", "moe_gemm"},
         {"fp8_gemm"}),
+    # the recurrent families on the dense engine (no paged layout): no op
+    # of the registry lies on their path; recurrentgemma at 5 layers runs
+    # its rg_tail too
+    "mamba2-2.7b": ("mamba2-2.7b", {}, dict(paged=False), set(),
+                    set(registry.names())),
+    "recurrentgemma-9b": ("recurrentgemma-9b", {}, dict(paged=False), set(),
+                          set(registry.names())),
+    "recurrentgemma-9b-5": ("recurrentgemma-9b", dict(num_layers=5),
+                            dict(paged=False), set(), set(registry.names())),
 }
 
 

@@ -383,9 +383,20 @@ class TestGqaAttention:
         _check_paged_step(qwen_grouped, storage, impl, S=8)
 
     def test_unported_branches_raise(self, qwen):
-        _, tcfg, _, _ = qwen
+        """An attention kind the port has no block for (the reference's
+        enc-dec and vision paths, ROADMAP.md A.10) raises; a windowed ring
+        (ported with the hybrid family) is the reference's ``window``
+        rows."""
+        from repro_torch.models import transformer
+        cfg, tcfg, _, _ = qwen
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            layers.init_gqa_cache(tcfg, 1, 1, 16, "cpu", window=8)
+            transformer.attn_specs(
+                dataclasses.replace(tcfg, attention="cross"), 1)
+        ours = layers.init_gqa_cache(tcfg, 1, 1, 16, "cpu", window=8)
+        ref = jlayers.init_gqa_cache(cfg, 1, 1, 16, window=8)
+        for n in ref:
+            assert tuple(ours[n].shape) == ref[n].shape == (
+                (1, 1, 8) + ref[n].shape[3:])
 
     @pytest.mark.parametrize("storage", ["fp8", "bf16"])
     def test_paged_pool_matches_reference(self, qwen, storage):

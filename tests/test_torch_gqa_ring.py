@@ -65,8 +65,13 @@ def test_init_gqa_cache_matches_reference(qwen):
     for k in ref:
         assert ours[k].dtype == getattr(torch, str(ref[k].dtype))
         np.testing.assert_array_equal(ours[k].numpy(), np.asarray(ref[k]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        layers.init_gqa_cache(tcfg, 2, 3, 16, "cpu", window=8)
+    # a sliding window bounds the ring at min(max_len, window) rows
+    for window in (8, 32):
+        ref = jlayers.init_gqa_cache(cfg, 2, 3, 16, window=window)
+        ours = layers.init_gqa_cache(tcfg, 2, 3, 16, "cpu", window=window)
+        for k in ref:
+            np.testing.assert_array_equal(ours[k].numpy(),
+                                          np.asarray(ref[k]))
 
 
 @pytest.mark.parametrize("impl", ["xla", "pallas"])
