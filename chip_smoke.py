@@ -99,7 +99,24 @@ from the root of a checkout. Phases, each fatal on failure:
         graphed and eager ms a step in turns against the step's byte
         floor, a profile of one graphed chunk, the longest prompt's
         prefill ms (2 runs), peak memory, and the decode state's bytes a
-        slot beside DeepSeek-V3's MLA latent at the same context.
+        slot beside DeepSeek-V3's MLA latent at the same context;
+      - the families with a memory (``phase_memory_path``), each request
+        carrying seeded extras: seamless-m4t-large-v2 whole (24 encoder +
+        24 decoder layers, 2.035 B parameters, bf16) on paged fp8 pages,
+        qwen3-14b's prompts and max_len (a 512-row memory leaf), frames of
+        64-512 rows (the shorter ones zero-padded into the leaf, as the
+        reference's); flash_prefill 24 a prefill and paged_gqa_decode 24 a
+        step (the decoder's self-attention: the encoder and the
+        cross-attention run the plain path, as the reference's); and
+        llama-3.2-vision-90b at published widths cut 100 -> 10 layers (two
+        whole patterns: 2 gated cross-attention + 8 self-attention layers,
+        10.66 B parameters) on the dense engine, its gates drawn non-zero
+        before serving, (1, 1601, 8192) patch embeddings a request;
+        flash_prefill 8 a prefill, no kernel at decode. Gated: the launch
+        counts a step and a prefill, every other op 0, one capture equal
+        to the eager chunk, no page leaked, no cache leaf moved (the
+        memory leaf among them). Printed: TTFT, graphed and eager ms a
+        step against a byte floor, prefill ms, a profile, peak memory.
       The engine decodes through its chunk's CUDA graph (``serve/
       graph.py``: captured on the second chunk, replayed every tick after;
       launches counted as the capture's tally times its replays). Every
@@ -794,27 +811,32 @@ def bench_paged_mla(torch, dev, gen):
 # qwen3-14b (G = 5) as the table's row, its bf16 pool and one slot at 2048;
 # then the other served GQA paths' decode, four slots at 600-1500 on an fp8
 # pool: qwen1.5-4b (G = 1), yi-34b (G = 7, the kernel's runtime-G branch),
-# qwen3-moe-30b-a3b (G = 8) and glm4-9b (G = 16, runtime G)
+# qwen3-moe-30b-a3b (G = 8) and glm4-9b (G = 16, runtime G), and
+# seamless-m4t-large-v2's decoder (G = 1 at head_dim 64, the fifth field;
+# 128 where a row has none)
 GQA_ROWS = ((40, 8, "fp8", [600, 900, 1200, 1500]),
             (40, 8, "bf16", [600, 900, 1200, 1500]),
             (40, 8, "fp8", [2048]),
             (20, 20, "fp8", [600, 900, 1200, 1500]),
             (56, 8, "fp8", [600, 900, 1200, 1500]),
             (32, 4, "fp8", [600, 900, 1200, 1500]),
-            (32, 2, "fp8", [600, 900, 1200, 1500]))
+            (32, 2, "fp8", [600, 900, 1200, 1500]),
+            (16, 16, "fp8", [600, 900, 1200, 1500], 64))
 
 
 def bench_paged_gqa(torch, dev, gen):
-    """The served GQA paths' decode attention (``GQA_ROWS``), hd 128, page
-    8, 256 pages a slot (max_len 2048). Returns (op, cases, tolerance)."""
+    """The served GQA paths' decode attention (``GQA_ROWS``), hd 128 (64
+    where the row says), page 8, 256 pages a slot (max_len 2048). Returns
+    (op, cases, tolerance)."""
     from repro_torch.core import paged
     from repro_torch.kernels import registry
     from repro_torch.kernels.paged_attention import ops
     tol = 2e-5    # fp32 online vs full softmax, same exact dequantization
-    hd, page, pp = 128, 8, 256
-    scale = 1.0 / math.sqrt(hd)
+    page, pp = 8, 256
     cases = []
-    for H, KV, storage, ctx in GQA_ROWS:
+    for H, KV, storage, ctx, *rest in GQA_ROWS:
+        hd = rest[0] if rest else 128
+        scale = 1.0 / math.sqrt(hd)
         B = len(ctx)
         P = B * pp
         q = torch.randn(B, H, hd, generator=gen, device=dev)
@@ -960,24 +982,27 @@ def sdpa_mla_ms(torch, qa, qr, ckv, kr, valid, scale, ref):
 # flash_prefill's bucket rows: (S = T, heads, KV heads): qwen3-14b's 2048
 # bucket (the table's row), its 512 and 128 buckets, and the 2048 bucket of
 # glm4-9b (G = 16), qwen1.5-4b (G = 1), qwen3-moe-30b-a3b (G = 8) and
-# yi-34b (G = 7)
+# yi-34b (G = 7); then seamless-m4t-large-v2's decoder (16 over 16 at
+# head_dim 64, the fourth field; 128 where a row has none) and
+# llama-3.2-vision-90b's self blocks (64 over 8)
 FLASH_ROWS = ((2048, 40, 8), (512, 40, 8), (128, 40, 8), (2048, 32, 2),
-              (2048, 20, 20), (2048, 32, 4), (2048, 56, 8))
+              (2048, 20, 20), (2048, 32, 4), (2048, 56, 8),
+              (2048, 16, 16, 64), (2048, 64, 8))
 
 
 def bench_flash_prefill(torch, dev, gen):
-    """The served prefill attention (``FLASH_ROWS``, hd 128) and qwen3-14b's
-    prefill chunk (S = 256 queries at positions 1280-1535 against T = 2048
-    keys), each against SDPA."""
+    """The served prefill attention (``FLASH_ROWS``, hd 128 or the row's)
+    and qwen3-14b's prefill chunk (S = 256 queries at positions 1280-1535
+    against T = 2048 keys), each against SDPA."""
     from repro_torch.kernels.flash_attention import ops
     # per output row, relative to the row's own norm: P rounded to bf16
     # for P·V moves a row by ~2^-9 of itself; a key dropped from a row of
     # 2048 moves it by ~1/sqrt(2048) = 2e-2
     tol = 1e-2
     rows = []
-    hd = 128
-    scale = 1.0 / math.sqrt(hd)
-    for S, H, KV in FLASH_ROWS:
+    for S, H, KV, *rest in FLASH_ROWS:
+        hd = rest[0] if rest else 128
+        scale = 1.0 / math.sqrt(hd)
         q = torch.randn(1, S, H, hd, generator=gen, device=dev).bfloat16()
         k = torch.randn(1, S, KV, hd, generator=gen, device=dev).bfloat16()
         v = torch.randn(1, S, KV, hd, generator=gen, device=dev).bfloat16()
@@ -987,8 +1012,8 @@ def bench_flash_prefill(torch, dev, gen):
         ref = ops.flash_prefill.run_plain(*args, causal=True, scale=scale)
         err, _ = max_err(torch, y, ref)
         rel = max_row_err(torch, y, ref)
-        check(f"flash_prefill (S = {S}, {H} heads over {KV})", rel, tol,
-              of="its row's norm")
+        check(f"flash_prefill (S = {S}, {H} heads over {KV}, hd {hd})", rel,
+              tol, of="its row's norm")
         iters = 20 if S >= 2048 else 100
         ms = cuda_ms(torch, lambda: ops.flash_prefill(*args, causal=True,
                                                       scale=scale), iters)
@@ -1006,7 +1031,8 @@ def bench_flash_prefill(torch, dev, gen):
             return sdpa(qt, kt, vt, is_causal=True, scale=scale)
         lib_rel = max_row_err(torch, lib().transpose(1, 2), ref)
         lib_ms = cuda_ms(torch, lib, iters)
-        log(f"[b]   flash_prefill S = T = {S}, H = {H}, KV = {KV}: kernel "
+        log(f"[b]   flash_prefill S = T = {S}, H = {H}, KV = {KV}, hd = "
+            f"{hd}: kernel "
             f"{ms:.4f} ms, SDPA "
             f"{lib_ms:.4f} ms (differs from the plain version by "
             f"{lib_rel:.3g} of a row's norm): kernel / SDPA = "
@@ -1272,6 +1298,7 @@ def phase_kernels(torch):
 # four contexts of the steady decode
 PAGED = dict(paged=True, page_storage="fp8", attn_impl="pallas")
 RECURRENT = dict(paged=False, attn_impl="pallas")
+DENSE = RECURRENT
 # every op of the port's kernel registry
 KERNEL_OPS = ("fp8_gemm", "moe_gemm", "paged_mla_decode", "paged_gqa_decode",
               "flash_prefill", "mla_decode", "logfmt_encode",
@@ -1362,6 +1389,29 @@ PATHS = {
         kernels=(), absent=KERNEL_OPS, recurrent=True,
         lengths=[16, 300, 1200, 2040, 2600, 3000], max_len=4096,
         steady=[2100, 2600, 3100, 3600]),
+    # the families with a memory (``phase_memory_path``), each request
+    # with its seeded extras (``memory``: frame rows a request, or the
+    # patch count): seamless-m4t-large-v2 whole, bf16, on fp8 pages (its
+    # max_len 2048 gives a 512-row memory leaf; frames of 64-512 rows);
+    # llama-3.2-vision-90b at published widths cut 100 -> 10 layers (two
+    # whole patterns), bf16, dense engine (no paged layout), its gates
+    # drawn non-zero before serving. ``per_prefill``: each kernel's
+    # launches a prefill (the decoder's or the self blocks' attention only:
+    # the encoder and the cross-attention run the plain path, as the
+    # reference's)
+    "seamless-m4t-large-v2": dict(
+        model="seamless-m4t-large-v2", overrides={}, engine=PAGED,
+        kernels=("flash_prefill", "paged_gqa_decode"),
+        absent=tuple(k for k in KERNEL_OPS
+                     if k not in ("flash_prefill", "paged_gqa_decode")),
+        per_step={"paged_gqa_decode": 24}, per_prefill={"flash_prefill": 24},
+        memory=[64, 128, 256, 384, 448, 512], **QWEN_PROMPTS),
+    "llama-3.2-vision-90b": dict(
+        model="llama-3.2-vision-90b", overrides=dict(num_layers=10),
+        engine=DENSE, kernels=("flash_prefill",),
+        absent=tuple(k for k in KERNEL_OPS if k != "flash_prefill"),
+        per_step={k: 0 for k in KERNEL_OPS}, per_prefill={"flash_prefill": 8},
+        memory=[1601] * 6, **QWEN_PROMPTS),
 }
 
 # phase (d): each path's engine at smoke width, and qwen3-14b on the dense
@@ -1384,7 +1434,10 @@ SMOKE_OVERRIDES = {"deepseek-v3-671b": {},
                    "yi-34b": dict(num_heads=14, num_kv_heads=2),
                    "qwen3-moe-30b-a3b": dict(num_heads=16, num_kv_heads=2),
                    "llama4-maverick-400b-a17b": dict(num_heads=10,
-                                                     num_kv_heads=2)}
+                                                     num_kv_heads=2),
+                   "seamless-m4t-large-v2": {},
+                   "llama-3.2-vision-90b": dict(num_heads=16,
+                                                num_kv_heads=2)}
 
 
 def path_config(name):
@@ -1403,6 +1456,12 @@ def path_config(name):
                   f"{cfg.rglru.pattern}, window {cfg.rglru.window}")
     moe = (f", {cfg.moe.num_experts} experts top-{cfg.moe.top_k} "
            f"({cfg.moe.layout})" if cfg.moe else "")
+    if cfg.encoder_layers:
+        moe += (f", {cfg.encoder_layers} encoder layers, memory "
+                f"{cfg.src_len_ratio} x max_len rows")
+    if cfg.cross_attn_every:
+        moe += (f", a gated cross-attention layer every "
+                f"{cfg.cross_attn_every}, {cfg.num_patches} patches")
     log(f"[c] path {name}: {cfg.name}, {cfg.num_layers} of {full.num_layers} "
         f"layers at published widths (d_model {cfg.d_model}, {heads}, "
         f"d_ff {cfg.d_ff}{moe}, vocab {cfg.vocab_size}); fp8_impl="
@@ -1410,10 +1469,53 @@ def path_config(name):
     return cfg
 
 
+def serve_timed(eng, name, spec, reqs, extras=None):
+    """Submit ``reqs`` (each with its ``extras``) and tick ``eng`` until it
+    has no work, the launch counters zeroed just before. Gates: every
+    request done with 32 in-vocabulary tokens, each kernel of the path
+    launched, none of its absent ops, no page leaked. Returns (launch
+    counts, TTFT s by request id at tick granularity, ticks, wall s)."""
+    from repro_torch.kernels import registry
+    registry.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i, r in enumerate(reqs):
+        eng.submit(r, None if extras is None else extras[i])
+    ttft, ticks = {}, 0
+    while eng.has_work():
+        eng.step()                       # ends in the per-chunk host sync
+        ticks += 1
+        now = time.perf_counter() - t0
+        for r in reqs:
+            if r.out and r.rid not in ttft:
+                ttft[r.rid] = now
+        if ticks > 200:
+            raise AssertionError("main path did not finish in 200 ticks")
+    wall = time.perf_counter() - t0
+    counts = registry.launch_counts()
+    log(f"[c] launches on the {name} path: {counts}")
+    for r in reqs:
+        if not r.done or len(r.out) != 32:
+            raise AssertionError(f"request {r.rid}: done={r.done}, "
+                                 f"{len(r.out)} tokens (want 32)")
+        if min(r.out) < 0 or max(r.out) >= eng.cfg.vocab_size:
+            raise AssertionError(f"request {r.rid}: token out of vocabulary")
+    for k in spec["kernels"]:
+        if counts[k] <= 0:
+            raise AssertionError(f"kernel {k} never launched on the {name} "
+                                 "path")
+    for k in spec["absent"]:
+        if counts[k]:
+            raise AssertionError(f"kernel {k} launched on the {name} path")
+    if eng.paged and eng.free_pages() != eng.pool_pages:
+        raise AssertionError("pages leaked after every request finished")
+    SERVED[name] = dict(prompts=[r.prompt.tolist() for r in reqs],
+                        outs=[list(map(int, r.out)) for r in reqs])
+    return counts, ttft, ticks, wall
+
+
 def phase_main_path(torch, name):
     """Serve one model's path; returns the launch counts of its run."""
     import numpy as np
-    from repro_torch.kernels import registry
     from repro_torch.serve.engine import Request, ServeEngine
 
     spec = PATHS[name]
@@ -1435,41 +1537,7 @@ def phase_main_path(torch, name):
     lengths = spec["lengths"]
     reqs = [Request(i, rng.integers(0, cfg.vocab_size, L).astype(np.int32),
                     max_new=32) for i, L in enumerate(lengths)]
-    registry.reset_launch_counts()
-    t0 = time.perf_counter()
-    for r in reqs:
-        eng.submit(r)
-    ttft = {}
-    ticks = 0
-    while eng.has_work():
-        eng.step()                       # ends in the per-chunk host sync
-        ticks += 1
-        now = time.perf_counter() - t0
-        for r in reqs:
-            if r.out and r.rid not in ttft:
-                ttft[r.rid] = now
-        if ticks > 200:
-            raise AssertionError("main path did not finish in 200 ticks")
-    wall = time.perf_counter() - t0
-    counts = registry.launch_counts()
-    log(f"[c] launches on the {name} path: {counts}")
-    for r in reqs:
-        if not r.done or len(r.out) != 32:
-            raise AssertionError(f"request {r.rid}: done={r.done}, "
-                                 f"{len(r.out)} tokens (want 32)")
-        if min(r.out) < 0 or max(r.out) >= cfg.vocab_size:
-            raise AssertionError(f"request {r.rid}: token out of vocabulary")
-    for k in spec["kernels"]:
-        if counts[k] <= 0:
-            raise AssertionError(f"kernel {k} never launched on the {name} "
-                                 "path")
-    for k in spec["absent"]:
-        if counts[k]:
-            raise AssertionError(f"kernel {k} launched on the {name} path")
-    if eng.paged and eng.free_pages() != eng.pool_pages:
-        raise AssertionError("pages leaked after every request finished")
-    SERVED[name] = dict(prompts=[r.prompt.tolist() for r in reqs],
-                        outs=[list(map(int, r.out)) for r in reqs])
+    counts, ttft, ticks, wall = serve_timed(eng, name, spec, reqs)
     if eng.use_mtp:
         drafts = eng.stats["drafts"]
         log(f"[c] MTP: {drafts} drafts, {eng.stats['accepted_drafts']} "
@@ -1601,7 +1669,6 @@ def phase_recurrent_path(torch, name):
     prompt's prefill ms, peak memory, and the decode state's bytes a slot
     beside DeepSeek-V3's MLA latent at the same context."""
     import numpy as np
-    from repro_torch.kernels import registry
     from repro_torch.models.api import count_params
     from repro_torch.serve.engine import Request, ServeEngine, bucket_length
 
@@ -1629,36 +1696,9 @@ def phase_recurrent_path(torch, name):
     reqs = [Request(i, rng.integers(0, cfg.vocab_size, L).astype(np.int32),
                     max_new=32) for i, L in enumerate(spec["lengths"])]
     ptrs = leaf_ptrs(eng.cache)
-    registry.reset_launch_counts()
-    t0 = time.perf_counter()
-    for r in reqs:
-        eng.submit(r)
-    ttft, ticks = {}, 0
-    while eng.has_work():
-        eng.step()
-        ticks += 1
-        now = time.perf_counter() - t0
-        for r in reqs:
-            if r.out and r.rid not in ttft:
-                ttft[r.rid] = now
-        if ticks > 200:
-            raise AssertionError("main path did not finish in 200 ticks")
-    wall = time.perf_counter() - t0
-    counts = registry.launch_counts()
-    log(f"[c] launches on the {name} path: {counts}")
-    for r in reqs:
-        if not r.done or len(r.out) != 32:
-            raise AssertionError(f"request {r.rid}: done={r.done}, "
-                                 f"{len(r.out)} tokens (want 32)")
-        if min(r.out) < 0 or max(r.out) >= cfg.vocab_size:
-            raise AssertionError(f"request {r.rid}: token out of vocabulary")
-    for k in spec["absent"]:
-        if counts[k]:
-            raise AssertionError(f"kernel {k} launched on the {name} path")
+    counts, ttft, ticks, wall = serve_timed(eng, name, spec, reqs)
     if leaf_ptrs(eng.cache) != ptrs:
         raise AssertionError("a cache leaf was rebound over the served run")
-    SERVED[name] = dict(prompts=[r.prompt.tolist() for r in reqs],
-                        outs=[list(map(int, r.out)) for r in reqs])
     ntok = sum(len(r.out) for r in reqs)
     log(f"[c] {len(reqs)} requests, prompts {spec['lengths']}, {ntok} "
         f"tokens in {wall:.3f} s over {ticks} ticks ({ntok / wall:.1f} "
@@ -1738,10 +1778,171 @@ def phase_recurrent_path(torch, name):
     return counts
 
 
-def check_graph(torch, eng, spec, reqs):
-    """The decode chunk was captured once, and the same requests on the
-    same weights through an engine whose chunk runs eagerly give the same
-    streams and, on the MTP path, the same draft and accept counts."""
+# --- (c) the families with a memory -------------------------------------------
+
+
+def memory_extras(torch, cfg, rows, seed):
+    """A request's seeded extras on the card, bf16: frame embeddings (1,
+    rows, d) of the enc-dec family, patch embeddings of the vision
+    family."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    key = "src_embeds" if cfg.family == "encdec" else "patch_embeds"
+    return {key: torch.randn((1, rows, cfg.d_model), generator=g,
+                             device="cuda").to(torch.bfloat16)}
+
+
+def draw_gates(torch, params, device):
+    """The vision gates from a seeded normal, in place: their init is
+    zeros, and tanh(0) would make every cross layer add nothing, so a
+    broken cross-attention would pass every gate."""
+    cross = params["pat"]["cross"]
+    g = torch.Generator(device=device).manual_seed(13)
+    for k in ("gate_attn", "gate_mlp"):
+        cross[k].copy_(torch.randn(cross[k].shape, generator=g,
+                                   device=device))
+    return {k: [round(float(v), 4) for v in cross[k].float().cpu()]
+            for k in ("gate_attn", "gate_mlp")}
+
+
+def memory_floor(eng, spec):
+    """The least a decode step of the steady slots costs: (weight bytes,
+    K/V bytes, memory bytes, FLOPs). Bytes: every weight once but the
+    embedding table (a row a slot), the self-attention K/V read at the
+    contexts (E4M3 codes and scales on fp8 pages, bf16 rings otherwise),
+    the memory leaf read. FLOPs: the cross-attention's K/V projection of
+    every memory row, which the reference repeats every step (so does the
+    port)."""
+    cfg = eng.cfg
+    slots = len(spec["steady"])
+    params = flat_leaves({k: v for k, v in eng.params.items()
+                          if isinstance(v, dict)})
+    emb = params[("embed", "emb")]
+    weights = (engine_bytes(params) - engine_bytes(emb)
+               + slots * emb.shape[1] * emb.element_size())
+    if cfg.family == "encdec":
+        n_self = n_cross = cfg.num_layers
+    else:
+        n_cross = cfg.num_layers // cfg.cross_attn_every
+        n_self = cfg.num_layers - n_cross
+    kvd = cfg.num_kv_heads * cfg.head_dim_()
+    per_tok = 2 * kvd * (1 if eng.paged and eng.page_storage == "fp8"
+                         else 2) + (8 if eng.paged else 0)
+    kv = sum(spec["steady"]) * n_self * per_tok
+    mem = engine_bytes(eng.cache["memory"])
+    rows = eng.cache["memory"].shape[1]
+    flops = n_cross * slots * rows * 2 * 2 * cfg.d_model * kvd
+    return weights, kv, mem, flops
+
+
+def phase_memory_path(torch, name):
+    """Serve one family with a memory (seamless-m4t-large-v2 on fp8 pages,
+    llama-3.2-vision-90b on the dense engine), each request with its
+    seeded extras; returns the launch counts of its run. Gates: every
+    request done with 32 in-vocabulary tokens, each kernel of the path
+    launched and no other op, no page leaked, no cache leaf's data_ptr
+    moved (the memory leaf the decode graph reads among them), the decode
+    chunk captured once and equal to the eager chunk (``check_graph``),
+    the kernels' launches a step and a prefill, finite logits of the
+    right shape. Printed: tok/s, TTFT, graphed and eager ms a step against
+    the step's floor, profiles of a graphed chunk and of the longest
+    prompt's prefill, its prefill ms, peak memory."""
+    import numpy as np
+    from repro_torch.kernels import registry
+    from repro_torch.models.api import count_params
+    from repro_torch.serve.engine import Request, ServeEngine, bucket_length
+
+    spec = PATHS[name]
+    cfg = path_config(name)
+    max_len = spec["max_len"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, slots=4, max_len=max_len, device="cuda", seed=0,
+                      **spec["engine"])
+    gates = draw_gates(torch, eng.params, eng.device) \
+        if cfg.family == "vlm" else None
+    torch.cuda.synchronize()
+    log(f"[c] engine up (weights drawn on the card): "
+        f"{time.perf_counter() - t0:.2f} s, {count_params(cfg)} parameters, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated; memory "
+        f"leaf {tuple(eng.cache['memory'].shape)}"
+        + (f"; gates drawn from a seeded normal: {gates}" if gates else ""))
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, L).astype(np.int32),
+                    max_new=32) for i, L in enumerate(spec["lengths"])]
+    extras = [memory_extras(torch, cfg, n, 100 + i)
+              for i, n in enumerate(spec["memory"])]
+    ptrs = leaf_ptrs(eng.cache)
+    counts, ttft, ticks, wall = serve_timed(eng, name, spec, reqs, extras)
+    if leaf_ptrs(eng.cache) != ptrs:
+        raise AssertionError("a cache leaf was rebound over the served run")
+    ntok = sum(len(r.out) for r in reqs)
+    log(f"[c] {len(reqs)} requests, prompts {spec['lengths']}, extras of "
+        f"{spec['memory']} rows, {ntok} tokens in {wall:.3f} s over {ticks} "
+        f"ticks ({ntok / wall:.1f} tok/s end to end); TTFT (at tick "
+        f"granularity) s: {[round(ttft[r.rid], 3) for r in reqs]}; every "
+        "cache leaf kept its data_ptr")
+    log(f"[c] peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    check_graph(torch, eng, spec, reqs, extras)
+
+    steady_state(torch, eng, spec)
+    graphed = steady_decode(torch, name, eng, spec, 0)
+    w, kv, mem, flops = memory_floor(eng, spec)
+    floor = 1e3 * (w + kv + mem) / HBM_BYTES_PER_S
+    reproj = 1e3 * flops / PEAK_FLOPS["bf16"]
+    log(f"[c] {name}: byte floor of a step {floor:.3f} ms ({w / 1e9:.3f} GB "
+        f"of weights, {kv / 1e9:.4f} GB of K/V at contexts "
+        f"{spec['steady']}, {mem / 1e9:.4f} GB of memory rows, at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), plus the cross-attention's K/V "
+        f"re-projection of every memory row, {flops / 1e9:.1f} GFLOP: "
+        f"{reproj:.3f} ms at the bf16 peak; the graphed step "
+        f"{graphed:.3f} ms is {graphed / (floor + reproj):.2f}x their sum")
+
+    model, params = eng.model, eng.params
+    i = len(reqs) - 1
+    p = reqs[i].prompt
+    bucket = bucket_length(len(p), max_len)
+    toks = np.zeros((1, bucket), np.int32)
+    toks[0, :len(p)] = p
+
+    def prefill():
+        return model.prefill(params, dict(extras[i],
+                                          tokens=torch.as_tensor(toks)),
+                             lengths=[len(p)])
+    registry.reset_launch_counts()
+    prefill()
+    once = {k: c for k, c in registry.launch_counts().items() if c}
+    log(f"[c] launches of one prefill: {once}")
+    if once != spec["per_prefill"]:
+        raise AssertionError(f"a prefill launched {once}, want "
+                             f"{spec['per_prefill']}")
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    log(f"[c] prefill of a {len(p)}-token prompt (bucket {bucket}) with "
+        f"{spec['memory'][i]} rows of extras, 3 runs: "
+        f"{[round(x, 2) for x in walls]} ms")
+    profile_device(torch, f"{name} profile of that prefill", prefill, 1,
+                   "prefill")
+    logits, _ = model.prefill(params, dict(extras[0], tokens=torch.as_tensor(
+        reqs[0].prompt[None])))
+    if logits.shape != (1, 1, cfg.vocab_size) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError("main-path logits are not finite (1,1,V)")
+    log(f"[c] peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del logits, eng, model, params, extras
+    torch.cuda.empty_cache()
+    return counts
+
+
+def check_graph(torch, eng, spec, reqs, extras=None):
+    """The decode chunk was captured once, and the same requests (with
+    their ``extras``) on the same weights through an engine whose chunk
+    runs eagerly give the same streams and, on the MTP path, the same draft
+    and accept counts."""
     from repro_torch.serve.engine import Request, ServeEngine
     ch = eng._decode
     log(f"[c] decode graph: trace_counts {eng.trace_counts}; capture "
@@ -1758,8 +1959,8 @@ def check_graph(torch, eng, spec, reqs):
     twins = [Request(r.rid, r.prompt, max_new=r.max_new, seed=r.seed)
              for r in reqs]
     t0 = time.perf_counter()
-    for r in twins:
-        ref.submit(r)
+    for i, r in enumerate(twins):
+        ref.submit(r, None if extras is None else extras[i])
     ref.run_until_done()
     wall = time.perf_counter() - t0
     same = sum(a.out == b.out for a, b in zip(reqs, twins))
@@ -1816,7 +2017,8 @@ def steady_decode(torch, name, eng, spec, moe_layers):
     """Launches per step from one replay of the engine's graph (its tally
     counted once), the launch gates, ms/step graphed and eager in turns
     (with and without the draft on the MTP path), an eager and a graphed
-    profile, and (dense) rings against a paged pool."""
+    profile, and (dense, where the model pages) rings against a paged
+    pool. Returns the least graphed ms a step."""
     from repro_torch.kernels import registry
     model, params, cache = eng.model, eng.params, eng.cache
     host = steady_host(spec)
@@ -1831,7 +2033,7 @@ def steady_decode(torch, name, eng, spec, moe_layers):
     if moe_layers:
         want["moe_gemm"] = 3 * moe_layers         # 3 per MoE layer
     for n, c in want.items():
-        if counts.get(n) != k * c:
+        if counts.get(n, 0) != k * c:
             raise AssertionError(f"a decode step launched {n} "
                                  f"{counts.get(n, 0) / k} times, want {c}")
     mtp = eng.use_mtp
@@ -1879,8 +2081,9 @@ def steady_decode(torch, name, eng, spec, moe_layers):
         log(f"[c] {name}: device ms a step under the profiler over the "
             f"unprofiled graphed ms/step ({graph_ms[mtp]:.3f}): "
             f"{100 * device_ms / graph_ms[mtp]:.1f}% busy")
-    if not eng.paged:
+    if not eng.paged and model.supports_paged():
         compare_layouts(torch, eng, spec, host, chunks[False])
+    return graph_ms[mtp]
 
 
 def moe_layer_count(model):
@@ -2447,17 +2650,28 @@ def phase_reference(torch, name, engine, overrides=None):
         param_dtype="bfloat16", fp8_impl="pallas", **SMOKE_OVERRIDES[name],
         **(overrides or {}))
     params = Model(cfg, device="cpu").init(seed=1)
+    if cfg.family == "vlm":
+        draw_gates(torch, params, "cpu")
     lengths = (RECURRENT_SMOKE_LENGTHS if cfg.family in ("ssm", "hybrid")
                else (5, 12, 19))
     prompts = [np.arange(L) * (i + 3) % cfg.vocab_size
                for i, L in enumerate(lengths)]
+    # the families with a memory: seeded frames (6, 13 and 16 rows of the
+    # 16-row leaf at max_len 64) or patches, the same on both devices
+    extras = [{}] * len(prompts)
+    if cfg.family in ("encdec", "vlm"):
+        key = "src_embeds" if cfg.family == "encdec" else "patch_embeds"
+        extras = [{key: np.random.default_rng(20 + i).normal(size=(
+            1, n if cfg.family == "encdec" else cfg.num_patches,
+            cfg.d_model)).astype(np.float32)}
+            for i, n in enumerate((6, 13, 16))]
     outs, logits, drafts, bf16_pages = {}, {}, {}, {}
     for dev in ("cuda", "cpu"):
         eng = ServeEngine(cfg, params=params, slots=2, max_len=64, chunk=4,
                           device=dev, **engine)
         reqs = [Request(i, p, max_new=8) for i, p in enumerate(prompts)]
-        for r in reqs:
-            eng.submit(r)
+        for r, e in zip(reqs, extras):
+            eng.submit(r, e or None)
         eng.run_until_done()
         outs[dev] = [r.out for r in reqs]
         drafts[dev] = (eng.stats["drafts"], eng.stats["accepted_drafts"])
@@ -2476,9 +2690,9 @@ def phase_reference(torch, name, engine, overrides=None):
             toks = np.zeros((1, bucket_length(len(prompts[2]), 64)),
                             np.int32)
             toks[0, :len(prompts[2])] = prompts[2]
-            lg, _ = eng.model.prefill(eng.params,
-                                      {"tokens": torch.as_tensor(toks)},
-                                      lengths=[len(prompts[2])])
+            lg, _ = eng.model.prefill(
+                eng.params, dict(extras[2], tokens=torch.as_tensor(toks)),
+                lengths=[len(prompts[2])])
         logits[dev] = lg.float().cpu()
     a, b = logits["cuda"], logits["cpu"]
     rel = float((a - b).abs().max() / b.abs().max())
@@ -5477,6 +5691,7 @@ def main():
     launches = {}
     for path, spec in PATHS.items():
         counts = (phase_recurrent_path if spec.get("recurrent")
+                  else phase_memory_path if "memory" in spec
                   else phase_main_path)(torch, path)
         for k in spec["kernels"]:        # each kernel: the first path of it
             launches.setdefault(k, counts[k])

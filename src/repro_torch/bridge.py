@@ -42,8 +42,8 @@ from repro_torch.core import fp8
 
 # subtrees whose 2-D weights feed models/layers.linear (the MoE router's
 # "w_gate" is not one of them, nor are the expert stacks; the MTP module's
-# norms are 1-D)
-_LINEAR_SUBTREES = ("attn", "mlp", "mtp")
+# norms are 1-D): self- and cross-attention, FFNs, the MTP module
+_LINEAR_SUBTREES = ("attn", "xattn", "mlp", "mtp")
 # the recurrent blocks' weights that feed linear, by name (their fp32 gate
 # matrices "wa", "wi" and the depthwise "conv_w" never do)
 _RECURRENT_LINEARS = ("w_in", "w_out", "w_x", "w_y")
@@ -95,19 +95,24 @@ def to_numpy(tree):
 
 
 def _quantize_linear(w: torch.Tensor) -> fp8.Fp8Weight:
-    """Block-quantize a stacked ``(n, d_in, d_out)`` weight layer by layer
-    (bounded fp32 temporaries). The codes are stored K-contiguous
-    (``fp8.k_major``): an ``(n, d_out, d_in)`` buffer seen as its
-    ``(n, d_in, d_out)`` transpose, the ``fp8_gemm`` kernel's layout."""
-    n, d_in, d_out = w.shape
-    codes = torch.empty((n, d_out, d_in), dtype=torch.uint8, device=w.device)
+    """Block-quantize a stacked ``(..., d_in, d_out)`` weight layer by
+    layer (bounded fp32 temporaries; the vision pattern's self blocks stack
+    two layer axes). The codes are stored K-contiguous (``fp8.k_major``):
+    an ``(..., d_out, d_in)`` buffer seen as its ``(..., d_in, d_out)``
+    transpose, the ``fp8_gemm`` kernel's layout."""
+    *lead, d_in, d_out = w.shape
+    flat = w.reshape(-1, d_in, d_out)
+    codes = torch.empty((flat.shape[0], d_out, d_in), dtype=torch.uint8,
+                        device=w.device)
     scales = []
-    for i in range(n):
-        q, s = fp8.quantize_blockwise(w[i])
+    for i in range(flat.shape[0]):
+        q, s = fp8.quantize_blockwise(flat[i])
         codes[i].copy_(q.view(torch.uint8).t())
         scales.append(s)
-    return fp8.Fp8Weight(w, codes.view(fp8.E4M3).transpose(-1, -2),
-                         torch.stack(scales))
+    wq, ws = codes.view(fp8.E4M3).transpose(-1, -2), torch.stack(scales)
+    if len(lead) > 1:
+        wq, ws = wq.unflatten(0, lead), ws.unflatten(0, lead)
+    return fp8.Fp8Weight(w, wq, ws)
 
 
 def _qdq_experts(w: torch.Tensor, inplace: bool) -> torch.Tensor:
@@ -192,10 +197,10 @@ def prepare_for_serving(params: Dict[str, Any], cfg: ModelConfig, *,
     def d_in(path, k, v):
         spec = specs
         if spec is None:
-            return v.shape[1]
+            return v.shape[-2]
         for key in path + (k,):
             spec = spec[key]
-        return spec.shape[1]
+        return spec.shape[-2]
 
     def walk(tree, path):
         nonlocal fallbacks
@@ -213,7 +218,7 @@ def prepare_for_serving(params: Dict[str, Any], cfg: ModelConfig, *,
             elif k in ("w1", "w3", "w2", "ws1", "ws3", "ws2") \
                     and "moe" in path:
                 out[k] = _qdq_experts(v, inplace)
-            elif (v.dim() == 3 and d_in(path, k, v) >= 256
+            elif (v.dim() >= 3 and d_in(path, k, v) >= 256
                   and (k in _RECURRENT_LINEARS
                        or any(s in path for s in _LINEAR_SUBTREES))):
                 out[k] = _quantize_linear(v)

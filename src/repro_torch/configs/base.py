@@ -176,8 +176,8 @@ def list_archs() -> list[str]:
     return sorted(_REGISTRY)
 
 
-# Only the archs the port runs: the reference's seven decoder-only
-# transformers and its two recurrent families (it registers eleven).
+# The reference's eleven archs: its seven decoder-only transformers, its
+# two recurrent families, the enc-dec and the vision family.
 _ARCH_MODULES = [
     "deepseek_v3_671b",
     "glm4_9b",
@@ -188,6 +188,8 @@ _ARCH_MODULES = [
     "llama4_maverick_400b_a17b",
     "mamba2_2_7b",
     "recurrentgemma_9b",
+    "seamless_m4t_large_v2",
+    "llama_3_2_vision_90b",
 ]
 
 _loaded = False
@@ -242,6 +244,12 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
         kw["rglru"] = dataclasses.replace(cfg.rglru, lru_width=0, window=32)
         kw["num_layers"] = 3   # one full pattern block
         kw["num_kv_heads"] = 1
+    if cfg.encoder_layers:
+        kw["encoder_layers"] = 2
+    if cfg.cross_attn_every:
+        kw["cross_attn_every"] = 2
+        kw["num_patches"] = 16
+        kw["num_layers"] = 4
     if cfg.mtp:
         kw["mtp"] = cfg.mtp
     return dataclasses.replace(cfg, name=cfg.name + "-smoke", **kw)

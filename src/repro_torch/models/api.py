@@ -5,7 +5,16 @@ llama4-maverick, whose ``interleave:2`` layout stacks dense/MoE pairs),
 and the recurrent families: Mamba-2 SSD (mamba2-2.7b, ``models/ssm.py``)
 and RecurrentGemma (recurrentgemma-9b: RG-LRU blocks and sliding-window
 GQA in ``rg3`` pattern steps, ``models/rglru.py``), whose decode state
-does not grow with the context and which serve on the dense cache only.
+does not grow with the context and which serve on the dense cache only;
+and the two families with a memory: the enc-dec family
+(seamless-m4t-large-v2: a non-causal encoder over the request's frame
+embeddings ``src_embeds``, whose output is the memory, and decoder blocks
+that cross-attend to it) and the vision family (llama-3.2-vision-90b:
+``vision_pattern`` steps of one gated cross-attention block over the
+request's ``patch_embeds``, then ``cross_attn_every - 1`` self-attention
+blocks). A cache of either carries the memory as a slot-resident
+``memory`` leaf (batch, rows, d_model), which every decode step attends
+over; the vision family has no paged layout.
 
     specs() / init(seed)           ParamSpec dict (the reference's key
                                    names) and materialized tensors
@@ -16,7 +25,9 @@ does not grow with the context and which serve on the dense cache only.
                                    microbatches (``parallel/overlap.py``)
     prefill(params, batch, extra_slots=, lengths=)  (last-position logits,
                                    cache); the bucketed form pad-masks the
-                                   prompt, ``extra_slots`` widens the rings
+                                   prompt, ``extra_slots`` widens the rings;
+                                   ``batch`` carries ``src_embeds`` (or a
+                                   ready ``memory``) or ``patch_embeds``
     init_cache(batch, max_len)     dense ring caches (+ the MTP ring)
     cache_batch_axes(batch, max_len)  batch-axis index per cache leaf
     init_paged_cache(...)          shared page pools + per-slot page tables
@@ -132,14 +143,20 @@ class Segment:
     name: str
     kind: str        # dense | moe | dense_moe (a dense block, then a MoE
                      # block, per step: llama4's "interleave:2") | ssd |
-                     # rg3 (one cfg.rglru.pattern a step) | rg_tail
-    n: int           # stacked layers (dense_moe: pairs; rg3: patterns)
+                     # rg3 (one cfg.rglru.pattern a step) | rg_tail |
+                     # encoder | decoder (enc-dec) | vision_pattern (a
+                     # cross block, then cross_attn_every - 1 self blocks)
+    n: int           # stacked layers (dense_moe: pairs; rg3 and
+                     # vision_pattern: patterns)
     window: int = 0  # sliding window of the attention blocks (0 = full)
 
 
 # the blocks of one dense_moe step, in order: each has its own subtree of
 # the segment's parameters and caches
 PAIR = ("dense", "moe")
+# a cache's slot-resident leaves beside the segments' (both layouts): the
+# enc-dec or vision memory, the MTP hidden and ring
+AUX = ("memory", "mtp_h", "mtp")
 
 
 def _segments(cfg: ModelConfig) -> List[Segment]:
@@ -159,6 +176,11 @@ def _segments(cfg: ModelConfig) -> List[Segment]:
             assert k == 2 and L % 2 == 0, (lay, L)
             return [Segment("pat", "dense_moe", L // 2)]
         raise ValueError(lay)
+    if cfg.family == "vlm":
+        assert L % cfg.cross_attn_every == 0
+        return [Segment("pat", "vision_pattern", L // cfg.cross_attn_every)]
+    if cfg.family == "encdec":
+        return [Segment("dec", "decoder", L)]
     if cfg.family == "ssm":
         return [Segment("blocks", "ssd", L)]
     if cfg.family == "hybrid":
@@ -167,16 +189,29 @@ def _segments(cfg: ModelConfig) -> List[Segment]:
         if L % plen:
             segs.append(Segment("tail", "rg_tail", 1))
         return segs
-    raise NotImplementedError(
-        f"family={cfg.family!r}: the port runs the decoder-only "
-        "transformers and the recurrent families so far (ROADMAP.md, A.10)")
+    raise ValueError(cfg.family)
+
+
+def _encoder(cfg: ModelConfig) -> Segment:
+    """The enc-dec family's encoder stack (not among ``Model.segments``:
+    it runs once a prompt, over the frame embeddings)."""
+    return Segment("enc", "encoder", cfg.encoder_layers)
+
+
+def _batch_axis(kind: str) -> int:
+    """A segment's cache leaves' batch axis: behind the stacked-layers
+    axis, and behind the pattern axis too for the vision pattern's nested
+    rings."""
+    return 2 if kind == "vision_pattern" else 1
 
 
 def _pages(seg: Segment) -> bool:
     """Whether a segment has a paged layout: non-windowed attention
-    caches only. Recurrent state (ssd, rg3, rg_tail) and windowed rings
-    stay on the dense cache, as in the reference."""
-    return seg.kind not in ("ssd", "rg3", "rg_tail") and not seg.window
+    caches only. Recurrent state (ssd, rg3, rg_tail), the vision pattern's
+    nested rings and windowed rings stay on the dense cache, as in the
+    reference."""
+    return (seg.kind not in ("ssd", "rg3", "rg_tail", "vision_pattern")
+            and not seg.window)
 
 
 def _rg_tail_len(cfg: ModelConfig) -> int:
@@ -206,14 +241,30 @@ def step_phases(seg: Segment, p, x, cfg: ModelConfig, ctx: dict, cache):
     """One step of a segment as phases (``collectives.drive``): one block,
     a dense_moe pair's dense block then its MoE block, one SSD block, or
     an rg3 / rg_tail step's blocks in ``cfg.rglru.pattern`` order (the
-    reference's ``_apply_kind``; a windowed segment's attention is local).
-    Returns (x, cache_out, stats); a pair's or a pattern's cache out is per
-    block, and a pair's stats are the MoE block's. The recurrent blocks
-    issue no collective: they run through."""
+    reference's ``_apply_kind``; a windowed segment's attention is local),
+    one encoder or enc-dec decoder block, or a vision pattern's cross
+    block then its self blocks. Returns (x, cache_out, stats); a pair's or
+    a pattern's cache out is per block (a vision pattern's ``{"selfs":
+    [per self block]}``), and a pair's stats are the MoE block's. The
+    recurrent, encoder, decoder and cross blocks issue no collective:
+    they run through."""
     if seg.window:
         ctx = dict(ctx, window=seg.window)
     if seg.kind == "ssd":
         return ssm_mod.ssd_block_apply(p, x, cfg, ctx, cache)
+    if seg.kind == "encoder":
+        return tfm.encoder_block_apply(p, x, cfg, ctx, cache)
+    if seg.kind == "decoder":
+        return tfm.decoder_block_apply(p, x, cfg, ctx, cache)
+    if seg.kind == "vision_pattern":
+        x, _, _ = tfm.cross_block_apply(p["cross"], x, cfg, ctx)
+        outs = []
+        for j in range(cfg.cross_attn_every - 1):
+            c = None if cache is None else layer(cache["selfs"], j)
+            x, out, _ = yield from tfm.block_phases(
+                layer(p["selfs"], j), x, cfg, ctx, c)
+            outs.append(out)
+        return x, {"selfs": outs}, {}
     if seg.kind in ("rg3", "rg_tail"):
         outs = {}
         for key, kind in _pattern_keys(cfg, seg):
@@ -235,8 +286,14 @@ def step_phases(seg: Segment, p, x, cfg: ModelConfig, ctx: dict, cache):
 
 
 def _kind_specs(cfg: ModelConfig, seg: Segment) -> dict:
-    if seg.kind == "dense":
+    if seg.kind in ("dense", "encoder"):
         return tfm.dense_block_specs(cfg, seg.n)
+    if seg.kind == "decoder":
+        return tfm.decoder_block_specs(cfg, seg.n)
+    if seg.kind == "vision_pattern":
+        return {"cross": tfm.cross_block_specs(cfg, seg.n),
+                "selfs": tfm.dense_block_specs(
+                    cfg, (seg.n, cfg.cross_attn_every - 1))}
     if seg.kind == "moe":
         return tfm.moe_block_specs(cfg, seg.n)
     if seg.kind == "ssd":
@@ -274,6 +331,14 @@ def _kind_cache(cfg: ModelConfig, seg: Segment, batch: int, max_len: int,
     if seg.kind == "dense_moe":
         return {k: Lyr.init_gqa_cache(cfg, seg.n, batch, max_len, device)
                 for k in PAIR}
+    if seg.kind == "vision_pattern":
+        # the pattern's self blocks' rings, (n, k, batch, max_len, ...):
+        # one more stacked axis, so batch on axis 2
+        k = cfg.cross_attn_every - 1
+        return {"selfs": {name: t.view(seg.n, k, *t.shape[1:])
+                          for name, t in Lyr.init_gqa_cache(
+                              cfg, seg.n * k, batch, max_len,
+                              device).items()}}
     if cfg.attention == "mla":
         return mla_mod.init_mla_cache(cfg, seg.n, batch, max_len, device)
     return Lyr.init_gqa_cache(cfg, seg.n, batch, max_len, device)
@@ -359,7 +424,7 @@ class Model:
         self.device = resolve_device(device)
         self.segments = _segments(cfg)
         if cfg.family != "ssm":
-            tfm.attn_specs(cfg, 1)   # raises for an attention not ported yet
+            tfm.attn_specs(cfg, 1)   # raises for an unknown attention kind
         if cfg.expert_dtype:
             raise NotImplementedError(
                 "expert_dtype (fp8 expert storage) is not ported yet "
@@ -375,6 +440,10 @@ class Model:
         s: Dict[str, Any] = {"embed": _embed_specs(cfg)}
         for seg in self.segments:
             s[seg.name] = _kind_specs(cfg, seg)
+        if cfg.encoder_layers:
+            s["enc"] = _kind_specs(cfg, _encoder(cfg))
+            s["enc_norm"] = ParamSpec((cfg.d_model,), cfg.param_dtype,
+                                      (None,), "ones")
         if cfg.mtp:
             s["mtp"] = mtp_mod.mtp_specs(
                 cfg, lambda n: tfm.dense_block_specs(cfg, n, d_ff=cfg.d_ff))
@@ -437,9 +506,44 @@ class Model:
             stats.append(st)
         return x, outs, stack_stats(stats)
 
+    def _encode(self, params, src_embeds):
+        """The encoder stack over frame embeddings (B, S, d), then its
+        norm: the enc-dec family's memory. Its ctx is fresh, as the
+        reference's (no ``impl_ctx``): the encoder's attention runs the
+        plain path."""
+        cfg = self.cfg
+        B, S, _ = src_embeds.shape
+        pos = torch.arange(S, dtype=torch.int32,
+                           device=self.device).expand(B, S)
+        x = src_embeds.to(torch_dtype(cfg.dtype))
+        x = self._run_segment(_encoder(cfg), params["enc"], x,
+                              dict(positions=pos, causal=False), None)[0]
+        return Lyr.rmsnorm(x, params["enc_norm"], cfg.rms_eps)
+
+    def _memory_ctx(self, params, ctx, extras) -> dict:
+        """``ctx`` with the memory the decoder or cross blocks attend over,
+        from ``extras``: the enc-dec family's ``memory`` as it is, or the
+        encoder's output over ``src_embeds``; the vision family's
+        ``patch_embeds`` in the model dtype. Its key positions are
+        ``arange`` over all its rows, as the reference's."""
+        cfg = self.cfg
+        def on_device(key):      # numpy or torch, dtype kept
+            return torch.as_tensor(extras[key], device=self.device)
+        if cfg.family == "encdec":
+            mem = (on_device("memory") if "memory" in extras
+                   else self._encode(params, on_device("src_embeds")))
+        elif cfg.family == "vlm":
+            mem = on_device("patch_embeds").to(torch_dtype(cfg.dtype))
+        else:
+            return ctx
+        mp = torch.arange(mem.shape[1], dtype=torch.int32,
+                          device=self.device).expand(mem.shape[:2])
+        return dict(ctx, memory=mem, mem_positions=mp)
+
     def _backbone(self, params, tokens, ctx, cache):
         """Embed + all segments. Returns (h, per-segment layer outputs,
-        per-segment stats)."""
+        per-segment stats). ``ctx`` carries the memory, where the family
+        has one (:meth:`_memory_ctx`)."""
         x = self._embed(params, tokens)
         outs, stats = {}, {}
         for seg in self.segments:
@@ -502,7 +606,7 @@ class Model:
         B, S = tokens.shape
         pos = torch.arange(S, dtype=torch.int32,
                            device=self.device).expand(B, S)
-        ctx = dict(positions=pos, stats=True)
+        ctx = self._memory_ctx(params, dict(positions=pos, stats=True), batch)
         h, _, stats = self._backbone(params, tokens, ctx, None)
         s, n = self._ce_sum(params, h, labels)
         ntok = self.data_total(n).clamp_min(1)
@@ -563,9 +667,10 @@ class Model:
         logits are taken at ``lengths-1``. The cache holds each layer's
         rings ``(n, B, S + extra_slots, ...)`` — MLA latents or GQA K/V
         with ``pos`` — and, with MTP, the last hidden ``mtp_h`` and the MTP
-        module's ring over the prompt. At ``extra_slots=0`` it is the input
-        of ``prefill_to_pages``; the dense engine splices a ``max_len``
-        ring.
+        module's ring over the prompt; with a memory (``batch``'s
+        ``src_embeds``, ``memory`` or ``patch_embeds``), the ``memory``
+        leaf (B, rows, d). At ``extra_slots=0`` it is the input of
+        ``prefill_to_pages``; the dense engine splices a ``max_len`` ring.
         ``pctx=``: the mesh ctx to run under (module docstring)."""
         tokens = batch["tokens"].to(self.device)
         B, S = tokens.shape
@@ -576,8 +681,9 @@ class Model:
         lengths = torch.as_tensor(S if lengths is None else lengths,
                                   dtype=torch.int32,
                                   device=self.device).expand(B)
-        ctx = self._ctx(params, positions=pos, collect_cache=True,
-                        valid=pos < lengths[:, None], prompt_lengths=lengths)
+        ctx = self._memory_ctx(params, self._ctx(
+            params, positions=pos, collect_cache=True,
+            valid=pos < lengths[:, None], prompt_lengths=lengths), batch)
         h, entries, _ = self._backbone(params, tokens, ctx, None)
         idx = (lengths - 1).clamp(0, S - 1).long()
         h_last = h[torch.arange(B, device=self.device), idx][:, None]
@@ -586,6 +692,8 @@ class Model:
         cache = {seg.name: self._seg_cache(seg, entries[seg.name], S, T,
                                            lengths)
                  for seg in self.segments}
+        if "memory" in ctx:
+            cache["memory"] = ctx["memory"]
         if self.cfg.mtp:
             cache["mtp_h"] = h_last
             cache["mtp"] = self._mtp_prefill_ring(params, h, tokens, pos, T,
@@ -605,6 +713,15 @@ class Model:
                     for k in PAIR}
         if seg.kind == "ssd":
             return _stacked(step_entries, ("conv", "state"))
+        if seg.kind == "vision_pattern":
+            # the self blocks' rings, (n, k, B, T, ...): the reference's
+            # ``_vision_cache`` (positions ``arange(S)`` masked past each
+            # row's length; rows past S empty)
+            k = self.cfg.cross_attn_every - 1
+            rings = self._entries_to_cache(
+                [b for e in step_entries for b in e["selfs"]], S, T, lengths)
+            return {"selfs": {name: t.view(seg.n, k, *t.shape[1:])
+                              for name, t in rings.items()}}
         if seg.kind in ("rg3", "rg_tail"):
             return {key: (_stacked([e[key] for e in step_entries],
                                    ("conv", "h"))
@@ -711,6 +828,11 @@ class Model:
                 ctx["page_table"] = table[d * B:(d + 1) * B]
                 ctx["dp_write"] = (g, table,
                                    coll.all_gather(positions[:, 0], g))
+        if "memory" in cache:
+            # the memory leaf, as the reference reads it back: the enc-dec
+            # family's as it is, the vision family's as patch embeddings
+            key = "patch_embeds" if self.cfg.family == "vlm" else "memory"
+            ctx = self._memory_ctx(params, ctx, {key: cache["memory"]})
         h, _, _ = self._backbone(params, tokens, ctx, cache)
         if self.cfg.mtp:
             cache["mtp_h"].copy_(h)
@@ -791,8 +913,10 @@ class Model:
         """The batch axis of each leaf of a dense decode cache in hand
         (``cache_batch_axes`` keyed off the cache itself): 0 for
         ``mtp_h`` and ``memory``, 1 behind the stacked-layers axis for
-        every ring."""
-        return {key: (0 if key in ("memory", "mtp_h") else _fill(sub, 1))
+        every ring, 2 for the vision pattern's nested rings."""
+        kinds = {seg.name: seg.kind for seg in self.segments}
+        return {key: (0 if key in ("memory", "mtp_h") else _fill(
+                    sub, _batch_axis(kinds.get(key, ""))))
                 for key, sub in cache.items()}
 
     def _decode_loop_dual(self, params, cache, state, k: int, *,
@@ -856,9 +980,25 @@ class Model:
         cache: Dict[str, Any] = {
             seg.name: _kind_cache(cfg, seg, batch, max_len, dev)
             for seg in self.segments}
+        cache.update(self._memory_leaf(batch, max_len, dev))
         if cfg.mtp:
             cache.update(self._mtp_leaves(batch, max_len, dev))
         return cache
+
+    def _memory_leaf(self, batch: int, max_len: int, device) -> dict:
+        """The slot-resident memory of either cache layout, zeros (batch,
+        rows, d): ``int(max_len * src_len_ratio)`` rows for the enc-dec
+        family, ``num_patches`` for the vision family; {} for the others.
+        A request with fewer frames is zero-padded into it at admission,
+        and decode attends over every row, as the reference's."""
+        cfg = self.cfg
+        if cfg.family not in ("encdec", "vlm"):
+            return {}
+        n = (int(max_len * cfg.src_len_ratio) if cfg.family == "encdec"
+             else cfg.num_patches)
+        return {"memory": torch.zeros((batch, n, cfg.d_model),
+                                      dtype=torch_dtype(cfg.dtype),
+                                      device=device)}
 
     def _mtp_leaves(self, batch: int, max_len: int, device) -> dict:
         """The slot-resident MTP state of either cache layout: the carried
@@ -871,11 +1011,14 @@ class Model:
     def cache_batch_axes(self, batch: int, max_len: int) -> Dict[str, Any]:
         """Tree matching ``init_cache`` of each leaf's batch-axis index:
         axis 1 behind the stacked-layers axis for every ring (the MTP
-        ring included), axis 0 for ``mtp_h``. Used by the engine's slot
+        ring included), axis 2 for the vision pattern's nested rings,
+        axis 0 for ``memory`` and ``mtp_h``. Used by the engine's slot
         admission splice."""
         structs = self.init_cache(batch, max_len, device="meta")
-        axes = {seg.name: _fill(structs[seg.name], 1)
+        axes = {seg.name: _fill(structs[seg.name], _batch_axis(seg.kind))
                 for seg in self.segments}
+        if "memory" in structs:
+            axes["memory"] = 0
         if "mtp_h" in structs:
             axes["mtp_h"] = 0
             axes["mtp"] = _fill(structs["mtp"], 1)
@@ -892,7 +1035,8 @@ class Model:
                          pool_pages: int, storage: str = "fp8", device=None):
         """Shared page pools (``pool_pages`` + 1 trash page per segment, no
         batch axis; MLA latent or GQA K/V pools per the config) and
-        ``page_table`` (B, max_len // page_size), trash where unmapped.
+        ``page_table`` (B, max_len // page_size), trash where unmapped;
+        the slot-resident ``memory`` and MTP leaves beside them.
         ``device`` defaults to the model's."""
         dev = self.device if device is None else device
         paged_mod.validate_storage(storage)
@@ -906,15 +1050,16 @@ class Model:
         for seg in self.segments:
             cache[seg.name] = _kind_paged_cache(self.cfg, seg, pool_pages,
                                                 page_size, storage, dev)
+        cache.update(self._memory_leaf(batch, max_len, dev))
         if self.cfg.mtp:
             cache.update(self._mtp_leaves(batch, max_len, dev))
         return cache
 
     def paged_aux_axes(self) -> Dict[str, Any]:
-        """Batch axes of a paged cache's slot-resident leaves (the MTP
-        hidden and ring), which admission splices densely."""
+        """Batch axes of a paged cache's slot-resident leaves (the memory,
+        the MTP hidden and ring), which admission splices densely."""
         return {k: v for k, v in self.cache_batch_axes(1, 8).items()
-                if k in ("mtp_h", "mtp")}
+                if k in AUX}
 
     @_under_pctx
     def prefill_to_pages(self, cache1, page_size: int, storage: str):
@@ -922,7 +1067,8 @@ class Model:
         payload ``{"pages": {segment: {leaf: (n, bucket//page, page,
         ...)}}, "aux": {...}}`` (fp8: E4M3 values + per-token scales; a GQA
         token's scale covers its whole ``(KV, hd)`` entry). ``aux`` carries
-        the slot-resident leaves as they are (MTP hidden and ring). Under
+        the slot-resident leaves as they are (memory, MTP hidden and
+        ring). Under
         a KV-head cut (``pctx=``) each token's scale is the model group's
         max over its whole entry."""
         store = torch_dtype(self.cfg.cache_dtype_())
@@ -946,7 +1092,7 @@ class Model:
 
         pages = {seg.name: per_block(seg, seg_pages, cache1[seg.name])
                  for seg in self.segments}
-        aux = {k: cache1[k] for k in ("mtp_h", "mtp") if k in cache1}
+        aux = {k: cache1[k] for k in AUX if k in cache1}
         return {"pages": pages, "aux": aux}
 
     def install_pages(self, cache, payload_pages, ids):

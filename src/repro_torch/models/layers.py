@@ -249,14 +249,21 @@ def attention_scores(q, k, v, *, causal: bool, q_pos, k_pos,
 
 
 def gqa_attention(p: dict, x: torch.Tensor, *, cfg: ModelConfig,
-                  positions: torch.Tensor, cache: Optional[dict] = None,
+                  positions: torch.Tensor, causal: bool = True,
+                  cache: Optional[dict] = None,
+                  kv_x: Optional[torch.Tensor] = None,
+                  kv_positions: Optional[torch.Tensor] = None,
                   page_table: Optional[torch.Tensor] = None,
                   impl: str = "xla", return_cache_entries: bool = False,
                   dp_write=None, window: int = 0):
-    """Causal GQA self-attention (also MHA/MQA; optional qk-norm and qkv
-    bias); ``window`` > 0 makes it local (sliding-window) attention, whose
-    dense ring holds ``window`` rows. A paged cache has no windowed
-    layout: the model refuses one before a step gets here.
+    """GQA self- or cross-attention (also MHA/MQA; optional qk-norm and
+    qkv bias); ``window`` > 0 makes it local (sliding-window) attention,
+    whose dense ring holds ``window`` rows. A paged cache has no windowed
+    layout: the model refuses one before a step gets here. ``causal=False``
+    without a cache is the encoder's self-attention. With ``kv_x`` (B, T,
+    d) it is cross-attention over that memory, as the reference's: K/V
+    are projected from ``kv_x``, no RoPE, not causal, keys at
+    ``kv_positions`` (B, T), and no cache logic.
 
     Without ``cache``: prefill over the whole sequence; with
     ``return_cache_entries`` it also returns this layer's ``(k, v)``
@@ -284,15 +291,22 @@ def gqa_attention(p: dict, x: torch.Tensor, *, cfg: ModelConfig,
     kv_cut = nkv < cfg.num_kv_heads
     xf = coll.copy_to_group(x, group)
     q = _split_heads(linear(xf, p["wq"], cfg, p.get("bq")), nh)
-    xk = xf if kv_cut else x
+    if kv_x is None:
+        xk = xf if kv_cut else x
+    else:
+        xk = coll.copy_to_group(kv_x, group) if kv_cut else kv_x
     k = _split_heads(linear(xk, p["wk"], cfg, p.get("bk")), nkv)
     v = _split_heads(linear(xk, p["wv"], cfg, p.get("bv")), nkv)
     if cfg.qk_norm:
         q = rmsnorm(q, coll.copy_to_group(p["q_norm"], group), cfg.rms_eps)
         k = rmsnorm(k, coll.copy_to_group(p["k_norm"], group)
                     if kv_cut else p["k_norm"], cfg.rms_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    k_pos = positions if kv_positions is None else kv_positions
+    if kv_x is None:                    # self-attention: RoPE
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, k_pos, cfg.rope_theta)
+    else:
+        causal = False
     if not kv_cut:
         k, v = coll.copy_to_group(k, group), coll.copy_to_group(v, group)
     sel = _kv_heads_of(nh, nkv, cfg)
@@ -300,8 +314,8 @@ def gqa_attention(p: dict, x: torch.Tensor, *, cfg: ModelConfig,
     aux = None
     if cache is None:
         out = attention_scores(q, k[..., sel, :], v[..., sel, :],
-                               causal=True, q_pos=positions,
-                               k_pos=positions, impl=impl, window=window)
+                               causal=causal, q_pos=positions,
+                               k_pos=k_pos, impl=impl, window=window)
         if return_cache_entries:
             aux = (k, v)
     elif page_table is None:

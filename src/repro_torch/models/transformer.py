@@ -1,15 +1,20 @@
-"""Transformer blocks (dense and MoE, MLA or GQA attention; GQA also as
-the local attention of the hybrid family) — port of the parts of
-``repro.models.transformer`` the MLA and GQA archs run. Pre-norm
-residual blocks; ``*_block_specs(cfg, n)`` returns a ParamSpec dict whose
-leaves stack ``n`` layers on their leading axis; ``block_apply`` consumes
-one layer slice and returns, as the reference's, the layer's MoE stats
-beside its output and cache (``aux_loss``, ``load``, ``drop``; computed
-when ``ctx["stats"]`` is set: the loss sets it, serving reads none).
+"""Transformer blocks — port of ``repro.models.transformer``: dense and
+MoE blocks (MLA or GQA attention; GQA also as the local attention of the
+hybrid family), the enc-dec family's encoder block (non-causal) and
+decoder block (self-attention, cross-attention over the encoder's
+memory, FFN), and the vision family's gated cross-attention block.
+Pre-norm residual blocks; ``*_block_specs(cfg, n)`` returns a ParamSpec
+dict whose leaves stack ``n`` layers on their leading axis (a tuple
+``n`` stacks them on several, as the vision pattern's self layers);
+``block_apply`` consumes one layer slice and returns, as the reference's,
+the layer's MoE stats beside its output and cache (``aux_loss``,
+``load``, ``drop``; computed when ``ctx["stats"]`` is set: the loss sets
+it, serving reads none).
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -32,23 +37,62 @@ def _norm_spec(cfg: ModelConfig, n: int) -> ParamSpec:
                      "ones")
 
 
+def _prefixed(specs: dict, outer: Tuple[int, ...]) -> dict:
+    """``specs`` (built for one stacked layer axis) with the ``outer``
+    scan axes in front of every leaf: the reference's nested stacks."""
+    if not outer:
+        return specs
+    if isinstance(specs, ParamSpec):
+        return dataclasses.replace(
+            specs, shape=tuple(outer) + specs.shape,
+            axes=("layers",) * len(outer) + specs.axes)
+    return {k: _prefixed(v, outer) for k, v in specs.items()}
+
+
 def attn_specs(cfg: ModelConfig, n: int) -> dict:
     if cfg.attention == "mla":
         return mla_mod.mla_specs(cfg, n)
     if cfg.attention in GQA_KINDS:
         return Lyr.gqa_specs(cfg, n)
-    raise NotImplementedError(
-        f"attention={cfg.attention!r}: the port runs MLA and GQA so far "
-        "(ROADMAP.md, A.10)")
+    raise ValueError(f"attention={cfg.attention!r}: not an attention kind "
+                     f"of the reference (mla, {', '.join(GQA_KINDS)})")
 
 
-def dense_block_specs(cfg: ModelConfig, n: int,
+def dense_block_specs(cfg: ModelConfig, n: Union[int, Tuple[int, ...]],
                       d_ff: Optional[int] = None) -> dict:
+    prefix = (n,) if isinstance(n, int) else tuple(n)
+    m = prefix[-1]
+    return _prefixed({
+        "ln1": _norm_spec(cfg, m),
+        "attn": attn_specs(cfg, m),
+        "ln2": _norm_spec(cfg, m),
+        "mlp": Lyr.mlp_specs(cfg, m, d_ff),
+    }, prefix[:-1])
+
+
+def cross_block_specs(cfg: ModelConfig, n: int) -> dict:
+    """The vision family's gated cross-attention layer, with its own FFN:
+    K/V from the patch embeddings; both gates start at zero (the
+    reference's init), so a fresh layer adds nothing."""
     return {
         "ln1": _norm_spec(cfg, n),
-        "attn": attn_specs(cfg, n),
+        "xattn": Lyr.gqa_specs(cfg, n),
+        "gate_attn": ParamSpec((n,), cfg.param_dtype, ("layers",), "zeros"),
         "ln2": _norm_spec(cfg, n),
-        "mlp": Lyr.mlp_specs(cfg, n, d_ff),
+        "mlp": Lyr.mlp_specs(cfg, n),
+        "gate_mlp": ParamSpec((n,), cfg.param_dtype, ("layers",), "zeros"),
+    }
+
+
+def decoder_block_specs(cfg: ModelConfig, n: int) -> dict:
+    """The enc-dec decoder block: self-attention, cross-attention, FFN."""
+    return {
+        "ln1": _norm_spec(cfg, n),
+        "attn": Lyr.gqa_specs(cfg, n),
+        "lnx": _norm_spec(cfg, n),
+        "xattn": Lyr.gqa_specs(cfg, n),
+        "ln2": _norm_spec(cfg, n),
+        "mlp": Lyr.mlp_specs(cfg, n),
     }
 
 
@@ -68,11 +112,13 @@ def _self_attention(p: dict, h: torch.Tensor, cfg: ModelConfig, ctx: dict,
     the page pool (the page table rides in ctx). Without, prefill, which
     returns the layer's cache entries (MLA latents, GQA ``(k, v)``) when
     ``collect_cache``. ``ctx["window"]`` (set by a windowed segment) makes
-    GQA local attention."""
+    GQA local attention; ``ctx["causal"]`` False (the encoder's) makes it
+    non-causal."""
     paged = cache is not None and "pos" not in cache
     if cfg.attention in GQA_KINDS:
         return Lyr.gqa_attention(
-            p, h, cfg=cfg, positions=ctx["positions"], cache=cache,
+            p, h, cfg=cfg, positions=ctx["positions"],
+            causal=ctx.get("causal", True), cache=cache,
             page_table=ctx["page_table"] if paged else None,
             impl=ctx.get("gqa_impl", "xla"),
             return_cache_entries=bool(ctx.get("collect_cache")),
@@ -146,3 +192,46 @@ def block_phases(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: dict,
     f, stats = yield from _ffn_phases(p, Lyr.rmsnorm(x, p["ln2"],
                                                      cfg.rms_eps), cfg, ctx)
     return x + f, cache_out, stats
+
+
+def _cross_attention(p: dict, h: torch.Tensor, cfg: ModelConfig,
+                     ctx: dict) -> torch.Tensor:
+    """Attention of ``h`` over ``ctx["memory"]`` at ``ctx["mem_positions"]``
+    (non-causal, no RoPE, no cache, plain path: the reference passes no
+    ``impl``)."""
+    return Lyr.gqa_attention(p, h, cfg=cfg, positions=ctx["positions"],
+                             causal=False, kv_x=ctx["memory"],
+                             kv_positions=ctx["mem_positions"])[0]
+
+
+def cross_block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                      ctx: dict, cache=None):
+    """The gated cross-attention block (vision): ``tanh(gate_attn)`` times
+    the cross-attention, then ``tanh(gate_mlp)`` times the FFN. Returns
+    (x, None, {})."""
+    out = _cross_attention(p["xattn"], Lyr.rmsnorm(x, p["ln1"], cfg.rms_eps),
+                           cfg, ctx)
+    x = x + torch.tanh(p["gate_attn"]).to(x.dtype) * out
+    f = Lyr.mlp(p["mlp"], Lyr.rmsnorm(x, p["ln2"], cfg.rms_eps), cfg)
+    return x + torch.tanh(p["gate_mlp"]).to(x.dtype) * f, None, {}
+
+
+def decoder_block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                        ctx: dict, cache=None):
+    """The enc-dec decoder block: self-attention (over ``cache`` in
+    decode, returning its entries in prefill, as :func:`block_apply`),
+    cross-attention over the memory, FFN. Returns (x, cache_out, {})."""
+    out, cache_out = _self_attention(
+        p["attn"], Lyr.rmsnorm(x, p["ln1"], cfg.rms_eps), cfg, ctx, cache)
+    x = x + out
+    x = x + _cross_attention(p["xattn"],
+                             Lyr.rmsnorm(x, p["lnx"], cfg.rms_eps), cfg, ctx)
+    f = Lyr.mlp(p["mlp"], Lyr.rmsnorm(x, p["ln2"], cfg.rms_eps), cfg)
+    return x + f, cache_out, {}
+
+
+def encoder_block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                        ctx: dict, cache=None):
+    """The encoder block: a dense block with non-causal self-attention and
+    no cache."""
+    return block_apply(p, x, cfg, dict(ctx, causal=False), None)

@@ -12,8 +12,10 @@ and decode through its fused ``chunk``-step decode graph.
 Handoff bytes are tracked per request. With ``paged=True`` the handoff
 ships the quantized page payload (``Model.prefill_to_pages``: E4M3 pages
 and per-token scales, sized to the prompt's bucket rather than a full
-``max_len`` ring), so ``cache_nbytes`` reports the bytes a wire would
-carry.
+``max_len`` ring, and the slot-resident aux leaves: an enc-dec request's
+encoder memory among them), so ``cache_nbytes`` reports the bytes a wire
+would carry. A request's ``extras`` (frames or patches) go to the prefill
+pool; the payload carries what decode needs of them.
 
 **Cross-mesh** (the paper's deployment: prefill and decode on
 expert-parallel groups of different sizes): ``ctx=`` is the decode mesh,
@@ -92,6 +94,10 @@ class Disaggregator:
                  attn_impl: str = "", device=None):
         if cfg.sub_quadratic():                     # SSD, RG-LRU state
             raise _waits(f"family {cfg.family!r}", "A.12", "Disaggregator")
+        if cfg.family in ("encdec", "vlm") and not all(
+                c is None or c.mesh is None for c in (ctx, prefill_ctx)):
+            raise _waits(f"family {cfg.family!r} on a mesh", "A.13",
+                         "Disaggregator")
         self.prefill_ep = prefill_ep
         self.decode_ep = decode_ep
         common = dict(max_len=max_len, use_mtp=use_mtp, chunk=chunk,

@@ -1,7 +1,8 @@
 """Serving engine — port of ``repro.serve.engine.ServeEngine`` for
 single-device serving (paper §2.1.2 quantized latent cache, §2.3.2
-memory-bound decode, §2.3.3 MTP drafting), of MLA (DeepSeek-V3) and GQA
-(qwen3-14b) models, over either cache layout:
+memory-bound decode, §2.3.3 MTP drafting), of every config of the
+reference (MLA, GQA, the recurrent, enc-dec and vision families), over
+either cache layout (the recurrent and vision families: dense only):
 
 * dense (``paged=False``, the default): every slot owns a ring of
   ``max_len`` rows per attention layer. Admission is bucketed prefill
@@ -75,7 +76,17 @@ replicated over the data rows, as the reference's. A meshed engine on a
 gloo group runs its decode chunk eagerly (a collective staged through
 host memory cannot be captured; ``trace_counts["decode"] == 0``); its
 kernels launch as on one device. Under a mesh, ``prefill_chunk`` and
-``host_tier_pages`` raise (ROADMAP.md, A.8).
+``host_tier_pages`` raise (ROADMAP.md, A.8), and so do the enc-dec and
+vision families (A.13).
+
+A request of the enc-dec or vision family carries ``extras``
+(``src_embeds`` frames, or a ready ``memory``; ``patch_embeds``): its
+prefill runs the encoder (enc-dec) and writes the memory into the slot's
+slot-resident ``memory`` leaf, zero-padded past the request's rows, as
+the reference's splice; every decode step attends over the whole leaf.
+The engine keeps each slot's extras, so a preempted request re-prefills
+with them and a suspended one takes them to the tier with its memory
+rows. Chunked admission refuses extras, as the reference's.
 
 ``decode_overlap=True`` runs the decode chunk as two anti-phase
 half-batches of the slots (``Model.decode_loop(overlap=True)``,
@@ -305,6 +316,8 @@ class ServeEngine:
             raise _waits(f"ctx= with layout {cfg.moe.layout!r}", "A.11")
         if self.meshed and cfg.sub_quadratic():     # SSD, RG-LRU state
             raise _waits(f"ctx= with family {cfg.family!r}", "A.12")
+        if self.meshed and cfg.family in ("encdec", "vlm"):   # a memory
+            raise _waits(f"ctx= with family {cfg.family!r}", "A.13")
         paged_mod.validate_storage(page_storage)
         self.cfg = cfg
         self.model = Model(cfg, device)
@@ -439,10 +452,13 @@ class ServeEngine:
         self.pending: Deque[Tuple[Request, Optional[Dict]]] = \
             collections.deque()
         self.max_pending = max_pending
-        # scheduler state: slots mid-chunked-prefill, and the prefix pages
-        # retained by preempted continuations still in the queue
+        # scheduler state: slots mid-chunked-prefill, the prefix pages
+        # retained by preempted continuations still in the queue, and each
+        # slot's extras (frames or patches), which a preempted or degraded
+        # request takes back to the queue and a suspended one to the tier
         self._prefilling: Dict[int, Dict[str, Any]] = {}
         self._evicted: Dict[int, List[int]] = {}
+        self._slot_extras: List[Optional[Dict]] = [None] * slots
         self._hol_skips = 0
         self._seed_gen = np.random.default_rng(seed + 1)
         self._decode = DecodeChunk(
@@ -589,9 +605,9 @@ class ServeEngine:
         Paged engines: the quantized page payload of
         ``Model.prefill_to_pages``. Requests with delivered tokens
         (continuations) prefill prompt+delivered and sample at the advanced
-        stream offset."""
-        if extras:
-            raise _waits("extras: encoder/vision payloads", "A.10")
+        stream offset. ``extras``: the request's ``src_embeds`` (or a ready
+        ``memory``) or ``patch_embeds``, batch 1, numpy or torch; the
+        payload then carries the ``memory`` leaf."""
         prompt, _, offset = self._effective(req)
         L = len(prompt)
         bucket = bucket_length(L, self.max_len)
@@ -603,7 +619,7 @@ class ServeEngine:
         # admission splices a full max_len ring
         extra = 0 if self.paged else self.max_len - bucket
         logits, payload = self.model.prefill(
-            self.params, {"tokens": torch.as_tensor(toks)},
+            self.params, dict(extras or {}, tokens=torch.as_tensor(toks)),
             extra_slots=extra, lengths=np.asarray([L], np.int32),
             pctx=self.ctx if self.meshed else None)
         if self.paged:
@@ -713,10 +729,11 @@ class ServeEngine:
                         slot: int, extras: Optional[Dict] = None):
         """Admit a prefilled request into ``slot``: splice its prefill
         cache (dense), or reserve its pages, scatter its quantized prefill
-        pages, install its page-table row and splice its slot-resident MTP
-        leaves (paged); then the host mirrors. A request finished by its
-        first token (budget 1 or an immediate EOS) writes and reserves
-        nothing."""
+        pages, install its page-table row and splice its slot-resident
+        leaves, memory and MTP (paged); then the host mirrors. A request
+        finished by its first token (budget 1 or an immediate EOS) writes
+        and reserves nothing. ``extras`` are kept with the slot, for a
+        re-admission after preemption."""
         prompt, max_new, offset = self._effective(req)
         finishes = (max_new <= 1
                     or (req.eos is not None and first == req.eos))
@@ -744,6 +761,7 @@ class ServeEngine:
         self._eos[slot] = -1 if req.eos is None else req.eos
         self._seeds[slot] = self._request_seed(req)
         self._tix[slot] = offset + 1     # prefill drew stream index offset
+        self._slot_extras[slot] = extras
         self.active[slot] = req
         self._slot_tick0[slot] = self._tick
 
@@ -774,7 +792,7 @@ class ServeEngine:
             self._admit_chunked(req, extras, slot)
         else:
             first, payload = self.prefill_request(req, extras)
-            self.admit_prefilled(req, first, payload, slot)
+            self.admit_prefilled(req, first, payload, slot, extras=extras)
 
     def _admit_chunked(self, req: Request, extras: Optional[Dict],
                        slot: int):
@@ -805,6 +823,7 @@ class ServeEngine:
                 f"has {self.free_pages()} of {self.pool_pages}") from e
         pages = hits + fresh
         self._slot_pages[slot] = pages
+        self._slot_extras[slot] = extras
         row = np.full((self.pages_per_slot,), self.pool_pages, np.int32)
         row[:n] = pages
         self.stats["page_admits"] += 1
@@ -971,6 +990,7 @@ class ServeEngine:
         full written pages are indexed first and their references kept in
         ``_evicted``, so its resume re-claims the KV it already computed."""
         req = self.active[slot]
+        extras = self._slot_extras[slot]
         held: List[int] = []
         if self.paged and self.prefill_chunk is not None:
             pages = self._slot_pages[slot]
@@ -990,7 +1010,7 @@ class ServeEngine:
                 self._slot_pages[slot] = pages[len(held):]
         self.stats["evictions"] += 1
         self._release_slot(slot)
-        self.pending.appendleft((req, None))
+        self.pending.appendleft((req, extras))
 
     def _admit_pending(self) -> int:
         admitted = 0
@@ -1070,7 +1090,8 @@ class ServeEngine:
         self._xfers.submit(tier_mod.SPILL, req.rid, eid, nbytes,
                            slow=self.tier_faults.slow())
         self._suspended[req.rid] = dict(
-            req=req, state="spilling", eid=eid, n=n, slot=slot, pages=None,
+            req=req, extras=self._slot_extras[slot], state="spilling",
+            eid=eid, n=n, slot=slot, pages=None,
             fetch_pages=None, tier_entry=None, payload=payload, aux=aux,
             crcs=crcs, aux_crc=aux_crc, mirrors=mirrors)
         self._spilling_slots[slot] = req.rid
@@ -1091,6 +1112,7 @@ class ServeEngine:
         self._slot_pages[slot] = []
         self.stats["page_releases"] += 1
         self.active[slot] = None
+        self._slot_extras[slot] = None
         e["state"] = "host"
         e["payload"] = None   # the tier owns the bytes now
         self.tstats["spilled_pages"] += e["n"]
@@ -1195,7 +1217,7 @@ class ServeEngine:
             self._alloc.release(e["fetch_pages"])
         self.tier.free(e["eid"])
         self.tstats["degraded"] += 1
-        self.pending.appendleft((e["req"], None))
+        self.pending.appendleft((e["req"], e["extras"]))
 
     def _resume_ready(self) -> int:
         """Re-admit fetched entries (suspension order) into free slots: the
@@ -1214,6 +1236,7 @@ class ServeEngine:
             self._install_slot(slot, e["pages"], e["aux"])
             del self._suspended[rid]
             self._slot_pages[slot] = e["pages"]
+            self._slot_extras[slot] = e["extras"]
             self.active[slot] = e["req"]
             self._restore_mirrors(slot, e["mirrors"])
             self._slot_tick0[slot] = self._tick
@@ -1464,6 +1487,7 @@ class ServeEngine:
         reservation to the pool and point its table row at the trash
         page."""
         self.active[slot] = None
+        self._slot_extras[slot] = None
         if self.paged and self._slot_pages[slot]:
             self._alloc.release(self._slot_pages[slot])
             self._slot_pages[slot] = []

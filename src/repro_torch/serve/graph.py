@@ -28,7 +28,9 @@ gets results back by name. Each graph is fixed for its engine (model,
 weights, cache, shapes, sampling), and the cache is written in place (the
 model rebinds no leaf), so the chunk graph's page writes, admissions and
 releases between replays all write straight into the buffers the other
-graph reads. Both graphs replay on the caller's current stream, in the
+graph reads; so does an admission's splice of the enc-dec or vision
+memory into its slot's rows of the ``memory`` leaf, which every replay
+reads. Both graphs replay on the caller's current stream, in the
 order the engine issues them.
 
 The first call of each runs eagerly on its own stream, which waits for

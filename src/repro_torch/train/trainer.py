@@ -106,6 +106,10 @@ def _meshed_checks(model: Model, ctx: pctx_mod.ParallelCtx, pspecs) -> None:
         raise NotImplementedError(
             f"family {cfg.family!r} under a mesh is not ported yet: see "
             "ROADMAP.md, A.12")
+    if cfg.family in ("encdec", "vlm"):           # a memory
+        raise NotImplementedError(
+            f"family {cfg.family!r} under a mesh is not ported yet: see "
+            "ROADMAP.md, A.13")
     if any(seg.kind == "dense_moe" for seg in model.segments):
         raise NotImplementedError(
             f"{cfg.moe.layout} (dense/MoE pairs) under a mesh is not "

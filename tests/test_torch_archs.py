@@ -35,6 +35,7 @@ import torch
 
 import _torch_archs as h
 from repro.configs.base import get_config, smoke_config
+from repro.configs.base import list_archs as jlist_archs
 from repro.core import moe as jmoe
 from repro.core import routing as jrouting
 from repro.data.pipeline import SyntheticCorpus
@@ -86,11 +87,15 @@ def _rel(a, b):
 
 def test_list_archs_holds_the_seven_decoder_only_transformers():
     """The seven decoder-only transformers, and beside them the two
-    recurrent families (``test_torch_archs_recurrent.py``): 9 of the
-    reference's 11."""
+    recurrent families (``test_torch_archs_recurrent.py``) and the enc-dec
+    and vision families (``test_torch_archs_encdec.py``,
+    ``test_torch_archs_vision.py``): all 11 of the reference's."""
     assert list_archs() == sorted(ARCHS + ("deepseek-v3-671b", "qwen3-14b",
                                            "mamba2-2.7b",
-                                           "recurrentgemma-9b"))
+                                           "recurrentgemma-9b",
+                                           "seamless-m4t-large-v2",
+                                           "llama-3.2-vision-90b"))
+    assert list_archs() == jlist_archs()
     for arch in ARCHS:
         assert dataclasses.asdict(tget(arch)) == dataclasses.asdict(
             get_config(arch)), arch

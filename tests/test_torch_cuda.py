@@ -640,7 +640,7 @@ def test_mla_decode_refuses_rows_past_its_shared_memory(card):
 # power of two), then the reference's parity shapes (G = 4, 1, 8), then the
 # decode of glm4-9b (G = 16), yi-34b (G = 7: the runtime-G branch, as 16),
 # qwen3-moe-30b-a3b (G = 8) and qwen1.5-4b (G = 1, 20 heads) at published
-# widths
+# widths, and seamless-m4t-large-v2's decoder (G = 1 at head_dim 64)
 GQA_CASES = [(4, 40, 8, 128, 8, 256, (600, 900, 1200, 1500)),
              (2, 8, 2, 32, 16, 4, (33, 36)),
              (1, 4, 4, 64, 8, 6, (24,)),
@@ -648,7 +648,8 @@ GQA_CASES = [(4, 40, 8, 128, 8, 256, (600, 900, 1200, 1500)),
              (4, 32, 2, 128, 8, 256, (600, 900, 1200, 1500)),
              (4, 56, 8, 128, 8, 256, (600, 900, 1200, 1500)),
              (4, 32, 4, 128, 8, 256, (600, 900, 1200, 1500)),
-             (4, 20, 20, 128, 8, 256, (600, 900, 1200, 1500))]
+             (4, 20, 20, 128, 8, 256, (600, 900, 1200, 1500)),
+             (4, 16, 16, 64, 8, 256, (600, 900, 1200, 1500))]
 
 
 @pytest.mark.parametrize("storage", ["fp8", "bf16", "fp32"])
@@ -862,7 +863,11 @@ FLASH_CASES = [(1, 2048, 2048, 40, 8, 128, torch.bfloat16, True),
                (1, 2048, 2048, 32, 2, 128, torch.bfloat16, True),
                (1, 2048, 2048, 20, 20, 128, torch.bfloat16, True),
                (1, 2048, 2048, 56, 8, 128, torch.bfloat16, True),
-               (1, 2048, 2048, 32, 4, 128, torch.bfloat16, True)]
+               (1, 2048, 2048, 32, 4, 128, torch.bfloat16, True),
+               # seamless-m4t-large-v2's decoder (G = 1 at head_dim 64)
+               # and llama-3.2-vision-90b's self blocks (64 over 8)
+               (1, 2048, 2048, 16, 16, 64, torch.bfloat16, True),
+               (1, 2048, 2048, 64, 8, 128, torch.bfloat16, True)]
 
 
 @pytest.mark.parametrize("case", FLASH_CASES)
@@ -1646,3 +1651,65 @@ def test_a_host_read_under_capture_raises(card, monkeypatch):
             eng.step()
     assert len(req.out) == n and eng.trace_counts == {"decode": 0,
                                                       "chunk": 0}
+
+
+# the families with a memory at smoke width, bf16: seamless on paged fp8
+# pages (its decoder's self-attention through flash_prefill and
+# paged_gqa_decode; the encoder and the cross-attention on the plain path,
+# as the reference's), the vision family on the dense engine (flash_prefill
+# for its self blocks; dense decode has no kernel). Each request carries
+# seeded frames (fewer than the 16-row memory leaf at max_len 64) or
+# patches; the vision gates are drawn non-zero.
+MEMORY_PATHS = {
+    "seamless-m4t-large-v2": (dict(paged=True),
+                              {"flash_prefill", "paged_gqa_decode"}),
+    "llama-3.2-vision-90b": (dict(paged=False), {"flash_prefill"}),
+}
+
+
+def _memory_run(arch, params=None, eager=False):
+    layout, _ = MEMORY_PATHS[arch]
+    cfg = dataclasses.replace(smoke_config(get_config(arch)),
+                              dtype="bfloat16", param_dtype="bfloat16")
+    eng = ServeEngine(cfg, params=params, slots=2, max_len=64, chunk=4,
+                      page_size=8, page_storage="fp8", attn_impl="pallas",
+                      device="cuda", **layout)
+    if params is None and cfg.family == "vlm":
+        g = torch.Generator(device="cuda").manual_seed(3)
+        for k in ("gate_attn", "gate_mlp"):
+            gate = eng.params["pat"]["cross"][k]
+            gate.copy_(torch.randn(gate.shape, generator=g, device="cuda"))
+    eng._decode.graphed = not eager
+    ptrs = {k: t.data_ptr() for k, t in
+            ((k, v) for k, v in eng.cache.items() if torch.is_tensor(v))}
+    rng = np.random.default_rng(5)
+    reqs = [Request(i, rng.integers(1, cfg.vocab_size, 5 + 4 * i),
+                    max_new=n) for i, n in enumerate((5, 11, 8))]
+    rows = (6, 13, 16) if cfg.family == "encdec" else (cfg.num_patches,) * 3
+    key = "src_embeds" if cfg.family == "encdec" else "patch_embeds"
+    registry.reset_launch_counts()
+    for r, n in zip(reqs, rows):
+        eng.submit(r, {key: torch.from_numpy(rng.normal(
+            size=(1, n, cfg.d_model)).astype(np.float32)).bfloat16()})
+    eng.run_until_done()
+    assert all(r.done and len(r.out) == r.max_new for r in reqs)
+    assert ptrs == {k: t.data_ptr() for k, t in eng.cache.items()
+                    if torch.is_tensor(t)}
+    return eng, [r.out for r in reqs], registry.launch_counts()
+
+
+@pytest.mark.parametrize("arch", sorted(MEMORY_PATHS))
+def test_memory_engines_graph_equals_the_eager_chunk(card, arch):
+    """Each family with a memory serves with its extras through the decode
+    graph (captured once, reading the memory leaf admission writes in
+    place) and gives the eager chunk's streams and launch counts; its
+    kernels launch and no other; no page leaks."""
+    eng, streams, counts = _memory_run(arch)
+    ref, ref_streams, ref_counts = _memory_run(arch, params=eng.params,
+                                               eager=True)
+    _, kernels = MEMORY_PATHS[arch]
+    assert eng.trace_counts == {"decode": 1, "chunk": 0}
+    assert streams == ref_streams and counts == ref_counts
+    assert {n for n, c in counts.items() if c} == kernels
+    if eng.paged:
+        assert eng.free_pages() == eng.pool_pages

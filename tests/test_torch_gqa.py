@@ -383,13 +383,13 @@ class TestGqaAttention:
         _check_paged_step(qwen_grouped, storage, impl, S=8)
 
     def test_unported_branches_raise(self, qwen):
-        """An attention kind the port has no block for (the reference's
-        enc-dec and vision paths, ROADMAP.md A.10) raises; a windowed ring
-        (ported with the hybrid family) is the reference's ``window``
-        rows."""
+        """An attention kind that is none of the reference's (MLA, GQA,
+        local GQA: its enc-dec and vision families cross-attend through
+        GQA) raises; a windowed ring (ported with the hybrid family) is the
+        reference's ``window`` rows."""
         from repro_torch.models import transformer
         cfg, tcfg, _, _ = qwen
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="attention='cross'"):
             transformer.attn_specs(
                 dataclasses.replace(tcfg, attention="cross"), 1)
         ours = layers.init_gqa_cache(tcfg, 1, 1, 16, "cpu", window=8)

@@ -311,20 +311,25 @@ def test_cache_bytes_per_token_match_reference(weights, storage):
 
 
 @pytest.mark.parametrize("option", [
-    dict(extras={"src_embeds": np.zeros((1, 4, 8), np.float32)}),
+    dict(paged=True, prefill_chunk=8,
+         extras={"src_embeds": np.zeros((1, 4, 8), np.float32)}),
     dict(ctx=ParallelCtx(mesh=Mesh.abstract((1, 2))), host_tier_pages=8),
     dict(ctx=ParallelCtx(mesh=Mesh.abstract((1, 2))), prefill_chunk=8)])
 def test_options_not_ported_yet_raise(option):
-    """Constructor options, and per-request extras (encoder or vision
-    payloads), that the port has not reached raise with a pointer into
-    ROADMAP.md (a mesh ctx serves, but not with chunked prefill or the
-    host tier yet)."""
+    """Constructor options that the port has not reached raise with a
+    pointer into ROADMAP.md (a mesh ctx serves, but not with chunked
+    prefill or the host tier yet); per-request extras (encoder or vision
+    payloads) on a chunked engine raise the reference's ``ValueError``:
+    they need whole-prompt prefill."""
     kw = dict(KW, **option)
     extras = kw.pop("extras", None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    error, match = ((ValueError, "does not support extras") if extras
+                    else (NotImplementedError, "ROADMAP"))
+    with pytest.raises(error, match=match):
         eng = ServeEngine(tsmoke(tget("deepseek-v3-671b")), device="cpu",
                           **kw)
-        eng.add_request(Request(0, np.arange(4), max_new=2), extras)
+        eng.submit(Request(0, np.arange(4), max_new=2), extras)
+        eng.step()
 
 
 def test_entry_points_default_to_the_card():
