@@ -351,14 +351,19 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
+# the port from this checkout; outside one this import fails, and the
+# script exits non-zero before printing any result
+sys.path.insert(0, str(ROOT / "src"))
+from repro_torch.launch import costs  # noqa: E402
 
-# H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit);
-# "sfu": transcendentals (log, exp) at 16 results per clock per SM (CUDA C++
-# Programming Guide, arithmetic instruction throughput, compute capability
-# 9.0) on 132 SMs at the 1.98 GHz boost clock
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"fp8": 1979e12, "bf16": 989e12, "fp32": 67e12,
-              "sfu": 16 * 132 * 1.98e9}
+# H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit),
+# one copy in the port's cost model; "sfu": transcendentals (log, exp) at
+# 16 results per clock per SM (CUDA C++ Programming Guide, arithmetic
+# instruction throughput, compute capability 9.0) on 132 SMs at the
+# 1.98 GHz boost clock
+HBM_BYTES_PER_S = costs.HBM_BW
+PEAK_FLOPS = {"fp8": costs.PEAK_FLOPS_FP8, "bf16": costs.PEAK_FLOPS,
+              "fp32": costs.PEAK_FLOPS_FP32, "sfu": 16 * 132 * 1.98e9}
 
 
 def log(*a):
@@ -5657,6 +5662,165 @@ def train_gate(ref, got, cosines, limits=MESH_TRAIN_LIMITS):
     return ok, fig
 
 
+# --- (j) ---------------------------------------------------------------------
+# the launchers through the entry points a user calls, with the CLI's own
+# requests (prompts of 5-15 tokens, max_len 96, four slots, chunks of 8) at
+# 32 new tokens each; the gateway one token in four a tick, so that its
+# crash lands mid-run
+LAUNCH_SERVE = ["--arch", "qwen3-14b", "--paged", "--page-storage", "fp8",
+                "--attn-impl", "pallas", "--requests", "6", "--max-new",
+                "32"]
+LAUNCH_GATEWAY = LAUNCH_SERVE + ["--gateway", "2", "--chaos", "6=crash:0",
+                                 "--chunk", "4"]
+LAUNCH_DSV3 = ["--arch", "deepseek-v3-671b", "--paged", "--mtp",
+               "--attn-impl", "pallas", "--fp8-impl", "pallas",
+               "--requests", "6", "--max-new", "32"]
+LAUNCH_TRAIN = ["--arch", "qwen1.5-4b", "--steps", "4", "--batch", "4",
+                "--seq", "64"]
+
+
+def cli(torch, label, fn, *args):
+    """One launcher call, its launch counters zeroed just before and read
+    just after, its printed lines logged under ``label``. Returns (result,
+    lines, launch counts, wall s)."""
+    import io
+    from repro_torch.kernels import registry
+    gc_cuda(torch)
+    torch.cuda.reset_peak_memory_stats()
+    registry.reset_launch_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = fn(*args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = registry.launch_counts()
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"[{label}] | {line}")
+    log(f"[{label}] wall {wall:.2f} s (weights drawn on the card included); "
+        f"launches {counts}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return res, lines, counts, wall
+
+
+def launch_gate(label, counts, kernels, eng=None, reqs=(), max_new=32):
+    """Each of ``kernels`` launched; every request done with ``max_new``
+    in-vocabulary tokens; one decode capture; no page leaked."""
+    missing = [k for k in kernels if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"[{label}] never launched {missing}")
+    for r in reqs:
+        if not r.done or len(r.out) != max_new or min(r.out) < 0 or \
+                max(r.out) >= eng.cfg.vocab_size:
+            raise AssertionError(f"[{label}] request {r.rid}: done={r.done}, "
+                                 f"{len(r.out)} tokens (want {max_new})")
+    if eng is not None:
+        if eng.trace_counts["decode"] != 1:
+            raise AssertionError(f"[{label}] trace_counts "
+                                 f"{eng.trace_counts}, want one decode "
+                                 "capture")
+        if eng.paged and eng.free_pages() != eng.pool_pages:
+            raise AssertionError(f"[{label}] pages leaked")
+
+
+def decode_step_ms(eng):
+    """Graphed ms a decode step of the CLI's engine at four slots: four of
+    the CLI's prompts admitted in one tick, then each later tick (one
+    replay of the chunk's graph and its host read) timed until the first
+    request finishes."""
+    import numpy as np
+    from repro_torch.launch.serve import prompts
+    from repro_torch.serve.engine import Request
+    reqs = [Request(100 + i, p, max_new=64)
+            for i, p in enumerate(prompts(eng.cfg, eng.slots))]
+    for r in reqs:
+        eng.submit(r)
+    eng.step()
+    ticks = []
+    while not any(r.done for r in reqs):
+        t0 = time.perf_counter()
+        eng.step()
+        ticks.append(time.perf_counter() - t0)
+    eng.run_until_done()
+    return 1e3 * float(np.median(ticks)) / eng.chunk, len(ticks)
+
+
+@contextlib.contextmanager
+def step_times(trainer_cls):
+    """Each training step's wall time, from its start to the host's read
+    of its loss (the trainer's own step observation, which reads it)."""
+    times, observe = [], trainer_cls._observe_step
+
+    def timed(self, metrics, t0):
+        observe(self, metrics, t0)
+        times.append(time.perf_counter() - t0)
+    trainer_cls._observe_step = timed
+    try:
+        yield times
+    finally:
+        trainer_cls._observe_step = observe
+
+
+def phase_launchers(torch):
+    """(j): ``repro_torch.launch.serve`` and ``launch.train`` on the card."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve, train
+    from repro_torch.models.api import count_params
+    from repro_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    res, _, counts, _ = cli(torch, "j.1", serve.main, LAUNCH_SERVE)
+    eng = res["engine"]
+    launch_gate("j.1", counts, ("flash_prefill", "paged_gqa_decode"), eng,
+                res["requests"])
+    ms, n = decode_step_ms(eng)
+    log(f"[j.1] graphed decode at 4 slots: {ms:.3f} ms a step (median of "
+        f"{n} ticks of {eng.chunk} steps, host read included)")
+    del res, eng
+    log(f"[time] (j.1) {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    res, _, counts, _ = cli(torch, "j.2", serve.main, LAUNCH_GATEWAY)
+    s = res["stats"]
+    launch_gate("j.2", counts, ("flash_prefill", "paged_gqa_decode"))
+    if s["completed"] != s["submitted"] or not all(
+            g.done and len(g.delivered) == 32 for g in res["requests"]):
+        raise AssertionError(f"[j.2] gateway {s}")
+    if s["replica_deaths"] != 1:
+        raise AssertionError(f"[j.2] the crash did not land: {s}")
+    del res
+    log(f"[time] (j.2) {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    spec = PATHS["deepseek-v3-671b"]
+    cfg = get_config(spec["model"], **spec["overrides"])
+    args = serve.parser().parse_args(LAUNCH_DSV3)
+    res, lines, counts, _ = cli(torch, "j.3", serve.run, cfg, args)
+    eng = res["engine"]
+    launch_gate("j.3", counts, ("fp8_gemm", "moe_gemm", "paged_mla_decode"),
+                eng, res["requests"])
+    if eng.stats["drafts"] <= 0 or not any(
+            x.startswith("[serve] MTP speedup model") for x in lines):
+        raise AssertionError("[j.3] no MTP draft, or no acceptance line")
+    del res, eng
+    log(f"[time] (j.3) {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    with step_times(Trainer) as times:
+        out, _, counts, _ = cli(torch, "j.4", train.main, LAUNCH_TRAIN)
+    losses = [h["loss"] for h in out["history"]]
+    if len(losses) != 4 or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"[j.4] losses {losses}")
+    n = count_params(get_config("qwen1.5-4b"))
+    log(f"[j.4] losses {[round(v, 4) for v in losses]}; ms a step "
+        f"{[round(1e3 * t, 2) for t in times]} (4 x 64 tokens); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB against the state "
+        f"reckoned at 12 B a parameter: {12 * n / 1e9:.2f} GB ({n} "
+        "parameters)")
+    log(f"[time] (j.4) {time.perf_counter() - t0:.1f} s")
+
+
 def get_vocab(model):
     from repro_torch.configs.base import get_config
     return get_config(model).vocab_size
@@ -5667,11 +5831,6 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        print("chip_smoke: run it from a checkout of the repository "
-              "(src/repro_torch is missing)", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build, registry
     torch.backends.cuda.matmul.allow_tf32 = False    # plain versions: fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -5717,6 +5876,9 @@ def main():
     gc_cuda(torch)
     mesh_fp8 = phase_train_mesh(torch, card)
     lap("(i) meshed training")
+    gc_cuda(torch)
+    phase_launchers(torch)
+    lap("(j) launchers")
 
     # one entry per kernel: the main path's shape (decode-time where the
     # kernel runs at decode; E4M3 codes and w1/w3 for moe_gemm, the fp8

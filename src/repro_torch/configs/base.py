@@ -151,6 +151,34 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
+# Input-shape cells (the reference's, for the cost model)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeCfg:
+    name: str
+    seq_len: int
+    global_batch: int
+    phase: str     # train | prefill | decode
+
+
+SHAPES: dict[str, ShapeCfg] = {
+    "train_4k": ShapeCfg("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCfg("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCfg("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCfg("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(model: ModelConfig, shape: ShapeCfg) -> Tuple[bool, str]:
+    """long_500k only for sub-quadratic archs."""
+    if shape.name == "long_500k" and not model.sub_quadratic():
+        return False, "long_500k skipped: pure full-attention arch (quadratic)"
+    return True, ""
+
+
+# ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------
 

@@ -49,10 +49,10 @@ import torch
 from repro_torch.core.logfmt import TILE
 from repro_torch.kernels import build, registry
 from repro_torch.kernels.logfmt import ops
+from repro_torch.launch.costs import HBM_BW
 
 N, D = 1792, 18432
 BITS = (8, 10)
-HBM_BYTES_PER_S = 3.35e12
 
 _RANGES = "    tile_ranges(v, lane, mn_j, mx_j);\n"
 _ENCODE = "      encode(v[j], q, r, levels, c);\n"
@@ -192,7 +192,7 @@ def main() -> None:
         mn = torch.empty(N, D // TILE, device=dev)
         step = torch.empty_like(mn)
         nbytes = N * D * (4 + codes.element_size()) + 8 * N * D // TILE
-        bound = 1e3 * nbytes / HBM_BYTES_PER_S
+        bound = 1e3 * nbytes / HBM_BW
         order = list(libs)
         times = {name: [] for name in order}
         for names in (order, order[::-1]):

@@ -1,7 +1,7 @@
 """Mesh helpers of the launchers — the port's copy of the part of
 ``repro.launch.mesh`` that training needs: the elastic re-mesh after a
-node failure (paper §6.1). The launchers themselves are not ported yet
-(ROADMAP.md, item 11).
+node failure (paper §6.1). The launchers (``launch/serve.py``,
+``launch/train.py``) build their meshes over spawned ranks themselves.
 """
 from __future__ import annotations
 

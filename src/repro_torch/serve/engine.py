@@ -478,6 +478,7 @@ class ServeEngine:
                       "splices": 0, "first_tokens": 0, "page_admits": 0,
                       "page_releases": 0, "peak_pages_used": 0,
                       "chunk_prefills": 0, "evictions": 0}
+        self._prefill_buckets: set = set()
 
     # -- mesh install --------------------------------------------------------
     def _mesh_params(self, params, seed: int):
@@ -613,6 +614,7 @@ class ServeEngine:
         bucket = bucket_length(L, self.max_len)
         toks = np.zeros((1, bucket), np.int32)
         toks[0, :L] = prompt
+        self._prefill_buckets.add(bucket)
         self.stats["dispatches"] += 1
         self.stats["prefills"] += 1
         # paged admission quantizes the bucket-long cache into pages; dense
@@ -1540,6 +1542,13 @@ class ServeEngine:
         return False
 
     # -- introspection --------------------------------------------------------
+    @property
+    def compiled_prefill_buckets(self) -> List[int]:
+        """Sorted bucket lengths this engine has prefilled: the reference's
+        property, whose buckets are those with a compiled prefill program.
+        The port runs each bucket's prefill eagerly, at that one shape."""
+        return sorted(self._prefill_buckets)
+
     @property
     def trace_counts(self) -> Dict[str, int]:
         """The reference's introspection, with the keys the port has, each
