@@ -71,11 +71,11 @@ from the root of a checkout. Phases, each fatal on failure:
         (``paged=False, use_mtp=True``; kernels fp8_gemm, moe_gemm,
         mla_decode, 4 launches a decode step, and never
         paged_mla_decode);
-      - qwen3-moe-30b-a3b whole (48 layers, 30.53 B parameters, bf16),
+      - qwen3-moe-30b-a3b at published widths cut 48 -> 16 layers (bf16),
         ``fp8_impl="pallas"``, paged fp8 cache, qwen3-14b's prompts and
         max_len: softmax routing, its bf16 routed experts through
-        moe_gemm's bf16 format (144 launches a step), flash_prefill,
-        paged_gqa_decode (48 a step), never fp8_gemm; the graphed step is
+        moe_gemm's bf16 format (48 launches a step), flash_prefill,
+        paged_gqa_decode (16 a step), never fp8_gemm; the graphed step is
         printed against the expert wall's bytes at the card's memory rate
         (a floor: the capacity-buffer product reads every expert); then
         chunked (one TTFT run of each kind);
@@ -332,6 +332,34 @@ from the root of a checkout. Phases, each fatal on failure:
         "node"})`` must end at (1, 2) after one restart, ranks 2-3 gone;
       - (i.3) ``pipeline_forward`` on ("pipe",) of the 4 ranks: forward
         within 1e-5 and gradients within 1e-4 of the sequential stages.
+
+  (j) the launchers (``phase_launchers``): ``repro_torch.launch.serve``
+      and ``launch.train`` through their ``main``/``run`` on the card.
+
+  (k) the dry run and the roofline (``phase_dryrun``), no kernel on its
+      path:
+      - (k.1) ``python -m repro_torch.launch.dryrun`` under this torch,
+        one process a cell, all at once (``DRYRUN_CELLS``): DeepSeek-V3
+        and qwen3-14b x {train_4k, prefill_32k, decode_32k} on the
+        single-pod mesh; one cell each of A.11, A.12, A.13 and
+        ``--multi-pod`` (A.8) through ``run_cell`` in this process; then ``repro_torch.launch.roofline`` over
+        the records, its table printed. Gates: each cell's status (or
+        error label) the expected one, every ok cell's
+        ``collectives.total`` above 0;
+      - (k.2) one card against the dry run (``DRYRUN_LIVE``): qwen1.5-4b
+        whole at (j.4)'s train shape (4 x 64 tokens), and cut to 8
+        layers at 2 x 2048 tokens (the activations dominate), each
+        traced on a one-device mesh (in this process while (k.1)'s cells
+        trace), then the same step live on the card from seeded
+        weights, ``remat`` none and full, a warm-up then two timed steps
+        each. Gates: the dry run's ``argument_size_in_bytes`` equal to the
+        live state and batch bytes, its ``flops_per_device`` equal to
+        ``FlopCounterMode`` over a live step, its predicted peak
+        (arguments + temp) within 10% of ``torch.cuda.max_memory_allocated``,
+        the first step's loss of the two settings within 1e-6 relative.
+        Printed per setting: the peaks and their gap, ms a step, the
+        roofline's bound ``max(t_comp, t_mem)`` on one card and its share
+        of the measured step.
 
 The line before the last two is one JSON object with the kernel table
 (fp8_gemm's training backward rows, dx and dw at the FFN's w_gate/w_up,
@@ -1343,18 +1371,20 @@ PATHS = {
         absent=("paged_mla_decode",),
         per_step={"mla_decode": 4, "fp8_gemm": 38},
         **DSV3_PROMPTS),
-    # the whole model at published widths, bf16 (30.53 B parameters): its
-    # routed experts reach moe_gemm's bf16 format (fp8=False), 3 products
-    # a MoE layer a step, each streaming all 128 experts
+    # published widths, bf16, depth cut 48 -> 16 (10.48 B parameters; the
+    # whole model took 178 s of the script's time limit): its routed
+    # experts reach moe_gemm's bf16 format (fp8=False), 3 products a MoE
+    # layer a step, each streaming all 128 experts
     "qwen3-moe-30b-a3b": dict(
-        model="qwen3-moe-30b-a3b", overrides=dict(fp8_impl="pallas"),
+        model="qwen3-moe-30b-a3b",
+        overrides=dict(num_layers=16, fp8_impl="pallas"),
         engine=PAGED, kernels=("flash_prefill", "paged_gqa_decode",
                                "moe_gemm"),
         absent=("fp8_gemm",),
-        per_step={"paged_gqa_decode": 48, "moe_gemm": 144},
+        per_step={"paged_gqa_decode": 16, "moe_gemm": 48},
         **QWEN_PROMPTS,
         chunked=dict(prefill_chunk=256, pool_pages=600,
-                     per_chunk={"flash_prefill": 48, "moe_gemm": 144})),
+                     per_chunk={"flash_prefill": 16, "moe_gemm": 48})),
     # published widths, depth 48 -> 4: two dense/MoE pairs (35.29 B
     # parameters, 70.6 GB in bf16), top-1 routing plus the shared expert
     "llama4-maverick-400b-a17b": dict(
@@ -2499,7 +2529,7 @@ def chunked_timing(torch, name, ceng, eng, L):
     """TTFT of a prompt of the path's longest length with three residents
     decoding: chunked with the chunk graph, chunked with eager chunks (the
     same engine, its graph set aside) and whole-prompt (``eng``), in
-    turns, 3 runs each; the residents' ms per tick with and without it;
+    turns, 2 runs each; the residents' ms per tick with and without it;
     ms per chunk alone, graphed and eager in turns; the chunk graph's
     capture; a profile of one replayed chunk. Every run takes a prompt of
     its own, so no prefix hit shortens a chunked one."""
@@ -2515,8 +2545,7 @@ def chunked_timing(torch, name, ceng, eng, L):
     prompts = iter([rng.integers(0, eng.cfg.vocab_size, L).astype(np.int32)
                     for _ in range(14)])
     runs = {"graphed": [], "eager": [], "whole": []}
-    order = ("graphed", "eager", "whole", "whole", "eager", "graphed",
-             "graphed", "eager", "whole")
+    order = ("graphed", "eager", "whole", "whole", "eager", "graphed")
     for which in order:
         e = eng if which == "whole" else ceng
         pc.graphed = which != "eager"
@@ -2527,7 +2556,7 @@ def chunked_timing(torch, name, ceng, eng, L):
            "whole": "prefill + admission + one decode replay"}
     for which, rs in runs.items():
         log(f"[c] {name} {which}: TTFT of a {L}-token prompt with 3 "
-            f"residents decoding, 3 runs in turns: "
+            f"residents decoding, {len(rs)} runs in turns: "
             f"{[round(t, 2) for t, _, _ in rs]} ms; the residents' ms per "
             f"tick without prefill "
             f"{[[round(x, 2) for x in i] for _, i, _ in rs]}, while it "
@@ -5821,6 +5850,227 @@ def phase_launchers(torch):
     log(f"[time] (j.4) {time.perf_counter() - t0:.1f} s")
 
 
+# --- (k) ---------------------------------------------------------------------
+# the dry run's cells under the card's torch, one process each, all at once
+# (no process touches the card): (arch, shape, multi-pod, the status or
+# error label it must record)
+DRYRUN_CELLS = [(a, s, False, "ok") for a in ("deepseek-v3-671b", "qwen3-14b")
+                for s in ("train_4k", "prefill_32k", "decode_32k")] + [
+    ("llama4-maverick-400b-a17b", "train_4k", False, "A.11"),
+    ("mamba2-2.7b", "decode_32k", False, "A.12"),
+    ("seamless-m4t-large-v2", "prefill_32k", False, "A.13"),
+    ("qwen3-14b", "decode_32k", True, "A.8")]
+DRYRUN_TIMEOUT = 240
+# (k.2): qwen1.5-4b on one card, (label, layers (None: whole), tokens a
+# row, rows): whole at (j.4)'s train shape, where the state dominates
+# the peak; and cut to 8 layers at 2 x 2048 tokens, where the
+# activations do and ``remat`` moves it (predicted 44.2 GB under none,
+# 26.8 under full). Each predicted peak (arguments + temp) must be within
+# ``peak_band`` of ``torch.cuda.max_memory_allocated``, relative
+DRYRUN_LIVE = dict(model="qwen1.5-4b", seed=0, remats=("none", "full"),
+                   loss_rtol=1e-6, peak_band=0.10,
+                   shapes=(("train_4x64", None, 64, 4),
+                           ("train_2x2048_8l", 8, 2048, 2)))
+
+
+@contextlib.contextmanager
+def dryrun_cells(tmp, cells):
+    """(k.1): each of ``cells`` as its own ``python -m
+    repro_torch.launch.dryrun`` process, all started together on entry;
+    the block runs while they trace. Yields a dict filled on the way out
+    with the records by (arch, shape, multi-pod). Every process is
+    stopped on the way out."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    procs, recs = [], {}
+    try:
+        for arch, shape, pod, _ in cells:
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--shape", shape, "--out", tmp]
+            procs.append(subprocess.Popen(
+                cmd + (["--multi-pod"] if pod else []), env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                cwd=str(ROOT)))
+        yield recs
+        outs = [p.communicate(timeout=DRYRUN_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for (arch, shape, pod, _), out in zip(cells, outs):
+        fn = os.path.join(tmp, f"{arch}__{shape}{'_pod' if pod else ''}.json")
+        if not os.path.exists(fn):
+            raise AssertionError(f"[k.1] {arch} x {shape}: no record\n"
+                                 f"{out[-2000:]}")
+        with open(fn) as f:
+            recs[arch, shape, pod] = json.load(f)
+
+
+def dryrun_status(rec):
+    if rec["status"] != "error":
+        return rec["status"]
+    got = re.findall(r"A\.\d+", rec["error"])
+    return got[0] if got else rec["error"][:300]
+
+
+def live_train_steps(torch, cfg, shape, remat):
+    """(k.2): the dry run's train step live on the card, unmeshed, from
+    weights drawn from ``DRYRUN_LIVE["seed"]``: a warm-up step counted by
+    ``FlopCounterMode``, then two timed steps, the peak memory of each
+    step from a reset. Returns the measured fields."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.launch.dryrun import tree_bytes
+    from repro_torch.models.api import Model
+    from repro_torch.parallel.context import ParallelCtx
+    from repro_torch.train import optimizer as optim
+    from repro_torch.train.trainer import TrainConfig, make_train_step
+    gc_cuda(torch)
+    model = Model(cfg)
+    params = model.init(DRYRUN_LIVE["seed"])
+    opt = optim.init(params)
+    g = torch.Generator(device="cuda").manual_seed(DRYRUN_LIVE["seed"])
+    toks = torch.randint(0, cfg.vocab_size, (shape.global_batch,
+                                             shape.seq_len), generator=g,
+                         device="cuda", dtype=torch.int32)
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+    args_bytes = tree_bytes((params, opt, batch))
+    step = make_train_step(model, TrainConfig(), ParallelCtx(remat=remat))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        _, _, m = step(params, opt, batch, 1)
+    loss0 = float(m["loss"])
+    times, peaks = [], []
+    for i in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, _, m = step(params, opt, batch, 2 + i)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        peaks.append(torch.cuda.max_memory_allocated())
+    del params, opt, batch, step, model
+    gc_cuda(torch)
+    return dict(args_bytes=args_bytes, flops=fc.get_total_flops(),
+                loss=loss0, ms=times, peak=max(peaks))
+
+
+def phase_dryrun(torch):
+    """(k): the dry run and the roofline on the card's machine, then one
+    card against the dry run's prediction."""
+    import dataclasses
+    import io
+    import tempfile
+    from repro_torch.configs.base import ShapeCfg, get_config
+    from repro_torch.launch import dryrun, roofline
+
+    spec = DRYRUN_LIVE
+    lives = {}
+    for label, layers, seq, batch in spec["shapes"]:
+        cfg = get_config(spec["model"])
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        lives[label] = (cfg, ShapeCfg(label, seq, batch, "train"))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # the cells that trace run as processes; the refused ones, which
+        # stop at the gate, and (k.2)'s traces run here meanwhile
+        with dryrun_cells(tmp, [c for c in DRYRUN_CELLS
+                                if c[3] == "ok"]) as recs:
+            refused = {(a, sh, pod): dryrun.run_cell(
+                a, sh, multi_pod=pod, out_dir=tmp)
+                for a, sh, pod, want in DRYRUN_CELLS if want != "ok"}
+            traced = {(label, r): dryrun.trace(cfg, shape, (1, 1),
+                                               remat=r)
+                      for label, (cfg, shape) in lives.items()
+                      for r in spec["remats"]}
+        recs.update(refused)
+        for arch, shape_name, pod, want in DRYRUN_CELLS:
+            rec = recs[arch, shape_name, pod]
+            got = dryrun_status(rec)
+            tag = (f"[k.1] {arch} x {shape_name}"
+                   f"{' --multi-pod' if pod else ''}")
+            if got != want:
+                raise AssertionError(f"{tag}: {got}, want {want}")
+            if got != "ok":
+                log(f"{tag}: error {got} (as expected)")
+                continue
+            c, mem = rec["collectives"], rec["memory_analysis"]
+            if c["total"] <= 0:
+                raise AssertionError(f"{tag}: no collective recorded")
+            log(f"{tag}: ok, trace {rec['trace_s']:.1f} s, "
+                f"{rec['flops_per_device']:.4e} FLOP and "
+                f"{rec['bytes_per_device']:.4e} op bytes a rank, arguments "
+                f"{mem['argument_size_in_bytes'] / 1e9:.3f} GB, temp peak "
+                f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB, collectives "
+                f"{c['total'] / 1e6:.1f} MB ("
+                + ", ".join(f"{k} {c[k] / 1e6:.1f} MB x {c['counts'][k]}"
+                            for k in dryrun.COLLECTIVES if c["counts"][k])
+                + ")")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            roofline.main(["--dir", tmp, "--markdown",
+                           os.path.join(tmp, "roofline.md")])
+        for line in buf.getvalue().splitlines():
+            log(f"[k.1] | {line}")
+    log(f"[time] (k.1) {time.perf_counter() - t0:.1f} s (with (k.2)'s "
+        "traces)")
+
+    t0 = time.perf_counter()
+    for label, (cfg, shape) in lives.items():
+        live_against_dryrun(torch, spec, label, cfg, shape, traced)
+    log(f"[time] (k.2) {time.perf_counter() - t0:.1f} s")
+
+
+def live_against_dryrun(torch, spec, label, cfg, shape, traced):
+    """(k.2) for one shape: each remat setting's live step against its
+    dry-run record (arguments, FLOPs, predicted peak); the first step's
+    loss equal across the settings."""
+    losses = {}
+    for remat in spec["remats"]:
+        rec = traced[label, remat]
+        live = live_train_steps(torch, cfg, shape, remat)
+        mem = rec["memory_analysis"]
+        tag = (f"[k.2] {spec['model']} {cfg.num_layers} layers, "
+               f"{shape.global_batch} x {shape.seq_len} tokens, "
+               f"remat={remat}")
+        if mem["argument_size_in_bytes"] != live["args_bytes"]:
+            raise AssertionError(
+                f"{tag}: dry-run arguments {mem['argument_size_in_bytes']} "
+                f"B, live state and batch {live['args_bytes']} B")
+        if rec["flops_per_device"] != live["flops"]:
+            raise AssertionError(f"{tag}: dry-run FLOPs "
+                                 f"{rec['flops_per_device']}, live "
+                                 f"{live['flops']}")
+        losses[remat] = live["loss"]
+        c = costs.step_costs(cfg, shape, remat=remat)
+        t_comp = c.flops_total / costs.PEAK_FLOPS
+        t_mem = c.hbm_bytes / costs.HBM_BW
+        bound = 1e3 * max(t_comp, t_mem)
+        pred = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        gap = (pred - live["peak"]) / live["peak"]
+        log(f"{tag}: arguments {live['args_bytes']} B (dry run equal), "
+            f"{live['flops']:.6e} FLOP a step (dry run equal); peak "
+            f"predicted {pred / 1e9:.3f} GB (arguments + temp "
+            f"{mem['temp_size_in_bytes'] / 1e9:.3f}), measured "
+            f"{live['peak'] / 1e9:.3f} GB ({100 * gap:+.2f}%, band "
+            f"{100 * spec['peak_band']:.0f}%); ms a step "
+            f"{[round(t, 2) for t in live['ms']]}; roofline bound "
+            f"{bound:.3f} ms (t_comp {1e3 * t_comp:.3f}, t_mem "
+            f"{1e3 * t_mem:.3f}), {100 * bound / min(live['ms']):.2f}% of "
+            f"the faster step; dry-run trace {rec['trace_s']:.1f} s")
+        if abs(gap) > spec["peak_band"]:
+            raise AssertionError(f"{tag}: predicted peak {pred} B, "
+                                 f"measured {live['peak']} B: outside "
+                                 f"the band")
+    a, b = (losses[r] for r in spec["remats"])
+    if abs(a - b) > spec["loss_rtol"] * abs(a):
+        raise AssertionError(f"[k.2] {label}: first-step losses {losses}")
+    log(f"[k.2] {label}: first-step losses {losses}")
+
+
 def get_vocab(model):
     from repro_torch.configs.base import get_config
     return get_config(model).vocab_size
@@ -5879,6 +6129,8 @@ def main():
     gc_cuda(torch)
     phase_launchers(torch)
     lap("(j) launchers")
+    phase_dryrun(torch)
+    lap("(k) dry run")
 
     # one entry per kernel: the main path's shape (decode-time where the
     # kernel runs at decode; E4M3 codes and w1/w3 for moe_gemm, the fp8

@@ -86,9 +86,15 @@ def mla_attention(p: dict, x: torch.Tensor, *, cfg: ModelConfig,
                   return_cache_entries: bool = False):
     """Naive (prefill) MLA: full causal attention. x: (B, S, d). Returns
     out (B, S, d) and optionally the latent cache entries (ckv (B,S,rank),
-    kr (B,S,rope))."""
+    kr (B,S,rope)). Under a sequence cut (``context.seq_group``) x and out
+    are this rank's chunk of the sequence."""
     m = cfg.mla
     nh = _heads(p, cfg)
+    sp = pctx.seq_group()
+    if sp is not None:
+        # a sequence cut: the replicated latents run on the gathered
+        # sequence, as without one (their consumers sum the gradients)
+        x = coll.gather(x, sp, 1, backward="slice")
     B, S, _ = x.shape
     q_nope, q_rope = _queries(p, x, cfg, positions)
     ckv, kr = _latents(p, x, cfg, positions)

@@ -99,11 +99,15 @@ def shared_expert(p: dict, x: torch.Tensor, cfg: ModelConfig,
     ``ws3``, its row slice of ``ws2``): x enters through
     ``collectives.copy_to_group`` and the fp32 partials of the last
     product are summed over the model group (``reduce_sum``), then
-    rounded once."""
+    rounded once. Under a sequence cut (``context.seq_group``) x is this
+    rank's chunk: gathered in, the partials reduce-scattered out."""
     if "ws1" not in p:
         return torch.zeros_like(x)
     group = pctx.get().tp_group
-    x = coll.copy_to_group(x, group)
+    sp = pctx.seq_group()
+    # a sequence cut: this rank's chunk gathered in, reduce-scattered out
+    x = (coll.gather(x, sp, 1, backward="reduce_scatter") if sp is not None
+         else coll.copy_to_group(x, group))
     w1, w3, w2 = p["ws1"], p["ws3"], p["ws2"]
     if cfg.fp8:
         x = ste_qdq_tile(x)
@@ -113,6 +117,8 @@ def shared_expert(p: dict, x: torch.Tensor, cfg: ModelConfig,
     h = act_fn(cfg.act)(x @ w1.to(dt)) * (x @ w3.to(dt))
     if group is None:
         return h @ w2.to(dt)
+    if sp is not None:
+        return coll.scatter_sum(h.float() @ w2.float(), sp, 1).to(dt)
     return coll.reduce_sum(h.float() @ w2.float(), group).to(dt)
 
 

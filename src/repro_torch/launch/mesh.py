@@ -1,15 +1,39 @@
-"""Mesh helpers of the launchers — the port's copy of the part of
-``repro.launch.mesh`` that training needs: the elastic re-mesh after a
-node failure (paper §6.1). The launchers (``launch/serve.py``,
+"""Mesh helpers of the launchers — the port of ``repro.launch.mesh``: the
+production meshes of the dry run and the elastic re-mesh after a node
+failure (paper §6.1). The launchers (``launch/serve.py``,
 ``launch/train.py``) build their meshes over spawned ranks themselves.
+
+Single pod: (16, 16) = 256 ranks, axes (data, model). Multi-pod:
+(2, 16, 16) = 512 ranks, axes (pod, data, model). Defined as functions, so
+importing this module touches no process group.
 """
 from __future__ import annotations
 
 import itertools
+import math
 
 from repro_torch.parallel.context import Mesh, _rank_of
 
 DP_AXES = ("pod", "data")
+
+
+def production_shape(multi_pod: bool = False):
+    """The reference's production mesh: ``(shape, axis names)``."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The production mesh as a port :class:`Mesh`: inside an initialized
+    world of its size (the dry run's fake one) with every axis line's
+    group (``Mesh.create``, a collective call every rank makes), else
+    ``Mesh.abstract`` (shapes only)."""
+    import torch.distributed as dist
+    shape, axes = production_shape(multi_pod)
+    if dist.is_initialized() and dist.get_world_size() == math.prod(shape):
+        return Mesh.create(shape, axes)
+    return Mesh.abstract(shape, axes)
 
 
 def dp_axes_for(mesh: Mesh):

@@ -73,7 +73,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeCfg
 from repro_torch.core import mla as mla_mod
 from repro_torch.core import mtp as mtp_mod
 from repro_torch.core import paged as paged_mod
@@ -82,7 +82,8 @@ from repro_torch.models import layers as Lyr
 from repro_torch.models import rglru as rg_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
-from repro_torch.models.param import ParamSpec, init_params, layer
+from repro_torch.models.param import (ParamSpec, init_params, layer,
+                                      param_structs)
 from repro_torch.parallel import collectives as coll
 from repro_torch.parallel import context as pctx_mod
 from repro_torch.parallel import sharding
@@ -370,9 +371,56 @@ def _under_pctx(fn):
     (none given: the current one)."""
     @functools.wraps(fn)
     def run(self, *args, pctx=None, **kwargs):
-        with pctx_mod.use(pctx):
+        with pctx_mod.use(pctx) as c:
+            # a meshed call takes the engine's and the trainer's gate
+            pctx_mod.check_meshed(self.cfg, c, f"Model.{fn.__name__}")
             return fn(self, *args, **kwargs)
     return run
+
+
+# the products whose outputs ``remat="dots"`` saves: matrix products with
+# no batch dimension (a linear's ``matmul`` of (..., K) by (K, N) reaches
+# the dispatcher as ``mm``; batched products, the attention's and the
+# experts' ``bmm``, are recomputed), as the reference's
+# ``dots_with_no_batch_dims_saveable``
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(step, policy: str, tag: Optional[str] = None):
+    """``step`` under the ctx's remat policy (the reference's
+    ``apply_remat``; the one wrapper of the single backbone and the dual
+    microbatch's layers). ``full``: ``torch.utils.checkpoint`` (non-reentrant)
+    keeps the step's inputs and recomputes its forward in the backward;
+    ``dots``: a selective checkpoint that also keeps the outputs of the
+    ``mm``/``addmm`` products (:data:`_DOTS`) and recomputes the rest;
+    ``none``, or without autograd: ``step`` itself. The recompute runs
+    under the forward's parallel ctx, sequence cut and collective tag
+    ``tag``, so it issues what the forward issued. Remat changes memory and
+    recompute, never a value."""
+    def tagged(*args):
+        with coll.tagged(tag):
+            return step(*args)
+    if policy == "none" or not torch.is_grad_enabled():
+        return tagged
+    from torch.utils import checkpoint as ckpt
+    c = pctx_mod.get()
+
+    def scoped(*args):
+        with pctx_mod.use(c):
+            return tagged(*args)
+
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    return lambda *args: ckpt.checkpoint(scoped, *args, use_reentrant=False,
+                                         **kw)
 
 
 def stack_stats(stats: List[dict]) -> Dict[str, torch.Tensor]:
@@ -452,12 +500,52 @@ class Model:
     def init(self, seed: int = 0):
         return init_params(self.specs(), seed, self.device)
 
+    def param_structs(self):
+        """The parameter tree as ``meta`` tensors (global shapes, nothing
+        allocated): the reference's ``param_structs``."""
+        return param_structs(self.specs())
+
+    def input_specs(self, shape: ShapeCfg) -> Dict[str, Any]:
+        """The step's inputs for ``shape`` as ``meta`` tensors, global
+        shapes (the reference's ``input_specs``): ``tokens`` (and for
+        train ``labels``) (B, S) int32, with ``src_embeds`` or
+        ``patch_embeds`` for the families with a memory; for decode
+        ``tokens`` and ``positions`` (B, 1) int32 and the dense cache over
+        S context rows."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        i32 = dict(dtype=torch.int32, device="meta")
+        dt = dict(dtype=torch_dtype(cfg.dtype), device="meta")
+        if shape.phase in ("train", "prefill"):
+            d: Dict[str, Any] = {"tokens": torch.empty((B, S), **i32)}
+            if shape.phase == "train":
+                d["labels"] = torch.empty((B, S), **i32)
+            if cfg.family == "encdec":
+                d["src_embeds"] = torch.empty(
+                    (B, int(S * cfg.src_len_ratio), cfg.d_model), **dt)
+            if cfg.family == "vlm":
+                d["patch_embeds"] = torch.empty(
+                    (B, cfg.num_patches, cfg.d_model), **dt)
+            return d
+        return {"tokens": torch.empty((B, 1), **i32),
+                "positions": torch.empty((B, 1), **i32),
+                "cache": self.init_cache(B, S, device="meta")}
+
     # -- shared pieces -------------------------------------------------------
     def _embed(self, params, tokens):
+        """Token embeddings (B, S, d). Under a sequence cut
+        (``parallel/context.seq_group``) this rank's chunk of the
+        sequence: the vocab-parallel sum is reduce-scattered along it, or,
+        with the table whole on each rank, the lookup takes this rank's
+        tokens (the table's gradient then summed over the group)."""
         emb = sharding.gathered(params["embed"], ("embed",))["emb"]
         dt = torch_dtype(self.cfg.dtype)
+        sp = pctx_mod.seq_group()
         V = emb.shape[0]
         if V == self.cfg.vocab_size:
+            if sp is not None:
+                emb = coll.copy_to_group(emb, sp)
+                tokens = coll.own_part(tokens, sp, 1)
             return emb[tokens].to(dt)
         # this rank's vocab rows: the lookup is masked to them, and the
         # model group's sum holds every token's one row
@@ -465,6 +553,8 @@ class Model:
         local = tokens.long() - c.index(c.tp_axis) * V
         inside = (local >= 0) & (local < V)
         e = emb[local.clamp(0, V - 1)].masked_fill(~inside[..., None], 0)
+        if sp is not None:
+            return coll.scatter_sum(e, sp, 1).to(dt)
         return coll.reduce_sum(e, c.tp_group).to(dt)
 
     def _unembed(self, params, h):
@@ -472,13 +562,27 @@ class Model:
         hidden enters through ``copy_to_group``, each rank's vocab columns
         are gathered (``collectives.gather``) and every rank computes the
         CE on the whole logits, so the gather's backward is this rank's
-        slice of their gradient (not a vocab-parallel log-sum-exp)."""
+        slice of their gradient (not a vocab-parallel log-sum-exp). Under
+        a sequence cut the norm runs on this rank's tokens and the hidden
+        is gathered along the sequence in place of ``copy_to_group``."""
         emb = sharding.gathered(params["embed"], ("embed",))
-        h = Lyr.rmsnorm(h, emb["final_norm"], self.cfg.rms_eps)
+        sp = pctx_mod.seq_group()
         w = emb.get("unemb")
         if w is None:
             w = emb["emb"].T
-        if w.shape[-1] == self.cfg.vocab_size:
+        whole = w.shape[-1] == self.cfg.vocab_size
+        if sp is not None:
+            # the norm on this rank's tokens, then the sequence gathered
+            h = Lyr.rmsnorm(h, coll.copy_to_group(emb["final_norm"], sp),
+                            self.cfg.rms_eps)
+            h = coll.gather(h, sp, 1,
+                            backward="slice" if whole else "reduce_scatter")
+            if whole:
+                return torch.matmul(h, w.to(h.dtype))
+            logits = torch.matmul(h, w.to(h.dtype))
+            return coll.gather(logits, pctx_mod.get().tp_group, dim=-1)
+        h = Lyr.rmsnorm(h, emb["final_norm"], self.cfg.rms_eps)
+        if whole:
             return torch.matmul(h, w.to(h.dtype))
         group = pctx_mod.get().tp_group
         logits = torch.matmul(coll.copy_to_group(h, group), w.to(h.dtype))
@@ -491,17 +595,21 @@ class Model:
                     **self.impl_ctx)
 
     def _run_segment(self, seg: Segment, p, x, ctx, cache):
-        """The segment's steps in turn (:func:`step_phases`). Returns (x,
-        per-step outputs, stats): each MoE stat stacked over the steps
+        """The segment's steps in turn (:func:`step_phases`), each under
+        the ctx's remat policy (:func:`remat`). Returns (x, per-step
+        outputs, stats): each MoE stat stacked over the steps
         (:func:`stack_stats`). Each step's collectives carry its name
         (``collectives.tagged``)."""
         outs, stats = [], []
+        policy = pctx_mod.get().remat
+
+        def step(h, pl, c):
+            return coll.drive(step_phases(seg, pl, h, self.cfg, ctx, c))
+
         for i in range(seg.n):
             c = None if cache is None else layer(cache, i)
-            with coll.tagged(f"{seg.name}/{i}"):
-                x, out, st = coll.drive(step_phases(
-                    seg, sharding.gathered(p, (seg.name,), i), x, self.cfg,
-                    ctx, c))
+            x, out, st = remat(step, policy, f"{seg.name}/{i}")(
+                x, sharding.gathered(p, (seg.name,), i), c)
             outs.append(out)
             stats.append(st)
         return x, outs, stack_stats(stats)
@@ -607,8 +715,10 @@ class Model:
         pos = torch.arange(S, dtype=torch.int32,
                            device=self.device).expand(B, S)
         ctx = self._memory_ctx(params, dict(positions=pos, stats=True), batch)
-        h, _, stats = self._backbone(params, tokens, ctx, None)
-        s, n = self._ce_sum(params, h, labels)
+        with pctx_mod.sequence_sharded(
+                pctx_mod.seq_divides(pctx_mod.get(), S)):
+            h, _, stats = self._backbone(params, tokens, ctx, None)
+            s, n = self._ce_sum(params, h, labels)
         ntok = self.data_total(n).clamp_min(1)
         loss = s / ntok
         metrics: Dict[str, Any] = {"ce": self.data_sum(loss.detach()),
@@ -620,24 +730,32 @@ class Model:
             metrics[f"{segname}/load_layers"] = st["load"]
         metrics["aux_loss"] = aux
         if cfg.mtp:
-            mtp_l = self._mtp_loss(params, h, tokens, pos, ctx)
+            with pctx_mod.sequence_sharded(
+                    pctx_mod.seq_divides(pctx_mod.get(), S)):
+                mtp_l = self._mtp_loss(params, h, tokens, pos, ctx)
             metrics["mtp_loss"] = self.data_sum(mtp_l.detach())
             loss = loss + mtp_l
         return self.data_sum(loss), metrics
 
     def _mtp_loss(self, params, h, tokens, pos, ctx):
         """The MTP modules' loss on the backbone's hidden ``h``: this data
-        rank's part of the global mean."""
+        rank's part of the global mean. Under a sequence cut ``h`` is this
+        rank's chunk: it is gathered, and the module runs on the whole
+        sequence (its inputs pair each position with the next token)."""
         cfg = self.cfg
         c = pctx_mod.get()
-        return mtp_mod.mtp_losses(
-            sharding.gathered(params["mtp"], ("mtp",)), h, tokens,
-            emb_fn=lambda t: self._embed(params, t),
-            unemb_fn=lambda hh: self._unembed(params, hh),
-            cfg=cfg, positions=pos,
-            block_apply=lambda p, x, positions: tfm.block_apply(
-                p, x, cfg, dict(ctx, positions=positions), None)[0],
-            rows=tokens.shape[0] * c.dp_size)
+        sp = pctx_mod.seq_group()
+        if sp is not None:
+            h = coll.gather(h, sp, 1, backward="slice")
+        with pctx_mod.sequence_sharded(False):
+            return mtp_mod.mtp_losses(
+                sharding.gathered(params["mtp"], ("mtp",)), h, tokens,
+                emb_fn=lambda t: self._embed(params, t),
+                unemb_fn=lambda hh: self._unembed(params, hh),
+                cfg=cfg, positions=pos,
+                block_apply=lambda p, x, positions: tfm.block_apply(
+                    p, x, cfg, dict(ctx, positions=positions), None)[0],
+                rows=tokens.shape[0] * c.dp_size)
 
     def loss_dual(self, params, batchA, batchB):
         """The loss over two anti-phase microbatches (paper §2.3.1
@@ -785,7 +903,8 @@ class Model:
                                  valid=pair_valid), None)
             return out
 
-        mtp_mod.mtp_hidden(layer(params["mtp"], 0), h[:, :Sm],
+        mtp_mod.mtp_hidden(layer(sharding.gathered(params["mtp"], ("mtp",)),
+                                 0), h[:, :Sm],
                            self._embed(params, tokens[:, 1:]), cfg=cfg,
                            positions=pair_pos, block_apply=bapply)
         cdt = torch_dtype(cfg.cache_dtype_())

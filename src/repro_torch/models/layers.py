@@ -77,9 +77,11 @@ def linear(x: torch.Tensor, w: Union[torch.Tensor, Fp8Weight],
     inside one 1x128 tile is quantized with the whole tile's amax, so the
     codes are the single device's; under autograd the FP8 product is
     ``fp8_linear`` (dx and dw through ``fp8_gemm`` on the card) with that
-    amax, which carries no gradient. A column-parallel product needs no
-    collective here: its caller passes x through
-    ``collectives.copy_to_group``, once for every product that shares it."""
+    amax, which carries no gradient. Under a sequence cut
+    (``context.seq_group``) the partials are reduce-scattered along the
+    sequence (``collectives.scatter_sum``) instead. A column-parallel
+    product needs no collective here: its caller passes x through
+    :func:`to_columns`, once for every product that shares it."""
     group = pctx.get().tp_group if tp == "row" else None
     n = 1 if group is None else dist.get_world_size(group)
     fp8_path = (cfg is not None and cfg.fp8 and w.ndim == 2
@@ -104,10 +106,28 @@ def linear(x: torch.Tensor, w: Union[torch.Tensor, Fp8Weight],
             y = fp8.fp8_linear(x, w, cfg.fp8_impl, amax, out_fp32=True)
         else:
             y = torch.matmul(x.float(), raw(w).float())
-        y = coll.reduce_sum(y, group).to(x.dtype)
+        sp = pctx.seq_group()
+        if sp is not None:
+            # the sequence cut: the sum reduce-scattered along it
+            y = coll.scatter_sum(y, sp, x.dim() - 2).to(x.dtype)
+        else:
+            y = coll.reduce_sum(y, group).to(x.dtype)
     if b is not None:
         y = y + b.to(y.dtype)
     return y
+
+
+def to_columns(x: torch.Tensor) -> torch.Tensor:
+    """The input of a column-parallel region (this rank's heads or ``mlp``
+    columns): ``collectives.copy_to_group`` over the model group (the
+    backward sums the members' partial gradients), or, under a sequence
+    cut (``context.seq_group``), this rank's chunk gathered along the
+    sequence (``collectives.gather``, whose backward reduce-scatters the
+    partial gradients: Megatron's sequence-parallel ``g``)."""
+    sp = pctx.seq_group()
+    if sp is not None:
+        return coll.gather(x, sp, 1, backward="reduce_scatter")
+    return coll.copy_to_group(x, pctx.get().tp_group)
 
 
 def _tile_amax(x: torch.Tensor, group, n: int) -> torch.Tensor:
@@ -288,11 +308,19 @@ def gqa_attention(p: dict, x: torch.Tensor, *, cfg: ModelConfig,
     # would split a KV head) enter through copy_to_group, whose backward
     # sums the ranks' partial gradients
     group = pctx.get().tp_group
+    if group is not None and nh == cfg.num_heads:
+        return _replicated_attention(p, x, cfg, positions, causal, cache,
+                                     kv_x, kv_positions, page_table, impl,
+                                     return_cache_entries, dp_write, window)
     kv_cut = nkv < cfg.num_kv_heads
-    xf = coll.copy_to_group(x, group)
+    # under a sequence cut x is this rank's chunk: K/V come from the
+    # gathered sequence, whose backward sums the partial gradients, so
+    # their path is the cut one's
+    summed = kv_cut or pctx.seq_group() is not None
+    xf = to_columns(x)
     q = _split_heads(linear(xf, p["wq"], cfg, p.get("bq")), nh)
     if kv_x is None:
-        xk = xf if kv_cut else x
+        xk = xf if summed else x
     else:
         xk = coll.copy_to_group(kv_x, group) if kv_cut else kv_x
     k = _split_heads(linear(xk, p["wk"], cfg, p.get("bk")), nkv)
@@ -300,14 +328,14 @@ def gqa_attention(p: dict, x: torch.Tensor, *, cfg: ModelConfig,
     if cfg.qk_norm:
         q = rmsnorm(q, coll.copy_to_group(p["q_norm"], group), cfg.rms_eps)
         k = rmsnorm(k, coll.copy_to_group(p["k_norm"], group)
-                    if kv_cut else p["k_norm"], cfg.rms_eps)
+                    if summed else p["k_norm"], cfg.rms_eps)
     k_pos = positions if kv_positions is None else kv_positions
     if kv_x is None:                    # self-attention: RoPE
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, k_pos, cfg.rope_theta)
     else:
         causal = False
-    if not kv_cut:
+    if not summed:
         k, v = coll.copy_to_group(k, group), coll.copy_to_group(v, group)
     sel = _kv_heads_of(nh, nkv, cfg)
 
@@ -329,6 +357,31 @@ def gqa_attention(p: dict, x: torch.Tensor, *, cfg: ModelConfig,
         aux = cache
     out = out.reshape(*out.shape[:-2], nh * hd)
     return linear(out, p["wo"], cfg, tp="row"), aux
+
+
+def _replicated_attention(p, x, cfg, positions, causal, cache, kv_x,
+                          kv_positions, page_table, impl,
+                          return_cache_entries, dp_write, window):
+    """:func:`gqa_attention` where the heads do not split over the model
+    group (``sharding.whole_heads``): every rank holds every head and runs
+    the single device's attention, with no collective; under a sequence
+    cut the sequence is gathered in (its consumer is replicated: the
+    backward takes this rank's slice) and this rank's part of the output
+    is taken (``collectives.split``: the backward gathers the parts'
+    gradients, so every replicated weight's gradient is whole on every
+    rank)."""
+    sp = pctx.seq_group()
+    if sp is not None:
+        x = coll.gather(x, sp, 1, backward="slice")
+    with pctx.use(pctx.ParallelCtx()):
+        out, aux = gqa_attention(
+            p, x, cfg=cfg, positions=positions, causal=causal, cache=cache,
+            kv_x=kv_x, kv_positions=kv_positions, page_table=page_table,
+            impl=impl, return_cache_entries=return_cache_entries,
+            dp_write=dp_write, window=window)
+    if sp is not None:
+        out = coll.split(out, sp, 1)
+    return out, aux
 
 
 def kv_amax_reduce(nkv: int, cfg: ModelConfig):
@@ -496,9 +549,10 @@ def mlp_specs(cfg: ModelConfig, layers: int,
 
 
 def mlp(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """SwiGLU (GeGLU under ``act="gelu"``); under a model group column-parallel over ``mlp`` (x enters
-    through ``copy_to_group``), ``w_down`` row-parallel."""
-    x = coll.copy_to_group(x, pctx.get().tp_group)
+    """SwiGLU (GeGLU under ``act="gelu"``); under a model group
+    column-parallel over ``mlp`` (x enters through :func:`to_columns`),
+    ``w_down`` row-parallel."""
+    x = to_columns(x)
     g = act_fn(cfg.act)(linear(x, p["w_gate"], cfg))
     u = linear(x, p["w_up"], cfg)
     return linear(g * u, p["w_down"], cfg, tp="row")

@@ -123,6 +123,15 @@ def init_params(spec_tree, seed: int = 0, device=None, placement=None):
     return walk(spec_tree, None if placement is None else placement[0])
 
 
+def param_structs(spec_tree):
+    """The tree of a ParamSpec tree as ``meta`` tensors of its shapes and
+    dtypes (the reference's ``param_structs``: nothing allocated)."""
+    if isinstance(spec_tree, ParamSpec):
+        return torch.empty(spec_tree.shape,
+                           dtype=torch_dtype(spec_tree.dtype), device="meta")
+    return {k: param_structs(v) for k, v in spec_tree.items()}
+
+
 def layer(tree, i: int):
     """Layer ``i`` of a stacked tree (tensors, Fp8Weights, Fp8Experts):
     views, so a cache slice written in place writes the stacked cache."""

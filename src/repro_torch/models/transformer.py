@@ -185,12 +185,17 @@ def block_phases(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: dict,
     collective in flight (``parallel/overlap.py`` runs two blocks' phases
     in turns). The attention's tensor-parallel reductions run through."""
     coll.mark("attention")
-    h, cache_out = _self_attention(p["attn"],
-                                   Lyr.rmsnorm(x, p["ln1"], cfg.rms_eps),
-                                   cfg, ctx, cache)
+    # under a sequence cut x is this rank's chunk of tokens: the norms and
+    # the residual adds run on it, so a norm weight's gradient is this
+    # rank's tokens' part, summed over the group (``copy_to_group``)
+    sp = pctx.seq_group()
+    h, cache_out = _self_attention(
+        p["attn"], Lyr.rmsnorm(x, coll.copy_to_group(p["ln1"], sp),
+                               cfg.rms_eps), cfg, ctx, cache)
     x = x + h
-    f, stats = yield from _ffn_phases(p, Lyr.rmsnorm(x, p["ln2"],
-                                                     cfg.rms_eps), cfg, ctx)
+    f, stats = yield from _ffn_phases(
+        p, Lyr.rmsnorm(x, coll.copy_to_group(p["ln2"], sp), cfg.rms_eps),
+        cfg, ctx)
     return x + f, cache_out, stats
 
 

@@ -40,7 +40,9 @@ transpose its collectives): :func:`reduce_sum` (sum; backward the
 identity), :func:`copy_to_group` (the identity; backward the sum: the
 pair of Megatron's ``g`` and ``f``), :func:`gather` (backward this
 rank's slice where the consumer is replicated, else the reduce-scatter),
-:func:`scatter_sum` (the reduce-scatter; backward the gather) and
+:func:`scatter_sum` (the reduce-scatter; backward the gather),
+:func:`split` (this member's part of a replicated tensor; backward the
+gather) and
 :func:`waited` (any issued collective, with its transpose as its
 backward: the reverse all-to-all, the reverse exchange). Without grad
 they are the plain calls. A backward's collectives run in autograd's
@@ -523,6 +525,17 @@ def gather(x: torch.Tensor, group, dim: int = 0,
         return [reduce_scatter(g0, group, dim).to(x.dtype)]
 
     return _apply(lambda: all_gather(x.detach(), group, dim), bwd, [x])
+
+
+def split(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """This member's part of ``x``, replicated over ``group``, cut along
+    ``dim`` (:func:`own_part`), differentiable: each member's consumer is
+    its own part, so the backward gathers the parts' gradients into the
+    whole one on every member. None: the identity."""
+    if group is None:
+        return x
+    return _apply(lambda: own_part(x.detach(), group, dim),
+                  lambda g: [all_gather(g[0], group, dim)], [x])
 
 
 def scatter_sum(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:

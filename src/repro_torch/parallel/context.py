@@ -120,20 +120,26 @@ def _rank_of(coords: Sequence[int], shape: Sequence[int]) -> int:
     return r
 
 
-# fields of the reference that nothing in the port reads yet
-# (rematerialization, sequence-sharded prefill): a value other than the
-# default raises instead of being ignored
-_NOT_READ = {"remat": "none", "seq_axis": None, "pin_attn": True}
+REMAT = ("none", "full", "dots")
 
 
 @dataclasses.dataclass
 class ParallelCtx:
     """The reference's fields, with ``mesh`` the port's :class:`Mesh` (a
     shape tuple builds one over the default process group, axes
-    ``("data", "model")``). ``remat``, ``seq_axis`` and ``pin_attn`` are
-    kept at their defaults: nothing in the port reads them yet, and
-    another value raises. ``microbatches`` (2 or more: the meshed train
-    step's dual microbatch) is read by ``train/trainer.py``."""
+    ``("data", "model")``).
+
+    ``remat`` (``none`` | ``full`` | ``dots``) checkpoints each layer step
+    of the training forward (``models/api.remat``), with or without a
+    mesh. ``seq_axis`` (the model axis, or None) cuts the training
+    residual stream along the sequence between blocks (Megatron-style
+    sequence parallelism: :func:`seq_group`). ``pin_attn`` is a GSPMD hint
+    in the reference; explicit SPMD always computes a rank's heads from
+    its own column slices, which is what ``pin_attn=True`` pins, so either
+    value runs the same program. ``microbatches`` (2 or more: the meshed
+    train step's dual microbatch) is read by ``train/trainer.py``. More
+    than one data axis raises where a data group is asked for (ROADMAP.md,
+    A.8)."""
     mesh: Optional[Union[Mesh, Tuple[int, ...]]] = None
     dp_axes: Tuple[str, ...] = ("data",)   # axes carrying the batch dim
     ep_axis: Optional[str] = "model"       # axis carrying experts
@@ -143,20 +149,25 @@ class ParallelCtx:
     ep_ftp: bool = False                   # decode: expert-FF TP over data
     wire: str = "fp8"                      # EP dispatch wire: fp8|bf16|fp32
     remat: str = "none"                    # none | full | dots
-    seq_axis: Optional[str] = None         # sequence sharding for prefill
+    seq_axis: Optional[str] = None         # training sequence parallelism
     pin_attn: bool = True                  # GSPMD hint in the reference;
                                            # explicit SPMD holds its shards
     microbatches: int = 2                  # train step (paper §2.3.1)
     # the port's own: the meshed train step's ZeRO-3 plan for one loss
     # evaluation (``parallel/sharding.Zero3``; None: no gathering)
     zero3: Any = None
+    # the port's own: whether the residual stream is cut along the
+    # sequence right now (the training loss's backbone, through
+    # :func:`sequence_sharded`; read by :func:`seq_group`)
+    seq_on: bool = False
 
     def __post_init__(self):
-        for name, default in _NOT_READ.items():
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"ParallelCtx({name}={getattr(self, name)!r}) is not "
-                    "ported yet: see ROADMAP.md, A.8")
+        if self.remat not in REMAT:
+            raise ValueError(f"remat={self.remat!r}: one of {REMAT}")
+        if self.seq_axis is not None and self.seq_axis != self.tp_axis:
+            raise ValueError(
+                f"seq_axis={self.seq_axis!r}: the port cuts the sequence "
+                f"over the tensor-parallel axis ({self.tp_axis!r}) only")
         if self.mesh is not None and not isinstance(self.mesh, Mesh):
             self.mesh = Mesh.create(tuple(self.mesh))
 
@@ -246,10 +257,67 @@ def use(ctx: Optional[ParallelCtx]):
 def shard_act(x, vocab_axis: bool = False):
     """The identity, kept for API parity with the reference; nothing in
     the port calls it. In the reference this pins an activation's GSPMD
-    sharding (batch over the data axes, vocab over the model axis); under
-    explicit SPMD every rank already holds its own shard, and the layers
-    issue the collectives that move data."""
+    sharding (batch over the data axes, the sequence over ``seq_axis``,
+    vocab over the model axis); under explicit SPMD every rank already
+    holds its own shard, and the layers issue the collectives that move
+    data (:func:`seq_group`)."""
     return x
+
+
+def sequence_sharded(on: bool):
+    """Scope whether the residual stream of the block is this rank's
+    chunk of the sequence over ``seq_axis`` (the training loss's backbone
+    when the sequence divides; prefill, decode and the MTP module run the
+    whole sequence): the current ctx with ``seq_on`` set, under
+    :func:`use`."""
+    return use(dataclasses.replace(get(), seq_on=on))
+
+
+def seq_group():
+    """The process group the residual stream is cut over along the
+    sequence (axis 1 of ``(B, S, d)``), or None: outside
+    :func:`sequence_sharded`, without ``seq_axis``, unmeshed or on an axis
+    of size 1. Under it the norms and residual adds run on this rank's
+    chunk of tokens, a column-parallel input gathers the sequence and a
+    row-parallel output reduce-scatters it (the reference's
+    ``shard_act`` condition: ``x.ndim >= 3``, ``x.shape[1] > 1``,
+    divisible, not the vocab output)."""
+    c = get()
+    if not c.seq_on or c.seq_axis is None:
+        return None
+    return c.group(c.seq_axis)
+
+
+def seq_divides(ctx: ParallelCtx, seq_len: int) -> bool:
+    """Whether ``ctx`` cuts a sequence of ``seq_len`` tokens: a
+    ``seq_axis`` of size > 1 on the mesh that divides it."""
+    if ctx.mesh is None or ctx.seq_axis is None:
+        return False
+    n = ctx.mesh.shape[ctx.seq_axis]
+    return n > 1 and seq_len > 1 and seq_len % n == 0
+
+
+def check_meshed(cfg, ctx: Optional[ParallelCtx], entry: str) -> None:
+    """Refuse a meshed run whose layout the port has not ported yet, with
+    its ROADMAP.md label: more than one data axis (A.8), the dense/MoE
+    pairs (A.11), the recurrent families (A.12), the families with a
+    memory (A.13). The serving engine, the meshed train step and the dry
+    run call it; ``entry`` names the caller in the message. Unmeshed: no
+    check."""
+    if ctx is None or ctx.mesh is None:
+        return
+    def waits(what, item):
+        return NotImplementedError(
+            f"{entry}({what}) under a mesh is not ported yet: see "
+            f"ROADMAP.md, {item}")
+    if len(ctx.dp_axes) != 1:
+        raise waits(f"dp_axes={tuple(ctx.dp_axes)}", "A.8")
+    if cfg.moe and cfg.moe.layout.startswith("interleave:"):
+        raise waits(f"layout {cfg.moe.layout!r}", "A.11")
+    if cfg.sub_quadratic():                       # SSD, RG-LRU state
+        raise waits(f"family {cfg.family!r}", "A.12")
+    if cfg.family in ("encdec", "vlm"):           # a memory
+        raise waits(f"family {cfg.family!r}", "A.13")
 
 
 def shard_heads(x):

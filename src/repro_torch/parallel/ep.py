@@ -27,7 +27,10 @@ every data row) are split over the row's model columns; the shared expert
 runs outside the dispatch, tensor-parallel over ``mlp``. Token counts that
 don't divide are padded and masked into the overflow bucket (no capacity,
 no wire). ``ep_ftp`` (decode): tokens replicated over the data axis, each
-expert's FF dimension split over it, partial outputs summed over it.
+expert's FF dimension split over it, partial outputs summed over it; with
+FP8 experts each rank quantizes its own slice, which must be whole
+128-blocks. Under a sequence cut (``context.seq_group``, training) each
+column dispatches its own chunk of tokens.
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ from repro_torch.core import moe as moe_mod
 from repro_torch.core import routing
 from repro_torch.device import torch_dtype
 from repro_torch.parallel import collectives as coll
+from repro_torch.parallel import context as pctx_mod
 from repro_torch.parallel.context import ParallelCtx
 
 _WIRE_BYTES = {"fp8": 1, "bf16": 2, "fp32": 4}
@@ -218,13 +222,16 @@ def _group_reduce(parts: torch.Tensor, group, j: int, cpg: int):
 
 def _ep_flat_local(wg, bias, w1, w3, w2, x, mask, cfg: ModelConfig, group,
                    j: int, cols: int, wire: str = "fp8",
-                   weights_qdq: bool = False, stats: bool = False):
+                   weights_qdq: bool = False, stats: bool = False,
+                   split: bool = True):
     """Phases of flat EP (module docstring): routing and the dispatch
     issued | dispatch waited, the experts, the combine issued | combine
-    waited, the token slices' gather issued | gathered."""
+    waited, the token slices' gather issued | gathered. ``split`` False:
+    ``x`` is this column's own tokens already (a sequence cut), neither
+    sliced nor gathered back."""
     mc = cfg.moe
     E_l = mc.num_experts // cols
-    xt, mt = _slice_tokens(x, mask, cols, j)
+    xt, mt = _slice_tokens(x, mask, cols, j) if split else (x, mask)
     t, d = xt.shape
     k = mc.top_k
 
@@ -269,7 +276,8 @@ def _ep_flat_local(wg, bias, w1, w3, w2, x, mask, cfg: ModelConfig, group,
     y = torch.cat([y, y.new_zeros((Cc, d))], 0)          # overflow rows
     back = y[plan.dest] * plan.keep[:, None]
     yt = back.reshape(t, k, d).sum(1).to(xt.dtype)
-    yt = yield from _unslice_tokens(yt, group)
+    if split:
+        yt = yield from _unslice_tokens(yt, group)
     return yt, rr.load, plan.drop_frac, rr.aux_loss
 
 
@@ -280,7 +288,8 @@ def _ep_flat_local(wg, bias, w1, w3, w2, x, mask, cfg: ModelConfig, group,
 
 def _ep_dedup_local(wg, bias, w1, w3, w2, x, mask, cfg: ModelConfig, group,
                     j: int, cols: int, wire: str = "fp8",
-                    weights_qdq: bool = False, stats: bool = False):
+                    weights_qdq: bool = False, stats: bool = False,
+                    split: bool = True):
     """Phases of the two-hop protocol (module docstring), as
     :func:`_ep_flat_local`'s with hop 2's exchanges (each in flight across
     a yield) after the dispatch and before the combine."""
@@ -290,7 +299,7 @@ def _ep_dedup_local(wg, bias, w1, w3, w2, x, mask, cfg: ModelConfig, group,
     cpg = cols // G
     E_l = mc.num_experts // cols
     epg = mc.num_experts // G
-    xt, mt = _slice_tokens(x, mask, cols, j)
+    xt, mt = _slice_tokens(x, mask, cols, j) if split else (x, mask)
     t, d = xt.shape
     k = mc.top_k
 
@@ -375,13 +384,28 @@ def _ep_dedup_local(wg, bias, w1, w3, w2, x, mask, cfg: ModelConfig, group,
     y = torch.cat([y, y.new_zeros((1, Cg, d))], 0)
     backh = y.reshape(-1, d)[plan.dest] * plan.keep[:, None]
     yt = backh.reshape(t, L, d).sum(1).to(xt.dtype)
-    yt = yield from _unslice_tokens(yt, group)
+    if split:
+        yt = yield from _unslice_tokens(yt, group)
     return yt, rr.load, plan.drop_frac, rr.aux_loss
 
 
 # ---------------------------------------------------------------------------
 # public entry
 # ---------------------------------------------------------------------------
+
+
+def _check_ftp_blocks(p: dict, cfg: ModelConfig) -> None:
+    """``ep_ftp`` with FP8 experts: each rank quantizes its slice of the
+    expert FF dimension in 128-wide tiles and 128x128 blocks, as the
+    reference's body does inside its ``shard_map``; a slice of whole
+    128-blocks keeps the single device's blocks. Raise where the data
+    axis cuts a block."""
+    f, f_local = cfg.moe.expert_ff, p["w1"].shape[-1]
+    if f_local != f and f_local % fp8.BLOCK:
+        raise ValueError(
+            f"ep_ftp with cfg.fp8: the data axis cuts the expert FF "
+            f"dimension {f} into {f_local} a rank, not a multiple of "
+            f"{fp8.BLOCK}: its FP8 tiles and blocks would cross the cut")
 
 
 def uses_dedup(cfg: ModelConfig, pctx: ParallelCtx) -> bool:
@@ -441,12 +465,11 @@ def moe_ffn_phases(p: dict, x: torch.Tensor, cfg: ModelConfig,
     body = _ep_dedup_local if uses_dedup(cfg, pctx) else _ep_flat_local
     ftp = pctx.ep_ftp
     dgroup = pctx.dp_group
-    if ftp and cfg.fp8:
-        raise NotImplementedError(
-            "ep_ftp with cfg.fp8: the expert-FF cut splits the FP8 "
-            "activation tiles of the expert's hidden state over the data "
-            "axis (ROADMAP.md, A.8)")
+    if ftp and cfg.fp8 and dgroup is not None:
+        _check_ftp_blocks(p, cfg)
     gather = ftp and not replicated and dgroup is not None
+    # a sequence cut: this column's tokens are its own chunk already
+    own = pctx_mod.seq_group() is not None
 
     shape = x.shape
     xt = x.reshape(-1, shape[-1])
@@ -457,7 +480,7 @@ def moe_ffn_phases(p: dict, x: torch.Tensor, cfg: ModelConfig,
         if v is not None:
             v = coll.all_gather(v, dgroup)
     T = xt.shape[0]
-    Tpad = -(-T // cols) * cols
+    Tpad = T if own else -(-T // cols) * cols
     mask = torch.arange(Tpad, device=x.device) < T
     if v is not None:
         mask = mask & torch.nn.functional.pad(v, (0, Tpad - T))
@@ -471,11 +494,12 @@ def moe_ffn_phases(p: dict, x: torch.Tensor, cfg: ModelConfig,
     # each column routes and sends its own token slice: the replicated
     # tokens and router weight enter through copy_to_group (their
     # gradients are summed over the model group)
-    xt = coll.copy_to_group(xt, group)
+    if not own:
+        xt = coll.copy_to_group(xt, group)
     wg = coll.copy_to_group(p["w_gate"], group)
     y, load, drop, aux = yield from body(
         wg, bias, p["w1"], p["w3"], p["w2"], xt, mask, cfg, group,
-        j, cols, pctx.wire, weights_qdq, stats)
+        j, cols, pctx.wire, weights_qdq, stats, split=not own)
     if ftp and dgroup is not None:
         y = coll.reduce_sum(y.float(), dgroup).to(y.dtype)   # FF partials
     y = y[:T]

@@ -50,9 +50,10 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.models.api import stack_stats, step_phases
+from repro_torch.models.api import remat, stack_stats, step_phases
 from repro_torch.models.param import layer
 from repro_torch.parallel import collectives as coll
+from repro_torch.parallel import context as pctx_mod
 from repro_torch.parallel import sharding
 
 
@@ -77,23 +78,29 @@ def _dual_segments(model, params, xA, xB, ctxA: dict, ctxB: dict,
                    cacheA: Optional[dict] = None,
                    cacheB: Optional[dict] = None):
     """Every segment's layers over both halves, layer by layer
-    (:func:`_layer`). Returns ``(hA, hB, statsA, statsB)``."""
+    (:func:`_layer`), each layer's pair of steps under the ctx's remat
+    policy (``models/api.remat``, the single backbone's wrapper). Returns
+    ``(hA, hB, statsA, statsB)``."""
     cfg = model.cfg
     statsA: Dict[str, dict] = {}
     statsB: Dict[str, dict] = {}
+    policy = pctx_mod.get().remat
     for seg in model.segments:
         p = params[seg.name]
         cA = None if cacheA is None else cacheA.get(seg.name)
         cB = None if cacheB is None else cacheB.get(seg.name)
         sa, sb = [], []
         for i in range(seg.n):
-            pl = sharding.gathered(p, (seg.name,), i)
-            (xA, _, stA), (xB, _, stB) = _layer(
-                step_phases(seg, pl, xA, cfg, ctxA,
-                            None if cA is None else layer(cA, i)),
-                step_phases(seg, pl, xB, cfg, ctxB,
-                            None if cB is None else layer(cB, i)),
-                f"{seg.name}/{i}")
+            name = f"{seg.name}/{i}"
+
+            def step(hA, hB, pl, lA, lB, seg=seg, name=name):
+                return _layer(step_phases(seg, pl, hA, cfg, ctxA, lA),
+                              step_phases(seg, pl, hB, cfg, ctxB, lB), name)
+
+            (xA, _, stA), (xB, _, stB) = remat(step, policy)(
+                xA, xB, sharding.gathered(p, (seg.name,), i),
+                None if cA is None else layer(cA, i),
+                None if cB is None else layer(cB, i))
             sa.append(stA)
             sb.append(stB)
         st = stack_stats(sa)
@@ -140,11 +147,15 @@ def dual_loss_and_metrics(model, params, batchA: Dict, batchB: Dict
     tokB = torch.as_tensor(batchB["tokens"], device=dev)
     ctxA, posA = _mkctx(tokA)
     ctxB, posB = _mkctx(tokB)
-    hA, hB, stA, stB = dual_backbone(model, params, tokA, tokB, ctxA, ctxB)
-    sA, nA = model._ce_sum(params, hA, torch.as_tensor(batchA["labels"],
-                                                       device=dev))
-    sB, nB = model._ce_sum(params, hB, torch.as_tensor(batchB["labels"],
-                                                       device=dev))
+    # the sequence cut of ``Model.loss`` (``context.seq_group``)
+    seq = pctx_mod.seq_divides(pctx_mod.get(), tokA.shape[1])
+    with pctx_mod.sequence_sharded(seq):
+        hA, hB, stA, stB = dual_backbone(model, params, tokA, tokB, ctxA,
+                                         ctxB)
+        sA, nA = model._ce_sum(params, hA, torch.as_tensor(
+            batchA["labels"], device=dev))
+        sB, nB = model._ce_sum(params, hB, torch.as_tensor(
+            batchB["labels"], device=dev))
     ntokA = model.data_total(nA).clamp_min(1)
     ntokB = model.data_total(nB).clamp_min(1)
     lossA, lossB = sA / ntokA, sB / ntokB
@@ -164,8 +175,9 @@ def dual_loss_and_metrics(model, params, batchA: Dict, batchB: Dict
         metrics[f"{segname}/load_layers"] = 0.5 * (a["load"] + b["load"])
     metrics["aux_loss"] = aux
     if model.cfg.mtp:
-        mtp_l = (wA * model._mtp_loss(params, hA, tokA, posA, ctxA)
-                 + wB * model._mtp_loss(params, hB, tokB, posB, ctxB))
+        with pctx_mod.sequence_sharded(seq):
+            mtp_l = (wA * model._mtp_loss(params, hA, tokA, posA, ctxA)
+                     + wB * model._mtp_loss(params, hB, tokB, posB, ctxB))
         metrics["mtp_loss"] = model.data_sum(mtp_l.detach())
         loss = loss + mtp_l
     return model.data_sum(loss), metrics

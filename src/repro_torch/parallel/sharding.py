@@ -417,20 +417,35 @@ def _cut_fp8_weight(w: Fp8Weight, pspec, mesh: Mesh) -> Fp8Weight:
 
 
 def _cut_fp8_experts(w: Fp8Experts, pspec, mesh: Mesh) -> Fp8Experts:
+    """This rank's slice of stacked expert codes. The expert (and layer)
+    axes slice as they are; a cut of the matrix's D or F axis (``ep_ftp``'s
+    expert-FF cut over ``data``) keeps whole 128x128 code blocks and their
+    scales, so each part must be a multiple of 128 (else ``ValueError``)."""
     lead = len(w.wq.shape) - 4
     wq, ws = w.wq, w.ws
+    size = {lead: w.d_in, lead + 1: w.d_out}
     for d, e in enumerate(pspec):
         n, idx = _parts(mesh, e)
         if n == 1:
             continue
-        if d >= lead:
-            raise NotImplementedError(
-                "cutting an expert matrix of E4M3 codes (expert-FF tensor "
-                "parallelism on the kernel path) is not ported; experts "
-                "split whole over the expert axis (ROADMAP.md, A.8)")
-        wq = _slice(wq, d, n, idx)
-        ws = _slice(ws, d, n, idx)
-    return Fp8Experts(wq.clone(), ws.clone(), w.dtype, w.d_in, w.d_out)
+        if d < lead:
+            wq = _slice(wq, d, n, idx)
+            ws = _slice(ws, d, n, idx)
+            continue
+        per = size[d] // n
+        if per % BLOCK:
+            raise ValueError(
+                f"a cut of an expert matrix's {size[d]} into {n} parts of "
+                f"{per} is not whole {BLOCK}-blocks: its E4M3 code blocks "
+                "cannot follow it")
+        b0, nb = idx * per // BLOCK, per // BLOCK
+        # wq is (..., FB, KB, 128, 128), ws (..., KB, FB)
+        qd, sd = (lead + 1, lead) if d == lead else (lead, lead + 1)
+        wq = wq.narrow(qd, b0, nb)
+        ws = ws.narrow(sd, b0, nb)
+        size[d] = per
+    return Fp8Experts(wq.clone(), ws.clone(), w.dtype, size[lead],
+                      size[lead + 1])
 
 
 def cut_leaf(leaf, pspec, mesh: Mesh):
@@ -494,10 +509,40 @@ def block_cuts_ok(spec_tree, pspecs, mesh: Mesh) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def train_pspecs(mesh: Mesh, spec_tree, multi_pod: bool = False):
+def whole_heads(cfg, mesh: Mesh, spec_tree, pspecs):
+    """``pspecs`` with every head cut dropped where it would split a head:
+    a ``heads`` cut where ``cfg.num_heads`` is not a multiple of it (GQA:
+    each rank then runs every head, the attention replicated over the
+    model axis), a ``kv_heads`` cut where ``cfg.num_kv_heads`` is not, or
+    where the query heads stay whole (each rank then reads the KV heads of
+    its own query heads). Layout differences against the reference's
+    GSPMD placement, which cuts inside a head (ROADMAP.md §A)."""
+    def splits(entry, count):        # a cut of ``count`` heads inside one
+        return entry is not None and count % _mesh_size(mesh, entry)
+
+    def one(path, spec):
+        ps = list(at_path(pspecs, path))
+        for i, ax in enumerate(spec.axes):
+            if ax == "heads" and splits(ps[i], cfg.num_heads):
+                if cfg.attention == "mla":
+                    raise NotImplementedError(
+                        f"{cfg.num_heads} MLA heads do not split over "
+                        f"{_mesh_size(mesh, ps[i])} model columns")
+                ps[i] = None
+            elif ax == "kv_heads" and (splits(ps[i], cfg.num_kv_heads)
+                                       or splits(ps[i], cfg.num_heads)):
+                ps[i] = None
+        return P(*ps)
+
+    return map_with_path(one, spec_tree)
+
+
+def train_pspecs(mesh: Mesh, spec_tree, multi_pod: bool = False, cfg=None):
     """The parameters' training placements (``fsdp_tp_rules``: ``embed``
-    over ``data``, heads, mlp, vocab and experts over ``model``)."""
-    return param_pspecs(mesh, spec_tree, fsdp_tp_rules(multi_pod))
+    over ``data``, heads, mlp, vocab and experts over ``model``); given
+    ``cfg``, with every head kept whole (:func:`whole_heads`)."""
+    ps = param_pspecs(mesh, spec_tree, fsdp_tp_rules(multi_pod))
+    return ps if cfg is None else whole_heads(cfg, mesh, spec_tree, ps)
 
 
 def shard_state(state, pspecs, mesh: Mesh):

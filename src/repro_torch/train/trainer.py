@@ -48,9 +48,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import routing
 from repro_torch.data.pipeline import SyntheticCorpus
-from repro_torch.device import torch_dtype
 from repro_torch.models.api import Model
-from repro_torch.models.param import ParamSpec, init_params
+from repro_torch.models.param import init_params, param_structs
 from repro_torch.parallel import collectives
 from repro_torch.parallel import context as pctx_mod
 from repro_torch.parallel import sharding
@@ -101,19 +100,10 @@ def _check_ctx(ctx) -> pctx_mod.ParallelCtx:
 def _meshed_checks(model: Model, ctx: pctx_mod.ParallelCtx, pspecs) -> None:
     """The meshed step's conditions; each unmet one raises (no fallback)."""
     cfg = model.cfg
-    ctx.dp_axis                                   # one data axis (A.8)
-    if cfg.sub_quadratic():                       # SSD, RG-LRU state
-        raise NotImplementedError(
-            f"family {cfg.family!r} under a mesh is not ported yet: see "
-            "ROADMAP.md, A.12")
-    if cfg.family in ("encdec", "vlm"):           # a memory
-        raise NotImplementedError(
-            f"family {cfg.family!r} under a mesh is not ported yet: see "
-            "ROADMAP.md, A.13")
-    if any(seg.kind == "dense_moe" for seg in model.segments):
-        raise NotImplementedError(
-            f"{cfg.moe.layout} (dense/MoE pairs) under a mesh is not "
-            "ported yet: see ROADMAP.md, A.11")
+    # one data axis (A.8); the meshed layouts of the pairs (A.11), the
+    # recurrent families (A.12) and the families with a memory (A.13): the
+    # gate the engine and the dry run share
+    pctx_mod.check_meshed(cfg, ctx, "make_train_step")
     if ctx.ep_ftp:
         raise NotImplementedError(
             "ep_ftp in training: the expert-FF cut is the decode's, as in "
@@ -169,7 +159,7 @@ def make_train_step(model: Model, tc: TrainConfig, ctx=None):
     cfg = model.cfg
     pspecs = None
     if meshed:
-        pspecs = sharding.train_pspecs(pctx.mesh, model.specs())
+        pspecs = sharding.train_pspecs(pctx.mesh, model.specs(), cfg=cfg)
         _meshed_checks(model, pctx, pspecs)
 
     def step_fn(params, opt_state, batch, step):
@@ -177,9 +167,10 @@ def make_train_step(model: Model, tc: TrainConfig, ctx=None):
         leaves = [t for _, t in items]
         B = batch["tokens"].shape[0] * pctx.dp_size
         dual = dual_microbatch_engaged(cfg, pctx, B)
-        # meshed: this step's ZeRO-3 plan rides on the ctx
+        # meshed: this step's ZeRO-3 plan rides on the ctx; unmeshed the
+        # ctx still scopes the step (its remat policy)
         ctx = (dataclasses.replace(pctx, zero3=sharding.Zero3(
-            pctx.mesh, pspecs)) if meshed else None)
+            pctx.mesh, pspecs)) if meshed else pctx)
         for t in leaves:
             t.requires_grad_(True)
         try:
@@ -239,14 +230,6 @@ def make_train_step(model: Model, tc: TrainConfig, ctx=None):
     return step_fn
 
 
-def _meta_like(spec_tree):
-    """Structure of a parameter tree as meta tensors (nothing allocated)."""
-    if isinstance(spec_tree, ParamSpec):
-        return torch.empty(spec_tree.shape,
-                           dtype=torch_dtype(spec_tree.dtype), device="meta")
-    return {k: _meta_like(v) for k, v in spec_tree.items()}
-
-
 class Trainer:
     """Trainer with restart and elastic-recovery semantics (the
     reference's ``Trainer``).
@@ -303,10 +286,9 @@ class Trainer:
     def state_pspecs(self):
         """``{"params": pspecs, "opt": AdamWState of pspecs}`` on the
         current mesh (the reference's ``train_state_shardings``)."""
-        p, o, _ = sharding.train_state_shardings(
-            self.ctx.mesh, self.model.specs(),
-            sharding.fsdp_tp_rules(False))
-        return {"params": p, "opt": o}
+        p = sharding.train_pspecs(self.ctx.mesh, self.model.specs(),
+                                  cfg=self.cfg)
+        return {"params": p, "opt": optim.AdamWState(sharding.P(), p, p, p)}
 
     def load_state(self, params, opt_state=None):
         """Set the state from global (logical) trees, this rank's cut of
@@ -344,7 +326,7 @@ class Trainer:
         tc = self.tc
         ps = self.state_pspecs() if self.meshed else None
         if restore and tc.ckpt_dir and ckpt.latest_step(tc.ckpt_dir):
-            p = _meta_like(self.model.specs())
+            p = param_structs(self.model.specs())
             like = {"params": p, "opt": optim.AdamWState(
                 torch.empty((), dtype=torch.int32, device="meta"),
                 optim.tree_map(lambda t: t.float(), p),

@@ -23,21 +23,39 @@ CASES = {
     "ftp_split": ((2, 4), "ep_flat", "fp32", True, "split"),
     "fp8_wire": ((1, 4), "ep_flat", "fp8", False, "split"),
     "fp8_wire_qwen3_moe": ((1, 4), "ep_flat", "fp8", False, "split"),
+    "ftp_fp8": ((2, 4), "ep_flat", "fp8", True, "replicated"),
+    # the same case on the serving engine's weights: the global expert
+    # stacks prepared into ``Fp8Experts`` codes (``fp8_impl="pallas"``,
+    # ``bridge.prepare_for_serving``), then cut by ``shard_tree``
+    "ftp_fp8_codes": ((2, 4), "ep_flat", "fp8", True, "replicated"),
 }
-# the arch of each case's MoE layer (DeepSeek-V3 where not named): the
-# reference's own FP8-wire case routes qwen3-moe's softmax scores
-ARCHS = {"fp8_wire_qwen3_moe": "qwen3-moe-30b-a3b"}
 DSV3 = "deepseek-v3-671b"
+# the config of each case's MoE layer (DeepSeek-V3 smoke where not named):
+# the reference's own FP8-wire case routes qwen3-moe's softmax scores;
+# ``ep_ftp`` with FP8 experts runs DeepSeek-V3 smoke with its FP8 GEMMs
+# and an expert FF of 256, so that the data axis cuts it into whole
+# 128-blocks (128 a rank)
+ARCHS = {"fp8_wire_qwen3_moe": "qwen3-moe-30b-a3b", "ftp_fp8": "dsv3-fp8",
+         "ftp_fp8_codes": "dsv3-fp8"}
+# a case that runs another case's input
+INPUT_OF = {"ftp_fp8_codes": "ftp_fp8"}
+# config key -> (arch, overrides of its smoke config)
+CONFIGS = {"dsv3-fp8": (DSV3, dict(fp8=True, expert_ff=256))}
 BYTES_SLOTS = 64
 
 
 def moe_config(arch=DSV3):
     """``arch``'s smoke config without FP8 GEMMs, capacity headroom 8 (the
-    reference's ``TestEP`` configs)."""
+    reference's ``TestEP`` configs); a key of :data:`CONFIGS`: its arch's,
+    with its overrides."""
     from repro_torch.configs.base import get_config, smoke_config
+    arch, over = CONFIGS.get(arch, (arch, {}))
     cfg = smoke_config(get_config(arch))
-    return dataclasses.replace(cfg, fp8=False, moe=dataclasses.replace(
-        cfg.moe, capacity_factor=8.0))
+    moe = dict(capacity_factor=8.0)
+    if "expert_ff" in over:
+        moe["expert_ff"] = over["expert_ff"]
+    return dataclasses.replace(cfg, fp8=over.get("fp8", False),
+                               moe=dataclasses.replace(cfg.moe, **moe))
 
 
 def bench_config():
@@ -70,14 +88,34 @@ def run_case(name, mesh, cfg, params, x):
                               ep_ftp=ftp)
     specs = moe_mod.moe_specs(cfg, 1)
     ps = sh.param_pspecs(mesh, specs, sh.serve_rules(False, ep_ftp=ftp))
-    p = {k: v[0] for k, v in sh.shard_tree(params, ps, mesh).items()}
+    qdq = bool(cfg.fp8)
+    if name.endswith("_codes"):
+        from repro_torch import bridge
+        from repro_torch.models.param import layer
+        cfg = dataclasses.replace(cfg, fp8_impl="pallas")
+        prep = bridge.prepare_for_serving({"moe": params}, cfg)
+        kinds = bridge.expert_storage(prep)
+        assert kinds["plain"] == 0 and kinds["e4m3"] > 0, kinds
+        part = sh.shard_tree(prep["moe"], ps, mesh)
+        p = layer(part, 0)
+    elif qdq:
+        # FP8 weights are block-quantized whole, then cut (as the engine
+        # prepares them at load): a model-axis cut of the shared expert
+        # falls inside its 128-blocks
+        from repro_torch.core.moe import ste_qdq_block
+        params = {k: (v if k in ("w_gate", "bias") else ste_qdq_block(v))
+                  for k, v in params.items()}
+        p = {k: v[0] for k, v in sh.shard_tree(params, ps, mesh).items()}
+    else:
+        p = {k: v[0] for k, v in sh.shard_tree(params, ps, mesh).items()}
     dp, d = ctx.dp_size, ctx.index("data")
     split = layout == "split" and dp > 1
     if split:
         per = x.shape[0] // dp
         x = x[d * per:(d + 1) * per]
     with context.use(ctx):
-        y, _, _ = ep.moe_ffn_sharded(p, x, cfg, ctx, replicated=not split)
+        y, _, _ = ep.moe_ffn_sharded(p, x, cfg, ctx, replicated=not split,
+                                     weights_qdq=qdq)
     return y
 
 
@@ -119,7 +157,8 @@ def run_rank(rank: int, world: int, store_path: str, out_dir: str) -> None:
         params = {k.split(":")[2]: torch.from_numpy(inputs[k])
                   for k in inputs.files if k.startswith(f"p:{arch}:")}
         y = run_case(name, mesh, moe_config(arch), params,
-                     torch.from_numpy(inputs["x:" + name]))
+                     torch.from_numpy(inputs["x:" + INPUT_OF.get(name,
+                                                                 name)]))
         out[name] = y.numpy()
     for impl, v in bytes_case(meshes[(2, 4)]).items():
         out["bytes:" + impl] = v

@@ -47,7 +47,14 @@ SCENARIOS = {
     # smoke qwen3-14b's 4 KV heads split over the model axis: the payload
     # is gathered whole on the prefill mesh and cut for the decode mesh
     "disagg_gqa": ("qwen", {}, dict(disagg=True)),
+    # 6 query and 2 KV heads do not split over 4 model columns: the
+    # attention runs replicated (``sharding.whole_heads``), dense ring
+    # and paged
+    "gqa_heads_whole": ("qwen_heads6", {}, {}),
+    "gqa_heads_whole_paged": ("qwen_heads6", {}, PAGED_BF16),
 }
+# smoke qwen3-14b with heads that do not divide the model axis
+HEADS6 = dict(num_heads=6, num_kv_heads=2)
 # cross-mesh disaggregation: decode on this mesh over the first ranks
 DISAGG = [n for n, (_, _, e) in SCENARIOS.items() if e.get("disagg")]
 DECODE_MESH = (1, 4)
@@ -59,8 +66,10 @@ def configs():
     moe = smoke_config(get_config("deepseek-v3-671b"))
     moe = dataclasses.replace(moe, moe=dataclasses.replace(
         moe.moe, capacity_factor=8.0))
-    return {"qwen": smoke_config(get_config("qwen3-14b")), "moe": moe,
-            "moe_pallas": dataclasses.replace(moe, fp8_impl="pallas")}
+    qwen = smoke_config(get_config("qwen3-14b"))
+    return {"qwen": qwen, "moe": moe,
+            "moe_pallas": dataclasses.replace(moe, fp8_impl="pallas"),
+            "qwen_heads6": dataclasses.replace(qwen, **HEADS6)}
 
 
 def prompts_for(vocab, n=5):
@@ -157,8 +166,8 @@ def run_rank(rank: int, world: int, store_path: str, out_dir: str) -> None:
                               ranks=range(DECODE_MESH[0] * DECODE_MESH[1]))
     weights = np.load(os.path.join(out_dir, "weights.npz"))
     cfgs = configs()
-    params = {"qwen": unflatten(weights, "qwen/"),
-              "moe": unflatten(weights, "moe/")}
+    params = {k: unflatten(weights, k + "/")
+              for k in ("qwen", "moe", "qwen_heads6")}
     params["moe_pallas"] = params["moe"]
     out = {}
     for name, (model, ctx_kw, engine_kw) in SCENARIOS.items():

@@ -29,6 +29,26 @@ TRAJ = {
                                           wire="fp32")),
     "moe_dedup_1x4_fp8": ("moe", (1, 4), dict(moe_impl="ep_dedup",
                                               wire="fp8")),
+    # sequence parallelism over the model axis (the dry run's train cells)
+    "qwen_sp_1x4": ("qwen", (1, 4), dict(seq_axis="model")),
+    "qwen_sp_2x2": ("qwen", (2, 2), dict(seq_axis="model")),
+    "moe_sp_flat_2x2": ("moe", (2, 2), dict(moe_impl="ep_flat", wire="fp32",
+                                            seq_axis="model")),
+    # 6 query and 2 KV heads do not split over 4 model columns: the
+    # attention is replicated over the model axis (``sharding.whole_heads``)
+    "qwen_heads_whole_1x4": ("qwen_heads6", (1, 4), {}),
+    "qwen_heads_whole_sp_1x4": ("qwen_heads6", (1, 4),
+                                dict(seq_axis="model")),
+}
+# smoke qwen3-14b with heads that do not divide a model axis of 4
+HEADS6 = dict(num_heads=6, num_kv_heads=2)
+# one train step of the dry run's kind (``Model.loss``, remat, the
+# sequence cut) whose collectives the test holds against the dry run's
+# record of the same step traced on meta: name -> (model, mesh, ctx kwargs)
+RECORDED = {
+    "qwen_2x2": ("qwen", (2, 2), dict(remat="full")),
+    "moe_flat_2x2": ("moe", (2, 2), dict(moe_impl="ep_flat", wire="fp32",
+                                         remat="full")),
 }
 # planted faults of chip_smoke.py phase (i.1), at smoke width
 FAULTS = ("data_rank_dropped", "copy_to_group_skipped")
@@ -40,7 +60,9 @@ def configs():
     moe = smoke_config(get_config("deepseek-v3-671b"))
     moe = dataclasses.replace(moe, fp8=False, moe=dataclasses.replace(
         moe.moe, capacity_factor=8.0))
-    return {"qwen": smoke_config(get_config("qwen3-14b")), "moe": moe}
+    qwen = smoke_config(get_config("qwen3-14b"))
+    return {"qwen": qwen, "moe": moe,
+            "qwen_heads6": dataclasses.replace(qwen, **HEADS6)}
 
 
 def uneven_batch(vocab: int):
@@ -383,6 +405,82 @@ def dual_counts(cfgs, meshes, inputs):
     return out
 
 
+def recorded_steps(cfgs, meshes, inputs):
+    """One train step of each of :data:`RECORDED` from the JAX state:
+    ``make_train_step`` under the dry run's ctx (``Model.loss`` on this
+    data rank's rows, ``seq_axis="model"``), its collectives summed by
+    kind as the dry run records them (``dryrun.collective_summary``)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models.api import Model
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import context as C
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train.trainer import TrainConfig, make_train_step
+    out = {}
+    for name, (model, shape, kw) in RECORDED.items():
+        cfg, mesh = cfgs[model], meshes[shape]
+        m = Model(cfg, device="cpu")
+        ctx = C.ParallelCtx(mesh=mesh, seq_axis="model", microbatches=1,
+                            **kw)
+        ps = sh.train_pspecs(mesh, m.specs(), cfg=cfg)
+        params, opt = _state(inputs, model)
+        params = sh.shard_tree(params, ps, mesh)
+        opt = sh.shard_state(opt, ps, mesh)
+        per = BATCH // ctx.dp_size
+        d = ctx.index("data")
+        b = {k: torch.from_numpy(v[d * per:(d + 1) * per])
+             for k, v in recorded_batch(cfg.vocab_size).items()}
+        step = make_train_step(m, TrainConfig(**TC), ctx)
+        with coll.record() as rec:
+            step(params, opt, b, 1)
+        out[name] = dryrun.collective_summary(rec)
+    return out
+
+
+def whole_heads_grads(cfgs, meshes, inputs):
+    """``Model.loss`` and every logical gradient leaf of smoke qwen3-14b
+    with 6 query and 2 KV heads on (1, 4), where the attention runs
+    replicated (``sharding.whole_heads``), with and without the sequence
+    cut, on :func:`recorded_batch`; and the same on one device."""
+    from repro_torch.models.api import Model
+    from repro_torch.parallel import context as C
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train import optimizer as optim
+    from repro_torch.train.trainer import _tree_of
+    cfg, mesh = cfgs["qwen_heads6"], meshes[(1, 4)]
+    m = Model(cfg, device="cpu")
+    b = {k: torch.from_numpy(v)
+         for k, v in recorded_batch(cfg.vocab_size).items()}
+    full = inputs["state:qwen_heads6"]["params"]
+    ps = sh.train_pspecs(mesh, m.specs(), cfg=cfg)
+    out = {}
+    for name, seq in (("one", None), ("mesh", None), ("mesh_sp", "model")):
+        if name == "one":
+            ctx, params = C.ParallelCtx(), optim.tree_map(
+                lambda t: t.clone(), full)
+        else:
+            ctx = C.ParallelCtx(mesh=mesh, seq_axis=seq, microbatches=1,
+                                zero3=sh.Zero3(mesh, ps))
+            params = sh.shard_tree(full, ps, mesh)
+        items = optim.tree_items(params)
+        for _, t in items:
+            t.requires_grad_(True)
+        with C.use(ctx):
+            loss, _ = m.loss(params, b)
+        grads = torch.autograd.grad(loss, [t for _, t in items])
+        tree = _tree_of(items, [g.detach() for g in grads])
+        if name != "one":
+            tree = logical(tree, ps, mesh)
+        out[name] = dict(loss=float(loss), grads=tree)
+    return out
+
+
+def recorded_batch(vocab: int):
+    g = np.random.default_rng(2)
+    toks = g.integers(0, vocab, (BATCH, SEQ)).astype(np.int32)
+    return {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}
+
+
 def pipeline(meshes):
     """``pipeline_forward`` and its gradients against the sequential
     stages (the reference's ``test_pipeline_fwd_and_grad``)."""
@@ -438,6 +536,8 @@ def run_rank(rank: int, world: int, store_path: str, out_dir: str) -> None:
     out["grads"] = collective_grads(meshes)
     out["bytes"] = alltoall_bytes(meshes)
     out["counts"] = dual_counts(cfgs, meshes, inputs)
+    out["recorded"] = recorded_steps(cfgs, meshes, inputs)
+    out["whole_heads"] = whole_heads_grads(cfgs, meshes, inputs)
     out["pipe"] = pipeline(meshes)
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     dist.barrier()

@@ -16,7 +16,16 @@ computed here on the same weights (the reference's tests hold its
   data-split batch (gathered over the data axis first);
 * the FP8 wire on (1, 4) within 0.05, on the reference's own case
   (smoke qwen3-moe-30b-a3b: softmax routing, top-2 from 2 of 4 groups,
-  its input drawn from the reference's key) and on DeepSeek-V3 smoke.
+  its input drawn from the reference's key) and on DeepSeek-V3 smoke;
+* ``ep_ftp`` with FP8 experts on (2, 4) (DeepSeek-V3 smoke with its FP8
+  GEMMs, expert FF 256: 128 a data rank) within 0.05 of the single
+  device, and within ``FTP_FP8_TOL`` of the reference's
+  ``moe_ffn_sharded`` of the same case, computed in the JAX subprocess;
+  the same on the engine's weights (``Fp8Experts`` codes prepared whole,
+  cut by ``shard_tree``, ``fp8_impl="pallas"``) within ``FTP_FP8_TOL``
+  of the reference's kernel route; a cut inside a
+  128-block raises, for plain weights and E4M3 codes, and whole blocks
+  cut along D and F dequantize to the whole stack's slice.
 
 The wire codec is bitwise JAX's, in process. ``decode_alltoall_bytes()``
 on ``benchmarks/train_bench.bench_config()`` at (2, 4), 64 slots: the
@@ -51,8 +60,13 @@ ROOT = os.path.join(os.path.dirname(__file__), "..")
 # per-case x shapes (the reference's TestEP), besides ftp_split
 SHAPES = {"flat": (4, 16), "dedup": (4, 16), "dedup_cpg2": (8, 8),
           "ftp": (3, 1), "ftp_split": (4, 1), "fp8_wire": (4, 16),
-          "fp8_wire_qwen3_moe": (4, 16)}
-TOL = {"fp8_wire": 0.05, "fp8_wire_qwen3_moe": 0.05}
+          "fp8_wire_qwen3_moe": (4, 16), "ftp_fp8": (4, 2)}
+TOL = {"fp8_wire": 0.05, "fp8_wire_qwen3_moe": 0.05, "ftp_fp8": 0.05}
+# the port's ``ep_ftp`` with FP8 experts against the reference's
+# ``moe_ffn_sharded`` of the same case (the same E4M3 tiles and blocks,
+# each rank's slice of the expert FF quantized on its own; fp32 sums in
+# another order move a value by ulps, which at most flips a code)
+FTP_FP8_TOL = 1e-5
 # the reference's draw of each case's input (keys 1, 2, ... otherwise)
 KEYS = {"fp8_wire_qwen3_moe": 1}
 
@@ -69,13 +83,45 @@ for impl in ("ep_flat", "ep_dedup"):
                                moe_impl=impl, wire="fp8")
     eng = ServeEngine(cfg, slots={slots}, max_len=32, chunk=8, ctx=ctx)
     print("BYTES", impl, eng.decode_alltoall_bytes())
+
+# ep_ftp with FP8 experts on (2, 4): the reference's sharded MoE
+import dataclasses
+import jax
+import jax.numpy as jnp
+import numpy as np
+from repro.configs.base import get_config, smoke_config
+from repro.parallel import ep as jep
+inputs = np.load("{d}/inputs.npz")
+c = smoke_config(get_config("deepseek-v3-671b"))
+c = dataclasses.replace(c, fp8=True, moe=dataclasses.replace(
+    c.moe, capacity_factor=8.0, expert_ff=256))
+p = {{k.split(":")[2]: jnp.asarray(inputs[k][0]) for k in inputs.files
+      if k.startswith("p:dsv3-fp8:")}}
+ctx = pctx_mod.ParallelCtx(mesh=mesh, dp_axes=("data",), moe_impl="ep_flat",
+                           wire="fp8", ep_ftp=True)
+with pctx_mod.use(ctx):
+    y = jax.jit(lambda p, x: jep.moe_ffn_sharded(p, x, c, ctx)[0])(
+        p, jnp.asarray(inputs["x:ftp_fp8"]))
+np.save("{d}/ftp_fp8_ref.npy", np.asarray(y))
+# the same on the kernel route (``fp8_impl="pallas"``: ``moe_gemm``, no
+# qdq of the hidden state between the products), the route of the
+# engine's Fp8Experts codes
+c = dataclasses.replace(c, fp8_impl="pallas")
+with pctx_mod.use(ctx):
+    y = jax.jit(lambda p, x: jep.moe_ffn_sharded(p, x, c, ctx)[0])(
+        p, jnp.asarray(inputs["x:ftp_fp8"]))
+np.save("{d}/ftp_fp8_codes_ref.npy", np.asarray(y))
 """
 
 
 def _config(arch=_torch_ep.DSV3):
+    arch, over = _torch_ep.CONFIGS.get(arch, (arch, {}))
     cfg = smoke_config(get_config(arch))
-    return dataclasses.replace(cfg, fp8=False, moe=dataclasses.replace(
-        cfg.moe, capacity_factor=8.0))
+    moe = dict(capacity_factor=8.0)
+    if "expert_ff" in over:
+        moe["expert_ff"] = over["expert_ff"]
+    return dataclasses.replace(cfg, fp8=over.get("fp8", False),
+                               moe=dataclasses.replace(cfg.moe, **moe))
 
 
 @pytest.fixture(scope="module")
@@ -103,7 +149,7 @@ def run(tmp_path_factory):
                                          env.get("PYTHONPATH", "")])
     jax_side = subprocess.Popen(
         [sys.executable, "-c", textwrap.dedent(JAX_BYTES.format(
-            slots=_torch_ep.BYTES_SLOTS))],
+            slots=_torch_ep.BYTES_SLOTS, d=d))],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     ctx = multiprocessing.get_context("spawn")
     ranks = [ctx.Process(target=_torch_ep.run_rank,
@@ -123,6 +169,8 @@ def run(tmp_path_factory):
     jbytes = {line.split()[1]: int(line.split()[2])
               for line in out.splitlines() if line.startswith("BYTES")}
     ours = [dict(np.load(d / f"rank{r}.npz")) for r in range(WORLD)]
+    for name in ("ftp_fp8", "ftp_fp8_codes"):
+        refs["sharded:" + name] = np.load(d / f"{name}_ref.npy")
     return refs, ours, jbytes
 
 
@@ -150,6 +198,65 @@ def test_ep_matches_single_device_moe(run, name):
         assert y.shape == want.shape, (r, y.shape, want.shape)
         err = np.abs(y - want).max() / scale
         assert err < TOL.get(name, 1e-4), (name, r, err)
+
+
+@pytest.mark.parametrize("name", ["ftp_fp8", "ftp_fp8_codes"])
+def test_ftp_fp8_matches_the_references_sharded_moe(run, name):
+    """``ep_ftp`` with FP8 experts (DeepSeek-V3 smoke, expert FF 256 cut
+    into 128 a data rank, (2, 4), FP8 wire) against the reference's
+    ``moe_ffn_sharded`` of the same case on 8 host devices: within
+    ``FTP_FP8_TOL`` of max|y| on every rank. ``ftp_fp8`` feeds dense
+    block-qdq weights; ``ftp_fp8_codes`` the engine's ``Fp8Experts``
+    codes, cut along F (w1, w3) and D (w2) by ``shard_tree``, on the
+    kernel route (``fp8_impl="pallas"``), held against the reference's
+    kernel route."""
+    refs, ours, _ = run
+    ref = refs["sharded:" + name]
+    scale = np.abs(ref).max()
+    for r in range(WORLD):
+        err = np.abs(ours[r][name] - ref).max() / scale
+        assert err < FTP_FP8_TOL, (r, err)
+
+
+@pytest.mark.parametrize("cut", ["dense", "codes"])
+def test_ftp_fp8_refuses_a_cut_inside_a_block(cut):
+    """Where the data axis cuts the expert FF dimension into parts that
+    are not whole 128-blocks (smoke DeepSeek-V3's 64 over 2), ``ep_ftp``
+    with FP8 experts raises a ``ValueError`` that says so, for the plain
+    weights and for ``Fp8Experts`` codes."""
+    from repro_torch.configs.base import get_config as tget
+    from repro_torch.configs.base import smoke_config as tsmoke
+    from repro_torch.core.fp8 import Fp8Experts
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.parallel.context import Mesh
+    cfg = tsmoke(tget(_torch_ep.DSV3))
+    E, d, f = cfg.moe.num_experts, cfg.d_model, cfg.moe.expert_ff
+    w = torch.randn(E, d, f, generator=torch.Generator().manual_seed(0))
+    if cut == "dense":
+        with pytest.raises(ValueError, match="not a multiple of 128"):
+            ep._check_ftp_blocks({"w1": w[..., :f // 2]}, cfg)
+        ep._check_ftp_blocks({"w1": w}, cfg)          # uncut: no check
+        return
+    mesh = Mesh((2, 4), rank=5)
+    with pytest.raises(ValueError, match="not whole 128-blocks"):
+        sh.cut_leaf(Fp8Experts.quantize(w), sh.P("model", None, "data"),
+                    mesh)
+    # mesh (2, 4) rank 5: data row 1, model column 1
+    big = torch.randn(4, d, 256, generator=torch.Generator().manual_seed(1))
+    part = sh.cut_leaf(Fp8Experts.quantize(big), sh.P(None, None, "data"),
+                       mesh)
+    assert part.shape == (4, d, 128)
+    torch.testing.assert_close(part.dequant(),
+                               Fp8Experts.quantize(big).dequant()[..., 128:],
+                               rtol=0, atol=0)
+    # the D cut w2 takes under ep_ftp, experts over the model axis
+    tall = torch.randn(8, 256, d, generator=torch.Generator().manual_seed(2))
+    part = sh.cut_leaf(Fp8Experts.quantize(tall),
+                       sh.P("model", "data", None), mesh)
+    assert part.shape == (2, 128, d)
+    torch.testing.assert_close(
+        part.dequant(), Fp8Experts.quantize(tall).dequant()[2:4, 128:],
+        rtol=0, atol=0)
 
 
 def test_every_model_column_returns_the_same_tokens(run):

@@ -9,6 +9,10 @@ from the JAX ``Model.init``; the expected streams come from the JAX
 single-device engine, run here while the ranks serve:
 
 * dense GQA (qwen3-14b smoke): streams exact;
+* GQA with 6 query and 2 KV heads (qwen3-14b smoke), which do not split
+  over the 4 model columns, so the attention runs replicated
+  (``sharding.whole_heads``), dense ring and paged bf16: streams exact
+  against the JAX single-device engine;
 * MoE (DeepSeek-V3 smoke) at the fp32 wire, ``ep_flat`` and
   ``ep_dedup``: exact;
 * the FP8 wire: at least 0.9 of tokens matched, every token a valid id;
@@ -71,7 +75,9 @@ def _jax_configs():
     moe = smoke_config(get_config("deepseek-v3-671b"))
     moe = dataclasses.replace(moe, moe=dataclasses.replace(
         moe.moe, capacity_factor=8.0))
-    return {"qwen": smoke_config(get_config("qwen3-14b")), "moe": moe}
+    qwen = smoke_config(get_config("qwen3-14b"))
+    return {"qwen": qwen, "moe": moe,
+            "qwen_heads6": dataclasses.replace(qwen, **body.HEADS6)}
 
 
 def _flatten(tree, prefix, out):
@@ -117,7 +123,9 @@ def run(tmp_path_factory):
            "qwen_fp8": _jax_stream(cfgs["qwen"], params["qwen"], paged=True,
                                    page_size=8, page_storage="fp8"),
            "moe": _jax_stream(cfgs["moe"], params["moe"]),
-           "mtp": _jax_stream(cfgs["moe"], params["moe"], use_mtp=True)}
+           "mtp": _jax_stream(cfgs["moe"], params["moe"], use_mtp=True),
+           "qwen_heads6": _jax_stream(cfgs["qwen_heads6"],
+                                      params["qwen_heads6"])}
     for p in ranks:
         p.join(timeout=400)
     codes = [p.exitcode for p in ranks]
@@ -141,8 +149,7 @@ def _match_frac(a, b):
 def _top2_gap(model, np_params, prompt, prefix):
     """Top-2 logit gap over max|logit| of the port's single-device model
     after ``prompt + prefix`` (where a stream parted)."""
-    tcfg = {"qwen": tsmoke(tget("qwen3-14b")),
-            "moe": body.configs()["moe"]}[model]
+    tcfg = body.configs()[model]
     m = Model(tcfg, device="cpu")
     p = bridge.prepare_for_serving(bridge.params_from_jax(np_params[model]),
                                    tcfg)
@@ -170,7 +177,9 @@ def _exact_or_bounded_parting(ours_s, ref_s, model, np_params):
     ("gqa_dense", "qwen", "qwen"), ("gqa_paged", "qwen", "qwen"),
     ("gqa_paged_fp8", "qwen", "qwen_fp8"),
     ("ep_flat", "moe", "moe"), ("ep_dedup", "moe", "moe"),
-    ("ep_flat_overlap", "moe", "moe"), ("ep_dedup_overlap", "moe", "moe")])
+    ("ep_flat_overlap", "moe", "moe"), ("ep_dedup_overlap", "moe", "moe"),
+    ("gqa_heads_whole", "qwen_heads6", "qwen_heads6"),
+    ("gqa_heads_whole_paged", "qwen_heads6", "qwen_heads6")])
 def test_streams_exact_like_the_reference(run, name, model, ref_key):
     ref, ours, np_params = run
     _exact_or_bounded_parting(_streams(ours, name), ref[ref_key][0], model,

@@ -339,13 +339,26 @@ def test_sliced_draw_equals_the_cut_of_the_global_tree(arch, moe_impl):
 @pytest.mark.parametrize("field,value", [
     ("remat", "full"), ("seq_axis", "model"), ("pin_attn", False)])
 def test_unread_ctx_fields_raise(field, value):
-    """Fields of the reference's ParallelCtx that nothing in the port
-    reads yet raise at another value than the default (ROADMAP.md, A.8)
-    rather than being ignored."""
-    from repro_torch.parallel.context import ParallelCtx
+    """The reference's ParallelCtx fields the port once refused (ROADMAP.md,
+    A.8) are ported: ``remat`` and ``seq_axis`` are read, ``pin_attn`` is
+    the GSPMD hint explicit SPMD always satisfies; each takes the
+    reference's value. What is still refused raises: a value outside the
+    reference's choices, a sequence cut off the tensor-parallel axis, and
+    a second data axis (A.8, through the meshed gate)."""
+    from repro_torch.configs.base import get_config, smoke_config
+    from repro_torch.parallel.context import ParallelCtx, check_meshed
+    assert getattr(ParallelCtx(**{field: value}), field) == value
+    bad = {"remat": "some", "seq_axis": "data", "pin_attn": None}[field]
+    if field != "pin_attn":
+        with pytest.raises(ValueError, match=field):
+            ParallelCtx(**{field: bad})
+    ctx = ParallelCtx(mesh=Mesh.abstract((2, 2, 2), ("pod", "data",
+                                                     "model")),
+                      dp_axes=("pod", "data"), **{field: value})
     with pytest.raises(NotImplementedError, match="A.8"):
-        ParallelCtx(**{field: value})
-    ParallelCtx()
+        check_meshed(smoke_config(get_config("qwen3-14b")), ctx, "test")
+    with pytest.raises(NotImplementedError, match="A.8"):
+        ctx.dp_axis
 
 
 def test_microbatches_is_read():

@@ -289,3 +289,76 @@ def test_schedule_matches_jax_fp32(fn):
         got = getattr(sched, fn)(step, **kw)
         assert got.dtype == torch.float32
         assert got.numpy().tobytes() == want.tobytes(), (step, got, want)
+
+
+# ---------------------------------------------------------------------------
+# remat: the checkpointed layer steps (``models/api.remat``)
+# ---------------------------------------------------------------------------
+
+
+def _port_loss_under(case, policy, dual):
+    """``Model.loss`` (or ``loss_dual`` on the batch's interleaved halves,
+    as the trainer splits it) and every gradient leaf under
+    ``ParallelCtx(remat=policy)``."""
+    from repro_torch.parallel import context as C
+    tp = bridge.params_from_jax(case["npp"])
+    items = optim.tree_items(tp)
+    leaves = [t.requires_grad_(True) for _, t in items]
+    model = Model(case["tcfg"], device="cpu")
+    b = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
+    with C.use(C.ParallelCtx(remat=policy)):
+        if dual:
+            loss, _ = model.loss_dual(tp, {k: v[0::2] for k, v in b.items()},
+                                      {k: v[1::2] for k, v in b.items()})
+        else:
+            loss, _ = model.loss(tp, b)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.detach(), dict(zip([p for p, _ in items], grads))
+
+
+@pytest.mark.parametrize("dual", [False, True], ids=["single", "dual"])
+@pytest.mark.parametrize("policy", ["full", "dots"])
+def test_remat_keeps_loss_and_gradients_bitwise(loss_case, policy, dual):
+    """Remat changes memory and recompute, never a value: under ``full``
+    (each layer step checkpointed) and ``dots`` (the ``mm`` outputs kept,
+    the rest recomputed) the loss and every gradient leaf equal
+    ``remat="none"``'s bit for bit, on the single path and the dual
+    microbatch."""
+    loss0, g0 = _port_loss_under(loss_case, "none", dual)
+    loss, g = _port_loss_under(loss_case, policy, dual)
+    assert torch.equal(loss, loss0)
+    assert sorted(g) == sorted(g0)
+    for path, t in g.items():
+        assert (t is None) == (g0[path] is None), path
+        assert t is None or torch.equal(t, g0[path]), path
+
+
+@pytest.fixture(scope="module", params=["full", "dots"])
+def remat_case(request):
+    """smoke DeepSeek-V3 without FP8 (MLA + MoE + MTP): JAX's loss and
+    gradients under the reference's ``ParallelCtx(remat=...)``."""
+    from repro.parallel import context as jctx
+    arch, use_fp8, rtol, gtol = CASES["dsv3-nofp8"]
+    cfg, tcfg = _configs(arch, use_fp8)
+    jm = JModel(cfg)
+    jp = jax.jit(jm.init)(jax.random.PRNGKey(0))
+    batch = SyntheticCorpus(cfg.vocab_size, 32, 4, seed=3).batch_at(0)
+    with jctx.use(jctx.ParallelCtx(remat=request.param)):
+        (jl, _), jg = jax.jit(jax.value_and_grad(jm.loss, has_aux=True))(
+            jp, {k: jnp.asarray(v) for k, v in batch.items()})
+    return dict(tcfg=tcfg, npp=_np(jp), batch=batch, loss=float(jl),
+                grads=_np(jg), rtol=rtol, gtol=gtol, policy=request.param)
+
+
+def test_remat_matches_jax_under_remat(remat_case):
+    """The port under ``remat`` against ``jax.value_and_grad`` under the
+    reference's same policy: the loss within 1e-5 relative, each gradient
+    leaf within 1e-4 of its largest reference magnitude (the bounds of the
+    unrematerialized comparison above)."""
+    loss, grads = _port_loss_under(remat_case, remat_case["policy"], False)
+    ref = remat_case["loss"]
+    assert abs(float(loss) - ref) <= remat_case["rtol"] * abs(ref)
+    want = dict(optim.tree_items(remat_case["grads"]))
+    bad = {p: _rel(g, want[p]) for p, g in grads.items()
+           if g is not None and _rel(g, want[p]) > remat_case["gtol"]}
+    assert not bad, bad

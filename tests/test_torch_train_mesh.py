@@ -21,6 +21,21 @@ of ``tests/test_distributed.py``:
   bound, the tightest that holds here, is ``OWN_BOUND``: the meshed
   step reorders fp32 sums (the row-parallel partials, the data ranks'
   gradients, the valid-token counts), nothing more.
+* The same with sequence parallelism (``seq_axis="model"``: the residual
+  stream cut along the sequence over the model axis between blocks):
+  qwen3-14b smoke at (1, 4) and (2, 2), DeepSeek-V3 smoke on ``ep_flat``
+  at (2, 2), within ``OWN_BOUND`` and the reference's bounds.
+* The same, with and without the sequence cut, for smoke qwen3-14b
+  with 6 query and 2 KV heads at (1, 4): the heads do not split over
+  the model axis, so the attention runs replicated on every rank
+  (``sharding.whole_heads``), its weights' gradients whole on each.
+  Every trajectory's global gradient norm is held at ``OWN_BOUND``
+  (relative) too: Adam's update does not see a gradient's scale.
+* One train step of the dry run's kind (``Model.loss``, ``remat="full"``,
+  the sequence cut) on qwen3-14b smoke and DeepSeek-V3 smoke (``ep_flat``)
+  at (2, 2): rank 0's ``collectives.record()`` equals, kind by kind in
+  bytes and counts, the dry run's record of the same step traced here on
+  meta in a fake world of 4 (``launch/dryrun.py``).
 * The FP8 wire trains: finite, within 5% of the fp32 wire (the
   reference's ``test_fp8_wire_trains``); its gradient through the codec
   equals JAX's (the codes carry none; only each tile's scale, at the
@@ -82,16 +97,29 @@ import chip_smoke  # noqa: E402
 WORLD = 4
 # trajectory -> (JAX scenario, the reference's bound)
 BOUNDS = {"qwen_2x2": ("qwen", 2e-3), "moe_flat_2x2": ("moe", 5e-3),
-          "moe_dedup_1x4": ("moe", 5e-3)}
+          "moe_dedup_1x4": ("moe", 5e-3), "qwen_sp_1x4": ("qwen", 2e-3),
+          "qwen_sp_2x2": ("qwen", 2e-3), "moe_sp_flat_2x2": ("moe", 5e-3),
+          "qwen_heads_whole_1x4": ("qwen_heads6", 2e-3),
+          "qwen_heads_whole_sp_1x4": ("qwen_heads6", 2e-3)}
 # the port's own meshed-vs-single-device bound (loss and parameters)
 OWN_BOUND = 2e-5
+# trajectories whose parameters after 3 steps the port holds tighter than
+# the reference's bound but not at OWN_BOUND: qwen_heads_whole_1x4's
+# embedding moves 2.27e-5 from JAX's (the port's own single device: 8e-6),
+# while its loss, its grad norms and (test_whole_heads_gradients_match_jax)
+# every gradient leaf agree within 1.6e-6 relative. AdamW's first updates
+# are ~lr x sign(g), so an element whose gradient is near zero turns a
+# reordered fp32 sum into a visible step.
+OWN_PARAM_BOUND = {"qwen_heads_whole_1x4": 3e-5}
 
 
 def _jconfigs():
     moe = smoke_config(get_config("deepseek-v3-671b"))
     moe = dataclasses.replace(moe, fp8=False, moe=dataclasses.replace(
         moe.moe, capacity_factor=8.0))
-    return {"qwen": smoke_config(get_config("qwen3-14b")), "moe": moe}
+    qwen = smoke_config(get_config("qwen3-14b"))
+    return {"qwen": qwen, "moe": moe,
+            "qwen_heads6": dataclasses.replace(qwen, **body.HEADS6)}
 
 
 def _np(tree):
@@ -126,9 +154,17 @@ def run(tmp_path_factory):
         batch = {k: jnp.asarray(v)
                  for k, v in body.uneven_batch(cfg.vocab_size).items()}
         ref["loss:" + name] = float(m.loss(jt.params, batch)[0])
+        if name == "qwen_heads6":
+            b = {k: jnp.asarray(v) for k, v in
+                 body.recorded_batch(cfg.vocab_size).items()}
+            (jl, _), jg = jax.value_and_grad(m.loss, has_aux=True)(
+                jt.params, b)
+            ref["grads:" + name] = dict(
+                loss=float(jl), grads=bridge.params_from_jax(_np(jg)))
         out = jt.run(body.STEPS)
         ref["traj:" + name] = dict(
             loss=[h["loss"] for h in out["history"]],
+            grad_norm=[h["grad_norm"] for h in out["history"]],
             params=bridge.params_from_jax(_np(jt.params)))
     for p in ranks:
         p.join(timeout=400)
@@ -144,6 +180,12 @@ def run(tmp_path_factory):
 def _max_diff(a, b):
     return max(float((x.float() - y.float()).abs().max())
                for (_, x), (_, y) in zip(optim.tree_items(a),
+                                         optim.tree_items(b)))
+
+
+def _worst_leaf(a, b):
+    return max((float((x.float() - y.float()).abs().max()), p)
+               for (p, x), (_, y) in zip(optim.tree_items(a),
                                          optim.tree_items(b)))
 
 
@@ -164,9 +206,66 @@ def test_trajectory_matches_jax_single_device(run, traj):
         got = ours[r]["traj:" + traj]
         dl = max(abs(a - b) for a, b in zip(got["loss"], want["loss"]))
         dp = _max_diff(got["params"], want["params"])
+        # the global gradient norm of each step (Adam's update is blind
+        # to a gradient's scale): relative
+        dg = max(abs(a - b) / b for a, b in zip(got["grad_norm"],
+                                                want["grad_norm"]))
+        why = (traj, r, dl, dp, dg, _worst_leaf(got["params"],
+                                                 want["params"]))
         assert len(got["loss"]) == body.STEPS
-        assert dl < bound and dp < bound, (traj, r, dl, dp)
-        assert dl < OWN_BOUND and dp < OWN_BOUND, (traj, r, dl, dp)
+        assert dl < bound and dp < bound, why
+        assert dl < OWN_BOUND, why
+        assert dp < OWN_PARAM_BOUND.get(traj, OWN_BOUND), why
+        assert dg < OWN_BOUND, why
+
+
+@pytest.mark.parametrize("name", ["mesh", "mesh_sp"])
+def test_whole_heads_gradients_match_jax(run, name):
+    """Smoke qwen3-14b with 6 query and 2 KV heads on (1, 4): the
+    attention runs replicated over the model axis, with (``mesh_sp``) and
+    without (``mesh``) the sequence cut. ``Model.loss`` and every logical
+    gradient leaf (the replicated wq, wk, wv, wo and norms whole on each
+    rank) against ``jax.value_and_grad`` of the reference's single-device
+    loss: the loss within 1e-5 relative, each leaf within 1e-4 of its
+    largest reference magnitude (``test_torch_train.py``'s bounds); and
+    against the port's own single device within ``OWN_BOUND`` of each
+    leaf's largest magnitude."""
+    ref, ours = run
+    want = ref["grads:qwen_heads6"]
+    for r in range(WORLD):
+        got, one = ours[r]["whole_heads"][name], ours[r]["whole_heads"]["one"]
+        assert abs(got["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"])
+        for (p, g), (_, w), (_, o) in zip(optim.tree_items(got["grads"]),
+                                          optim.tree_items(want["grads"]),
+                                          optim.tree_items(one["grads"])):
+            scale = float(w.abs().max())
+            assert g.shape == w.shape, (p, g.shape, w.shape)
+            err = float((g - w).abs().max()) / scale
+            own = float((g - o).abs().max()) / scale
+            assert err < 1e-4 and own < OWN_BOUND, (name, r, p, err, own)
+
+
+@pytest.mark.parametrize("name", list(body.RECORDED))
+def test_dry_run_records_the_live_steps_collectives(run, name,
+                                                     monkeypatch):
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_mod
+    _, ours = run
+    model, shape, kw = body.RECORDED[name]
+    cfg = body.configs()[model]
+    monkeypatch.setattr(dryrun, "get_config", lambda a: cfg)
+    monkeypatch.setattr(dryrun, "SHAPES", {"t": ShapeCfg(
+        "t", body.SEQ, body.BATCH, "train")})
+    monkeypatch.setattr(mesh_mod, "production_shape",
+                        lambda multi_pod=False: (shape, ("data", "model")))
+    rec = dryrun.run_cell(cfg.name, "t", multi_pod=False, out_dir="",
+                          moe_impl=kw.get("moe_impl", "ep_dedup"),
+                          wire=kw.get("wire", "fp8"), remat=kw["remat"])
+    assert rec["status"] == "ok", rec.get("error")
+    live = ours[0]["recorded"][name]
+    assert live["total"] > 0
+    assert rec["collectives"] == live
 
 
 def test_fp8_wire_trains(run):
