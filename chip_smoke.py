@@ -271,8 +271,8 @@ from the root of a checkout. Phases, each fatal on failure:
       DeepSeek-V3 paged fp8 as phase (c)'s path with ``moe_impl=
       "ep_flat"`` at the fp32 and the FP8 wire (its 256 experts 64 a
       rank, 32 of 128 heads a rank), then qwen3-14b whole (10 of 40 heads
-      over 2 of 8 KV heads a rank, 8 new tokens a request: ``MESH_NEW``),
-      on phase (c)'s weights and prompts.
+      over 2 of 8 KV heads a rank), 16 new tokens a request each
+      (``MESH_NEW``), on phase (c)'s weights and prompts.
       Gates and figures: ``phase_mesh``. Then the dual-microbatch decode
       (``decode_overlap=True``) and the cross-mesh disaggregator:
       - first, on one device in this process (``phase_overlap_single``),
@@ -321,15 +321,25 @@ from the root of a checkout. Phases, each fatal on failure:
         planted fault (``MESH_TRAIN_FAULTS``: one data rank's gradients
         left out of the data-axis reduction; the column-parallel input's
         backward all-reduce skipped) outside them; peak memory a rank and
-        the ranks' sum under the card's. Printed: ms a step a rank, host
-        s inside staged collectives, bytes gathered and reduce-scattered
-        over data a step, launches;
+        the ranks' sum under the card's. Then the same config on the
+        (pod, data, model) mesh (2, 1, 2) with ``dp_axes=("pod",
+        "data")`` (``MESH_TRAIN_POD``), 2 steps from the same weights and
+        batches: ZeRO-3 and the gradient reduction over the pair, a line
+        of 2 as "data" is at (2, 2), TP over 2, so every step's loss,
+        grad norm and step-1 update sample must equal the (2, 2) run's
+        first two steps bit for bit, with the same fp8_gemm launches;
+        and its planted fault (pod 1's gradients left out of the pair's
+        reduction) must fail ``train_gate``. Printed: ms a step a rank,
+        host s inside staged collectives, bytes gathered and
+        reduce-scattered over the data axes a step (``collectives.
+        record()``, the data group's entries), launches;
       - (i.2) smoke DeepSeek-V3 with its MoE layers, fp32, capacity 8:
         ``ep_flat`` at (2, 2) at the fp32 and the FP8 wire, ``ep_dedup``
         at (1, 4), 3 steps each against one device on the card (losses
         within 5e-3, the FP8 wire within 5% of the fp32 wire); then a
         Trainer at (2, 2) with checkpoints and ``FailureInjector({3:
-        "node"})`` must end at (1, 2) after one restart, ranks 2-3 gone;
+        "node"})`` must end at (1, 2) after one restart, ranks 2-3 gone,
+        and the same at (2, 1, 2) must end at (1, 1, 2), "pod" halved;
       - (i.3) ``pipeline_forward`` on ("pipe",) of the 4 ranks: forward
         within 1e-5 and gradients within 1e-4 of the sequential stages.
 
@@ -341,11 +351,15 @@ from the root of a checkout. Phases, each fatal on failure:
       - (k.1) ``python -m repro_torch.launch.dryrun`` under this torch,
         one process a cell, all at once (``DRYRUN_CELLS``): DeepSeek-V3
         and qwen3-14b x {train_4k, prefill_32k, decode_32k} on the
-        single-pod mesh; one cell each of A.11, A.12, A.13 and
-        ``--multi-pod`` (A.8) through ``run_cell`` in this process; then ``repro_torch.launch.roofline`` over
-        the records, its table printed. Gates: each cell's status (or
-        error label) the expected one, every ok cell's
-        ``collectives.total`` above 0;
+        single-pod mesh, DeepSeek-V3 x the same three and qwen3-14b
+        ``decode_32k`` with ``--multi-pod`` (2 x 16 x 16, the batch and
+        ZeRO-3 over ("pod", "data")); one cell each of A.11, A.12 and
+        A.13 through ``run_cell`` in this process; then
+        ``repro_torch.launch.roofline`` over the records, its table
+        printed. Gates: each cell's status (or error label) the expected
+        one, every ok cell's ``collectives.total`` above 0, the
+        multi-pod ``train_4k`` rank's ``argument_size_in_bytes`` under
+        the single-pod cell's (ZeRO-3 over 32 ranks, not 16);
       - (k.2) one card against the dry run (``DRYRUN_LIVE``): qwen1.5-4b
         whole at (j.4)'s train shape (4 x 64 tokens), and cut to 8
         layers at 2 x 2048 tokens (the activations dominate), each
@@ -4014,9 +4028,11 @@ MESH_PREFILL = {"qwen3-14b": {"flash_prefill": 40}}
 # the first four prompts (16-900 tokens) 16 tokens each: every request
 # decodes two chunks, so the served run has decode-only ticks for the
 # per-step launch gate. The logit gates read the served first tokens,
-# the same at any budget, over the run's prompts
+# the same at any budget, over the run's prompts. DeepSeek-V3's runs (the
+# two wires, the dual decode's and the disaggregator's) serve 16 tokens
+# a request too since PR 34 (32 before), to keep the script under 960 s
 MESH_PROMPTS = {"deepseek-v3-671b": 6, "qwen3-14b": 4}
-MESH_NEW = {"deepseek-v3-671b": 32, "qwen3-14b": 16}
+MESH_NEW = {"deepseek-v3-671b": 16, "qwen3-14b": 16}
 # timed runs of the longest prompt's meshed prefill (printed, not gated)
 MESH_PREFILL_RUNS = 1
 # faults planted on the meshed engine after its run (``plant_fault``):
@@ -4367,7 +4383,7 @@ def mesh_overlap(torch, mesh, params, served):
     for label, eng in engines.items():
         dist.barrier()
         t0 = time.perf_counter()
-        reqs, ticks = serve_all(eng, served["prompts"])
+        reqs, ticks = serve_all(eng, served["prompts"], MESH_NEW[name])
         out[label] = dict(outs=[list(map(int, r.out)) for r in reqs],
                           done=all(r.done for r in reqs),
                           served_s=time.perf_counter() - t0, ticks=ticks,
@@ -4430,7 +4446,8 @@ def mesh_disagg(torch, mesh, dmesh, served):
             ctx=ParallelCtx(mesh=dmesh, moe_impl="ep_flat"), **engine)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
-        reqs = [Request(i, np.asarray(p, np.int32), max_new=32)
+        reqs = [Request(i, np.asarray(p, np.int32),
+                        max_new=MESH_NEW["deepseek-v3-671b"])
                 for i, p in enumerate(served["prompts"])]
         dist.barrier()
         registry.reset_launch_counts()
@@ -5043,6 +5060,11 @@ MESH_TRAIN = dict(model="deepseek-v3-671b",
                   seq_len=256, global_batch=4, steps=3, peak_lr=3e-4,
                   warmup=2, mesh=(2, 2))
 MESH_TRAIN_WORLD = 4
+# (i.1) on the (pod, data, model) mesh: the batch, ZeRO-3 and the gradient
+# reduction over the pair ("pod", "data"), 2 steps, every reading equal to
+# the (2, 2) run's first two bit for bit
+MESH_TRAIN_POD = dict(mesh=(2, 1, 2), axes=("pod", "data", "model"),
+                      steps=2)
 # the faults' runs stop after the step-1 update the gate reads
 MESH_TRAIN_FAULT_STEPS = 2
 # elements of each leaf whose step-1 update the gate compares (a seeded
@@ -5134,7 +5156,8 @@ def master_samples(torch, np, tree, pspecs=None, mesh=None):
     for path, a in tree_items(tree):
         spec = (None,) * a.dim() if pspecs is None else tuple(
             at_path(pspecs, path))
-        shape = tuple(n * _parts(mesh, e) for n, e in zip(a.shape, spec))
+        shape = tuple(n * (1 if mesh is None else mesh.size_of(e))
+                      for n, e in zip(a.shape, spec))
         idx = torch.from_numpy(sample_index(np, path, shape)).to(a.device)
         if pspecs is None:
             out["/".join(path)] = a[tuple(idx.T)].float().cpu().numpy()
@@ -5146,8 +5169,9 @@ def master_samples(torch, np, tree, pspecs=None, mesh=None):
         vals = torch.zeros(idx.shape[0], device=a.device)
         vals[inside] = a[tuple((idx[inside] - lo).T)].float()
         for e in spec:
-            if e is not None and mesh.shape[e] > 1:
-                vals = coll.all_gather(vals[None], mesh.groups[e]).sum(0)
+            g = mesh.group_of(e)
+            if g is not None:
+                vals = coll.all_gather(vals[None], g).sum(0)
         out["/".join(path)] = vals.cpu().numpy()
     return out
 
@@ -5156,32 +5180,30 @@ def sampled_update(before, after):
     return {k: (after[k] - before[k]).tolist() for k in after}
 
 
-def _parts(mesh, entry):
-    return 1 if entry is None else mesh.shape[entry]
-
-
 @contextlib.contextmanager
-def planted_train_fault(fault, data_index):
+def planted_train_fault(fault, index):
     """Phase (i.1)'s planted faults in a meshed rank:
     ``data_rank_dropped`` leaves data rank 1's gradients out of the
     data-axis reduction (its reduce-scatter inputs and replicated-leaf
-    gradients enter as zeros); ``copy_to_group_skipped`` makes
+    gradients enter as zeros); ``pod_dropped`` the same for pod 1, out of
+    the pair's reduction on a pod mesh; ``copy_to_group_skipped`` makes
     ``collectives.copy_to_group`` the identity (a column-parallel input's
-    backward all-reduce never runs)."""
+    backward all-reduce never runs). ``index``: this rank's coordinate on
+    the axis the fault drops (``FAULT_AXIS``)."""
     from repro_torch.parallel import collectives as coll
     from repro_torch.train import trainer
     saved = (coll.reduce_scatter, coll.copy_to_group,
              trainer._reduce_over_data)
     rs, _, red = saved
-    drop = data_index == 1
-    if fault == "data_rank_dropped":
+    drop = index == 1
+    if fault in ("data_rank_dropped", "pod_dropped"):
         coll.reduce_scatter = lambda x, group, dim=0: rs(
             x * 0 if drop else x, group, dim)
 
-        def reduce(grads, specs, group):
+        def reduce(grads, specs, group, *axes):
             if drop:
                 grads[:] = [None if g is None else g * 0 for g in grads]
-            red(grads, specs, group)
+            red(grads, specs, group, *axes)
         trainer._reduce_over_data = reduce
     else:
         coll.copy_to_group = lambda x, group: x
@@ -5330,9 +5352,11 @@ def one_device_train(torch, np, cfg, tc, data, steps, witness=False):
 
 def train_mesh_rank(rank, store_path, out_path):
     """One rank of phase (i), in a spawned process: (i.1) the published-
-    width dense prefix at (2, 2), sound and under each planted fault;
-    (i.2) smoke DeepSeek-V3 with its MoE layers on ``MESH_TRAIN_SMOKE``,
-    then the re-mesh run; (i.3) ``pipeline_forward``. Writes JSON."""
+    width dense prefix at (2, 2), sound and under each planted fault, and
+    at (2, 1, 2) over the pair (``MESH_TRAIN_POD``), sound and with pod 1
+    dropped; (i.2) smoke DeepSeek-V3 with its MoE layers on
+    ``MESH_TRAIN_SMOKE``, then the re-mesh runs at (2, 2) and (2, 1, 2);
+    (i.3) ``pipeline_forward``. Writes JSON."""
     # four ranks share the card: let each allocator return what it frees
     # between the gathers' transients (set before CUDA starts here)
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
@@ -5343,7 +5367,7 @@ def train_mesh_rank(rank, store_path, out_path):
     from repro_torch.data.pipeline import SyntheticCorpus
     from repro_torch.kernels import registry
     from repro_torch.parallel import collectives as coll
-    from repro_torch.parallel.context import Mesh, ParallelCtx
+    from repro_torch.parallel.context import Mesh, ParallelCtx, data_axes
     from repro_torch.train import optimizer as optim
     from repro_torch.train.fault import FailureInjector
     from repro_torch.train.trainer import Trainer, TrainConfig
@@ -5355,40 +5379,47 @@ def train_mesh_rank(rank, store_path, out_path):
     dist.init_process_group("gloo", rank=rank, world_size=MESH_TRAIN_WORLD,
                             store=dist.FileStore(store_path,
                                                  MESH_TRAIN_WORLD))
+    pod = MESH_TRAIN_POD["mesh"]
     meshes = {(2, 2): Mesh.create((2, 2)), (1, 4): Mesh.create((1, 4)),
-              "pipe": Mesh.create((MESH_TRAIN_WORLD,), ("pipe",))}
+              "pipe": Mesh.create((MESH_TRAIN_WORLD,), ("pipe",)),
+              pod: Mesh.create(pod, MESH_TRAIN_POD["axes"])}
     res = {"rank": rank, "runs": {}}
 
-    # (i.1)
+    # (i.1): (run, mesh, steps); "pod" and "pod_dropped" over the pair
     cfg = mesh_train_config()
-    mesh = meshes[MESH_TRAIN["mesh"]]
     tc = TrainConfig(peak_lr=MESH_TRAIN["peak_lr"],
                      warmup=MESH_TRAIN["warmup"],
                      total_steps=MESH_TRAIN["steps"])
     data = SyntheticCorpus(cfg.vocab_size, MESH_TRAIN["seq_len"],
                            MESH_TRAIN["global_batch"], seed=tc.seed)
-    for run in ("sound",) + MESH_TRAIN_FAULTS:
+    runs = [("sound", MESH_TRAIN["mesh"], MESH_TRAIN["steps"])] + [
+        (f, MESH_TRAIN["mesh"], MESH_TRAIN_FAULT_STEPS)
+        for f in MESH_TRAIN_FAULTS if FAULT_AXIS[f] != "pod"] + [
+        ("pod", pod, MESH_TRAIN_POD["steps"])] + [
+        (f, pod, MESH_TRAIN_FAULT_STEPS)
+        for f in MESH_TRAIN_FAULTS if FAULT_AXIS[f] == "pod"]
+    for run, shape, steps in runs:
+        mesh = meshes[shape]
+        ctx = ParallelCtx(mesh=mesh, dp_axes=data_axes(mesh.axis_names))
         _tgc(torch)
         _tpeak(torch, reset=True)
         dist.barrier()
         t0 = time.perf_counter()
-        tr = Trainer(cfg, tc, data=data, ctx=ParallelCtx(mesh=mesh),
-                     device=_tdev())
+        tr = Trainer(cfg, tc, data=data, ctx=ctx, device=_tdev())
         _tsync(torch)
         r = dict(build_s=time.perf_counter() - t0)
-        if run == "sound":
+        if run in ("sound", "pod"):
             r["dtypes"] = sorted({f"{k}:{t.dtype}" for k, tree in (
                 ("param", tr.params), ("master", tr.opt_state.master),
                 ("m", tr.opt_state.m), ("v", tr.opt_state.v))
                 for _, t in optim.tree_items(tree)})
             r["params"] = sum(t.numel() for _, t in
                               optim.tree_items(tr.params))
-        steps = (MESH_TRAIN["steps"] if run == "sound"
-                 else MESH_TRAIN_FAULT_STEPS)
         pspecs = tr.state_pspecs()["params"]
-        fault = (contextlib.nullcontext() if run == "sound" else
-                 planted_train_fault(run, mesh.coords["data"]))
+        fault = (contextlib.nullcontext() if run in ("sound", "pod") else
+                 planted_train_fault(run, mesh.coords[FAULT_AXIS[run]]))
         seen, counts, ms, coll_s, data_bytes = [], [], [], [], []
+        dp_bytes = []
         with fault:
             for i in range(steps):
                 registry.reset_launch_counts()
@@ -5396,12 +5427,19 @@ def train_mesh_rank(rank, store_path, out_path):
                 dist.barrier()
                 _tsync(torch)
                 t1 = time.perf_counter()
-                tr.run(1)
+                with coll.record() as rec:
+                    tr.run(1)
                 _tsync(torch)
                 ms.append(1e3 * (time.perf_counter() - t1))
                 counts.append(registry.launch_counts())
                 coll_s.append(sum(coll.SECONDS.values()))
                 data_bytes.append(dict(coll.BYTES))
+                # the bytes this rank handed to the data group's
+                # collectives (the data line, or the pair's plane)
+                dp_bytes.append({k: sum(e.nbytes for e in rec.collectives(k)
+                                        if e.group is ctx.dp_group)
+                                 for k in ("all_gather", "reduce_scatter",
+                                           "all_reduce")})
                 if i < 2:
                     seen.append(master_samples(torch, np,
                                                tr.opt_state.master, pspecs,
@@ -5411,7 +5449,7 @@ def train_mesh_rank(rank, store_path, out_path):
         r.update(loss=[x["loss"] for x in h],
                  grad_norm=[x["grad_norm"] for x in h], ms=ms,
                  counts=counts, coll_s=coll_s, bytes=data_bytes,
-                 peak_gb=_tpeak(torch))
+                 dp_bytes=dp_bytes, peak_gb=_tpeak(torch))
         res["runs"]["i1 " + run] = r
         del tr
     _tgc(torch)
@@ -5430,19 +5468,22 @@ def train_mesh_rank(rank, store_path, out_path):
         res["runs"]["i2 " + name] = dict(
             loss=[x["loss"] for x in out["history"]])
         del tr
-    ckdir = str(pathlib.Path(store_path).parent / "remesh_ckpt")
-    tr = Trainer(scfg, TrainConfig(
-        peak_lr=SMOKE_TRAIN["peak_lr"], warmup=SMOKE_TRAIN["warmup"],
-        total_steps=8, ckpt_dir=ckdir, ckpt_every=2),
-        injector=FailureInjector({3: "node"}),
-        global_batch=SMOKE_TRAIN["global_batch"],
-        seq_len=SMOKE_TRAIN["seq_len"], device=_tdev(),
-        ctx=ParallelCtx(mesh=meshes[(2, 2)], moe_impl="ep_flat"))
-    out = tr.run(6)
-    res["remesh"] = {k: out[k] for k in ("final_step", "restarts",
-                                         "mesh_shape", "left")}
-    del tr
-    _tgc(torch)
+    for key, shape in (("remesh", (2, 2)), ("remesh_pod", pod)):
+        ckdir = str(pathlib.Path(store_path).parent / f"{key}_ckpt")
+        m = meshes[shape]
+        tr = Trainer(scfg, TrainConfig(
+            peak_lr=SMOKE_TRAIN["peak_lr"], warmup=SMOKE_TRAIN["warmup"],
+            total_steps=8, ckpt_dir=ckdir, ckpt_every=2),
+            injector=FailureInjector({3: "node"}),
+            global_batch=SMOKE_TRAIN["global_batch"],
+            seq_len=SMOKE_TRAIN["seq_len"], device=_tdev(),
+            ctx=ParallelCtx(mesh=m, dp_axes=data_axes(m.axis_names),
+                            moe_impl="ep_flat"))
+        out = tr.run(6)
+        res[key] = {k: out[k] for k in ("final_step", "restarts",
+                                        "mesh_shape", "left")}
+        del tr
+        _tgc(torch)
 
     # (i.3)
     from repro_torch.parallel.pipeline import pipeline_forward
@@ -5485,13 +5526,16 @@ def phase_train_mesh(torch, card):
     forward (``fp8_linears``) a rank and step, no other kernel; fp32
     master and bf16 m, v on every rank; the sound run and the witness
     pass ``train_gate`` against the one-device run, each planted fault
-    fails it; peak memory a rank and all ranks' sum under the card's.
-    (i.2) every run's losses within 5e-3 of one device, the FP8 wire
-    within 5% of the fp32 wire; the re-mesh run ends at (1, 2) after one
-    restart with ranks 2-3 gone. (i.3) forward 1e-5, gradients 1e-4
-    relative. Printed: ms a step a rank, host s inside staged
-    collectives, bytes gathered and reduce-scattered over data a step,
-    launches. Returns the fp8_gemm launches a rank and step."""
+    fails it; peak memory a rank and all ranks' sum under the card's; the
+    (2, 1, 2) run over the pair equal to the (2, 2) run's first two steps
+    bit for bit (loss, grad norm, step-1 update sample) with the same
+    launches. (i.2) every run's losses within 5e-3 of one device, the FP8
+    wire within 5% of the fp32 wire; the re-mesh runs end at (1, 2) and
+    at (1, 1, 2) after one restart with ranks 2-3 gone. (i.3) forward
+    1e-5, gradients 1e-4 relative. Printed: ms a step a rank, host s
+    inside staged collectives, bytes gathered and reduce-scattered over
+    the data axes a step, launches. Returns the fp8_gemm launches a rank
+    and step."""
     import tempfile
 
     import numpy as np
@@ -5545,6 +5589,7 @@ def phase_train_mesh(torch, card):
     total = (torch.cuda.get_device_properties(0).total_memory / 1e9
              if _tcard() else math.inf)
     sound = [r["runs"]["i1 sound"] for r in res]
+    pods = [r["runs"]["i1 pod"] for r in res]
     want_dt = ["m:torch.bfloat16", "master:torch.float32",
                "param:torch.bfloat16", "v:torch.bfloat16"]
     for k, run in enumerate(sound):
@@ -5552,13 +5597,32 @@ def phase_train_mesh(torch, card):
             bad.append(f"rank {k}: state dtypes {run['dtypes']}")
         if not all(math.isfinite(v) for v in run["loss"] + run["grad_norm"]):
             bad.append(f"rank {k}: a step not finite {run['loss']}")
-        for i, c in enumerate(run["counts"] if _tcard() else ()):
-            if c.get("fp8_gemm") != want_fp8 or any(
-                    v for n, v in c.items() if n != "fp8_gemm"):
-                bad.append(f"rank {k} step {i}: launches {c}, want "
-                           f"fp8_gemm {want_fp8} only")
+    for label, runs in (("(2, 2)", sound), (str(MESH_TRAIN_POD["mesh"]),
+                                            pods)):
+        for k, run in enumerate(runs):
+            for i, c in enumerate(run["counts"] if _tcard() else ()):
+                if c.get("fp8_gemm") != want_fp8 or any(
+                        v for n, v in c.items() if n != "fp8_gemm"):
+                    bad.append(f"rank {k} step {i} at {label}: launches {c},"
+                               f" want fp8_gemm {want_fp8} only")
+    # the pair's run against the (2, 2) run, bit for bit
+    n_pod = MESH_TRAIN_POD["steps"]
+    for k, (a, b) in enumerate(zip(pods, sound)):
+        same = {key: a[key] == b[key][:n_pod] for key in ("loss",
+                                                         "grad_norm")}
+        same["samples"] = a["samples"] == b["samples"]
+        worst = max(abs(x - y) for key in a["samples"]
+                    for x, y in zip(a["samples"][key], b["samples"][key]))
+        log(f"[i.1] rank {k} at {MESH_TRAIN_POD['mesh']} over ('pod', "
+            f"'data') vs (2, 2): losses {a['loss']} vs {b['loss'][:n_pod]}, "
+            f"grad norms {a['grad_norm']} vs {b['grad_norm'][:n_pod]}, "
+            f"step-1 update samples max |diff| {worst:.3g}: "
+            f"{'equal bit for bit' if all(same.values()) else same}")
+        if not all(same.values()):
+            bad.append(f"(i.1) rank {k}: the pair's run parts from the "
+                       f"(2, 2) run's {same}")
     peak_sum = sum(max(r["runs"][f"i1 {x}"]["peak_gb"]
-                       for x in ("sound",) + MESH_TRAIN_FAULTS)
+                       for x in ("sound", "pod") + MESH_TRAIN_FAULTS)
                    for r in res)
     if max(r["peak_gb"] for r in res) >= total or peak_sum >= total:
         bad.append(f"peak memory {[r['peak_gb'] for r in res]} GB a rank, "
@@ -5583,21 +5647,24 @@ def phase_train_mesh(torch, card):
             f"cosine {fig['cos']:.6f} at {fig['worst']} (limit "
             f"{MESH_TRAIN_LIMITS['cos']:g}): "
             f"{'passes' if ok else 'fails'}")
-    for k, run in enumerate(sound):
-        steady = run["ms"][1:]
-        b = run["bytes"][-1]
-        log(f"[i.1] rank {k}: {run['params']} parameters a rank, built in "
-            f"{run['build_s']:.1f} s; losses "
-            f"{[round(v, 5) for v in run['loss']]}; ms a step "
-            f"{[round(v, 1) for v in run['ms']]} (steps 2-3 mean "
-            f"{np.mean(steady):.1f}); host s a step inside staged "
-            f"collectives {[round(v, 3) for v in run['coll_s']]}; bytes a "
-            f"step (last): all_gather {b.get('all_gather', 0)}, "
-            f"reduce_scatter {b.get('reduce_scatter', 0)}, all_reduce "
-            f"{b.get('all_reduce', 0)}, exchange {b.get('exchange', 0)}; "
-            f"launches a step {run['counts'][-1]} (want fp8_gemm "
-            f"{want_fp8} = 2 halves x 3 x {per_fwd}); peak "
-            f"{run['peak_gb']:.2f} GB")
+    for label, runs in (("(2, 2)", sound), (str(MESH_TRAIN_POD["mesh"]),
+                                            pods)):
+        for k, run in enumerate(runs):
+            b, db = run["bytes"][-1], run["dp_bytes"][-1]
+            log(f"[i.1] {label} rank {k}: {run['params']} parameters a "
+                f"rank, built in {run['build_s']:.1f} s; "
+                f"losses {[round(v, 5) for v in run['loss']]}; ms a step "
+                f"{[round(v, 1) for v in run['ms']]} (after the first, "
+                f"mean {np.mean(run['ms'][1:]):.1f}); host s a step inside "
+                f"staged collectives {[round(v, 3) for v in run['coll_s']]};"
+                f" bytes a step (last): all_gather {b.get('all_gather', 0)}"
+                f", reduce_scatter {b.get('reduce_scatter', 0)}, all_reduce "
+                f"{b.get('all_reduce', 0)}, exchange {b.get('exchange', 0)}"
+                f"; of them over the data axes' group: all_gather "
+                f"{db['all_gather']}, reduce_scatter {db['reduce_scatter']},"
+                f" all_reduce {db['all_reduce']}; launches a step "
+                f"{run['counts'][-1]} (want fp8_gemm {want_fp8} = 2 halves "
+                f"x 3 x {per_fwd}); peak {run['peak_gb']:.2f} GB")
     log(f"[i.1] peak GB a rank over its runs "
         f"{[round(r['peak_gb'], 2) for r in res]}, sum of the ranks' "
         f"{peak_sum:.2f} of the card's {total:.2f}")
@@ -5624,14 +5691,17 @@ def phase_train_mesh(torch, card):
             f"{max(abs(a - b) for a, b in zip(got, smoke_one)):.3g}"
             + (f", {rel:.3g} of the fp32 wire" if wire == "fp8" else "")
             + ")")
-    rm = [r["remesh"] for r in res]
-    want_rm = [dict(final_step=6, restarts=1, mesh_shape=[1, 2], left=False)
-               ] * 2
-    if rm[:2] != want_rm or not all(x["left"] and x["mesh_shape"] == [1, 2]
-                                    for x in rm[2:]):
-        bad.append(f"(i.2) re-mesh: {rm}")
-    log(f"[i.2] Trainer at (2, 2) with checkpoints and FailureInjector({{3: "
-        f"node}}): {rm}")
+    for key, start, end in (("remesh", [2, 2], [1, 2]),
+                            ("remesh_pod", list(MESH_TRAIN_POD["mesh"]),
+                             [1] + list(MESH_TRAIN_POD["mesh"][1:]))):
+        rm = [r[key] for r in res]
+        want_rm = [dict(final_step=6, restarts=1, mesh_shape=end,
+                        left=False)] * 2
+        if rm[:2] != want_rm or not all(
+                x["left"] and x["mesh_shape"] == end for x in rm[2:]):
+            bad.append(f"(i.2) re-mesh from {start}: {rm}")
+        log(f"[i.2] Trainer at {start} with checkpoints and "
+            f"FailureInjector({{3: node}}): {rm}")
     pipe = [r["pipe"] for r in res]
     if any(p["fwd"] >= PIPE_CASE["fwd_tol"] or p["grad"] >= PIPE_CASE[
             "grad_tol"] for p in pipe):
@@ -5659,7 +5729,12 @@ def phase_train_mesh(torch, card):
 # (the first at lr 0) move by 1.5e-5, so the loss limit is a bound on
 # sound runs (1.1e-3 seen), not a fault detector. PERF.md §6, PR 28.
 MESH_TRAIN_LIMITS = dict(loss=1e-2, grad_norm=2e-2, cos=0.9)
-MESH_TRAIN_FAULTS = ("data_rank_dropped", "copy_to_group_skipped")
+MESH_TRAIN_FAULTS = ("data_rank_dropped", "copy_to_group_skipped",
+                     "pod_dropped")
+# the axis each fault drops a coordinate of, and its mesh (the pod fault's
+# on MESH_TRAIN_POD's)
+FAULT_AXIS = {"data_rank_dropped": "data", "copy_to_group_skipped": "data",
+              "pod_dropped": "pod"}
 
 
 def leaf_cosines(np, ref, got):
@@ -5853,13 +5928,16 @@ def phase_launchers(torch):
 # --- (k) ---------------------------------------------------------------------
 # the dry run's cells under the card's torch, one process each, all at once
 # (no process touches the card): (arch, shape, multi-pod, the status or
-# error label it must record)
+# error label it must record). The multi-pod cells (2 x 16 x 16) carry the
+# batch and ZeRO-3 over ("pod", "data")
 DRYRUN_CELLS = [(a, s, False, "ok") for a in ("deepseek-v3-671b", "qwen3-14b")
                 for s in ("train_4k", "prefill_32k", "decode_32k")] + [
+    ("deepseek-v3-671b", s, True, "ok")
+    for s in ("train_4k", "prefill_32k", "decode_32k")] + [
+    ("qwen3-14b", "decode_32k", True, "ok"),
     ("llama4-maverick-400b-a17b", "train_4k", False, "A.11"),
     ("mamba2-2.7b", "decode_32k", False, "A.12"),
-    ("seamless-m4t-large-v2", "prefill_32k", False, "A.13"),
-    ("qwen3-14b", "decode_32k", True, "A.8")]
+    ("seamless-m4t-large-v2", "prefill_32k", False, "A.13")]
 DRYRUN_TIMEOUT = 240
 # (k.2): qwen1.5-4b on one card, (label, layers (None: whole), tokens a
 # row, rows): whole at (j.4)'s train shape, where the state dominates
@@ -6009,6 +6087,16 @@ def phase_dryrun(torch):
                 + ", ".join(f"{k} {c[k] / 1e6:.1f} MB x {c['counts'][k]}"
                             for k in dryrun.COLLECTIVES if c["counts"][k])
                 + ")")
+        # ZeRO-3 over the pair: 32 ranks hold what 16 hold on one pod
+        one, two = (recs["deepseek-v3-671b", "train_4k", pod][
+            "memory_analysis"]["argument_size_in_bytes"]
+            for pod in (False, True))
+        log(f"[k.1] deepseek-v3-671b x train_4k arguments a rank: "
+            f"{one / 1e9:.3f} GB on one pod, {two / 1e9:.3f} GB with "
+            "--multi-pod")
+        if not two < one:
+            raise AssertionError(f"[k.1] multi-pod train_4k arguments {two}"
+                                 f" B, not under the single pod's {one} B")
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             roofline.main(["--dir", tmp, "--markdown",

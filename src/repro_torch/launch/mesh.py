@@ -12,9 +12,7 @@ from __future__ import annotations
 import itertools
 import math
 
-from repro_torch.parallel.context import Mesh, _rank_of
-
-DP_AXES = ("pod", "data")
+from repro_torch.parallel.context import DATA_AXES, Mesh, _rank_of, data_axes
 
 
 def production_shape(multi_pod: bool = False):
@@ -37,7 +35,7 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
 
 
 def dp_axes_for(mesh: Mesh):
-    return tuple(a for a in DP_AXES if a in mesh.axis_names)
+    return data_axes(mesh.axis_names)
 
 
 def survivor_mesh(mesh: Mesh) -> Mesh:
@@ -46,14 +44,14 @@ def survivor_mesh(mesh: Mesh) -> Mesh:
     model/EP axis whole so that expert shards and weight blocks stay
     divisible. The survivors are the positions in the first half of that
     axis, in the new mesh's row-major order; every rank of the default
-    group must call this (``Mesh.create`` makes each axis line's group on
-    every rank), and a dropped rank gets a mesh without a position
-    (``rank`` None). Returns ``mesh`` itself when no axis can shrink (a
-    restart in place)."""
+    group must call this (``Mesh.create`` makes each axis line's group,
+    and on a three-axis mesh each data plane's, on every rank), and a
+    dropped rank gets a mesh without a position (``rank`` None). Returns
+    ``mesh`` itself when no axis can shrink (a restart in place)."""
     names = list(mesh.axis_names)
     shape = [mesh.shape[a] for a in names]
     for i, a in enumerate(names):
-        if a in DP_AXES and shape[i] > 1:
+        if a in DATA_AXES and shape[i] > 1:
             new = list(shape)
             new[i] //= 2
             survivors = [mesh.ranks[_rank_of(c, shape)]

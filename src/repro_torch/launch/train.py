@@ -5,12 +5,13 @@
 The reference's flags and its two printed lines. ``--mesh DxM`` spawns
 D*M ranks (gloo over a ``FileStore`` in a temporary directory, as
 ``launch/serve.py`` does; on the card they share it), each training its
-cut of the FSDP x TP state with EP MoE; rank 0 prints. A three-axis mesh
-raises: the port carries the batch over one data axis (ROADMAP.md, A.8).
-``--devices N`` is the reference's forced XLA host-device count, which
-means nothing to torch: it is accepted so the reference's command lines
-run, and raises only where it is smaller than the mesh, as the
-reference's mesh construction does. ``--device`` (the port's own) is
+cut of the FSDP x TP state with EP MoE; rank 0 prints. ``--mesh PxDxM``
+is the mesh (pod, data, model): the batch and the ZeRO-3 cut run over the
+pair ``("pod", "data")``, as the reference's ``dp_axes``. ``--devices N``
+is the reference's forced XLA host-device count, which means nothing to
+torch: it is accepted so the reference's command lines run, and raises
+only where it is smaller than the mesh, as the reference's mesh
+construction does. ``--device`` (the port's own) is
 ``cuda`` unless ``cpu`` is asked for.
 """
 from __future__ import annotations
@@ -37,7 +38,8 @@ def parser() -> argparse.ArgumentParser:
                          "accepted, and checked against the mesh size")
     ap.add_argument("--mesh", default=None,
                     help="e.g. 2x4 -> mesh (data=2, model=4) with EP MoE, "
-                         "one spawned rank a position")
+                         "2x1x2 -> (pod=2, data=1, model=2); one spawned "
+                         "rank a position")
     ap.add_argument("--moe-impl", default="ep_dedup",
                     help="local | ep_flat | ep_dedup (EP dispatch protocol"
                          " used by the meshed train step)")
@@ -71,7 +73,7 @@ def run(cfg, args, params=None) -> Dict[str, Any]:
     mesh). ``params``: the starting weights of a single-process run, with
     a fresh optimizer state (None: drawn from the seed)."""
     from repro_torch.device import resolve_device
-    from repro_torch.parallel.context import Mesh, ParallelCtx
+    from repro_torch.parallel.context import ParallelCtx
     resolve_device(args.device)
     if not args.mesh:
         out = train(cfg, args, ParallelCtx(), params)
@@ -84,9 +86,6 @@ def run(cfg, args, params=None) -> Dict[str, Any]:
             raise ValueError(f"--devices {args.devices} is fewer than the "
                              f"{math.prod(shape)} positions of mesh "
                              f"{shape}")
-        # the port's refusal of a second data axis (A.8), before any spawn
-        ParallelCtx(mesh=Mesh.abstract(shape, _axes(shape)),
-                    dp_axes=_axes(shape)[:-1]).dp_axis
         world = math.prod(shape)
         out = spawn_ranks(rank_main, world, (_train_body, rank_threads(world),
                                              cfg, args, shape))[0]
@@ -115,9 +114,9 @@ def train(cfg, args, ctx, params=None) -> Dict[str, Any]:
 
 def _train_body(cfg, args, shape):
     import torch.distributed as dist
-    from repro_torch.parallel.context import Mesh, ParallelCtx
-    ctx = ParallelCtx(mesh=Mesh.create(shape, _axes(shape)),
-                      dp_axes=("data",),
+    from repro_torch.parallel.context import Mesh, ParallelCtx, data_axes
+    axes = _axes(shape)
+    ctx = ParallelCtx(mesh=Mesh.create(shape, axes), dp_axes=data_axes(axes),
                       moe_impl=args.moe_impl if cfg.moe else "local",
                       wire=args.wire, microbatches=args.microbatches)
     out = train(cfg, args, ctx)

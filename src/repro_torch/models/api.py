@@ -676,7 +676,7 @@ class Model:
 
     @staticmethod
     def data_total(v: torch.Tensor) -> torch.Tensor:
-        """A count summed over the data axis (no gradient): under a mesh
+        """A count summed over the data axes (no gradient): under a mesh
         each data rank holds its own batch rows, and the CE and MTP means
         are over the global batch, as the reference's."""
         g = pctx_mod.get().dp_group
@@ -943,7 +943,7 @@ class Model:
             B = tokens.shape[0]
             if table.shape[0] != B:
                 c = pctx_mod.get()
-                d, g = c.index(c.dp_axis), c.dp_group
+                d, g = c.dp_index, c.dp_group
                 ctx["page_table"] = table[d * B:(d + 1) * B]
                 ctx["dp_write"] = (g, table,
                                    coll.all_gather(positions[:, 0], g))

@@ -12,7 +12,12 @@ the axis names and sizes, this rank's coordinates, and the process group
 of this rank's line along each axis. Ranks are laid out row-major over
 the axes (``rank = d * |model| + m`` on ``("data", "model")``), and every
 rank creates the group of every axis line, in the same order, as
-``torch.distributed.new_group`` requires.
+``torch.distributed.new_group`` requires. A mesh with both data axes
+(``("pod", "data", "model")``) also makes the group of each data plane,
+the ranks that share every coordinate but the data axes', so that the
+batch can be carried over the pair as one ``PartitionSpec`` entry
+``("pod", "data")`` (major to minor: the pair's coordinate is ``pod *
+|data| + data``, as JAX cuts it).
 """
 from __future__ import annotations
 
@@ -23,6 +28,9 @@ import math
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 AXES = ("data", "model")
+# the axes that carry the batch, major to minor (the reference's
+# ``dp_axes_for``): where a mesh has more than one, their plane is a group
+DATA_AXES = ("pod", "data")
 
 
 class Mesh:
@@ -32,8 +40,9 @@ class Mesh:
     ``jax.sharding.Mesh.shape``). A mesh made by :meth:`abstract` holds
     shapes only (enough for the sharding rules); one made by
     :meth:`create` also knows this process's position (``rank``), its
-    coordinates, the group of each of its axis lines and the default
-    group's rank at each position (``ranks``)."""
+    coordinates, the group of each of its axis lines (``groups[axis]``)
+    and of its data plane (``groups[("pod", "data")]``, where the mesh has
+    both), and the default group's rank at each position (``ranks``)."""
 
     def __init__(self, shape: Sequence[int],
                  axis_names: Sequence[str] = AXES, rank: Optional[int] = None,
@@ -64,8 +73,10 @@ class Mesh:
         position i on ``ranks[i]``. Every rank of the default group calls
         it with the same arguments: each axis line's group is created on
         every rank, axis by axis, lines in row-major order of the other
-        coordinates. A rank outside ``ranks`` gets a mesh without a
-        position (``rank`` None)."""
+        coordinates; then, on a mesh with more than one data axis
+        (:data:`DATA_AXES`), each data plane's group, planes in row-major
+        order of the other coordinates, members in pod-major order. A rank
+        outside ``ranks`` gets a mesh without a position (``rank`` None)."""
         import torch.distributed as dist
         size = math.prod(shape)
         ranks = list(range(dist.get_world_size()) if ranks is None
@@ -88,6 +99,21 @@ class Mesh:
                 g = dist.new_group(line)
                 if me in line:
                     groups[axis_names[a]] = g
+        plane = data_axes(axis_names)
+        if len(plane) > 1:
+            ins = [axis_names.index(a) for a in plane]
+            others = [range(n) if i not in ins else [0]
+                      for i, n in enumerate(shape)]
+            for base in itertools.product(*others):
+                members = []
+                for sub in itertools.product(*(range(shape[i]) for i in ins)):
+                    c = list(base)
+                    for i, j in zip(ins, sub):
+                        c[i] = j
+                    members.append(ranks[_rank_of(c, shape)])
+                g = dist.new_group(members)
+                if me in members:
+                    groups[plane] = g
         return cls(shape, axis_names, pos, groups, ranks)
 
     @property
@@ -101,8 +127,51 @@ class Mesh:
         return dict(zip(self.axis_names,
                         _coords(self.rank, tuple(self.shape.values()))))
 
+    def size_of(self, axes) -> int:
+        """The number of positions along ``axes`` (an axis name, a tuple of
+        them, or None: 1)."""
+        return math.prod(self.shape[a] for a in _names(axes))
+
+    def index_of(self, axes) -> int:
+        """This rank's coordinate along ``axes``, row-major over a tuple
+        (``pod * |data| + data`` for ``("pod", "data")``, as JAX cuts a
+        ``PartitionSpec`` entry of that tuple)."""
+        coords, i = self.coords, 0
+        for a in _names(axes):
+            i = i * self.shape[a] + coords[a]
+        return i
+
+    def group_of(self, axes):
+        """The process group of this rank's line along ``axes`` (an axis
+        name), or of its data plane (the tuple of :data:`DATA_AXES` on the
+        mesh); None where it holds one position (nothing to exchange).
+        Raises where the mesh has no such group on this rank (an abstract
+        mesh, a rank off the mesh, or a tuple that is not the plane)."""
+        names = _names(axes)
+        if self.size_of(names) == 1:
+            return None
+        key = names[0] if len(names) == 1 else names
+        if key not in self.groups:
+            raise ValueError(
+                f"no process group for {key!r} on this rank: the mesh is "
+                "abstract, this rank is off it, or the axes are not a line "
+                f"or the data plane {data_axes(self.axis_names)}")
+        return self.groups[key]
+
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, rank={self.rank})"
+
+
+def data_axes(axis_names: Sequence[str]) -> Tuple[str, ...]:
+    """The data axes among ``axis_names``, major to minor (the
+    reference's ``dp_axes_for``)."""
+    return tuple(a for a in DATA_AXES if a in axis_names)
+
+
+def _names(axes) -> Tuple[str, ...]:
+    if axes is None:
+        return ()
+    return (axes,) if isinstance(axes, str) else tuple(axes)
 
 
 def _coords(rank: int, shape: Sequence[int]) -> Tuple[int, ...]:
@@ -137,9 +206,9 @@ class ParallelCtx:
     in the reference; explicit SPMD always computes a rank's heads from
     its own column slices, which is what ``pin_attn=True`` pins, so either
     value runs the same program. ``microbatches`` (2 or more: the meshed
-    train step's dual microbatch) is read by ``train/trainer.py``. More
-    than one data axis raises where a data group is asked for (ROADMAP.md,
-    A.8)."""
+    train step's dual microbatch) is read by ``train/trainer.py``.
+    ``dp_axes`` may name both data axes, ``("pod", "data")``: the batch is
+    then cut over the pair (:attr:`dp_group`, :attr:`dp_index`)."""
     mesh: Optional[Union[Mesh, Tuple[int, ...]]] = None
     dp_axes: Tuple[str, ...] = ("data",)   # axes carrying the batch dim
     ep_axis: Optional[str] = "model"       # axis carrying experts
@@ -194,31 +263,21 @@ class ParallelCtx:
         return self.mesh.shape[self.tp_axis]
 
     # -- explicit SPMD: this rank's place on the mesh ------------------------
-    def group(self, axis: Optional[str]):
-        """The process group of this rank's line along ``axis``; None when
-        unmeshed, for no axis, or where the axis has size 1 (nothing to
-        exchange)."""
-        if self.mesh is None or axis is None or self.mesh.shape[axis] == 1:
+    def group(self, axes):
+        """The process group of this rank's line along ``axes`` (an axis
+        name), or of its data plane (``("pod", "data")``,
+        ``Mesh.group_of``); None when unmeshed, for no axis, or where the
+        axes hold one position (nothing to exchange)."""
+        if self.mesh is None or axes is None:
             return None
-        if axis not in self.mesh.groups:
-            raise ValueError(
-                f"no process group for axis {axis!r} on this rank: the mesh "
-                "is abstract, or this rank is off it")
-        return self.mesh.groups[axis]
+        return self.mesh.group_of(axes)
 
-    def index(self, axis: Optional[str]) -> int:
-        """This rank's coordinate along ``axis`` (0 when unmeshed)."""
-        if self.mesh is None or axis is None:
+    def index(self, axes) -> int:
+        """This rank's coordinate along ``axes``, row-major over a tuple (0
+        when unmeshed)."""
+        if self.mesh is None or axes is None:
             return 0
-        return self.mesh.coords[axis]
-
-    @property
-    def dp_axis(self) -> str:
-        if len(self.dp_axes) != 1:
-            raise NotImplementedError(
-                f"dp_axes={self.dp_axes}: the port's explicit SPMD carries "
-                "the batch over one data axis (ROADMAP.md, A.8)")
-        return self.dp_axes[0]
+        return self.mesh.index_of(axes)
 
     @property
     def tp_group(self):
@@ -226,7 +285,14 @@ class ParallelCtx:
 
     @property
     def dp_group(self):
-        return None if self.mesh is None else self.group(self.dp_axis)
+        """The group the batch is cut over: the data line, or the data
+        plane of both data axes (members in pod-major order)."""
+        return self.group(self.dp_axes)
+
+    @property
+    def dp_index(self) -> int:
+        """This rank's part of the batch, of :attr:`dp_size`."""
+        return self.index(self.dp_axes)
 
 
 _CURRENT = ParallelCtx()
@@ -299,19 +365,16 @@ def seq_divides(ctx: ParallelCtx, seq_len: int) -> bool:
 
 def check_meshed(cfg, ctx: Optional[ParallelCtx], entry: str) -> None:
     """Refuse a meshed run whose layout the port has not ported yet, with
-    its ROADMAP.md label: more than one data axis (A.8), the dense/MoE
-    pairs (A.11), the recurrent families (A.12), the families with a
-    memory (A.13). The serving engine, the meshed train step and the dry
-    run call it; ``entry`` names the caller in the message. Unmeshed: no
-    check."""
+    its ROADMAP.md label: the dense/MoE pairs (A.11), the recurrent
+    families (A.12), the families with a memory (A.13). The serving
+    engine, the meshed train step and the dry run call it; ``entry`` names
+    the caller in the message. Unmeshed: no check."""
     if ctx is None or ctx.mesh is None:
         return
     def waits(what, item):
         return NotImplementedError(
             f"{entry}({what}) under a mesh is not ported yet: see "
             f"ROADMAP.md, {item}")
-    if len(ctx.dp_axes) != 1:
-        raise waits(f"dp_axes={tuple(ctx.dp_axes)}", "A.8")
     if cfg.moe and cfg.moe.layout.startswith("interleave:"):
         raise waits(f"layout {cfg.moe.layout!r}", "A.11")
     if cfg.sub_quadratic():                       # SSD, RG-LRU state

@@ -26,8 +26,12 @@ Token layout: each data row's tokens (or, ``replicated``, every token on
 every data row) are split over the row's model columns; the shared expert
 runs outside the dispatch, tensor-parallel over ``mlp``. Token counts that
 don't divide are padded and masked into the overflow bucket (no capacity,
-no wire). ``ep_ftp`` (decode): tokens replicated over the data axis, each
-expert's FF dimension split over it, partial outputs summed over it; with
+no wire). ``ep_ftp`` (decode): tokens replicated over the data axes
+(gathered over them, or over the pair ``("pod", "data")``, when each
+data row holds its own), each expert's FF dimension split over
+``"data"``, partial outputs summed over ``"data"`` alone (:func:`ftp_group`:
+on a pod mesh the experts replicate over ``"pod"``, so a sum over the
+pair would count each partial |pod| times, as the reference's does); with
 FP8 experts each rank quantizes its own slice, which must be whole
 128-blocks. Under a sequence cut (``context.seq_group``, training) each
 column dispatches its own chunk of tokens.
@@ -394,12 +398,20 @@ def _ep_dedup_local(wg, bias, w1, w3, w2, x, mask, cfg: ModelConfig, group,
 # ---------------------------------------------------------------------------
 
 
+def ftp_group(pctx: ParallelCtx):
+    """The group ``ep_ftp`` sums the expert-FF partials over: the
+    ``"data"`` line, the axis the expert FF is cut over
+    (``sharding.tp_rules``' ``expert_ff``); None where it has one
+    position."""
+    return pctx.group("data")
+
+
 def _check_ftp_blocks(p: dict, cfg: ModelConfig) -> None:
     """``ep_ftp`` with FP8 experts: each rank quantizes its slice of the
     expert FF dimension in 128-wide tiles and 128x128 blocks, as the
     reference's body does inside its ``shard_map``; a slice of whole
-    128-blocks keeps the single device's blocks. Raise where the data
-    axis cuts a block."""
+    128-blocks keeps the single device's blocks. Raise where the
+    ``"data"`` axis cuts a block."""
     f, f_local = cfg.moe.expert_ff, p["w1"].shape[-1]
     if f_local != f and f_local % fp8.BLOCK:
         raise ValueError(
@@ -449,7 +461,8 @@ def moe_ffn_phases(p: dict, x: torch.Tensor, cfg: ModelConfig,
     issued; gathered, the shared expert. Each yield leaves one collective
     in flight. x: (B, S, d), this data
     row's tokens (``replicated``: the same tokens on every data row, as a
-    batch-1 prefill), the same on every model column. Returns (y,
+    batch-1 prefill), the same on every model column; a data row is a
+    position of the data axes (``ParallelCtx.dp_index``). Returns (y,
     RouteResult-like, drop_frac) for the same tokens.
 
     ``valid`` ((B, S) bool) marks real tokens: bucketed-prefill pads fold
@@ -457,7 +470,7 @@ def moe_ffn_phases(p: dict, x: torch.Tensor, cfg: ModelConfig,
     no capacity and no wire. The capacity of an EP shard follows from its
     padded token count; where nothing drops, results match the local
     path's dispatch token for token. ``stats``: the route's load, aux and
-    drop, averaged over the model and data groups (else None)."""
+    drop, averaged over the model group and the data axes' (else None)."""
     mc = cfg.moe
     group = pctx.group(pctx.ep_axis)
     cols = pctx.mesh.shape[pctx.ep_axis]
@@ -465,7 +478,8 @@ def moe_ffn_phases(p: dict, x: torch.Tensor, cfg: ModelConfig,
     body = _ep_dedup_local if uses_dedup(cfg, pctx) else _ep_flat_local
     ftp = pctx.ep_ftp
     dgroup = pctx.dp_group
-    if ftp and cfg.fp8 and dgroup is not None:
+    fgroup = ftp_group(pctx) if ftp else None
+    if fgroup is not None and cfg.fp8:
         _check_ftp_blocks(p, cfg)
     gather = ftp and not replicated and dgroup is not None
     # a sequence cut: this column's tokens are its own chunk already
@@ -475,7 +489,8 @@ def moe_ffn_phases(p: dict, x: torch.Tensor, cfg: ModelConfig,
     xt = x.reshape(-1, shape[-1])
     v = None if valid is None else valid.reshape(-1).bool()
     if gather:
-        # decode mode: tokens replicated over dp, expert FF split over it
+        # decode mode: tokens replicated over the data axes, the expert FF
+        # split over "data"
         xt = coll.all_gather(xt, dgroup)
         if v is not None:
             v = coll.all_gather(v, dgroup)
@@ -500,13 +515,12 @@ def moe_ffn_phases(p: dict, x: torch.Tensor, cfg: ModelConfig,
     y, load, drop, aux = yield from body(
         wg, bias, p["w1"], p["w3"], p["w2"], xt, mask, cfg, group,
         j, cols, pctx.wire, weights_qdq, stats, split=not own)
-    if ftp and dgroup is not None:
-        y = coll.reduce_sum(y.float(), dgroup).to(y.dtype)   # FF partials
+    if fgroup is not None:
+        y = coll.reduce_sum(y.float(), fgroup).to(y.dtype)   # FF partials
     y = y[:T]
     if gather:
-        n = dist.get_world_size(dgroup)
-        per = T // n
-        i = pctx.index(pctx.dp_axis)
+        per = T // pctx.dp_size
+        i = pctx.dp_index
         y = y[i * per:(i + 1) * per]
     if stats:
         groups = (group, dgroup)

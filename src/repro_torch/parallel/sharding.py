@@ -23,7 +23,8 @@ The train state (the explicit half of the reference's
 ``train_state_shardings``): :func:`train_pspecs` and :func:`shard_state`
 cut the parameters and the AdamW state; under a ctx with a ZeRO-3 plan
 (``ParallelCtx.zero3``, a :class:`Zero3`) the model gathers each leaf's
-``data`` cut as it uses it (:func:`gathered`) and its gradient is
+data cut (over ``data``, or over the pair ``("pod", "data")`` on a
+multi-pod mesh) as it uses it (:func:`gathered`) and its gradient is
 reduce-scattered back.
 """
 from __future__ import annotations
@@ -36,7 +37,7 @@ import torch
 from repro_torch.core import paged as paged_mod
 from repro_torch.core.fp8 import BLOCK, Fp8Experts, Fp8Weight, k_major
 from repro_torch.models.param import ParamSpec
-from repro_torch.parallel.context import Mesh
+from repro_torch.parallel.context import Mesh, data_axes
 
 Rule = Union[None, str, Tuple[str, ...]]
 
@@ -537,11 +538,14 @@ def whole_heads(cfg, mesh: Mesh, spec_tree, pspecs):
     return map_with_path(one, spec_tree)
 
 
-def train_pspecs(mesh: Mesh, spec_tree, multi_pod: bool = False, cfg=None):
+def train_pspecs(mesh: Mesh, spec_tree, cfg=None):
     """The parameters' training placements (``fsdp_tp_rules``: ``embed``
-    over ``data``, heads, mlp, vocab and experts over ``model``); given
-    ``cfg``, with every head kept whole (:func:`whole_heads`)."""
-    ps = param_pspecs(mesh, spec_tree, fsdp_tp_rules(multi_pod))
+    over ``data``, or over ``("pod", "data")`` where the mesh has a pod
+    axis, as the reference's trainer reads ``multi_pod``; heads, mlp,
+    vocab and experts over ``model``); given ``cfg``, with every head kept
+    whole (:func:`whole_heads`)."""
+    ps = param_pspecs(mesh, spec_tree,
+                      fsdp_tp_rules("pod" in mesh.axis_names))
     return ps if cfg is None else whole_heads(cfg, mesh, spec_tree, ps)
 
 
@@ -553,26 +557,30 @@ def shard_state(state, pspecs, mesh: Mesh):
                        shard_tree(state.v, pspecs, mesh))
 
 
-def data_dim(pspec, axis: str = "data") -> Optional[int]:
-    """The dimension a PartitionSpec cuts over ``axis`` (None: replicated
-    over it). A dimension cut over ``axis`` and another axis together is
-    not ported (one data axis, ROADMAP.md A.8)."""
+def data_dim(pspec, axes) -> Optional[int]:
+    """The dimension a PartitionSpec cuts over the data axes ``axes`` (one
+    axis, or the pair ``("pod", "data")`` as one tuple entry); None where
+    it replicates over them. A cut over some of them alone, or over one of
+    them with another axis, raises: no data group gathers it."""
+    names = (axes,) if isinstance(axes, str) else tuple(axes)
     for d, e in enumerate(pspec):
-        if e == axis:
+        got = (e,) if isinstance(e, str) else tuple(e or ())
+        if got == names:
             return d
-        if isinstance(e, tuple) and axis in e:
-            raise NotImplementedError(
-                f"a dimension cut over {e}: the port's ZeRO-3 gathers over "
-                "one data axis (ROADMAP.md, A.8)")
+        if set(got) & set(names):
+            raise ValueError(f"a dimension cut over {e}: the data cut is "
+                             f"over {names}")
     return None
 
 
 class Zero3:
     """A rank's ZeRO-3 plan for one loss evaluation: the training
     placements of the parameter tree and the mesh. :meth:`take` gathers
-    the ``data`` cut of each leaf of a subtree before its use
+    the data cut of each leaf of a subtree before its use, over the data
+    axes ``axes`` (by default the mesh's: ``data``, or the pair ``("pod",
+    "data")``, whose group concatenates in pod-major order)
     (``collectives.gather(..., backward="reduce_scatter")``: the backward
-    reduce-scatters the leaf's gradient over ``data``, which is also its
+    reduce-scatters the leaf's gradient over them, which is also its
     data-axis reduction). The model gathers one layer at a time, as it
     reaches it (``Model._run_segment``, ``overlap._dual_segments``; the
     embedding and the MTP module once per evaluation); a subtree taken
@@ -580,13 +588,13 @@ class Zero3:
     backward does not re-gather: autograd keeps each gathered weight for
     its products' backward, so a rank holds every gathered layer (its
     model column's cut, whole along ``data``) from its use to the end of
-    the backward. Leaves that replicate over ``data`` pass through; the
-    train step all-reduces their gradients over ``data``."""
+    the backward. Leaves that replicate over the data axes pass through;
+    the train step all-reduces their gradients over them."""
 
-    def __init__(self, mesh: Mesh, pspecs, axis: str = "data"):
-        self.mesh, self.pspecs, self.axis = mesh, pspecs, axis
-        self.group = (mesh.groups.get(axis) if mesh.shape.get(axis, 1) > 1
-                      else None)
+    def __init__(self, mesh: Mesh, pspecs, axes=None):
+        self.mesh, self.pspecs = mesh, pspecs
+        self.axes = data_axes(mesh.axis_names) if axes is None else axes
+        self.group = mesh.group_of(self.axes)
         self._taken: Dict[Tuple, Any] = {}
 
     def take(self, tree, path: Tuple[str, ...], index: Optional[int] = None):
@@ -600,7 +608,7 @@ class Zero3:
 
         def one(sub, leaf):
             spec = at_path(self.pspecs, path + sub)
-            d = data_dim(tuple(spec)[lead:], self.axis)
+            d = data_dim(tuple(spec)[lead:], self.axes)
             if d is None or self.group is None:
                 return leaf
             return coll.gather(leaf, self.group, d, backward="reduce_scatter")
@@ -629,7 +637,8 @@ def check_fp8_train_cuts(spec_tree, pspecs, mesh: Mesh,
     model-axis cut of an FP8 linear's matrix (a 2-D weight a layer under
     attn/mlp/mtp whose input width reaches the FP8 path) falls on 128
     boundaries, so that a rank's blocks are the single device's. Data
-    cuts are gathered before use (:class:`Zero3`)."""
+    cuts (over ``data`` or the pair ``("pod", "data")``) are gathered
+    before use (:class:`Zero3`)."""
     def one(path, spec):
         if not any(s in path for s in ("attn", "mlp", "mtp")):
             return spec
@@ -638,7 +647,7 @@ def check_fp8_train_cuts(spec_tree, pspecs, mesh: Mesh,
         pspec = at_path(pspecs, path)
         for d in (1, 2):
             e = pspec[d] if d < len(pspec) else None
-            if e is None or e == "data":
+            if e is None or e in ("data", ("pod", "data")):
                 continue
             n = _mesh_size(mesh, e)
             if n > 1 and (spec.shape[d] // n) % BLOCK:

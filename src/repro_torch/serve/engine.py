@@ -67,11 +67,12 @@ rank of the mesh builds the same engine and runs the same host scheduler
 on the same requests. Params are this rank's slices per
 ``sharding.serve_rules`` (heads and dense matmuls tensor-parallel over
 the model axis, experts expert-parallel on it, the rest replicated), the
-caches per ``sharding.explicit_cache_pspecs`` (slots over the data axis;
-the page pool replicated over it, GQA K/V pools over the model axis), and
+caches per ``sharding.explicit_cache_pspecs`` (slots over the data axes,
+the data line or the pair ``("pod", "data")`` of a multi-pod mesh; the
+page pool replicated over them, GQA K/V pools over the model axis), and
 a data row decodes only its own slots: after each decode chunk the
 sampled tokens, slot state and MTP counters are gathered over the data
-axis, so every rank's host mirrors are whole. Prefill of one prompt is
+axes, so every rank's host mirrors are whole. Prefill of one prompt is
 replicated over the data rows, as the reference's. A meshed engine on a
 gloo group runs its decode chunk eagerly (a collective staged through
 host memory cannot be captured; ``trace_counts["decode"] == 0``); its
@@ -306,7 +307,7 @@ class ServeEngine:
             raise _waits("ctx= with prefill_chunk=", "A.8")
         if self.meshed and host_tier_pages is not None:
             raise _waits("ctx= with host_tier_pages=", "A.8")
-        # the meshed layouts not ported yet (A.8, A.11-A.13), the gate the
+        # the meshed layouts not ported yet (A.11-A.13), the gate the
         # trainer and the dry run share
         pctx_mod.check_meshed(cfg, ctx, "ServeEngine")
         paged_mod.validate_storage(page_storage)
@@ -327,7 +328,7 @@ class ServeEngine:
             dp = ctx.dp_size
             self._split = dp > 1 and slots % dp == 0
             if self._split:
-                d = ctx.index(ctx.dp_axis)
+                d = ctx.dp_index
                 self._rows = slice(d * slots // dp, (d + 1) * slots // dp)
             self.params = self._mesh_params(params, seed)
         elif params is None:

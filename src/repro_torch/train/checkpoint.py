@@ -87,14 +87,14 @@ def _from_numpy(a: np.ndarray, dtype: str) -> torch.Tensor:
 
 def _logical(leaf: torch.Tensor, pspec, mesh) -> torch.Tensor:
     """A rank's cut of a leaf gathered over the mesh into the whole
-    (every rank of the mesh calls it, leaf by leaf in one order)."""
+    (every rank of the mesh calls it, leaf by leaf in one order). A
+    dimension cut over the data pair ``("pod", "data")`` is gathered over
+    the data plane, in pod-major order."""
     from repro_torch.parallel import collectives as coll
     for d, e in enumerate(pspec):
-        if e is None or mesh.shape[e] == 1:
-            continue
-        if not isinstance(e, str):
-            raise NotImplementedError(f"a dimension cut over {e}")
-        leaf = coll.all_gather(leaf, mesh.groups[e], dim=d)
+        g = mesh.group_of(e)
+        if g is not None:
+            leaf = coll.all_gather(leaf, g, dim=d)
     return leaf
 
 

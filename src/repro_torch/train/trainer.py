@@ -11,13 +11,14 @@ regimes:
 * **meshed** (``ctx.mesh`` set; explicit SPMD, one process a mesh
   position): this rank's shards of the parameters and of the optimizer
   state by the train rules (``parallel/sharding.train_pspecs``: FSDP x
-  TP), each layer's ``data`` cut gathered as the model reaches it and its
+  TP), each layer's data cut (over ``data``, or over the pair ``("pod",
+  "data")`` on a multi-pod mesh) gathered as the model reaches it and its
   gradient reduce-scattered in the backward (``sharding.Zero3``); the
   loss over TWO anti-phase microbatches of this data rank's rows
   (``Model.loss_dual``, paper §2.3.1) with the MoE through ``ep_flat`` /
   ``ep_dedup`` at the ctx's wire, their all-to-alls differentiated
   (``parallel/collectives``); the gradients of leaves that replicate over
-  ``data`` all-reduced over it; grad-norm clipping on
+  the data axes all-reduced over them; grad-norm clipping on
   ``collectives.sharded_global_norm``; and the router-bias update on the
   EP path's load, averaged over the mesh.
 
@@ -30,9 +31,9 @@ experts run their plain versions (a kernel launched under autograd
 raises: ``kernels/registry.py``).
 
 The ``Trainer`` on a ``NodeFailure`` re-meshes onto the survivors
-(``launch/mesh.survivor_mesh``: the first half of the data axis; the
-other ranks leave) and restores the last checkpoint re-sharded onto the
-new mesh.
+(``launch/mesh.survivor_mesh``: the first half of the pod axis, else of
+the data axis; the other ranks leave) and restores the last checkpoint
+re-sharded onto the new mesh.
 """
 from __future__ import annotations
 
@@ -100,9 +101,9 @@ def _check_ctx(ctx) -> pctx_mod.ParallelCtx:
 def _meshed_checks(model: Model, ctx: pctx_mod.ParallelCtx, pspecs) -> None:
     """The meshed step's conditions; each unmet one raises (no fallback)."""
     cfg = model.cfg
-    # one data axis (A.8); the meshed layouts of the pairs (A.11), the
-    # recurrent families (A.12) and the families with a memory (A.13): the
-    # gate the engine and the dry run share
+    # the meshed layouts of the pairs (A.11), the recurrent families
+    # (A.12) and the families with a memory (A.13): the gate the engine
+    # and the dry run share
     pctx_mod.check_meshed(cfg, ctx, "make_train_step")
     if ctx.ep_ftp:
         raise NotImplementedError(
@@ -126,12 +127,13 @@ def _tree_of(items, values) -> Dict[str, Any]:
     return out
 
 
-def _reduce_over_data(grads, specs, group) -> None:
-    """All-reduce over ``data`` (fp32, one buffer) the gradients of the
-    leaves that replicate over it; the data-cut leaves had theirs summed
-    by their gathers' reduce-scatters. In place in the list ``grads``."""
+def _reduce_over_data(grads, specs, group, axes) -> None:
+    """All-reduce over the data axes ``axes`` (their group ``group``; fp32,
+    one buffer) the gradients of the leaves that replicate over them; the
+    data-cut leaves had theirs summed by their gathers' reduce-scatters.
+    In place in the list ``grads``."""
     idx = [i for i, (g, s) in enumerate(zip(grads, specs))
-           if g is not None and sharding.data_dim(s) is None]
+           if g is not None and sharding.data_dim(s, axes) is None]
     if not idx:
         return
     flat = torch.cat([grads[i].reshape(-1).float() for i in idx])
@@ -170,7 +172,7 @@ def make_train_step(model: Model, tc: TrainConfig, ctx=None):
         # meshed: this step's ZeRO-3 plan rides on the ctx; unmeshed the
         # ctx still scopes the step (its remat policy)
         ctx = (dataclasses.replace(pctx, zero3=sharding.Zero3(
-            pctx.mesh, pspecs)) if meshed else pctx)
+            pctx.mesh, pspecs, pctx.dp_axes)) if meshed else pctx)
         for t in leaves:
             t.requires_grad_(True)
         try:
@@ -193,7 +195,7 @@ def make_train_step(model: Model, tc: TrainConfig, ctx=None):
         if meshed:
             specs = [sharding.at_path(pspecs, path) for path, _ in items]
             if pctx.dp_group is not None:
-                _reduce_over_data(grads, specs, pctx.dp_group)
+                _reduce_over_data(grads, specs, pctx.dp_group, pctx.dp_axes)
         gtree = _tree_of(items, grads)
         del grads
         if meshed:
@@ -240,10 +242,10 @@ class Trainer:
     leaf drawn whole from the seed and cut, so the shards tile the tree
     one device draws), takes its data rank's rows of each global batch,
     and runs the meshed step. On a ``NodeFailure`` it re-meshes onto the
-    survivors (the data axis halved); a dropped rank leaves (``run``
-    returns with ``left`` true) and the survivors restore the last
-    checkpoint re-sharded onto the survivor mesh. An SDC alarm restores
-    the same way.
+    survivors (the pod axis halved, else the data axis); a dropped rank
+    leaves (``run`` returns with ``left`` true) and the survivors restore
+    the last checkpoint re-sharded onto the survivor mesh. An SDC alarm
+    restores the same way.
 
     ``device``: where the model trains, the card unless the caller passes
     ``device="cpu"`` (without a card it raises). Parameters are drawn
@@ -467,7 +469,7 @@ class Trainer:
 
     def _local_batch(self, batch):
         """This data rank's rows of a global batch (``sharding.
-        batch_pspec``: the batch axis over the data axis when it divides,
+        batch_pspec``: the batch axis over the data axes when it divides,
         else every rank all of it)."""
         if not self.meshed:
             return batch
@@ -476,7 +478,7 @@ class Trainer:
         spec = sharding.batch_pspec(mesh, B, self.ctx.dp_axes)
         if spec[0] is None:
             return batch
-        n, i = self.ctx.dp_size, self.ctx.index(self.ctx.dp_axis)
+        n, i = self.ctx.dp_size, self.ctx.dp_index
         per = B // n
         return {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
 

@@ -1,5 +1,6 @@
 """Rank body of ``tests/test_torch_ep.py``: the port's expert-parallel MoE
-(``repro_torch.parallel.ep``) on 8 gloo ranks on the CPU.
+(``repro_torch.parallel.ep``) on 8 gloo ranks on the CPU, on (data, model)
+meshes and on (pod, data, model) meshes with the batch over the pair.
 
 It imports torch, numpy and the port only, so a spawned rank starts
 without JAX. Each rank reads the MoE layer's weights and the cases'
@@ -14,7 +15,9 @@ import torch
 import torch.distributed as dist
 
 # case -> (mesh, moe_impl, wire, ep_ftp, token layout): "split" gives each
-# data row its slice of the batch, "replicated" every row all of it
+# data row its slice of the batch, "replicated" every row all of it. A
+# three-axis mesh is (pod, data, model) with the batch over ("pod",
+# "data"): a data row is a position of the pair
 CASES = {
     "flat": ((2, 4), "ep_flat", "fp32", False, "split"),
     "dedup": ((2, 4), "ep_dedup", "fp32", False, "split"),
@@ -28,7 +31,24 @@ CASES = {
     # stacks prepared into ``Fp8Experts`` codes (``fp8_impl="pallas"``,
     # ``bridge.prepare_for_serving``), then cut by ``shard_tree``
     "ftp_fp8_codes": ((2, 4), "ep_flat", "fp8", True, "replicated"),
+    # the pair: at (2, 2, 2) smoke DeepSeek-V3's 4 groups do not divide 2
+    # columns, so ep_dedup runs ep_flat there, as the reference's does;
+    # (2, 1, 4) runs it (cpg = 1)
+    "pod_flat": ((2, 2, 2), "ep_flat", "fp32", False, "split"),
+    "pod_dedup": ((2, 2, 2), "ep_dedup", "fp32", False, "split"),
+    "pod_dedup_2x1x4": ((2, 1, 4), "ep_dedup", "fp32", False, "split"),
+    # ep_ftp: each pair position's tokens gathered over the pair, the
+    # expert FF cut over "data" and its partials summed over "data"
+    "pod_ftp": ((2, 2, 2), "ep_flat", "fp32", True, "split"),
+    "pod_ftp_2x1x4": ((2, 1, 4), "ep_dedup", "fp32", True, "split"),
+    # FP8 experts (expert FF 256: 128 a "data" rank) at the fp32 wire
+    "pod_ftp_fp8": ((2, 2, 2), "ep_flat", "fp32", True, "split"),
+    "pod_ftp_fp8_2x1x4": ((2, 1, 4), "ep_flat", "fp32", True, "split"),
+    # a planted fault: the FF partials summed over the pair, as the
+    # reference's ep_ftp does on a pod mesh (each counted |pod| times)
+    "pod_ftp_pair_sum": ((2, 2, 2), "ep_flat", "fp32", True, "split"),
 }
+POD_AXES = ("pod", "data", "model")
 DSV3 = "deepseek-v3-671b"
 # the config of each case's MoE layer (DeepSeek-V3 smoke where not named):
 # the reference's own FP8-wire case routes qwen3-moe's softmax scores;
@@ -36,9 +56,10 @@ DSV3 = "deepseek-v3-671b"
 # and an expert FF of 256, so that the data axis cuts it into whole
 # 128-blocks (128 a rank)
 ARCHS = {"fp8_wire_qwen3_moe": "qwen3-moe-30b-a3b", "ftp_fp8": "dsv3-fp8",
-         "ftp_fp8_codes": "dsv3-fp8"}
+         "ftp_fp8_codes": "dsv3-fp8", "pod_ftp_fp8": "dsv3-fp8",
+         "pod_ftp_fp8_2x1x4": "dsv3-fp8"}
 # a case that runs another case's input
-INPUT_OF = {"ftp_fp8_codes": "ftp_fp8"}
+INPUT_OF = {"ftp_fp8_codes": "ftp_fp8", "pod_ftp_pair_sum": "pod_ftp"}
 # config key -> (arch, overrides of its smoke config)
 CONFIGS = {"dsv3-fp8": (DSV3, dict(fp8=True, expert_ff=256))}
 BYTES_SLOTS = 64
@@ -76,18 +97,37 @@ def _meshes():
     """Every mesh of the cases, made on every rank in one order."""
     from repro_torch.parallel.context import Mesh
     return {(2, 4): Mesh.create((2, 4)), (1, 8): Mesh.create((1, 8)),
-            (1, 4): Mesh.create((1, 4), ranks=range(4))}
+            (1, 4): Mesh.create((1, 4), ranks=range(4)),
+            (2, 2, 2): Mesh.create((2, 2, 2), POD_AXES),
+            (2, 1, 4): Mesh.create((2, 1, 4), POD_AXES)}
+
+
+class pair_sum:
+    """``pod_ftp_pair_sum``'s fault: ``ep_ftp`` sums its FF partials over
+    the batch's group (the pair) instead of ``"data"``."""
+
+    def __enter__(self):
+        from repro_torch.parallel import ep
+        self.saved = ep.ftp_group
+        ep.ftp_group = lambda pctx: pctx.dp_group
+
+    def __exit__(self, *exc):
+        from repro_torch.parallel import ep
+        ep.ftp_group = self.saved
 
 
 def run_case(name, mesh, cfg, params, x):
+    import contextlib
     from repro_torch.core import moe as moe_mod
     from repro_torch.parallel import context, ep
     from repro_torch.parallel import sharding as sh
     _, impl, wire, ftp, layout = CASES[name]
-    ctx = context.ParallelCtx(mesh=mesh, moe_impl=impl, wire=wire,
-                              ep_ftp=ftp)
+    dp_axes = context.data_axes(mesh.axis_names)
+    ctx = context.ParallelCtx(mesh=mesh, dp_axes=dp_axes, moe_impl=impl,
+                              wire=wire, ep_ftp=ftp)
     specs = moe_mod.moe_specs(cfg, 1)
-    ps = sh.param_pspecs(mesh, specs, sh.serve_rules(False, ep_ftp=ftp))
+    ps = sh.param_pspecs(mesh, specs, sh.serve_rules(
+        "pod" in mesh.axis_names, ep_ftp=ftp))
     qdq = bool(cfg.fp8)
     if name.endswith("_codes"):
         from repro_torch import bridge
@@ -108,12 +148,14 @@ def run_case(name, mesh, cfg, params, x):
         p = {k: v[0] for k, v in sh.shard_tree(params, ps, mesh).items()}
     else:
         p = {k: v[0] for k, v in sh.shard_tree(params, ps, mesh).items()}
-    dp, d = ctx.dp_size, ctx.index("data")
+    dp, d = ctx.dp_size, ctx.dp_index
     split = layout == "split" and dp > 1
     if split:
         per = x.shape[0] // dp
         x = x[d * per:(d + 1) * per]
-    with context.use(ctx):
+    fault = pair_sum() if name.endswith("pair_sum") else \
+        contextlib.nullcontext()
+    with context.use(ctx), fault:
         y, _, _ = ep.moe_ffn_sharded(p, x, cfg, ctx, replicated=not split,
                                      weights_qdq=qdq)
     return y

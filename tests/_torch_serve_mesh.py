@@ -1,5 +1,7 @@
 """Rank body of ``tests/test_torch_serve_mesh.py``: the port's
-``ServeEngine(ctx=...)`` on 8 gloo ranks on the CPU, mesh (2, 4).
+``ServeEngine(ctx=...)`` on 8 gloo ranks on the CPU, mesh (2, 4), and the
+(pod, data, model) mesh (2, 2, 2) with the batch over the pair ("pod",
+"data") for the scenarios of ``POD``.
 
 It imports torch, numpy and the port only, so a spawned rank starts
 without JAX. Each rank reads the weights (bridged from the JAX init) from
@@ -52,7 +54,19 @@ SCENARIOS = {
     # and paged
     "gqa_heads_whole": ("qwen_heads6", {}, {}),
     "gqa_heads_whole_paged": ("qwen_heads6", {}, PAGED_BF16),
+    # on POD_MESH: qwen3-14b dense; DeepSeek-V3 paged fp8 on the kernel
+    # path's plain versions with ep_flat; DeepSeek-V3 dense with ep_ftp
+    # (FP8 GEMMs off: smoke's expert FF of 64 cuts to 32 a "data" rank,
+    # inside a 128-block)
+    "pod_gqa_dense": ("qwen", {}, {}),
+    "pod_card_path": ("moe_pallas", dict(moe_impl="ep_flat", wire="fp8"),
+                      CARD),
+    "pod_ftp": ("moe_nofp8", dict(moe_impl="ep_flat", wire="fp32",
+                                  ep_ftp=True), {}),
 }
+POD = [n for n in SCENARIOS if n.startswith("pod_")]
+POD_MESH = (2, 2, 2)
+POD_AXES = ("pod", "data", "model")
 # smoke qwen3-14b with heads that do not divide the model axis
 HEADS6 = dict(num_heads=6, num_kv_heads=2)
 # cross-mesh disaggregation: decode on this mesh over the first ranks
@@ -69,6 +83,7 @@ def configs():
     qwen = smoke_config(get_config("qwen3-14b"))
     return {"qwen": qwen, "moe": moe,
             "moe_pallas": dataclasses.replace(moe, fp8_impl="pallas"),
+            "moe_nofp8": dataclasses.replace(moe, fp8=False),
             "qwen_heads6": dataclasses.replace(qwen, **HEADS6)}
 
 
@@ -157,18 +172,19 @@ def serve_disagg(cfg, params, meshes, ctx_kw, engine_kw):
 
 
 def run_rank(rank: int, world: int, store_path: str, out_dir: str) -> None:
-    from repro_torch.parallel.context import Mesh, ParallelCtx
+    from repro_torch.parallel.context import Mesh, ParallelCtx, data_axes
     torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
                             rank=rank, world_size=world)
     mesh = Mesh.create(MESH)
     decode_mesh = Mesh.create(DECODE_MESH,
                               ranks=range(DECODE_MESH[0] * DECODE_MESH[1]))
+    pod_mesh = Mesh.create(POD_MESH, POD_AXES)
     weights = np.load(os.path.join(out_dir, "weights.npz"))
     cfgs = configs()
     params = {k: unflatten(weights, k + "/")
               for k in ("qwen", "moe", "qwen_heads6")}
-    params["moe_pallas"] = params["moe"]
+    params["moe_pallas"] = params["moe_nofp8"] = params["moe"]
     out = {}
     for name, (model, ctx_kw, engine_kw) in SCENARIOS.items():
         if name in DISAGG:
@@ -179,7 +195,9 @@ def run_rank(rank: int, world: int, store_path: str, out_dir: str) -> None:
             out[name] = np.array([s + [-1] * (L - len(s)) for s in streams])
             out[name + ":handoff"] = np.array([nbytes, int(cross)])
             continue
-        ctx = None if ctx_kw is None else ParallelCtx(mesh=mesh, **ctx_kw)
+        m = pod_mesh if name in POD else mesh
+        ctx = None if ctx_kw is None else ParallelCtx(
+            mesh=m, dp_axes=data_axes(m.axis_names), **ctx_kw)
         eng, streams = serve(cfgs[model], params[model], ctx, engine_kw)
         L = max(len(s) for s in streams)
         out[name] = np.array([s + [-1] * (L - len(s)) for s in streams])

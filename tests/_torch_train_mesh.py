@@ -1,6 +1,8 @@
 """Rank body of ``tests/test_torch_train_mesh.py``: the port's meshed
 train step on 4 gloo ranks on the CPU, meshes (2, 2), (1, 4), (1, 2) over
-ranks 0-1, and ("pipe",) of 4.
+ranks 0-1, ("pipe",) of 4, and the (pod, data, model) meshes (2, 2, 1),
+(2, 1, 2) and (1, 2, 1) over ranks 0-1, whose batch is cut over the pair
+("pod", "data").
 
 It imports torch, numpy and the port only, so a spawned rank starts
 without JAX. Each rank reads the JAX initial states (bridged, as
@@ -39,7 +41,14 @@ TRAJ = {
     "qwen_heads_whole_1x4": ("qwen_heads6", (1, 4), {}),
     "qwen_heads_whole_sp_1x4": ("qwen_heads6", (1, 4),
                                 dict(seq_axis="model")),
+    # two data axes: ZeRO-3 and the batch over the pair ("pod", "data");
+    # at (2, 1, 2) the same arithmetic as at (2, 2)
+    "qwen_2x2x1": ("qwen", (2, 2, 1), {}),
+    "qwen_2x1x2": ("qwen", (2, 1, 2), {}),
+    "moe_flat_2x1x2": ("moe", (2, 1, 2), dict(moe_impl="ep_flat",
+                                              wire="fp32")),
 }
+POD_AXES = ("pod", "data", "model")
 # smoke qwen3-14b with heads that do not divide a model axis of 4
 HEADS6 = dict(num_heads=6, num_kv_heads=2)
 # one train step of the dry run's kind (``Model.loss``, remat, the
@@ -49,9 +58,14 @@ RECORDED = {
     "qwen_2x2": ("qwen", (2, 2), dict(remat="full")),
     "moe_flat_2x2": ("moe", (2, 2), dict(moe_impl="ep_flat", wire="fp32",
                                          remat="full")),
+    "qwen_2x1x2": ("qwen", (2, 1, 2), dict(remat="full")),
 }
-# planted faults of chip_smoke.py phase (i.1), at smoke width
-FAULTS = ("data_rank_dropped", "copy_to_group_skipped")
+# planted faults of chip_smoke.py phase (i.1), at smoke width, and the mesh
+# each runs on: "pod_dropped" leaves pod 1's gradients out of the pair's
+# reduction
+FAULTS = ("data_rank_dropped", "copy_to_group_skipped", "pod_dropped")
+FAULT_MESH = {"data_rank_dropped": (2, 2), "copy_to_group_skipped": (2, 2),
+              "pod_dropped": (2, 1, 2)}
 PIPE = dict(P=4, M=8, mb=2, d=16)
 
 
@@ -81,7 +95,10 @@ def _meshes():
     from repro_torch.parallel.context import Mesh
     return {(2, 2): Mesh.create((2, 2)), (1, 4): Mesh.create((1, 4)),
             (1, 2): Mesh.create((1, 2), ranks=[0, 1]),
-            "pipe": Mesh.create((4,), ("pipe",))}
+            "pipe": Mesh.create((4,), ("pipe",)),
+            (2, 2, 1): Mesh.create((2, 2, 1), POD_AXES),
+            (2, 1, 2): Mesh.create((2, 1, 2), POD_AXES),
+            (1, 2, 1): Mesh.create((1, 2, 1), POD_AXES, ranks=[0, 1])}
 
 
 def _state(inputs, model):
@@ -102,9 +119,10 @@ def logical(tree, pspecs, mesh):
 
 
 def trainer(cfg, mesh, ctx_kw, **kw):
-    from repro_torch.parallel.context import ParallelCtx
+    from repro_torch.parallel.context import ParallelCtx, data_axes
     from repro_torch.train.trainer import Trainer, TrainConfig
-    ctx = None if mesh is None else ParallelCtx(mesh=mesh, **ctx_kw)
+    ctx = None if mesh is None else ParallelCtx(
+        mesh=mesh, dp_axes=data_axes(mesh.axis_names), **ctx_kw)
     tc = TrainConfig(**dict(TC, **kw.pop("tc", {})))
     return Trainer(cfg, tc, global_batch=BATCH, seq_len=SEQ, ctx=ctx,
                    device="cpu", **kw)
@@ -144,9 +162,11 @@ class planted:
     """Phase (i.1)'s planted faults: ``data_rank_dropped`` leaves data rank
     1's gradients out of the data-axis reduction (its reduce-scatter
     inputs and its replicated-leaf gradients enter as zeros);
-    ``copy_to_group_skipped`` makes ``collectives.copy_to_group`` the
-    plain identity, so a column-parallel input's backward all-reduce never
-    runs."""
+    ``pod_dropped`` the same for pod 1 on a pod mesh, out of the pair's
+    reduction; ``copy_to_group_skipped`` makes
+    ``collectives.copy_to_group`` the plain identity, so a column-parallel
+    input's backward all-reduce never runs. ``ctx_index``: this rank's
+    coordinate on the axis the fault drops."""
 
     def __init__(self, fault, ctx_index):
         self.fault, self.d = fault, ctx_index
@@ -158,14 +178,14 @@ class planted:
                       trainer._reduce_over_data)
         rs, _, red = self.saved
         drop = self.d == 1
-        if self.fault == "data_rank_dropped":
+        if self.fault in ("data_rank_dropped", "pod_dropped"):
             coll.reduce_scatter = lambda x, group, dim=0: rs(
                 x * 0 if drop else x, group, dim)
 
-            def reduce(grads, specs, group):
+            def reduce(grads, specs, group, *axes):
                 if drop:
                     grads[:] = [None if g is None else g * 0 for g in grads]
-                red(grads, specs, group)
+                red(grads, specs, group, *axes)
             trainer._reduce_over_data = reduce
         else:
             coll.copy_to_group = lambda x, group: x
@@ -210,20 +230,23 @@ def _bytes(t):
     return t.contiguous().reshape(-1).view(torch.uint8)
 
 
-def elastic(cfgs, meshes, inputs, tmp):
-    """Save on (2, 2), restore onto (1, 2) (ranks 0-1): every leaf against
-    its slice of the saved logical array, bit for bit; then an injected
-    node failure re-meshes a (2, 2) run onto (1, 2)."""
+def elastic(cfgs, meshes, tmp, big=(2, 2), small=(1, 2), key=""):
+    """Save on ``big``, restore onto ``small`` (ranks 0-1): every leaf
+    against its slice of the saved logical array, bit for bit; then an
+    injected node failure re-meshes a ``big`` run onto ``small``. On the
+    pod meshes ((2, 2, 1) -> (1, 2, 1), ``key="pod_"``) the saved ZeRO-3
+    cut is over the pair, the restored one over "data" alone, and "pod"
+    is halved first. ``pair_cut``: the saved leaves cut over the pair."""
     from repro_torch.parallel.sharding import region_of
     from repro_torch.train import checkpoint as ckpt
     from repro_torch.train.fault import FailureInjector
     cfg = cfgs["qwen"]
     out = {}
-    d1 = os.path.join(tmp, "ckpt")
-    tr = trainer(cfg, meshes[(2, 2)], {}, tc=dict(ckpt_dir=d1, ckpt_every=2))
+    d1 = os.path.join(tmp, key + "ckpt")
+    tr = trainer(cfg, meshes[big], {}, tc=dict(ckpt_dir=d1, ckpt_every=2))
     tr.run(2)
-    if meshes[(1, 2)].rank is not None:
-        tr2 = trainer(cfg, meshes[(1, 2)], {}, tc=dict(ckpt_dir=d1))
+    if meshes[small].rank is not None:
+        tr2 = trainer(cfg, meshes[small], {}, tc=dict(ckpt_dir=d1))
         tr2._init_state(restore=True)
         manifest, data = ckpt._load_verified(d1, 2)
         state = {"params": tr2.params, "opt": tr2.opt_state}
@@ -232,32 +255,42 @@ def elastic(cfgs, meshes, inputs, tmp):
         for k, t in ckpt._items(state):
             want = ckpt._from_numpy(data[k], manifest["dtypes"][k])
             want = want[tuple(slice(*r) for r in region_of(
-                want.shape, specs[k], meshes[(1, 2)]))]
+                want.shape, specs[k], meshes[small]))]
             n += 1
             if t.dtype != want.dtype or t.shape != want.shape or \
                     not torch.equal(_bytes(t), _bytes(want)):
                 bad.append(k)
-        out["restore"] = dict(step=tr2.step, leaves=n, bad=bad,
-                              mesh=manifest["extras"]["mesh"])
-    d2 = os.path.join(tmp, "ckpt_fail")
-    tr = trainer(cfg, meshes[(2, 2)], {},
+        pair = sum(("pod", "data") in tuple(spec)
+                   for _, spec in ckpt._items(tr.state_pspecs()))
+        out[key + "restore"] = dict(step=tr2.step, leaves=n, bad=bad,
+                                    mesh=manifest["extras"]["mesh"],
+                                    pair_cut=pair)
+    d2 = os.path.join(tmp, key + "ckpt_fail")
+    tr = trainer(cfg, meshes[big], {},
                  tc=dict(ckpt_dir=d2, ckpt_every=2, total_steps=8),
                  injector=FailureInjector({3: "node"}))
     res = tr.run(6)
-    out["node"] = {k: res[k] for k in ("final_step", "restarts",
-                                       "mesh_shape", "left")}
+    out[key + "node"] = {k: res[k] for k in ("final_step", "restarts",
+                                             "mesh_shape", "left")}
     return out
+
+
+def slow_replica(cfg, mesh):
+    """A 4-step run with ``slow:1`` injected at steps 2-3: the monitor's
+    replicas (one a position of the data axes) and the flagged ones."""
+    from repro_torch.train.fault import FailureInjector
+    tr = trainer(cfg, mesh, {}, tc=dict(total_steps=8),
+                 injector=FailureInjector({2: "slow:1", 3: "slow:1"}))
+    res = tr.run(4)
+    return dict(ewma=len(tr.straggler.ewma),
+                events=[e["slow"] for e in res["straggler_events"]])
 
 
 def straggler_and_sdc(cfgs, meshes, tmp):
     from repro_torch.train.fault import FailureInjector
     cfg, mesh = cfgs["qwen"], meshes[(2, 2)]
-    out = {}
-    tr = trainer(cfg, mesh, {}, tc=dict(total_steps=8),
-                 injector=FailureInjector({2: "slow:1", 3: "slow:1"}))
-    res = tr.run(4)
-    out["slow"] = dict(ewma=len(tr.straggler.ewma),
-                       events=[e["slow"] for e in res["straggler_events"]])
+    out = {"slow": slow_replica(cfg, mesh),
+           "pod_slow": slow_replica(cfg, meshes[(2, 2, 1)])}
     tr = trainer(cfg, mesh, {}, tc=dict(total_steps=8))
     out["clean"] = [e["slow"] for e in tr.run(3)["straggler_events"]]
     d = os.path.join(tmp, "ckpt_sdc")
@@ -421,13 +454,13 @@ def recorded_steps(cfgs, meshes, inputs):
         cfg, mesh = cfgs[model], meshes[shape]
         m = Model(cfg, device="cpu")
         ctx = C.ParallelCtx(mesh=mesh, seq_axis="model", microbatches=1,
-                            **kw)
+                            dp_axes=C.data_axes(mesh.axis_names), **kw)
         ps = sh.train_pspecs(mesh, m.specs(), cfg=cfg)
         params, opt = _state(inputs, model)
         params = sh.shard_tree(params, ps, mesh)
         opt = sh.shard_state(opt, ps, mesh)
         per = BATCH // ctx.dp_size
-        d = ctx.index("data")
+        d = ctx.dp_index
         b = {k: torch.from_numpy(v[d * per:(d + 1) * per])
              for k, v in recorded_batch(cfg.vocab_size).items()}
         step = make_train_step(m, TrainConfig(**TC), ctx)
@@ -527,10 +560,13 @@ def run_rank(rank: int, world: int, store_path: str, out_dir: str) -> None:
     out["single:qwen"] = trajectory(cfgs["qwen"], None, {},
                                     _state(inputs, "qwen"))
     for fault in FAULTS:
-        with planted(fault, meshes[(2, 2)].coords["data"]):
+        mesh = meshes[FAULT_MESH[fault]]
+        axis = "pod" if fault == "pod_dropped" else "data"
+        with planted(fault, mesh.coords[axis]):
             out["fault:" + fault] = trajectory(
-                cfgs["qwen"], meshes[(2, 2)], {}, _state(inputs, "qwen"))
-    out.update(elastic(cfgs, meshes, inputs, tmp))
+                cfgs["qwen"], mesh, {}, _state(inputs, "qwen"))
+    out.update(elastic(cfgs, meshes, tmp))
+    out.update(elastic(cfgs, meshes, tmp, (2, 2, 1), (1, 2, 1), "pod_"))
     out.update(straggler_and_sdc(cfgs, meshes, tmp))
     out["norm"] = global_norm(cfgs, meshes)
     out["grads"] = collective_grads(meshes)

@@ -29,8 +29,10 @@ lowers and compiles it on forced XLA host devices. Here:
 * (c) The sweep's statuses on every config cut in depth at its published
   widths (small shapes of the same names): ok for the decoder-only
   transformers but llama4 (A.11), A.12 for the recurrent families, A.13
-  for enc-dec and vision, ``long_500k`` skipped for full attention; every
-  multi-pod cell A.8; an ``--expert-dtype`` cell A.3. And one cell at full
+  for enc-dec and vision, ``long_500k`` skipped for full attention; the
+  same table for every ``--multi-pod`` cell (2 x 16 x 16, the batch and
+  ZeRO-3 over ``("pod", "data")``, its small shapes at 32 rows, one a
+  pair position); an ``--expert-dtype`` cell A.3. And one cell at full
   depth and the real shape: DeepSeek-V3 ``decode_32k`` on 256 fake ranks.
 * (d) ``remat="full"`` lowers ``temp_size_in_bytes`` of a train cell and
   raises ``flops_per_device`` by the recomputed forward of its layer
@@ -99,6 +101,9 @@ SWEEP_SHAPES = {"train_4k": (256, 16, "train"),
                 "prefill_32k": (256, 16, "prefill"),
                 "decode_32k": (256, 16, "decode"),
                 "long_500k": (512, 16, "decode")}
+# the multi-pod sweep's: a row for each of the pair's 32 positions
+POD_SHAPES = {k: (seq, 32, phase) for k, (seq, _, phase) in
+              SWEEP_SHAPES.items()}
 
 
 # the production meshes, before a test patches them
@@ -274,18 +279,19 @@ def test_roofline_equals_the_references(smoke_cells, monkeypatch, tmp_path):
 
 def test_sweep_statuses(monkeypatch):
     """(c): the default sweep's table on depth-cut configs at published
-    widths, the multi-pod cells and an ``--expert-dtype`` cell."""
+    widths, the same table for the multi-pod cells, and an
+    ``--expert-dtype`` cell."""
     monkeypatch.setattr(dryrun, "get_config",
                         lambda a: _depth_cut(tbase.get_config(a)))
     monkeypatch.setattr(dryrun, "SHAPES", _shapes(SWEEP_SHAPES))
     got = {a: [_status(dryrun.run_cell(a, s, multi_pod=False, out_dir=""))
                for s in SWEEP_SHAPES] for a in tbase.list_archs()}
     assert got == TABLE
-    for a in ("deepseek-v3-671b", "qwen3-14b", "mamba2-2.7b"):
-        pod = [_status(dryrun.run_cell(a, s, multi_pod=True, out_dir=""))
-               for s in SWEEP_SHAPES]
-        want = ["A.8" if t != "skipped" else t for t in TABLE[a]]
-        assert pod == want, (a, pod)
+    monkeypatch.setattr(dryrun, "SHAPES", _shapes(POD_SHAPES))
+    pod = {a: [_status(dryrun.run_cell(a, s, multi_pod=True, out_dir=""))
+               for s in POD_SHAPES] for a in tbase.list_archs()}
+    assert pod == TABLE, pod
+    monkeypatch.setattr(dryrun, "SHAPES", _shapes(SWEEP_SHAPES))
     rec = dryrun.run_cell("deepseek-v3-671b", "decode_32k", multi_pod=False,
                           out_dir="", expert_dtype="float8_e4m3fn")
     assert _status(rec) == "A.3"

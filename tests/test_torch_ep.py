@@ -17,6 +17,16 @@ computed here on the same weights (the reference's tests hold its
 * the FP8 wire on (1, 4) within 0.05, on the reference's own case
   (smoke qwen3-moe-30b-a3b: softmax routing, top-2 from 2 of 4 groups,
   its input drawn from the reference's key) and on DeepSeek-V3 smoke;
+* on (pod, data, model) meshes, the batch cut over the pair ``("pod",
+  "data")``: ``ep_flat`` and ``ep_dedup`` at (2, 2, 2) (where the 4 groups
+  do not divide 2 columns, ``ep_dedup`` runs ``ep_flat``, as the
+  reference's does) and ``ep_dedup`` at (2, 1, 4); ``ep_ftp`` (each
+  position's tokens gathered over the pair, the expert FF cut over
+  ``"data"`` and summed over it alone) at (2, 2, 2) and (2, 1, 4), with
+  fp32 and with FP8 experts: all within 1e-4 of max|y|. The reference's
+  ``ep_ftp`` sums its partials over every data axis, which multiplies the
+  routed experts by |pod| on such a mesh; the planted case that sums over
+  the pair must fail the bound;
 * ``ep_ftp`` with FP8 experts on (2, 4) (DeepSeek-V3 smoke with its FP8
   GEMMs, expert FF 256: 128 a data rank) within 0.05 of the single
   device, and within ``FTP_FP8_TOL`` of the reference's
@@ -27,6 +37,14 @@ computed here on the same weights (the reference's tests hold its
   128-block raises, for plain weights and E4M3 codes, and whole blocks
   cut along D and F dequantize to the whole stack's slice.
 
+The reference's own ``ep_ftp`` on the pod meshes, run in the JAX
+subprocess on the same layer and tokens, returns the routed experts'
+output |pod| = 2 times (``ROADMAP.md`` §C); at (2, 4) once.
+
+The port's cut of an (8, k) array over ``("pod", "data")`` on (2, 2, 2)
+and (2, 1, 4) is, rank by rank, the reference's placement of the same
+``PartitionSpec`` (``devices_indices_map`` in the JAX subprocess).
+
 The wire codec is bitwise JAX's, in process. ``decode_alltoall_bytes()``
 on ``benchmarks/train_bench.bench_config()`` at (2, 4), 64 slots: the
 port's value is what one decode step's all-to-alls really move per MoE
@@ -35,6 +53,7 @@ off its lowering in one JAX subprocess on 8 host devices (run beside the
 ranks). The module takes about 40 s.
 """
 import dataclasses
+import json
 import multiprocessing
 import os
 import subprocess
@@ -57,10 +76,18 @@ from repro_torch.parallel import ep
 WORLD = 8
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 ROOT = os.path.join(os.path.dirname(__file__), "..")
-# per-case x shapes (the reference's TestEP), besides ftp_split
+# per-case x shapes (the reference's TestEP), besides ftp_split and the
+# pod cases
 SHAPES = {"flat": (4, 16), "dedup": (4, 16), "dedup_cpg2": (8, 8),
           "ftp": (3, 1), "ftp_split": (4, 1), "fp8_wire": (4, 16),
-          "fp8_wire_qwen3_moe": (4, 16), "ftp_fp8": (4, 2)}
+          "fp8_wire_qwen3_moe": (4, 16), "ftp_fp8": (4, 2),
+          "pod_flat": (4, 16), "pod_dedup": (4, 16),
+          "pod_dedup_2x1x4": (4, 16), "pod_ftp": (4, 1),
+          "pod_ftp_2x1x4": (4, 2), "pod_ftp_fp8": (4, 1),
+          "pod_ftp_fp8_2x1x4": (4, 2)}
+# cases whose output must fail the bound (a planted fault), by the case
+# whose input and reference they share
+FAULTS = {"pod_ftp_pair_sum": "pod_ftp"}
 TOL = {"fp8_wire": 0.05, "fp8_wire_qwen3_moe": 0.05, "ftp_fp8": 0.05}
 # the port's ``ep_ftp`` with FP8 experts against the reference's
 # ``moe_ffn_sharded`` of the same case (the same E4M3 tiles and blocks,
@@ -71,6 +98,7 @@ FTP_FP8_TOL = 1e-5
 KEYS = {"fp8_wire_qwen3_moe": 1}
 
 JAX_BYTES = """
+import json
 from repro.compat import make_mesh as mk
 from repro.parallel import context as pctx_mod
 from repro.serve.engine import ServeEngine
@@ -111,6 +139,38 @@ with pctx_mod.use(ctx):
     y = jax.jit(lambda p, x: jep.moe_ffn_sharded(p, x, c, ctx)[0])(
         p, jnp.asarray(inputs["x:ftp_fp8"]))
 np.save("{d}/ftp_fp8_codes_ref.npy", np.asarray(y))
+
+# the reference's placement of an (8, k) array cut over ("pod", "data")
+from jax.sharding import NamedSharding, PartitionSpec as P
+for shape in ((2, 2, 2), (2, 1, 4)):
+    m = mk(shape, ("pod", "data", "model"))
+    idx = NamedSharding(m, P(("pod", "data"), None)).devices_indices_map(
+        (8, 3))
+    rows = [idx[dev][0].indices(8)[:2] for dev in m.devices.reshape(-1)]
+    print("PLACE", "x".join(map(str, shape)), json.dumps(rows))
+
+# the reference's ep_ftp on pod meshes (fp8 off, capacity 8, fp32 wire,
+# ep_dedup): its routed part against the unmeshed moe_ffn's, as the
+# projection ratio and the relative error
+from repro.core import moe as jmoe
+c = smoke_config(get_config("deepseek-v3-671b"))
+c = dataclasses.replace(c, fp8=False, moe=dataclasses.replace(
+    c.moe, capacity_factor=8.0))
+p = {{k.split(":")[2]: jnp.asarray(inputs[k][0]) for k in inputs.files
+      if k.startswith("p:deepseek-v3-671b:")}}
+x = jnp.asarray(inputs["x:pod_ftp"])
+shared = jmoe.shared_expert(p, x, c)
+want = np.asarray(jmoe.moe_ffn(p, x, c)[0] - shared).ravel()
+for shape, axes, dp in (((2, 4), ("data", "model"), ("data",)),
+                        ((2, 2, 2), ("pod", "data", "model"), ("pod", "data")),
+                        ((2, 1, 4), ("pod", "data", "model"), ("pod", "data"))):
+    ctx = pctx_mod.ParallelCtx(mesh=mk(shape, axes), dp_axes=dp,
+                               moe_impl="ep_dedup", wire="fp32", ep_ftp=True)
+    with pctx_mod.use(ctx):
+        y = jax.jit(lambda p, x: jep.moe_ffn_sharded(p, x, c, ctx)[0])(p, x)
+    got = np.asarray(y - shared).ravel()
+    print("FTPREF", "x".join(map(str, shape)), float(got @ want / (want @ want)),
+          float(np.abs(got - want).max() / np.abs(want).max()))
 """
 
 
@@ -168,6 +228,12 @@ def run(tmp_path_factory):
     assert jax_side.returncode == 0, err[-3000:]
     jbytes = {line.split()[1]: int(line.split()[2])
               for line in out.splitlines() if line.startswith("BYTES")}
+    jbytes["place"] = {line.split(" ", 2)[1]: json.loads(
+        line.split(" ", 2)[2]) for line in out.splitlines()
+        if line.startswith("PLACE")}
+    jbytes["ftp_ref"] = {line.split()[1]: tuple(map(float, line.split()[2:]))
+                         for line in out.splitlines()
+                         if line.startswith("FTPREF")}
     ours = [dict(np.load(d / f"rank{r}.npz")) for r in range(WORLD)]
     for name in ("ftp_fp8", "ftp_fp8_codes"):
         refs["sharded:" + name] = np.load(d / f"{name}_ref.npy")
@@ -177,27 +243,85 @@ def run(tmp_path_factory):
 def _rows(name, rank):
     """The slice of the batch rank ``rank`` returned for case ``name``."""
     shape, _, _, _, layout = _torch_ep.CASES[name]
-    B = SHAPES[name][0]
-    if layout == "split" and shape[0] > 1:
-        d = rank // shape[1]
-        per = B // shape[0]
+    B = SHAPES[FAULTS.get(name, name)][0]
+    rows = int(np.prod(shape[:-1]))         # the data row: the pair's
+    if layout == "split" and rows > 1:
+        d = rank // shape[-1]
+        per = B // rows
         return slice(d * per, (d + 1) * per)
     return slice(0, B)
 
 
-@pytest.mark.parametrize("name", list(SHAPES))
-def test_ep_matches_single_device_moe(run, name):
+def _err(run, name):
+    """Each member's max error over max|y| against the single device."""
     refs, ours, _ = run
-    ref = refs[name]
+    ref = refs[FAULTS.get(name, name)]
     scale = np.abs(ref).max()
     members = [r for r in range(WORLD) if name in ours[r]]
     assert len(members) == np.prod(_torch_ep.CASES[name][0])
+    out = []
     for r in members:
         y = ours[r][name]
         want = ref[_rows(name, r)]
         assert y.shape == want.shape, (r, y.shape, want.shape)
-        err = np.abs(y - want).max() / scale
+        out.append(np.abs(y - want).max() / scale)
+    return out
+
+
+@pytest.mark.parametrize("name", list(SHAPES))
+def test_ep_matches_single_device_moe(run, name):
+    for r, err in enumerate(_err(run, name)):
         assert err < TOL.get(name, 1e-4), (name, r, err)
+
+
+@pytest.mark.parametrize("name", list(FAULTS))
+def test_ftp_partials_summed_over_the_pair_fail_the_bound(run, name):
+    """The reference's ``ep_ftp`` on a pod mesh, planted in the port: the
+    expert-FF partials summed over the pair ``("pod", "data")`` count
+    every "data" partial |pod| times; on every rank the result is outside
+    the bound the sound case holds."""
+    errs = _err(run, name)
+    print(name, "errors over max|y|", errs)
+    assert min(errs) > 1e-4, errs
+
+
+def test_references_ftp_counts_each_partial_once_per_pod(run):
+    """The reference's own ``ep_ftp`` on the same DeepSeek-V3 smoke layer
+    and tokens (fp8 off, capacity 8, fp32 wire, ``ep_dedup``), its routed
+    part against the unmeshed ``moe_ffn``'s: at (2, 4) the same (ratio
+    1); on the pod meshes (2, 2, 2) and (2, 1, 4) twice it, |pod| times,
+    since it sums the "data"-cut partials over "pod" too. The port's
+    ``pod_ftp`` cases hold ratio 1 (``test_ep_matches_single_device_moe``)
+    and so do not copy it."""
+    _, _, jbytes = run
+    got = jbytes["ftp_ref"]
+    print("the reference's ep_ftp: (projection ratio, relative error)", got)
+    assert set(got) == {"2x4", "2x2x2", "2x1x4"}, got
+    ratio, err = got["2x4"]
+    assert abs(ratio - 1) < 1e-5 and err < 1e-4, got
+    for shape in ("2x2x2", "2x1x4"):
+        ratio, err = got[shape]
+        assert abs(ratio - 2) < 1e-5 and err > 1e-2, got
+
+
+@pytest.mark.parametrize("shape", [(2, 2, 2), (2, 1, 4)])
+def test_pair_cut_equals_the_references_placement(run, shape):
+    """``cut_leaf`` of an (8, 3) array over ``("pod", "data")`` on each
+    rank, and each rank's ``dp_index``, against the reference's placement
+    of ``PartitionSpec(("pod", "data"), None)`` on the same mesh: the pair
+    is cut pod-major, ``pod * |data| + data``."""
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.parallel.context import Mesh, ParallelCtx
+    _, _, jbytes = run
+    want = jbytes["place"]["x".join(map(str, shape))]
+    a = torch.arange(24.0).reshape(8, 3)
+    for r in range(WORLD):
+        mesh = Mesh(shape, _torch_ep.POD_AXES, rank=r)
+        got = sh.cut_leaf(a, sh.P(("pod", "data"), None), mesh)
+        lo, hi = want[r]
+        assert torch.equal(got, a[lo:hi]), (r, got, want[r])
+        ctx = ParallelCtx(mesh=mesh, dp_axes=("pod", "data"))
+        assert ctx.dp_index == lo // (8 // ctx.dp_size), (r, want[r])
 
 
 @pytest.mark.parametrize("name", ["ftp_fp8", "ftp_fp8_codes"])
@@ -300,6 +424,8 @@ def test_decode_alltoall_bytes_dedup_below_flat_and_equal_to_reference(run):
     layer, the same on every rank, and equal to the reference's lowering
     read."""
     _, ours, jbytes = run
+    jbytes = {k: v for k, v in jbytes.items()
+              if k not in ("place", "ftp_ref")}
     got = {}
     for impl in ("ep_flat", "ep_dedup"):
         vals = {tuple(ours[r]["bytes:" + impl]) for r in range(WORLD)}

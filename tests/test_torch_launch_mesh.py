@@ -7,12 +7,13 @@ a rank takes the parent's count over the world size).
   exactly (the reference's sharded-serving contract for dense GQA), and
   its stats equal the single-device run's;
 * ``train --mesh 1x2 --steps 2`` gives the single-device losses within
-  1e-5 (relative);
+  1e-5 (relative), and so does ``train --mesh 2x1x2`` (pod, data, model:
+  the batch and ZeRO-3 over the pair ``("pod", "data")``, 4 ranks);
 * a rank that raises ends the command with a non-zero exit and that
   rank's traceback (the port's ``Disaggregator`` refusing a rank off the
   prefill mesh, while the other rank waits in a collective), and the
-  port's refusals of a second data axis (A.8) and of ``--devices`` below
-  the mesh size come before any spawn.
+  refusal of ``--devices`` below the mesh size, on two axes and on
+  three, comes before any spawn.
 """
 import pytest
 import torch
@@ -59,6 +60,19 @@ def test_meshed_train_gives_the_single_device_losses(capsys):
                                 "wire=fp8 microbatches=2")
 
 
+def test_meshed_train_over_two_data_axes(capsys):
+    """``--mesh 2x1x2``: four ranks on (pod, data, model), the batch's two
+    rows over the pair, the single device's losses within 1e-5."""
+    one = train.main(TRAIN)
+    meshed = train.main(TRAIN + ["--mesh", "2x1x2", "--moe-impl",
+                                 "ep_flat"])
+    lines = capsys.readouterr().out.splitlines()
+    assert meshed["mesh_shape"] == (2, 1, 2) and meshed["final_step"] == 2
+    for a, b in zip(one["history"], meshed["history"], strict=True):
+        assert abs(b["loss"] - a["loss"]) <= 1e-5 * abs(a["loss"]), (a, b)
+    assert lines[-1].startswith("[train] mesh (2, 1, 2) moe_impl=ep_flat")
+
+
 def test_a_failed_rank_fails_the_command():
     with pytest.raises(SystemExit) as e:
         serve.main(SERVE + ["--mesh", "1,2", "--disagg", "--prefill-mesh",
@@ -69,7 +83,7 @@ def test_a_failed_rank_fails_the_command():
 
 
 @pytest.mark.parametrize("argv,err,match", [
-    (["--mesh", "1x1x2"], NotImplementedError, "A.8"),
+    (["--mesh", "2x1x2", "--devices", "2"], ValueError, "fewer than"),
     (["--mesh", "1x2", "--devices", "1"], ValueError, "fewer than"),
 ])
 def test_train_mesh_refusals_come_before_any_spawn(argv, err, match):

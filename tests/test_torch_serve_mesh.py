@@ -30,6 +30,12 @@ single-device engine, run here while the ranks serve:
   2x] of its and equal to ``decode_alltoall_bytes()``, and half B's
   attention issued between half A's dispatch issue and its wait
   (``collectives.record()``; the reference's ``TestDecodeOverlap``);
+* on the (pod, data, model) mesh (2, 2, 2), the slots cut over the pair
+  ``("pod", "data")``: dense qwen3-14b exact; DeepSeek-V3 (FP8 GEMMs
+  off) on the dense engine with ``ep_ftp`` (the expert FF cut over
+  ``"data"``, each position's tokens gathered over the pair) exact
+  against the JAX single-device engine of the same config; paged fp8
+  DeepSeek-V3 on the card's path at least 0.9 of its single device;
 * cross-mesh disaggregation (``TestCrossMeshDisagg``): prefill on (2, 4)
   over the 8 ranks, decode on (1, 4) over ranks 0-3, ``ep_flat``, fp32
   wire: dense streams exact, paged bf16 at least 0.9, and the paged
@@ -77,7 +83,12 @@ def _jax_configs():
         moe.moe, capacity_factor=8.0))
     qwen = smoke_config(get_config("qwen3-14b"))
     return {"qwen": qwen, "moe": moe,
-            "qwen_heads6": dataclasses.replace(qwen, **body.HEADS6)}
+            "qwen_heads6": dataclasses.replace(qwen, **body.HEADS6),
+            "moe_nofp8": dataclasses.replace(moe, fp8=False)}
+
+
+# configs served on another config's weights
+SAME_WEIGHTS = {"moe_nofp8": "moe"}
 
 
 def _flatten(tree, prefix, out):
@@ -107,11 +118,13 @@ def run(tmp_path_factory):
     d = tmp_path_factory.mktemp("serve_mesh")
     cfgs = _jax_configs()
     params = {k: JModel(c).init(jax.random.PRNGKey(0))
-              for k, c in cfgs.items()}
+              for k, c in cfgs.items() if k not in SAME_WEIGHTS}
+    params.update({k: params[v] for k, v in SAME_WEIGHTS.items()})
     np_params = {k: jax.tree.map(np.asarray, v) for k, v in params.items()}
     flat = {}
     for k, v in np_params.items():
-        _flatten(v, k + "/", flat)
+        if k not in SAME_WEIGHTS:
+            _flatten(v, k + "/", flat)
     np.savez(d / "weights.npz", **flat)
     ctx = multiprocessing.get_context("spawn")
     ranks = [ctx.Process(target=body.run_rank,
@@ -125,7 +138,8 @@ def run(tmp_path_factory):
            "moe": _jax_stream(cfgs["moe"], params["moe"]),
            "mtp": _jax_stream(cfgs["moe"], params["moe"], use_mtp=True),
            "qwen_heads6": _jax_stream(cfgs["qwen_heads6"],
-                                      params["qwen_heads6"])}
+                                      params["qwen_heads6"]),
+           "moe_nofp8": _jax_stream(cfgs["moe_nofp8"], params["moe"])}
     for p in ranks:
         p.join(timeout=400)
     codes = [p.exitcode for p in ranks]
@@ -179,7 +193,8 @@ def _exact_or_bounded_parting(ours_s, ref_s, model, np_params):
     ("ep_flat", "moe", "moe"), ("ep_dedup", "moe", "moe"),
     ("ep_flat_overlap", "moe", "moe"), ("ep_dedup_overlap", "moe", "moe"),
     ("gqa_heads_whole", "qwen_heads6", "qwen_heads6"),
-    ("gqa_heads_whole_paged", "qwen_heads6", "qwen_heads6")])
+    ("gqa_heads_whole_paged", "qwen_heads6", "qwen_heads6"),
+    ("pod_gqa_dense", "qwen", "qwen"), ("pod_ftp", "moe_nofp8", "moe_nofp8")])
 def test_streams_exact_like_the_reference(run, name, model, ref_key):
     ref, ours, np_params = run
     _exact_or_bounded_parting(_streams(ours, name), ref[ref_key][0], model,
@@ -206,7 +221,8 @@ def test_mtp_drafts_under_mesh(run):
 
 
 @pytest.mark.parametrize("name,against", [
-    ("mla_paged", "ep_flat"), ("card_path", "card_path_single")])
+    ("mla_paged", "ep_flat"), ("card_path", "card_path_single"),
+    ("pod_card_path", "card_path_single")])
 def test_paged_mla_within_documented_tolerance(run, name, against):
     _, ours, _ = run
     mf = _match_frac(_streams(ours, against), _streams(ours, name))
@@ -229,13 +245,15 @@ def test_every_rank_holds_the_same_mirrors_and_streams(run, name):
                                   if c is not None and e.get("paged")
                                   and n not in body.DISAGG])
 def test_pools_byte_equal_across_data_rows(run, name):
-    """The pool has no batch axis and replicates over the data axis: each
-    model column's pool is the same bytes on both data rows."""
+    """The pool has no batch axis and replicates over the data axes: each
+    model column's pool is the same bytes on every data row (each position
+    of the pair on the pod mesh)."""
     _, ours, _ = run
-    cols = body.MESH[1]
+    cols = (body.POD_MESH if name in body.POD else body.MESH)[-1]
     for m in range(cols):
-        np.testing.assert_array_equal(ours[m][name + ":pool"],
-                                      ours[cols + m][name + ":pool"])
+        for r in range(cols + m, WORLD, cols):
+            np.testing.assert_array_equal(ours[m][name + ":pool"],
+                                          ours[r][name + ":pool"])
     # MLA pools replicate over the model axis too; a GQA pool's K/V split
     # over it while their fp8 scales (leaves 2 and 3) replicate
     same = slice(2, 4) if name.startswith("gqa") else slice(None)

@@ -38,16 +38,23 @@ from repro_torch.parallel import sharding as sh
 from repro_torch.parallel.context import Mesh
 
 MESHES = [(2, 4), (1, 4), (1, 8)]
+# the multi-pod meshes: the batch over the pair ("pod", "data")
+POD_MESHES = [(2, 2, 2), (2, 1, 4)]
+POD_AXES = ("pod", "data", "model")
 ARCHS = ["deepseek-v3-671b", "qwen3-14b"]
 RULES = ["serve_rules", "tp_rules", "dp_ep_rules", "fsdp_tp_rules"]
 MAX_LEN, PAGE, POOL = 64, 8, 32
 
 
+def _axes(shape):
+    return ("data", "model") if len(shape) == 2 else POD_AXES
+
+
 def _jmesh(shape):
     try:
-        return AbstractMesh(shape, ("data", "model"))
+        return AbstractMesh(shape, _axes(shape))
     except TypeError:          # older signature: ((name, size), ...)
-        return AbstractMesh(tuple(zip(("data", "model"), shape)))
+        return AbstractMesh(tuple(zip(_axes(shape), shape)))
 
 
 def _jflat(tree):
@@ -169,6 +176,102 @@ def test_cache_and_state_pspecs_equal_reference(arch, smoke, mesh_shape):
                     "cache": tdense}
         _same(sh.input_shardings(mesh, inputs_t, dp),
               jsh.input_shardings(jmesh, inputs_j, dp))
+
+
+@pytest.mark.parametrize("mesh_shape", POD_MESHES)
+@pytest.mark.parametrize("smoke", [False, True], ids=["published", "smoke"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_pod_pspecs_equal_reference(arch, smoke, mesh_shape):
+    """On (pod, data, model) meshes, with the batch over the pair: the
+    parameters under the reference's multi-pod rules (ZeRO-3's ``embed``
+    over ``("pod", "data")``; ``train_pspecs`` reads ``multi_pod`` off the
+    mesh), the decode rules with and without ``ep_ftp`` (the expert FF
+    over ``"data"`` alone), and the cache, tier, state and batch
+    placements over ``("pod", "data")``."""
+    jm, tm = _models(arch, smoke)
+    jmesh, mesh = _jmesh(mesh_shape), Mesh.abstract(mesh_shape, POD_AXES)
+    jspecs, tspecs = jm.specs(), tm.specs()
+    dp = ("pod", "data")
+    for rule in RULES:
+        if rule == "serve_rules":
+            continue
+        _same(sh.param_pspecs(mesh, tspecs, getattr(sh, rule)(True)),
+              jsh.param_pspecs(jmesh, jspecs, getattr(jsh, rule)(True)))
+    assert _same(sh.train_pspecs(mesh, tspecs), jsh.param_pspecs(
+        jmesh, jspecs, jsh.fsdp_tp_rules(True))) > 0
+    for ftp in (False, True):
+        _same(sh.param_pspecs(mesh, tspecs, sh.serve_rules(True, ftp)),
+              jsh.param_pspecs(jmesh, jspecs, jsh.serve_rules(True, ftp)))
+    for batch in (8, 3):
+        jdense = jax.eval_shape(lambda: jm.init_cache(batch, MAX_LEN))
+        tdense = tm.init_cache(batch, MAX_LEN, device="meta")
+        _same(sh.cache_pspecs(tdense, mesh, dp),
+              jsh.cache_pspecs(jdense, jmesh, dp))
+        jpaged = jax.eval_shape(lambda: jm.init_paged_cache(
+            batch, MAX_LEN, PAGE, POOL, "fp8"))
+        tpaged = tm.init_paged_cache(batch, MAX_LEN, PAGE, POOL, "fp8",
+                                     device="meta")
+        _same(sh.paged_cache_pspecs(tpaged, mesh, dp),
+              jsh.paged_cache_pspecs(jpaged, jmesh, dp))
+        tstate = sh.decode_state_shardings(mesh, batch, dp)
+        jstate = jsh.decode_state_shardings(jmesh, batch, dp)
+        assert {k: tuple(v) for k, v in tstate.items()} == \
+            {k: tuple(v.spec) for k, v in jstate.items()}
+        for ndim in (1, 2, 3):
+            assert tuple(sh.batch_pspec(mesh, batch, dp, ndim)) == \
+                tuple(jsh.batch_pspec(jmesh, batch, dp, ndim))
+
+
+def _fake_rank(rank, world):
+    """This process as rank ``rank`` of a fake world of ``world`` (the dry
+    run's backend: every collective moves nothing); destroy it after."""
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun
+    dryrun._register_backend()
+    dist.init_process_group(dryrun.BACKEND, store=dist.HashStore(),
+                            rank=rank, world_size=world)
+
+
+def test_pod_mesh_makes_each_data_plane_group():
+    """``Mesh.create((2, 2, 2), ("pod", "data", "model"))`` on each of the
+    8 ranks of a fake world: the rank's data plane is the group of the 4
+    ranks that share its model column, in pod-major order, the same
+    members as its pod and data lines span together; ``dp_index`` is
+    ``pod * 2 + data``, its position in that group; a two-axis mesh makes
+    no plane. ``survivor_mesh`` halves "pod" first: (1, 2, 2) over ranks
+    0-3, whose planes are their data lines, and ranks 4-7 get no
+    position."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import survivor_mesh
+    from repro_torch.parallel.context import ParallelCtx
+    for r in range(8):
+        _fake_rank(r, 8)
+        try:
+            mesh = Mesh.create((2, 2, 2), POD_AXES)
+            ctx = ParallelCtx(mesh=mesh, dp_axes=("pod", "data"))
+            p, d, m = r // 4, r // 2 % 2, r % 2
+            plane = dist.get_process_group_ranks(ctx.dp_group)
+            assert plane == [m, 2 + m, 4 + m, 6 + m], (r, plane)
+            assert ctx.dp_index == 2 * p + d == plane.index(r)
+            assert ctx.dp_size == 4
+            assert dist.get_process_group_ranks(mesh.groups["pod"]) == [
+                2 * d + m, 4 + 2 * d + m]
+            assert dist.get_process_group_ranks(mesh.groups["data"]) == [
+                4 * p + m, 4 * p + 2 + m]
+            assert ParallelCtx(mesh=mesh).dp_index == d    # one data axis
+            assert set(Mesh.create((4, 2)).groups) == {"data", "model"}
+            alive = survivor_mesh(mesh)
+            assert alive.shape == {"pod": 1, "data": 2, "model": 2}
+            assert alive.ranks == [0, 1, 2, 3]
+            if r < 4:
+                assert alive.rank == r
+                g = alive.group_of(("pod", "data"))
+                assert dist.get_process_group_ranks(g) == [m, 2 + m]
+                assert alive.index_of(("pod", "data")) == d
+            else:
+                assert alive.rank is None and not alive.groups
+        finally:
+            dist.destroy_process_group()
 
 
 def test_paged_page_table_is_replicated():
@@ -341,10 +444,12 @@ def test_sliced_draw_equals_the_cut_of_the_global_tree(arch, moe_impl):
 def test_unread_ctx_fields_raise(field, value):
     """The reference's ParallelCtx fields the port once refused (ROADMAP.md,
     A.8) are ported: ``remat`` and ``seq_axis`` are read, ``pin_attn`` is
-    the GSPMD hint explicit SPMD always satisfies; each takes the
-    reference's value. What is still refused raises: a value outside the
-    reference's choices, a sequence cut off the tensor-parallel axis, and
-    a second data axis (A.8, through the meshed gate)."""
+    the GSPMD hint explicit SPMD always satisfies, and ``dp_axes`` takes
+    the pair ``("pod", "data")``; each takes the reference's value. What
+    is still refused raises: a value outside the reference's choices, a
+    sequence cut off the tensor-parallel axis, and, through the meshed
+    gate, a family whose meshed layout is not ported (A.11) on a pod mesh
+    as on one pod; a data plane asked of an abstract mesh names why."""
     from repro_torch.configs.base import get_config, smoke_config
     from repro_torch.parallel.context import ParallelCtx, check_meshed
     assert getattr(ParallelCtx(**{field: value}), field) == value
@@ -355,10 +460,13 @@ def test_unread_ctx_fields_raise(field, value):
     ctx = ParallelCtx(mesh=Mesh.abstract((2, 2, 2), ("pod", "data",
                                                      "model")),
                       dp_axes=("pod", "data"), **{field: value})
-    with pytest.raises(NotImplementedError, match="A.8"):
-        check_meshed(smoke_config(get_config("qwen3-14b")), ctx, "test")
-    with pytest.raises(NotImplementedError, match="A.8"):
-        ctx.dp_axis
+    check_meshed(smoke_config(get_config("qwen3-14b")), ctx, "test")
+    with pytest.raises(NotImplementedError, match="A.11"):
+        check_meshed(smoke_config(get_config("llama4-maverick-400b-a17b")),
+                     ctx, "test")
+    assert ctx.dp_size == 4
+    with pytest.raises(ValueError, match="abstract"):
+        ctx.dp_group
 
 
 def test_microbatches_is_read():

@@ -43,6 +43,17 @@ of ``tests/test_distributed.py``:
 * Checkpoint on (2, 2), restore onto (1, 2): every leaf bit for bit its
   slice of the saved array; ``FailureInjector({3: "node"})`` re-meshes a
   (2, 2) run onto (1, 2) with one restart, ranks 2-3 gone.
+* Two data axes, the batch and ZeRO-3 over the pair ``("pod", "data")``:
+  qwen3-14b smoke at (2, 2, 1) and (2, 1, 2), DeepSeek-V3 smoke on
+  ``ep_flat`` at (2, 1, 2), against JAX's single device within
+  ``OWN_BOUND`` and the reference's bounds; at (2, 1, 2) the pair is a
+  line of 2 and TP runs over 2, the (2, 2) run's arithmetic, so every
+  loss, grad norm and parameter equals the (2, 2) run's bit for bit.
+  Checkpoint on (2, 2, 1), restore onto (1, 2, 1) bit for bit; a node
+  failure from (2, 2, 1) ends on (1, 2, 1) ("pod" halved first); the
+  straggler monitor has one replica per position of the pair; the dry
+  run's record of a (2, 1, 2) step equals the live step's; the train
+  placements equal the reference's multi-pod ``train_state_shardings``.
 * Straggler: one EWMA entry per replica, ``slow:1`` flags replica 1 only,
   a clean run none. SDC: the alarm at step 3, one checksum per rank, all
   equal.
@@ -100,7 +111,11 @@ BOUNDS = {"qwen_2x2": ("qwen", 2e-3), "moe_flat_2x2": ("moe", 5e-3),
           "moe_dedup_1x4": ("moe", 5e-3), "qwen_sp_1x4": ("qwen", 2e-3),
           "qwen_sp_2x2": ("qwen", 2e-3), "moe_sp_flat_2x2": ("moe", 5e-3),
           "qwen_heads_whole_1x4": ("qwen_heads6", 2e-3),
-          "qwen_heads_whole_sp_1x4": ("qwen_heads6", 2e-3)}
+          "qwen_heads_whole_sp_1x4": ("qwen_heads6", 2e-3),
+          "qwen_2x2x1": ("qwen", 2e-3), "qwen_2x1x2": ("qwen", 2e-3),
+          "moe_flat_2x1x2": ("moe", 5e-3)}
+# a pod trajectory and the (data, model) one it equals bit for bit
+SAME_AS = {"qwen_2x1x2": "qwen_2x2", "moe_flat_2x1x2": "moe_flat_2x2"}
 # the port's own meshed-vs-single-device bound (loss and parameters)
 OWN_BOUND = 2e-5
 # trajectories whose parameters after 3 steps the port holds tighter than
@@ -219,6 +234,23 @@ def test_trajectory_matches_jax_single_device(run, traj):
         assert dg < OWN_BOUND, why
 
 
+@pytest.mark.parametrize("traj", list(SAME_AS))
+def test_pod_trajectory_equals_the_two_axis_run_bitwise(run, traj):
+    """At (2, 1, 2) the pair ("pod", "data") is a line of 2, as "data" is
+    at (2, 2): the same ZeRO-3 gathers and reduce-scatters, batch rows,
+    TP and EP, and sums of two addends. Every loss, grad norm, parameter
+    and step-1 update equals the (2, 2) run's bit for bit."""
+    _, ours = run
+    for r in range(WORLD):
+        got, want = ours[r]["traj:" + traj], ours[r]["traj:" + SAME_AS[traj]]
+        assert got["loss"] == want["loss"], (r, got["loss"], want["loss"])
+        assert got["grad_norm"] == want["grad_norm"], r
+        for key in ("params", "update"):
+            for (p, a), (_, b) in zip(optim.tree_items(got[key]),
+                                      optim.tree_items(want[key])):
+                assert torch.equal(a, b), (r, key, p)
+
+
 @pytest.mark.parametrize("name", ["mesh", "mesh_sp"])
 def test_whole_heads_gradients_match_jax(run, name):
     """Smoke qwen3-14b with 6 query and 2 KV heads on (1, 4): the
@@ -257,9 +289,11 @@ def test_dry_run_records_the_live_steps_collectives(run, name,
     monkeypatch.setattr(dryrun, "get_config", lambda a: cfg)
     monkeypatch.setattr(dryrun, "SHAPES", {"t": ShapeCfg(
         "t", body.SEQ, body.BATCH, "train")})
+    axes = ("data", "model") if len(shape) == 2 else body.POD_AXES
     monkeypatch.setattr(mesh_mod, "production_shape",
-                        lambda multi_pod=False: (shape, ("data", "model")))
-    rec = dryrun.run_cell(cfg.name, "t", multi_pod=False, out_dir="",
+                        lambda multi_pod=False: (shape, axes))
+    rec = dryrun.run_cell(cfg.name, "t", multi_pod=len(shape) == 3,
+                          out_dir="",
                           moe_impl=kw.get("moe_impl", "ep_dedup"),
                           wire=kw.get("wire", "fp8"), remat=kw["remat"])
     assert rec["status"] == "ok", rec.get("error")
@@ -308,6 +342,33 @@ def test_checkpoint_restores_onto_the_survivor_mesh_bitwise(run):
         assert res["bad"] == [], res["bad"]
         assert res["mesh"] == {"axes": ["data", "model"], "shape": [2, 2]}
     assert all("restore" not in ours[r] for r in (2, 3))
+
+
+def test_pod_checkpoint_and_node_failure(run):
+    """Checkpoint at (2, 2, 1), its ZeRO-3 cut over the pair, restored onto
+    (1, 2, 1) over ranks 0-1: every leaf bit for bit its slice of the
+    saved array. ``FailureInjector({3: "node"})`` at (2, 2, 1) halves
+    "pod": ranks 0-1 end on (1, 2, 1) after one restart, ranks 2-3 leave.
+    The straggler monitor watches the pair's 4 positions and flags
+    position 1 alone."""
+    _, ours = run
+    for r in (0, 1):
+        res = ours[r]["pod_restore"]
+        assert res["step"] == 2 and res["leaves"] > 0 and res["pair_cut"] > 0
+        assert res["bad"] == [], res["bad"]
+        assert res["mesh"] == {"axes": list(body.POD_AXES),
+                               "shape": [2, 2, 1]}
+        assert ours[r]["pod_node"] == dict(final_step=6, restarts=1,
+                                           mesh_shape=(1, 2, 1), left=False)
+    for r in (2, 3):
+        assert "pod_restore" not in ours[r]
+        node = ours[r]["pod_node"]
+        assert node["left"] and node["restarts"] == 1
+        assert node["mesh_shape"] == (1, 2, 1) and node["final_step"] < 6
+    for r in range(WORLD):
+        slow = ours[r]["pod_slow"]
+        assert slow["ewma"] == 4 and slow["events"], slow
+        assert all(ev == [1] for ev in slow["events"]), slow
 
 
 def test_node_failure_remeshes_onto_the_survivors(run):
@@ -388,21 +449,26 @@ def test_schedule_models_equal_jax(P, M, w):
             < pipeline.onef1b_bubble(16, 64).bubble_frac)
 
 
-@pytest.mark.parametrize("shape", [(2, 2), (1, 2), (1, 4)])
+@pytest.mark.parametrize("shape", [(2, 2), (1, 2), (1, 4), (2, 2, 1),
+                                   (2, 1, 2)])
 @pytest.mark.parametrize("arch", ["qwen3-14b", "deepseek-v3-671b"])
 def test_train_placements_equal_reference(arch, shape):
     """The placements the trainer shards its state by
     (``sharding.train_pspecs``, ``Trainer.state_pspecs``) are the
-    reference's ``train_state_shardings``."""
-    from test_torch_sharding import _jmesh, _same
+    reference's ``train_state_shardings``; on a (pod, data, model) mesh
+    under its multi-pod rules (ZeRO-3 over ``("pod", "data")``), read off
+    the mesh as the reference's trainer reads them."""
+    from test_torch_sharding import _axes, _jmesh, _same
+    pod = len(shape) == 3
+    mesh = Mesh.abstract(shape, _axes(shape))
     tm = Model(tsmoke(tget(arch)), device="cpu")
     jm = JModel(smoke_config(get_config(arch)))
     pj, oj, _ = jsh.train_state_shardings(_jmesh(shape), jm.specs(),
-                                          jsh.fsdp_tp_rules(False))
-    ours = sh.train_pspecs(Mesh.abstract(shape), tm.specs())
+                                          jsh.fsdp_tp_rules(pod))
+    ours = sh.train_pspecs(mesh, tm.specs())
     assert _same(ours, pj) > 0
-    _, ot, _ = sh.train_state_shardings(Mesh.abstract(shape), tm.specs(),
-                                        sh.fsdp_tp_rules(False))
+    _, ot, _ = sh.train_state_shardings(mesh, tm.specs(),
+                                        sh.fsdp_tp_rules(pod))
     for field in ("master", "m", "v"):
         _same(getattr(ot, field), getattr(oj, field))
 
@@ -437,6 +503,11 @@ def test_sound_mesh_passes_the_phase_i1_gate(run):
 
 @pytest.mark.parametrize("fault", body.FAULTS)
 def test_planted_fault_fails_the_phase_i1_gate(run, fault):
+    """Each planted fault of phase (i.1), at smoke width: data rank 1's
+    gradients left out of the data-axis reduction, a column-parallel
+    input's backward all-reduce skipped, and pod 1's gradients left out
+    of the pair's reduction at (2, 1, 2): each run fails ``train_gate``
+    against the single device."""
     assert set(body.FAULTS) == set(chip_smoke.MESH_TRAIN_FAULTS)
     _, ours = run
     one = ours[0]["single:qwen"]
