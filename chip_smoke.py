@@ -4025,13 +4025,14 @@ MESH_PREFILL = {"qwen3-14b": {"flash_prefill": 40}}
 # each meshed run's requests: phase (c)'s first prompts and new tokens a
 # request (phase (c) served six of 32). qwen3-14b's eager meshed prefill
 # takes ~6.6 ms a token and its decode ~1.35 s a step, so its run serves
-# the first four prompts (16-900 tokens) 16 tokens each: every request
+# the first three prompts (16-500 tokens; four, to 900, before PR 35
+# made room for phase (l)) 16 tokens each: every request
 # decodes two chunks, so the served run has decode-only ticks for the
 # per-step launch gate. The logit gates read the served first tokens,
 # the same at any budget, over the run's prompts. DeepSeek-V3's runs (the
 # two wires, the dual decode's and the disaggregator's) serve 16 tokens
 # a request too since PR 34 (32 before), to keep the script under 960 s
-MESH_PROMPTS = {"deepseek-v3-671b": 6, "qwen3-14b": 4}
+MESH_PROMPTS = {"deepseek-v3-671b": 6, "qwen3-14b": 3}
 MESH_NEW = {"deepseek-v3-671b": 16, "qwen3-14b": 16}
 # timed runs of the longest prompt's meshed prefill (printed, not gated)
 MESH_PREFILL_RUNS = 1
@@ -4495,10 +4496,19 @@ def plant_fault(torch, fault, eng, ctx):
       projection one head over (its heads' outputs meet the wrong rows);
     - ``page_scales_local``: each rank's FP8 page scales taken over its
       own KV heads, not over the model group's (``layers.kv_amax_reduce``
-      skipped: a fault this port had)."""
+      skipped: a fault this port had);
+    - ``norm_squares_local``: Mamba-2's gated RMSNorm over each rank's
+      own channels, its squares not summed over the model group;
+    - ``gate_partial_unsummed``: each rank's RG-LRU gate products taken
+      as its own channels of its partial, not reduce-scattered;
+    - ``state_heads_shifted``: column 1's cached SSD state one head over
+      at every decode step."""
     import dataclasses
+    import types
     from repro_torch.core.fp8 import Fp8Experts, Fp8Weight
-    from repro_torch.models import layers
+    from repro_torch.models import layers, rglru, ssm
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import context as pctx
     saved, col1 = [], ctx.index(ctx.tp_axis) == 1
     if fault == "experts_shifted" and col1:
         _swap_leaves(eng.params, lambda k, v: k in ("w1", "w2", "w3"),
@@ -4521,6 +4531,28 @@ def plant_fault(torch, fault, eng, ctx):
     elif fault == "page_scales_local":
         saved.append((vars(layers), "kv_amax_reduce", layers.kv_amax_reduce))
         layers.kv_amax_reduce = lambda nkv, cfg: None
+    elif fault == "norm_squares_local":
+        norm = ssm._gated_norm
+
+        def local_norm(*args):
+            with pctx.use(pctx.ParallelCtx()):
+                return norm(*args)
+        saved.append((vars(ssm), "_gated_norm", norm))
+        ssm._gated_norm = local_norm
+    elif fault == "gate_partial_unsummed":
+        saved.append((vars(rglru), "coll", rglru.coll))
+        rglru.coll = types.SimpleNamespace(
+            copy_to_group=coll.copy_to_group,
+            scatter_sum=lambda x, group, dim: coll.own_part(x, group, dim))
+    elif fault == "state_heads_shifted":
+        block = ssm.ssd_block_apply
+
+        def shifted(p, x, cfg, c, cache=None):
+            if cache is not None and col1:
+                cache["state"].copy_(torch.roll(cache["state"], 1, -3))
+            return block(p, x, cfg, c, cache)
+        saved.append((vars(ssm), "ssd_block_apply", block))
+        ssm.ssd_block_apply = shifted
     elif fault not in ("experts_shifted", "w_o_scales_shifted",
                        "wo_heads_shifted"):
         raise ValueError(fault)
@@ -4655,9 +4687,10 @@ def moe_layer_out(torch, eng, x, pctx=None):
 def reference_logits(torch, eng, served, max_len, pctx=None, prefill=True):
     """The logits phase (h) holds the meshed engine to, on this engine
     (phase (c)'s, or a rank's meshed one): with ``prefill``, the bucketed
-    prefill of each of the served prompts, ``(n, V)``; one decode step over four slots
-    admitted with the first four prompts, fed each request's served first
-    token at its prompt length, ``(4, V)`` (the same inputs on both sides
+    prefill of each of the served prompts, ``(n, V)``; one decode step over
+    every slot, the first four prompts (at most) admitted, each fed its
+    request's served first token at its prompt length, their rows ``(4,
+    V)`` or fewer (the same inputs on both sides
     whatever token each prefill picks); on a model with experts, the first
     MoE layer's output on ``moe_check_input`` (``moe_out``). The engine
     is left empty."""
@@ -4675,13 +4708,18 @@ def reference_logits(torch, eng, served, max_len, pctx=None, prefill=True):
             for i, p in enumerate(served["prompts"][:4])]
     for r in reqs:
         eng.add_request(r)
+    # every slot steps (a free one at position 0 into the trash page);
+    # the rows of the admitted slots are read
+    n = len(reqs)
+    toks = np.zeros((eng.slots, 1), np.int32)
+    pos = np.zeros((eng.slots, 1), np.int32)
+    toks[:n, 0] = [o[0] for o in served["outs"][:n]]
+    pos[:n, 0] = [len(p) for p in served["prompts"][:n]]
     dev = eng.device
-    toks = torch.tensor([[o[0]] for o in served["outs"][:4]],
-                        dtype=torch.int32, device=dev)
-    pos = torch.tensor([[len(p)] for p in served["prompts"][:4]],
-                       dtype=torch.int32, device=dev)
-    step, _ = model.decode_step(params, eng.cache, toks, pos, pctx=pctx)
-    step = step[:, 0].float().cpu().numpy()
+    step, _ = model.decode_step(params, eng.cache,
+                                torch.as_tensor(toks, device=dev),
+                                torch.as_tensor(pos, device=dev), pctx=pctx)
+    step = step[:n, 0].float().cpu().numpy()
     for r in reqs:
         eng.cancel(r.rid)
     out = {"step_logits": step}
@@ -5935,9 +5973,11 @@ DRYRUN_CELLS = [(a, s, False, "ok") for a in ("deepseek-v3-671b", "qwen3-14b")
     ("deepseek-v3-671b", s, True, "ok")
     for s in ("train_4k", "prefill_32k", "decode_32k")] + [
     ("qwen3-14b", "decode_32k", True, "ok"),
-    ("llama4-maverick-400b-a17b", "train_4k", False, "A.11"),
-    ("mamba2-2.7b", "decode_32k", False, "A.12"),
-    ("seamless-m4t-large-v2", "prefill_32k", False, "A.13")]
+    ("llama4-maverick-400b-a17b", "train_4k", False, "ok"),
+    ("mamba2-2.7b", "decode_32k", False, "ok"),
+    ("mamba2-2.7b", "long_500k", False, "ok"),
+    ("recurrentgemma-9b", "train_4k", False, "ok"),
+    ("seamless-m4t-large-v2", "prefill_32k", False, "ok")]
 DRYRUN_TIMEOUT = 240
 # (k.2): qwen1.5-4b on one card, (label, layers (None: whole), tokens a
 # row, rows): whole at (j.4)'s train shape, where the state dominates
@@ -5951,38 +5991,63 @@ DRYRUN_LIVE = dict(model="qwen1.5-4b", seed=0, remats=("none", "full"),
                            ("train_2x2048_8l", 8, 2048, 2)))
 
 
-@contextlib.contextmanager
-def dryrun_cells(tmp, cells):
+class DryrunCells:
     """(k.1): each of ``cells`` as its own ``python -m
-    repro_torch.launch.dryrun`` process, all started together on entry;
-    the block runs while they trace. Yields a dict filled on the way out
-    with the records by (arch, shape, multi-pod). Every process is
-    stopped on the way out."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-               CUDA_VISIBLE_DEVICES="")
-    procs, recs = [], {}
-    try:
-        for arch, shape, pod, _ in cells:
-            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
-                   "--arch", arch, "--shape", shape, "--out", tmp]
-            procs.append(subprocess.Popen(
-                cmd + (["--multi-pod"] if pod else []), env=env,
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                cwd=str(ROOT)))
-        yield recs
-        outs = [p.communicate(timeout=DRYRUN_TIMEOUT)[0] for p in procs]
-    finally:
-        for p in procs:
+    repro_torch.launch.dryrun`` process on the CPU (none touches the
+    card), all started together at the lowest priority (nice 19), writing
+    into a temporary directory: they trace on the cores the phases before
+    (k) leave idle. :meth:`records` waits for them and reads the records
+    by (arch, shape, multi-pod); :meth:`close` stops any process left and
+    removes the directory."""
+
+    def __init__(self, cells=DRYRUN_CELLS):
+        import tempfile
+        self.cells, self.procs = cells, []
+        self.tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   CUDA_VISIBLE_DEVICES="")
+        try:
+            for arch, shape, pod, _ in cells:
+                cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                       "--arch", arch, "--shape", shape, "--out", self.tmp]
+                with open(self._path(arch, shape, pod, ".log"), "w") as out:
+                    p = subprocess.Popen(
+                        cmd + (["--multi-pod"] if pod else []), env=env,
+                        stdout=out, stderr=subprocess.STDOUT, cwd=str(ROOT))
+                self.procs.append(p)
+                os.setpriority(os.PRIO_PROCESS, p.pid, 19)
+        except BaseException:
+            self.close()
+            raise
+
+    def _path(self, arch, shape, pod, ext):
+        return os.path.join(self.tmp,
+                            f"{arch}__{shape}{'_pod' if pod else ''}{ext}")
+
+    def records(self):
+        deadline = time.perf_counter() + DRYRUN_TIMEOUT
+        recs = {}
+        for (arch, shape, pod, _), p in zip(self.cells, self.procs):
+            try:
+                p.wait(max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                pass
+            fn = self._path(arch, shape, pod, ".json")
+            if not os.path.exists(fn):
+                with open(self._path(arch, shape, pod, ".log")) as f:
+                    raise AssertionError(f"[k.1] {arch} x {shape}: no "
+                                         f"record\n{f.read()[-2000:]}")
+            with open(fn) as f:
+                recs[arch, shape, pod] = json.load(f)
+        return recs
+
+    def close(self):
+        import shutil
+        for p in self.procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for (arch, shape, pod, _), out in zip(cells, outs):
-        fn = os.path.join(tmp, f"{arch}__{shape}{'_pod' if pod else ''}.json")
-        if not os.path.exists(fn):
-            raise AssertionError(f"[k.1] {arch} x {shape}: no record\n"
-                                 f"{out[-2000:]}")
-        with open(fn) as f:
-            recs[arch, shape, pod] = json.load(f)
+        shutil.rmtree(self.tmp, ignore_errors=True)
 
 
 def dryrun_status(rec):
@@ -6035,12 +6100,12 @@ def live_train_steps(torch, cfg, shape, remat):
                 loss=loss0, ms=times, peak=max(peaks))
 
 
-def phase_dryrun(torch):
-    """(k): the dry run and the roofline on the card's machine, then one
-    card against the dry run's prediction."""
+def phase_dryrun(torch, cells):
+    """(k): the dry run and the roofline on the card's machine (the cells
+    of ``cells``, a :class:`DryrunCells` started before), then one card
+    against the dry run's prediction."""
     import dataclasses
     import io
-    import tempfile
     from repro_torch.configs.base import ShapeCfg, get_config
     from repro_torch.launch import dryrun, roofline
 
@@ -6052,59 +6117,48 @@ def phase_dryrun(torch):
             cfg = dataclasses.replace(cfg, num_layers=layers)
         lives[label] = (cfg, ShapeCfg(label, seq, batch, "train"))
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        # the cells that trace run as processes; the refused ones, which
-        # stop at the gate, and (k.2)'s traces run here meanwhile
-        with dryrun_cells(tmp, [c for c in DRYRUN_CELLS
-                                if c[3] == "ok"]) as recs:
-            refused = {(a, sh, pod): dryrun.run_cell(
-                a, sh, multi_pod=pod, out_dir=tmp)
-                for a, sh, pod, want in DRYRUN_CELLS if want != "ok"}
-            traced = {(label, r): dryrun.trace(cfg, shape, (1, 1),
-                                               remat=r)
-                      for label, (cfg, shape) in lives.items()
-                      for r in spec["remats"]}
-        recs.update(refused)
-        for arch, shape_name, pod, want in DRYRUN_CELLS:
-            rec = recs[arch, shape_name, pod]
-            got = dryrun_status(rec)
-            tag = (f"[k.1] {arch} x {shape_name}"
-                   f"{' --multi-pod' if pod else ''}")
-            if got != want:
-                raise AssertionError(f"{tag}: {got}, want {want}")
-            if got != "ok":
-                log(f"{tag}: error {got} (as expected)")
-                continue
-            c, mem = rec["collectives"], rec["memory_analysis"]
-            if c["total"] <= 0:
-                raise AssertionError(f"{tag}: no collective recorded")
-            log(f"{tag}: ok, trace {rec['trace_s']:.1f} s, "
-                f"{rec['flops_per_device']:.4e} FLOP and "
-                f"{rec['bytes_per_device']:.4e} op bytes a rank, arguments "
-                f"{mem['argument_size_in_bytes'] / 1e9:.3f} GB, temp peak "
-                f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB, collectives "
-                f"{c['total'] / 1e6:.1f} MB ("
-                + ", ".join(f"{k} {c[k] / 1e6:.1f} MB x {c['counts'][k]}"
-                            for k in dryrun.COLLECTIVES if c["counts"][k])
-                + ")")
-        # ZeRO-3 over the pair: 32 ranks hold what 16 hold on one pod
-        one, two = (recs["deepseek-v3-671b", "train_4k", pod][
-            "memory_analysis"]["argument_size_in_bytes"]
-            for pod in (False, True))
-        log(f"[k.1] deepseek-v3-671b x train_4k arguments a rank: "
-            f"{one / 1e9:.3f} GB on one pod, {two / 1e9:.3f} GB with "
-            "--multi-pod")
-        if not two < one:
-            raise AssertionError(f"[k.1] multi-pod train_4k arguments {two}"
-                                 f" B, not under the single pod's {one} B")
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            roofline.main(["--dir", tmp, "--markdown",
-                           os.path.join(tmp, "roofline.md")])
-        for line in buf.getvalue().splitlines():
-            log(f"[k.1] | {line}")
+    # (k.2)'s traces here, while the last cells finish
+    traced = {(label, r): dryrun.trace(cfg, shape, (1, 1), remat=r)
+              for label, (cfg, shape) in lives.items()
+              for r in spec["remats"]}
+    recs, tmp = cells.records(), cells.tmp
+    for arch, shape_name, pod, want in cells.cells:
+        rec = recs[arch, shape_name, pod]
+        got = dryrun_status(rec)
+        tag = (f"[k.1] {arch} x {shape_name}"
+               f"{' --multi-pod' if pod else ''}")
+        if got != want:
+            raise AssertionError(f"{tag}: {got}, want {want}")
+        c, mem = rec["collectives"], rec["memory_analysis"]
+        if c["total"] <= 0:
+            raise AssertionError(f"{tag}: no collective recorded")
+        log(f"{tag}: ok, trace {rec['trace_s']:.1f} s, "
+            f"{rec['flops_per_device']:.4e} FLOP and "
+            f"{rec['bytes_per_device']:.4e} op bytes a rank, arguments "
+            f"{mem['argument_size_in_bytes'] / 1e9:.3f} GB, temp peak "
+            f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB, collectives "
+            f"{c['total'] / 1e6:.1f} MB ("
+            + ", ".join(f"{k} {c[k] / 1e6:.1f} MB x {c['counts'][k]}"
+                        for k in dryrun.COLLECTIVES if c["counts"][k])
+            + ")")
+    # ZeRO-3 over the pair: 32 ranks hold what 16 hold on one pod
+    one, two = (recs["deepseek-v3-671b", "train_4k", pod][
+        "memory_analysis"]["argument_size_in_bytes"]
+        for pod in (False, True))
+    log(f"[k.1] deepseek-v3-671b x train_4k arguments a rank: "
+        f"{one / 1e9:.3f} GB on one pod, {two / 1e9:.3f} GB with "
+        "--multi-pod")
+    if not two < one:
+        raise AssertionError(f"[k.1] multi-pod train_4k arguments {two}"
+                             f" B, not under the single pod's {one} B")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        roofline.main(["--dir", tmp, "--markdown",
+                       os.path.join(tmp, "roofline.md")])
+    for line in buf.getvalue().splitlines():
+        log(f"[k.1] | {line}")
     log(f"[time] (k.1) {time.perf_counter() - t0:.1f} s (with (k.2)'s "
-        "traces)")
+        "traces; the cells started after (a))")
 
     t0 = time.perf_counter()
     for label, (cfg, shape) in lives.items():
@@ -6159,6 +6213,527 @@ def live_against_dryrun(torch, spec, label, cfg, shape, traced):
     log(f"[k.2] {label}: first-step losses {losses}")
 
 
+# --- (l) ---------------------------------------------------------------------
+# every family under a mesh: one spawn of 4 gloo ranks sharing the card at
+# (1, 4), each family at published widths cut in depth, on the weights
+# (seed 0) and the first prompts (with their extras) of its one-device
+# path in PATHS; the witness is one device at the same depth on the same
+# inputs, served before the spawn. Per family: the depth overrides, the
+# ctx and the launches of its kernels a decode step and a prefill on a
+# rank (the recurrent families launch no kernel of the port). mamba2,
+# recurrentgemma and seamless are cut further than first planned (16 SSD
+# layers, two patterns, seamless whole; 112.3 s of (l) on one H100) to
+# make room in the script's time: an eager meshed step stages 3-4
+# collectives a layer through host memory (PERF.md, PR 35)
+FAMILY_MESH = (1, 4)
+FAMILY_WORLD = 4
+FAMILY_PROMPTS = 3
+FAMILY_NEW = 16
+FAMILY_RUNS = {
+    # 64 -> 4 SSD layers
+    "mamba2-2.7b": dict(overrides=dict(num_layers=4), ctx={},
+                        step={}, prefill={}),
+    # 38 -> 3 layers: one (recurrent, recurrent, local attention) pattern
+    "recurrentgemma-9b": dict(overrides=dict(num_layers=3), ctx={},
+                              step={}, prefill={}),
+    # 48 -> one dense/MoE pair: its experts are 32.2 GB summed over the
+    # four ranks, expert-parallel on ep_flat; the bf16 wire carries the
+    # bf16 activations exactly
+    "llama4-maverick-400b-a17b": dict(
+        overrides=dict(num_layers=2), ctx=dict(moe_impl="ep_flat",
+                                               wire="bf16"),
+        step={"paged_gqa_decode": 2, "moe_gemm": 3},
+        prefill={"flash_prefill": 2, "moe_gemm": 3}),
+    # 24 -> 6 decoder layers, the encoder whole (24)
+    "seamless-m4t-large-v2": dict(
+        overrides=dict(num_layers=6), ctx={},
+        step={"paged_gqa_decode": 6}, prefill={"flash_prefill": 6}),
+    # 100 -> 5 layers: one pattern (a gated cross-attention layer, then 4
+    # self layers), gates drawn non-zero
+    "llama-3.2-vision-90b": dict(overrides=dict(num_layers=5), ctx={},
+                                 step={}, prefill={"flash_prefill": 4}),
+}
+# the planted faults of each family (``plant_fault``): each must fail the
+# gate on at least one reading
+FAMILY_FAULTS = {"mamba2-2.7b": ("norm_squares_local", "state_heads_shifted"),
+                 "recurrentgemma-9b": ("gate_partial_unsummed",),
+                 "llama4-maverick-400b-a17b": ("wo_heads_shifted",),
+                 "seamless-m4t-large-v2": ("wo_heads_shifted",),
+                 "llama-3.2-vision-90b": ("wo_heads_shifted",)}
+# (l)'s gate, per family: max |err| over max|ref| and least cosine of the
+# meshed engine's readings against the witness's: the logits of one
+# decode step and of every prompt's prefill, and (the recurrent families)
+# the fp32 recurrent states after that decode step, made whole
+# (``recurrent_rows``; limits under "state"). Each limit lies between the
+# sound readings and the planted faults', about their geometric mean. On
+# one H100 (PERF.md, PR 35, call 1), logits sound / fault: mamba2 <=
+# 0.0365 and >= 0.99942 / norm_squares_local 0.314 and 0.949;
+# recurrentgemma 0.0163 and 0.99990; llama4 0.0098 and 0.99994,
+# seamless 0.0281 and 0.99966, vision 0.0097 and 0.99996 / their
+# wo_heads_shifted 0.80, 1.51, 0.73 and 0.588, 0.063, 0.721. The state
+# faults barely move the logits (0.0315, 0.0168: within the sound noise
+# of bf16 reordered sums), so the states are read too. At (l)'s final
+# depths before the last cut (call 3: mamba2 8 layers, seamless 12):
+# state sound 0.0226 / 0.00872 and 0.99974 / 0.99995, faults
+# state_heads_shifted 0.686 and 0.913, gate_partial_unsummed 0.398 and
+# 0.891 (its logits 0.638 too, the RG-LRU conv weights drawn at std 0.5:
+# ``draw_rglru_conv``)
+FAMILY_LIMITS = {"mamba2-2.7b": (0.1, 0.995),
+                 "recurrentgemma-9b": (0.05, 0.999),
+                 "llama4-maverick-400b-a17b": (0.08, 0.995),
+                 "seamless-m4t-large-v2": (0.1, 0.995),
+                 "llama-3.2-vision-90b": (0.08, 0.995),
+                 "state": (0.2, 0.99)}
+
+
+def _fdev():
+    """Phase (l)'s device: the card. ``CHIP_SMOKE_FAMILY_DEVICE=cpu`` runs
+    its functions on the CPU at smoke width (a rehearsal; the launch gates
+    need the card and are skipped there)."""
+    return os.environ.get("CHIP_SMOKE_FAMILY_DEVICE", "cuda")
+
+
+def family_config(name):
+    """The family's config at (l)'s depth (smoke widths on the CPU)."""
+    import dataclasses
+    from repro_torch.configs.base import get_config, smoke_config
+    spec, run = PATHS[name], FAMILY_RUNS[name]
+    over = dict(spec["overrides"], **run["overrides"])
+    if _fdev() == "cuda":
+        return get_config(spec["model"], **over)
+    cfg = smoke_config(get_config(spec["model"]))
+    if cfg.moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=8.0))
+    return cfg
+
+
+def family_inputs(torch, cfg, name, device):
+    """The first ``FAMILY_PROMPTS`` prompts of the path's one-device run (its seeded
+    draw) and each one's extras (``memory_extras``' seeds; None for the
+    families without a memory); on the CPU, smoke prompts of 5-20
+    tokens."""
+    import numpy as np
+    spec = PATHS[name]
+    n = FAMILY_PROMPTS
+    rng = np.random.default_rng(0)
+    lengths = (spec["lengths"][:n] if device == "cuda"
+               else [5 + 7 * i for i in range(n)])
+    prompts = [rng.integers(0, cfg.vocab_size, L).astype(np.int32)
+               for L in lengths]
+    if "memory" not in spec:
+        return prompts, [None] * n
+    key = "src_embeds" if cfg.family == "encdec" else "patch_embeds"
+    extras = []
+    for i in range(n):
+        rows = (spec["memory"][i] if device == "cuda" else
+                cfg.num_patches if cfg.family == "vlm" else 4 + 2 * i)
+        g = torch.Generator(device=device).manual_seed(100 + i)
+        extras.append({key: torch.randn((1, rows, cfg.d_model), generator=g,
+                                        device=device).to(torch.bfloat16)})
+    return prompts, extras
+
+
+def family_engine(torch, cfg, name, device, ctx=None):
+    """The family's engine (the path's options; 4 slots; seed-0 weights),
+    on ``ctx``'s mesh or one device; the vision gates drawn non-zero
+    (``draw_gates``), the RG-LRU conv weights at std 0.5
+    (``draw_rglru_conv``)."""
+    from repro_torch.serve.engine import ServeEngine
+    spec = PATHS[name]
+    eng = ServeEngine(cfg, slots=4,
+                      max_len=spec["max_len"] if device == "cuda" else 64,
+                      device=device, seed=0, ctx=ctx, **spec["engine"])
+    if cfg.family == "vlm":
+        draw_gates(torch, eng.params, device)
+    if cfg.rglru:
+        draw_rglru_conv(torch, eng, ctx)
+    return eng
+
+
+def draw_rglru_conv(torch, eng, ctx=None):
+    """The RG-LRU blocks' conv weights from a seeded normal of std 0.5, in
+    place, this rank's cut of the one global draw. Their init (std 0.01)
+    leaves the gate products near 0, where each sigmoid sees its bias
+    alone, so a gate fault would move nothing."""
+    from repro_torch.parallel import sharding
+    from repro_torch.serve.engine import serve_param_pspecs
+    specs = eng.model.specs()
+    ps = None if ctx is None else serve_param_pspecs(eng.cfg, ctx, specs)
+    g = torch.Generator().manual_seed(17)
+    for path, t in sorted(flat_leaves(eng.params).items()):
+        if path[-1] != "conv_w" or not path[-2].startswith("r"):
+            continue
+        full = 0.5 * torch.randn(sharding.at_path(specs, path).shape,
+                                 generator=g)
+        if ps is not None:
+            full = sharding.cut_leaf(full, sharding.at_path(ps, path),
+                                     ctx.mesh)
+        t.copy_(full.to(t.dtype))
+
+
+def family_serve(torch, eng, prompts, extras):
+    """Submit the prompts (each with its extras) and tick until done, the
+    counters zeroed just before. Returns the requests and, per tick, (s,
+    prefills, steps, s in staged collectives, collective bytes by kind,
+    launches by op)."""
+    import numpy as np
+    from repro_torch.kernels import registry
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.serve.engine import Request
+    reqs = [Request(i, np.asarray(p, np.int32), max_new=FAMILY_NEW)
+            for i, p in enumerate(prompts)]
+    for r, e in zip(reqs, extras):
+        eng.submit(r, e)
+    registry.reset_launch_counts()
+    coll.reset_counters()
+    ticks = []
+    while eng.has_work():
+        before = (eng.stats["prefills"], eng.stats["steps"],
+                  sum(coll.SECONDS.values()), dict(coll.BYTES),
+                  registry.launch_counts())
+        t1 = time.perf_counter()
+        eng.step()
+        after = registry.launch_counts()
+        ticks.append((time.perf_counter() - t1,
+                      eng.stats["prefills"] - before[0],
+                      eng.stats["steps"] - before[1],
+                      sum(coll.SECONDS.values()) - before[2],
+                      {k: v - before[3].get(k, 0)
+                       for k, v in coll.BYTES.items()},
+                      {k: after[k] - before[4][k] for k in after}))
+        if len(ticks) > 200:
+            raise AssertionError("the family's run did not finish in 200 "
+                                 "ticks")
+    return reqs, ticks
+
+
+def family_logits(torch, eng, prompts, extras, firsts, pctx=None,
+                  prefill=True):
+    """(l)'s readings on ``eng``: with ``prefill``, each prompt's bucketed
+    prefill logits ``(n, V)``; one decode step over the prompts admitted
+    to slots, fed each one's ``firsts`` token at its prompt length, ``(n,
+    V)`` (the same inputs on the mesh and the witness), and on a dense
+    engine with recurrent state, that state after the step
+    (:func:`recurrent_rows`). The engine is left empty."""
+    import numpy as np
+    from repro_torch.serve.engine import Request, bucket_length
+    model, params = eng.model, eng.params
+    pre = []
+    for p, e in zip(prompts if prefill else (), extras):
+        toks = np.zeros((1, bucket_length(len(p), eng.max_len)), np.int32)
+        toks[0, :len(p)] = p
+        logits, _ = model.prefill(params, dict(
+            e or {}, tokens=torch.as_tensor(toks)), lengths=[len(p)],
+            pctx=pctx)
+        pre.append(logits[0, -1].float().cpu().numpy())
+    reqs = [Request(100 + i, np.asarray(p, np.int32), max_new=2)
+            for i, p in enumerate(prompts)]
+    for r, e in zip(reqs, extras):
+        eng.add_request(r, e)
+    slots = [eng.active.index(r) for r in reqs]
+    toks = np.zeros((eng.slots, 1), np.int32)
+    pos = np.zeros((eng.slots, 1), np.int32)
+    for s, f, p in zip(slots, firsts, prompts):
+        toks[s, 0], pos[s, 0] = f, len(p)
+    step, _ = model.decode_step(
+        params, eng.cache, torch.as_tensor(toks, device=eng.device),
+        torch.as_tensor(pos, device=eng.device), pctx=pctx)
+    step = step[slots, 0].float().cpu().numpy()
+    out = {"step_logits": step}
+    if not eng.paged:
+        state = recurrent_rows(eng, slots)
+        if state is not None:
+            out["state"] = state
+    for r in reqs:
+        eng.cancel(r.rid)
+    if prefill:
+        out["prefill_logits"] = np.stack(pre)
+    return out
+
+
+def recurrent_rows(eng, slots):
+    """The recurrent states (SSD ``state``, RG-LRU ``h``, fp32) of
+    ``slots`` made whole over the model group (``whole_payload``), one row
+    a slot: ``(len(slots), n)``; None on a family without them."""
+    import numpy as np
+    tree = {}
+    for path, t in flat_leaves(eng.cache).items():
+        if path[-1] in ("state", "h"):
+            node = tree
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = t
+    if not tree:
+        return None
+    whole = flat_leaves(eng.whole_payload(tree))
+    return np.stack([np.concatenate([
+        whole[p][:, s].float().cpu().numpy().reshape(-1)
+        for p in sorted(whole)]) for s in slots])
+
+
+def family_prefill(torch, eng, prompt, extras, pctx=None):
+    """One bucketed prefill of ``prompt``: the launches it made, by op
+    (those it made only), and its ms."""
+    import numpy as np
+    from repro_torch.kernels import registry
+    from repro_torch.serve.engine import bucket_length
+    toks = np.zeros((1, bucket_length(len(prompt), eng.max_len)), np.int32)
+    toks[0, :len(prompt)] = prompt
+    card = eng.device.type == "cuda"
+    registry.reset_launch_counts()
+    if card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.model.prefill(eng.params, dict(extras or {},
+                                       tokens=torch.as_tensor(toks)),
+                      lengths=[len(prompt)], pctx=pctx)
+    if card:
+        torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    return {k: c for k, c in registry.launch_counts().items() if c}, ms
+
+
+def family_run(torch, name, device, ctx=None, faults=(), firsts=None):
+    """One family served on ``ctx``'s mesh (or one device): its engine,
+    the served run, (l)'s readings and, under each of ``faults`` planted,
+    the decode step's. The readings' decode step feeds ``firsts`` (the
+    witness's served first tokens: the same inputs on both sides, whatever
+    token a near tie gives each prefill), or this run's own. Returns (run
+    summary, readings by label)."""
+    import zlib
+    import numpy as np
+    cfg = family_config(name)
+    card = device == "cuda"
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = family_engine(torch, cfg, name, device, ctx)
+    build_s = time.perf_counter() - t0
+    prompts, extras = family_inputs(torch, cfg, name, device)
+    t0 = time.perf_counter()
+    reqs, ticks = family_serve(torch, eng, prompts, extras)
+    wall = time.perf_counter() - t0
+    outs = [list(map(int, r.out)) for r in reqs]
+    prefill_counts, prefill_ms = family_prefill(torch, eng, prompts[-1],
+                                                extras[-1], ctx)
+    if firsts is None:
+        firsts = [o[0] for o in outs]
+    readings = {"sound": family_logits(torch, eng, prompts, extras, firsts,
+                                       ctx)}
+    for fault in faults:
+        with plant_fault(torch, fault, eng, ctx):
+            readings[fault] = family_logits(
+                torch, eng, prompts, extras, firsts, ctx, prefill=False)
+    decode = [t for t in ticks if t[1] == 0 and t[2] > 0]
+    steps = max(1, len(decode) * eng.chunk)
+    kinds = sorted({k for t in decode for k in t[4]})
+    run = dict(
+        outs=outs, done=all(r.done for r in reqs),
+        leaked=eng.pool_pages - eng.free_pages() if eng.paged else 0,
+        trace_counts=dict(eng.trace_counts), build_s=build_s, wall_s=wall,
+        ticks=len(ticks),
+        step_counts=[{k: t[5][k] / eng.chunk for k in FAMILY_RUNS[name][
+            "step"]} for t in decode],
+        prefill_counts=prefill_counts, prefill_ms=prefill_ms,
+        prefill_len=len(prompts[-1]), run_counts={k: sum(t[5][k] for t in ticks) for k in KERNEL_OPS},
+        decode_ms_step=1e3 * sum(t[0] for t in decode) / steps,
+        coll_ms_step=1e3 * sum(t[3] for t in decode) / steps,
+        bytes_step={k: sum(t[4].get(k, 0) for t in decode) / steps
+                    for k in kinds},
+        mirrors=zlib.crc32(np.concatenate([
+            eng.positions, eng._tokens, eng._left, eng._tix,
+            np.asarray([t for o in outs for t in o], np.int32)]).tobytes()),
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9 if card else 0.0)
+    del eng
+    return run, readings
+
+
+def family_rank(rank, store_path, out_path):
+    """One rank of phase (l), in a spawned process: each family of
+    ``FAMILY_RUNS`` on the (1, 4) mesh in turn (``family_run``, with its
+    planted faults, fed the witnesses' first tokens from
+    ``family_in.json``); writes its summaries as JSON to ``out_path`` and
+    rank 0's readings beside it. Raises (exit code 1) on any fault."""
+    t_start = time.time()
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.parallel.context import Mesh, ParallelCtx
+    dev = _fdev()
+    torch.set_num_threads(2)
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", rank=rank, world_size=FAMILY_WORLD,
+                            store=dist.FileStore(store_path, FAMILY_WORLD))
+    mesh = Mesh.create(FAMILY_MESH)
+    firsts = json.loads((pathlib.Path(store_path).parent
+                         / "family_in.json").read_text())
+    res = {"rank": rank, "t_start": t_start, "t_ready": time.time(),
+           "runs": {}}
+    for name, spec in FAMILY_RUNS.items():
+        dist.barrier()
+        run, readings = family_run(
+            torch, name, dev, ParallelCtx(mesh=mesh, **spec["ctx"]),
+            faults=FAMILY_FAULTS[name], firsts=firsts[name])
+        res["runs"][name] = run
+        if rank == 0:
+            np.savez(f"{out_path}.{name}.npz", **{
+                f"{label}:{k}": v for label, r in readings.items()
+                for k, v in r.items()})
+        if dev == "cuda":
+            gc_cuda(torch)
+    pathlib.Path(out_path).write_text(json.dumps(res))
+    dist.destroy_process_group()
+
+
+def family_readings(path):
+    """Rank 0's readings of one family, ``{label: {part: array}}``."""
+    import numpy as np
+    out = {}
+    for k, v in np.load(path).items():
+        label, part = k.split(":")
+        out.setdefault(label, {})[part] = v
+    return out
+
+
+def family_gate(name, witness, readings):
+    """(l)'s gate on one family: the mesh's sound readings within
+    ``FAMILY_LIMITS`` of the witness's, and every planted fault outside
+    them on at least one reading. Prints every reading; returns the
+    failures."""
+    bad = []
+
+    def reading(label, part, ours, ref):
+        err, cos = FAMILY_LIMITS["state" if part == "state" else name]
+        a = logit_agreement(ours, ref)
+        ok = a["err"] <= err and a["cos"] >= cos
+        log(f"[l] {name}: {label}{part} vs witness: max err {a['err']:.5f} "
+            f"of max|ref| (rows {a['rows_err']}), least cosine "
+            f"{a['cos']:.6f}" + ("" if part == "state" else
+                                 f", greedy tokens equal {a['argmax']}/"
+                                 f"{a['rows']}")
+            + f"; within the gate (err <= {err}, cos >= {cos}): {ok}")
+        return ok
+
+    for part, ours in readings["sound"].items():
+        if not reading("", part, ours, witness[part]):
+            bad.append(f"{name}: {part} off the witness's")
+    for fault, r in readings.items():
+        if fault == "sound":
+            continue
+        if all([reading(f"planted fault {fault}, ", part, ours, witness[part])
+                for part, ours in r.items()]):
+            bad.append(f"{name}: the gate passes planted fault {fault}")
+    return bad
+
+
+def phase_family_mesh(torch, card):
+    """Phase (l): every family under a mesh. The witnesses first, one
+    family at a time on one device in this process; then one spawn of
+    ``FAMILY_WORLD`` gloo ranks sharing the card at ``FAMILY_MESH``
+    (``family_rank``). Gates per family: every request done and no page
+    leaked on any rank; the decode chunk eager; every rank's mirrors and
+    streams one CRC; the launches of every decode tick a step and of every
+    prefill tick a prefill (``FAMILY_RUNS``' ``step``/``prefill``), no
+    other op of the port (none at all on the recurrent families); the
+    logit gate (``family_gate``). Printed: the streams' agreement with the
+    witness (not gated: bf16 reorders sums), eager ms a decode step a rank
+    and its share in staged collectives, peak memory a rank, collective
+    bytes a decode step by kind."""
+    import tempfile
+    t0 = time.time()
+    witness = {}
+    for name in FAMILY_RUNS:
+        cfg = family_config(name)
+        run, readings = family_run(torch, name, _fdev())
+        witness[name] = dict(readings["sound"], outs=run["outs"])
+        log(f"[l] witness {name} ({cfg.num_layers} layers, one device): "
+            f"built in {run['build_s']:.1f} s, served in "
+            f"{run['wall_s']:.2f} s, peak {run['peak_gb']:.2f} GB")
+        if _fdev() == "cuda":
+            gc_cuda(torch)
+    log(f"[l] witnesses: {time.time() - t0:.1f} s")
+    log(f"[l] every family under a mesh: {FAMILY_WORLD} gloo ranks sharing "
+        f"the card ({card}), mesh {FAMILY_MESH}, {FAMILY_PROMPTS} prompts x "
+        f"{FAMILY_NEW} new tokens a family")
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        (pathlib.Path(tmp) / "family_in.json").write_text(json.dumps(
+            {name: [o[0] for o in w["outs"]] for name, w in
+             witness.items()}))
+        codes, outs = run_ranks(family_rank, FAMILY_WORLD, tmp, 900)
+        if codes != [0] * FAMILY_WORLD:
+            raise AssertionError(f"[l] ranks exited with {codes}")
+        res = [json.loads(pathlib.Path(o).read_text()) for o in outs]
+        readings = {name: family_readings(f"{outs[0]}.{name}.npz")
+                    for name in FAMILY_RUNS}
+    log(f"[l] {FAMILY_WORLD} ranks done in {time.time() - t0:.1f} s; spawn "
+        f"to process group, s per rank: "
+        f"{[round(r['t_ready'] - t0, 2) for r in res]}")
+    bad = []
+    for name, spec in FAMILY_RUNS.items():
+        runs = [r["runs"][name] for r in res]
+        for r, run in enumerate(runs):
+            if not run["done"] or run["leaked"]:
+                bad.append(f"{name} rank {r}: done {run['done']}, "
+                           f"{run['leaked']} pages leaked")
+            if run["trace_counts"]["decode"] != 0:
+                bad.append(f"{name}: a gloo mesh captured its decode chunk")
+            if _fdev() == "cuda":
+                got = run["step_counts"]
+                if not got or any(c != spec["step"] for c in got):
+                    bad.append(f"{name} rank {r}: launches a decode step, "
+                               f"tick by tick, {got}; want {spec['step']}")
+                if run["prefill_counts"] != spec["prefill"]:
+                    bad.append(f"{name} rank {r}: launches of a prefill "
+                               f"{run['prefill_counts']}; want "
+                               f"{spec['prefill']}")
+                off = {k: c for k, c in run["run_counts"].items()
+                       if c and k not in spec["step"]
+                       and k not in spec["prefill"]}
+                never = [k for k in {**spec["step"], **spec["prefill"]}
+                         if not run["run_counts"][k]]
+                if off or never:
+                    bad.append(f"{name} rank {r}: launched {off} off its "
+                               f"path; never launched {never}")
+            for o in run["outs"]:
+                if len(o) != FAMILY_NEW or min(o) < 0 or \
+                        max(o) >= family_config(name).vocab_size:
+                    bad.append(f"{name}: bad stream {o[:8]}")
+        if len({run["mirrors"] for run in runs}) != 1:
+            bad.append(f"{name}: ranks' mirrors differ: "
+                       f"{[run['mirrors'] for run in runs]}")
+        bad += family_gate(name, witness[name], readings[name])
+        one = witness[name]["outs"]
+        log(f"[l] {name}: every request done, no page leaked, mirrors one "
+            f"CRC, decode chunk eager; launches on rank 0, the run "
+            f"{ {k: c for k, c in runs[0]['run_counts'].items() if c} }, a "
+            f"decode step {sorted({json.dumps(c) for c in runs[0]['step_counts']})}"
+            f", a prefill {runs[0]['prefill_counts']}; "
+            f"greedy tokens equal to the witness's "
+            f"{match_frac(one, runs[0]['outs']):.4f}, first differing token "
+            f"per request {[first_diff(a, b) for a, b in zip(one, runs[0]['outs'])]}"
+            " (printed, not gated)")
+        log(f"[l] {name}: engine build s per rank "
+            f"{[round(run['build_s'], 2) for run in runs]}; peak GB per rank "
+            f"{[round(run['peak_gb'], 2) for run in runs]}; served in "
+            f"{runs[0]['wall_s']:.2f} s over {runs[0]['ticks']} ticks; "
+            f"eager decode ms a step per rank "
+            f"{[round(run['decode_ms_step'], 2) for run in runs]}, of which "
+            f"in staged collectives "
+            f"{[round(run['coll_ms_step'], 2) for run in runs]}; collective "
+            f"bytes a decode step, rank 0: "
+            f"{ {k: round(v) for k, v in runs[0]['bytes_step'].items()} }; "
+            f"prefill of the {runs[0]['prefill_len']}-token prompt ms per "
+            f"rank {[round(run['prefill_ms'], 2) for run in runs]}")
+    if bad:
+        raise AssertionError("[l] " + "; ".join(bad))
+    return res
+
+
 def get_vocab(model):
     from repro_torch.configs.base import get_config
     return get_config(model).vocab_size
@@ -6169,7 +6744,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    from repro_torch.kernels import build, registry
+    from repro_torch.kernels import build
     torch.backends.cuda.matmul.allow_tf32 = False    # plain versions: fp32
     torch.backends.cudnn.allow_tf32 = False
 
@@ -6183,6 +6758,19 @@ def main():
 
     card = phase_env(torch, build)
     lap("(a) environment and build")
+    # (k.1)'s dry-run cells trace on the CPU, niced, while (b)-(j) run
+    cells = DryrunCells()
+    log(f"[k.1] {len(cells.cells)} dry-run cells started at nice 19")
+    try:
+        return run_phases(torch, card, cells, lap, t_start)
+    finally:
+        cells.close()
+
+
+def run_phases(torch, card, cells, lap, t_start):
+    """Phases (b) to (l) after ``main``'s (a); prints the kernels' JSON
+    line, the card's line and the last line."""
+    from repro_torch.kernels import registry
     kernels = phase_kernels(torch)
     lap("(b) kernels")
     launches = {}
@@ -6217,8 +6805,11 @@ def main():
     gc_cuda(torch)
     phase_launchers(torch)
     lap("(j) launchers")
-    phase_dryrun(torch)
+    phase_dryrun(torch, cells)
     lap("(k) dry run")
+    gc_cuda(torch)
+    phase_family_mesh(torch, card)
+    lap("(l) every family under a mesh")
 
     # one entry per kernel: the main path's shape (decode-time where the
     # kernel runs at decode; E4M3 codes and w1/w3 for moe_gemm, the fp8

@@ -27,10 +27,10 @@ Phase -> step fn:
 
 The step runs the plain route: the reference's dry run lowers with an
 empty ``impl_ctx``, so the hand-written kernels are not on this path and
-the FLOPs counted are the plain versions' arithmetic. A cell whose meshed
-layout the port has not ported records the error under its ROADMAP.md
-label (``parallel/context.check_meshed``), as the reference records a
-failed cell.
+the FLOPs counted are the plain versions' arithmetic. Every family
+traces under the mesh; a cell that fails (an ``--expert-dtype`` cell:
+ROADMAP.md A.3) records its error, as the reference records a failed
+cell.
 """
 from __future__ import annotations
 
@@ -312,7 +312,6 @@ def build_step(cfg, shape, mesh, *, moe_impl: str = "ep_dedup",
         seq_axis=("model" if phase == "train" else None),
         # the reference's train step is ``Model.loss`` on the whole batch
         microbatches=1)
-    pctx_mod.check_meshed(cfg, ctx, "dryrun")
     specs = model.specs()
     if phase == "decode":
         # the meshed engine's placement: the reference's decode rules with

@@ -371,9 +371,7 @@ def _under_pctx(fn):
     (none given: the current one)."""
     @functools.wraps(fn)
     def run(self, *args, pctx=None, **kwargs):
-        with pctx_mod.use(pctx) as c:
-            # a meshed call takes the engine's and the trainer's gate
-            pctx_mod.check_meshed(self.cfg, c, f"Model.{fn.__name__}")
+        with pctx_mod.use(pctx):
             return fn(self, *args, **kwargs)
     return run
 

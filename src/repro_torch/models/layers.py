@@ -313,18 +313,25 @@ def gqa_attention(p: dict, x: torch.Tensor, *, cfg: ModelConfig,
                                      kv_x, kv_positions, page_table, impl,
                                      return_cache_entries, dp_write, window)
     kv_cut = nkv < cfg.num_kv_heads
-    # under a sequence cut x is this rank's chunk: K/V come from the
-    # gathered sequence, whose backward sums the partial gradients, so
-    # their path is the cut one's
-    summed = kv_cut or pctx.seq_group() is not None
+    # under a sequence cut x is this rank's chunk: self-attention's K/V
+    # come from the gathered sequence, whose backward sums the partial
+    # gradients, so their path is the cut one's; where the KV heads stay
+    # whole, each rank reads only its query heads' of them, so their
+    # weights' gradients are summed over the group
+    seq_kv = kv_x is None and pctx.seq_group() is not None
+    summed = kv_cut or seq_kv
     xf = to_columns(x)
     q = _split_heads(linear(xf, p["wq"], cfg, p.get("bq")), nh)
     if kv_x is None:
         xk = xf if summed else x
     else:
         xk = coll.copy_to_group(kv_x, group) if kv_cut else kv_x
-    k = _split_heads(linear(xk, p["wk"], cfg, p.get("bk")), nkv)
-    v = _split_heads(linear(xk, p["wv"], cfg, p.get("bv")), nkv)
+    kv_w = {n: p.get(n) for n in ("wk", "bk", "wv", "bv")}
+    if seq_kv and not kv_cut:
+        kv_w = {n: None if t is None else coll.copy_to_group(t, group)
+                for n, t in kv_w.items()}
+    k = _split_heads(linear(xk, kv_w["wk"], cfg, kv_w["bk"]), nkv)
+    v = _split_heads(linear(xk, kv_w["wv"], cfg, kv_w["bv"]), nkv)
     if cfg.qk_norm:
         q = rmsnorm(q, coll.copy_to_group(p["q_norm"], group), cfg.rms_eps)
         k = rmsnorm(k, coll.copy_to_group(p["k_norm"], group)

@@ -14,6 +14,18 @@ the reference's ``jax.lax.associative_scan`` recursion, so the products
 happen in its order) or a single-step update (decode). Decode state =
 (conv tail, h), O(1) in sequence length; a decode step writes both in
 place.
+
+Under a mesh ctx (``parallel/context``) the block is tensor-parallel over
+the model group by channels, on the reference's placements: ``w_x`` and
+``w_y`` are column-parallel (one ``layers.to_columns`` input for both),
+the conv holds the rank's channels, and so do the cached conv tail and
+``h``. ``wa`` and ``wi`` hold the rows of the rank's channels, so a
+rank's gate product is a partial over the whole width: it is
+reduce-scattered along the width (``collectives.scatter_sum``), which
+leaves each rank the sum for its own channels. ``ba``, ``bi`` and ``lam``
+are replicated and each rank takes its channels of them (their gradients
+summed over the group). The scan is per channel and stays local;
+``w_out`` is row-parallel.
 """
 from __future__ import annotations
 
@@ -26,6 +38,8 @@ from repro_torch.device import torch_dtype
 from repro_torch.models import layers as Lyr
 from repro_torch.models.param import ParamSpec
 from repro_torch.models.ssm import _causal_conv, softplus
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel import context as pctx
 
 C_EXP = 8.0
 
@@ -96,10 +110,27 @@ def _assoc_scan(a: torch.Tensor, b: torch.Tensor):
 
 
 def _gates(x: torch.Tensor, p: dict):
-    """(a, the gated input) of the recurrence from x (B,S,w) fp32."""
-    r = torch.sigmoid(torch.matmul(x, p["wa"]) + p["ba"])
-    i = torch.sigmoid(torch.matmul(x, p["wi"]) + p["bi"])
-    a = torch.exp(-C_EXP * softplus(p["lam"]) * r)    # a^(c r), a=sig(lam)
+    """(a, the gated input) of the recurrence from x (B,S,w) fp32: this
+    rank's channels of it under a model group (module docstring)."""
+    c = pctx.get()
+    group = c.tp_group
+    ba, bi, lam = p["ba"], p["bi"], p["lam"]
+    if group is None:
+        ra, ia = torch.matmul(x, p["wa"]), torch.matmul(x, p["wi"])
+    else:
+        w = x.shape[-1]
+        if w == p["wa"].shape[-1]:
+            raise ValueError(f"the RG-LRU width {w} does not split over "
+                             f"{c.model_size} model columns")
+        w0 = c.index(c.tp_axis) * w
+        own = slice(w0, w0 + w)
+        ra = coll.scatter_sum(torch.matmul(x, p["wa"]), group, x.dim() - 1)
+        ia = coll.scatter_sum(torch.matmul(x, p["wi"]), group, x.dim() - 1)
+        ba, bi, lam = (coll.copy_to_group(t, group)[..., own]
+                       for t in (ba, bi, lam))
+    r = torch.sigmoid(ra + ba)
+    i = torch.sigmoid(ia + bi)
+    a = torch.exp(-C_EXP * softplus(lam) * r)         # a^(c r), a=sig(lam)
     gated = _sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (i * x)
     return a, gated
 
@@ -124,7 +155,12 @@ def recurrent_block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
     Prefill returns ``(conv tail, h_last)`` as its cache entries when
     ``ctx["collect_cache"]``. Returns (x, cache_out, stats)."""
     res = x
-    h = Lyr.rmsnorm(x, p["ln1"], cfg.rms_eps)
+    # under a sequence cut x is this rank's chunk of tokens: the norms'
+    # gradients are summed over the group, and the column-parallel input
+    # gathers the sequence, which the scan runs whole
+    sp = pctx.seq_group()
+    h = Lyr.to_columns(Lyr.rmsnorm(x, coll.copy_to_group(p["ln1"], sp),
+                                   cfg.rms_eps))
     branch_y = Lyr.act_fn("gelu")(Lyr.linear(h, p["w_y"], cfg))
     bx = Lyr.linear(h, p["w_x"], cfg)
     conv_state = cache["conv"] if cache is not None else None
@@ -147,8 +183,9 @@ def recurrent_block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
         cache_out = (new_conv, h_last) if collect else None
 
     y = y.to(x.dtype) * branch_y
-    x = res + Lyr.linear(y, p["w_out"], cfg)
-    f = Lyr.mlp(p["mlp"], Lyr.rmsnorm(x, p["ln2"], cfg.rms_eps), cfg)
+    x = res + Lyr.linear(y, p["w_out"], cfg, tp="row")
+    f = Lyr.mlp(p["mlp"], Lyr.rmsnorm(x, coll.copy_to_group(p["ln2"], sp),
+                                      cfg.rms_eps), cfg)
     return x + f, cache_out, {}
 
 

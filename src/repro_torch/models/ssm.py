@@ -16,6 +16,22 @@ depthwise conv on (x,B,C), SSD, gated RMSNorm, out_proj. n_groups = 1.
 A decode step writes the cache slice it is given in place (``conv`` and
 ``state`` are ``copy_``'d, never rebound), so a captured decode chunk
 reads and writes the same buffers at every replay.
+
+Under a mesh ctx (``parallel/context``) the block is tensor-parallel by
+heads over the model group: each rank runs the conv, the SSD scan and the
+decode update over its H/m heads (their z, x and dt, with B and C whole,
+one group). The weights keep the reference's placements: ``a_log``,
+``dt_bias``, ``D``, ``norm`` and ``w_out``'s rows fall on whole heads
+(``d_in`` is head-major), but a contiguous cut of ``w_in``'s columns (z |
+x | B | C | dt) or of the conv's channels (x | B | C) is not a cut by
+heads. So the column-parallel product's output is gathered over the
+group and each rank takes its heads' columns from it (the gather's
+backward reduce-scatters, which sums B's and C's gradients); the conv's
+weights and bias, a few rows, are gathered the same way, in one
+collective. The gated RMSNorm sums each token's squares over the group
+(one fp32 value a token) and ``w_out`` is row-parallel. A rank's cache
+holds its heads' ``state`` and a ``conv`` tail of its heads' x channels,
+then B and C (``sharding.Tail``).
 """
 from __future__ import annotations
 
@@ -26,8 +42,10 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import torch_dtype
-from repro_torch.models.layers import linear, rmsnorm
+from repro_torch.models.layers import linear, rmsnorm, to_columns
 from repro_torch.models.param import ParamSpec
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel import context as pctx
 
 
 def _dims(cfg: ModelConfig):
@@ -61,6 +79,75 @@ def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
     s, d_in, H = _dims(cfg)
     N = s.d_state
     return torch.split(zxbcdt, [d_in, d_in + 2 * N, H], dim=-1)
+
+
+def _whole(t: torch.Tensor, group, size: int) -> torch.Tensor:
+    """``t`` whole along its last axis (``size``) on every member of
+    ``group``, each member using its own part of it: a member's cut is
+    gathered (``collectives.gather``), a replicated ``t`` enters through
+    ``copy_to_group``; either backward sums the members' gradients."""
+    if t.shape[-1] == size:
+        return coll.copy_to_group(t, group)
+    return coll.gather(t, group, t.dim() - 1, backward="reduce_scatter")
+
+
+def _heads_of(cfg: ModelConfig, group_size: int, index: int):
+    """``(channels, heads)``: the slices of ``d_in`` and of the heads that
+    model rank ``index`` of ``group_size`` runs (all of them unmeshed).
+    Raises where the heads do not split over the group."""
+    s, d_in, H = _dims(cfg)
+    if H % group_size:
+        raise ValueError(f"Mamba-2's {H} heads do not split over "
+                         f"{group_size} model columns")
+    hl = H // group_size
+    return (slice(index * hl * s.head_dim, (index + 1) * hl * s.head_dim),
+            slice(index * hl, (index + 1) * hl))
+
+
+def _own_heads(cfg: ModelConfig, zxbcdt: torch.Tensor, p: dict):
+    """``(z, xbc, dt, conv_w, conv_b)`` of this rank's heads from its
+    column-parallel ``zxbcdt`` and conv weights (module docstring): z, x
+    and dt of its heads, B and C whole; unmeshed, the split of the whole
+    projection."""
+    s, d_in, H = _dims(cfg)
+    N = s.d_state
+    c = pctx.get()
+    group = c.tp_group
+    if group is None:
+        z, xbc, dt = _split_proj(cfg, zxbcdt)
+        return z, xbc, dt, p["conv_w"], p["conv_b"]
+    ch, hd = _heads_of(cfg, c.model_size, c.index(c.tp_axis))
+    zx = _whole(zxbcdt, group, 2 * d_in + 2 * N + H)
+    # the conv's weights and bias, one gather
+    cwb = _whole(torch.cat([p["conv_w"], p["conv_b"][None]]), group,
+                d_in + 2 * N)
+    cw, cb = cwb[:-1], cwb[-1]
+
+    def xbc_of(t, x0):                   # this rank's x channels, B, C
+        return torch.cat([t[..., x0 + ch.start:x0 + ch.stop],
+                          t[..., x0 + d_in:x0 + d_in + 2 * N]], dim=-1)
+
+    dt0 = 2 * d_in + 2 * N
+    return (zx[..., ch], xbc_of(zx, d_in),
+            zx[..., dt0 + hd.start:dt0 + hd.stop], xbc_of(cw, 0),
+            xbc_of(cb, 0))
+
+
+def _gated_norm(y: torch.Tensor, z: torch.Tensor, gamma: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    """``rmsnorm(y * silu(z), gamma)`` over the whole ``d_in``: under a
+    model group each token's squares are summed over it (one fp32 value a
+    token; the backward sums each member's gradient of the sum)."""
+    group = pctx.get().tp_group
+    g = y * F.silu(z)
+    if group is None:
+        return rmsnorm(g, gamma, cfg.rms_eps)
+    gf = g.float()
+    ss = coll.copy_to_group(coll.reduce_sum(
+        (gf * gf).sum(dim=-1, keepdim=True), group), group)
+    d_in = _dims(cfg)[1]
+    return (gf * torch.rsqrt(ss / d_in + cfg.rms_eps)
+            * gamma.float()).to(g.dtype)
 
 
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -151,18 +238,25 @@ def ssd_block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: dict,
     (B,H,P,N)), written in place. Prefill returns ``(conv tail, final
     state)`` as its cache entries when ``ctx["collect_cache"]``. Returns
     (x, cache_out, stats)."""
-    s, d_in, H = _dims(cfg)
+    s = cfg.ssm
     N, P = s.d_state, s.head_dim
+    H = p["a_log"].shape[-1]                     # this rank's heads
+    d_in = H * P
     res = x
-    h = rmsnorm(x, p["ln"], cfg.rms_eps)
-    z, xbc, dt = _split_proj(cfg, linear(h, p["w_in"], cfg))
+    # under a sequence cut x is this rank's chunk of tokens: the norm's
+    # gradient is summed over the group, and the column-parallel input
+    # gathers the sequence, which the scan runs whole
+    h = rmsnorm(x, coll.copy_to_group(p["ln"], pctx.seq_group()),
+                cfg.rms_eps)
+    z, xbc, dt, conv_w, conv_b = _own_heads(
+        cfg, linear(to_columns(h), p["w_in"], cfg), p)
     conv_state = cache["conv"] if cache is not None else None
     prompt_lengths = (ctx.get("prompt_lengths")
                       if cache is None and ctx.get("collect_cache") else None)
-    xbc, new_conv = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_state,
+    xbc, new_conv = _causal_conv(xbc, conv_w, conv_b, conv_state,
                                  lengths=prompt_lengths)
     xs, Bm, Cm = torch.split(xbc, [d_in, N, N], dim=-1)
-    B_, S_ = x.shape[0], x.shape[1]
+    B_, S_ = xs.shape[0], xs.shape[1]
     xh = xs.reshape(B_, S_, H, P)
     dt = softplus(dt.float() + p["dt_bias"])
     valid = ctx.get("valid")
@@ -192,8 +286,8 @@ def ssd_block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: dict,
 
     y = y + p["D"].float()[:, None] * xh.float()
     y = y.reshape(B_, S_, d_in).to(x.dtype)
-    y = rmsnorm(y * F.silu(z), p["norm"], cfg.rms_eps)
-    return res + linear(y, p["w_out"], cfg), cache_out, {}
+    y = _gated_norm(y, z, p["norm"], cfg)
+    return res + linear(y, p["w_out"], cfg, tp="row"), cache_out, {}
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:

@@ -214,11 +214,16 @@ def cross_block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
     """The gated cross-attention block (vision): ``tanh(gate_attn)`` times
     the cross-attention, then ``tanh(gate_mlp)`` times the FFN. Returns
     (x, None, {})."""
-    out = _cross_attention(p["xattn"], Lyr.rmsnorm(x, p["ln1"], cfg.rms_eps),
+    # under a sequence cut x is this rank's chunk of tokens: the norms'
+    # and the gates' gradients are summed over the group
+    sp = pctx.seq_group()
+    ln1, ln2, ga, gm = (coll.copy_to_group(p[k], sp) for k in
+                        ("ln1", "ln2", "gate_attn", "gate_mlp"))
+    out = _cross_attention(p["xattn"], Lyr.rmsnorm(x, ln1, cfg.rms_eps),
                            cfg, ctx)
-    x = x + torch.tanh(p["gate_attn"]).to(x.dtype) * out
-    f = Lyr.mlp(p["mlp"], Lyr.rmsnorm(x, p["ln2"], cfg.rms_eps), cfg)
-    return x + torch.tanh(p["gate_mlp"]).to(x.dtype) * f, None, {}
+    x = x + torch.tanh(ga).to(x.dtype) * out
+    f = Lyr.mlp(p["mlp"], Lyr.rmsnorm(x, ln2, cfg.rms_eps), cfg)
+    return x + torch.tanh(gm).to(x.dtype) * f, None, {}
 
 
 def decoder_block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -226,12 +231,17 @@ def decoder_block_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
     """The enc-dec decoder block: self-attention (over ``cache`` in
     decode, returning its entries in prefill, as :func:`block_apply`),
     cross-attention over the memory, FFN. Returns (x, cache_out, {})."""
+    # under a sequence cut x is this rank's chunk of tokens: the norms'
+    # gradients are summed over the group
+    sp = pctx.seq_group()
+    ln1, lnx, ln2 = (coll.copy_to_group(p[k], sp) for k in
+                     ("ln1", "lnx", "ln2"))
     out, cache_out = _self_attention(
-        p["attn"], Lyr.rmsnorm(x, p["ln1"], cfg.rms_eps), cfg, ctx, cache)
+        p["attn"], Lyr.rmsnorm(x, ln1, cfg.rms_eps), cfg, ctx, cache)
     x = x + out
-    x = x + _cross_attention(p["xattn"],
-                             Lyr.rmsnorm(x, p["lnx"], cfg.rms_eps), cfg, ctx)
-    f = Lyr.mlp(p["mlp"], Lyr.rmsnorm(x, p["ln2"], cfg.rms_eps), cfg)
+    x = x + _cross_attention(p["xattn"], Lyr.rmsnorm(x, lnx, cfg.rms_eps),
+                             cfg, ctx)
+    f = Lyr.mlp(p["mlp"], Lyr.rmsnorm(x, ln2, cfg.rms_eps), cfg)
     return x + f, cache_out, {}
 
 

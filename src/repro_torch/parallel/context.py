@@ -363,26 +363,6 @@ def seq_divides(ctx: ParallelCtx, seq_len: int) -> bool:
     return n > 1 and seq_len > 1 and seq_len % n == 0
 
 
-def check_meshed(cfg, ctx: Optional[ParallelCtx], entry: str) -> None:
-    """Refuse a meshed run whose layout the port has not ported yet, with
-    its ROADMAP.md label: the dense/MoE pairs (A.11), the recurrent
-    families (A.12), the families with a memory (A.13). The serving
-    engine, the meshed train step and the dry run call it; ``entry`` names
-    the caller in the message. Unmeshed: no check."""
-    if ctx is None or ctx.mesh is None:
-        return
-    def waits(what, item):
-        return NotImplementedError(
-            f"{entry}({what}) under a mesh is not ported yet: see "
-            f"ROADMAP.md, {item}")
-    if cfg.moe and cfg.moe.layout.startswith("interleave:"):
-        raise waits(f"layout {cfg.moe.layout!r}", "A.11")
-    if cfg.sub_quadratic():                       # SSD, RG-LRU state
-        raise waits(f"family {cfg.family!r}", "A.12")
-    if cfg.family in ("encdec", "vlm"):           # a memory
-        raise waits(f"family {cfg.family!r}", "A.13")
-
-
 def shard_heads(x):
     """The identity, kept for API parity with the reference; nothing in
     the port calls it. The reference's GSPMD hint pins (B, S, H, hd)

@@ -17,7 +17,10 @@ block-scaled axis falls on a 128 boundary or inside one 128 block).
 reference's, but for the dense rings, whose length axis stays whole on
 each model column (GSPMD resolves a length-sharded softmax; explicit SPMD
 would need a cross-rank one): the MLA latent ring replicates over the
-model axis and the GQA ring shards its KV-head axis instead.
+model axis and the GQA ring shards its KV-head axis instead; and but for
+the recurrent conv tails, which the reference replicates over the model
+axis: a rank's tail holds its own channels (RG-LRU), or its heads' x
+channels and then B and C whole (Mamba-2: a :class:`Tail` entry).
 
 The train state (the explicit half of the reference's
 ``train_state_shardings``): :func:`train_pspecs` and :func:`shard_state`
@@ -54,6 +57,36 @@ class PartitionSpec(tuple):
 
 
 P = PartitionSpec
+
+
+class Tail(str):
+    """A PartitionSpec entry: the axis is cut over the mesh axis it names
+    (it compares equal to the name) but for its last ``whole`` entries,
+    which every rank holds after its part of the rest. Mamba-2's cached
+    conv tail (x | B | C channels): a rank holds its heads' x channels,
+    then B and C whole. A cut that is not a region of the global leaf
+    (:func:`region_of` refuses it)."""
+
+    def __new__(cls, axis: str, whole: int):
+        t = super().__new__(cls, axis)
+        t.whole = whole
+        return t
+
+    def __repr__(self) -> str:
+        return f"Tail({str.__repr__(self)}, whole={self.whole})"
+
+    def part(self, t, dim: int, n: int, idx: int):
+        """Part ``idx`` of ``n`` of ``t`` along ``dim``."""
+        cut = t.shape[dim] - self.whole
+        return torch.cat([t.narrow(dim, idx * cut // n, cut // n),
+                          t.narrow(dim, cut, self.whole)], dim=dim)
+
+    def joined(self, parts, dim: int):
+        """The global leaf from the ``n`` parts (in rank order) of
+        :meth:`part`."""
+        cut = parts[0].shape[dim] - self.whole
+        return torch.cat([q.narrow(dim, 0, cut) for q in parts]
+                         + [parts[0].narrow(dim, cut, self.whole)], dim=dim)
 
 
 def tp_rules(multi_pod: bool) -> Dict[str, Rule]:
@@ -313,7 +346,10 @@ def explicit_cache_pspecs(cache_structs, mesh: Mesh,
     """The port's cache placement (module docstring): the reference's
     (:func:`cache_pspecs` or :func:`paged_cache_pspecs`), with each dense
     ring's length axis whole — the model axis moves to a GQA ring's
-    KV-head axis where it divides, and off the MLA latent ring."""
+    KV-head axis where it divides, and off the MLA latent ring — and each
+    recurrent conv tail cut as its state is: an RG-LRU tail by channels
+    beside ``h``, a Mamba-2 tail by heads beside ``state`` (a :class:`Tail`
+    whose ``whole`` entries are B and C)."""
     ref = (paged_cache_pspecs if paged else cache_pspecs)(
         cache_structs, mesh, dp_axes, model_axis)
     msize = mesh.shape[model_axis]
@@ -321,6 +357,9 @@ def explicit_cache_pspecs(cache_structs, mesh: Mesh,
     def one(path, leaf):
         spec = list(at_path(ref, path))
         name = path[-1]
+        if name == "conv":
+            return P(*_conv_entries(spec, at_path(cache_structs, path[:-1]),
+                                    at_path(ref, path[:-1]), model_axis))
         ring = name in ("k", "v", "ckv", "kr", "pos") and (
             not paged or "mtp" in path)
         if not ring or model_axis not in spec:
@@ -331,6 +370,19 @@ def explicit_cache_pspecs(cache_structs, mesh: Mesh,
         return P(*spec)
 
     return map_with_path(one, cache_structs)
+
+
+def _conv_entries(spec, leaves, specs, model_axis):
+    """A conv tail's entries (``(..., B, K-1, C)``) from its sibling
+    state's cut: beside an RG-LRU ``h`` cut by width, the channels over
+    the model axis; beside a Mamba-2 ``state`` cut by heads, the x
+    channels of ``H * P`` by heads and the B and C channels whole."""
+    if "h" in specs and model_axis in specs["h"]:
+        spec[-1] = model_axis
+    elif "state" in specs and model_axis in specs["state"]:
+        H, Pd = leaves["state"].shape[-3:-1]
+        spec[-1] = Tail(model_axis, leaves["conv"].shape[-1] - H * Pd)
+    return spec
 
 
 def at_path(tree, path):
@@ -361,6 +413,9 @@ def _parts(mesh: Mesh, entry) -> Tuple[int, int]:
 def region_of(shape, pspec, mesh: Mesh) -> Tuple[Tuple[int, int], ...]:
     """This rank's ``(start, stop)`` along each axis of a global leaf."""
     out = []
+    if any(isinstance(e, Tail) for e in pspec):
+        raise ValueError(f"{pspec}: a Tail cut is not a region of the "
+                         "global leaf")
     for i, n_dim in enumerate(shape):
         n, idx = _parts(mesh, pspec[i] if i < len(pspec) else None)
         per = n_dim // n
@@ -372,7 +427,8 @@ def local_shape(shape, pspec, mesh: Mesh) -> Tuple[int, ...]:
     out = list(shape)
     for i, e in enumerate(pspec):
         n, _ = _parts(mesh, e)
-        out[i] //= n
+        w = e.whole if isinstance(e, Tail) else 0
+        out[i] = (out[i] - w) // n + w
     return tuple(out)
 
 
@@ -462,7 +518,8 @@ def cut_leaf(leaf, pspec, mesh: Mesh):
     for d, e in enumerate(pspec):
         n, idx = _parts(mesh, e)
         if n > 1:
-            out = _slice(out, d, n, idx)
+            out = (e.part(out, d, n, idx) if isinstance(e, Tail)
+                   else _slice(out, d, n, idx))
     return out.clone()
 
 

@@ -27,8 +27,9 @@ its own mesh's serving rules. Each handoff payload is made whole on the
 prefill mesh (``ServeEngine.whole_payload``: the model group's cuts
 gathered), crosses through host memory (``serve/tier.staged_get``, the
 crossing the KV tier audits too) and is cut for the decode mesh at
-admission (``ServeEngine.local_payload``); ``handoff_bytes`` is exactly
-what crosses. Every rank of the deployment runs the same calls in the
+admission (``ServeEngine.local_payload``): the GQA K/V heads, the
+recurrent states and conv tails alike, and a memory leaf as it is;
+``handoff_bytes`` is exactly what crosses. Every rank of the deployment runs the same calls in the
 same order (explicit SPMD), and every rank must be on the prefill mesh:
 prefill is replicated over its data rows and the whole payload is the
 same on every prefill rank, so each decode rank takes its own copy, and
@@ -48,7 +49,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.serve import tier as tier_mod
 from repro_torch.serve.engine import (AdmissionError, Request, ServeEngine,
-                                      _waits, validate_request)
+                                      validate_request)
 
 
 def cache_nbytes(cache) -> int:
@@ -92,12 +93,6 @@ class Disaggregator:
                  max_queue: Optional[int] = None,
                  ctx=None, prefill_ctx=None,
                  attn_impl: str = "", device=None):
-        if cfg.sub_quadratic():                     # SSD, RG-LRU state
-            raise _waits(f"family {cfg.family!r}", "A.12", "Disaggregator")
-        if cfg.family in ("encdec", "vlm") and not all(
-                c is None or c.mesh is None for c in (ctx, prefill_ctx)):
-            raise _waits(f"family {cfg.family!r} on a mesh", "A.13",
-                         "Disaggregator")
         self.prefill_ep = prefill_ep
         self.decode_ep = decode_ep
         common = dict(max_len=max_len, use_mtp=use_mtp, chunk=chunk,

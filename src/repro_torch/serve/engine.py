@@ -69,16 +69,20 @@ on the same requests. Params are this rank's slices per
 the model axis, experts expert-parallel on it, the rest replicated), the
 caches per ``sharding.explicit_cache_pspecs`` (slots over the data axes,
 the data line or the pair ``("pod", "data")`` of a multi-pod mesh; the
-page pool replicated over them, GQA K/V pools over the model axis), and
-a data row decodes only its own slots: after each decode chunk the
-sampled tokens, slot state and MTP counters are gathered over the data
-axes, so every rank's host mirrors are whole. Prefill of one prompt is
+page pool replicated over them, GQA K/V pools over the model axis, the
+recurrent states and conv tails by heads or channels), and a data row
+decodes only its own slots: after each decode chunk the sampled tokens,
+slot state and MTP counters are gathered over the data axes, so every
+rank's host mirrors are whole. Prefill of one prompt is
 replicated over the data rows, as the reference's. A meshed engine on a
 gloo group runs its decode chunk eagerly (a collective staged through
 host memory cannot be captured; ``trace_counts["decode"] == 0``); its
-kernels launch as on one device. Under a mesh, ``prefill_chunk`` and
-``host_tier_pages`` raise (ROADMAP.md, A.8), and so do the enc-dec and
-vision families (A.13).
+kernels launch as on one device. Every family serves under a mesh: the
+dense/MoE pairs, the recurrent families (dense cache: their blocks
+tensor-parallel by heads or channels, ``models/ssm.py``,
+``models/rglru.py``) and the families with a memory (the ``memory``
+leaf replicated over the model axis). Under a mesh, ``prefill_chunk``
+and ``host_tier_pages`` raise (ROADMAP.md, A.8).
 
 A request of the enc-dec or vision family carries ``extras``
 (``src_embeds`` frames, or a ready ``memory``; ``patch_embeds``): its
@@ -160,10 +164,9 @@ def bucket_length(length: int, max_len: int,
     return min(b, max_len)
 
 
-def _waits(what: str, item: str,
-           entry: str = "ServeEngine") -> NotImplementedError:
+def _waits(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{entry}({what}) is not ported yet: see ROADMAP.md, {item}")
+        f"ServeEngine({what}) is not ported yet: see ROADMAP.md, {item}")
 
 
 def _splice(big, small, slot: int, axes) -> None:
@@ -219,8 +222,10 @@ def serve_param_pspecs(cfg: ModelConfig, ctx, specs):
     (``sharding.whole_heads``: a GQA attention whose heads do not split
     over the model axis replicates, K/V projections replicate where the
     cut would split a KV head), routed experts replicate under
-    ``moe_impl="local"``; an FF or vocab axis the divisibility fallback
-    left whole raises (a row-parallel product needs its cut)."""
+    ``moe_impl="local"``; an FF axis the divisibility fallback left whole
+    raises (a row-parallel product needs its cut). A vocab axis it left
+    whole stays whole, as the reference's: the embedding and the logits
+    then run whole on every rank."""
     from repro_torch.parallel import sharding
     mesh = ctx.mesh
     rules = sharding.serve_rules("pod" in mesh.axis_names, ep_ftp=ctx.ep_ftp)
@@ -229,7 +234,7 @@ def serve_param_pspecs(cfg: ModelConfig, ctx, specs):
     def one(path, spec):
         ps = list(sharding.spec_to_pspec(spec, mesh, rules))
         for i, ax in enumerate(spec.axes):
-            if (ax in ("mlp", "vocab") and n > 1 and ps[i] is None):
+            if ax == "mlp" and n > 1 and ps[i] is None:
                 raise NotImplementedError(
                     f"{'/'.join(path)}: axis {ax!r} of {spec.shape} "
                     f"does not split over {n} model columns")
@@ -307,9 +312,6 @@ class ServeEngine:
             raise _waits("ctx= with prefill_chunk=", "A.8")
         if self.meshed and host_tier_pages is not None:
             raise _waits("ctx= with host_tier_pages=", "A.8")
-        # the meshed layouts not ported yet (A.11-A.13), the gate the
-        # trainer and the dry run share
-        pctx_mod.check_meshed(cfg, ctx, "ServeEngine")
         paged_mod.validate_storage(page_storage)
         self.cfg = cfg
         self.model = Model(cfg, device)
@@ -559,7 +561,11 @@ class ServeEngine:
 
         def gather(path, leaf):
             for d, e in enumerate(sharding.at_path(pspecs, path)):
-                if e is not None:
+                if isinstance(e, sharding.Tail):
+                    n = self.ctx.model_size
+                    leaf = e.joined(coll.all_gather(leaf, group, dim=d)
+                                    .chunk(n, dim=d), d)
+                elif e is not None:
                     leaf = coll.all_gather(leaf, group, dim=d)
             return leaf
 

@@ -101,10 +101,6 @@ def _check_ctx(ctx) -> pctx_mod.ParallelCtx:
 def _meshed_checks(model: Model, ctx: pctx_mod.ParallelCtx, pspecs) -> None:
     """The meshed step's conditions; each unmet one raises (no fallback)."""
     cfg = model.cfg
-    # the meshed layouts of the pairs (A.11), the recurrent families
-    # (A.12) and the families with a memory (A.13): the gate the engine
-    # and the dry run share
-    pctx_mod.check_meshed(cfg, ctx, "make_train_step")
     if ctx.ep_ftp:
         raise NotImplementedError(
             "ep_ftp in training: the expert-FF cut is the decode's, as in "

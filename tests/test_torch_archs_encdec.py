@@ -25,8 +25,8 @@ against the JAX package on the CPU, at smoke width in fp32 on
   disaggregator's handoff carries the memory.
 * ``Model.loss`` within 1e-5 and every gradient within 1e-4.
 * Refusals as the reference's: chunked admission with extras and
-  ``decode_overlap=True`` (``ValueError``); a mesh ctx for serving,
-  training and the disaggregator raises ROADMAP.md's A.13.
+  ``decode_overlap=True`` (``ValueError``); the meshed engine (its memory
+  leaf whole on each model column), train step and disaggregator build.
 """
 import jax
 import jax.numpy as jnp
@@ -339,21 +339,29 @@ def test_refusals_are_the_reference_value_errors(option):
 
 
 def test_mesh_waits_for_a13():
-    """Meshed serving, meshed training and a meshed disaggregator are not
-    ported for the families with a memory: each refuses with
-    ROADMAP.md's A.13."""
+    """Meshed serving, meshed training and a meshed disaggregator are
+    ported for the families with a memory (ROADMAP.md's A.13, done): in a
+    fake world of 2 on ``meta`` each builds on (1, 2), the engine's
+    ``memory`` leaf whole on each model column (its slots, rows and
+    width). Their values: ``test_torch_mesh_families.py``."""
+    from repro_torch.launch import dryrun
     from repro_torch.parallel.context import Mesh, ParallelCtx
     from repro_torch.train.trainer import TrainConfig, make_train_step
-    ctx = ParallelCtx(mesh=Mesh.abstract((1, 2)))
     for case in x.CASES:
         _, tcfg = x.configs(case)
-        with pytest.raises(NotImplementedError, match="A.13"):
-            ServeEngine(tcfg, ctx=ctx, device="cpu")
-        with pytest.raises(NotImplementedError, match="A.13"):
-            make_train_step(Model(tcfg, device="cpu"), TrainConfig(),
-                            ctx=ctx)
-        with pytest.raises(NotImplementedError, match="A.13"):
-            Disaggregator(tcfg, ctx=ctx, device="cpu")
+        model = Model(tcfg, device="meta")
+        with dryrun.fake_world(2):
+            ctx = ParallelCtx(mesh=Mesh.create((1, 2)))
+            eng = ServeEngine(tcfg, params=model.param_structs(), ctx=ctx,
+                              device="meta", max_len=64)
+            assert make_train_step(model, TrainConfig(), ctx=ctx)
+            dis = Disaggregator(tcfg, params=model.param_structs(),
+                                ctx=ctx, device="meta", max_len=64)
+        rows = (tcfg.num_patches if tcfg.family == "vlm"
+                else int(64 * tcfg.src_len_ratio))
+        for e in (eng, dis.decode):
+            assert tuple(e.cache["memory"].shape) == (e.slots, rows,
+                                                      tcfg.d_model)
 
 
 @pytest.mark.parametrize("case", list(x.CASES))

@@ -11,7 +11,8 @@ width (2 pairs, 8 experts top-1 plus the shared expert).
   48 host pages) spills and fetches the nested pools: streams, tier, pool
   and prefix stats equal to the JAX engine's.
 * The dual-microbatch decode and ``Model.loss_dual`` as the reference's;
-  meshed serving and training of the pairs refuse with A.11.
+  the meshed engine and train step build for the pairs (their streams and
+  trajectories: ``test_torch_mesh_families.py``).
 * The disaggregator's handoff (dense rings, fp8 pages): streams and bytes
   as the JAX disaggregator's. Decode keeps every nested cache leaf's
   tensor. ``bridge.prepare_for_serving`` with ``fp8`` reaches both blocks
@@ -184,16 +185,26 @@ def test_loss_dual_matches_jax(weights):
 
 
 def test_pairs_under_a_mesh_wait_for_a11():
-    """Meshed serving and meshed training of the dense/MoE pairs are not
-    ported: each refuses with ROADMAP.md's A.11."""
+    """Meshed serving and meshed training of the dense/MoE pairs are
+    ported (ROADMAP.md's A.11, done): in a fake world of 2 on ``meta`` the
+    meshed engine builds on (1, 2) with each pair's experts cut over the
+    model axis and its nested rings' KV heads cut, and the meshed train
+    step builds. Their values: ``test_torch_mesh_families.py``."""
+    from repro_torch.launch import dryrun
     from repro_torch.parallel.context import Mesh, ParallelCtx
     from repro_torch.train.trainer import TrainConfig, make_train_step
     _, tcfg = h.configs(ARCH)
-    ctx = ParallelCtx(mesh=Mesh.abstract((1, 2)), moe_impl="ep_flat")
-    with pytest.raises(NotImplementedError, match="A.11"):
-        ServeEngine(tcfg, ctx=ctx, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.11"):
-        make_train_step(Model(tcfg, device="cpu"), TrainConfig(), ctx=ctx)
+    model = Model(tcfg, device="meta")
+    with dryrun.fake_world(2):
+        ctx = ParallelCtx(mesh=Mesh.create((1, 2)), moe_impl="ep_flat")
+        eng = ServeEngine(tcfg, params=model.param_structs(), ctx=ctx,
+                          device="meta")
+        assert make_train_step(model, TrainConfig(), ctx=ctx)
+    E = tcfg.moe.num_experts
+    assert eng.params["pat"]["moe"]["moe"]["w1"].shape[1] == E // 2
+    kv = tcfg.num_kv_heads // 2
+    for k in ("dense", "moe"):
+        assert eng.cache["pat"][k]["k"].shape[-2] == kv
 
 
 @pytest.mark.parametrize("layout", ["dense", "fp8"])

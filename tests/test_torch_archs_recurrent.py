@@ -13,8 +13,10 @@ the CPU, at smoke width in fp32 on ``bridge.params_from_jax`` weights.
   ring in prefill, and one of 28 wraps it during decode.
 * Bucketed prefill logits, every cache leaf it assembles and three decode
   steps' logits within 1e-5 of the largest.
-* ``paged=True`` raises the reference's ``ValueError``; meshed serving,
-  meshed training and the disaggregator refuse with ROADMAP.md's A.12.
+* ``paged=True`` raises the reference's ``ValueError``; the unmeshed
+  disaggregator hands the recurrent state over (the JAX engine's
+  streams), and the meshed engine (its cache cut by heads or channels)
+  and train step build.
 * ``decode_overlap=True`` streams equal the JAX engine's; a decode keeps
   every cache leaf's tensor (the conv tails, the states, the rings).
 * ``Model.loss`` within 1e-5 and every gradient leaf within 1e-4 of its
@@ -37,7 +39,7 @@ import torch
 
 import _torch_archs as h
 from _torch_recurrent import (CASES, KW, MAX_NEW, configs, jax_streams,
-                              port_engine, port_streams, weights)
+                              port_engine, port_streams, prompts, weights)
 from _torch_recurrent import rel as _rel
 from repro.configs.base import get_config
 from repro.data.pipeline import SyntheticCorpus
@@ -50,7 +52,7 @@ from repro_torch.configs.base import smoke_config as tsmoke
 from repro_torch.core import fp8
 from repro_torch.models.api import Model, count_params
 from repro_torch.models.param import ParamSpec
-from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.train import optimizer as optim
 
 ARCHS = ("mamba2-2.7b", "recurrentgemma-9b")
@@ -164,21 +166,51 @@ def test_paged_raises_the_reference_value_error(arch):
 
 
 def test_mesh_and_disaggregation_wait_for_a12():
-    """Meshed serving, meshed training and the disaggregator are not
-    ported for these families: each refuses with ROADMAP.md's A.12."""
+    """Meshed serving, meshed training and the disaggregator are ported
+    for these families (ROADMAP.md's A.12, done). The unmeshed
+    disaggregator hands each request's recurrent state to the decode pool
+    and gives the engine's streams (the JAX engine's, as
+    ``test_streams_equal_jax`` holds them). In a fake world of 2 on ``meta``
+    the meshed engine builds on (1, 2) with its cache cut as the blocks
+    run: the SSD state by heads and the conv tail by its heads' x channels
+    with B and C whole (``sharding.Tail``), the RG-LRU ``h`` and conv tail
+    by channels; the meshed train step builds. Their values:
+    ``test_torch_mesh_families.py``."""
+    from repro_torch.launch import dryrun
     from repro_torch.parallel.context import Mesh, ParallelCtx
     from repro_torch.serve.disagg import Disaggregator
     from repro_torch.train.trainer import TrainConfig, make_train_step
-    ctx = ParallelCtx(mesh=Mesh.abstract((1, 2)))
     for case in ("mamba2", "rglru3"):
         _, tcfg = configs(case)
-        with pytest.raises(NotImplementedError, match="A.12"):
-            ServeEngine(tcfg, ctx=ctx, device="cpu")
-        with pytest.raises(NotImplementedError, match="A.12"):
-            make_train_step(Model(tcfg, device="cpu"), TrainConfig(),
-                            ctx=ctx)
-        with pytest.raises(NotImplementedError, match="A.12"):
-            Disaggregator(tcfg, device="cpu")
+        dis = Disaggregator(tcfg, params=bridge.params_from_jax(
+            weights(case)[1]), decode_slots=2, max_len=KW["max_len"],
+            chunk=KW["chunk"], device="cpu")
+        reqs = [Request(i, p, max_new=MAX_NEW)
+                for i, p in enumerate(prompts(tcfg.vocab_size))]
+        for r in reqs:
+            dis.submit(r)
+        dis.run()
+        assert [list(map(int, r.out)) for r in reqs] == port_streams(
+            port_engine(case))
+        model = Model(tcfg, device="meta")
+        with dryrun.fake_world(2):
+            ctx = ParallelCtx(mesh=Mesh.create((1, 2)))
+            eng = ServeEngine(tcfg, params=model.param_structs(), ctx=ctx,
+                              device="meta")
+            assert make_train_step(model, TrainConfig(), ctx=ctx)
+        whole = model.init_cache(1, 8, device="meta")
+        for path, t in h.flat(eng.cache).items():
+            want = list(h.flat(whole)[path].shape)
+            want[1] = eng.slots
+            if path[-1] in ("state", "h"):
+                want[-3 if path[-1] == "state" else -1] //= 2
+            if path[-1] == "conv" and tcfg.ssm:
+                want[-1] = (want[-1] - 2 * tcfg.ssm.d_state) // 2 \
+                    + 2 * tcfg.ssm.d_state
+            elif path[-1] == "conv":
+                want[-1] //= 2
+            if path[-1] in ("state", "h", "conv"):
+                assert list(t.shape) == want, (case, path, t.shape, want)
 
 
 @pytest.mark.parametrize("case", ["mamba2", "rglru5"])

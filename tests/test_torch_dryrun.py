@@ -17,31 +17,36 @@ lowers and compiles it on forced XLA host devices. Here:
   to the smoke configs and ``SHAPES`` to small shapes; nothing of
   ``src/repro`` edited): smoke qwen3-14b train, prefill and decode, smoke
   DeepSeek-V3 decode (``fp8`` off in both: at (2, 4) its smoke expert FF
-  of 64 cuts to 32 a data rank, which the port's FP8 ``ep_ftp`` refuses).
-  Equal but for the port's dense-ring layout (``sharding.
-  explicit_cache_pspecs``: the ring's length axis whole on each model
-  column, the MLA latent ring and ``pos`` replicated over it, ROADMAP.md
-  §A item 4 (i)), whose bytes the test computes from the two placements,
+  of 64 cuts to 32 a data rank, which the port's FP8 ``ep_ftp`` refuses),
+  smoke mamba2-2.7b and llama4-maverick decode. Equal but for the port's
+  dense-ring layout (``sharding.explicit_cache_pspecs``: the ring's length
+  axis whole on each model column, the MLA latent ring and ``pos``
+  replicated over it, ROADMAP.md §A item 4 (i)) and its recurrent conv
+  tails (cut with their state where the reference replicates them, item
+  4 (v)), whose bytes the test computes from the two placements,
   and for the arguments the reference's executable drops because its step
   never reads them (``jax.jit``'s ``keep_unused=False``: DeepSeek-V3's MTP
-  weights and carried ``mtp_h`` in a decode step), which the port's
-  record counts.
+  weights and carried ``mtp_h`` in a decode step, Mamba-2's positions in
+  one), which the port's record counts.
 * (c) The sweep's statuses on every config cut in depth at its published
-  widths (small shapes of the same names): ok for the decoder-only
-  transformers but llama4 (A.11), A.12 for the recurrent families, A.13
-  for enc-dec and vision, ``long_500k`` skipped for full attention; the
-  same table for every ``--multi-pod`` cell (2 x 16 x 16, the batch and
-  ZeRO-3 over ``("pod", "data")``, its small shapes at 32 rows, one a
-  pair position); an ``--expert-dtype`` cell A.3. And one cell at full
-  depth and the real shape: DeepSeek-V3 ``decode_32k`` on 256 fake ranks.
+  widths (small shapes of the same names): ok for every family, the
+  recurrent ones at ``long_500k`` too, ``long_500k`` skipped for full
+  attention; the same table for every ``--multi-pod`` cell (2 x 16 x 16,
+  the batch and ZeRO-3 over ``("pod", "data")``, its small shapes at 32
+  rows, one a pair position); an ``--expert-dtype`` cell A.3. And one
+  cell at full depth and the real shape: DeepSeek-V3 ``decode_32k`` on
+  256 fake ranks.
 * (d) ``remat="full"`` lowers ``temp_size_in_bytes`` of a train cell and
   raises ``flops_per_device`` by the recomputed forward of its layer
   steps, no more.
 * (e) No default process group is left after ``run_cell``, after an ok
-  cell and after an error cell.
+  cell and after an error cell (``--expert-dtype``, A.3).
+* (f) The meshed ``Model.prefill`` and ``decode_step`` of each family with
+  a new meshed layout run on (1, 2) in a fake world, on ``meta``.
 """
 import dataclasses
 import json
+import math
 import os
 import re
 import subprocess
@@ -65,7 +70,9 @@ SMALL = {"train_s": (32, 8, "train"), "prefill_s": (32, 4, "prefill"),
 # (arch, shape, run_cell keywords) of (b)
 ARG_CELLS = [("qwen3-14b", "train_s", {}), ("qwen3-14b", "prefill_s", {}),
              ("qwen3-14b", "decode_s", {}),
-             ("deepseek-v3-671b", "decode_s", {"fp8": False})]
+             ("deepseek-v3-671b", "decode_s", {"fp8": False}),
+             ("mamba2-2.7b", "decode_s", {}),
+             ("llama4-maverick-400b-a17b", "decode_s", {})]
 
 JAX_CELLS = """
 import os, json
@@ -92,10 +99,9 @@ OK3 = ["ok", "ok", "ok", "skipped"]
 TABLE = {
     "deepseek-v3-671b": OK3, "qwen3-14b": OK3, "glm4-9b": OK3,
     "qwen1.5-4b": OK3, "yi-34b": OK3, "qwen3-moe-30b-a3b": OK3,
-    "llama4-maverick-400b-a17b": ["A.11"] * 3 + ["skipped"],
-    "mamba2-2.7b": ["A.12"] * 4, "recurrentgemma-9b": ["A.12"] * 4,
-    "seamless-m4t-large-v2": ["A.13"] * 3 + ["skipped"],
-    "llama-3.2-vision-90b": ["A.13"] * 3 + ["skipped"],
+    "llama4-maverick-400b-a17b": OK3,
+    "mamba2-2.7b": ["ok"] * 4, "recurrentgemma-9b": ["ok"] * 4,
+    "seamless-m4t-large-v2": OK3, "llama-3.2-vision-90b": OK3,
 }
 SWEEP_SHAPES = {"train_4k": (256, 16, "train"),
                 "prefill_32k": (256, 16, "prefill"),
@@ -195,10 +201,11 @@ def _layout_bytes(arch, shape):
     def nbytes(tree, pspecs, per_elem=None):
         total = 0
         for path, t in tree_items(tree):
-            n = t.numel()
-            for e in sh.at_path(pspecs, path):
-                n //= sh._mesh_size(mesh, e)
-            total += n * (per_elem or t.element_size())
+            shape = list(t.shape)
+            for d, e in enumerate(sh.at_path(pspecs, path)):
+                w = e.whole if isinstance(e, sh.Tail) else 0
+                shape[d] = (shape[d] - w) // sh._mesh_size(mesh, e) + w
+            total += math.prod(shape) * (per_elem or t.element_size())
         return total
 
     structs = model.param_structs()
@@ -210,6 +217,10 @@ def _layout_bytes(arch, shape):
         cps = sh.explicit_cache_pspecs(cache, mesh, ("data",))
         diff += (nbytes(cache, cps)
                  - nbytes(cache, sh.cache_pspecs(cache, mesh, ("data",))))
+        if cfg.family == "ssm":
+            # jax.jit drops the arguments a step never reads: a Mamba-2
+            # decode step reads no positions ((B, 1) int32, B over data)
+            diff += batch // mesh.shape["data"] * 4
         if cfg.mtp:
             # jax.jit drops the arguments a step never reads
             # (``keep_unused=False``): a decode step reads neither the MTP
@@ -237,9 +248,11 @@ def test_argument_bytes_equal_the_references(smoke_cells, jax_cells):
         got = ours[key]["memory_analysis"]["argument_size_in_bytes"]
         want = mem["argument_size_in_bytes"] + _layout_bytes(arch, shape)
         assert got == want, (key, got, mem["argument_size_in_bytes"])
-    # the layout difference is the dense rings' alone, and it shows
+    # the layout differences are the dense rings' (more a rank) and the
+    # recurrent conv tails' (less), and they show
     assert _layout_bytes("qwen3-14b", "train_s") == 0
     assert _layout_bytes("deepseek-v3-671b", "decode_s") > 0
+    assert _layout_bytes("mamba2-2.7b", "decode_s") < 0
 
 
 def test_roofline_equals_the_references(smoke_cells, monkeypatch, tmp_path):
@@ -296,7 +309,7 @@ def test_sweep_statuses(monkeypatch):
                           out_dir="", expert_dtype="float8_e4m3fn")
     assert _status(rec) == "A.3"
     assert dryrun.main(["--arch", "mamba2-2.7b", "--shape", "train_4k",
-                        "--out", ""]) == 1
+                        "--out", ""]) == 0
     assert dryrun.main(["--arch", "qwen3-14b", "--shape", "long_500k",
                         "--out", ""]) == 0
 
@@ -377,9 +390,9 @@ def test_no_process_group_is_left(smoke_cells):
     rec = dryrun.run_cell("qwen3-14b", "decode_s", multi_pod=False,
                           out_dir="")
     assert rec["status"] == "ok" and not dist.is_initialized()
-    rec = dryrun.run_cell("mamba2-2.7b", "decode_s", multi_pod=False,
-                          out_dir="")
-    assert rec["status"] == "error" and "A.12" in rec["error"]
+    rec = dryrun.run_cell("deepseek-v3-671b", "decode_s", multi_pod=False,
+                          out_dir="", expert_dtype="float8_e4m3fn")
+    assert rec["status"] == "error" and "A.3" in rec["error"]
     assert not dist.is_initialized()
     with dryrun.fake_world(2):
         rec = dryrun.run_cell("qwen3-14b", "decode_s", multi_pod=False,
@@ -410,19 +423,21 @@ def test_meter_flops_equal_flop_counter_mode(smoke_cells, shape):
 
 
 def test_meshed_model_entry_points_take_the_gate():
-    """A meshed call of ``Model.prefill`` or ``decode_step`` takes the
-    engine's and the trainer's gate (``context.check_meshed``): a family
-    whose meshed layout is not ported refuses with its label, not a
-    silent run."""
-    from repro_torch.models.api import Model
-    from repro_torch.parallel.context import Mesh, ParallelCtx
-    ctx = ParallelCtx(mesh=Mesh.abstract((1, 2)))
-    for arch, item in (("mamba2-2.7b", "A.12"),
-                       ("seamless-m4t-large-v2", "A.13"),
-                       ("llama4-maverick-400b-a17b", "A.11")):
-        m = Model(tbase.smoke_config(tbase.get_config(arch)), device="cpu")
-        tok = torch.zeros((1, 4), dtype=torch.int32)
-        with pytest.raises(NotImplementedError, match=item):
-            m.prefill({}, {"tokens": tok}, pctx=ctx)
-        with pytest.raises(NotImplementedError, match=item):
-            m.decode_step({}, {}, tok[:, :1], tok[:, :1], pctx=ctx)
+    """(f): a meshed call of ``Model.prefill`` or ``decode_step`` runs for
+    every family whose meshed layout this port added (the recurrent
+    families, the enc-dec family with its frames, the dense/MoE pairs):
+    each rank's step of the dry run's build on (1, 2) in a fake world, on
+    ``meta``, gives logits of the whole vocabulary."""
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.parallel.context import Mesh
+    for arch in ("mamba2-2.7b", "recurrentgemma-9b",
+                 "seamless-m4t-large-v2", "llama4-maverick-400b-a17b"):
+        cfg = tbase.smoke_config(tbase.get_config(arch))
+        for phase in ("prefill", "decode"):
+            with dryrun.fake_world(2):
+                step, args, *_ = dryrun.build_step(
+                    cfg, ShapeCfg("s", 16, 2, phase),
+                    Mesh.create((1, 2)), remat="none")
+                logits, cache = step(*args)
+            assert tuple(logits.shape) == (2, 1, cfg.vocab_size), arch
+            assert cache

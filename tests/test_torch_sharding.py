@@ -447,11 +447,14 @@ def test_unread_ctx_fields_raise(field, value):
     the GSPMD hint explicit SPMD always satisfies, and ``dp_axes`` takes
     the pair ``("pod", "data")``; each takes the reference's value. What
     is still refused raises: a value outside the reference's choices, a
-    sequence cut off the tensor-parallel axis, and, through the meshed
-    gate, a family whose meshed layout is not ported (A.11) on a pod mesh
-    as on one pod; a data plane asked of an abstract mesh names why."""
+    sequence cut off the tensor-parallel axis, and a data plane asked of
+    an abstract mesh names why. On a pod mesh as on one pod, the serving
+    placements of the dense/MoE pairs (ported, A.11) cut their experts
+    over the model axis."""
     from repro_torch.configs.base import get_config, smoke_config
-    from repro_torch.parallel.context import ParallelCtx, check_meshed
+    from repro_torch.models.api import Model
+    from repro_torch.parallel.context import ParallelCtx
+    from repro_torch.serve.engine import serve_param_pspecs
     assert getattr(ParallelCtx(**{field: value}), field) == value
     bad = {"remat": "some", "seq_axis": "data", "pin_attn": None}[field]
     if field != "pin_attn":
@@ -460,10 +463,11 @@ def test_unread_ctx_fields_raise(field, value):
     ctx = ParallelCtx(mesh=Mesh.abstract((2, 2, 2), ("pod", "data",
                                                      "model")),
                       dp_axes=("pod", "data"), **{field: value})
-    check_meshed(smoke_config(get_config("qwen3-14b")), ctx, "test")
-    with pytest.raises(NotImplementedError, match="A.11"):
-        check_meshed(smoke_config(get_config("llama4-maverick-400b-a17b")),
-                     ctx, "test")
+    cfg = smoke_config(get_config("llama4-maverick-400b-a17b"))
+    ps = serve_param_pspecs(cfg, dataclasses.replace(ctx, moe_impl="ep_flat"),
+                            Model(cfg, device="meta").specs())
+    for w in ("w1", "w2", "w3"):
+        assert ps["pat"]["moe"]["moe"][w][1] == "model", ps["pat"]["moe"]
     assert ctx.dp_size == 4
     with pytest.raises(ValueError, match="abstract"):
         ctx.dp_group
