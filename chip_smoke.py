@@ -273,7 +273,24 @@ from the root of a checkout. Phases, each fatal on failure:
       rank, 32 of 128 heads a rank), then qwen3-14b whole (10 of 40 heads
       over 2 of 8 KV heads a rank), 16 new tokens a request each
       (``MESH_NEW``), on phase (c)'s weights and prompts.
-      Gates and figures: ``phase_mesh``. Then the dual-microbatch decode
+      Gates and figures: ``phase_mesh``. After each model's served run
+      the ranks serve it chunked (``mesh_chunked``, ``MESH_CHUNKED``):
+      qwen3-14b chunks of 256 with the host page tier (two slots, phase
+      (f)'s pool and tier sizing, three prompts, so residents rotate
+      through the tier), DeepSeek-V3 chunks of 256 on the kernel path
+      (``ep_flat``, FP8 wire); gates (``mesh_chunked_gate``): every
+      request done, no page leaked, both chunks eager, each chunk's
+      launches exactly the path's per-chunk counts and the run's the
+      chunks' and decode steps' sum, the ranks' tier, pool and prefix
+      stats equal, each suspended slot's pages CRC-equal on each rank
+      before the spill and after the install, each prompt's last-chunk
+      logits within ``MESH_LIMITS`` of phase (c)'s single device's chunk
+      (``mesh_chunk_logits``), and the planted faults
+      (``MESH_CHUNKED_FAULTS``) outside those gates, each beside a sound
+      replay of the same call inside them; printed: eager ms
+      a chunk per rank and its share in staged collectives, each chunk's
+      launches, the staged spill and fetch copies per rank (MB, ms).
+      Then the dual-microbatch decode
       (``decode_overlap=True``) and the cross-mesh disaggregator:
       - first, on one device in this process (``phase_overlap_single``),
         DeepSeek-V3 (4 layers, published widths, dense ring, no draft)
@@ -1650,6 +1667,9 @@ def phase_main_path(torch, name):
         SERVED[name].update(reference_logits(torch, eng, SERVED[name],
                                              spec["max_len"]))
         SERVED[name]["witness"] = witness(torch, eng, name, reqs)
+    if name in MESH_CHUNKED:
+        SERVED[name]["chunk_logits"] = mesh_chunk_logits(
+            torch, eng, mesh_chunk_prompts(np, name, cfg.vocab_size))
     del eng, model, params, cache
     torch.cuda.empty_cache()
     return counts
@@ -4202,6 +4222,11 @@ def mesh_rank(rank, store_path, out_path):
             mirrors=mirrors, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
             bytes=dict(coll.BYTES))
         del eng
+        if str(wire) == MESH_CHUNKED.get(model, {}).get("wire"):
+            res.setdefault("chunked", {})[model] = mesh_chunked(
+                torch, model, ctx, params[model],
+                [np.asarray(p, np.int32)
+                 for p in inputs[model]["chunk_prompts"]], out_path, rank)
         if model == "deepseek-v3-671b" and wire == "fp8":
             res["overlap"] = mesh_overlap(torch, mesh, params[model],
                                           inputs[model])
@@ -4471,6 +4496,414 @@ def mesh_disagg(torch, mesh, dmesh, served):
         del dis
     gc_cuda(torch)
     return out
+
+
+# phase (h)'s chunked runs (inside the same spawn, after each model's
+# served run, on its weights): qwen3-14b whole, chunked and tiered (phase
+# (f)'s ``TIER`` sizing: two slots, a pool of two whole requests, a host
+# tier three times that; a quantum of ``quantum`` ticks, so the third
+# request rotates the residents through the tier), and DeepSeek-V3 at
+# (h)'s depth cut chunked on the card path (``ep_flat``, FP8 wire). Each
+# decodes ``chunk`` steps a tick: an eager meshed qwen3-14b step takes
+# ~1.35 s a rank
+MESH_CHUNKED = {
+    "qwen3-14b": dict(lengths=(260, 300, 420), max_new=6, tier=True,
+                      quantum=2, chunk=1, wire="None"),
+    "deepseek-v3-671b": dict(lengths=(300, 520), max_new=4, tier=False,
+                             chunk=2, wire="fp8")}
+MESH_CHUNK = 256
+# faults each chunked run's gates must reject, replayed after the run
+# beside a sound replay of the same call: ``install_other_cut`` (a tier
+# fetch installs the next model column's KV-head cut of a spilled
+# payload: the CRC gate), ``chunk_heads_shifted`` (a prefill chunk writes
+# the next column's K/V heads into this rank's pool: the logit gate),
+# ``chunk_query_heads_shifted`` (each rank's MLA chunk attends with the
+# next column's query heads over the replicated latents: the logit gate)
+MESH_CHUNKED_FAULTS = {"qwen3-14b": ("install_other_cut",
+                                     "chunk_heads_shifted"),
+                       "deepseek-v3-671b": ("chunk_query_heads_shifted",)}
+
+
+def mesh_chunk_prompts(np, name, vocab):
+    """The chunked runs' prompts (a fixed seed, the same on every rank and
+    on the single device)."""
+    rng = np.random.default_rng(36)
+    return [rng.integers(0, vocab, n).astype(np.int32)
+            for n in MESH_CHUNKED[name]["lengths"]]
+
+
+def mesh_chunk_logits(torch, eng, prompts, pctx=None, C=MESH_CHUNK):
+    """Each prompt's last-chunk logits ``(n, V)`` (fp32, host) through
+    ``Model.prefill_chunk`` chunk by chunk into the first pages of this
+    idle engine's pool and its slot 0's rows (the single device's witness
+    of the meshed chunk, and the sound and planted-fault replays on a
+    rank); nothing is sampled."""
+    import numpy as np
+    model, dev = eng.model, eng.device
+    pps = eng.max_len // eng.page_size
+    out = []
+    for p in prompts:
+        row = np.full((1, pps), eng.pool_pages, np.int32)
+        n = -(-len(p) // eng.page_size)
+        row[0, :n] = np.arange(n)
+        for start in range(0, len(p), C):
+            toks = np.zeros((1, C), np.int32)
+            toks[0, :min(C, len(p) - start)] = p[start:start + C]
+            pos = np.arange(start, start + C, dtype=np.int32)[None]
+            logits, _ = model.prefill_chunk(
+                eng.params, eng.cache, torch.as_tensor(toks, device=dev),
+                torch.as_tensor(pos, device=dev),
+                torch.tensor([len(p)], dtype=torch.int32, device=dev),
+                torch.as_tensor(row, device=dev), 0, pctx=pctx)
+        out.append(logits[0, -1].float().cpu().numpy())
+    return np.stack(out)
+
+
+class ChunkRecorder:
+    """Stands in for a meshed engine's prefill chunk (``eng._prefill``):
+    each chunk timed (the card synchronised before and after), its share
+    inside staged collectives, its launches, and each prompt's last-chunk
+    logits, by request; every other attribute is the chunk's."""
+
+    def __init__(self, torch, eng):
+        self.torch, self.eng, self.inner = torch, eng, eng._prefill
+        self.ms, self.coll_ms, self.launches, self.last = [], [], [], {}
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def __call__(self, toks, start, length, slot, row):
+        from repro_torch.kernels import registry
+        from repro_torch.parallel import collectives as coll
+        torch, dev = self.torch, self.eng.device
+        before = (registry.launch_counts(), sum(coll.SECONDS.values()))
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        logits = self.inner(toks, start, length, slot, row)
+        _sync(torch, dev)
+        self.ms.append(1e3 * (time.perf_counter() - t0))
+        self.coll_ms.append(1e3 * (sum(coll.SECONDS.values()) - before[1]))
+        after = registry.launch_counts()
+        self.launches.append({k: after[k] - before[0][k] for k in after
+                              if after[k] - before[0][k]})
+        if start + len(toks) >= length:
+            # the prompt's entry (the engine passes this rank's slot row)
+            rid = next(ps["req"].rid for ps in self.eng._prefilling.values()
+                       if ps["next"] == start and len(ps["prompt"]) == length)
+            self.last[rid] = logits[0, -1].float().cpu().numpy()
+        return logits
+
+
+def tier_crc_watch(eng, paged_mod, tier_mod):
+    """Record, per suspension of a meshed engine, this rank's page CRCs at
+    the spill (the entry's own) and of the pages the fetch installed
+    (gathered back after ``_finish_fetch``); returns the list of pairs."""
+    pairs = []
+    fetch = eng._finish_fetch
+    # the originals: a ``TierMeter`` times the engine's own copies only
+    get, crcs = tier_mod.staged_get, paged_mod.payload_page_crcs
+
+    def checked(t):
+        e = eng._suspended.get(t.rid)
+        fetch(t)
+        if e is not None and e["state"] == "ready":
+            got = get(eng.model.gather_pages(eng.cache, e["pages"]))
+            pairs.append((e["crcs"], crcs(got, e["n"])))
+    eng._finish_fetch = checked
+    return pairs
+
+
+def install_replay(torch, eng, ctx, payload, n, other):
+    """Install a spilled payload (this rank's host copy, ``n`` pages) into
+    the pool's first pages as a fetch does, and return the page CRCs read
+    back; ``other``: the next model column's cut of it instead (the
+    planted fault ``install_other_cut``)."""
+    from repro_torch.core import paged as paged_mod
+    from repro_torch.serve import tier as tier_mod
+    if other:
+        pspecs = eng._payload_pspecs({"pages": payload, "aux": {}})["pages"]
+
+        def neighbour(tree, ps):
+            if isinstance(tree, dict):
+                return {k: neighbour(tree[k], ps[k]) for k in tree}
+            for d, e in enumerate(ps):
+                if e is not None:
+                    return next_column_cut(tree, ctx, d)
+            return tree
+        payload = neighbour(payload, pspecs)
+    ids = list(range(n))
+    eng.model.install_pages(eng.cache, tier_mod.staged_put(
+        payload, eng.device), ids)
+    got = tier_mod.staged_get(eng.model.gather_pages(eng.cache, ids))
+    return paged_mod.payload_page_crcs(got, n)
+
+
+def next_column_cut(x, ctx, dim):
+    """The next model column's cut of ``x`` along ``dim`` where this rank
+    holds its own (gathered over the model group): the step of the
+    planted faults in which a rank reads the wrong head cut."""
+    from repro_torch.parallel import collectives as coll
+    m, i, n = ctx.model_size, ctx.index(ctx.tp_axis), x.shape[dim]
+    every = coll.all_gather(x.contiguous(), ctx.tp_group, dim=dim)
+    return every.narrow(dim, (i + 1) % m * n, n).contiguous()
+
+
+@contextlib.contextmanager
+def chunk_fault(ctx, fault):
+    """A planted fault of the meshed prefill chunk, for a block:
+    ``chunk_heads_shifted``, every chunk writes the next model column's
+    K/V heads into this rank's pool (``core/paged.page_write_chunk`` fed
+    the neighbour's cut); ``chunk_query_heads_shifted``, each rank's MLA
+    attends with the next column's query heads (``core/mla._queries``)."""
+    from repro_torch.core import mla, paged
+    if fault == "chunk_heads_shifted":
+        mod, name = paged, "page_write_chunk"
+        write = paged.page_write_chunk
+
+        def shifted(pool, table, qpos, vals):
+            if vals.dim() == 4:              # K/V (B, S, KV, hd)
+                vals = next_column_cut(vals, ctx, 2)
+            return write(pool, table, qpos, vals)
+    else:
+        mod, name = mla, "_queries"
+        queries = mla._queries
+
+        def shifted(*args):               # (B, S, heads, *) each
+            return tuple(next_column_cut(q, ctx, 2) for q in queries(*args))
+    inner = getattr(mod, name)
+    setattr(mod, name, shifted)
+    try:
+        yield
+    finally:
+        setattr(mod, name, inner)
+
+
+def mesh_chunked(torch, model, ctx, params, prompts, out_path, rank):
+    """Phase (h)'s chunked run of ``model`` in a mesh rank
+    (``MESH_CHUNKED``), on the weights of its served run: a chunked meshed
+    engine (tiered for qwen3-14b) serves ``prompts``; counters zeroed just
+    before and read just after. Returns what the rank saw: streams, done,
+    pages leaked, ``trace_counts``, the tier's, pool's and prefix's stats,
+    each suspension's spill and install CRCs, ms and collective ms and
+    launches of each chunk, the staged copies' bytes and ms; then the
+    planted faults' replays (``MESH_CHUNKED_FAULTS``), each beside a
+    sound replay of the same call. Rank 0 writes the last-chunk logits
+    (served; and the first prompt's, sound then faulted, for each logit
+    fault)."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import paged as paged_mod
+    from repro_torch.kernels import registry
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.serve import tier as tier_mod
+    from repro_torch.serve.engine import Request, ServeEngine
+    spec, run = PATHS[model], MESH_CHUNKED[model]
+    cfg = get_config(spec["model"], **spec["overrides"])
+    pps = spec["max_len"] // 8
+    kw = dict(spec["engine"], page_size=8, prefill_chunk=MESH_CHUNK,
+              chunk=run["chunk"], slots=2, max_len=spec["max_len"])
+    if run["tier"]:
+        kw.update(pool_pages=2 * pps, host_tier_pages=6 * pps,
+                  tier_config=tier_mod.TierConfig(quantum=run["quantum"]))
+    dev = "cuda"
+    gc_cuda(torch)
+    dist.barrier()
+    eng = ServeEngine(cfg, params=params, device=dev, seed=0, ctx=ctx, **kw)
+    rec = ChunkRecorder(torch, eng)
+    eng._prefill = rec
+    pairs = tier_crc_watch(eng, paged_mod, tier_mod) if run["tier"] else []
+    spilled = []
+    if run["tier"]:
+        begin = eng._begin_suspend
+
+        def keep(slot):
+            ok = begin(slot)
+            if ok and not spilled:
+                e = eng._suspended[eng.active[slot].rid]
+                spilled.append((e["payload"], e["n"], e["crcs"]))
+            return ok
+        eng._begin_suspend = keep
+    reqs = [Request(i, p, max_new=run["max_new"])
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    dist.barrier()
+    registry.reset_launch_counts()
+    coll.reset_counters()
+    ticks = 0
+    t0 = time.perf_counter()
+    meter = TierMeter(torch, eng) if run["tier"] else contextlib.nullcontext()
+    with meter:
+        while eng.has_work():
+            eng.step()
+            ticks += 1
+            if ticks > 200:
+                raise AssertionError("chunked meshed run did not finish in "
+                                     "200 ticks")
+    _sync(torch, dev)
+    wall = time.perf_counter() - t0
+    counts = registry.launch_counts()
+    out = dict(outs=[list(map(int, r.out)) for r in reqs],
+               done=all(r.done for r in reqs),
+               leaked=eng.pool_pages - eng.free_pages(),
+               trace_counts=eng.trace_counts, wall_s=wall, ticks=ticks,
+               stats=json.dumps(dict(
+                   tier=eng.tier_stats(), pool=eng.pool_stats(),
+                   prefix=eng.prefix_stats(),
+                   stats={k: v for k, v in eng.stats.items()
+                          if k != "dispatches"}), sort_keys=True),
+               tier=eng.tier_stats(), crc_pairs=pairs, chunk_ms=rec.ms,
+               chunk_coll_ms=rec.coll_ms, chunk_launches=rec.launches,
+               counts=counts, chunks=eng.stats["chunk_prefills"],
+               steps=eng._decode.k * eng._decode.calls,
+               moe_layers=moe_layer_count(eng.model),
+               copies=meter.copies if run["tier"] else {})
+    last = np.stack([rec.last[r.rid] for r in reqs])
+    eng._prefill = rec.inner
+    faults = {}
+    for fault in MESH_CHUNKED_FAULTS[model]:
+        if fault == "install_other_cut":
+            if not spilled:          # no suspension: the gate fails anyway
+                faults[fault] = dict(sound=False, fault=True)
+                continue
+            payload, n, crcs = spilled[0]
+            faults[fault] = dict(
+                sound=install_replay(torch, eng, ctx, payload, n, False)
+                == crcs,
+                fault=install_replay(torch, eng, ctx, payload, n, True)
+                == crcs)
+        else:
+            # the first prompt's chunks alone, sound then faulted: a
+            # replay of every prompt would cost ~1.8 s a chunk a rank more
+            # on qwen3-14b
+            sound = mesh_chunk_logits(torch, eng, prompts[:1], pctx=ctx)
+            with chunk_fault(ctx, fault):
+                logits = mesh_chunk_logits(torch, eng, prompts[:1],
+                                           pctx=ctx)
+            if rank == 0:
+                np.save(f"{out_path}.{model}.{fault}.npy",
+                        np.concatenate([sound, logits]))
+    out["faults"] = faults
+    if rank == 0:
+        np.save(f"{out_path}.{model}.chunked.npy", last)
+    del eng, rec
+    gc_cuda(torch)
+    return out
+
+
+def mesh_chunked_gate(res, logits):
+    """The chunked runs' gates (``mesh_chunked``): on every rank every
+    request done, no page leaked, the prefill and decode chunks eager
+    (``trace_counts`` all 0), each chunk's launches exactly the path's
+    per-chunk counts, and the run's each kernel's per-chunk count times
+    the chunks plus its per-step count times the decode steps; the ranks'
+    tier, pool and prefix stats and ``stats`` (but
+    ``dispatches``) equal; for the tiered run suspensions > 0 and, on each
+    rank, each suspended slot's pages the same bytes (page CRCs) before
+    the spill and after the install; every prompt's last-chunk logits
+    within ``MESH_LIMITS`` of the single device's chunk on the same inputs
+    (phase (c)'s engine: ``mesh_chunk_logits``); and each planted fault
+    outside the gate it targets, its sound replay inside it. Prints ms
+    per chunk per rank and its share in
+    staged collectives, each chunk's launches, the staged spill and fetch
+    copies per rank (MB, ms)."""
+    bad = []
+    for model in MESH_CHUNKED:
+        runs = [r["chunked"][model] for r in res]
+        key = f"{model} chunked"
+        spec = PATHS[model]
+        want = spec["chunked"]["per_chunk"]
+        for r, run in enumerate(runs):
+            if not run["done"] or run["leaked"]:
+                bad.append(f"{key} rank {r}: done {run['done']}, "
+                           f"{run['leaked']} pages leaked")
+            if run["trace_counts"] != {"decode": 0, "chunk": 0}:
+                bad.append(f"{key} rank {r}: trace_counts "
+                           f"{run['trace_counts']}")
+            for j, c in enumerate(run["chunk_launches"]):
+                if c != want:
+                    bad.append(f"{key} rank {r}: chunk {j} launched {c}, "
+                               f"want {want}")
+            per_step = dict(spec["per_step"])
+            if run["moe_layers"]:
+                per_step["moe_gemm"] = 3 * run["moe_layers"]
+            total = {k: want.get(k, 0) * run["chunks"]
+                     + per_step.get(k, 0) * run["steps"]
+                     for k in spec["kernels"]}
+            got = {k: c for k, c in run["counts"].items() if c}
+            if got != total or not all(total.values()):
+                bad.append(f"{key} rank {r}: the run launched {got}, want "
+                           f"{want} x {run['chunks']} chunks + {per_step} x "
+                           f"{run['steps']} decode steps = {total}")
+        if len({run["stats"] for run in runs}) != 1:
+            bad.append(f"{key}: the ranks' tier, pool or prefix stats "
+                       "differ")
+        one = SERVED[model]["chunk_logits"]
+        served = logits[model]["chunked"]
+        err, cos = MESH_LIMITS[model]
+        a = logit_agreement(served, one)
+        ok = a["err"] <= err and a["cos"] >= cos
+        log(f"[h] {key}: each prompt's last-chunk logits, mesh vs single "
+            f"device: max err {a['err']:.5f} of max|ref| (rows "
+            f"{a['rows_err']}), least cosine {a['cos']:.6f}, greedy tokens "
+            f"equal {a['argmax']}/{a['rows']}; within the gate (err <= "
+            f"{err}, cos >= {cos}): {ok}")
+        if not ok:
+            bad.append(f"{key}: last-chunk logits off the single device's")
+        if MESH_CHUNKED[model]["tier"]:
+            ts = runs[0]["tier"]
+            if not ts["suspensions"] > 0 or not ts["fetched_pages"] > 0:
+                bad.append(f"{key}: {ts['suspensions']} suspensions, "
+                           f"{ts['fetched_pages']} pages fetched")
+            for r, run in enumerate(runs):
+                if not run["crc_pairs"] or any(
+                        a != b for a, b in run["crc_pairs"]):
+                    bad.append(f"{key} rank {r}: a suspended slot's pages "
+                               "changed between the spill and the install "
+                               f"({len(run['crc_pairs'])} installs)")
+            log(f"[h] {key}: tier_stats (rank 0) {ts}; every rank's pages "
+                "CRC-equal before the spill and after the install: "
+                f"{[len(run['crc_pairs']) for run in runs]} installs")
+            for r, run in enumerate(runs):
+                get, put = run["copies"]["get"], run["copies"]["put"]
+                log(f"[h] {key} rank {r}: staged spill copies (MB, ms) "
+                    f"{[(round(b / 1e6, 3), round(m, 2)) for b, m in get]}, "
+                    f"fetch copies "
+                    f"{[(round(b / 1e6, 3), round(m, 2)) for b, m in put]}")
+        for fault in MESH_CHUNKED_FAULTS[model]:
+            if fault == "install_other_cut":
+                for r, run in enumerate(runs):
+                    f = run["faults"][fault]
+                    log(f"[h] {key} rank {r}: planted fault {fault}: the "
+                        f"sound replay CRC-equal {f['sound']}, the faulted "
+                        f"{f['fault']}")
+                    if not f["sound"] or f["fault"]:
+                        bad.append(f"{key} rank {r}: the CRC gate passes "
+                                   f"{fault} (or fails the sound replay)")
+            else:
+                a = [logit_agreement(x[None], one[:1])
+                     for x in logits[model][fault]]
+                held = [b["err"] <= err and b["cos"] >= cos for b in a]
+                log(f"[h] {key}: planted fault {fault}, the first prompt's "
+                    f"last-chunk logits vs single device, sound replay: max "
+                    f"err {a[0]['err']:.5f}, cosine {a[0]['cos']:.6f}; "
+                    f"faulted: max err {a[1]['err']:.5f}, cosine "
+                    f"{a[1]['cos']:.6f}; within the gate {held}")
+                if held != [True, False]:
+                    bad.append(f"{key}: the logit gate passes {fault} (or "
+                               "fails its sound replay)")
+        log(f"[h] {key}: served {len(runs[0]['outs'])} requests in "
+            f"{runs[0]['wall_s']:.2f} s over {runs[0]['ticks']} ticks; "
+            f"eager ms a prefill chunk per rank "
+            f"{[[round(m, 1) for m in run['chunk_ms']] for run in runs]}, "
+            "of which inside staged collectives "
+            f"{[[round(m, 1) for m in run['chunk_coll_ms']] for run in runs]}"
+            f"; launches a chunk (rank 0) {runs[0]['chunk_launches']}; "
+            f"launches of the run (rank 0, {runs[0]['chunks']} chunks, "
+            f"{runs[0]['steps']} decode steps) "
+            f"{ {k: c for k, c in runs[0]['counts'].items() if c} }")
+    return bad
 
 
 def _swap_leaves(tree, pick, make, saved):
@@ -4763,6 +5196,10 @@ def logit_agreement(ours, ref):
 # 0.0564 and 0.99833. At published widths in bf16 with E4M3 activations
 # a one-ulp change from a reordered sum flips E4M3 codes downstream, so
 # the sound readings are this large on one device too (the witness).
+# The chunked runs' last-chunk logits read the same limits (PERF.md §6):
+# DeepSeek-V3 sound <= 0.0515 and >= 0.99857, ``chunk_query_heads_shifted``
+# 1.143 and 0.366; qwen3-14b sound <= 0.0297 and >= 0.999545,
+# ``chunk_heads_shifted`` 1.504 and 0.0024.
 MESH_LIMITS = {"deepseek-v3-671b": (0.1, 0.995),
                "qwen3-14b": (0.04, 0.9993)}
 # the MoE-layer check's limit (``moe_layer_out``), DeepSeek-V3: sound
@@ -4791,9 +5228,12 @@ def phase_mesh(torch, card):
     readings, the free-running greedy streams' agreement, seconds to
     spawn, draw and prepare, peak memory per rank, eager ms a decode step
     and its share inside staged collectives, the decode all-to-all bytes,
-    the longest prompt's prefill ms. The data axis has one row here, so
-    the pools' equality across data rows holds trivially (the CPU tests
-    run two)."""
+    the longest prompt's prefill ms. After each model's served run the
+    same ranks serve it chunked (``mesh_chunked``, gated by
+    ``mesh_chunked_gate``): qwen3-14b chunked and tiered, DeepSeek-V3
+    chunked on the kernel path. The data axis has one row here, so the
+    pools' equality across data rows holds trivially (the CPU tests run
+    two)."""
     import tempfile
     gc_cuda(torch)
     t0 = time.time()
@@ -4810,15 +5250,22 @@ def phase_mesh(torch, card):
         f"{math.prod(DISAGG_DECODE_MESH) - 1}) {[r for r, _ in DISAGG_RUNS]}")
     t0 = time.time()
     with tempfile.TemporaryDirectory() as tmp:
+        import numpy as np
         (pathlib.Path(tmp) / "mesh_in.json").write_text(json.dumps(
-            {m: {k: SERVED[m][k][:MESH_PROMPTS[m]] for k in ("prompts",
-                                                             "outs")}
+            {m: dict({k: SERVED[m][k][:MESH_PROMPTS[m]] for k in ("prompts",
+                                                                  "outs")},
+                     chunk_prompts=[p.tolist() for p in mesh_chunk_prompts(
+                         np, m, get_vocab(m))])
              for m, _ in MESH_RUNS}))
         codes, outs = run_ranks(mesh_rank, MESH_WORLD, tmp, 900)
         if codes != [0] * MESH_WORLD:
             raise AssertionError(f"mesh ranks exited with {codes}")
         res = [json.loads(pathlib.Path(o).read_text()) for o in outs]
-        import numpy as np
+        chunked = {m: {k: np.load(f"{outs[0]}.{m}.{k}.npy")
+                       for k in ("chunked",) + tuple(
+                           f for f in MESH_CHUNKED_FAULTS[m]
+                           if f != "install_other_cut")}
+                   for m in MESH_CHUNKED}
         logits = {}
         for model, wire in MESH_RUNS:
             logits[f"{model} {wire}"] = dict(np.load(
@@ -4887,6 +5334,7 @@ def phase_mesh(torch, card):
                 "moved a decode step a MoE layer, counted "
                 f"{[round(run['a2a_step_layer'], 1) for run in runs]}; "
                 f"collective bytes of the run, rank 0: {runs[0]['bytes']}")
+    bad += mesh_chunked_gate(res, chunked)
     bad += mesh_overlap_gate(torch, res)
     bad += mesh_disagg_gate(torch, res)
     if bad:

@@ -28,6 +28,12 @@
   :func:`check_experts` has found every dequantized matrix bit for bit
   equal to the straight-through value; a stack that fails keeps that value
   in its own dtype and is counted under ``"plain_expert_matrices"``.
+
+With ``cfg.expert_dtype`` the routed experts are stored in that dtype:
+the JAX package's E4M3 leaves (``ml_dtypes.float8_e4m3fn``) cross as
+``torch.float8_e4m3fn`` with the same codes, and ``prepare_for_serving``
+keeps them as they are (no qdq, no ``Fp8Experts``): the model casts them
+at use with no scale, as the reference does.
 """
 from __future__ import annotations
 
@@ -53,6 +59,9 @@ def _to_torch(a) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":   # ml_dtypes' bf16: move the bits
         return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    if a.dtype.name == "float8_e4m3fn":   # ml_dtypes' E4M3: the same codes
+        return torch.from_numpy(a.view(np.uint8).copy()).view(
+            torch.float8_e4m3fn)
     return torch.from_numpy(np.array(a, copy=True))
 
 
@@ -208,6 +217,11 @@ def prepare_for_serving(params: Dict[str, Any], cfg: ModelConfig, *,
         for k, v in tree.items():
             if isinstance(v, dict):
                 out[k] = walk(v, path + (k,))
+            elif (k in ("w1", "w3", "w2") and "moe" in path
+                  and cfg.expert_dtype):
+                # stored in ``expert_dtype`` and cast at use with no scale,
+                # as the reference's: no qdq, no ``Fp8Experts``
+                out[k] = v
             elif (k in ("w1", "w3", "w2") and "moe" in path
                   and cfg.fp8_impl == "pallas"):
                 out[k], n = check_experts(v, fp8.Fp8Experts.quantize(v),

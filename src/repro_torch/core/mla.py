@@ -273,23 +273,20 @@ def mla_paged_decode_step(p: dict, cache: dict, x: torch.Tensor, *,
     q_nope, q_rope = _queries(p, x, cfg, positions)       # (B,S,nh,*)
     ckv_new, kr_new = _latents(p, x, cfg, positions)      # (B,S,rank/rope)
 
-    def write(name, vals):
+    def write(rows):
         if S == 1:
-            page_write_step(cache[name], page_table, qpos, vals[:, 0],
-                            dp_write)
+            page_write_step(cache, {n: x[:, 0] for n, x in rows.items()},
+                            page_table, qpos, dp_write)
         else:
-            paged.page_write_chunk(cache[name], page_table, qpos, vals)
+            for n, x in rows.items():
+                paged.page_write_chunk(cache[n], page_table, qpos, x)
 
     if fp8:
         qc, sc = paged.quantize_vecs(ckv_new)
         qk, sk = paged.quantize_vecs(kr_new)
-        write("ckv", qc)
-        write("kr", qk)
-        write("ckv_scale", sc)
-        write("kr_scale", sk)
+        write({"ckv": qc, "kr": qk, "ckv_scale": sc, "kr_scale": sk})
     else:
-        write("ckv", ckv_new)
-        write("kr", kr_new)
+        write({"ckv": ckv_new, "kr": kr_new})
 
     q_abs = _absorb_queries(p, q_nope, cfg)
     scale = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)

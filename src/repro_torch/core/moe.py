@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.core import fp8, routing
+from repro_torch.device import torch_dtype
 from repro_torch.models.layers import act_fn
 from repro_torch.models.param import ParamSpec
 from repro_torch.parallel import collectives as coll
@@ -35,15 +36,16 @@ def moe_specs(cfg: ModelConfig, layers: int) -> dict:
     mc = cfg.moe
     d, f = cfg.d_model, mc.expert_ff
     pd = cfg.param_dtype
+    ed = cfg.expert_dtype or pd    # fp8 expert storage for serving
     L, la = (layers,), ("layers",)
     specs = {
         "w_gate": ParamSpec(L + (d, mc.num_experts), "float32",
                             la + ("embed", None), "normal"),
-        "w1": ParamSpec(L + (mc.num_experts, d, f), pd,
+        "w1": ParamSpec(L + (mc.num_experts, d, f), ed,
                         la + ("experts", "embed", "expert_ff"), "fan_in"),
-        "w3": ParamSpec(L + (mc.num_experts, d, f), pd,
+        "w3": ParamSpec(L + (mc.num_experts, d, f), ed,
                         la + ("experts", "embed", "expert_ff"), "fan_in"),
-        "w2": ParamSpec(L + (mc.num_experts, f, d), pd,
+        "w2": ParamSpec(L + (mc.num_experts, f, d), ed,
                         la + ("experts", "expert_ff", "embed"), "fan_in"),
     }
     if mc.router_bias:
@@ -72,11 +74,18 @@ def expert_ffn(xbuf: torch.Tensor, w1, w3, w2, cfg: ModelConfig,
                weights_qdq: bool = False) -> torch.Tensor:
     """Grouped SwiGLU over capacity buffers. xbuf: (E, C, d).
     ``weights_qdq``: the expert weights were quant-dequantized at load (on
-    the kernel path, possibly into ``Fp8Experts`` containers)."""
-    if cfg.fp8:
+    the kernel path, possibly into ``Fp8Experts`` containers). With
+    ``cfg.expert_dtype`` the experts are stored in that dtype (E4M3 for
+    serving) and cast to ``cfg.dtype`` here, with no scale and no qdq of
+    x, in the reference's branch order; on the kernel path they then take
+    ``moe_gemm``'s bf16 format."""
+    if cfg.fp8 and not cfg.expert_dtype:
         xbuf = ste_qdq_tile(xbuf)
         if not weights_qdq:
             w1, w3, w2 = map(ste_qdq_block, (w1, w3, w2))
+    elif cfg.expert_dtype:
+        dt0 = torch_dtype(cfg.dtype)
+        w1, w3, w2 = (w.to(dt0) for w in (w1, w3, w2))
     a = act_fn(cfg.act)
     dt = xbuf.dtype
     if cfg.fp8_impl == "pallas":

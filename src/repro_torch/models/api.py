@@ -49,9 +49,10 @@ reference); the port walks them with a Python loop where the reference
 scans. PyTorch runs eagerly, so ``decode_loop`` is a loop of ``k`` steps
 whose state stays on the card: the host reads it once per chunk.
 
-Under a mesh ctx (``pctx=`` of ``prefill``, ``decode_step`` and
-``decode_loop``; ``parallel/context``) the params and caches are this
-rank's shards and the layers issue the tensor-parallel collectives; the
+Under a mesh ctx (``pctx=`` of ``prefill``, ``prefill_chunk``,
+``decode_step`` and ``decode_loop``; ``parallel/context``) the params
+and caches are this rank's shards and the layers issue the
+tensor-parallel collectives; the
 embedding lookup is masked to this rank's vocab rows and summed over the
 model group, and the vocab-sharded logits are gathered, so every rank
 samples the same token. A decode whose slots are split over the data axis
@@ -471,10 +472,6 @@ class Model:
         self.segments = _segments(cfg)
         if cfg.family != "ssm":
             tfm.attn_specs(cfg, 1)   # raises for an unknown attention kind
-        if cfg.expert_dtype:
-            raise NotImplementedError(
-                "expert_dtype (fp8 expert storage) is not ported yet "
-                "(ROADMAP.md, A.3)")
         # attention-impl overrides merged into the serving ctx, e.g.
         # {"gqa_impl": "pallas", "mla_impl": "pallas"} routes paged decode
         # (and GQA prefill) through the kernels
@@ -1247,6 +1244,7 @@ class Model:
         return cache
 
     @torch.no_grad()
+    @_under_pctx
     def prefill_chunk(self, params, cache, tokens, positions, lengths, row,
                       slot):
         """One chunk of one slot's prompt against the paged cache: the
@@ -1266,7 +1264,11 @@ class Model:
         the slot's masked lane in the decode chunks between can never
         write into the pages the prompt streams into. ``slot`` (1,) picks
         the slot's ``mtp_h`` row, a device operand like the others, so one
-        CUDA graph serves every slot (``serve/graph.PrefillChunk``). The
+        CUDA graph serves every slot (``serve/graph.PrefillChunk``).
+        ``pctx=``: the mesh ctx, as ``prefill``'s: the chunk is replicated
+        over the data rows and cut over the model axis as a whole prompt's
+        prefill is (heads, the row- and column-parallel products, the EP
+        dispatch of the ``valid`` tokens, the vocab-parallel unembed). The
         cache is written in place, no leaf rebound; on an MTP config
         ``cache["mtp_h"][slot]`` takes the hidden at ``lengths - 1`` (the
         decode graph reads that leaf). No value is read back to the host.

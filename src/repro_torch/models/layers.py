@@ -145,17 +145,29 @@ def _tile_amax(x: torch.Tensor, group, n: int) -> torch.Tensor:
     return every[members].amax(dim=0)
 
 
-def page_write_step(pool: torch.Tensor, table: torch.Tensor,
-                    qpos: torch.Tensor, vals: torch.Tensor,
-                    dp_write=None) -> None:
-    """One decode step's rows into a pool (``paged.page_write``). Under a
-    data-split batch (``dp_write = (group, full table, every slot's
-    position)``) the rows of every data row's slots are gathered and
-    written on every rank, so the replicated pool stays whole."""
+def page_write_step(cache: dict, rows: dict, table: torch.Tensor,
+                    qpos: torch.Tensor, dp_write=None) -> None:
+    """One decode step's rows (``rows``: leaf name -> ``(B, ...)``) into
+    the cache's pools (``paged.page_write``). Under a data-split batch
+    (``dp_write = (group, full table, every slot's position)``) the rows
+    of every data row's slots are gathered and written on every rank, so
+    the replicated pool stays whole: every leaf's rows cross in one
+    gather, their bytes side by side."""
     if dp_write is not None:
         group, table, qpos = dp_write
-        vals = coll.all_gather(vals, group)
-    paged.page_write(pool, table, qpos, vals)
+        B = next(iter(rows.values())).shape[0]
+        parts = [v.contiguous().view(torch.uint8).reshape(B, -1)
+                 for v in rows.values()]
+        every = coll.all_gather(torch.cat(parts, dim=1), group)
+        out, at = {}, 0
+        for (name, v), part in zip(rows.items(), parts):
+            w = part.shape[1]
+            out[name] = every[:, at:at + w].contiguous().view(v.dtype) \
+                .reshape(every.shape[0], *v.shape[1:])
+            at += w
+        rows = out
+    for name, v in rows.items():
+        paged.page_write(cache[name], table, qpos, v)
 
 
 # ---------------------------------------------------------------------------
@@ -453,24 +465,21 @@ def _paged_decode(q, k, v, cache: dict, *, cfg: ModelConfig, positions,
     fp8 = "k_scale" in cache
     cdt = torch_dtype(cfg.dtype)
 
-    def write(name, vals):
+    def write(rows):
         if S == 1:
-            page_write_step(cache[name], page_table, qpos, vals[:, 0],
-                            dp_write)
+            page_write_step(cache, {n: x[:, 0] for n, x in rows.items()},
+                            page_table, qpos, dp_write)
         else:
-            paged.page_write_chunk(cache[name], page_table, qpos, vals)
+            for n, x in rows.items():
+                paged.page_write_chunk(cache[n], page_table, qpos, x)
 
     if fp8:
         reduce = kv_amax_reduce(k.shape[-2], cfg)
         qk, sk = paged.quantize_vecs(k, vec_ndim=2, reduce=reduce)
         qv, sv = paged.quantize_vecs(v, vec_ndim=2, reduce=reduce)
-        write("k", qk)
-        write("v", qv)
-        write("k_scale", sk)
-        write("v_scale", sv)
+        write({"k": qk, "v": qv, "k_scale": sk, "v_scale": sv})
     else:
-        write("k", k)
-        write("v", v)
+        write({"k": k, "v": v})
 
     if impl == "pallas" and S == 1:
         from repro_torch.kernels.paged_attention import ops as paged_ops

@@ -81,8 +81,20 @@ kernels launch as on one device. Every family serves under a mesh: the
 dense/MoE pairs, the recurrent families (dense cache: their blocks
 tensor-parallel by heads or channels, ``models/ssm.py``,
 ``models/rglru.py``) and the families with a memory (the ``memory``
-leaf replicated over the model axis). Under a mesh, ``prefill_chunk``
-and ``host_tier_pages`` raise (ROADMAP.md, A.8).
+leaf replicated over the model axis).
+
+Under a mesh the scheduler and the tier run identically on every rank
+from the replicated host mirrors. A prefill chunk is one slot's prompt,
+replicated over the data rows (each runs it on its own replica of the
+pool, so the pools stay byte-equal) and cut over the model axis as a
+whole prompt's prefill is; it runs eagerly, as the meshed decode chunk
+does (``trace_counts["chunk"] == 0``). Each rank spills, stages, checks
+and installs its own cut of a slot's pages (the pools' placement: GQA
+K/V by KV heads, the rest whole); the slot's aux leaves travel from the
+data row that owns the slot to every rank. A page CRC reads this rank's
+bytes only, so each fetch agrees on its verdict over the mesh before any
+rank installs or degrades; the byte counters and the transfer clock read
+the whole payload's bytes, the reference's figures.
 
 A request of the enc-dec or vision family carries ``extras``
 (``src_embeds`` frames, or a ready ``memory``; ``patch_embeds``): its
@@ -162,11 +174,6 @@ def bucket_length(length: int, max_len: int,
     while b < length:
         b *= 2
     return min(b, max_len)
-
-
-def _waits(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"ServeEngine({what}) is not ported yet: see ROADMAP.md, {item}")
 
 
 def _splice(big, small, slot: int, axes) -> None:
@@ -308,10 +315,6 @@ class ServeEngine:
                  ctx=None, device=None):
         self.ctx = ctx
         self.meshed = ctx is not None and ctx.mesh is not None
-        if self.meshed and prefill_chunk is not None:
-            raise _waits("ctx= with prefill_chunk=", "A.8")
-        if self.meshed and host_tier_pages is not None:
-            raise _waits("ctx= with host_tier_pages=", "A.8")
         paged_mod.validate_storage(page_storage)
         self.cfg = cfg
         self.model = Model(cfg, device)
@@ -455,6 +458,15 @@ class ServeEngine:
         self._slot_extras: List[Optional[Dict]] = [None] * slots
         self._hol_skips = 0
         self._seed_gen = np.random.default_rng(seed + 1)
+        chunk_cache = self.cache
+        if self._split and prefill_chunk is not None and "mtp_h" in self.cache:
+            # the chunk of a slot that another data row holds writes its
+            # ``mtp_h`` row into a scratch row one past this rank's own
+            # (``_local_slot``), which only the chunk's cache shows
+            own = self.cache["mtp_h"]
+            rows = torch.cat([own, own[:1]])
+            self.cache["mtp_h"] = rows[:-1]
+            chunk_cache = dict(self.cache, mtp_h=rows)
         self._decode = DecodeChunk(
             self.model, self.params, self.cache,
             self._rows.stop - self._rows.start, chunk,
@@ -465,8 +477,10 @@ class ServeEngine:
             # a collective staged through host memory cannot be captured
             self._decode.graphed = False
         self._prefill = (None if prefill_chunk is None else PrefillChunk(
-            self.model, self.params, self.cache, prefill_chunk,
-            self.pages_per_slot))
+            self.model, self.params, chunk_cache, prefill_chunk,
+            self.pages_per_slot, pctx=ctx if self.meshed else None))
+        if self.meshed and self._prefill is not None:
+            self._prefill.graphed = False
         self.stats = {"steps": 0, "tokens": 0, "accepted_drafts": 0,
                       "drafts": 0, "dispatches": 0, "prefills": 0,
                       "splices": 0, "first_tokens": 0, "page_admits": 0,
@@ -516,19 +530,76 @@ class ServeEngine:
 
         return sharding.map_with_path(one, struct)
 
-    def _local_slot(self, slot: int) -> Optional[int]:
-        """``slot``'s index in this rank's slot-resident leaves, None where
-        another data row holds it."""
+    def _local_slot(self, slot: int) -> int:
+        """``slot``'s row in this rank's slot-resident leaves; a slot that
+        another data row holds maps to the scratch row one past them (the
+        prefill chunk's ``mtp_h`` write lands there)."""
         if not self._rows.start <= slot < self._rows.stop:
-            return None
+            return self._rows.stop - self._rows.start
         return slot - self._rows.start
 
     def _splice_slot(self, big, small, slot: int, axes) -> None:
         """:func:`_splice` into this rank's rows (a no-op for a slot of
         another data row)."""
-        local = self._local_slot(slot)
-        if local is not None:
-            _splice(big, small, local, axes)
+        if self._rows.start <= slot < self._rows.stop:
+            _splice(big, small, slot - self._rows.start, axes)
+
+    def _slot_aux(self, slot: int):
+        """``slot``'s slot-resident leaves (memory, MTP) as a batch-1 tree
+        of device tensors, the same on every rank: under a data split only
+        the owning data row holds them, so each row contributes its row at
+        the slot's local index to one gather over the data group and every
+        rank keeps the owner's."""
+        if not self._split:
+            return _slot_slice(self.cache, slot, self._axes)
+        owner, local = divmod(slot, self._rows.stop - self._rows.start)
+        group = self.ctx.dp_group
+
+        def one(leaf, axis):
+            mine = leaf.narrow(axis, local, 1).contiguous()
+            return coll.all_gather(mine, group, dim=axis).narrow(
+                axis, owner, 1)
+
+        def walk(cache, axes):
+            if isinstance(axes, dict):
+                return {k: walk(cache[k], axes[k]) for k in axes}
+            return one(cache, axes)
+
+        return walk(self.cache, self._axes)
+
+    def _tier_nbytes(self, tree, path=()) -> int:
+        """Bytes of the whole tier payload of which ``tree`` (a page
+        payload, or a slot's aux leaves) is this rank's cut: a leaf the
+        model group cuts counts once per column. The reference's figure,
+        the same on every rank, which the transfer clock and the tier's
+        byte counters read."""
+        if isinstance(tree, dict):
+            return sum(self._tier_nbytes(v, path + (k,))
+                       for k, v in tree.items())
+        n = paged_mod.payload_nbytes(tree)
+        if self.meshed:
+            from repro_torch.parallel import sharding
+            spec = sharding.at_path(self._cache_pspecs, path)
+            if any(e == self.ctx.tp_axis for e in spec):
+                n *= self.ctx.model_size
+        return n
+
+    def _any_rank(self, flags) -> np.ndarray:
+        """``flags`` (bools) or-ed over every rank of the mesh (the model
+        group, then the data group): a verdict each rank reaches from its
+        own bytes alone (a CRC of its cut), which every rank must act on
+        alike, or one corrupt copy would part the ranks' schedules."""
+        flags = np.asarray(flags, bool)
+        if not self.meshed:
+            return flags
+        t = torch.from_numpy(flags.astype(np.int32))
+        for g in (self.ctx.tp_group, self.ctx.dp_group):
+            if g is None:
+                continue
+            if torch.distributed.get_backend(g) != "gloo":
+                t = t.to(self.device)
+            t = coll.all_reduce(t, g, op="max")
+        return t.cpu().numpy() > 0
 
     def _payload_pspecs(self, payload):
         """The model-axis cut of each leaf of a handoff payload of this
@@ -869,7 +940,7 @@ class ServeEngine:
         ps["tier_xfer"] = True
         self._xfers.submit(
             tier_mod.PREFIX_FETCH, ps["req"].rid, None,
-            sum(paged_mod.payload_nbytes(pg) for pg, _ in stored),
+            sum(self._tier_nbytes(pg) for pg, _ in stored),
             slow=self.tier_faults.slow(), slot=slot, req=ps["req"],
             keys=tkeys, stored=stored, pages=fresh[:run],
             end=(h + run) * p)
@@ -888,7 +959,8 @@ class ServeEngine:
         toks[:min(L, start + C) - start] = prompt[start:start + C]
         self.stats["dispatches"] += 1
         self.stats["chunk_prefills"] += 1
-        logits = self._prefill(toks, start, L, slot, ps["row"])
+        logits = self._prefill(toks, start, L, self._local_slot(slot),
+                               ps["row"])
         # index the chunk's full prompt pages: under the fixed chunk grid
         # their bytes are a function of the token prefix alone, and the
         # write is queued, so a sharer's later reads follow it on the stream
@@ -1070,12 +1142,11 @@ class ServeEngine:
         self.stats["dispatches"] += 1
         host = tier_mod.staged_get(dict(
             pages=self.model.gather_pages(self.cache, pages),
-            aux=_slot_slice(self.cache, slot, self._axes)))
+            aux=self._slot_aux(slot)))
         payload, aux = host["pages"], host["aux"]
         crcs = paged_mod.payload_page_crcs(payload, n)
         aux_crc = paged_mod.payload_crc(aux)
-        nbytes = (paged_mod.payload_nbytes(payload)
-                  + paged_mod.payload_nbytes(aux))
+        nbytes = self._tier_nbytes(payload) + self._tier_nbytes(aux)
         # trash the row now: the captured bytes must stay as they are while
         # the transfer is in flight (the lane is masked out of decode, but
         # a masked lane still writes through its row)
@@ -1144,8 +1215,8 @@ class ServeEngine:
                                   self.device)
         self.cache["page_table"][slot].copy_(dev["row"])
         if aux:
-            _splice({k: self.cache[k] for k in aux}, dev["aux"], slot,
-                    self._axes)
+            self._splice_slot({k: self.cache[k] for k in aux}, dev["aux"],
+                              slot, self._axes)
 
     def _restore_mirrors(self, slot: int, m: Dict[str, Any]):
         self.positions[slot] = m["pos"]
@@ -1175,8 +1246,8 @@ class ServeEngine:
             ent = self.tier.begin_fetch(e["eid"])
             e["tier_entry"] = ent
             e["state"] = "fetching"
-            nbytes = (paged_mod.payload_nbytes(ent.payload)
-                      + paged_mod.payload_nbytes(ent.aux))
+            nbytes = (self._tier_nbytes(ent.payload)
+                      + self._tier_nbytes(ent.aux))
             self._xfers.submit(tier_mod.FETCH, rid, e["eid"], nbytes,
                                slow=self.tier_faults.slow())
 
@@ -1189,8 +1260,9 @@ class ServeEngine:
         if e is None or e["state"] != "fetching":
             return
         ent, n = e["tier_entry"], e["n"]
-        if (paged_mod.payload_page_crcs(ent.payload, n) != ent.crcs
-                or paged_mod.payload_crc(ent.aux) != ent.aux_crc):
+        if self._any_rank([
+                paged_mod.payload_page_crcs(ent.payload, n) != ent.crcs
+                or paged_mod.payload_crc(ent.aux) != ent.aux_crc])[0]:
             self.tstats["crc_failures"] += 1
             self._degrade(t.rid)
             return
@@ -1289,7 +1361,7 @@ class ServeEngine:
         payload = tier_mod.staged_get(self.model.gather_pages(
             self.cache, [pid for pid, _ in harvested]))
         self._xfers.submit(tier_mod.PREFIX_SPILL, None, None,
-                           paged_mod.payload_nbytes(payload),
+                           self._tier_nbytes(payload),
                            slow=self.tier_faults.slow(),
                            harvest=harvested, payload=payload)
 
@@ -1321,9 +1393,9 @@ class ServeEngine:
         if ps is None or ps.get("req") is not m["req"]:
             return   # slot cancelled/recycled while the fetch flew
         ps["tier_xfer"] = False
-        bad = [j for j, (pg, crc) in enumerate(m["stored"])
-               if paged_mod.payload_crc(pg) != crc]
-        if bad:
+        bad = np.flatnonzero(self._any_rank(
+            [paged_mod.payload_crc(pg) != crc for pg, crc in m["stored"]]))
+        if bad.size:
             self.tstats["crc_failures"] += 1
             for j in bad:
                 self.tier.drop_prefix(m["keys"][j])

@@ -190,12 +190,15 @@ class PrefillChunk(_Graphed):
     paged cache (``Model.prefill_chunk``): captured once as a CUDA graph
     on the card, eager on the CPU. Every chunk of every prompt and slot
     has the same shapes; the slot and its page-table row are operands, so
-    one graph serves them all."""
+    one graph serves them all. ``pctx``: one mesh rank's chunk, as
+    :class:`DecodeChunk`'s (run eagerly: the caller clears ``graphed``)."""
 
-    def __init__(self, model, params, cache, C: int, pages_per_slot: int):
+    def __init__(self, model, params, cache, C: int, pages_per_slot: int,
+                 pctx=None):
         super().__init__(model.device)
         self.model, self.params, self.cache = model, params, cache
         self.C = C
+        self.pctx = pctx
         # the fields of the input buffer: tokens and positions (C,), the
         # prompt's length and the slot (1,), the row (pages_per_slot,)
         self._fields = dict(tokens=slice(0, C), positions=slice(C, 2 * C),
@@ -215,7 +218,7 @@ class PrefillChunk(_Graphed):
         f = {n: self.input[s] for n, s in self._fields.items()}
         logits, _ = self.model.prefill_chunk(
             self.params, self.cache, f["tokens"][None], f["positions"][None],
-            f["length"], f["row"][None], f["slot"])
+            f["length"], f["row"][None], f["slot"], pctx=self.pctx)
         return logits
 
     def __call__(self, tokens: np.ndarray, start: int, length: int,

@@ -5,7 +5,8 @@
 
 It imports torch, numpy and the port only, so a spawned rank starts
 without JAX. Each rank reads the weights (bridged from the JAX init) from
-``weights.npz``, serves every scenario in turn and writes, per scenario,
+``weights.npz``, serves every scenario in turn (a single-device one on
+rank 0 alone) and writes, per scenario,
 its streams, its MTP counters, a CRC of its host mirrors and streams, and
 a CRC of each pool leaf to ``rank<r>.npz``; for an EP scenario, the
 all-to-alls of one more decode chunk under ``collectives.record()`` (count
@@ -13,8 +14,22 @@ and bytes a MoE layer and step, and whether half B's attention came
 between half A's dispatch issue and its wait). The cross-mesh
 disaggregation scenarios (``DISAGG``) prefill on mesh (2, 4) over every
 rank and decode on mesh (1, 4) over ranks 0-3.
+
+The scenarios with a ``drive`` key run one of the scheduler workloads
+below instead of :func:`serve`'s five prompts: ``shared`` (chunked
+prefill of three prompts behind one 16-token prefix), ``preempt`` (a
+priority-5 arrival preempting a resident), ``tier`` and ``tier_crc``
+(``tests/test_torch_tier.py``'s oversubscribed bench and its CRC
+corruption, the byte flipped on rank :data:`CRC_RANK` alone). Their
+functions take the engine and request classes, so the JAX single-device
+engine runs the same workloads in the test module. ``fault`` plants one
+fault in a run (:func:`plant`), which the test must see fail: a tier
+fetch that installs the whole payload's first model column on every rank
+instead of this rank's cut, and a prefill chunk that writes the next
+column's K/V heads into this rank's pool.
 """
 import dataclasses
+import json
 import os
 import zlib
 
@@ -26,6 +41,7 @@ MESH = (2, 4)
 # scenario -> (model, ctx kwargs or None for one device, engine kwargs)
 PAGED_BF16 = dict(paged=True, page_size=8, page_storage="bf16")
 CARD = dict(paged=True, page_size=8, page_storage="fp8", attn_impl="pallas")
+CHUNKED = dict(PAGED_BF16, prefill_chunk=8)
 SCENARIOS = {
     "gqa_dense": ("qwen", {}, {}),
     "gqa_paged": ("qwen", {}, PAGED_BF16),
@@ -63,6 +79,25 @@ SCENARIOS = {
                       CARD),
     "pod_ftp": ("moe_nofp8", dict(moe_impl="ep_flat", wire="fp32",
                                   ep_ftp=True), {}),
+    # chunked prefill and the host page tier under the mesh
+    "gqa_chunked": ("qwen", {}, dict(CHUNKED, drive="shared")),
+    "gqa_chunked_fp8": ("qwen", {}, dict(CHUNKED, page_storage="fp8",
+                                         drive="shared")),
+    "gqa_chunked_preempt": ("qwen", {}, dict(CHUNKED, drive="preempt")),
+    "mla_chunked": ("moe", dict(moe_impl="ep_flat", wire="fp32"),
+                    dict(CHUNKED, drive="shared")),
+    "card_path_chunked": ("moe_pallas", dict(moe_impl="ep_flat",
+                                             wire="fp8"),
+                          dict(CARD, prefill_chunk=8, drive="shared")),
+    "card_path_chunked_single": ("moe_pallas", None,
+                                 dict(CARD, prefill_chunk=8, drive="shared")),
+    "gqa_tier": ("qwen", {}, dict(CHUNKED, drive="tier")),
+    "gqa_tier_crc": ("qwen", {}, dict(CHUNKED, drive="tier_crc")),
+    "pod_gqa_tier": ("qwen", {}, dict(CHUNKED, drive="tier")),
+    "fault_tier_cut": ("qwen", {}, dict(CHUNKED, drive="tier",
+                                        fault="tier_cut", requests=3)),
+    "fault_chunk_cut": ("qwen", {}, dict(CHUNKED, drive="shared",
+                                         fault="chunk_cut")),
 }
 POD = [n for n in SCENARIOS if n.startswith("pod_")]
 POD_MESH = (2, 2, 2)
@@ -73,6 +108,11 @@ HEADS6 = dict(num_heads=6, num_kv_heads=2)
 DISAGG = [n for n, (_, _, e) in SCENARIOS.items() if e.get("disagg")]
 DECODE_MESH = (1, 4)
 DISAGG_SLOTS = 3
+# the one rank whose host copy ``tier_crc`` corrupts
+CRC_RANK = 5
+# the scenarios with a planted fault (each must part from the streams of
+# its sound twin, ``gqa_tier`` or ``gqa_chunked``)
+FAULTS = ("fault_tier_cut", "fault_chunk_cut")
 
 
 def configs():
@@ -111,6 +151,14 @@ def _crc(*arrays) -> int:
     return c
 
 
+def _pool_crcs(eng):
+    """A CRC of each pool leaf of this rank."""
+    return np.array(
+        [_crc(t.contiguous().reshape(-1).view(torch.uint8).numpy())
+         for seg in eng.model.segments
+         for t in eng.cache[seg.name].values()], np.int64)
+
+
 def serve(cfg, params, ctx, engine_kw):
     from repro_torch.serve.engine import Request, ServeEngine
     eng = ServeEngine(cfg, params=params, slots=4, max_len=32, seed=0,
@@ -125,6 +173,190 @@ def serve(cfg, params, ctx, engine_kw):
     if eng.paged:
         assert eng.free_pages() == eng.pool_pages   # no page leaked
     return eng, [list(r.out) for r in reqs]
+
+
+def drive_kw(drive, tier_mod):
+    """The engine sizing of a scheduler workload (``tier_mod``: the
+    package's ``serve.tier``): ``shared`` on :func:`serve`'s engine;
+    ``preempt`` two slots over a pool that one 16 + 24 request fills;
+    ``tier`` and ``tier_crc`` ``tests/test_torch_tier.py``'s bench (two
+    slots, a 16-page pool holding two whole requests, a host tier three
+    times that, quantum 4). Every one pages bf16 (or fp8) with chunks of
+    8 (:data:`CHUNKED`)."""
+    if drive == "shared":
+        return dict(slots=4, max_len=32)
+    if drive == "preempt":
+        return dict(slots=2, max_len=64, pool_pages=5)
+    return dict(slots=2, max_len=64, pool_pages=16, host_tier_pages=48,
+                tier_config=tier_mod.TierConfig(quantum=4))
+
+
+def shared_prompts(vocab):
+    """Three prompts behind one 16-token prefix (two full pages)."""
+    rng = np.random.default_rng(3)
+    prefix = rng.integers(1, vocab, 16)
+    return [np.concatenate([prefix, rng.integers(1, vocab, 3 + 2 * i)])
+            for i in range(3)]
+
+
+def drive(eng, Request, name, vocab, flip=None, requests=10):
+    """Run workload ``name`` on ``eng`` (either package's engine); returns
+    the requests. ``flip(payload)`` corrupts a host-tier copy (``tier_crc``:
+    the first entry parked in the tier)."""
+    if name == "shared":
+        reqs = [Request(i, p, max_new=6)
+                for i, p in enumerate(shared_prompts(vocab))]
+        for r in reqs:
+            eng.submit(r)
+            eng.step()     # two ticks: the prefix pages index before the
+            eng.step()     # next admission probes them
+    elif name == "preempt":
+        rng = np.random.default_rng(5)
+        low = Request(0, rng.integers(1, vocab, 16), max_new=24)
+        high = Request(1, rng.integers(1, vocab, 12), max_new=8,
+                       priority=5)
+        reqs = [low, high]
+        eng.submit(low)
+        for _ in range(4):
+            eng.step()
+        eng.submit(high)
+        eng.step()
+        assert eng.stats["evictions"] >= 1
+    else:
+        rng = np.random.default_rng(7)
+        reqs = [Request(rid, rng.integers(1, 500, size=9 + rid)
+                        .astype(np.int32), max_new=24, seed=rid)
+                for rid in range(requests)]
+        for r in reqs:
+            eng.submit(r)
+        flipped = name != "tier_crc"
+        while not flipped and eng.has_work():
+            eng.step()
+            for e in eng._suspended.values():
+                if e["state"] == "host":
+                    if flip is not None:
+                        flip(eng.tier._entries[e["eid"]].payload)
+                    flipped = True
+                    break
+        assert flipped
+    eng.run_until_done()
+    return reqs
+
+
+# the parts of a summary the tier runs hold equal to the reference's
+SUMMARY = ("streams", "done", "tier", "pool", "prefix", "stats", "free")
+
+
+def _plain(d):
+    return {k: float(v) if isinstance(v, (float, np.floating)) else int(v)
+            for k, v in d.items()}
+
+
+def summary(eng, reqs):
+    """A drained run as plain Python: streams, and every figure the
+    reference's tier tests compare (``stats`` but ``dispatches``)."""
+    stats = {k: v for k, v in eng.stats.items() if k != "dispatches"}
+    return dict(streams=[[int(t) for t in r.out] for r in reqs],
+                done=[bool(r.done) for r in reqs],
+                tier=_plain(eng.tier_stats()), pool=_plain(eng.pool_stats()),
+                prefix=_plain(eng.prefix_stats()), stats=_plain(stats),
+                free=int(eng.free_pages()))
+
+
+def plant(eng, fault, ctx):
+    """Plant ``fault`` in a meshed engine's run; returns the undo.
+    ``chunk_cut`` is ``chip_smoke.py``'s ``chunk_heads_shifted``."""
+    if fault == "tier_cut":
+        install = eng.model.install_pages
+
+        def first_column(cache, pages, ids):
+            # the whole payload's leading cut on every rank: model column
+            # 0's KV heads where this rank holds its own
+            whole = eng.whole_payload({"pages": pages, "aux": {}})["pages"]
+
+            def cut(w, mine):
+                if isinstance(w, dict):
+                    return {k: cut(w[k], mine[k]) for k in w}
+                return w[tuple(slice(0, n) for n in mine.shape)]
+            return install(cache, cut(whole, pages), ids)
+
+        eng.model.install_pages = first_column
+        return lambda: None
+    import chip_smoke
+    planted = chip_smoke.chunk_fault(ctx, "chunk_heads_shifted")
+    planted.__enter__()
+    return lambda: planted.__exit__(None, None, None)
+
+
+def serve_drive(cfg, params, ctx, engine_kw, rank):
+    """A scheduler workload (``engine_kw["drive"]``) on the port's engine:
+    the engine, the summary; under the mesh the prefill chunk ran eagerly
+    and no page leaked."""
+    from repro_torch.serve import tier
+    from repro_torch.serve.engine import Request, ServeEngine
+    kw = dict(engine_kw)
+    name, fault = kw.pop("drive"), kw.pop("fault", None)
+    n = kw.pop("requests", 10)
+    kw.update(drive_kw(name, tier))
+    eng = ServeEngine(cfg, params=params, seed=0, chunk=4, ctx=ctx,
+                      device="cpu", **kw)
+    undo = plant(eng, fault, ctx) if fault else None
+
+    def flip(payload):
+        if rank == CRC_RANK or ctx is None:
+            from repro_torch.core import paged
+            paged.payload_leaves(payload)[0].view(torch.uint8).reshape(
+                -1).numpy()[0] ^= 0xFF
+
+    try:
+        reqs = drive(eng, Request, name, cfg.vocab_size, flip, n)
+    finally:
+        if undo is not None:
+            undo()
+    assert all(r.done for r in reqs)
+    assert eng.trace_counts == {"decode": 0, "chunk": 0}
+    assert eng.free_pages() == eng.pool_pages
+    return eng, summary(eng, reqs)
+
+
+def aux_round_trip(eng):
+    """The tier's aux path on a served engine whose slots the data axes
+    cut: every rank's rows of every slot-resident leaf are set to their
+    global slot number, then each slot's aux (``_slot_aux``, gathered
+    from the data row that owns it) must read its number on every rank,
+    and slot 0's aux installed into the last slot (``_install_slot``)
+    must land in that slot's owner's rows alone. Returns whether all
+    held here."""
+    axes, rows = eng._axes, eng._rows
+
+    def fill(cache, ax):
+        if isinstance(ax, dict):
+            for k in ax:
+                fill(cache[k], ax[k])
+            return
+        for j in range(rows.stop - rows.start):
+            cache.select(ax, j).fill_(rows.start + j)
+
+    def reads(tree, value):
+        if isinstance(tree, dict):
+            return all(reads(v, value) for v in tree.values())
+        return bool((tree == value).all())
+
+    fill(eng.cache, axes)
+    ok = all(reads(eng._slot_aux(s), s) for s in range(eng.slots))
+    last = eng.slots - 1
+    eng._install_slot(last, [], eng._slot_aux(0))
+    local = eng._local_slot(last)
+    for j in range(rows.stop - rows.start):
+        want = 0 if j == local else rows.start + j
+        ok &= reads({k: _row(eng.cache[k], axes[k], j) for k in axes}, want)
+    return ok
+
+
+def _row(cache, ax, j):
+    if isinstance(ax, dict):
+        return {k: _row(cache[k], ax[k], j) for k in ax}
+    return cache.select(ax, j)
 
 
 def a2a_record(eng):
@@ -187,6 +419,8 @@ def run_rank(rank: int, world: int, store_path: str, out_dir: str) -> None:
     params["moe_pallas"] = params["moe_nofp8"] = params["moe"]
     out = {}
     for name, (model, ctx_kw, engine_kw) in SCENARIOS.items():
+        if ctx_kw is None and rank:
+            continue       # a single-device scenario: rank 0 serves it
         if name in DISAGG:
             streams, nbytes, cross = serve_disagg(
                 cfgs[model], params[model], (mesh, decode_mesh), ctx_kw,
@@ -198,6 +432,19 @@ def run_rank(rank: int, world: int, store_path: str, out_dir: str) -> None:
         m = pod_mesh if name in POD else mesh
         ctx = None if ctx_kw is None else ParallelCtx(
             mesh=m, dp_axes=data_axes(m.axis_names), **ctx_kw)
+        if "drive" in engine_kw:
+            eng, summ = serve_drive(cfgs[model], params[model], ctx,
+                                    engine_kw, rank)
+            text = json.dumps(summ, sort_keys=True)
+            out[name + ":summary"] = np.array(text)
+            streams = summ["streams"]
+            L = max(len(s) for s in streams)
+            out[name] = np.array([s + [-1] * (L - len(s)) for s in streams])
+            out[name + ":mirrors"] = np.array([_crc(
+                eng.positions, eng._tokens, eng._left, eng._tix, out[name],
+                np.frombuffer(text.encode(), np.uint8))], np.int64)
+            out[name + ":pool"] = _pool_crcs(eng)
+            continue
         eng, streams = serve(cfgs[model], params[model], ctx, engine_kw)
         L = max(len(s) for s in streams)
         out[name] = np.array([s + [-1] * (L - len(s)) for s in streams])
@@ -207,13 +454,12 @@ def run_rank(rank: int, world: int, store_path: str, out_dir: str) -> None:
             eng.positions, eng._tokens, eng._left, eng._tix,
             out[name])], np.int64)
         if eng.paged:
-            out[name + ":pool"] = np.array(
-                [_crc(t.contiguous().reshape(-1).view(torch.uint8).numpy())
-                 for seg in eng.model.segments
-                 for t in eng.cache[seg.name].values()], np.int64)
+            out[name + ":pool"] = _pool_crcs(eng)
         if ctx is not None:
             out[name + ":a2a"] = np.array([eng.decode_alltoall_bytes()])
             if ctx.ep_enabled:
                 out[name + ":record"] = a2a_record(eng)
+        if name == "pod_card_path":
+            out[name + ":aux"] = np.array([aux_round_trip(eng)])
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
     dist.destroy_process_group()

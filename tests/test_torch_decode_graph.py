@@ -27,6 +27,8 @@ from repro_torch.configs.base import smoke_config as tsmoke
 from repro_torch.kernels import registry
 from repro_torch.models.api import Model
 from repro_torch.serve.engine import Request, ServeEngine
+from _torch_threads import one_thread  # noqa: F401
+
 
 # (arch, cache layout, MTP draft): the three served paths' layouts
 LAYOUTS = {

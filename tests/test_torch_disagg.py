@@ -29,14 +29,7 @@ from repro_torch.configs.base import smoke_config as tsmoke
 from repro_torch.parallel.context import ParallelCtx
 from repro_torch.serve import disagg
 from repro_torch.serve.engine import AdmissionError, Request, ServeEngine
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from _torch_threads import one_thread  # noqa: F401
 
 
 def _wide_moe(cfg):

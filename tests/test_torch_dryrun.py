@@ -18,7 +18,9 @@ lowers and compiles it on forced XLA host devices. Here:
   ``src/repro`` edited): smoke qwen3-14b train, prefill and decode, smoke
   DeepSeek-V3 decode (``fp8`` off in both: at (2, 4) its smoke expert FF
   of 64 cuts to 32 a data rank, which the port's FP8 ``ep_ftp`` refuses),
-  smoke mamba2-2.7b and llama4-maverick decode. Equal but for the port's
+  smoke mamba2-2.7b and llama4-maverick decode, and smoke DeepSeek-V3
+  decode with E4M3 expert storage (``--expert-dtype``, which turns
+  ``fp8`` off in both). Equal but for the port's
   dense-ring layout (``sharding.explicit_cache_pspecs``: the ring's length
   axis whole on each model column, the MLA latent ring and ``pos``
   replicated over it, ROADMAP.md §A item 4 (i)) and its recurrent conv
@@ -33,14 +35,16 @@ lowers and compiles it on forced XLA host devices. Here:
   recurrent ones at ``long_500k`` too, ``long_500k`` skipped for full
   attention; the same table for every ``--multi-pod`` cell (2 x 16 x 16,
   the batch and ZeRO-3 over ``("pod", "data")``, its small shapes at 32
-  rows, one a pair position); an ``--expert-dtype`` cell A.3. And one
+  rows, one a pair position); an ``--expert-dtype`` cell ok, which the
+  roofline reads. And one
   cell at full depth and the real shape: DeepSeek-V3 ``decode_32k`` on
   256 fake ranks.
 * (d) ``remat="full"`` lowers ``temp_size_in_bytes`` of a train cell and
   raises ``flops_per_device`` by the recomputed forward of its layer
   steps, no more.
 * (e) No default process group is left after ``run_cell``, after an ok
-  cell and after an error cell (``--expert-dtype``, A.3).
+  cell (one with ``--expert-dtype`` too) and after an error cell (a cache
+  dtype the port has no storage for).
 * (f) The meshed ``Model.prefill`` and ``decode_step`` of each family with
   a new meshed layout run on (1, 2) in a fake world, on ``meta``.
 """
@@ -72,7 +76,9 @@ ARG_CELLS = [("qwen3-14b", "train_s", {}), ("qwen3-14b", "prefill_s", {}),
              ("qwen3-14b", "decode_s", {}),
              ("deepseek-v3-671b", "decode_s", {"fp8": False}),
              ("mamba2-2.7b", "decode_s", {}),
-             ("llama4-maverick-400b-a17b", "decode_s", {})]
+             ("llama4-maverick-400b-a17b", "decode_s", {}),
+             ("deepseek-v3-671b", "decode_s",
+              {"expert_dtype": "float8_e4m3fn"})]
 
 JAX_CELLS = """
 import os, json
@@ -89,7 +95,8 @@ rd.SHAPES = {{k: rb.ShapeCfg(k, *v) for k, v in {small}.items()}}
 out = {{}}
 for arch, shape, kw in {cells}:
     rec = rd.run_cell(arch, shape, multi_pod=False, out_dir="", **kw)
-    out[arch + "|" + shape] = [rec["status"], rec.get("error", ""),
+    out[arch + "|" + shape + "|" + kw.get("expert_dtype", "")] = [
+                               rec["status"], rec.get("error", ""),
                                rec.get("memory_analysis", {{}})]
 print("CELLS", json.dumps(out))
 """
@@ -173,7 +180,11 @@ def jax_cells():
         proc.kill()
 
 
-def _layout_bytes(arch, shape):
+def _cell_key(arch, shape, kw):
+    return arch + "|" + shape + "|" + kw.get("expert_dtype", "")
+
+
+def _layout_bytes(arch, shape, expert_dtype=""):
     """The bytes a rank holds more in the port's placement than in the
     reference's, for one smoke cell at (2, 4): the parameters (the port
     keeps heads whole, ``sharding.whole_heads``; under the decode rules
@@ -186,6 +197,8 @@ def _layout_bytes(arch, shape):
     from repro_torch.serve.engine import serve_param_pspecs
     from repro_torch.train.optimizer import tree_items
     cfg = tbase.smoke_config(tbase.get_config(arch))
+    if expert_dtype:
+        cfg = dataclasses.replace(cfg, expert_dtype=expert_dtype, fp8=False)
     seq, batch, phase = SMALL[shape]
     mesh = Mesh.abstract((2, 4))
     model = Model(cfg, device="meta")
@@ -236,17 +249,18 @@ def test_argument_bytes_equal_the_references(smoke_cells, jax_cells):
         rec = dryrun.run_cell(arch, shape, multi_pod=False, out_dir="", **kw)
         assert rec["status"] == "ok", rec.get("error")
         assert rec["mesh"] == "2x4" and rec["devices"] == 8
-        ours[arch + "|" + shape] = rec
+        ours[_cell_key(arch, shape, kw)] = rec
     out, err = jax_cells.communicate(timeout=600)
     assert jax_cells.returncode == 0, err[-3000:]
     line = [x for x in out.splitlines() if x.startswith("CELLS ")][-1]
     ref = json.loads(line[len("CELLS "):])
-    for arch, shape, _ in ARG_CELLS:
-        key = arch + "|" + shape
+    for arch, shape, kw in ARG_CELLS:
+        key = _cell_key(arch, shape, kw)
         status, error, mem = ref[key]
         assert status == "ok", error
         got = ours[key]["memory_analysis"]["argument_size_in_bytes"]
-        want = mem["argument_size_in_bytes"] + _layout_bytes(arch, shape)
+        want = mem["argument_size_in_bytes"] + _layout_bytes(
+            arch, shape, kw.get("expert_dtype", ""))
         assert got == want, (key, got, mem["argument_size_in_bytes"])
     # the layout differences are the dense rings' (more a rank) and the
     # recurrent conv tails' (less), and they show
@@ -307,7 +321,13 @@ def test_sweep_statuses(monkeypatch):
     monkeypatch.setattr(dryrun, "SHAPES", _shapes(SWEEP_SHAPES))
     rec = dryrun.run_cell("deepseek-v3-671b", "decode_32k", multi_pod=False,
                           out_dir="", expert_dtype="float8_e4m3fn")
-    assert _status(rec) == "A.3"
+    assert _status(rec) == "ok"
+    plain = dryrun.run_cell("deepseek-v3-671b", "decode_32k",
+                            multi_pod=False, out_dir="", fp8=False)
+    # the routed experts a rank holds, 1 byte a weight where bf16 takes 2
+    assert (rec["memory_analysis"]["argument_size_in_bytes"]
+            < plain["memory_analysis"]["argument_size_in_bytes"])
+    assert roofline.analyze(rec)["arch"] == "deepseek-v3-671b"
     assert dryrun.main(["--arch", "mamba2-2.7b", "--shape", "train_4k",
                         "--out", ""]) == 0
     assert dryrun.main(["--arch", "qwen3-14b", "--shape", "long_500k",
@@ -392,7 +412,10 @@ def test_no_process_group_is_left(smoke_cells):
     assert rec["status"] == "ok" and not dist.is_initialized()
     rec = dryrun.run_cell("deepseek-v3-671b", "decode_s", multi_pod=False,
                           out_dir="", expert_dtype="float8_e4m3fn")
-    assert rec["status"] == "error" and "A.3" in rec["error"]
+    assert rec["status"] == "ok" and not dist.is_initialized()
+    rec = dryrun.run_cell("qwen3-14b", "decode_s", multi_pod=False,
+                          out_dir="", cache_dtype="float16")
+    assert rec["status"] == "error" and "float16" in rec["error"]
     assert not dist.is_initialized()
     with dryrun.fake_world(2):
         rec = dryrun.run_cell("qwen3-14b", "decode_s", multi_pod=False,

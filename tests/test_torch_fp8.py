@@ -26,6 +26,8 @@ from repro_torch.core import fp8, paged
 from repro_torch.kernels import registry
 from repro_torch.kernels.fp8_gemm import ops as fp8_ops
 from repro_torch.models import layers
+from _torch_threads import one_thread  # noqa: F401
+
 
 RTOL = 1e-5   # of max |reference|, fp32
 

@@ -38,6 +38,8 @@ from repro_torch.serve.engine import Request, ServeEngine
 
 from test_kernel_properties import (GOLDEN_GQA, GOLDEN_GQA_FP8,
                                     _golden_gqa_inputs)
+from _torch_threads import one_thread  # noqa: F401
+
 
 RTOL = 1e-5
 

@@ -29,6 +29,8 @@ from repro_torch.configs.base import smoke_config as tsmoke
 from repro_torch.kernels import registry
 from repro_torch.models import layers
 from repro_torch.serve.engine import Request, ServeEngine
+from _torch_threads import one_thread  # noqa: F401
+
 
 RTOL = 1e-5
 GROUPS = {"G1": {}, "G5": dict(num_heads=10, num_kv_heads=2)}

@@ -34,6 +34,7 @@ from repro.launch import serve as jserve
 from repro.models.api import Model as JModel
 from repro_torch import bridge
 from repro_torch.launch import serve, train
+from _torch_threads import one_thread  # noqa: F401
 
 BASE = ["--smoke", "--requests", "4", "--max-new", "6"]
 
@@ -112,16 +113,6 @@ INVALID = [
     ["--page-storage", "fp16"],
     ["--moe-impl", "ep"],
 ]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Smoke-width engines issue many tiny ops, which torch's intra-op
-    threads only slow down: one thread for this module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("name", list(SCENARIOS))

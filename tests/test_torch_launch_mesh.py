@@ -19,19 +19,12 @@ import pytest
 import torch
 
 from repro_torch.launch import serve, train
+from _torch_threads import one_thread  # noqa: F401
 
 SERVE = ["--arch", "qwen3-14b", "--smoke", "--requests", "4", "--max-new",
          "6", "--device", "cpu"]
 TRAIN = ["--arch", "qwen3-14b", "--smoke", "--steps", "2", "--batch", "2",
          "--seq", "32", "--device", "cpu"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_meshed_serve_gives_the_single_device_streams(capsys):

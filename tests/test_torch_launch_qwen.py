@@ -23,16 +23,9 @@ from repro.train.trainer import Trainer as JTrainer
 from repro_torch import bridge
 from repro_torch.configs.base import get_config, smoke_config
 from repro_torch.launch import train
+from _torch_threads import one_thread  # noqa: F401
 
 QWEN = BASE + ["--arch", "qwen3-14b"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_gateway_prints_the_reference_lines(monkeypatch, capsys):

@@ -24,6 +24,7 @@ from repro_torch.core import logfmt
 from repro_torch.kernels import registry
 from repro_torch.kernels.logfmt import ops
 from repro_torch.kernels.logfmt.edge import edge_tiles
+from _torch_threads import one_thread  # noqa: F401
 
 
 def _gen(tag):

@@ -37,6 +37,8 @@ from repro_torch.kernels.mla_attention import ops as mla_ops
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.models.api import Model
 from repro_torch.serve.engine import AdmissionError, Request, ServeEngine
+from _torch_threads import one_thread  # noqa: F401
+
 
 RTOL = 1e-5
 KW = dict(slots=2, max_len=32, seed=0, chunk=4)

@@ -27,6 +27,8 @@ from repro_torch.core import fp8, moe, routing
 from repro_torch.kernels import registry
 from repro_torch.kernels.moe_gemm import ops as moe_ops
 from repro_torch.models.param import layer as param_layer
+from _torch_threads import one_thread  # noqa: F401
+
 
 RTOL = 1e-5
 BF16_RTOL = 2 ** -7
@@ -275,3 +277,76 @@ class TestGroupedMatmulOp:
         registry.reset_launch_counts()
         moe_ops.grouped_matmul(torch.ones(2, 8, 16), torch.ones(2, 16, 8))
         assert registry.launch_counts()["moe_gemm"] == 0
+
+
+class TestExpertDtype:
+    """E4M3 expert storage (``cfg.expert_dtype``, the reference's serving
+    option): the routed experts are stored as E4M3 and cast to the model
+    dtype at use, with no scale and no qdq (FP8 GEMMs off, as the dry run
+    sets them)."""
+
+    @pytest.fixture(scope="class")
+    def e4m3(self):
+        cfg = dataclasses.replace(smoke_config(get_config(
+            "deepseek-v3-671b")), expert_dtype="float8_e4m3fn", fp8=False)
+        tcfg = dataclasses.replace(tsmoke(tget("deepseek-v3-671b")),
+                                   expert_dtype="float8_e4m3fn", fp8=False)
+        jp = jax.jit(JModel(cfg).init)(jax.random.PRNGKey(0))
+        npp = jax.tree.map(np.asarray, jp)
+        return cfg, tcfg, jp, npp
+
+    def test_logits_match_jax(self, e4m3):
+        """The bridged E4M3 stacks are the JAX init's codes, the port's own
+        specs store them so, ``prepare_for_serving`` keeps them as they are
+        (no ``Fp8Experts``), and the prefill logits agree within 1e-5."""
+        from repro_torch.models.api import Model
+        cfg, tcfg, jp, npp = e4m3
+        tp = bridge.params_from_jax(npp)
+        stacks = [v for k, v in _moe_leaves(tp) if k in ("w1", "w3", "w2")]
+        assert stacks and all(v.dtype == torch.float8_e4m3fn for v in stacks)
+        specs = [s for k, s in _moe_leaves(Model(tcfg, device="meta").specs())
+                 if k in ("w1", "w3", "w2")]
+        assert all(s.dtype == "float8_e4m3fn" for s in specs)
+        prep = bridge.prepare_for_serving(
+            tp, dataclasses.replace(tcfg, fp8=True, fp8_impl="pallas"))
+        assert bridge.expert_storage(prep)["e4m3"] == 0
+        assert all(p.dtype == torch.float8_e4m3fn for k, p in
+                   _moe_leaves(prep) if k in ("w1", "w3", "w2"))
+        toks = _gen("e4m3_tokens").integers(0, cfg.vocab_size, (1, 12))
+        jl, _ = jax.jit(lambda p, t: JModel(cfg).prefill(
+            p, {"tokens": t}))(jp, jnp.asarray(toks))
+        tl, _ = Model(tcfg, device="cpu").prefill(
+            bridge.prepare_for_serving(tp, tcfg),
+            {"tokens": torch.from_numpy(toks)})
+        _close(tl, jl)
+
+    def test_greedy_stream_equals_jax(self, e4m3):
+        from repro.serve.engine import Request as JRequest
+        from repro.serve.engine import ServeEngine as JServeEngine
+        from repro_torch.serve.engine import Request, ServeEngine
+        cfg, tcfg, jp, npp = e4m3
+        prompts = [np.arange(5 + 3 * i) * (i + 2) % cfg.vocab_size
+                   for i in range(3)]
+        out = []
+        for port in (False, True):
+            eng = (ServeEngine(tcfg, params=bridge.params_from_jax(npp),
+                               slots=2, max_len=32, chunk=4, device="cpu")
+                   if port else JServeEngine(cfg, params=jp, slots=2,
+                                             max_len=32, chunk=4))
+            R = Request if port else JRequest
+            reqs = [R(i, p, max_new=6) for i, p in enumerate(prompts)]
+            for r in reqs:
+                eng.submit(r)
+            eng.run_until_done()
+            assert all(r.done for r in reqs)
+            out.append([list(r.out) for r in reqs])
+        assert out[1] == out[0]
+
+
+def _moe_leaves(tree, inside=False):
+    """(name, leaf) of every leaf under a ``moe`` key."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _moe_leaves(v, inside or k == "moe")
+        elif inside:
+            yield k, v

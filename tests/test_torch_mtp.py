@@ -35,6 +35,8 @@ from repro_torch.models.api import Model
 from repro_torch.models.param import layer
 from repro_torch.serve import speculative
 from repro_torch.serve.engine import Request, ServeEngine
+from _torch_threads import one_thread  # noqa: F401
+
 
 RTOL = 1e-5
 

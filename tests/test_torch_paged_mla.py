@@ -27,6 +27,8 @@ from repro_torch.kernels import registry
 from repro_torch.kernels.paged_attention import ops as paged_ops
 
 from test_kernel_properties import GOLDEN_MLA, _golden_mla_inputs
+from _torch_threads import one_thread  # noqa: F401
+
 
 RTOL = 1e-5
 

@@ -29,19 +29,9 @@ from repro_torch.configs.base import get_config as tget
 from repro_torch.configs.base import smoke_config as tsmoke
 from repro_torch.models.api import Model
 from repro_torch.serve.engine import Request, ServeEngine
+from _torch_threads import one_thread  # noqa: F401
 
 POOL = 24
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The port's smoke-width engines issue thousands of tiny ops, which
-    torch's intra-op threads only slow down (and, beside the other test
-    workers, oversubscribe the cores): one thread for this module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

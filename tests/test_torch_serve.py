@@ -31,6 +31,8 @@ from repro_torch.kernels import registry
 from repro_torch.models.api import Model, counter_uniform
 from repro_torch.parallel.context import Mesh, ParallelCtx
 from repro_torch.serve.engine import AdmissionError, Request, ServeEngine
+from _torch_threads import one_thread  # noqa: F401
+
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 KW = dict(slots=2, max_len=32, seed=0, chunk=4, paged=True, page_size=8)
@@ -310,26 +312,41 @@ def test_cache_bytes_per_token_match_reference(weights, storage):
         ref.cache_bytes_per_token())
 
 
-@pytest.mark.parametrize("option", [
-    dict(paged=True, prefill_chunk=8,
-         extras={"src_embeds": np.zeros((1, 4, 8), np.float32)}),
-    dict(ctx=ParallelCtx(mesh=Mesh.abstract((1, 2))), host_tier_pages=8),
-    dict(ctx=ParallelCtx(mesh=Mesh.abstract((1, 2))), prefill_chunk=8)])
-def test_options_not_ported_yet_raise(option):
-    """Constructor options that the port has not reached raise with a
-    pointer into ROADMAP.md (a mesh ctx serves, but not with chunked
-    prefill or the host tier yet); per-request extras (encoder or vision
-    payloads) on a chunked engine raise the reference's ``ValueError``:
-    they need whole-prompt prefill."""
-    kw = dict(KW, **option)
-    extras = kw.pop("extras", None)
-    error, match = ((ValueError, "does not support extras") if extras
-                    else (NotImplementedError, "ROADMAP"))
-    with pytest.raises(error, match=match):
-        eng = ServeEngine(tsmoke(tget("deepseek-v3-671b")), device="cpu",
-                          **kw)
-        eng.submit(Request(0, np.arange(4), max_new=2), extras)
+def test_chunked_admission_refuses_extras():
+    """Per-request extras (encoder or vision payloads) on a chunked engine
+    raise the reference's ``ValueError``: they need whole-prompt
+    prefill."""
+    eng = ServeEngine(tsmoke(tget("deepseek-v3-671b")), device="cpu",
+                      **dict(KW, prefill_chunk=8))
+    eng.submit(Request(0, np.arange(4), max_new=2),
+               {"src_embeds": np.zeros((1, 4, 8), np.float32)})
+    with pytest.raises(ValueError, match="does not support extras"):
         eng.step()
+
+
+@pytest.mark.parametrize("option", [dict(host_tier_pages=8),
+                                    dict(prefill_chunk=8)])
+def test_meshed_engine_takes_the_scheduler_options(option):
+    """A mesh ctx serves with chunked prefill and with the host tier
+    (ROADMAP.md's A.8 item, done): in a fake world of 2 on ``meta`` the
+    meshed engine builds on (1, 2) with the option in force, its prefill
+    chunk eager (a staged collective cannot be captured) and its GQA pool
+    cut over the model axis. Their values: ``test_torch_serve_mesh.py``."""
+    from repro_torch.launch import dryrun
+    cfg = tsmoke(tget("qwen3-14b"))
+    with dryrun.fake_world(2):
+        eng = ServeEngine(cfg, params=Model(cfg, device="meta")
+                          .param_structs(), device="meta",
+                          ctx=ParallelCtx(mesh=Mesh.create((1, 2))),
+                          **dict(KW, **option))
+    assert eng.meshed and eng.trace_counts == {"decode": 0, "chunk": 0}
+    if "prefill_chunk" in option:
+        assert eng.prefill_chunk == 8 and not eng._prefill.graphed
+    else:
+        assert eng.tier.capacity_pages == 8
+        assert eng.pool_stats()["host_pages_total"] == 8
+    assert (eng.cache["blocks"]["k"].shape[-2]
+            == cfg.num_kv_heads // 2)
 
 
 def test_entry_points_default_to_the_card():

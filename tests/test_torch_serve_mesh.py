@@ -36,6 +36,22 @@ single-device engine, run here while the ranks serve:
   ``"data"``, each position's tokens gathered over the pair) exact
   against the JAX single-device engine of the same config; paged fp8
   DeepSeek-V3 on the card's path at least 0.9 of its single device;
+* chunked prefill under the mesh (chunks of 8, three prompts behind one
+  16-token prefix): qwen3-14b paged bf16 and fp8, streams and
+  ``prefix_stats()`` exact; a priority-5 arrival preempting a chunked
+  resident, streams exact; DeepSeek-V3 paged bf16 at least 0.9 of the
+  JAX engine's tokens, its kernel path (fp8 pages, FP8 wire) at least
+  0.9 of the port's single device;
+* the host page tier under the mesh (``tests/test_torch_tier.py``'s
+  oversubscribed bench, 10 requests) at (2, 4) and (2, 2, 2): streams,
+  ``tier_stats()``, ``pool_stats()``, ``prefix_stats()`` and ``stats``
+  but ``dispatches`` exactly the JAX engine's; a byte of the host copy
+  flipped on one rank only: every rank degrades the same request, the
+  summary exactly JAX's ``_crc_corruption``; the slot-resident MTP rows
+  gathered from the data row that owns the slot;
+* planted faults that the contracts must reject: a fetch installing the
+  first model column's KV heads on every rank, and a chunk writing the
+  next column's K/V heads into this rank's pool;
 * cross-mesh disaggregation (``TestCrossMeshDisagg``): prefill on (2, 4)
   over the 8 ranks, decode on (1, 4) over ranks 0-3, ``ep_flat``, fp32
   wire: dense streams exact, paged bf16 at least 0.9, and the paged
@@ -43,15 +59,17 @@ single-device engine, run here while the ranks serve:
   cut, dense streams exact.
 
 On every scenario: every rank's host mirrors and streams are identical
-(one CRC per rank), the decode chunk ran eagerly (``trace_counts
-["decode"] == 0``), no page leaked, and the pools are byte-equal across
-the data rows. A stream the reference asserts exact that parts in the
+(one CRC per rank, with the scheduler and tier figures of the chunked and
+tiered runs), the decode chunk ran eagerly (``trace_counts["decode"] ==
+0``; the prefill chunk too, ``"chunk"``), no page leaked, and the pools
+are byte-equal across the data rows. A stream the reference asserts exact that parts in the
 port is accepted only where the top-2 logit gap at its first differing
 token is under 1e-5 of the logit scale (a reordered sum); the gap is
 printed. Unmeshed contexts and ``decode_overlap``'s constructor checks
-run in process. The module takes about 80 s (the ranks and the JAX
-engines side by side).
+run in process. The module takes 100-140 s alone (the ranks and the
+JAX engines side by side), about 290 s in a six-worker suite run.
 """
+import json
 import multiprocessing
 import os
 
@@ -100,6 +118,24 @@ def _flatten(tree, prefix, out):
     return out
 
 
+def _jax_drive(cfg, params, name, storage="bf16"):
+    """A scheduler workload of the rank body (``body.drive``) on the JAX
+    single-device engine: its summary (``body.summary``)."""
+    from repro import kernels
+    from repro.serve import tier as jtier
+    kw = dict(body.CHUNKED, page_storage=storage)
+    kw.update(body.drive_kw(name, jtier))
+
+    def flip(payload):
+        jax.tree.leaves(payload)[0].view(np.uint8).reshape(-1)[0] ^= 0xFF
+
+    with kernels.use_backend("ref"):
+        eng = JServeEngine(cfg, params=params, seed=0, chunk=4, **kw)
+        reqs = body.drive(eng, JRequest, name, cfg.vocab_size, flip)
+    assert all(r.done for r in reqs)
+    return body.summary(eng, reqs)
+
+
 def _jax_stream(cfg, params, **kw):
     eng = JServeEngine(cfg, params=params, slots=4, max_len=32, seed=0,
                        chunk=4, **kw)
@@ -139,9 +175,20 @@ def run(tmp_path_factory):
            "mtp": _jax_stream(cfgs["moe"], params["moe"], use_mtp=True),
            "qwen_heads6": _jax_stream(cfgs["qwen_heads6"],
                                       params["qwen_heads6"]),
-           "moe_nofp8": _jax_stream(cfgs["moe_nofp8"], params["moe"])}
+           "moe_nofp8": _jax_stream(cfgs["moe_nofp8"], params["moe"]),
+           "qwen_shared": _jax_drive(cfgs["qwen"], params["qwen"], "shared"),
+           "qwen_shared_fp8": _jax_drive(cfgs["qwen"], params["qwen"],
+                                         "shared", "fp8"),
+           "qwen_preempt": _jax_drive(cfgs["qwen"], params["qwen"],
+                                      "preempt"),
+           "moe_shared": _jax_drive(cfgs["moe"], params["moe"], "shared"),
+           "qwen_tier": _jax_drive(cfgs["qwen"], params["qwen"], "tier"),
+           "qwen_tier_crc": _jax_drive(cfgs["qwen"], params["qwen"],
+                                       "tier_crc")}
     for p in ranks:
-        p.join(timeout=400)
+        # the ranks serve 31 scenarios: ~100 s alone, ~290 s of a
+        # six-worker suite run on an 8-core host
+        p.join(timeout=600)
     codes = [p.exitcode for p in ranks]
     for p in ranks:
         if p.is_alive():
@@ -222,7 +269,8 @@ def test_mtp_drafts_under_mesh(run):
 
 @pytest.mark.parametrize("name,against", [
     ("mla_paged", "ep_flat"), ("card_path", "card_path_single"),
-    ("pod_card_path", "card_path_single")])
+    ("pod_card_path", "card_path_single"),
+    ("card_path_chunked", "card_path_chunked_single")])
 def test_paged_mla_within_documented_tolerance(run, name, against):
     _, ours, _ = run
     mf = _match_frac(_streams(ours, against), _streams(ours, name))
@@ -256,10 +304,83 @@ def test_pools_byte_equal_across_data_rows(run, name):
                                           ours[r][name + ":pool"])
     # MLA pools replicate over the model axis too; a GQA pool's K/V split
     # over it while their fp8 scales (leaves 2 and 3) replicate
-    same = slice(2, 4) if name.startswith("gqa") else slice(None)
+    same = (slice(2, 4) if body.SCENARIOS[name][0].startswith("qwen")
+            else slice(None))
     for o in ours[1:]:
         np.testing.assert_array_equal(o[name + ":pool"][same],
                                       ours[0][name + ":pool"][same])
+
+
+def _summary(ours, name, rank=0):
+    return json.loads(str(ours[rank][name + ":summary"]))
+
+
+@pytest.mark.parametrize("name,ref_key,parts", [
+    ("gqa_chunked", "qwen_shared", ("streams", "prefix")),
+    ("gqa_chunked_fp8", "qwen_shared_fp8", ("streams", "prefix")),
+    ("gqa_chunked_preempt", "qwen_preempt", ("streams",)),
+    ("gqa_tier", "qwen_tier", body.SUMMARY),
+    ("pod_gqa_tier", "qwen_tier", body.SUMMARY),
+    ("gqa_tier_crc", "qwen_tier_crc", body.SUMMARY)])
+def test_chunked_and_tiered_runs_equal_the_reference(run, name, ref_key,
+                                                     parts):
+    """Chunked prefill (a shared 16-token prefix; a priority-5 arrival
+    preempting a resident) and the host page tier (the oversubscribed
+    bench, at (2, 4) and at (2, 2, 2); a CRC failure on one rank's host
+    copy) on the mesh: streams, prefix, pool and tier figures and
+    ``stats`` but ``dispatches`` exactly the JAX single-device engine's,
+    on every rank."""
+    ref, ours, _ = run
+    want = ref[ref_key]
+    for r in range(WORLD):
+        got = _summary(ours, name, r)
+        for part in parts:
+            assert got[part] == want[part], (r, part, got[part], want[part])
+    got = _summary(ours, name)
+    if name == "gqa_chunked_preempt":
+        assert got["stats"]["evictions"] >= 1
+    elif "tier" in name:
+        t = got["tier"]
+        assert t["suspensions"] > 0 and t["fetched_pages"] > 0
+        assert (t["crc_failures"] >= 1 and t["degraded"] >= 1) == (
+            name == "gqa_tier_crc")
+    else:
+        assert got["prefix"]["hits"] >= 4
+
+
+def test_mla_chunked_within_documented_tolerance(run):
+    """DeepSeek-V3 paged bf16 chunked under the mesh (``ep_flat``, fp32
+    wire) against the JAX single-device chunked engine: at least 0.9 of
+    tokens (the ``mla_paged`` contract), the prefix figures exact."""
+    ref, ours, _ = run
+    got = _summary(ours, "mla_chunked")
+    mf = _match_frac(ref["moe_shared"]["streams"], got["streams"])
+    print("mla chunked matched", mf)
+    assert mf >= 0.9, mf
+    assert got["prefix"] == ref["moe_shared"]["prefix"]
+
+
+@pytest.mark.parametrize("name", list(body.FAULTS))
+def test_planted_faults_fail_the_contract(run, name):
+    """A tier fetch installing the whole payload's first model column on
+    every rank (not this rank's KV-head cut), and a prefill chunk writing
+    the next column's K/V heads into this rank's pool: each parts from
+    the reference's streams, so the contracts above would reject it."""
+    ref, ours, _ = run
+    got = _summary(ours, name)
+    want = ref["qwen_tier" if "tier" in name else "qwen_shared"]["streams"]
+    if "tier" in name:
+        assert got["tier"]["fetched_pages"] > 0     # the fault was reached
+    assert got["streams"] != want[:len(got["streams"])]
+
+
+def test_slot_aux_travels_from_its_data_row(run):
+    """On the (2, 2, 2) mesh, DeepSeek-V3's slot-resident MTP leaves (the
+    aux a suspension carries) hold only the owning data row's slots: each
+    slot's aux, gathered for the tier, reads the owner's rows on every
+    rank, and an install writes the owning row's alone."""
+    _, ours, _ = run
+    assert all(bool(o["pod_card_path:aux"][0]) for o in ours)
 
 
 def test_ep_engines_report_their_decode_alltoall_bytes(run):

@@ -35,16 +35,7 @@ from repro_torch.configs.base import smoke_config as tsmoke
 from repro_torch.core import paged
 from repro_torch.serve import tier
 from repro_torch.serve.engine import Request, ServeEngine
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Smoke-width engines issue many tiny ops, which torch's intra-op
-    threads only slow down: one thread for this module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from _torch_threads import one_thread  # noqa: F401
 
 
 def _weights(arch):
